@@ -1,0 +1,63 @@
+"""The CUDA kernels of videop2p_tpu_torch against their plain versions, on
+an NVIDIA card. Every test here carries the ``cuda`` marker and skips where
+``torch.cuda.is_available()`` is false.
+
+This file imports neither JAX nor the JAX package, so it runs on a machine
+with the card and no JAX: ``python -m pytest --noconftest
+tests/test_torch_cuda.py -m cuda -q`` (tests/conftest.py configures JAX).
+
+The plain version runs in float32 on the kernel's own inputs (bf16 inputs
+upcast exactly). Tolerances (max |Δ|): float32 1e-4 for attention and 2e-4
+for GroupNorm (summation order: online vs one-pass softmax, split vs single
+statistics reduction); bfloat16 2^-7·max|ref|, one to two bf16 ulps at the
+largest output (the kernels accumulate in f32 and round once on output, at
+most half an ulp).
+"""
+
+import pytest
+import torch
+
+
+def _limit(dtype, ref, f32_tol):
+    return f32_tol if dtype == torch.float32 else 2.0 ** -7 * ref.abs().max().item()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels run only there)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_frame_attention_kernel_matches_plain(cuda, dtype):
+    from videop2p_tpu_torch.ops import attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for b, f, h, n, d in ((1, 3, 2, 1000, 40), (2, 2, 2, 1024, 80), (1, 2, 1, 1100, 64)):
+        q = torch.randn(b, f, n, h, d, generator=gen, device=cuda).to(dtype).transpose(2, 3)
+        k = torch.randn(b, h, n, d, generator=gen, device=cuda).to(dtype)
+        v = torch.randn(b, h, n, d, generator=gen, device=cuda).to(dtype)
+        before = fa.launch_count()
+        out = fa.fused_frame_attention(q, k, v)
+        assert fa.launch_count() == before + 1
+        ref = fa.chunked_frame_attention(q.float(), k.float(), v.float())
+        assert (out.float() - ref).abs().max().item() <= _limit(dtype, ref, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_group_norm_kernel_matches_plain(cuda, dtype):
+    from videop2p_tpu_torch.ops import groupnorm as gn
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for n, rows, c, act in ((1, 4096, 320, "silu"), (3, 1000, 96, "none")):
+        x = (torch.randn(n, rows, c, generator=gen, device=cuda) * 2 + 0.5).to(dtype)
+        scale = torch.randn(c, generator=gen, device=cuda)
+        bias = torch.randn(c, generator=gen, device=cuda)
+        before = gn.launch_count()
+        out = gn.fused_group_norm(x, scale, bias, num_groups=32, act=act)
+        assert gn.launch_count() == before + 3  # partial sums, statistics, apply
+        ref = gn.group_norm_reference(x.float(), scale, bias, num_groups=32, act=act)
+        assert (out.float() - ref).abs().max().item() <= _limit(dtype, ref, 2e-4)

@@ -1,0 +1,274 @@
+"""Stage-2 attention-controlled editing entry point (port of
+``videop2p_tpu/cli/run_videop2p.py``, live-source fast mode).
+
+Flow: frames → VAE encode (posterior mean) → CLIP text encode → controller
+(refine or replace, equalizer, LocalBlend) → DDIM inversion of the source →
+one controlled ``edit_sample`` with the fast CFG layout (the source stream
+replays its cond-only prediction) → VAE decode → GIFs of the reconstruction
+and the edit.
+
+Run:  python -m videop2p_tpu_torch.cli.run_videop2p \\
+          --config configs/rabbit-jump-p2p.yaml --fast --live_source
+
+The models are random-init at SD-1.5 width (seeded), since the repository
+holds no checkpoint. The run is on CUDA unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from videop2p_tpu_torch.control.controllers import make_controller
+from videop2p_tpu_torch.core.ddim import DDIMScheduler
+from videop2p_tpu_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
+from videop2p_tpu_torch.models.convert import init_weights
+from videop2p_tpu_torch.models.unet import UNet3DConditionModel, UNet3DConfig
+from videop2p_tpu_torch.models.vae import (
+    AutoencoderKL,
+    VAEConfig,
+    decode_video,
+    encode_video,
+)
+from videop2p_tpu_torch.pipelines.inversion import ddim_inversion
+from videop2p_tpu_torch.pipelines.sampling import edit_sample, make_unet_fn
+from videop2p_tpu_torch.utils.tokenizers import WordTokenizer
+
+__all__ = ["ModelBundle", "build_models", "encode_prompts", "main",
+           "NUM_DDIM_STEPS", "GUIDANCE_SCALE", "MASK_TH"]
+
+NUM_DDIM_STEPS = 50
+GUIDANCE_SCALE = 7.5
+MASK_TH = (0.3, 0.3)
+_DTYPES = {"fp32": torch.float32, "no": torch.float32,
+           "bf16": torch.bfloat16, "fp16": torch.bfloat16}
+
+
+@dataclass
+class ModelBundle:
+    """The three models of the edit and their tokenizer."""
+
+    unet: UNet3DConditionModel
+    vae: AutoencoderKL
+    text_encoder: CLIPTextEncoder
+    tokenizer: Any = field(default_factory=WordTokenizer)
+
+
+def build_models(*, tiny: bool = False, dtype: torch.dtype = torch.float32,
+                 device="cuda", seed: int = 0) -> ModelBundle:
+    """Seeded random-init models, built and initialized on ``device``: the
+    SD-1.5 shapes (``UNet3DConfig.sd15()``), or the tiny test shapes."""
+    ccfg = CLIPTextConfig.tiny() if tiny else CLIPTextConfig()
+    ucfg = (UNet3DConfig.tiny(cross_attention_dim=ccfg.hidden_size) if tiny
+            else UNet3DConfig.sd15())
+    vcfg = VAEConfig.tiny() if tiny else VAEConfig()
+    with torch.device(device):
+        models = [UNet3DConditionModel(ucfg), AutoencoderKL(vcfg),
+                  CLIPTextEncoder(ccfg)]
+    unet, vae, text = (init_weights(m, seed + i).to(dtype).eval()
+                       for i, m in enumerate(models))
+    return ModelBundle(unet=unet, vae=vae, text_encoder=text)
+
+
+def load_frame_sequence(path: str, size: int, num_frames: int) -> np.ndarray:
+    """Sorted frames of a directory, center-square-cropped and resized to
+    ``size``² (the JAX package's ``load_frame_sequence``): (F, size, size, 3)
+    uint8. Needs PIL."""
+    from PIL import Image
+
+    def order(name):
+        stem = os.path.splitext(name)[0]
+        return (0, int(stem), name) if stem.isdigit() else (1, 0, name)
+
+    names = sorted((n for n in os.listdir(path)
+                    if n.lower().endswith((".jpg", ".jpeg", ".png"))), key=order)
+    if not names:
+        raise IOError(f"no image frames in {path!r}")
+    out = []
+    for name in names[:num_frames]:
+        img = np.asarray(Image.open(os.path.join(path, name)).convert("RGB"))
+        h, w = img.shape[:2]
+        side = min(h, w)
+        img = img[(h - side) // 2:(h - side) // 2 + side,
+                  (w - side) // 2:(w - side) // 2 + side]
+        out.append(np.asarray(Image.fromarray(img).resize((size, size), Image.BICUBIC)))
+    return np.stack(out).astype(np.uint8)
+
+
+@torch.no_grad()
+def encode_prompts(bundle: ModelBundle, prompts: Sequence[str], device) -> torch.Tensor:
+    """(P, 77, D) text embeddings."""
+    ids = torch.tensor([bundle.tokenizer.encode_padded(p) for p in prompts],
+                       dtype=torch.long, device=device)
+    return bundle.text_encoder(ids)
+
+
+@contextlib.contextmanager
+def _phase(name: str, timings: Dict[str, float], device: torch.device):
+    """Wall time of a phase, synchronised with the card on both ends."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    yield
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    timings[name] = time.perf_counter() - t0
+
+
+def main(
+    pretrained_model_path: str,
+    image_path: str,
+    prompt: str,
+    prompts: Sequence[str],
+    save_name: str,
+    is_word_swap: bool,
+    eq_params: Optional[Dict] = None,
+    blend_word: Optional[Sequence[str]] = None,
+    cross_replace_steps: float = 0.2,
+    self_replace_steps: float = 0.5,
+    video_len: int = 8,
+    fast: bool = False,
+    live_source: bool = False,
+    mixed_precision: str = "fp32",
+    device: str = "cuda",
+    width: int = 512,
+    tiny: bool = False,
+    seed: int = 0,
+    num_ddim_steps: int = NUM_DDIM_STEPS,
+    frames: Optional[np.ndarray] = None,
+    bundle: Optional[ModelBundle] = None,
+    save_gifs: bool = True,
+    **unused,
+) -> Dict[str, Any]:
+    """Run the live-source fast edit. ``frames`` (F, H, W, 3) uint8 replaces
+    loading ``image_path``; ``bundle`` replaces the random-init models (its
+    modules must already be on ``device``). Returns the edited latents,
+    the decoded videos (2, F, H, W, 3) in [0, 1] (stream 0 the source's
+    reconstruction, stream 1 the edit), the phase times in seconds and the
+    GIF paths written."""
+    del unused
+    if not fast:
+        raise NotImplementedError(
+            "official mode (null-text optimization, no --fast) is not ported "
+            "yet: ROADMAP Queue 1, 'official mode with the kernels' backward passes'")
+    if not live_source:
+        raise NotImplementedError(
+            "the cached-source fast edit (--fast without --live_source) is not "
+            "ported yet: ROADMAP Queue 1, 'the cached-source fast edit'; run "
+            "with --live_source")
+    if mixed_precision not in _DTYPES:
+        raise ValueError(f"mixed_precision must be one of {sorted(_DTYPES)}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is "
+                           "available; pass --device cpu to run on the CPU")
+    # full float32 products and convolutions (cuDNN's default for float32
+    # convolutions is TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dtype = _DTYPES[mixed_precision]
+    if tiny and width == 512:
+        # the tiny VAE downsamples 2x: keep latents at the tiny UNet's 8x8
+        width = 16
+    timings: Dict[str, float] = {}
+
+    if bundle is None:
+        if os.path.isdir(os.path.join(pretrained_model_path, "unet")):
+            raise NotImplementedError(
+                f"{pretrained_model_path!r} holds a checkpoint; loading one is "
+                "not ported yet (ROADMAP Queue 1 item 8) and the port does not "
+                "silently swap it for random weights")
+        with _phase("build_models", timings, device):
+            bundle = build_models(tiny=tiny, dtype=dtype, device=device, seed=seed)
+    unet_fn = make_unet_fn(bundle.unet)
+    sched = DDIMScheduler.create_sd()
+    if frames is None:
+        frames = load_frame_sequence(image_path, width, video_len)
+    video = torch.as_tensor(np.asarray(frames), dtype=torch.float32,
+                            device=device)[None] / 127.5 - 1.0
+
+    with torch.no_grad():
+        with _phase("vae_encode", timings, device):
+            latents = encode_video(bundle.vae, video).float()
+        with _phase("text_encode", timings, device):
+            cond_src = encode_prompts(bundle, [prompt], device)
+            cond_all = encode_prompts(bundle, list(prompts), device)
+            uncond = encode_prompts(bundle, [""], device)[0]
+        blend_words = ((blend_word[0],), (blend_word[1],)) if blend_word else None
+        ctx = make_controller(
+            list(prompts), bundle.tokenizer, num_ddim_steps,
+            is_replace_controller=bool(is_word_swap),
+            cross_replace_steps=cross_replace_steps,
+            self_replace_steps=self_replace_steps, blend_words=blend_words,
+            equalizer_params=dict(eq_params) if eq_params else None,
+            mask_th=MASK_TH, device=device)
+        with _phase("ddim_inversion", timings, device):
+            trajectory = ddim_inversion(unet_fn, sched, latents, cond_src,
+                                        num_inference_steps=num_ddim_steps)
+        with _phase("edit_sample", timings, device):
+            edited = edit_sample(unet_fn, sched, trajectory[-1], cond_all, uncond,
+                                 num_inference_steps=num_ddim_steps,
+                                 guidance_scale=GUIDANCE_SCALE, ctx=ctx)
+        with _phase("vae_decode", timings, device):
+            videos = (decode_video(bundle.vae, edited).float() + 1.0) / 2.0
+
+    gifs = _write_gifs(videos, pretrained_model_path, save_name) if save_gifs else ()
+    print("[p2p] phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
+    return {"latents": edited, "x_t": trajectory[-1], "videos": videos,
+            "timings": timings, "gifs": gifs}
+
+
+def _write_gifs(videos: torch.Tensor, pretrained_model_path: str, save_name: str):
+    """GIFs of the reconstruction and the edit, 4 fps, under
+    ``<pretrained_model_path>/results_dpFalse``; skipped with a note when
+    imageio is not installed."""
+    try:
+        import imageio.v3 as iio
+    except ImportError:
+        print("[p2p] imageio is not installed: no GIF written")
+        return ()
+    out_dir = os.path.join(pretrained_model_path, "results_dpFalse")
+    os.makedirs(out_dir, exist_ok=True)
+    frames = (videos.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+    paths = (os.path.join(out_dir, "inversion_fast.gif"),
+             os.path.join(out_dir, f"{save_name}_fast.gif"))
+    for video, path in zip(frames, paths):
+        iio.imwrite(path, video, extension=".gif", duration=250, loop=0)
+    print(f"[p2p] wrote {paths[0]} and {paths[1]}")
+    return paths
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", type=str, default="./configs/rabbit-jump-p2p.yaml")
+    parser.add_argument("--fast", action="store_true")
+    parser.add_argument("--live_source", action="store_true",
+                        help="keep the live source stream in fast mode (the "
+                             "only fast mode ported so far)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; 'cpu' runs the plain versions of "
+                             "the kernels")
+    parser.add_argument("--mixed_precision", type=str, default=None,
+                        choices=sorted(_DTYPES),
+                        help="model compute dtype (default fp32)")
+    parser.add_argument("--tiny", action="store_true",
+                        help="random-init tiny models (smoke mode)")
+    parser.add_argument("--steps", type=int, default=NUM_DDIM_STEPS,
+                        help="DDIM steps of the inversion and of the edit")
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    import yaml
+
+    with open(args.config) as fh:
+        cfg = yaml.safe_load(fh)
+    if args.mixed_precision is not None:
+        cfg["mixed_precision"] = args.mixed_precision
+    main(**cfg, fast=args.fast, live_source=args.live_source, device=args.device,
+         tiny=args.tiny, seed=args.seed, num_ddim_steps=args.steps)

@@ -1,0 +1,151 @@
+"""DDIM scheduler (port of ``videop2p_tpu/core/ddim.py``: η = 0, epsilon
+prediction, linear or scaled-linear betas).
+
+Every step is an fp32 island: ``model_output`` and ``sample`` are cast to
+float32 on entry and the ᾱ-coefficient math runs in float32, whatever the
+model's compute dtype, so trajectory fidelity does not depend on it. Step
+outputs are float32. Timesteps are Python ints (the sampling loops are
+Python loops).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["DDIMScheduler", "make_beta_schedule"]
+
+
+def make_beta_schedule(schedule: str, num_train_timesteps: int, beta_start: float,
+                       beta_end: float) -> np.ndarray:
+    if schedule == "linear":
+        betas = np.linspace(beta_start, beta_end, num_train_timesteps, dtype=np.float64)
+    elif schedule == "scaled_linear":
+        betas = np.linspace(beta_start ** 0.5, beta_end ** 0.5, num_train_timesteps,
+                            dtype=np.float64) ** 2
+    else:
+        raise NotImplementedError(
+            f"beta schedule {schedule!r} is not ported yet (linear and "
+            "scaled_linear are)")
+    return betas.astype(np.float32)
+
+
+def _f32(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    return tuple(t.float() for t in tensors)
+
+
+@dataclasses.dataclass(frozen=True)
+class DDIMScheduler:
+    alphas_cumprod: np.ndarray  # (num_train_timesteps,) float32
+    final_alpha_cumprod: float
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.0001
+    beta_end: float = 0.02
+    beta_schedule: str = "linear"
+    clip_sample: bool = True
+    set_alpha_to_one: bool = True
+    steps_offset: int = 0
+
+    @classmethod
+    def create(cls, num_train_timesteps: int = 1000, beta_start: float = 0.0001,
+               beta_end: float = 0.02, beta_schedule: str = "linear",
+               clip_sample: bool = True, set_alpha_to_one: bool = True,
+               steps_offset: int = 0, prediction_type: str = "epsilon"
+               ) -> "DDIMScheduler":
+        if prediction_type != "epsilon":
+            raise NotImplementedError(
+                f"prediction_type {prediction_type!r} is not ported yet "
+                "(epsilon is)")
+        betas = make_beta_schedule(beta_schedule, num_train_timesteps, beta_start, beta_end)
+        alphas_cumprod = np.cumprod(1.0 - betas).astype(np.float32)
+        final = 1.0 if set_alpha_to_one else float(alphas_cumprod[0])
+        return cls(alphas_cumprod=alphas_cumprod, final_alpha_cumprod=final,
+                   num_train_timesteps=num_train_timesteps, beta_start=beta_start,
+                   beta_end=beta_end, beta_schedule=beta_schedule,
+                   clip_sample=clip_sample, set_alpha_to_one=set_alpha_to_one,
+                   steps_offset=steps_offset)
+
+    @classmethod
+    def from_config(cls, config) -> "DDIMScheduler":
+        """From a diffusers ``scheduler_config.json`` dict (unknown keys are
+        ignored; a Stage-1 export carries ``steps_offset: 1``)."""
+        known = ("num_train_timesteps", "beta_start", "beta_end", "beta_schedule",
+                 "clip_sample", "set_alpha_to_one", "steps_offset", "prediction_type")
+        return cls.create(**{k: config[k] for k in known if k in config})
+
+    @classmethod
+    def create_sd(cls, **overrides) -> "DDIMScheduler":
+        """The Stable-Diffusion configuration."""
+        cfg = dict(beta_start=0.00085, beta_end=0.012, beta_schedule="scaled_linear",
+                   clip_sample=False, set_alpha_to_one=False)
+        cfg.update(overrides)
+        return cls.create(**cfg)
+
+    def timesteps(self, num_inference_steps: int) -> np.ndarray:
+        """Descending inference timesteps."""
+        step_ratio = self.num_train_timesteps // num_inference_steps
+        ts = (np.arange(num_inference_steps) * step_ratio).round()[::-1].astype(np.int64)
+        return ts + self.steps_offset
+
+    def _alpha_prod(self, timestep: int, device) -> torch.Tensor:
+        """ᾱ_t as a float32 scalar tensor; t < 0 → ``final_alpha_cumprod``."""
+        t = int(timestep)
+        if t >= 0:
+            value = self.alphas_cumprod[min(t, self.num_train_timesteps - 1)]
+        else:
+            value = self.final_alpha_cumprod
+        return torch.tensor(value, dtype=torch.float32, device=device)
+
+    def step(self, model_output: torch.Tensor, timestep: int, sample: torch.Tensor,
+             num_inference_steps: int, *, prev_timestep: Optional[int] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One reverse DDIM step x_t → x_{t−Δ} at η = 0; returns
+        ``(prev_sample, pred_original_sample)``."""
+        model_output, sample = _f32(model_output, sample)
+        if prev_timestep is None:
+            prev_timestep = timestep - self.num_train_timesteps // num_inference_steps
+        dev = sample.device
+        alpha_prod_t = self._alpha_prod(timestep, dev)
+        alpha_prod_t_prev = self._alpha_prod(prev_timestep, dev)
+        beta_prod_t = 1.0 - alpha_prod_t
+        pred_x0 = (sample - torch.sqrt(beta_prod_t) * model_output) / torch.sqrt(alpha_prod_t)
+        if self.clip_sample:
+            pred_x0 = pred_x0.clamp(-1.0, 1.0)
+        direction = torch.sqrt(1.0 - alpha_prod_t_prev) * model_output
+        return torch.sqrt(alpha_prod_t_prev) * pred_x0 + direction, pred_x0
+
+    def prev_step(self, model_output: torch.Tensor, timestep: int,
+                  sample: torch.Tensor, num_inference_steps: int, *,
+                  prev_timestep: Optional[int] = None) -> torch.Tensor:
+        """Deterministic (η=0, no clipping) x_t → x_{t−Δ}."""
+        model_output, sample = _f32(model_output, sample)
+        if prev_timestep is None:
+            prev_timestep = timestep - self.num_train_timesteps // num_inference_steps
+        dev = sample.device
+        alpha_prod_t = self._alpha_prod(timestep, dev)
+        alpha_prod_t_prev = self._alpha_prod(prev_timestep, dev)
+        beta_prod_t = 1.0 - alpha_prod_t
+        pred_x0 = (sample - torch.sqrt(beta_prod_t) * model_output) / torch.sqrt(alpha_prod_t)
+        direction = torch.sqrt(1.0 - alpha_prod_t_prev) * model_output
+        return torch.sqrt(alpha_prod_t_prev) * pred_x0 + direction
+
+    def next_step(self, model_output: torch.Tensor, timestep: int,
+                  sample: torch.Tensor, num_inference_steps: int) -> torch.Tensor:
+        """Forward DDIM (inversion) x_{t−Δ} → x_t."""
+        model_output, sample = _f32(model_output, sample)
+        cur_timestep = min(timestep - self.num_train_timesteps // num_inference_steps,
+                           self.num_train_timesteps - 1)
+        dev = sample.device
+        alpha_prod_t = self._alpha_prod(cur_timestep, dev)
+        alpha_prod_t_next = self._alpha_prod(timestep, dev)
+        beta_prod_t = 1.0 - alpha_prod_t
+        next_x0 = (sample - torch.sqrt(beta_prod_t) * model_output) / torch.sqrt(alpha_prod_t)
+        direction = torch.sqrt(1.0 - alpha_prod_t_next) * model_output
+        return torch.sqrt(alpha_prod_t_next) * next_x0 + direction
+
+    @property
+    def init_noise_sigma(self) -> float:
+        return 1.0

@@ -1,0 +1,245 @@
+"""Video transformer block: frame (spatial), text-cross and temporal attention.
+
+Port of ``videop2p_tpu/models/attention.py``:
+
+  * ``attn1`` is :class:`FrameAttention` — every frame's queries against the
+    keys/values of frame 0 only, through the frame-attention dispatch
+    (the CUDA kernel at N ≥ 1024 tokens on the card); not a controlled site.
+  * ``attn2`` is text cross-attention and ``attn_temp`` temporal attention
+    over the frame axis — the controlled sites, whose probabilities are
+    materialized and passed through ``control_attention``.
+
+The flax ``sow("attn_store", ...)`` becomes an explicit ``store`` dict the
+caller passes down: each controlled site with at most 1024 queries writes
+its pre-edit head-mean probabilities under its module path.
+
+Batch layout matches the JAX package so the control layer can factor the
+batch: frames fold batch-major ``(B, F, …) → (B·F, …)`` at the cross site,
+spatial positions fold batch-major ``(B·N, F, C)`` at the temporal site.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from videop2p_tpu_torch.control.controllers import ControlContext, control_attention
+from videop2p_tpu_torch.models.layers import TpuGroupNorm
+from videop2p_tpu_torch.ops.attention import frame_attention
+
+__all__ = [
+    "AttnControl",
+    "FrameAttention",
+    "ControlledAttention",
+    "FeedForward",
+    "BasicTransformerBlock",
+    "Transformer3DModel",
+    "STORE_MAX_QUERIES",
+]
+
+# controlled sites store their head-mean maps when Q ≤ this (32²)
+STORE_MAX_QUERIES = 1024
+# flax nn.LayerNorm's default epsilon, which the JAX blocks use
+_LN_EPS = 1e-6
+
+
+@dataclass
+class AttnControl:
+    """The edit context plus the step index of the sampling loop.
+    ``num_uncond`` counts the uncond streams ahead of the ``ctx.num_prompts``
+    cond streams in the batch (-1 → ``ctx.num_prompts``)."""
+
+    ctx: Optional[ControlContext]
+    step_index: int
+    num_uncond: int = -1
+
+
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, N, H·D) → (B, H, N, D) view."""
+    b, n, _ = x.shape
+    return x.reshape(b, n, heads, -1).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, D) → (B, N, H·D)."""
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d)
+
+
+class FrameAttention(nn.Module):
+    """Spatial self-attention with frame-0 keys/values. Input (B, F, N, C)."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.dim_head = dim_head
+        self.to_q = nn.Linear(dim, inner, bias=False)
+        self.to_k = nn.Linear(dim, inner, bias=False)
+        self.to_v = nn.Linear(dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, f, n, _ = x.shape
+        inner = self.heads * self.dim_head
+        q = self.to_q(x).reshape(b, f, n, self.heads, self.dim_head).transpose(2, 3)
+        kv_src = x[:, 0]
+        k = _split_heads(self.to_k(kv_src), self.heads)
+        v = _split_heads(self.to_v(kv_src), self.heads)
+        out = frame_attention(q, k, v)  # (B, F, H, N, D)
+        out = out.transpose(2, 3).reshape(b, f, n, inner)
+        return self.to_out[0](out)
+
+
+class ControlledAttention(nn.Module):
+    """Multi-head attention with materialized, editable probabilities.
+    ``site`` is ``"cross"`` or ``"temporal"``; ``path`` is the module path the
+    store keys its maps by (set by the owning UNet)."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, site: str,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.dim_head = dim_head
+        self.site = site
+        self.path = site
+        ctx_dim = dim if context_dim is None else context_dim
+        self.to_q = nn.Linear(dim, inner, bias=False)
+        self.to_k = nn.Linear(ctx_dim, inner, bias=False)
+        self.to_v = nn.Linear(ctx_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, dim)])
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                control: Optional[AttnControl] = None,
+                video_length: Optional[int] = None,
+                store: Optional[dict] = None) -> torch.Tensor:
+        ctx_in = x if context is None else context
+        q = _split_heads(self.to_q(x), self.heads)
+        k = _split_heads(self.to_k(ctx_in), self.heads)
+        v = _split_heads(self.to_v(ctx_in), self.heads)
+        sim = torch.matmul(q, k.transpose(-1, -2)) * (self.dim_head ** -0.5)
+        probs = torch.softmax(sim.float(), dim=-1).to(q.dtype)
+        if store is not None and probs.shape[-2] <= STORE_MAX_QUERIES:
+            store[self.path] = probs.mean(dim=1)
+        if control is not None:
+            if video_length is None:
+                if self.site != "temporal":
+                    raise ValueError(
+                        "video_length is required at controlled cross sites")
+                video_length = x.shape[1]
+            probs = control_attention(
+                probs, control.ctx, is_cross=self.site == "cross",
+                step_index=control.step_index, video_length=video_length,
+                num_uncond=control.num_uncond)
+        out = torch.matmul(probs, v)
+        return self.to_out[0](_merge_heads(out))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        # flax nn.gelu defaults to the tanh approximation
+        return h * F.gelu(gate, approximate="tanh")
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward; ``net.0.proj`` / ``net.2`` as in diffusers."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
+                                  nn.Linear(dim * mult, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.net:
+            x = layer(x)
+        return x
+
+
+class BasicTransformerBlock(nn.Module):
+    """frame-attn → text-cross-attn → FF → temporal-attn, pre-LayerNorm with
+    residuals."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.attn1 = FrameAttention(dim, heads, dim_head)
+        self.norm2 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.attn2 = ControlledAttention(dim, heads, dim_head, "cross", context_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.ff = FeedForward(dim)
+        self.norm_temp = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.attn_temp = ControlledAttention(dim, heads, dim_head, "temporal")
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                control: Optional[AttnControl] = None,
+                store: Optional[dict] = None) -> torch.Tensor:
+        b, f, n, c = x.shape
+        x = x + self.attn1(self.norm1(x))
+        if context is not None:
+            h = self.norm2(x).reshape(b * f, n, c)
+            if context.dim() == 3:
+                ctx_flat = context.repeat_interleave(f, dim=0)
+            else:
+                ctx_flat = context.reshape(b * f, *context.shape[2:])
+            attn2 = self.attn2(h, context=ctx_flat, control=control,
+                               video_length=f, store=store)
+            x = x + attn2.reshape(b, f, n, c)
+        x = x + self.ff(self.norm3(x))
+        h = self.norm_temp(x).transpose(1, 2).reshape(b * n, f, c)
+        attn_temp = self.attn_temp(h, control=control, video_length=f, store=store)
+        return x + attn_temp.reshape(b, n, f, c).transpose(1, 2)
+
+
+class Conv1x1(nn.Module):
+    """A 1×1 convolution kept with its 4-D ``(out, in, 1, 1)`` weight (the
+    checkpoint layout of ``proj_in``/``proj_out``), applied to channels-last
+    activations as a linear map."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight[:, :, 0, 0], self.bias)
+
+
+class Transformer3DModel(nn.Module):
+    """GroupNorm (per frame, eps 1e-6) → proj_in → transformer blocks →
+    proj_out, with a residual. Input (B, F, H, W, C)."""
+
+    def __init__(self, channels: int, heads: int, dim_head: int, context_dim: int,
+                 depth: int = 1, norm_groups: int = 32):
+        super().__init__()
+        inner = heads * dim_head
+        self.norm = TpuGroupNorm(channels, norm_groups, eps=1e-6)
+        self.proj_in = Conv1x1(channels, inner)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(inner, heads, dim_head, context_dim)
+            for _ in range(depth)])
+        self.proj_out = Conv1x1(inner, channels)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                control: Optional[AttnControl] = None,
+                store: Optional[dict] = None) -> torch.Tensor:
+        b, f, hh, ww, c = x.shape
+        # frames fold into the batch BEFORE the norm: statistics per frame
+        h = self.norm(x.reshape(b * f, hh, ww, c)).reshape(b, f, hh, ww, c)
+        h = self.proj_in(h)
+        inner = h.shape[-1]
+        h = h.reshape(b, f, hh * ww, inner)
+        for block in self.transformer_blocks:
+            h = block(h, context=context, control=control, store=store)
+        h = self.proj_out(h.reshape(b, f, hh, ww, inner))
+        return h + x

@@ -1,0 +1,208 @@
+"""Weights carried across from the JAX package, and the port's seeded random
+init.
+
+``state_dict_from_jax`` takes the JAX package's parameter trees (nested dicts
+of numpy arrays, with or without the top-level ``"params"``) and returns the
+port's state dicts. The name and transpose rules are this package's own copy
+of ``videop2p_tpu/models/convert.py``: ``_flax_path_to_torch`` and
+``_from_flax_tensor`` (:65-147), ``unet3d_params_to_torch`` (:197-210), and
+the flax→torch direction of ``_vae_flax_to_torch`` (:243-280) and
+``clip_params_from_torch`` (:321).
+
+``init_weights`` fills a module from a seeded ``torch.Generator`` on the
+module's device, so a full SD-1.5-width model initializes on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = [
+    "state_dict_from_jax",
+    "unet_state_dict_from_jax",
+    "vae_state_dict_from_jax",
+    "clip_state_dict_from_jax",
+    "init_weights",
+]
+
+Path = Tuple[str, ...]
+
+_SEG_MAP = {
+    "downsample": "downsamplers.0",
+    "upsample": "upsamplers.0",
+    "proj_geglu": "net.0.proj",
+}
+_INDEXED = ("down_blocks_", "up_blocks_", "attentions_", "resnets_", "layers_")
+
+
+def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, prefix + (key,)))
+        else:
+            out[prefix + (key,)] = np.asarray(value)
+    return out
+
+
+def _params(tree: Mapping) -> Mapping:
+    return tree["params"] if "params" in tree else tree
+
+
+def _unet_key(path: Path) -> Tuple[str, str]:
+    """(torch key, kind) for one flax UNet param path; kind ∈ {conv, dense,
+    norm, raw} selects the tensor transform."""
+    leaf = path[-1]
+    body = list(path[:-1])
+    kind = "raw"
+    # InflatedConv wraps an nn.Conv named "conv": drop that segment
+    if body and body[-1] == "conv":
+        body = body[:-1]
+        if leaf == "kernel":
+            kind = "conv"
+    segs = []
+    for t in body:
+        if t.startswith("blocks_"):
+            segs.append(f"transformer_blocks.{t.split('_')[1]}")
+        elif t.startswith(_INDEXED):
+            base, i = t.rsplit("_", 1)
+            segs.append(f"{base}.{i}")
+        elif t in _SEG_MAP:
+            segs.append(_SEG_MAP[t])
+        elif t == "proj_out" and segs and segs[-1] == "ff":
+            segs.append("net.2")
+        elif t == "to_out":
+            segs.append("to_out.0")
+        else:
+            segs.append(t)
+    if kind != "conv":
+        kind = {"kernel": "dense", "scale": "norm"}.get(leaf, "raw")
+    torch_leaf = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                  "embedding": "weight"}[leaf]
+    return ".".join(segs + [torch_leaf]), kind
+
+
+def _from_flax_tensor(t: np.ndarray, kind: str, conv1x1: bool = False) -> np.ndarray:
+    if kind == "conv":
+        return np.transpose(t, (3, 2, 0, 1))
+    if kind == "dense":
+        w = np.transpose(t)
+        return w[:, :, None, None] if conv1x1 else w
+    return t
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def unet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax video-UNet params → the port's UNet state dict. The transformer's
+    ``proj_in``/``proj_out`` become 1×1 conv weights (out, in, 1, 1)."""
+    out = {}
+    for path, leaf in _flatten(_params(params)).items():
+        key, kind = _unet_key(path)
+        conv1x1 = (kind == "dense" and len(path) >= 3
+                   and path[-2] in ("proj_in", "proj_out")
+                   and path[-3].startswith("attentions_"))
+        out[key] = _tensor(_from_flax_tensor(leaf, kind, conv1x1))
+    return out
+
+
+def _vae_key(path: Path) -> str:
+    toks = list(path)
+    leaf = toks.pop()
+    segs = []
+    for t in toks:
+        parts = t.split("_")
+        if t.startswith(("down_", "up_")) and parts[1].isdigit():
+            kind = "down" if parts[0] == "down" else "up"
+            if parts[2] in ("downsample", "upsample"):
+                segs.append(f"{kind}_blocks.{parts[1]}.{parts[2]}rs.0.conv")
+            else:
+                segs.append(f"{kind}_blocks.{parts[1]}.{parts[2]}.{parts[3]}")
+        elif t.startswith("mid_resnets_"):
+            segs.append(f"mid_block.resnets.{parts[-1]}")
+        elif t == "mid_attn":
+            segs.append("mid_block.attentions.0")
+        elif t == "to_out":
+            segs.append("to_out.0")
+        else:
+            segs.append(t)
+    return ".".join(segs) + "." + {"kernel": "weight", "scale": "weight",
+                                   "bias": "bias"}[leaf]
+
+
+def vae_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    out = {}
+    for path, leaf in _flatten(_params(params)).items():
+        if path[-1] == "kernel":
+            leaf = (np.transpose(leaf, (3, 2, 0, 1)) if leaf.ndim == 4
+                    else np.transpose(leaf))
+        out[_vae_key(path)] = _tensor(leaf)
+    return out
+
+
+def clip_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    out = {}
+    for path, leaf in _flatten(_params(params)).items():
+        toks, name = list(path[:-1]), path[-1]
+        if toks == ["token_embedding"]:
+            key = "embeddings.token_embedding.weight"
+        elif not toks and name == "position_embedding":
+            key = "embeddings.position_embedding.weight"
+        elif toks[0] == "final_layer_norm":
+            key = f"final_layer_norm.{'bias' if name == 'bias' else 'weight'}"
+        else:
+            i = toks[0].rsplit("_", 1)[1]
+            rest = toks[1:]
+            if rest[0] in ("fc1", "fc2"):
+                mod = f"encoder.layers.{i}.mlp.{rest[0]}"
+            elif rest[0] == "self_attn":
+                mod = f"encoder.layers.{i}.self_attn.{rest[1]}"
+            else:
+                mod = f"encoder.layers.{i}.{rest[0]}"
+            key = f"{mod}.{'bias' if name == 'bias' else 'weight'}"
+        if name == "kernel":
+            leaf = np.transpose(leaf)
+        out[key] = _tensor(leaf)
+    return out
+
+
+def state_dict_from_jax(unet_params: Optional[Mapping] = None,
+                        vae_params: Optional[Mapping] = None,
+                        clip_params: Optional[Mapping] = None) -> dict:
+    """The port's state dicts ``{"unet", "vae", "text_encoder"}`` (None where
+    no tree was given) from the JAX package's parameter trees."""
+    return {
+        "unet": None if unet_params is None else unet_state_dict_from_jax(unet_params),
+        "vae": None if vae_params is None else vae_state_dict_from_jax(vae_params),
+        "text_encoder": (None if clip_params is None
+                         else clip_state_dict_from_jax(clip_params)),
+    }
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, seed: int) -> nn.Module:
+    """Seeded random init in place, on the module's own device: biases 0,
+    norm scales 1, embeddings N(0, 0.02²), linear/conv weights N(0, 1/fan_in)
+    (the scale of flax's lecun-normal default). The temporal attention's
+    output projection starts at zero, as the JAX init's ``zero_init_out``
+    does, so an inflated model starts as its 2-D self."""
+    gens = {}
+    for name, p in module.named_parameters():
+        gen = gens.get(p.device)
+        if gen is None:
+            gen = gens[p.device] = torch.Generator(device=p.device).manual_seed(seed)
+        if name.endswith("bias") or "attn_temp.to_out" in name:
+            p.zero_()
+        elif p.dim() == 1:
+            p.fill_(1.0)
+        elif "embedding" in name:
+            p.normal_(0.0, 0.02, generator=gen)
+        else:
+            p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+    return module

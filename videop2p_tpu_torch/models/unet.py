@@ -1,0 +1,199 @@
+"""The 3-D (video) conditional UNet (port of ``videop2p_tpu/models/unet.py``).
+
+The inflated Stable-Diffusion 1.x denoiser over channels-last
+(B, F, H, W, C) latents: cross-attention down blocks and a plain down block,
+a cross-attention mid block, and the mirrored up path, driven by
+:class:`UNet3DConfig`. Parameter names are the diffusers/Tune-A-Video ones,
+so a state dict from ``models/convert.py`` loads with ``strict=True``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from videop2p_tpu_torch.models.attention import AttnControl, ControlledAttention
+from videop2p_tpu_torch.models.layers import (
+    InflatedConv,
+    TimestepEmbedding,
+    TpuGroupNorm,
+    get_timestep_embedding,
+)
+from videop2p_tpu_torch.models import unet_blocks
+
+__all__ = ["UNet3DConfig", "UNet3DConditionModel"]
+
+
+def _per_block(value: Union[int, Tuple[int, ...]], num_blocks: int) -> Tuple[int, ...]:
+    if isinstance(value, int):
+        return (value,) * num_blocks
+    if len(value) != num_blocks:
+        raise ValueError(f"per-block value {value} does not match {num_blocks} blocks")
+    return tuple(value)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNet3DConfig:
+    """Static architecture config; the defaults are the SD-1.x shape."""
+
+    sample_size: int = 64
+    in_channels: int = 4
+    out_channels: int = 4
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock3D", "CrossAttnDownBlock3D", "CrossAttnDownBlock3D",
+        "DownBlock3D")
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock3D", "CrossAttnUpBlock3D", "CrossAttnUpBlock3D",
+        "CrossAttnUpBlock3D")
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    transformer_depth: Union[int, Tuple[int, ...]] = 1
+    attention_head_dim: Union[int, Tuple[int, ...]] = 8  # = number of heads
+    cross_attention_dim: int = 768
+    norm_num_groups: int = 32
+    flip_sin_to_cos: bool = True
+    freq_shift: float = 0.0
+
+    @classmethod
+    def sd15(cls, **overrides) -> "UNet3DConfig":
+        return cls(**overrides)
+
+    @classmethod
+    def tiny(cls, **overrides) -> "UNet3DConfig":
+        """Miniature config for tests: two levels, 8-wide, 2 heads."""
+        cfg = dict(
+            sample_size=8,
+            down_block_types=("CrossAttnDownBlock3D", "DownBlock3D"),
+            up_block_types=("UpBlock3D", "CrossAttnUpBlock3D"),
+            block_out_channels=(8, 16),
+            layers_per_block=1,
+            attention_head_dim=2,
+            cross_attention_dim=16,
+            norm_num_groups=4,
+        )
+        cfg.update(overrides)
+        return cls(**cfg)
+
+
+class UNet3DConditionModel(nn.Module):
+    """ε_θ(x_t, t, text): ``forward(sample (B, F, H, W, C), timesteps () or
+    (B,), encoder_hidden_states (B, L, D), control=None, store=None)``.
+
+    ``control`` threads the P2P edit into every cross/temporal site; a
+    ``store`` dict collects the head-mean maps of the controlled sites with
+    at most 32² queries, keyed by module path."""
+
+    def __init__(self, config: UNet3DConfig):
+        super().__init__()
+        self.config = cfg = config
+        n_blocks = len(cfg.block_out_channels)
+        depths = _per_block(cfg.transformer_depth, n_blocks)
+        heads = _per_block(cfg.attention_head_dim, n_blocks)
+        ch = cfg.block_out_channels
+        temb_ch = ch[0] * 4
+        groups = cfg.norm_num_groups
+        ctx_dim = cfg.cross_attention_dim
+
+        self.time_embedding = TimestepEmbedding(ch[0], temb_ch)
+        self.conv_in = InflatedConv(cfg.in_channels, ch[0], 3, padding=1)
+
+        res_channels = [ch[0]]
+        self.down_blocks = nn.ModuleList()
+        in_ch = ch[0]
+        for i, block_type in enumerate(cfg.down_block_types):
+            final = i == n_blocks - 1
+            if block_type == "CrossAttnDownBlock3D":
+                block = unet_blocks.CrossAttnDownBlock3D(
+                    in_ch, ch[i], temb_ch, num_layers=cfg.layers_per_block,
+                    attn_heads=heads[i], context_dim=ctx_dim,
+                    transformer_depth=depths[i], add_downsample=not final,
+                    norm_groups=groups)
+            elif block_type == "DownBlock3D":
+                block = unet_blocks.DownBlock3D(
+                    in_ch, ch[i], temb_ch, num_layers=cfg.layers_per_block,
+                    add_downsample=not final, norm_groups=groups)
+            else:
+                raise ValueError(f"unknown down block type: {block_type!r}")
+            self.down_blocks.append(block)
+            res_channels += [ch[i]] * (cfg.layers_per_block + (0 if final else 1))
+            in_ch = ch[i]
+
+        self.mid_block = unet_blocks.UNetMidBlock3DCrossAttn(
+            ch[-1], temb_ch, attn_heads=heads[-1], context_dim=ctx_dim,
+            transformer_depth=depths[-1], norm_groups=groups)
+
+        rev_ch = tuple(reversed(ch))
+        rev_heads = tuple(reversed(heads))
+        rev_depths = tuple(reversed(depths))
+        self.up_blocks = nn.ModuleList()
+        in_ch = ch[-1]
+        num_layers = cfg.layers_per_block + 1
+        for i, block_type in enumerate(cfg.up_block_types):
+            skips = res_channels[-num_layers:][::-1]
+            del res_channels[-num_layers:]
+            final = i == n_blocks - 1
+            if block_type == "CrossAttnUpBlock3D":
+                block = unet_blocks.CrossAttnUpBlock3D(
+                    in_ch, rev_ch[i], temb_ch, skip_channels=skips,
+                    attn_heads=rev_heads[i], context_dim=ctx_dim,
+                    transformer_depth=rev_depths[i], add_upsample=not final,
+                    norm_groups=groups)
+            elif block_type == "UpBlock3D":
+                block = unet_blocks.UpBlock3D(
+                    in_ch, rev_ch[i], temb_ch, skip_channels=skips,
+                    add_upsample=not final, norm_groups=groups)
+            else:
+                raise ValueError(f"unknown up block type: {block_type!r}")
+            self.up_blocks.append(block)
+            in_ch = rev_ch[i]
+
+        self.conv_norm_out = TpuGroupNorm(ch[0], groups, eps=1e-5, act="silu")
+        self.conv_out = InflatedConv(ch[0], cfg.out_channels, 3, padding=1)
+
+        for name, module in self.named_modules():
+            if isinstance(module, ControlledAttention):
+                module.path = name
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv_in.weight.dtype
+
+    def forward(self, sample: torch.Tensor, timesteps, encoder_hidden_states: torch.Tensor,
+                control: Optional[AttnControl] = None,
+                store: Optional[dict] = None) -> torch.Tensor:
+        cfg = self.config
+        dtype = self.dtype
+        sample = sample.to(dtype)
+        context = encoder_hidden_states.to(dtype)
+        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        if timesteps.dim() == 0:
+            timesteps = timesteps.expand(sample.shape[0])
+        temb = get_timestep_embedding(
+            timesteps, cfg.block_out_channels[0], flip_sin_to_cos=cfg.flip_sin_to_cos,
+            downscale_freq_shift=cfg.freq_shift).to(dtype)
+        temb = self.time_embedding(temb)
+
+        x = self.conv_in(sample)
+        res_stack = [x]
+        for block in self.down_blocks:
+            if isinstance(block, unet_blocks.CrossAttnDownBlock3D):
+                x, res = block(x, temb, context, control, store)
+            else:
+                x, res = block(x, temb)
+            res_stack.extend(res)
+
+        x = self.mid_block(x, temb, context, control, store)
+
+        num_layers = cfg.layers_per_block + 1
+        for block in self.up_blocks:
+            res = res_stack[-num_layers:]
+            del res_stack[-num_layers:]
+            if isinstance(block, unet_blocks.CrossAttnUpBlock3D):
+                x = block(x, res, temb, context, control, store)
+            else:
+                x = block(x, res, temb)
+
+        return self.conv_out(self.conv_norm_out(x))
