@@ -61,3 +61,43 @@ def test_cuda_group_norm_kernel_matches_plain(cuda, dtype):
         assert gn.launch_count() == before + 3  # partial sums, statistics, apply
         ref = gn.group_norm_reference(x.float(), scale, bias, num_groups=32, act=act)
         assert (out.float() - ref).abs().max().item() <= _limit(dtype, ref, 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wrapper", ["flash_frame_attention", "flash_rect_frame_attention"])
+def test_cuda_flash_attention_kernel_matches_plain(cuda, dtype, wrapper):
+    """Both wrappers of the flash kernel: ragged lengths, padded (40, 80) and
+    unpadded (64) head dims, a head dim below one WMMA tile (8), and the
+    head-split views FrameAttention hands the kernel."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    fn = getattr(fa, wrapper)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for b, f, h, n, d in ((1, 3, 2, 1000, 40), (2, 2, 2, 1024, 80), (1, 2, 1, 1100, 64),
+                          (2, 2, 3, 70, 8)):
+        q = torch.randn(b, f, n, h, d, generator=gen, device=cuda).to(dtype).transpose(2, 3)
+        k = torch.randn(b, n, h, d, generator=gen, device=cuda).to(dtype).transpose(1, 2)
+        v = torch.randn(b, n, h, d, generator=gen, device=cuda).to(dtype).transpose(1, 2)
+        before = fa.flash_launch_count()
+        out = fn(q, k, v)
+        assert fa.flash_launch_count() == before + 1
+        assert out.shape == q.shape and out.dtype == dtype
+        ref = fa.chunked_frame_attention(q.float(), k.float(), v.float())
+        assert (out.float() - ref).abs().max().item() <= _limit(dtype, ref, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["flash", "flash_rect"])
+def test_cuda_flash_dispatch_raises_on_a_head_dim_the_kernel_does_not_take(cuda, impl):
+    """JAX's flash_ok sends head dim 256 to the flash wrappers; the kernel
+    takes at most 128, so a CUDA tensor raises rather than running the
+    plain version."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    q = torch.randn(1, 1, 1, 1024, 256, device=cuda)
+    k = torch.randn(1, 1, 1024, 256, device=cuda)
+    before = fa.flash_launch_count()
+    with pytest.raises(ValueError, match="head dim 256"):
+        fa.make_frame_attention_fn(impl)(q, k, k)
+    assert fa.flash_launch_count() == before

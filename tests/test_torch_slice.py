@@ -1,7 +1,8 @@
 """The slice end to end: the live-source fast edit through the JAX package's
 ``ProgramSet`` and through the port's ``cli.run_videop2p.main``, on the same
-tiny random weights, frames and prompts, for 2 DDIM steps; plus the port's
-isolation from JAX and its CLI's refusals.
+tiny random weights, frames and prompts, for 2 DDIM steps; the cached-source
+default of ``main``; plus the port's isolation from JAX and its CLI's
+refusals.
 
 Tolerance 2e-4 absolute on the edited latents and the decoded video: float32
 on both sides, through 2 inversion and 2 controlled edit steps (guidance
@@ -106,14 +107,19 @@ def test_live_source_fast_edit_matches_jax():
 
 
 def test_port_imports_nothing_of_jax():
-    """Import every module of the port in a fresh interpreter: neither jax
-    nor any module of videop2p_tpu may be loaded."""
+    """Import every module of the port, and load chip_smoke.py without
+    running its main, in a fresh interpreter: neither jax nor any module of
+    videop2p_tpu may be loaded."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import videop2p_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "assert len(names) > 20, names\n"
         "for n in names: importlib.import_module(n)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "smoke = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(smoke)\n"
+        "assert callable(smoke.main)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m in ('flax', 'optax') or m == 'videop2p_tpu'\n"
         "             or m.startswith('videop2p_tpu.'))\n"
@@ -127,20 +133,47 @@ def test_port_imports_nothing_of_jax():
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """The cached-source --fast default, official mode, and a checkpoint on
-    disk (which random weights must not silently replace) all raise."""
+    """Official mode, and a checkpoint on disk (which random weights must
+    not silently replace), raise."""
     from videop2p_tpu_torch.cli.run_videop2p import main
 
     kw = dict(RABBIT, device="cpu", tiny=True, video_len=2, num_ddim_steps=2,
               frames=np.zeros((2, 16, 16, 3), np.uint8), save_gifs=False)
-    with pytest.raises(NotImplementedError, match="cached-source"):
-        main(**kw, fast=True)
     with pytest.raises(NotImplementedError, match="official mode"):
         main(**kw, fast=False, live_source=True)
     (tmp_path / "unet").mkdir()
     kw["pretrained_model_path"] = str(tmp_path)
     with pytest.raises(NotImplementedError, match="holds a checkpoint"):
         main(**kw, fast=True, live_source=True)
+    with pytest.raises(NotImplementedError, match="holds a checkpoint"):
+        main(**kw, fast=True)
+
+
+def test_cli_fast_default_runs_the_cached_edit(monkeypatch):
+    """``main(fast=True)`` takes the cached-source path: stream 0 of the
+    edit is the inversion's x_0 bit for bit (src_err == 0.0), and the edit
+    stream moves away from it. Under a budget its maps do not fit, it falls
+    back to the live-source edit, as ``--live_source`` runs it."""
+    from videop2p_tpu_torch.cli import run_videop2p
+    from videop2p_tpu_torch.cli.run_videop2p import main
+
+    frames = np.random.default_rng(2).integers(0, 256, (2, 16, 16, 3), dtype=np.uint8)
+    kw = dict(RABBIT, fast=True, device="cpu", tiny=True, video_len=2,
+              num_ddim_steps=3, frames=frames, save_gifs=False)
+    out = main(**kw)
+    assert out["mode"] == "cached" and out["cached_maps"]["fits"]
+    assert out["cached_maps"]["temporal_maps_dtype"] == "bfloat16"
+    assert "cached_invert_edit" in out["timings"]
+    assert (out["latents"][0] - out["x_0"][0]).abs().max().item() == 0.0
+    assert (out["latents"][1] - out["latents"][0]).abs().max().item() > 1e-3
+    assert out["videos"].shape == (2, 2, 16, 16, 3)
+    assert torch.isfinite(out["videos"]).all()
+    live = main(**kw, live_source=True)
+    monkeypatch.setattr(run_videop2p, "CACHED_MAPS_BUDGET_GB", 0.0)
+    fallback = main(**kw)
+    assert fallback["mode"] == live["mode"] == "live"
+    assert not fallback["cached_maps"]["fits"] and live["cached_maps"] is None
+    torch.testing.assert_close(fallback["latents"], live["latents"], rtol=0, atol=0)
 
 
 def test_cli_runs_on_cuda_unless_asked_for_the_cpu():

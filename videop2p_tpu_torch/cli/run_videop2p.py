@@ -1,14 +1,19 @@
 """Stage-2 attention-controlled editing entry point (port of
-``videop2p_tpu/cli/run_videop2p.py``, live-source fast mode).
+``videop2p_tpu/cli/run_videop2p.py``, fast mode).
 
 Flow: frames → VAE encode (posterior mean) → CLIP text encode → controller
-(refine or replace, equalizer, LocalBlend) → DDIM inversion of the source →
-one controlled ``edit_sample`` with the fast CFG layout (the source stream
-replays its cond-only prediction) → VAE decode → GIFs of the reconstruction
-and the edit.
+(refine or replace, equalizer, LocalBlend) → the edit → VAE decode → GIFs of
+the reconstruction and the edit. The edit is, by default, the cached-source
+fast edit (``pipelines/fast.py:cached_fast_edit``): a DDIM inversion that
+captures the source stream's attention maps, then a controlled edit of the
+P − 1 edit streams only, stream 0 replaying the inversion exactly. It falls
+back to the live-source edit, as the JAX package does, when the captured
+maps exceed the budget. ``--live_source`` runs the live-source edit: a plain
+DDIM inversion, then one ``edit_sample`` with the fast CFG layout (the
+source stream in the batch, replaying its cond-only prediction).
 
 Run:  python -m videop2p_tpu_torch.cli.run_videop2p \\
-          --config configs/rabbit-jump-p2p.yaml --fast --live_source
+          --config configs/rabbit-jump-p2p.yaml --fast [--live_source]
 
 The models are random-init at SD-1.5 width (seeded), since the repository
 holds no checkpoint. The run is on CUDA unless ``--device cpu`` is given.
@@ -37,6 +42,13 @@ from videop2p_tpu_torch.models.vae import (
     decode_video,
     encode_video,
 )
+from videop2p_tpu_torch.pipelines.cached import capture_windows
+from videop2p_tpu_torch.pipelines.fast import (
+    CACHED_MAPS_BUDGET_GB,
+    cached_fast_edit,
+    capture_bytes,
+    choose_cached_maps,
+)
 from videop2p_tpu_torch.pipelines.inversion import ddim_inversion
 from videop2p_tpu_torch.pipelines.sampling import edit_sample, make_unet_fn
 from videop2p_tpu_torch.utils.tokenizers import WordTokenizer
@@ -62,12 +74,17 @@ class ModelBundle:
 
 
 def build_models(*, tiny: bool = False, dtype: torch.dtype = torch.float32,
-                 device="cuda", seed: int = 0) -> ModelBundle:
+                 device="cuda", seed: int = 0,
+                 frame_attention: str = "auto") -> ModelBundle:
     """Seeded random-init models, built and initialized on ``device``: the
-    SD-1.5 shapes (``UNet3DConfig.sd15()``), or the tiny test shapes."""
+    SD-1.5 shapes (``UNet3DConfig.sd15()``), or the tiny test shapes. The
+    weights depend on ``seed`` only; ``frame_attention`` picks the UNet's
+    frame-attention implementation (``UNet3DConfig.frame_attention``:
+    "auto", "flash_rect", "flash", "chunked" or "dense")."""
     ccfg = CLIPTextConfig.tiny() if tiny else CLIPTextConfig()
-    ucfg = (UNet3DConfig.tiny(cross_attention_dim=ccfg.hidden_size) if tiny
-            else UNet3DConfig.sd15())
+    ucfg = (UNet3DConfig.tiny(cross_attention_dim=ccfg.hidden_size,
+                              frame_attention=frame_attention) if tiny
+            else UNet3DConfig.sd15(frame_attention=frame_attention))
     vcfg = VAEConfig.tiny() if tiny else VAEConfig()
     with torch.device(device):
         models = [UNet3DConditionModel(ucfg), AutoencoderKL(vcfg),
@@ -111,14 +128,18 @@ def encode_prompts(bundle: ModelBundle, prompts: Sequence[str], device) -> torch
 
 
 @contextlib.contextmanager
-def _phase(name: str, timings: Dict[str, float], device: torch.device):
-    """Wall time of a phase, synchronised with the card on both ends."""
+def _phase(name: str, timings: Dict[str, float], device: torch.device,
+           peaks: Dict[str, float]):
+    """Wall time of a phase, synchronised with the card on both ends, and on
+    the card the phase's peak allocated memory in GiB."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     yield
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+        peaks[name] = torch.cuda.max_memory_allocated(device) / 2 ** 30
     timings[name] = time.perf_counter() - t0
 
 
@@ -147,22 +168,19 @@ def main(
     save_gifs: bool = True,
     **unused,
 ) -> Dict[str, Any]:
-    """Run the live-source fast edit. ``frames`` (F, H, W, 3) uint8 replaces
-    loading ``image_path``; ``bundle`` replaces the random-init models (its
-    modules must already be on ``device``). Returns the edited latents,
-    the decoded videos (2, F, H, W, 3) in [0, 1] (stream 0 the source's
-    reconstruction, stream 1 the edit), the phase times in seconds and the
-    GIF paths written."""
+    """Run the fast edit: cached-source by default, live-source with
+    ``live_source``. ``frames`` (F, H, W, 3) uint8 replaces loading
+    ``image_path``; ``bundle`` replaces the random-init models (its modules
+    must already be on ``device``). Returns the edited latents (stream 0 the
+    source's reconstruction), the inversion's ``x_0`` and ``x_t``, the
+    decoded videos (2, F, H, W, 3) in [0, 1], the mode run (``"cached"`` or
+    ``"live"``), the cached-maps decision, the phase times in seconds and
+    the GIF paths written."""
     del unused
     if not fast:
         raise NotImplementedError(
             "official mode (null-text optimization, no --fast) is not ported "
-            "yet: ROADMAP Queue 1, 'official mode with the kernels' backward passes'")
-    if not live_source:
-        raise NotImplementedError(
-            "the cached-source fast edit (--fast without --live_source) is not "
-            "ported yet: ROADMAP Queue 1, 'the cached-source fast edit'; run "
-            "with --live_source")
+            "yet: ROADMAP, 'official mode with the kernels' backward passes'")
     if mixed_precision not in _DTYPES:
         raise ValueError(f"mixed_precision must be one of {sorted(_DTYPES)}")
     device = torch.device(device)
@@ -178,6 +196,7 @@ def main(
         # the tiny VAE downsamples 2x: keep latents at the tiny UNet's 8x8
         width = 16
     timings: Dict[str, float] = {}
+    peaks: Dict[str, float] = {}
 
     if bundle is None:
         if os.path.isdir(os.path.join(pretrained_model_path, "unet")):
@@ -185,7 +204,7 @@ def main(
                 f"{pretrained_model_path!r} holds a checkpoint; loading one is "
                 "not ported yet (ROADMAP Queue 1 item 8) and the port does not "
                 "silently swap it for random weights")
-        with _phase("build_models", timings, device):
+        with _phase("build_models", timings, device, peaks):
             bundle = build_models(tiny=tiny, dtype=dtype, device=device, seed=seed)
     unet_fn = make_unet_fn(bundle.unet)
     sched = DDIMScheduler.create_sd()
@@ -195,9 +214,9 @@ def main(
                             device=device)[None] / 127.5 - 1.0
 
     with torch.no_grad():
-        with _phase("vae_encode", timings, device):
+        with _phase("vae_encode", timings, device, peaks):
             latents = encode_video(bundle.vae, video).float()
-        with _phase("text_encode", timings, device):
+        with _phase("text_encode", timings, device, peaks):
             cond_src = encode_prompts(bundle, [prompt], device)
             cond_all = encode_prompts(bundle, list(prompts), device)
             uncond = encode_prompts(bundle, [""], device)[0]
@@ -209,20 +228,54 @@ def main(
             self_replace_steps=self_replace_steps, blend_words=blend_words,
             equalizer_params=dict(eq_params) if eq_params else None,
             mask_th=MASK_TH, device=device)
-        with _phase("ddim_inversion", timings, device):
-            trajectory = ddim_inversion(unet_fn, sched, latents, cond_src,
-                                        num_inference_steps=num_ddim_steps)
-        with _phase("edit_sample", timings, device):
-            edited = edit_sample(unet_fn, sched, trajectory[-1], cond_all, uncond,
-                                 num_inference_steps=num_ddim_steps,
-                                 guidance_scale=GUIDANCE_SCALE, ctx=ctx)
-        with _phase("vae_decode", timings, device):
+        mode, decision = "live", None
+        if not live_source:
+            # outside these windows the gates multiply the base maps out, so
+            # nothing else is captured
+            cross_len, self_window = capture_windows(ctx, num_ddim_steps)
+            fits, tm_dtype, map_gb = choose_cached_maps(
+                lambda dt: capture_bytes(
+                    bundle.unet, latents.shape, cond_src.shape[-2],
+                    cross_len=cross_len, self_window=self_window,
+                    temporal_maps_dtype=dt),
+                budget_gb=CACHED_MAPS_BUDGET_GB)
+            stored = "bfloat16" if tm_dtype is None else str(tm_dtype).replace("torch.", "")
+            decision = {"fits": fits, "gib": map_gb, "budget_gib": CACHED_MAPS_BUDGET_GB,
+                        "temporal_maps_dtype": stored, "cross_len": cross_len,
+                        "self_window": self_window}
+            if fits:
+                mode = "cached"
+                print(f"[p2p] cached-source fast mode: cross window {cross_len} "
+                      f"steps, self window {self_window}, maps {map_gb:.2f} GiB "
+                      f"(budget {CACHED_MAPS_BUDGET_GB:.1f} GiB), temporal maps "
+                      f"stored {stored}")
+            else:
+                print(f"[p2p] cached-source maps need {map_gb:.1f} GiB even with "
+                      f"1-byte temporal maps (> budget {CACHED_MAPS_BUDGET_GB:.1f} "
+                      "GiB) — falling back to the live source stream")
+        if mode == "cached":
+            with _phase("cached_invert_edit", timings, device, peaks):
+                trajectory, edited = cached_fast_edit(
+                    unet_fn, sched, latents, cond_src, cond_all, uncond, ctx,
+                    num_inference_steps=num_ddim_steps,
+                    guidance_scale=GUIDANCE_SCALE, cross_len=cross_len,
+                    self_window=self_window, temporal_maps_dtype=tm_dtype)
+        else:
+            with _phase("ddim_inversion", timings, device, peaks):
+                trajectory = ddim_inversion(unet_fn, sched, latents, cond_src,
+                                            num_inference_steps=num_ddim_steps)
+            with _phase("edit_sample", timings, device, peaks):
+                edited = edit_sample(unet_fn, sched, trajectory[-1], cond_all, uncond,
+                                     num_inference_steps=num_ddim_steps,
+                                     guidance_scale=GUIDANCE_SCALE, ctx=ctx)
+        with _phase("vae_decode", timings, device, peaks):
             videos = (decode_video(bundle.vae, edited).float() + 1.0) / 2.0
 
     gifs = _write_gifs(videos, pretrained_model_path, save_name) if save_gifs else ()
     print("[p2p] phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
-    return {"latents": edited, "x_t": trajectory[-1], "videos": videos,
-            "timings": timings, "gifs": gifs}
+    return {"latents": edited, "x_0": trajectory[0], "x_t": trajectory[-1],
+            "videos": videos, "mode": mode, "cached_maps": decision,
+            "timings": timings, "peak_gib": peaks, "gifs": gifs}
 
 
 def _write_gifs(videos: torch.Tensor, pretrained_model_path: str, save_name: str):
@@ -250,8 +303,8 @@ if __name__ == "__main__":
     parser.add_argument("--config", type=str, default="./configs/rabbit-jump-p2p.yaml")
     parser.add_argument("--fast", action="store_true")
     parser.add_argument("--live_source", action="store_true",
-                        help="keep the live source stream in fast mode (the "
-                             "only fast mode ported so far)")
+                        help="keep the live source stream in fast mode "
+                             "(default: the cached-source edit)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain versions of "
                              "the kernels")

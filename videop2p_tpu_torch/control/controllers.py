@@ -162,30 +162,45 @@ def _edit_temporal(base: torch.Tensor, repl: torch.Tensor, ctx: ControlContext,
 
 def control_attention(probs: torch.Tensor, ctx: Optional[ControlContext], *,
                       is_cross: bool, step_index: int, video_length: int,
-                      num_uncond: int = -1) -> torch.Tensor:
+                      num_uncond: int = -1,
+                      base_map: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Apply the edit to full-batch probabilities, U uncond streams first:
     cross ((U+P)·F, H, Q, W) with frames folded into the batch; temporal
-    ((U+P)·D, H, F, F) with spatial positions folded into the batch."""
+    ((U+P)·D, H, F, F) with spatial positions folded into the batch.
+
+    ``base_map``: the cached-source mode — the source stream is not in the
+    batch (its cond streams are the P − 1 edits only) and its maps for this
+    site and step come from this capture: (F, H, Q, W) at cross sites,
+    (D, H, F, F) at temporal sites."""
     if ctx is None or ctx.kind == "empty":
         return probs
     P = ctx.num_prompts
     U = P if num_uncond < 0 else num_uncond
+    ncond = P if base_map is None else P - 1
     B, H, Q, K = probs.shape
-    if B % (U + P):
+    if B % (U + ncond):
         raise ValueError(
-            f"attention batch {B} does not factor into {U} uncond + {P} cond streams")
-    inner = B // (U + P)
+            f"attention batch {B} does not factor into {U} uncond + {ncond} cond streams")
+    inner = B // (U + ncond)
     if is_cross and inner != video_length:
         raise ValueError(
-            f"cross-attention batch {B} does not factor as ({U}+{P})·{video_length} "
+            f"cross-attention batch {B} does not factor as ({U}+{ncond})·{video_length} "
             "(uncond+cond streams × frames) — batch layout mismatch")
     if not is_cross and (Q != video_length or K != video_length):
         raise ValueError(
             f"temporal attention maps must be ({video_length}×{video_length}), "
             f"got ({Q}×{K})")
-    split = probs.reshape(U + P, inner, H, Q, K)
-    base, repl = split[U], split[U + 1:]
+    split = probs.reshape(U + ncond, inner, H, Q, K)
+    if base_map is None:
+        base, repl = split[U], split[U + 1:]
+    else:
+        if tuple(base_map.shape) != (inner, H, Q, K):
+            raise ValueError(
+                f"cached base map shape {tuple(base_map.shape)} does not match the "
+                f"site's per-stream probability shape {(inner, H, Q, K)}")
+        base, repl = base_map.to(probs.dtype), split[U:]
     edit = _edit_cross if is_cross else _edit_temporal
     edited = edit(base, repl, ctx, step_index)
-    out = torch.cat([split[:U + 1], edited], dim=0)
+    keep = split[:U] if base_map is not None else split[:U + 1]
+    out = torch.cat([keep, edited], dim=0)
     return out.reshape(B, H, Q, K)

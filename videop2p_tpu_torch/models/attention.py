@@ -11,7 +11,12 @@ Port of ``videop2p_tpu/models/attention.py``:
 
 The flax ``sow("attn_store", ...)`` becomes an explicit ``store`` dict the
 caller passes down: each controlled site with at most 1024 queries writes
-its pre-edit head-mean probabilities under its module path.
+its pre-edit head-mean probabilities under its module path. In capture mode
+(the inversion of the cached-source edit) every controlled site also writes
+its full per-head pre-edit probabilities, in bf16, into the nested dict
+``store["attn_base"]`` under the same module path (the flax ``attn_base``
+collection). In cached-source mode a site reads the source stream's maps
+for this step from ``AttnControl.cached_base``.
 
 Batch layout matches the JAX package so the control layer can factor the
 batch: frames fold batch-major ``(B, F, …) → (B·F, …)`` at the cross site,
@@ -21,7 +26,7 @@ spatial positions fold batch-major ``(B·N, F, C)`` at the temporal site.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +34,7 @@ from torch import nn
 
 from videop2p_tpu_torch.control.controllers import ControlContext, control_attention
 from videop2p_tpu_torch.models.layers import TpuGroupNorm
-from videop2p_tpu_torch.ops.attention import frame_attention
+from videop2p_tpu_torch.ops.attention import make_frame_attention_fn
 
 __all__ = [
     "AttnControl",
@@ -39,10 +44,13 @@ __all__ = [
     "BasicTransformerBlock",
     "Transformer3DModel",
     "STORE_MAX_QUERIES",
+    "BASE_STORE",
 ]
 
 # controlled sites store their head-mean maps when Q ≤ this (32²)
 STORE_MAX_QUERIES = 1024
+# the store entry that capture mode fills: {module path: (B, H, Q, K) bf16}
+BASE_STORE = "attn_base"
 # flax nn.LayerNorm's default epsilon, which the JAX blocks use
 _LN_EPS = 1e-6
 
@@ -51,11 +59,29 @@ _LN_EPS = 1e-6
 class AttnControl:
     """The edit context plus the step index of the sampling loop.
     ``num_uncond`` counts the uncond streams ahead of the ``ctx.num_prompts``
-    cond streams in the batch (-1 → ``ctx.num_prompts``)."""
+    cond streams in the batch (-1 → ``ctx.num_prompts``).
+
+    ``capture``: every controlled site writes its full per-head pre-edit
+    probabilities into ``store[BASE_STORE]`` (the inversion pass of the
+    cached-source edit). ``cached_base``: {module path: map} giving the
+    source stream's maps for this step; the batch then holds only the P − 1
+    edit streams, and a site absent from it (an empty capture window, whose
+    gate is closed at every step) passes through unedited. ``cached_source``
+    marks that layout even when both windows are empty and ``cached_base``
+    is None."""
 
     ctx: Optional[ControlContext]
     step_index: int
     num_uncond: int = -1
+    capture: bool = False
+    cached_base: Optional[Dict[str, torch.Tensor]] = None
+    cached_source: bool = False
+
+    def base_map_for(self, path: str) -> Optional[torch.Tensor]:
+        """This site's cached source map, by module path."""
+        if self.cached_base is None:
+            return None
+        return self.cached_base.get(path)
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -73,11 +99,13 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 class FrameAttention(nn.Module):
     """Spatial self-attention with frame-0 keys/values. Input (B, F, N, C)."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int):
+    def __init__(self, dim: int, heads: int, dim_head: int,
+                 frame_attention: str = "auto"):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
         self.dim_head = dim_head
+        self.attention_fn = make_frame_attention_fn(frame_attention)
         self.to_q = nn.Linear(dim, inner, bias=False)
         self.to_k = nn.Linear(dim, inner, bias=False)
         self.to_v = nn.Linear(dim, inner, bias=False)
@@ -90,7 +118,7 @@ class FrameAttention(nn.Module):
         kv_src = x[:, 0]
         k = _split_heads(self.to_k(kv_src), self.heads)
         v = _split_heads(self.to_v(kv_src), self.heads)
-        out = frame_attention(q, k, v)  # (B, F, H, N, D)
+        out = self.attention_fn(q, k, v)  # (B, F, H, N, D)
         out = out.transpose(2, 3).reshape(b, f, n, inner)
         return self.to_out[0](out)
 
@@ -126,16 +154,27 @@ class ControlledAttention(nn.Module):
         probs = torch.softmax(sim.float(), dim=-1).to(q.dtype)
         if store is not None and probs.shape[-2] <= STORE_MAX_QUERIES:
             store[self.path] = probs.mean(dim=1)
+        if control is not None and control.capture:
+            if store is None:
+                raise ValueError("capture mode needs a store")
+            # bf16 whatever the compute dtype, as the JAX package stores
+            # them: it halves an fp32 capture (~3.3 GB at SD-1.5, 8 frames)
+            store.setdefault(BASE_STORE, {})[self.path] = probs.to(torch.bfloat16)
         if control is not None:
             if video_length is None:
                 if self.site != "temporal":
                     raise ValueError(
                         "video_length is required at controlled cross sites")
                 video_length = x.shape[1]
-            probs = control_attention(
-                probs, control.ctx, is_cross=self.site == "cross",
-                step_index=control.step_index, video_length=video_length,
-                num_uncond=control.num_uncond)
+            base_map = control.base_map_for(self.path)
+            # a cached-source batch at a site with no captured map: its gate
+            # is closed at every step, so the unedited maps are exact (and
+            # the live layout would mis-factor the P − 1-stream batch)
+            if not (control.cached_source and base_map is None):
+                probs = control_attention(
+                    probs, control.ctx, is_cross=self.site == "cross",
+                    step_index=control.step_index, video_length=video_length,
+                    num_uncond=control.num_uncond, base_map=base_map)
         out = torch.matmul(probs, v)
         return self.to_out[0](_merge_heads(out))
 
@@ -169,10 +208,11 @@ class BasicTransformerBlock(nn.Module):
     """frame-attn → text-cross-attn → FF → temporal-attn, pre-LayerNorm with
     residuals."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
+                 frame_attention: str = "auto"):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=_LN_EPS)
-        self.attn1 = FrameAttention(dim, heads, dim_head)
+        self.attn1 = FrameAttention(dim, heads, dim_head, frame_attention)
         self.norm2 = nn.LayerNorm(dim, eps=_LN_EPS)
         self.attn2 = ControlledAttention(dim, heads, dim_head, "cross", context_dim)
         self.norm3 = nn.LayerNorm(dim, eps=_LN_EPS)
@@ -220,13 +260,13 @@ class Transformer3DModel(nn.Module):
     proj_out, with a residual. Input (B, F, H, W, C)."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, context_dim: int,
-                 depth: int = 1, norm_groups: int = 32):
+                 depth: int = 1, norm_groups: int = 32, frame_attention: str = "auto"):
         super().__init__()
         inner = heads * dim_head
         self.norm = TpuGroupNorm(channels, norm_groups, eps=1e-6)
         self.proj_in = Conv1x1(channels, inner)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(inner, heads, dim_head, context_dim)
+            BasicTransformerBlock(inner, heads, dim_head, context_dim, frame_attention)
             for _ in range(depth)])
         self.proj_out = Conv1x1(inner, channels)
 

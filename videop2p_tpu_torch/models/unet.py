@@ -56,6 +56,10 @@ class UNet3DConfig:
     norm_num_groups: int = 32
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
+    # the frame-attention implementation (ops/attention.py
+    # make_frame_attention_fn): "auto"/"fused", "flash", "flash_rect",
+    # "chunked" or "dense"
+    frame_attention: str = "auto"
 
     @classmethod
     def sd15(cls, **overrides) -> "UNet3DConfig":
@@ -110,7 +114,7 @@ class UNet3DConditionModel(nn.Module):
                     in_ch, ch[i], temb_ch, num_layers=cfg.layers_per_block,
                     attn_heads=heads[i], context_dim=ctx_dim,
                     transformer_depth=depths[i], add_downsample=not final,
-                    norm_groups=groups)
+                    norm_groups=groups, frame_attention=cfg.frame_attention)
             elif block_type == "DownBlock3D":
                 block = unet_blocks.DownBlock3D(
                     in_ch, ch[i], temb_ch, num_layers=cfg.layers_per_block,
@@ -123,7 +127,8 @@ class UNet3DConditionModel(nn.Module):
 
         self.mid_block = unet_blocks.UNetMidBlock3DCrossAttn(
             ch[-1], temb_ch, attn_heads=heads[-1], context_dim=ctx_dim,
-            transformer_depth=depths[-1], norm_groups=groups)
+            transformer_depth=depths[-1], norm_groups=groups,
+            frame_attention=cfg.frame_attention)
 
         rev_ch = tuple(reversed(ch))
         rev_heads = tuple(reversed(heads))
@@ -140,7 +145,7 @@ class UNet3DConditionModel(nn.Module):
                     in_ch, rev_ch[i], temb_ch, skip_channels=skips,
                     attn_heads=rev_heads[i], context_dim=ctx_dim,
                     transformer_depth=rev_depths[i], add_upsample=not final,
-                    norm_groups=groups)
+                    norm_groups=groups, frame_attention=cfg.frame_attention)
             elif block_type == "UpBlock3D":
                 block = unet_blocks.UpBlock3D(
                     in_ch, rev_ch[i], temb_ch, skip_channels=skips,

@@ -27,7 +27,7 @@ class CrossAttnDownBlock3D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int, *,
                  num_layers: int, attn_heads: int, context_dim: int,
                  transformer_depth: int = 1, add_downsample: bool = True,
-                 norm_groups: int = 32):
+                 norm_groups: int = 32, frame_attention: str = "auto"):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock3D(in_channels if i == 0 else out_channels, out_channels,
@@ -35,7 +35,8 @@ class CrossAttnDownBlock3D(nn.Module):
             for i in range(num_layers)])
         self.attentions = nn.ModuleList([
             Transformer3DModel(out_channels, attn_heads, out_channels // attn_heads,
-                               context_dim, transformer_depth, norm_groups)
+                               context_dim, transformer_depth, norm_groups,
+                               frame_attention)
             for _ in range(num_layers)])
         self.downsamplers = (nn.ModuleList([Downsample3D(out_channels)])
                              if add_downsample else None)
@@ -82,14 +83,15 @@ class UNetMidBlock3DCrossAttn(nn.Module):
 
     def __init__(self, channels: int, temb_channels: int, *, attn_heads: int,
                  context_dim: int, num_layers: int = 1, transformer_depth: int = 1,
-                 norm_groups: int = 32):
+                 norm_groups: int = 32, frame_attention: str = "auto"):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock3D(channels, channels, temb_channels, norm_groups)
             for _ in range(num_layers + 1)])
         self.attentions = nn.ModuleList([
             Transformer3DModel(channels, attn_heads, channels // attn_heads,
-                               context_dim, transformer_depth, norm_groups)
+                               context_dim, transformer_depth, norm_groups,
+                               frame_attention)
             for _ in range(num_layers)])
 
     def forward(self, x, temb, context, control: Optional[AttnControl] = None,
@@ -109,7 +111,7 @@ class CrossAttnUpBlock3D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int, *,
                  skip_channels: Sequence[int], attn_heads: int, context_dim: int,
                  transformer_depth: int = 1, add_upsample: bool = True,
-                 norm_groups: int = 32):
+                 norm_groups: int = 32, frame_attention: str = "auto"):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock3D((in_channels if i == 0 else out_channels) + skip,
@@ -117,7 +119,8 @@ class CrossAttnUpBlock3D(nn.Module):
             for i, skip in enumerate(skip_channels)])
         self.attentions = nn.ModuleList([
             Transformer3DModel(out_channels, attn_heads, out_channels // attn_heads,
-                               context_dim, transformer_depth, norm_groups)
+                               context_dim, transformer_depth, norm_groups,
+                               frame_attention)
             for _ in skip_channels])
         self.upsamplers = (nn.ModuleList([Upsample3D(out_channels)])
                            if add_upsample else None)

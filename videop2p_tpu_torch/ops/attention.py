@@ -1,5 +1,5 @@
-"""Frame attention (every frame's queries against frame 0's keys/values): a
-hand-written CUDA kernel, its plain PyTorch versions, and the dispatch rule.
+"""Frame attention (every frame's queries against frame 0's keys/values): two
+hand-written CUDA kernels, their plain PyTorch versions, and the dispatch.
 
 Port of ``videop2p_tpu/ops/attention.py``. Shapes: q (B, F, H, N, D); k, v
 (B, H, N, D), shared by all F frames; out (B, F, H, N, D) in q's dtype.
@@ -8,20 +8,26 @@ Port of ``videop2p_tpu/ops/attention.py``. Shapes: q (B, F, H, N, D); k, v
     path (N < 1024 tokens) on every device.
   * :func:`chunked_frame_attention` — the same math over query chunks, so the
     score tensor never exceeds B·F·H·q_chunk·N; the plain version of the
-    kernel (a dense score tensor at 64² would need ~13 GB in fp32).
+    fused kernel (a dense score tensor at 64² would need ~13 GB in fp32).
   * :func:`fused_frame_attention` — ``csrc/frame_attention.cu`` on a CUDA
     tensor (frames folded into the query axis, K/V tiles streamed through
-    shared memory with an online softmax), the chunked plain version on a
+    shared memory with an online softmax, CUDA cores), the chunked plain
+    version on a CPU tensor.
+  * :func:`flash_frame_attention`, :func:`flash_rect_frame_attention` — the
+    port of the stock Pallas flash-attention kernel: ``csrc/flash_attention.cu``
+    (tensor cores in bf16) on a CUDA tensor, with K/V read per frame at batch
+    stride 0 or with frames folded into the query length; their plain
+    versions (``*_reference``, through :func:`attention_reference`) on a
     CPU tensor.
-  * :func:`frame_attention` — the dispatch of
-    ``make_frame_attention_fn("auto")``: dense below ``MIN_LARGE_TOKENS``,
-    else the kernel wrapper.
+  * :func:`make_frame_attention_fn` — the dispatch by implementation name;
+    :func:`frame_attention` is its ``"auto"`` rule.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable
 
 import torch
 
@@ -31,18 +37,30 @@ __all__ = [
     "dense_frame_attention",
     "chunked_frame_attention",
     "fused_frame_attention",
+    "attention_reference",
+    "flash_frame_attention",
+    "flash_rect_frame_attention",
+    "flash_frame_attention_reference",
+    "flash_rect_frame_attention_reference",
+    "make_frame_attention_fn",
     "frame_attention",
     "launch_count",
     "reset_launch_count",
+    "flash_launch_count",
+    "reset_flash_launch_count",
+    "FRAME_ATTENTION_IMPLS",
     "MIN_LARGE_TOKENS",
 ]
 
 MIN_LARGE_TOKENS = 1024
+FRAME_ATTENTION_IMPLS = ("auto", "fused", "dense", "chunked", "flash", "flash_rect")
 _SOURCE = "frame_attention.cu"
+_FLASH_SOURCE = "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
 
 _launches = 0
+_flash_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,14 +70,32 @@ def _launcher():
                 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
 
 
+@functools.lru_cache(maxsize=None)
+def _flash_launcher():
+    return bind(_FLASH_SOURCE, "flash_attention_fwd",
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+
+
 def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`."""
+    """Launches of the fused kernel since the last :func:`reset_launch_count`."""
     return _launches
 
 
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+
+
+def flash_launch_count() -> int:
+    """Launches of the flash kernel since the last
+    :func:`reset_flash_launch_count`."""
+    return _flash_launches
+
+
+def reset_flash_launch_count() -> None:
+    global _flash_launches
+    _flash_launches = 0
 
 
 def dense_frame_attention(q: torch.Tensor, k: torch.Tensor,
@@ -95,6 +131,28 @@ def _check_shapes(q, k, v):
                 f"got {tuple(t.shape)}")
 
 
+def _check_cuda_inputs(name, q, k, v):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, got {q.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"{name} takes float32 or bfloat16 q, k, v of one dtype, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must lie on one device")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError(f"{name} needs a contiguous last dimension")
+    if q.shape[-1] > _MAX_HEAD_DIM:
+        raise ValueError(f"head dim {q.shape[-1]} > {_MAX_HEAD_DIM}")
+
+
+def _frame_major_out(q: torch.Tensor) -> torch.Tensor:
+    """An output of q's shape (B, F, H, N, D) laid out as (B, F, N, H, D), so
+    merging heads afterwards is a view."""
+    b, f, h, n, d = q.shape
+    return torch.empty((b, f, n, h, d), device=q.device, dtype=q.dtype).transpose(2, 3)
+
+
 def fused_frame_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
     """Frame attention through the CUDA kernel for a CUDA tensor, the chunked
@@ -105,22 +163,11 @@ def fused_frame_attention(q: torch.Tensor, k: torch.Tensor,
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return chunked_frame_attention(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_frame_attention runs on cuda or cpu, got {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(
-            "fused_frame_attention takes float32 or bfloat16 q, k, v of one "
-            f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("q, k and v must lie on one device")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("fused_frame_attention needs a contiguous last dimension")
+    _check_cuda_inputs("fused_frame_attention", q, k, v)
     b, f, h, n, d = q.shape
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} > {_MAX_HEAD_DIM}")
     if b * h > 65535:
         raise ValueError(f"B·H = {b * h} exceeds the kernel's grid")
-    out = torch.empty((b, f, n, h, d), device=q.device, dtype=q.dtype).transpose(2, 3)
+    out = _frame_major_out(q)
     strides = (ctypes.c_longlong * 14)(
         *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *out.stride()[:4])
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -132,12 +179,141 @@ def fused_frame_attention(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
-def frame_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """The ``"auto"`` dispatch (videop2p_tpu/ops/attention.py:204-262): dense
-    below ``MIN_LARGE_TOKENS`` tokens, else :func:`fused_frame_attention`
-    (the kernel on a CUDA tensor, the chunked plain version on a CPU one)."""
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        q_chunk: int = 512) -> torch.Tensor:
+    """Plain version of the flash kernel: softmax(q·kᵀ/√D)·v over q
+    (…, Lq, D) and k, v (…, Lk, D) whose leading dimensions broadcast,
+    chunked over queries. Scores and softmax in f32; the unnormalized
+    probabilities are rounded to v's dtype before the product with v (the
+    stock kernel's ``p.astype(v.dtype)``), the row sum is taken in f32, and
+    the output is in q's dtype."""
+    scale = q.shape[-1] ** -0.5
+    kt = k.float().transpose(-1, -2)
+    vf = v.float()
+    outs = []
+    for i in range(0, q.shape[-2], q_chunk):
+        s = torch.matmul(q[..., i:i + q_chunk, :].float(), kt) * scale
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = torch.matmul(p.to(v.dtype).float(), vf) / p.sum(dim=-1, keepdim=True)
+        outs.append(o.to(q.dtype))
+    return torch.cat(outs, dim=-2)
+
+
+def _flash(q5: torch.Tensor, k5: torch.Tensor, v5: torch.Tensor,
+           out5: torch.Tensor) -> None:
+    """Launch ``csrc/flash_attention.cu`` on (B0, B1, H, L, D) views; a
+    batch stride of 0 in k5/v5 shares one K/V batch among query batches."""
+    b0, b1, h, lq, d = q5.shape
+    lk = k5.shape[3]
+    if -(-lq // 64) > 65535:
+        raise ValueError(f"query length {lq} exceeds the kernel's grid")
+    strides = (ctypes.c_longlong * 16)(
+        *q5.stride()[:4], *k5.stride()[:4], *v5.stride()[:4], *out5.stride()[:4])
+    stream = torch.cuda.current_stream(q5.device).cuda_stream
+    _flash_launcher()(q5.data_ptr(), k5.data_ptr(), v5.data_ptr(), out5.data_ptr(),
+                      _DTYPES[q5.dtype], b0, b1, h, lq, lk, d,
+                      ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5), stream)
+    global _flash_launches
+    _flash_launches += 1
+
+
+def flash_frame_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`flash_frame_attention`: K/V broadcast
+    over the frame axis (a view, not a copy)."""
+    return attention_reference(q, k[:, None], v[:, None])
+
+
+def flash_rect_frame_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                                         v: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`flash_rect_frame_attention`: frames
+    folded into the query length."""
+    b, f, h, n, d = q.shape
+    qr = q.transpose(1, 2).reshape(b, h, f * n, d)
+    return attention_reference(qr, k, v).reshape(b, h, f, n, d).transpose(1, 2)
+
+
+def flash_frame_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> torch.Tensor:
+    """Frame attention through the flash kernel with the frame axis as a
+    second batch axis (JAX: frames folded into the batch, K/V broadcast per
+    frame). Here K/V are not copied: their frame stride is 0, so every frame
+    reads frame 0's K/V in place. A CPU tensor runs
+    :func:`flash_frame_attention_reference`."""
     _check_shapes(q, k, v)
-    if q.shape[3] < MIN_LARGE_TOKENS:
-        return dense_frame_attention(q, k, v)
-    return fused_frame_attention(q, k, v)
+    if q.device.type == "cpu":
+        return flash_frame_attention_reference(q, k, v)
+    _check_cuda_inputs("flash_frame_attention", q, k, v)
+    b, f, h, n, d = q.shape
+    out = _frame_major_out(q)
+    _flash(q, k[:, None].expand(b, f, h, n, d), v[:, None].expand(b, f, h, n, d), out)
+    return out
+
+
+def flash_rect_frame_attention(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor) -> torch.Tensor:
+    """Frame attention through the flash kernel with frames folded into the
+    query length: q (B, H, F·N, D) against k, v (B, H, N, D). Softmax is per
+    row, so the fold is exact. A CPU tensor runs
+    :func:`flash_rect_frame_attention_reference`."""
+    _check_shapes(q, k, v)
+    if q.device.type == "cpu":
+        return flash_rect_frame_attention_reference(q, k, v)
+    _check_cuda_inputs("flash_rect_frame_attention", q, k, v)
+    b, f, h, n, d = q.shape
+    # a view for FrameAttention's projections, whose frame stride is N times
+    # their token stride; a copy otherwise
+    qr = q.transpose(1, 2).reshape(b, h, f * n, d)
+    out = _frame_major_out(q)
+    out_r = out.transpose(1, 2).view(b, h, f * n, d)
+    _flash(qr[:, None], k[:, None], v[:, None], out_r[:, None])
+    return out
+
+
+def make_frame_attention_fn(impl: str = "auto", *,
+                            min_large_tokens: int = MIN_LARGE_TOKENS,
+                            q_chunk: int = 512) -> Callable:
+    """The frame-attention implementation by name (JAX:
+    ``make_frame_attention_fn``, videop2p_tpu/ops/attention.py:204-262).
+
+      * ``"auto"``, ``"fused"`` — :func:`fused_frame_attention` (the fused
+        kernel on a CUDA tensor);
+      * ``"flash"``, ``"flash_rect"`` — :func:`flash_frame_attention` /
+        :func:`flash_rect_frame_attention` (the flash kernel on a CUDA
+        tensor) where JAX's ``flash_ok`` holds (head dim ≤ 128 or a
+        multiple of 128), ``"chunked"`` otherwise (SD-1.5's head dims are
+        40, 80 and 160). A head dim the kernel does not take (a multiple of
+        128 above 128) raises on a CUDA tensor;
+      * ``"chunked"`` — :func:`chunked_frame_attention`;
+      * ``"dense"`` — :func:`dense_frame_attention`.
+
+    Below ``min_large_tokens`` tokens every name takes the dense path; a CPU
+    tensor runs each kernel's plain version. An unknown name raises
+    ``ValueError``, as does a q of rank other than 5.
+    """
+    if impl not in FRAME_ATTENTION_IMPLS:
+        raise ValueError(f"unknown frame attention impl: {impl!r}")
+    if impl == "dense":
+        return dense_frame_attention
+
+    def fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        if q.dim() != 5:
+            raise ValueError(
+                "frame-attention kernels take q of shape (B, F, H, N, D); "
+                f"got rank-{q.dim()} {tuple(q.shape)}")
+        n, d = q.shape[3], q.shape[4]
+        if n < min_large_tokens:
+            return dense_frame_attention(q, k, v)
+        if impl in ("auto", "fused"):
+            return fused_frame_attention(q, k, v)
+        flash_ok = d <= _MAX_HEAD_DIM or d % 128 == 0
+        if impl == "flash_rect" and flash_ok:
+            return flash_rect_frame_attention(q, k, v)
+        if impl == "flash" and flash_ok:
+            return flash_frame_attention(q, k, v)
+        return chunked_frame_attention(q, k, v, q_chunk=q_chunk)
+
+    return fn
+
+
+frame_attention = make_frame_attention_fn("auto")

@@ -1,0 +1,138 @@
+"""Cached-source fast editing: replay the source stream from the inversion
+(port of ``videop2p_tpu/pipelines/cached.py``).
+
+DDIM ``next_step`` and ``prev_step`` are linear in (x, ε) with the same
+coefficients, so the source latent at edit step *i* is ``trajectory[N − i]``:
+the edit batch drops the source stream, from (P − 1) + P streams to
+(P − 1) + (P − 1). What that stream gave the edit comes from the inversion:
+
+  * its latents — read off the reversed trajectory, exactly;
+  * its attention maps for the controllers — the full per-head
+    probabilities captured during the inversion (bf16), only at the steps
+    whose gates are open: the cross gate ``cross_replace_alpha[i]`` is zero
+    past its window and the temporal gate is the self-replace window, so
+    outside them the base maps are multiplied out exactly;
+  * its LocalBlend contribution — captured per step, head-meaned and
+    stacked at the blend sites.
+
+The captured maps come from the inversion forward at ``(trajectory[j], t_j)``
+while a live source stream would compute them at ``(trajectory[j + 1], t_j)``:
+the same timestep, one trajectory position earlier (the JAX package's
+disclosed approximation). The latent replay itself is exact.
+
+Maps are keyed by module path (``down_blocks.0.attentions.0.
+transformer_blocks.0.attn2``) in flat dicts; every step-indexed tensor is in
+edit-step order, the reverse of the inversion walk.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+__all__ = [
+    "CachedSource",
+    "capture_windows",
+    "filter_site_tree",
+    "merge_site_trees",
+    "slice_site_tree",
+    "tree_bytes",
+]
+
+SiteTree = Dict[str, torch.Tensor]
+
+
+def capture_windows(ctx, num_steps: int) -> Tuple[int, Tuple[int, int]]:
+    """The gate rule deciding which inversion steps capture maps: cross maps
+    while any word's ``cross_replace_alpha`` is non-zero (a step prefix),
+    temporal maps inside the self-replace window. Returns
+    ``(cross_len, (self_lo, self_hi))``."""
+    cra = ctx.cross_replace_alpha[:num_steps]
+    active = (cra != 0).reshape(cra.shape[0], -1).any(dim=1)
+    idx = active.nonzero()
+    cross_len = int(idx.max()) + 1 if idx.numel() else 0
+    return cross_len, tuple(ctx.self_replace_range)
+
+
+def filter_site_tree(tree: SiteTree, site_name: str) -> SiteTree:
+    """The entries whose module path ends at a module named ``site_name``
+    (``"attn2"`` for cross sites, ``"attn_temp"`` for temporal sites)."""
+    return {path: leaf for path, leaf in tree.items()
+            if path.rsplit(".", 1)[-1] == site_name}
+
+
+def merge_site_trees(a: Optional[SiteTree], b: Optional[SiteTree]) -> SiteTree:
+    """Union of two site trees with disjoint paths."""
+    return {**(a or {}), **(b or {})}
+
+
+def slice_site_tree(tree: Optional[SiteTree], index: int) -> Optional[SiteTree]:
+    """Every leaf indexed at ``index`` along its leading (step) axis."""
+    if not tree:
+        return None
+    return {path: leaf[index] for path, leaf in tree.items()}
+
+
+def tree_bytes(*trees: Optional[SiteTree]) -> int:
+    """Total bytes of the tensor leaves of the given site trees."""
+    return sum(leaf.numel() * leaf.element_size()
+               for tree in trees if tree for leaf in tree.values())
+
+
+@dataclass
+class CachedSource:
+    """Everything the cached-source edit reads in place of a live source
+    stream; step-indexed tensors are in edit-step order."""
+
+    # (num_steps + 1, 1, F, h, w, C): [i] is the source latent entering edit
+    # step i, [i + 1] the one after it, [-1] = x_0
+    src_latents: torch.Tensor
+    # {path: (cross_len, F, H, Q, L)} at attn2 sites, edit steps [0, cross_len)
+    cross_maps: Optional[SiteTree] = None
+    # {path: (hi − lo, D, H, F, F)} at attn_temp sites, edit steps [lo, hi);
+    # bf16, float8_e4m3fn, or int8 holding round(p·127)
+    temporal_maps: Optional[SiteTree] = None
+    # (num_steps, 1, F, S, r, r, L) float32: the source's LocalBlend maps
+    blend_seq: Optional[torch.Tensor] = None
+    cross_len: int = 0
+    self_window: Tuple[int, int] = (0, 0)
+
+    @property
+    def num_steps(self) -> int:
+        return self.src_latents.shape[0] - 1
+
+    def _capture_compute_dtype(self) -> torch.dtype:
+        """The dtype 1-byte temporal maps decode to: that of the sibling
+        cross maps, else of the blend sequence, else float32."""
+        for leaf in list((self.cross_maps or {}).values()) + [self.blend_seq]:
+            if leaf is not None and leaf.element_size() > 1:
+                return leaf.dtype
+        return torch.float32
+
+    def base_tree_at(self, step_index: int) -> Optional[SiteTree]:
+        """The base maps of edit step ``step_index`` for
+        :attr:`AttnControl.cached_base`. Outside a window the index clamps to
+        the window's edge: that stale map is multiplied out by its closed
+        gate. 1-byte temporal maps decode on read: float8 upcasts, int8
+        divides by 127."""
+        cross = None
+        if self.cross_maps and self.cross_len > 0:
+            cross = slice_site_tree(self.cross_maps,
+                                    min(max(step_index, 0), self.cross_len - 1))
+        temporal = None
+        lo, hi = self.self_window
+        if self.temporal_maps and hi > lo:
+            temporal = slice_site_tree(self.temporal_maps,
+                                       min(max(step_index - lo, 0), hi - lo - 1))
+            target = self._capture_compute_dtype()
+            for path, leaf in temporal.items():
+                if leaf.element_size() == 1:
+                    wide = leaf.to(target)
+                    if not leaf.dtype.is_floating_point:
+                        wide = wide / 127.0
+                    temporal[path] = wide
+        if cross is None and temporal is None:
+            return None
+        return merge_site_trees(cross, temporal)

@@ -17,9 +17,12 @@ __all__ = ["blend_maps_from_store"]
 
 
 def _ordered(store: Dict[str, torch.Tensor]) -> List[Tuple[str, torch.Tensor]]:
-    """Leaves in the order of the JAX store's tree flatten (module paths
-    compared segment by segment), so the stack order matches it."""
-    return sorted(store.items(), key=lambda kv: kv[0].split("."))
+    """Head-mean leaves in the order of the JAX store's tree flatten (module
+    paths compared segment by segment), so the stack order matches it. The
+    nested capture dict (``store["attn_base"]``) is not one of them."""
+    return sorted(((path, leaf) for path, leaf in store.items()
+                   if isinstance(leaf, torch.Tensor)),
+                  key=lambda kv: kv[0].split("."))
 
 
 def _select_blend_leaves(store, r: Tuple[int, int],
@@ -31,7 +34,7 @@ def _select_blend_leaves(store, r: Tuple[int, int],
 
 
 def _cross_site_sizes(store, text_len: int) -> List[int]:
-    return sorted({leaf.shape[-2] for path, leaf in store.items()
+    return sorted({leaf.shape[-2] for path, leaf in _ordered(store)
                    if "attn2" in path and leaf.dim() == 3
                    and leaf.shape[-1] == text_len})
 
