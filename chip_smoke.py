@@ -7,10 +7,27 @@ Phases, each of which must pass (any failure exits non-zero):
 2. build the CUDA kernels from ``videop2p_tpu_torch/ops/csrc`` (one ``nvcc``
    per source, all in parallel);
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path, in float32 and bfloat16 — frame attention,
-   GroupNorm, and both wrappers of the flash kernel — and time the kernel,
-   the plain version and one PyTorch library call computing the same
-   function;
+   shapes of every main path (the live edit's batch B = 3, the cached
+   edit's 2 and its capture's 1, the full-CFG edit's 4, null-text's 1;
+   GroupNorm at the same slabs) and two ragged ones, in float32 and
+   bfloat16 — frame attention, GroupNorm, and both wrappers of the flash
+   kernel — and time the kernel, the plain version and one PyTorch library
+   call computing the same function;
+3b. the flash backward (the forward with its residuals, then the dK/dV and
+   dQ kernels, through autograd of both wrappers) against the plain
+   backward ``attention_reference_bwd`` in float32 on the kernel's own
+   inputs, at null-text's shapes (B = 1), the full-CFG edit's (B = 4) and
+   two ragged ones, float32 within 1e-4·max|ref| and bfloat16 within
+   2^-7·max|ref| per gradient; each kernel's time (torch.profiler), the
+   plain backward's and SDPA forward + backward's at the B = 1 shapes; and
+   that the fused frame-attention and GroupNorm wrappers return an output
+   with a gradient on the card (the autograd fault repaired there: their
+   backward is the plain version's recompute, so it matches the plain
+   version's autograd by construction; phase 12 holds it on the path);
+
+then the paths chosen with ``--paths`` (default all):
+
+fast:
 4. run a small edit (tiny model, 32² latents, so the attention kernels run
    at their 1024-token sites) on the card and on the CPU from the same
    weights, cached-source and live-source, and compare the edited latents;
@@ -39,14 +56,42 @@ Phases, each of which must pass (any failure exits non-zero):
    are what hold the kernels in bfloat16);
 9. with ``--profile``, trace one edit-batch UNet forward of the cached edit
    with ``torch.profiler`` for each ``--frame_attention`` implementation and
-   print device time by kernel and the busy share.
+   print device time by kernel and the busy share (path official: one
+   null-text inner step, forward and backward, likewise);
 
-Prints the ``{"kernels": [...]}`` line, then the card line, then, last,
-``{"ok": true, "device": {...}}``.
+official:
+4b. a small official edit (tiny model, 32² latents, 2 outer × 2 inner
+   null-text steps) on the card under "auto" and "flash_rect" and on the
+   CPU from the same weights: final null-text losses within 1e-3 relative,
+   the same inner steps, edited latents within 2e-3;
+10. the official main path — ``main`` without ``fast``: DDIM inversion,
+   null-text optimization with ``--inner_steps`` (10, the reference's)
+   inner Adam steps per outer step, the full-CFG controlled edit, decode —
+   under "auto", the null-text record printed, the launch counts asserted
+   against the inner steps taken, finite output of shape (2, 8, 512, 512, 3);
 
-Run:  python3 chip_smoke.py [--steps 4] [--mixed_precision fp32|bf16]
-                             [--profile [--frame_attention auto flash_rect flash]]
-                             [--out PATH.json]
+official_flash:
+11. the official path under "auto", "flash_rect" and "flash" with 2 inner
+   steps: the flash dK/dV and dQ kernels launched 9 × (inner steps) times
+   (the frame-attention sites downstream of a cross-attention), the final
+   losses' and edited latents' distance to "auto" printed;
+12. one UNet forward of the full-CFG edit's batch (2 uncond + 2 cond
+   streams, the refine controller live) and one null-text
+   value-and-gradient in the uncond embedding at the main path's shape,
+   each under "auto", "flash_rect" and "flash" against the same in float32
+   through the plain version ("chunked"): in float32 within 1e-4·max|ref|;
+   in bfloat16 at most 2 × the bf16 plain version's distance. The forward
+   holds the official edit's kernels at its batch, the gradient the
+   backward kernels on the path.
+
+Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
+the card line, then, last, ``{"ok": true, "device": {...}}``.
+
+Run:  python3 chip_smoke.py [--steps 4] [--inner_steps 10]
+                            [--mixed_precision fp32|bf16]
+                            [--paths [fast] [official] [official_flash]]
+                            [--profile [--frame_attention auto flash_rect flash]]
+                            [--out PATH.json]
 """
 
 from __future__ import annotations
@@ -86,11 +131,21 @@ RABBIT = dict(
 ATTN_TOL_F32 = 1e-4
 GN_TOL_F32 = 2e-4
 BF16_REL_TOL = 2.0 ** -7
+# the flash backward against the plain backward in float32: summation order
+# only, relative to the gradient's largest element (dK and dV sum over up to
+# 32768 queries)
+BWD_REL_TOL_F32 = 1e-4
 # the small edit on the card against the same edit on the CPU, and the
 # flash variants of the main path against its "auto" edit (float32, at most
 # E2E_GATE_STEPS steps: the edit amplifies per-call differences with the steps)
 E2E_TOL = 2e-3
 E2E_GATE_STEPS = 4
+# the small official edit (phase 4b): tiny models, 32² latents, 4 frames,
+# 2 outer × 2 inner null-text steps
+SMALL_OFFICIAL = dict(RABBIT, fast=False, width=64, video_len=4, num_ddim_steps=2,
+                      num_inner_steps=2, save_gifs=False,
+                      frames=np.random.default_rng(1).integers(0, 256, (4, 64, 64, 3),
+                                                               dtype=np.uint8))
 # one cached edit-batch UNet forward under a kernel against the same forward
 # in float32 through the plain version: float32 within this times max|ref|;
 # bfloat16 (a sanity bound, not a correctness gate: any two bf16
@@ -103,11 +158,28 @@ BF16_FWD_RATIO = 2.0
 # and one per edit step
 ATTN_SITES = 10
 GN_SITES = 61
+# the frame-attention sites whose inputs depend on the text embedding: all
+# but the first 64² site, which lies upstream of every cross-attention; a
+# null-text backward runs the flash backward kernels there
+ATTN_GRAD_SITES = 9
+# the small official edit on the card against the same edit on the CPU:
+# final null-text losses, relative (summation order through 2 × 2 Adam
+# steps; the CPU parity tests read ~1e-6)
+OFFICIAL_LOSS_RTOL = 1e-3
+# one null-text gradient under a kernel against the same gradient in
+# float32 through the plain version, relative to its largest element
+GRAD_REL_TOL_F32 = 1e-4
+# null-text inner steps of the official path under each kernel (phase 11)
+FLASH_INNER_STEPS = 2
+# the paths after the kernel checks: the fast edit (phases 4-9), the
+# official main path (4b, 10), the official path under each kernel (11, 12)
+PATHS = ("fast", "official", "official_flash")
 GN_LAUNCHES_PER_CALL = 3  # partial sums, statistics, apply
 # the device kernels of each ported kernel, by name prefix (profile)
 KERNEL_NAMES = {"frame_attention": ("frame_attention_kernel",),
                 "group_norm": ("gn_partial_kernel", "gn_stats_kernel", "gn_apply_kernel"),
-                "flash_attention": ("flash_fwd_wmma_bf16_kernel", "flash_fwd_fma_f32_kernel")}
+                "flash_attention": ("flash_fwd_wmma_bf16_kernel", "flash_fwd_fma_f32_kernel"),
+                "flash_attention_bwd": ("flash_bwd_dkv", "flash_bwd_dq")}
 
 
 def card_line() -> str:
@@ -222,6 +294,172 @@ def check_flash(gen, dtype, b, f, h, n, d, timed: bool) -> list:
     return recs
 
 
+def device_ms_by_kernel(fn, prefixes: dict, iters: int = 3) -> dict:
+    """Device time per call of ``fn`` summed over the kernels whose names
+    contain each of ``prefixes`` (name → the kernel's function name), from a
+    torch.profiler trace of ``iters`` calls after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in prefixes}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, prefix in prefixes.items():
+            if prefix in e.name:
+                out[name] += (e.time_range.end - e.time_range.start) / 1e3 / iters
+    if not all(out.values()):
+        raise AssertionError(f"the profiler saw no device time for {out}")
+    return out
+
+
+def check_flash_bwd(gen, dtype, b, f, h, n, d, timed: bool) -> list:
+    """Autograd through both flash wrappers on the card (the forward with its
+    residuals, then the dK/dV and dQ kernels) against the plain backward,
+    ``attention_reference_bwd``, run in float32 on the kernel's own inputs
+    from the plain forward's output and residuals."""
+    import torch.nn.functional as F
+    from videop2p_tpu_torch.ops import attention as fa
+
+    dev = "cuda"
+    q = torch.randn(b, f, n, h, d, generator=gen, device=dev).to(dtype).transpose(2, 3)
+    k = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    v = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    do = torch.randn(b, f, n, h, d, generator=gen, device=dev).to(dtype).transpose(2, 3)
+    recs = []
+    for name in ("flash_rect_frame_attention", "flash_frame_attention"):
+        kernel = getattr(fa, name)
+        rect = name.startswith("flash_rect")
+
+        def fold(x):
+            return x.transpose(1, 2).reshape(b, h, f * n, d) if rect else x
+
+        def unfold(x):
+            return x.reshape(b, h, f, n, d).transpose(1, 2) if rect else x
+
+        def kv(x):
+            return x if rect else x[:, None]
+
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        before = (fa.flash_launch_count(), fa.flash_bwd_launch_counts())
+        out = kernel(*leaves)
+        if out.grad_fn is None:
+            raise AssertionError(f"{name} output has no grad_fn")
+        out.backward(do)
+        after = (fa.flash_launch_count(), fa.flash_bwd_launch_counts())
+        if (after[0] - before[0] != 1
+                or any(after[1][key] - before[1][key] != 1 for key in ("dkv", "dq"))):
+            raise AssertionError(f"{name}: launches {before} -> {after}, expected one each")
+        q5, k5, v5, do5 = fold(q.float()), kv(k.float()), kv(v.float()), fold(do.float())
+        o, m, l = fa.attention_reference(q5, k5, v5, residuals=True)
+        refs = fa.attention_reference_bwd(q5, k5, v5, o, do5, m, l)
+        refs = (unfold(refs[0]), refs[1].reshape(k.shape), refs[2].reshape(v.shape))
+        del o
+        rec = {"wrapper": name, "shape": [b, f, h, n, d],
+               "dtype": str(dtype).replace("torch.", ""), "max_abs_err": {}, "tol": {}}
+        for gname, leaf, ref in zip(("dq", "dk", "dv"), leaves, refs):
+            scale = ref.abs().max().item()
+            tol = BWD_REL_TOL_F32 * scale if dtype == torch.float32 else BF16_REL_TOL * scale
+            err = (leaf.grad.float() - ref).abs().max().item()
+            rec["max_abs_err"][gname], rec["tol"][gname] = err, tol
+            if not (err <= tol and torch.isfinite(leaf.grad).all()):
+                raise AssertionError(f"flash backward disagrees on {gname}: {rec}")
+        del refs
+        print(f"  {name} backward {rec['shape']} {rec['dtype']}: max|d| "
+              + ", ".join(f"{g} {rec['max_abs_err'][g]:.3e} (limit {rec['tol'][g]:.3e})"
+                          for g in ("dq", "dk", "dv")), flush=True)
+        if timed:
+            # the kernels alone, from the residuals of one forward
+            out = kernel(*leaves)
+            ms = device_ms_by_kernel(
+                lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                {"dkv": "flash_bwd_dkv", "dq": "flash_bwd_dq"})
+            q5, k5, v5, do5 = fold(q), kv(k), kv(v), fold(do)
+            o, m, l = fa.attention_reference(q5, k5, v5, residuals=True)
+            rec["plain_ms"] = time_ms(
+                lambda: fa.attention_reference_bwd(q5, k5, v5, o, do5, m, l), iters=2)
+            del o, m, l
+            # the library call: SDPA forward and backward on the fold
+            q4 = q.transpose(1, 2).reshape(b, h, f * n, d).contiguous().requires_grad_(True)
+            k4, v4 = (x.contiguous().requires_grad_(True) for x in (k, v))
+            do4 = do.transpose(1, 2).reshape(b, h, f * n, d).contiguous()
+            rec["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4).backward(do4))
+            itemsize = torch.finfo(dtype).bits // 8
+            # q, o, dO read and dQ written; k, v read and dK, dV written; m, l, di
+            nq, nk = b * f * h * n * d, b * h * n * d
+            nbytes = itemsize * (4 * nq + 4 * nk) + 4 * 3 * b * f * h * n
+            unit = 2.0 * b * f * h * n * n * d  # one product of the backward
+            rec["ms"] = ms
+            rec["bound_ms"] = {}
+            # dK/dV: S, dP, dV, dK; dQ: S, dP, dQ; together S, dP, dV, dK, dQ
+            for key, products in (("dkv", 4), ("dq", 3), ("both", 5)):
+                rec["bound_ms"][key], rec["bound_by"] = bound_ms(nbytes, products * unit, dtype)
+            print(f"    dkv kernel {ms['dkv']:.3f} ms, dq kernel {ms['dq']:.3f} ms, plain "
+                  f"{rec['plain_ms']:.3f} ms, sdpa fwd+bwd {rec['library_ms']:.3f} ms, "
+                  f"bound {rec['bound_ms']['dkv']:.3f} / {rec['bound_ms']['dq']:.3f} / "
+                  f"{rec['bound_ms']['both']:.3f} ms ({rec['bound_by']})", flush=True)
+            del q4, k4, v4, do4
+        recs.append(rec)
+        del leaves, out
+    torch.cuda.empty_cache()
+    return recs
+
+
+def check_kernel_grads(gen, dtype) -> dict:
+    """That the fused frame-attention and GroupNorm wrappers return, on the
+    card, an output with a ``grad_fn`` whose backward fills every input's
+    gradient (the repaired fault: the kernel launch bypassed autograd).
+    Their backward recomputes through the plain version, so the comparison
+    with the plain version's autograd reads 0 by construction and only
+    guards the wiring; phase 12 and the CPU tests against JAX's custom VJPs
+    hold the gradients themselves."""
+    from videop2p_tpu_torch.ops import attention as fa
+    from videop2p_tpu_torch.ops import groupnorm as gn
+
+    dev = "cuda"
+    b, f, h, n, d = 1, 8, 8, 4096, 40
+    attn = (torch.randn(b, f, n, h, d, generator=gen, device=dev).to(dtype).transpose(2, 3),
+            torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype).transpose(1, 2),
+            torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype).transpose(1, 2))
+    x = (torch.randn(1, 8 * 4096, 320, generator=gen, device=dev) * 2 + 0.5).to(dtype)
+    scale = torch.randn(320, generator=gen, device=dev) * 0.2 + 1.0
+    bias = torch.randn(320, generator=gen, device=dev) * 0.1
+    kw = dict(num_groups=32, eps=1e-5, act="silu")
+    cases = {
+        "frame_attention": (fa.fused_frame_attention, fa.chunked_frame_attention, attn),
+        "group_norm": (lambda *a: gn.fused_group_norm(*a, **kw),
+                       lambda *a: gn.group_norm_reference(*a, **kw), (x, scale, bias)),
+    }
+    rec = {}
+    for name, (kernel, plain, inputs) in cases.items():
+        grads = []
+        for fn in (kernel, plain):
+            leaves = [t.detach().requires_grad_(True) for t in inputs]
+            out = fn(*leaves)
+            if out.grad_fn is None:
+                raise AssertionError(f"{name}: output of {fn} has no grad_fn")
+            g = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(9),
+                            device=dev).to(out.dtype)
+            out.backward(g)
+            grads.append([leaf.grad.float() for leaf in leaves])
+            del out, leaves
+        errs = [(a - r).abs().max().item() for a, r in zip(*grads)]
+        tols = [limit(dtype, r, ATTN_TOL_F32 * r.abs().max().item()) for r in grads[1]]
+        rec[name] = {"max_abs_err": errs, "tol": tols}
+        print(f"  {name} gradient {str(dtype).replace('torch.', '')} against the plain "
+              f"version's autograd: max|d| {errs} (limits {tols})", flush=True)
+        if not all(e <= t for e, t in zip(errs, tols)):
+            raise AssertionError(f"{name} gradient disagrees: {rec[name]}")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def check_group_norm(gen, dtype, n, rows, c, eps, act, timed: bool) -> dict:
     import torch.nn.functional as F
     from videop2p_tpu_torch.ops import groupnorm as gn
@@ -292,11 +530,13 @@ def small_edit_check(live_source: bool) -> float:
     return err
 
 
-def edit_forward_inputs(bundle) -> tuple:
-    """The inputs of one UNet forward of the cached edit's batch (1 uncond +
-    1 edit stream × 8 frames at 64²): latents, text embeddings, and the
-    refine controller at step 5 of 50 (inside both the cross and the self
-    window) reading the base maps of one capture forward of ``bundle``."""
+def edit_forward_inputs(bundle, full_cfg: bool = False) -> tuple:
+    """The inputs of one UNet forward of an edit's batch × 8 frames at 64²:
+    latents, text embeddings, and the refine controller at step 5 of 50
+    (inside both the cross and the self window). The cached edit's batch
+    (1 uncond + 1 edit stream) reads the base maps of one capture forward
+    of ``bundle``; with ``full_cfg`` the official edit's (2 uncond + source
+    and edit streams), the controller live on the batch's source stream."""
     from videop2p_tpu_torch.cli.run_videop2p import encode_prompts
     from videop2p_tpu_torch.control import make_controller
     from videop2p_tpu_torch.models.attention import BASE_STORE, AttnControl
@@ -309,6 +549,10 @@ def edit_forward_inputs(bundle) -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(1)
     dtype = next(bundle.unet.parameters()).dtype
     x = torch.randn(2, 8, 64, 64, 4, generator=gen, device="cuda").to(dtype)
+    if full_cfg:
+        with torch.no_grad():
+            text = encode_prompts(bundle, ["", ""] + RABBIT["prompts"], "cuda")
+        return torch.cat([x, x]), text, AttnControl(ctx, 5, 2)
     with torch.no_grad():
         text = encode_prompts(bundle, ["", RABBIT["prompts"][1]], "cuda")
         store: dict = {}
@@ -318,18 +562,19 @@ def edit_forward_inputs(bundle) -> tuple:
     return x, text, control
 
 
-def forward_check(mixed_precision: str) -> dict:
-    """One cached edit-batch UNet forward under each frame-attention kernel
-    against the same forward in float32 through the plain version
-    ("chunked"): same weights (bf16 ones are the float32 ones rounded), same
-    latents, text embeddings and captured base maps. Unlike the edited
-    latents, one forward does not pass the kernels' differences through
-    guidance and LocalBlend's thresholded mask."""
+def forward_check(mixed_precision: str, full_cfg: bool = False) -> dict:
+    """One edit-batch UNet forward (the cached edit's, or with ``full_cfg``
+    the official edit's) under each frame-attention kernel against the same
+    forward in float32 through the plain version ("chunked"): same weights
+    (bf16 ones are the float32 ones rounded), same latents, text embeddings
+    and controller. Unlike the edited latents, one forward does not pass
+    the kernels' differences through guidance and LocalBlend's thresholded
+    mask."""
     from videop2p_tpu_torch.cli.run_videop2p import build_models
 
     dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[mixed_precision]
     ref_bundle = build_models(device="cuda", seed=0, frame_attention="chunked")
-    x, text, control = edit_forward_inputs(ref_bundle)
+    x, text, control = edit_forward_inputs(ref_bundle, full_cfg)
     with torch.no_grad():
         ref = ref_bundle.unet(x, 500, text, control, {})
     del ref_bundle
@@ -354,37 +599,25 @@ def forward_check(mixed_precision: str) -> dict:
     print(f"  limit {tol:.4e}", flush=True)
     bad = {impl: err for impl, err in errs.items() if not err <= tol}
     if bad:
-        raise AssertionError(f"cached edit-batch forward off the plain version: {bad} "
-                             f"(limit {tol})")
-    return {"dtype": mixed_precision, "max_abs_ref": scale, "max_abs_err": errs, "tol": tol}
+        raise AssertionError(f"{'full-CFG' if full_cfg else 'cached'} edit-batch forward "
+                             f"off the plain version: {bad} (limit {tol})")
+    return {"dtype": mixed_precision, "batch": int(x.shape[0]), "max_abs_ref": scale,
+            "max_abs_err": errs, "tol": tol}
 
 
-def profile_edit_forward(mixed_precision: str, frame_attention: str) -> dict:
-    """One UNet forward of the cached edit's batch (:func:`edit_forward_inputs`)
-    under ``torch.profiler``, with the UNet's frame attention set to
-    ``frame_attention``: device time by kernel name, the ported kernels'
-    share, and the device's busy share of the traced window."""
+def profile_device(fn, label: str) -> dict:
+    """``fn`` once untraced, then once under ``torch.profiler``: device time
+    by kernel name, the ported kernels' share, and the device's busy share
+    of the traced window."""
     from torch.profiler import ProfilerActivity, profile
 
-    from videop2p_tpu_torch.cli.run_videop2p import build_models
-
-    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[mixed_precision]
-    bundle = build_models(dtype=dtype, device="cuda", seed=0,
-                          frame_attention=frame_attention)
-    x, text, control = edit_forward_inputs(bundle)
-    with torch.no_grad():
-        def forward():
-            bundle.unet(x, 500, text, control, {})
-
-        forward()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            forward()
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    del bundle, control
-    torch.cuda.empty_cache()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -409,22 +642,172 @@ def profile_edit_forward(mixed_precision: str, frame_attention: str) -> dict:
     ours = {name: sum(v for k, v in by_name.items() if any(p in k for p in prefixes))
             for name, prefixes in KERNEL_NAMES.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    print(f"profile: one cached edit-batch UNet forward ({mixed_precision}, "
-          f"frame_attention={frame_attention}): host wall "
-          f"{wall_ms:.2f} ms, device kernel time {total:.2f} ms, device busy "
-          f"{busy:.2f} ms of a {window:.2f} ms kernel window "
-          f"({100 * busy / window:.1f} %)", flush=True)
+    print(f"profile: {label}: host wall {wall_ms:.2f} ms, device kernel time "
+          f"{total:.2f} ms, device busy {busy:.2f} ms of a {window:.2f} ms kernel "
+          f"window ({100 * busy / window:.1f} %)", flush=True)
     for name, kernel_ms in ours.items():
         print(f"  {name}: {kernel_ms:.2f} ms ({100 * kernel_ms / total:.1f} %)")
     for name, kernel_ms in top:
         print(f"  {kernel_ms:8.2f} ms {100 * kernel_ms / total:5.1f} %  {name[:100]}")
-    return {"dtype": mixed_precision, "frame_attention": frame_attention,
-            "wall_ms": wall_ms, "kernel_ms": total,
-            "busy_ms": busy, "window_ms": window, "ported_ms": ours,
+    return {"label": label, "wall_ms": wall_ms, "kernel_ms": total, "busy_ms": busy,
+            "window_ms": window, "ported_ms": ours,
             "top": [[name, kernel_ms] for name, kernel_ms in top]}
 
 
-def run_main_path(frames, steps: int, mixed_precision: str, **kw) -> dict:
+def profile_edit_forward(mixed_precision: str, frame_attention: str) -> dict:
+    """One UNet forward of the cached edit's batch (:func:`edit_forward_inputs`)
+    under ``torch.profiler``, with the UNet's frame attention set to
+    ``frame_attention``."""
+    from videop2p_tpu_torch.cli.run_videop2p import build_models
+
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[mixed_precision]
+    bundle = build_models(dtype=dtype, device="cuda", seed=0,
+                          frame_attention=frame_attention)
+    x, text, control = edit_forward_inputs(bundle)
+
+    def forward():
+        with torch.no_grad():
+            bundle.unet(x, 500, text, control, {})
+
+    rec = profile_device(forward, f"one cached edit-batch UNet forward ({mixed_precision}, "
+                                  f"frame_attention={frame_attention})")
+    del bundle, control
+    torch.cuda.empty_cache()
+    return dict(rec, dtype=mixed_precision, frame_attention=frame_attention)
+
+
+def profile_null_text_step(mixed_precision: str, frame_attention: str) -> dict:
+    """One null-text inner step at the main path's shape (the loss's UNet
+    forward and its backward to the embedding, :func:`null_text_inputs`)
+    under ``torch.profiler``, with the UNet's frame attention set to
+    ``frame_attention``."""
+    from videop2p_tpu_torch.cli.run_videop2p import build_models
+
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[mixed_precision]
+    bundle = build_models(dtype=dtype, device="cuda", seed=0,
+                          frame_attention=frame_attention)
+    value_and_grad = null_text_inputs(bundle)
+    rec = profile_device(value_and_grad, f"one null-text inner step ({mixed_precision}, "
+                                         f"frame_attention={frame_attention})")
+    del bundle, value_and_grad
+    torch.cuda.empty_cache()
+    return dict(rec, dtype=mixed_precision, frame_attention=frame_attention)
+
+
+def small_official_check(frame_attention: str, on_cpu: dict) -> dict:
+    """The tiny-model official edit (32² latents, so the attention kernels
+    run at their 1024-token sites; 2 outer × 2 inner steps) on the card
+    under ``frame_attention``, against ``on_cpu``, the same edit on the
+    CPU from the same weights: the final losses and the edited latents."""
+    import copy
+
+    from videop2p_tpu_torch.cli.run_videop2p import build_models, main
+    from videop2p_tpu_torch.ops import attention as fa
+
+    bundle = build_models(tiny=True, device="cpu", seed=3, frame_attention=frame_attention)
+    gpu_bundle = copy.deepcopy(bundle)
+    for mod in (gpu_bundle.unet, gpu_bundle.vae, gpu_bundle.text_encoder):
+        mod.to("cuda")
+    before = (fa.launch_count(), fa.flash_bwd_launch_counts())
+    on_card = main(**SMALL_OFFICIAL, device="cuda", bundle=gpu_bundle)
+    after = (fa.launch_count(), fa.flash_bwd_launch_counts())
+    if frame_attention == "auto" and after[0] == before[0]:
+        raise AssertionError("the small official edit did not reach the frame-attention kernel")
+    if frame_attention != "auto" and any(after[1][k] == before[1][k] for k in after[1]):
+        raise AssertionError("the small official edit did not reach the flash backward kernels")
+    want, got = on_cpu["null_text"]["final_loss"], on_card["null_text"]["final_loss"]
+    loss_err = ((got - want).abs() / want.abs()).max().item()
+    err = (on_card["latents"].cpu() - on_cpu["latents"]).abs().max().item()
+    print(f"  small official edit ({frame_attention}), card vs cpu: final losses "
+          f"{got.tolist()} vs {want.tolist()}, max rel |d| {loss_err:.3e} (limit "
+          f"{OFFICIAL_LOSS_RTOL:g}); edited latents max|d| {err:.3e} (limit {E2E_TOL:g})",
+          flush=True)
+    if not (on_card["null_text"]["inner_steps"].tolist()
+            == on_cpu["null_text"]["inner_steps"].tolist()):
+        raise AssertionError("inner steps differ between card and cpu")
+    if not (loss_err <= OFFICIAL_LOSS_RTOL and err <= E2E_TOL
+            and torch.isfinite(on_card["latents"]).all()):
+        raise AssertionError(f"small official edit on the card disagrees with the CPU: "
+                             f"{loss_err}, {err}")
+    return {"loss_rel_err": loss_err, "latents_err": err}
+
+
+def null_text_inputs(bundle):
+    """One null-text value-and-gradient at the main path's shape (1 stream ×
+    8 frames at 64², the rabbit-jump prompts, the first of 50 steps) with
+    ``bundle``'s UNet, its parameters frozen: returns a function that
+    computes (loss, gradient in the uncond embedding), the loss's
+    conditional prediction taken once."""
+    from videop2p_tpu_torch.cli.run_videop2p import encode_prompts
+    from videop2p_tpu_torch.core import DDIMScheduler
+
+    sched = DDIMScheduler.create_sd()
+    t = int(sched.timesteps(50)[0])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x_t = torch.randn(1, 8, 64, 64, 4, generator=gen, device="cuda")
+    x_prev = x_t + 0.1 * torch.randn(1, 8, 64, 64, 4, generator=gen, device="cuda")
+    for p in bundle.unet.parameters():
+        p.requires_grad_(False)
+    with torch.no_grad():
+        cond = encode_prompts(bundle, RABBIT["prompts"][:1], "cuda").float()
+        uncond = encode_prompts(bundle, [""], "cuda").float()
+        eps_c = bundle.unet(x_t, t, cond).float()
+
+    def value_and_grad():
+        leaf = uncond.detach().requires_grad_(True)
+        eps_u = bundle.unet(x_t, t, leaf).float()
+        rec = sched.prev_step(eps_u + 7.5 * (eps_c - eps_u), t, x_t, 50)
+        loss = torch.mean((rec - x_prev) ** 2)
+        (grad,) = torch.autograd.grad(loss, leaf)
+        return loss.item(), grad
+
+    return value_and_grad
+
+
+def null_text_grad_check(mixed_precision: str) -> dict:
+    """One value-and-gradient of the null-text loss in the uncond embedding
+    (:func:`null_text_inputs`) under "auto", "flash_rect" and "flash",
+    against the same gradient in float32 through the plain version
+    ("chunked"), from the same weights and inputs."""
+    from videop2p_tpu_torch.cli.run_videop2p import build_models
+    from videop2p_tpu_torch.ops import attention as fa
+
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[mixed_precision]
+    ref_loss, ref = null_text_inputs(build_models(device="cuda", seed=0,
+                                                  frame_attention="chunked"))()
+    torch.cuda.empty_cache()
+    scale = ref.abs().max().item()
+    impls = ("auto", "flash_rect", "flash") + (("chunked",) if dtype != torch.float32 else ())
+    errs, losses = {}, {}
+    for impl in impls:
+        bundle = build_models(dtype=dtype, device="cuda", seed=0, frame_attention=impl)
+        before = fa.flash_bwd_launch_counts()
+        losses[impl], grad = null_text_inputs(bundle)()
+        after = fa.flash_bwd_launch_counts()
+        del bundle
+        torch.cuda.empty_cache()
+        launched = {k: after[k] - before[k] for k in after}
+        want = ATTN_GRAD_SITES if impl.startswith("flash") else 0
+        if any(n != want for n in launched.values()):
+            raise AssertionError(f"{impl}: flash backward launches {launched}, expected {want}")
+        if not torch.isfinite(grad).all():
+            raise AssertionError(f"{impl} gradient is not finite")
+        errs[impl] = (grad - ref).abs().max().item()
+        print(f"  {impl} ({mixed_precision}) against chunked (fp32): loss {losses[impl]:.6e} "
+              f"(ref {ref_loss:.6e}), max|d| of the gradient {errs[impl]:.4e} "
+              f"(max|ref| {scale:.4e})", flush=True)
+    tol = (GRAD_REL_TOL_F32 * scale if dtype == torch.float32
+           else BF16_FWD_RATIO * errs["chunked"])
+    print(f"  limit {tol:.4e}", flush=True)
+    bad = {impl: err for impl, err in errs.items() if not err <= tol}
+    if bad:
+        raise AssertionError(f"null-text gradient off the plain version: {bad} (limit {tol})")
+    return {"dtype": mixed_precision, "max_abs_ref": scale, "max_abs_err": errs, "tol": tol,
+            "loss": losses, "ref_loss": ref_loss}
+
+
+def run_main_path(frames, steps: int, mixed_precision: str, *, fast: bool = True,
+                  **kw) -> dict:
     """One edit through ``cli.run_videop2p.main`` with every launch count set
     to 0 just before and read just after; checks the output and, for the
     cached-source path, src_err == 0.0 exactly."""
@@ -436,14 +819,17 @@ def run_main_path(frames, steps: int, mixed_precision: str, **kw) -> dict:
     fa.reset_launch_count()
     gn.reset_launch_count()
     fa.reset_flash_launch_count()
+    fa.reset_flash_bwd_launch_counts()
     t0 = time.perf_counter()
-    res = run_edit(**RABBIT, fast=True, device="cuda", mixed_precision=mixed_precision,
+    res = run_edit(**RABBIT, fast=fast, device="cuda", mixed_precision=mixed_precision,
                    width=512, video_len=8, num_ddim_steps=steps, frames=frames,
                    save_gifs=False, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    bwd = fa.flash_bwd_launch_counts()
     launches = {"frame_attention": fa.launch_count(), "group_norm": gn.launch_count(),
-                "flash_attention": fa.flash_launch_count()}
+                "flash_attention": fa.flash_launch_count(),
+                "flash_bwd_dkv": bwd["dkv"], "flash_bwd_dq": bwd["dq"]}
     # the CLI resets the peak at each phase and records it
     peak = max(res["peak_gib"].values())
     videos = res["videos"]
@@ -457,6 +843,11 @@ def run_main_path(frames, steps: int, mixed_precision: str, **kw) -> dict:
               f"{cm['budget_gib']:.1f} GiB, temporal maps stored "
               f"{cm['temporal_maps_dtype']}, cross window {cm['cross_len']} steps, "
               f"self window {tuple(cm['self_window'])}", flush=True)
+    null_text = None
+    if res["null_text"] is not None:
+        null_text = {k: v.tolist() for k, v in res["null_text"].items()}
+        print(f"  null-text: inner steps {null_text['inner_steps']}, final losses "
+              f"{null_text['final_loss']}", flush=True)
     print(f"  launches: {launches}; peak memory {peak:.2f} GiB (by phase: "
           + ", ".join(f"{k} {v:.2f}" for k, v in res["peak_gib"].items())
           + f"); src_err {src_err!r}", flush=True)
@@ -468,7 +859,7 @@ def run_main_path(frames, steps: int, mixed_precision: str, **kw) -> dict:
         raise AssertionError(f"cached source stream is not x_0: src_err {src_err!r}")
     return {"mode": res["mode"], "steps": steps, "dtype": mixed_precision, "wall_s": wall,
             "timings": res["timings"], "launches": launches, "peak_gib": peak,
-            "peak_gib_by_phase": res["peak_gib"],
+            "peak_gib_by_phase": res["peak_gib"], "null_text": null_text,
             "src_err": src_err, "cached_maps": res["cached_maps"],
             "latents": res["latents"]}
 
@@ -476,85 +867,38 @@ def run_main_path(frames, steps: int, mixed_precision: str, **kw) -> dict:
 def expect_launches(run: dict, steps: int, frame_attention: str) -> None:
     """The launch counts of one main-path run: ATTN_SITES frame-attention
     launches per UNet forward on the chosen kernel (none on the other),
-    GroupNorm three per site; one forward per inversion and per edit step."""
-    forwards = 2 * steps
+    GroupNorm three per site. A fast edit runs one forward per inversion
+    and per edit step. Official mode also runs, per null-text outer step,
+    the cond forward, one forward per inner step and the advancing forward;
+    each inner step's backward launches the flash dK/dV and dQ kernels at
+    the ATTN_GRAD_SITES sites that depend on the embedding (under "flash"
+    and "flash_rect"; "auto" recomputes through the plain version)."""
+    inner = sum(run["null_text"]["inner_steps"]) if run["null_text"] else 0
+    forwards = 2 * steps + (2 * steps + inner if run["null_text"] else 0)
     want = {"frame_attention": 0, "flash_attention": 0,
-            "group_norm": GN_LAUNCHES_PER_CALL * GN_SITES * forwards}
+            "group_norm": GN_LAUNCHES_PER_CALL * GN_SITES * forwards,
+            "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
     kernel = {"auto": "frame_attention", "flash": "flash_attention",
               "flash_rect": "flash_attention"}[frame_attention]
     want[kernel] = ATTN_SITES * forwards
+    if frame_attention != "auto":
+        want["flash_bwd_dkv"] = want["flash_bwd_dq"] = ATTN_GRAD_SITES * inner
     if run["launches"] != want:
         raise AssertionError(f"kernel launches {run['launches']}, expected {want}")
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--steps", type=int, default=4,
-                        help="DDIM steps of every main-path run's inversion and edit")
-    parser.add_argument("--mixed_precision", choices=("fp32", "bf16"), default="fp32",
-                        help="compute dtype of the main path (the CLI's default: fp32)")
-    parser.add_argument("--profile", action="store_true",
-                        help="also trace one cached edit-batch UNet forward with "
-                             "torch.profiler")
-    parser.add_argument("--frame_attention", nargs="+", default=["auto"],
-                        choices=("auto", "flash_rect", "flash"),
-                        help="the frame-attention implementations to profile")
-    parser.add_argument("--out", type=str, default=None,
-                        help="also write the measurements to this JSON file")
-    args = parser.parse_args()
-
-    # 1. probe
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
-              file=sys.stderr)
-        return 2
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"card: {card}", flush=True)
-    print(f"torch {torch.__version__}, cuda {torch.version.cuda}", flush=True)
-
+def fast_paths(args, frames, dtype, checks: dict) -> tuple:
+    """Phases 4-9: the fast edit's paths. Returns (runs, failures, records)."""
     from videop2p_tpu_torch.cli.run_videop2p import build_models
-    from videop2p_tpu_torch.ops import _build
-
-    # 2. build
-    t0 = time.perf_counter()
-    _build.build_all()
-    build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.1f} s ({', '.join(_build.KERNEL_SOURCES)})", flush=True)
-
-    # 3. kernels against their plain versions
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    checks = {"frame_attention": [], "group_norm": [], "flash_attention": []}
-    print("kernel checks:", flush=True)
-    for dtype in (torch.float32, torch.bfloat16):
-        # B = 3: the live edit's batch; B = 2, 1: the cached edit's and its
-        # capture's
-        for shape in ((3, 8, 8, 4096, 40), (3, 8, 8, 1024, 80), (2, 8, 8, 4096, 40),
-                      (1, 8, 8, 4096, 40), (2, 8, 8, 1024, 80), (1, 3, 2, 1000, 40),
-                      (2, 2, 4, 1100, 64)):
-            timed = shape[0] == 3
-            checks["frame_attention"].append(check_attention(gen, dtype, *shape, timed))
-            checks["flash_attention"] += check_flash(gen, dtype, *shape, timed)
-        for n, rows, c, eps, act in ((3, 8 * 4096, 640, 1e-5, "silu"),
-                                     (24, 4096, 320, 1e-6, "none"),
-                                     (3, 8 * 64, 1280, 1e-5, "silu"),
-                                     (2, 1000, 96, 1e-5, "silu")):
-            timed = c in (640, 320)
-            checks["group_norm"].append(
-                check_group_norm(gen, dtype, n, rows, c, eps, act, timed))
-    torch.cuda.empty_cache()
 
     # 4. small edits, card against cpu
     print("small edit:", flush=True)
     small_err = {mode: small_edit_check(live_source=mode == "live")
                  for mode in ("cached", "live")}
-
-    frames = np.random.default_rng(0).integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)
-    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[args.mixed_precision]
     # 5. the main path: the cached-source fast edit, "auto" frame attention,
     # after one untimed 1-step edit that takes the first-call costs
     # (cuDNN's algorithm choice, allocator growth)
-    print(f"main path (SD-1.5 width, 512², 8 frames):", flush=True)
+    print("main path (SD-1.5 width, 512², 8 frames):", flush=True)
     run_main_path(frames, 1, args.mixed_precision)
     runs = {"auto": run_main_path(frames, args.steps, args.mixed_precision)}
     if runs["auto"]["mode"] != "cached":
@@ -592,6 +936,165 @@ def main() -> int:
     # 9. profile
     profiled = ([profile_edit_forward(args.mixed_precision, impl)
                  for impl in args.frame_attention] if args.profile else None)
+    return runs, failures, {"small_edit_err": small_err, "forward": forward,
+                            "profile": profiled}
+
+
+def official_paths(args, frames, dtype) -> tuple:
+    """Phases 4b and 10 (path "official"), 11 and 12 (path
+    "official_flash"). Returns (runs, failures, records)."""
+    from videop2p_tpu_torch.cli.run_videop2p import build_models, main as run_edit
+
+    runs, failures, records = {}, [], {}
+    if "official" in args.paths:
+        # 4b. the small official edit, card against cpu
+        print("small official edit:", flush=True)
+        on_cpu = run_edit(**SMALL_OFFICIAL, device="cpu",
+                          bundle=build_models(tiny=True, device="cpu", seed=3))
+        records["small_official"] = {impl: small_official_check(impl, on_cpu)
+                                     for impl in ("auto", "flash_rect")}
+        # 10. the official main path, after an untimed 1-step, 1-inner-step run
+        print(f"official main path (SD-1.5 width, 512², 8 frames, "
+              f"{args.inner_steps} inner steps):", flush=True)
+        run_main_path(frames, 1, args.mixed_precision, fast=False, num_inner_steps=1)
+        runs["official"] = run_main_path(frames, args.steps, args.mixed_precision,
+                                         fast=False, num_inner_steps=args.inner_steps)
+        expect_launches(runs["official"], args.steps, "auto")
+    if "official_flash" in args.paths:
+        # 11. the official path through the flash kernels, fewer inner steps,
+        # against "auto" at the same count; all three run before a failure
+        print(f"official path under each kernel ({FLASH_INNER_STEPS} inner steps):",
+              flush=True)
+        for impl in ("auto", "flash_rect", "flash"):
+            bundle = build_models(dtype=dtype, device="cuda", seed=0, frame_attention=impl)
+            run = runs[f"official_{impl}"] = run_main_path(
+                frames, args.steps, args.mixed_precision, fast=False, bundle=bundle,
+                num_inner_steps=FLASH_INNER_STEPS)
+            del bundle
+            expect_launches(run, args.steps, impl)
+            if impl == "auto":
+                continue
+            ref = runs["official_auto"]
+            loss_d = max(abs(a - b) / abs(b) for a, b in zip(
+                run["null_text"]["final_loss"], ref["null_text"]["final_loss"]))
+            d = (run["latents"] - ref["latents"]).abs()
+            run["final_loss_rel_diff_vs_auto"] = loss_d
+            run["max_abs_diff_vs_auto"] = d.max().item()
+            print(f"  {impl} against auto: final losses max rel |d| {loss_d:.4e}; edited "
+                  f"latents max|d| {d.max().item():.4e}, mean|d| {d.mean().item():.4e} "
+                  "(not gated: phase 12 holds the gradient)", flush=True)
+            if not np.isfinite(d.max().item()):
+                failures.append(f"official {impl} edit is not finite")
+        # 12. one full-CFG edit-batch forward and one null-text gradient under
+        # each kernel against the plain version
+        print("full-CFG edit-batch forward against the plain version:", flush=True)
+        records["forward_full_cfg"] = forward_check(args.mixed_precision, full_cfg=True)
+        print("null-text gradient against the plain version:", flush=True)
+        records["null_text_grad"] = null_text_grad_check(args.mixed_precision)
+    if args.profile and "official" in args.paths:
+        records["profile_null_text"] = [profile_null_text_step(args.mixed_precision, impl)
+                                        for impl in args.frame_attention]
+    for run in runs.values():
+        del run["latents"]
+    torch.cuda.empty_cache()
+    return runs, failures, records
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--steps", type=int, default=4,
+                        help="DDIM steps of every main-path run's inversion and edit "
+                             "(official mode: also its null-text outer steps)")
+    parser.add_argument("--inner_steps", type=int, default=10,
+                        help="null-text inner steps of the official main path (phase 10; "
+                             "the reference's 10)")
+    parser.add_argument("--mixed_precision", choices=("fp32", "bf16"), default="fp32",
+                        help="compute dtype of the main path (the CLI's default: fp32)")
+    parser.add_argument("--paths", nargs="*", default=list(PATHS), choices=PATHS,
+                        help="the paths to drive after the kernel checks (default: all; "
+                             "none: the kernel checks only)")
+    parser.add_argument("--profile", action="store_true",
+                        help="also trace with torch.profiler one cached edit-batch UNet "
+                             "forward (path fast) and one null-text inner step (path "
+                             "official)")
+    parser.add_argument("--frame_attention", nargs="+", default=["auto"],
+                        choices=("auto", "flash_rect", "flash"),
+                        help="the frame-attention implementations to profile")
+    parser.add_argument("--out", type=str, default=None,
+                        help="also write the measurements to this JSON file")
+    args = parser.parse_args()
+
+    # 1. probe
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 2
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__}, cuda {torch.version.cuda}", flush=True)
+
+    from videop2p_tpu_torch.ops import _build
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.build_all()
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s ({', '.join(_build.KERNEL_SOURCES)})", flush=True)
+
+    # 3. kernels against their plain versions
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    checks = {"frame_attention": [], "group_norm": [], "flash_attention": [],
+              "flash_attention_bwd": [], "kernel_grads": {}}
+    print("kernel checks:", flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        # B = 3: the live edit's batch; B = 2, 1: the cached edit's and its
+        # capture's; B = 4: the full-CFG edit's; B = 1 also the inversion's
+        # and null-text's
+        for shape in ((3, 8, 8, 4096, 40), (3, 8, 8, 1024, 80), (2, 8, 8, 4096, 40),
+                      (1, 8, 8, 4096, 40), (2, 8, 8, 1024, 80), (4, 8, 8, 4096, 40),
+                      (4, 8, 8, 1024, 80), (1, 8, 8, 1024, 80), (1, 3, 2, 1000, 40),
+                      (2, 2, 4, 1100, 64)):
+            timed = shape[0] == 3
+            checks["frame_attention"].append(check_attention(gen, dtype, *shape, timed))
+            checks["flash_attention"] += check_flash(gen, dtype, *shape, timed)
+        # the resnets' slabs (N streams, frames × pixels, C) and the
+        # transformers' (N · frames, pixels, C) at the live edit's batch
+        # (timed), the full-CFG edit's and null-text's, and two ragged ones
+        for n, rows, c, eps, act, timed in ((3, 8 * 4096, 640, 1e-5, "silu", True),
+                                            (24, 4096, 320, 1e-6, "none", True),
+                                            (4, 8 * 4096, 640, 1e-5, "silu", False),
+                                            (4, 8 * 4096, 320, 1e-5, "silu", False),
+                                            (32, 4096, 320, 1e-6, "none", False),
+                                            (1, 8 * 4096, 320, 1e-5, "silu", False),
+                                            (8, 4096, 320, 1e-6, "none", False),
+                                            (3, 8 * 64, 1280, 1e-5, "silu", False),
+                                            (2, 1000, 96, 1e-5, "silu", False)):
+            checks["group_norm"].append(
+                check_group_norm(gen, dtype, n, rows, c, eps, act, timed))
+    torch.cuda.empty_cache()
+    # 3b. the flash backward against the plain backward (B = 1: null-text's
+    # batch; B = 4: the full-CFG edit's), and the gradients through the
+    # fused frame-attention and GroupNorm wrappers
+    print("backward checks:", flush=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((1, 8, 8, 4096, 40), (1, 8, 8, 1024, 80), (4, 8, 8, 4096, 40),
+                      (1, 3, 2, 1000, 40), (2, 2, 4, 1100, 64)):
+            timed = shape[:2] == (1, 8)
+            checks["flash_attention_bwd"] += check_flash_bwd(gen, dtype, *shape, timed)
+        checks["kernel_grads"][str(dtype).replace("torch.", "")] = \
+            check_kernel_grads(gen, dtype)
+
+    frames = np.random.default_rng(0).integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[args.mixed_precision]
+    runs, failures, records = {}, [], {}
+    if "fast" in args.paths:
+        runs, failures, records = fast_paths(args, frames, dtype, checks)
+    if {"official", "official_flash"} & set(args.paths):
+        off_runs, off_failures, off_records = official_paths(args, frames, dtype)
+        runs.update(off_runs)
+        failures += off_failures
+        records.update(off_records)
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
@@ -608,28 +1111,60 @@ def main() -> int:
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "shape": rec["shape"], "dtype": rec["dtype"]}
 
-    kernels = [
-        entry("frame_attention", "frame_attention", big_attn, "auto", "frame_attention",
-              "videop2p_tpu_torch/ops/csrc/frame_attention.cu",
-              "videop2p_tpu/ops/attention.py:111"),
-        entry("group_norm", "group_norm", [3, 8 * 4096, 640], "auto", "group_norm",
-              "videop2p_tpu_torch/ops/csrc/groupnorm.cu",
-              "videop2p_tpu/ops/groupnorm.py:69"),
-        entry("flash_rect_frame_attention", "flash_attention", big_attn, "flash_rect",
-              "flash_attention", "videop2p_tpu_torch/ops/csrc/flash_attention.cu",
-              "videop2p_tpu/ops/attention.py:94"),
-        entry("flash_frame_attention", "flash_attention", big_attn, "flash",
-              "flash_attention", "videop2p_tpu_torch/ops/csrc/flash_attention.cu",
-              "videop2p_tpu/ops/attention.py:81"),
-    ]
+    def bwd_entry(key, grads, replaces):
+        """A flash backward kernel's line: its check at null-text's largest
+        shape through flash_rect (its plain version and library call compute
+        all three gradients), and its launches on the official flash_rect
+        path."""
+        rec = next(c for c in checks["flash_attention_bwd"]
+                   if c["wrapper"] == "flash_rect_frame_attention"
+                   and c["shape"] == [1, 8, 8, 4096, 40] and c["dtype"] == dname)
+        return {"name": f"flash_attention_bwd_{key}", "route": "cuda",
+                "source": "videop2p_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                "replaces": replaces,
+                "launches": runs["official_flash_rect"]["launches"][f"flash_bwd_{key}"],
+                "max_abs_err": max(rec["max_abs_err"][g] for g in grads),
+                "ms": rec["ms"][key], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"][key], "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"], "shape": rec["shape"],
+                "dtype": rec["dtype"]}
+
+    # each kernel's launches come from the main path that runs it: the fast
+    # edit where it ran, else official mode
+    auto = "auto" if "auto" in runs else "official" if "official" in runs else None
+    rect = ("flash_rect" if "flash_rect" in runs else
+            "official_flash_rect" if "official_flash_rect" in runs else None)
+    full = ("flash" if "flash" in runs else
+            "official_flash" if "official_flash" in runs else None)
+    kernels = []
+    if auto:
+        kernels += [
+            entry("frame_attention", "frame_attention", big_attn, auto, "frame_attention",
+                  "videop2p_tpu_torch/ops/csrc/frame_attention.cu",
+                  "videop2p_tpu/ops/attention.py:111"),
+            entry("group_norm", "group_norm", [3, 8 * 4096, 640], auto, "group_norm",
+                  "videop2p_tpu_torch/ops/csrc/groupnorm.cu",
+                  "videop2p_tpu/ops/groupnorm.py:69")]
+    if rect:
+        kernels.append(entry("flash_rect_frame_attention", "flash_attention", big_attn, rect,
+                             "flash_attention", "videop2p_tpu_torch/ops/csrc/flash_attention.cu",
+                             "videop2p_tpu/ops/attention.py:94"))
+    if full:
+        kernels.append(entry("flash_frame_attention", "flash_attention", big_attn, full,
+                             "flash_attention", "videop2p_tpu_torch/ops/csrc/flash_attention.cu",
+                             "videop2p_tpu/ops/attention.py:81"))
+    if "official_flash_rect" in runs:
+        kernels += [
+            bwd_entry("dkv", ("dk", "dv"),
+                      "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
+            bwd_entry("dq", ("dq",), "jax/experimental/pallas/ops/tpu/flash_attention.py:1287")]
     if args.out:
         import os
 
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
-            json.dump({"card": card, "kind": kind, "build_s": build_s,
-                       "checks": checks, "small_edit_err": small_err, "forward": forward,
-                       "profile": profiled, "main_path": runs}, fh, indent=1)
+            json.dump({"card": card, "kind": kind, "build_s": build_s, "checks": checks,
+                       "main_path": runs, **records}, fh, indent=1)
     if failures:
         print("chip_smoke failed: " + "; ".join(failures), file=sys.stderr)
         return 1

@@ -200,7 +200,7 @@ def test_cached_edit_matches_jax_on_one_capture(setup):
             num_inference_steps=STEPS, ctx=s["jctx"], source_uses_cfg=False,
             cached_source=c))(s["params"], jtraj[-1], jcached)
     got = edit_sample(s["pfn"], s["psched"], t(jtraj[-1]), t(s["cond"]), t(s["uncond"]),
-                      num_inference_steps=STEPS, ctx=s["pctx"],
+                      num_inference_steps=STEPS, ctx=s["pctx"], source_uses_cfg=False,
                       cached_source=_port_cached(jcached))
     np.testing.assert_allclose(np32(got), np32(want), atol=2e-4)
     np.testing.assert_array_equal(np32(got[0]), s["x0"][0])
@@ -241,7 +241,7 @@ def test_cached_matches_live_fast_without_controller(setup):
         s["pfn"], s["psched"], t(s["x0"]), t(s["cond"][:1]), t(s["cond"]),
         t(s["uncond"]), None, num_inference_steps=STEPS)
     live = edit_sample(s["pfn"], s["psched"], traj[-1], t(s["cond"]), t(s["uncond"]),
-                       num_inference_steps=STEPS)
+                       num_inference_steps=STEPS, source_uses_cfg=False)
     np.testing.assert_allclose(np32(cached_out[1]), np32(live[1]), atol=1e-5)
     assert np.abs(np32(cached_out[0]) - s["x0"][0]).max() == 0.0
 

@@ -2,6 +2,10 @@
 an NVIDIA card. Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false.
 
+Gradients: the wrappers are torch.autograd.Functions on a CUDA tensor; the
+fused and GroupNorm backward recompute through the plain versions, the
+flash backward runs its own kernels.
+
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with the card and no JAX: ``python -m pytest --noconftest
 tests/test_torch_cuda.py -m cuda -q`` (tests/conftest.py configures JAX).
@@ -101,3 +105,69 @@ def test_cuda_flash_dispatch_raises_on_a_head_dim_the_kernel_does_not_take(cuda,
     with pytest.raises(ValueError, match="head dim 256"):
         fa.make_frame_attention_fn(impl)(q, k, k)
     assert fa.flash_launch_count() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wrapper", ["fused_frame_attention", "flash_frame_attention",
+                                     "flash_rect_frame_attention"])
+def test_cuda_attention_wrapper_gradients_match_plain(cuda, dtype, wrapper):
+    """A wrapper whose inputs require grad returns an output with a grad_fn,
+    and its gradients equal the plain version's: the fused kernel's backward
+    recomputes through the chunked plain version (so its gradients are the
+    plain version's autograd in the same dtype); the flash wrappers' runs
+    the dK/dV and dQ kernels, held to the plain backward in float32 (limits
+    relative to the largest gradient: float32 1e-4, bfloat16 2^-7)."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    fn = getattr(fa, wrapper)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    b, f, h, n, d = 1, 3, 2, 1000, 40
+    q = torch.randn(b, f, n, h, d, generator=gen, device=cuda).to(dtype).transpose(2, 3)
+    k = torch.randn(b, n, h, d, generator=gen, device=cuda).to(dtype).transpose(1, 2)
+    v = torch.randn(b, n, h, d, generator=gen, device=cuda).to(dtype).transpose(1, 2)
+    do = torch.randn(b, f, h, n, d, generator=gen, device=cuda).to(dtype)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    before = fa.flash_bwd_launch_counts()
+    out = fn(*leaves)
+    assert out.grad_fn is not None
+    out.backward(do)
+    launched = {key: val - before[key] for key, val in fa.flash_bwd_launch_counts().items()}
+    assert launched == ({"dkv": 0, "dq": 0} if wrapper == "fused_frame_attention"
+                        else {"dkv": 1, "dq": 1})
+    if wrapper == "fused_frame_attention":
+        ref_leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        fa.chunked_frame_attention(*ref_leaves).backward(do)
+        refs = [x.grad.float() for x in ref_leaves]
+    else:
+        o, m, l = fa.attention_reference(q.float(), k[:, None].float(), v[:, None].float(),
+                                         residuals=True)
+        dq, dk, dv = fa.attention_reference_bwd(q.float(), k[:, None].float(),
+                                                v[:, None].float(), o, do.float(), m, l)
+        refs = [dq, dk[:, 0], dv[:, 0]]
+    for leaf, ref in zip(leaves, refs):
+        tol = (1e-4 if dtype == torch.float32 else 2.0 ** -7) * ref.abs().max().item()
+        assert (leaf.grad.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_group_norm_gradients_match_plain(cuda):
+    """The GroupNorm wrapper on a CUDA tensor returns an output with a
+    grad_fn, and its gradients in x, scale and bias are the plain version's
+    autograd (its backward recomputes through it)."""
+    from videop2p_tpu_torch.ops import groupnorm as gn
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    inputs = [torch.randn(2, 1000, 96, generator=gen, device=cuda),
+              torch.randn(96, generator=gen, device=cuda),
+              torch.randn(96, generator=gen, device=cuda)]
+    g = torch.randn(2, 1000, 96, generator=gen, device=cuda)
+    grads = []
+    for fn in (gn.fused_group_norm, gn.group_norm_reference):
+        leaves = [x.detach().requires_grad_(True) for x in inputs]
+        out = fn(*leaves, num_groups=32, act="silu")
+        assert out.grad_fn is not None
+        out.backward(g)
+        grads.append([x.grad for x in leaves])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)

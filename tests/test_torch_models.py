@@ -181,5 +181,6 @@ def test_edit_sample_cfg_layouts_match_jax():
             num_inference_steps=2, source_uses_cfg=False))(
                 variables, x_t, cond, uncond)
     got = edit_sample(make_unet_fn(pmodel), DDIMScheduler.create_sd(), t(x_t),
-                      t(cond), t(uncond), num_inference_steps=2)
+                      t(cond), t(uncond), num_inference_steps=2,
+                      source_uses_cfg=False)
     np.testing.assert_allclose(np32(got), np32(want), atol=ATOL, rtol=RTOL)

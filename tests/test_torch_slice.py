@@ -133,14 +133,14 @@ def test_port_imports_nothing_of_jax():
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """Official mode, and a checkpoint on disk (which random weights must
-    not silently replace), raise."""
+    """Official mode's "hybrid" null-text mode, and a checkpoint on disk
+    (which random weights must not silently replace), raise."""
     from videop2p_tpu_torch.cli.run_videop2p import main
 
     kw = dict(RABBIT, device="cpu", tiny=True, video_len=2, num_ddim_steps=2,
               frames=np.zeros((2, 16, 16, 3), np.uint8), save_gifs=False)
-    with pytest.raises(NotImplementedError, match="official mode"):
-        main(**kw, fast=False, live_source=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        main(**kw, fast=False, null_text_mode="hybrid")
     (tmp_path / "unet").mkdir()
     kw["pretrained_model_path"] = str(tmp_path)
     with pytest.raises(NotImplementedError, match="holds a checkpoint"):

@@ -1,19 +1,29 @@
 """Stage-2 attention-controlled editing entry point (port of
-``videop2p_tpu/cli/run_videop2p.py``, fast mode).
+``videop2p_tpu/cli/run_videop2p.py``).
 
 Flow: frames → VAE encode (posterior mean) → CLIP text encode → controller
 (refine or replace, equalizer, LocalBlend) → the edit → VAE decode → GIFs of
-the reconstruction and the edit. The edit is, by default, the cached-source
-fast edit (``pipelines/fast.py:cached_fast_edit``): a DDIM inversion that
-captures the source stream's attention maps, then a controlled edit of the
-P − 1 edit streams only, stream 0 replaying the inversion exactly. It falls
-back to the live-source edit, as the JAX package does, when the captured
-maps exceed the budget. ``--live_source`` runs the live-source edit: a plain
-DDIM inversion, then one ``edit_sample`` with the fast CFG layout (the
-source stream in the batch, replaying its cond-only prediction).
+the reconstruction and the edit. The edit is one of:
+
+  * official mode (no ``--fast``, the reference's): a DDIM inversion, then
+    ``pipelines/sampling.py:official_edit``: null-text optimization of the
+    source stream's uncond embedding (a backward through the UNet per inner
+    step), then the controlled edit in the full CFG layout with those
+    embeddings injected;
+  * ``--fast``: by default the cached-source fast edit
+    (``pipelines/fast.py:cached_fast_edit``): a DDIM inversion that
+    captures the source stream's attention maps, then a controlled edit of
+    the P − 1 edit streams only, stream 0 replaying the inversion exactly.
+    It falls back to the live-source edit, as the JAX package does, when
+    the captured maps exceed the budget;
+  * ``--fast --live_source``: a plain DDIM inversion, then one
+    ``edit_sample`` with the fast CFG layout (the source stream in the
+    batch, replaying its cond-only prediction). ``--eta`` > 0 (stochastic
+    DDIM steps, noise seeded from ``--seed``) takes this path in fast mode,
+    as the JAX CLI does: the cached replay is deterministic.
 
 Run:  python -m videop2p_tpu_torch.cli.run_videop2p \\
-          --config configs/rabbit-jump-p2p.yaml --fast [--live_source]
+          --config configs/rabbit-jump-p2p.yaml [--fast [--live_source]]
 
 The models are random-init at SD-1.5 width (seeded), since the repository
 holds no checkpoint. The run is on CUDA unless ``--device cpu`` is given.
@@ -49,8 +59,12 @@ from videop2p_tpu_torch.pipelines.fast import (
     capture_bytes,
     choose_cached_maps,
 )
-from videop2p_tpu_torch.pipelines.inversion import ddim_inversion
-from videop2p_tpu_torch.pipelines.sampling import edit_sample, make_unet_fn
+from videop2p_tpu_torch.pipelines.inversion import (
+    NULL_TEXT_PRECISIONS,
+    check_null_text_options,
+    ddim_inversion,
+)
+from videop2p_tpu_torch.pipelines.sampling import edit_sample, make_unet_fn, official_edit
 from videop2p_tpu_torch.utils.tokenizers import WordTokenizer
 
 __all__ = ["ModelBundle", "build_models", "encode_prompts", "main",
@@ -166,23 +180,34 @@ def main(
     frames: Optional[np.ndarray] = None,
     bundle: Optional[ModelBundle] = None,
     save_gifs: bool = True,
+    num_inner_steps: int = 10,
+    null_text_precision: str = "fp32",
+    null_text_mode: str = "optimize",
+    eta: float = 0.0,
     **unused,
 ) -> Dict[str, Any]:
-    """Run the fast edit: cached-source by default, live-source with
-    ``live_source``. ``frames`` (F, H, W, 3) uint8 replaces loading
-    ``image_path``; ``bundle`` replaces the random-init models (its modules
-    must already be on ``device``). Returns the edited latents (stream 0 the
+    """Run the edit: official mode unless ``fast``; with ``fast`` the
+    cached-source edit, or the live-source one with ``live_source``.
+    ``frames`` (F, H, W, 3) uint8 replaces loading ``image_path``; ``bundle``
+    replaces the random-init models (its modules must already be on
+    ``device``). ``num_inner_steps``, ``null_text_precision`` ("fp32" or
+    "mixed": the null-text forwards and backward on a bf16 clone of the
+    UNet) and ``null_text_mode`` ("optimize" or "amortized") set official
+    mode's null-text optimization. ``eta`` > 0 makes the edit's DDIM steps
+    stochastic, their noise drawn from a generator seeded with ``seed`` (in
+    fast mode it takes the live-source edit). Returns the edited latents
+    (stream 0 the
     source's reconstruction), the inversion's ``x_0`` and ``x_t``, the
-    decoded videos (2, F, H, W, 3) in [0, 1], the mode run (``"cached"`` or
-    ``"live"``), the cached-maps decision, the phase times in seconds and
-    the GIF paths written."""
+    decoded videos (2, F, H, W, 3) in [0, 1], the mode run (``"official"``,
+    ``"cached"`` or ``"live"``), the cached-maps decision, the null-text
+    record (official mode: ``final_loss`` and ``inner_steps`` per outer
+    step, else None), the phase times in seconds, each phase's peak memory
+    on the card, and the GIF paths written."""
     del unused
-    if not fast:
-        raise NotImplementedError(
-            "official mode (null-text optimization, no --fast) is not ported "
-            "yet: ROADMAP, 'official mode with the kernels' backward passes'")
     if mixed_precision not in _DTYPES:
         raise ValueError(f"mixed_precision must be one of {sorted(_DTYPES)}")
+    if not fast:
+        check_null_text_options(null_text_precision, null_text_mode)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
@@ -228,8 +253,10 @@ def main(
             self_replace_steps=self_replace_steps, blend_words=blend_words,
             equalizer_params=dict(eq_params) if eq_params else None,
             mask_th=MASK_TH, device=device)
-        mode, decision = "live", None
-        if not live_source:
+        mode, decision, null_stats = "live", None, None
+        if not fast:
+            mode = "official"
+        elif not live_source and eta == 0:
             # outside these windows the gates multiply the base maps out, so
             # nothing else is captured
             cross_len, self_window = capture_windows(ctx, num_ddim_steps)
@@ -264,24 +291,45 @@ def main(
             with _phase("ddim_inversion", timings, device, peaks):
                 trajectory = ddim_inversion(unet_fn, sched, latents, cond_src,
                                             num_inference_steps=num_ddim_steps)
-            with _phase("edit_sample", timings, device, peaks):
-                edited = edit_sample(unet_fn, sched, trajectory[-1], cond_all, uncond,
-                                     num_inference_steps=num_ddim_steps,
-                                     guidance_scale=GUIDANCE_SCALE, ctx=ctx)
+            generator = torch.Generator(device).manual_seed(seed) if eta > 0 else None
+            if mode == "official":
+                edited, null_stats = official_edit(
+                    unet_fn, sched, trajectory, cond_all, uncond,
+                    num_inference_steps=num_ddim_steps, guidance_scale=GUIDANCE_SCALE,
+                    ctx=ctx, num_inner_steps=num_inner_steps,
+                    null_text_precision=null_text_precision,
+                    null_text_mode=null_text_mode, eta=eta, generator=generator,
+                    source_embedding=cond_src,
+                    phase=lambda name: _phase(name, timings, device, peaks))
+                print(f"[p2p] null-text ({null_text_mode}/{null_text_precision}): "
+                      f"{int(null_stats['inner_steps'].sum())} inner Adam steps across "
+                      f"{num_ddim_steps} outer steps, final loss "
+                      f"{float(null_stats['final_loss'][-1]):.3e}")
+            else:
+                with _phase("edit_sample", timings, device, peaks):
+                    edited = edit_sample(unet_fn, sched, trajectory[-1], cond_all, uncond,
+                                         num_inference_steps=num_ddim_steps,
+                                         guidance_scale=GUIDANCE_SCALE, ctx=ctx,
+                                         source_uses_cfg=False, eta=eta,
+                                         generator=generator)
         with _phase("vae_decode", timings, device, peaks):
             videos = (decode_video(bundle.vae, edited).float() + 1.0) / 2.0
 
-    gifs = _write_gifs(videos, pretrained_model_path, save_name) if save_gifs else ()
+    gifs = (_write_gifs(videos, pretrained_model_path, save_name, fast)
+            if save_gifs else ())
     print("[p2p] phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
     return {"latents": edited, "x_0": trajectory[0], "x_t": trajectory[-1],
             "videos": videos, "mode": mode, "cached_maps": decision,
-            "timings": timings, "peak_gib": peaks, "gifs": gifs}
+            "null_text": null_stats, "timings": timings, "peak_gib": peaks,
+            "gifs": gifs}
 
 
-def _write_gifs(videos: torch.Tensor, pretrained_model_path: str, save_name: str):
+def _write_gifs(videos: torch.Tensor, pretrained_model_path: str, save_name: str,
+                fast: bool):
     """GIFs of the reconstruction and the edit, 4 fps, under
-    ``<pretrained_model_path>/results_dpFalse``; skipped with a note when
-    imageio is not installed."""
+    ``<pretrained_model_path>/results_dpFalse`` (names suffixed ``_fast`` in
+    fast mode, as the JAX CLI's); skipped with a note when imageio is not
+    installed."""
     try:
         import imageio.v3 as iio
     except ImportError:
@@ -290,8 +338,9 @@ def _write_gifs(videos: torch.Tensor, pretrained_model_path: str, save_name: str
     out_dir = os.path.join(pretrained_model_path, "results_dpFalse")
     os.makedirs(out_dir, exist_ok=True)
     frames = (videos.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
-    paths = (os.path.join(out_dir, "inversion_fast.gif"),
-             os.path.join(out_dir, f"{save_name}_fast.gif"))
+    suffix = "_fast" if fast else ""
+    paths = (os.path.join(out_dir, f"inversion{suffix}.gif"),
+             os.path.join(out_dir, f"{save_name}{suffix}.gif"))
     for video, path in zip(frames, paths):
         iio.imwrite(path, video, extension=".gif", duration=250, loop=0)
     print(f"[p2p] wrote {paths[0]} and {paths[1]}")
@@ -301,7 +350,9 @@ def _write_gifs(videos: torch.Tensor, pretrained_model_path: str, save_name: str
 if __name__ == "__main__":
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, default="./configs/rabbit-jump-p2p.yaml")
-    parser.add_argument("--fast", action="store_true")
+    parser.add_argument("--fast", action="store_true",
+                        help="the fast edit (default: official mode, null-text "
+                             "optimization and the full-CFG edit)")
     parser.add_argument("--live_source", action="store_true",
                         help="keep the live source stream in fast mode "
                              "(default: the cached-source edit)")
@@ -316,12 +367,32 @@ if __name__ == "__main__":
     parser.add_argument("--steps", type=int, default=NUM_DDIM_STEPS,
                         help="DDIM steps of the inversion and of the edit")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--eta", type=float, default=0.0,
+                        help="DDIM η of the edit (default 0, deterministic; > 0 "
+                             "draws its noise from --seed)")
+    parser.add_argument("--num_inner_steps", type=int, default=None,
+                        help="official mode: inner Adam steps per outer step "
+                             "(default 10, the reference's)")
+    # defaults are None so that a config file's value wins when a flag is
+    # unset (the JAX CLI's add_null_text_args)
+    parser.add_argument("--null_text_precision", type=str, default=None,
+                        choices=list(NULL_TEXT_PRECISIONS),
+                        help="official mode: fp32 (default) or mixed (bf16 UNet "
+                             "forwards and backward; scheduler, Adam and loss in "
+                             "fp32)")
+    parser.add_argument("--null_text_mode", type=str, default=None,
+                        choices=["optimize", "amortized"],
+                        help="official mode: optimize (default, the reference's "
+                             "inner Adam loop) or amortized (uncond := cond, one "
+                             "forward per outer step)")
     args = parser.parse_args()
     import yaml
 
     with open(args.config) as fh:
         cfg = yaml.safe_load(fh)
-    if args.mixed_precision is not None:
-        cfg["mixed_precision"] = args.mixed_precision
+    for key in ("mixed_precision", "num_inner_steps", "null_text_precision",
+                "null_text_mode"):
+        if getattr(args, key) is not None:
+            cfg[key] = getattr(args, key)
     main(**cfg, fast=args.fast, live_source=args.live_source, device=args.device,
-         tiny=args.tiny, seed=args.seed, num_ddim_steps=args.steps)
+         tiny=args.tiny, seed=args.seed, num_ddim_steps=args.steps, eta=args.eta)

@@ -1,5 +1,5 @@
-"""DDIM scheduler (port of ``videop2p_tpu/core/ddim.py``: η = 0, epsilon
-prediction, linear or scaled-linear betas).
+"""DDIM scheduler (port of ``videop2p_tpu/core/ddim.py``: η ≥ 0 with the
+caller's noise, epsilon prediction, linear or scaled-linear betas).
 
 Every step is an fp32 island: ``model_output`` and ``sample`` are cast to
 float32 on entry and the ᾱ-coefficient math runs in float32, whatever the
@@ -99,11 +99,22 @@ class DDIMScheduler:
             value = self.final_alpha_cumprod
         return torch.tensor(value, dtype=torch.float32, device=device)
 
+    def variance(self, timestep: int, prev_timestep: int, device) -> torch.Tensor:
+        """σ_t² before η (JAX: ``variance``)."""
+        alpha_prod_t = self._alpha_prod(timestep, device)
+        alpha_prod_t_prev = self._alpha_prod(prev_timestep, device)
+        return ((1.0 - alpha_prod_t_prev) / (1.0 - alpha_prod_t)
+                * (1.0 - alpha_prod_t / alpha_prod_t_prev))
+
     def step(self, model_output: torch.Tensor, timestep: int, sample: torch.Tensor,
-             num_inference_steps: int, *, prev_timestep: Optional[int] = None
+             num_inference_steps: int, *, eta: float = 0.0,
+             variance_noise: Optional[torch.Tensor] = None,
+             prev_timestep: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One reverse DDIM step x_t → x_{t−Δ} at η = 0; returns
-        ``(prev_sample, pred_original_sample)``."""
+        """One reverse DDIM step x_t → x_{t−Δ}; returns
+        ``(prev_sample, pred_original_sample)``. With ``eta`` > 0 the caller
+        supplies ``variance_noise`` (standard normal, the sample's shape),
+        added with std η·σ_t (JAX: core/ddim.py:248)."""
         model_output, sample = _f32(model_output, sample)
         if prev_timestep is None:
             prev_timestep = timestep - self.num_train_timesteps // num_inference_steps
@@ -114,8 +125,14 @@ class DDIMScheduler:
         pred_x0 = (sample - torch.sqrt(beta_prod_t) * model_output) / torch.sqrt(alpha_prod_t)
         if self.clip_sample:
             pred_x0 = pred_x0.clamp(-1.0, 1.0)
-        direction = torch.sqrt(1.0 - alpha_prod_t_prev) * model_output
-        return torch.sqrt(alpha_prod_t_prev) * pred_x0 + direction, pred_x0
+        std_dev_t = eta * torch.sqrt(self.variance(timestep, prev_timestep, dev))
+        direction = torch.sqrt(1.0 - alpha_prod_t_prev - std_dev_t ** 2) * model_output
+        prev_sample = torch.sqrt(alpha_prod_t_prev) * pred_x0 + direction
+        if eta > 0:
+            if variance_noise is None:
+                raise ValueError("eta > 0 requires variance_noise")
+            prev_sample = prev_sample + std_dev_t * variance_noise.float()
+        return prev_sample, pred_x0
 
     def prev_step(self, model_output: torch.Tensor, timestep: int,
                   sample: torch.Tensor, num_inference_steps: int, *,

@@ -28,7 +28,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "torch_kernels")
-KERNEL_SOURCES = ("frame_attention.cu", "groupnorm.cu", "flash_attention.cu")
+KERNEL_SOURCES = ("frame_attention.cu", "groupnorm.cu", "flash_attention.cu",
+                  "flash_attention_bwd.cu")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -12,13 +12,17 @@ Port of ``videop2p_tpu/ops/attention.py``. Shapes: q (B, F, H, N, D); k, v
   * :func:`fused_frame_attention` — ``csrc/frame_attention.cu`` on a CUDA
     tensor (frames folded into the query axis, K/V tiles streamed through
     shared memory with an online softmax, CUDA cores), the chunked plain
-    version on a CPU tensor.
+    version on a CPU tensor. Its backward recomputes through the chunked
+    plain version (JAX's ``_fused_bwd``).
   * :func:`flash_frame_attention`, :func:`flash_rect_frame_attention` — the
     port of the stock Pallas flash-attention kernel: ``csrc/flash_attention.cu``
     (tensor cores in bf16) on a CUDA tensor, with K/V read per frame at batch
     stride 0 or with frames folded into the query length; their plain
     versions (``*_reference``, through :func:`attention_reference`) on a
-    CPU tensor.
+    CPU tensor. Their backward is the port of the stock backward kernels:
+    ``csrc/flash_attention_bwd.cu`` (dK/dV, then dQ) from the forward's
+    per-row residuals; :func:`attention_reference_bwd` is its plain
+    version.
   * :func:`make_frame_attention_fn` — the dispatch by implementation name;
     :func:`frame_attention` is its ``"auto"`` rule.
 """
@@ -27,10 +31,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
+from videop2p_tpu_torch.ops._autograd import recompute_grads
 from videop2p_tpu_torch.ops._build import bind
 
 __all__ = [
@@ -38,6 +43,7 @@ __all__ = [
     "chunked_frame_attention",
     "fused_frame_attention",
     "attention_reference",
+    "attention_reference_bwd",
     "flash_frame_attention",
     "flash_rect_frame_attention",
     "flash_frame_attention_reference",
@@ -48,6 +54,8 @@ __all__ = [
     "reset_launch_count",
     "flash_launch_count",
     "reset_flash_launch_count",
+    "flash_bwd_launch_counts",
+    "reset_flash_bwd_launch_counts",
     "FRAME_ATTENTION_IMPLS",
     "MIN_LARGE_TOKENS",
 ]
@@ -56,11 +64,13 @@ MIN_LARGE_TOKENS = 1024
 FRAME_ATTENTION_IMPLS = ("auto", "fused", "dense", "chunked", "flash", "flash_rect")
 _SOURCE = "frame_attention.cu"
 _FLASH_SOURCE = "flash_attention.cu"
+_FLASH_BWD_SOURCE = "flash_attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
 
 _launches = 0
 _flash_launches = 0
+_flash_bwd_launches = {"dkv": 0, "dq": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,7 +83,14 @@ def _launcher():
 @functools.lru_cache(maxsize=None)
 def _flash_launcher():
     return bind(_FLASH_SOURCE, "flash_attention_fwd",
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_bwd_launcher(name: str):
+    return bind(_FLASH_BWD_SOURCE, f"flash_attention_bwd_{name}",
+                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
 
 
@@ -96,6 +113,17 @@ def flash_launch_count() -> int:
 def reset_flash_launch_count() -> None:
     global _flash_launches
     _flash_launches = 0
+
+
+def flash_bwd_launch_counts() -> dict:
+    """Launches of the two flash backward kernels (``"dkv"``, ``"dq"``)
+    since the last :func:`reset_flash_bwd_launch_counts`."""
+    return dict(_flash_bwd_launches)
+
+
+def reset_flash_bwd_launch_counts() -> None:
+    for name in _flash_bwd_launches:
+        _flash_bwd_launches[name] = 0
 
 
 def dense_frame_attention(q: torch.Tensor, k: torch.Tensor,
@@ -153,17 +181,38 @@ def _frame_major_out(q: torch.Tensor) -> torch.Tensor:
     return torch.empty((b, f, n, h, d), device=q.device, dtype=q.dtype).transpose(2, 3)
 
 
+class _FusedFrameAttention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through
+    :func:`chunked_frame_attention` (JAX: ``_fused_bwd``,
+    videop2p_tpu/ops/attention.py:186-197)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _fused_launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return recompute_grads(chunked_frame_attention, ctx.saved_tensors,
+                                ctx.needs_input_grad, grad_out)
+
+
 def fused_frame_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
     """Frame attention through the CUDA kernel for a CUDA tensor, the chunked
     plain version for a CPU tensor. q, k and v may be strided views whose
     last dimension is contiguous; the output has the memory layout
     (B, F, N, H, D) seen as (B, F, H, N, D), so merging heads afterwards is
-    a view."""
+    a view. Differentiable: on a CUDA tensor the backward recomputes
+    through the chunked plain version, as the JAX package's does."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return chunked_frame_attention(q, k, v)
     _check_cuda_inputs("fused_frame_attention", q, k, v)
+    return _FusedFrameAttention.apply(q, k, v)
+
+
+def _fused_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     b, f, h, n, d = q.shape
     if b * h > 65535:
         raise ValueError(f"B·H = {b * h} exceeds the kernel's grid")
@@ -180,29 +229,77 @@ def fused_frame_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        q_chunk: int = 512) -> torch.Tensor:
+                        q_chunk: int = 512, residuals: bool = False):
     """Plain version of the flash kernel: softmax(q·kᵀ/√D)·v over q
     (…, Lq, D) and k, v (…, Lk, D) whose leading dimensions broadcast,
     chunked over queries. Scores and softmax in f32; the unnormalized
     probabilities are rounded to v's dtype before the product with v (the
     stock kernel's ``p.astype(v.dtype)``), the row sum is taken in f32, and
-    the output is in q's dtype."""
+    the output is in q's dtype. With ``residuals`` also returns the per-row
+    f32 maximum ``m`` of the scaled scores and the sum ``l`` of exp(s − m)
+    (…, Lq): the stock forward's ``save_residuals`` outputs."""
     scale = q.shape[-1] ** -0.5
     kt = k.float().transpose(-1, -2)
     vf = v.float()
-    outs = []
+    outs, ms, ls = [], [], []
     for i in range(0, q.shape[-2], q_chunk):
         s = torch.matmul(q[..., i:i + q_chunk, :].float(), kt) * scale
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        o = torch.matmul(p.to(v.dtype).float(), vf) / p.sum(dim=-1, keepdim=True)
-        outs.append(o.to(q.dtype))
-    return torch.cat(outs, dim=-2)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        outs.append((torch.matmul(p.to(v.dtype).float(), vf) / l).to(q.dtype))
+        ms.append(m[..., 0])
+        ls.append(l[..., 0])
+    out = torch.cat(outs, dim=-2)
+    if residuals:
+        return out, torch.cat(ms, dim=-1), torch.cat(ls, dim=-1)
+    return out
+
+
+def attention_reference_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, do: torch.Tensor, m: torch.Tensor,
+                            l: torch.Tensor, *, q_chunk: int = 512):
+    """Plain version of the flash backward kernels (JAX: the stock
+    ``mha_reference_bwd``, flash_attention.py:1615, with the kernels'
+    rounding points): from the forward's output ``o``, its residuals ``m``,
+    ``l`` (…, Lq) and the output gradient ``do``,
+
+        p  = exp(q·kᵀ·scale − m) / l            (f32)
+        dv = Σ_q p.to(do.dtype)ᵀ·do
+        ds = (do·vᵀ − Σ_d o·do) · p · scale     (f32)
+        dk = Σ_q ds.to(do.dtype)ᵀ·q,   dq = ds.to(k.dtype)·k
+
+    with f32 products of the (rounded) operands, over query chunks. k and v
+    may broadcast against q in their leading dimensions; dk and dv are then
+    summed back to k's and v's shapes. Returns (dq, dk, dv) in q's, k's and
+    v's dtypes."""
+    scale = q.shape[-1] ** -0.5
+    kf, vf = k.float(), v.float()
+    lead = torch.broadcast_shapes(q.shape[:-2], k.shape[:-2])
+    dk = torch.zeros((*lead, *k.shape[-2:]), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((*lead, *v.shape[-2:]), dtype=torch.float32, device=q.device)
+    dqs = []
+    for i in range(0, q.shape[-2], q_chunk):
+        sl = slice(i, i + q_chunk)
+        qc, doc = q[..., sl, :], do[..., sl, :]
+        s = torch.matmul(qc.float(), kf.transpose(-1, -2)) * scale
+        p = torch.exp(s - m[..., sl, None]) / l[..., sl, None]
+        di = (o[..., sl, :].float() * doc.float()).sum(-1, keepdim=True)
+        dv += torch.matmul(p.to(do.dtype).float().transpose(-1, -2), doc.float())
+        ds = (torch.matmul(doc.float(), vf.transpose(-1, -2)) - di) * p * scale
+        dk += torch.matmul(ds.to(do.dtype).float().transpose(-1, -2), qc.float())
+        dqs.append(torch.matmul(ds.to(k.dtype).float(), kf).to(q.dtype))
+    return (torch.cat(dqs, dim=-2), dk.sum_to_size(k.shape).to(k.dtype),
+            dv.sum_to_size(v.shape).to(v.dtype))
 
 
 def _flash(q5: torch.Tensor, k5: torch.Tensor, v5: torch.Tensor,
-           out5: torch.Tensor) -> None:
+           out5: torch.Tensor, m: Optional[torch.Tensor] = None,
+           l: Optional[torch.Tensor] = None) -> None:
     """Launch ``csrc/flash_attention.cu`` on (B0, B1, H, L, D) views; a
-    batch stride of 0 in k5/v5 shares one K/V batch among query batches."""
+    batch stride of 0 in k5/v5 shares one K/V batch among query batches.
+    ``m``, ``l``: contiguous f32 (B0, B1, H, Lq) buffers for the per-row
+    residuals of the backward, or None."""
     b0, b1, h, lq, d = q5.shape
     lk = k5.shape[3]
     if -(-lq // 64) > 65535:
@@ -211,10 +308,97 @@ def _flash(q5: torch.Tensor, k5: torch.Tensor, v5: torch.Tensor,
         *q5.stride()[:4], *k5.stride()[:4], *v5.stride()[:4], *out5.stride()[:4])
     stream = torch.cuda.current_stream(q5.device).cuda_stream
     _flash_launcher()(q5.data_ptr(), k5.data_ptr(), v5.data_ptr(), out5.data_ptr(),
+                      None if m is None else m.data_ptr(),
+                      None if l is None else l.data_ptr(),
                       _DTYPES[q5.dtype], b0, b1, h, lq, lk, d,
                       ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5), stream)
     global _flash_launches
     _flash_launches += 1
+
+
+def _flash_bwd(q5, k4, v4, o5, do5, m, l, dq5, dk4, dv4) -> None:
+    """Launch the two kernels of ``csrc/flash_attention_bwd.cu``: q5, o5,
+    do5, dq5 are (B0, B1, H, Lq, D) views, k4, v4, dk4, dv4 (B0, H, Lk, D)
+    views shared by the B1 query batches, m and l the forward's residuals.
+    The dK/dV kernel sums over every query of the B1 batches inside one
+    block, so no two blocks write one K/V row."""
+    b0, b1, h, lq, d = q5.shape
+    lk = k4.shape[2]
+    if -(-max(lq, lk) // 64) > 65535:
+        raise ValueError(f"lengths {lq}, {lk} exceed the kernels' grid")
+    # di = Σ_d o·do in f32, outside the kernels as in the stock backward
+    di = (o5.float() * do5.float()).sum(-1).contiguous()
+    strides = (ctypes.c_longlong * 24)(
+        *q5.stride()[:4], *do5.stride()[:4], *dq5.stride()[:4], *k4.stride()[:3],
+        *v4.stride()[:3], *dk4.stride()[:3], *dv4.stride()[:3])
+    stream = torch.cuda.current_stream(q5.device).cuda_stream
+    common = (q5.data_ptr(), k4.data_ptr(), v4.data_ptr(), do5.data_ptr(),
+              m.data_ptr(), l.data_ptr(), di.data_ptr())
+    shape = (_DTYPES[q5.dtype], b0, b1, h, lq, lk, d,
+             ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5), stream)
+    _flash_bwd_launcher("dkv")(*common, dk4.data_ptr(), dv4.data_ptr(), *shape)
+    _flash_bwd_launches["dkv"] += 1
+    _flash_bwd_launcher("dq")(*common, dq5.data_ptr(), None, *shape)
+    _flash_bwd_launches["dq"] += 1
+
+
+def _rect_view(x: torch.Tensor) -> torch.Tensor:
+    """(B, F, H, N, D) → (B, 1, H, F·N, D): a view for FrameAttention's
+    projections and the kernels' outputs, whose frame stride is N times
+    their token stride; a copy otherwise."""
+    b, f, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, h, f * n, d)[:, None]
+
+
+def _kv_major(k: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of k's shape (B, H, N, D) laid out as (B, N, H, D),
+    the layout of FrameAttention's K/V projections."""
+    b, h, n, d = k.shape
+    return torch.empty((b, n, h, d), device=k.device, dtype=k.dtype).transpose(1, 2)
+
+
+class _FlashFrameAttention(torch.autograd.Function):
+    """The flash kernel forward (with its residuals when a gradient is
+    wanted) and the two backward kernels. ``rect`` folds frames into the
+    query length; otherwise the frames are a second batch axis whose K/V
+    stride is 0. Either way the dK/dV kernel sums over all frames' queries,
+    which is the VJP of JAX's K/V broadcast (attention.py:88-89)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rect: bool, residuals: bool):
+        b, f, h, n, d = q.shape
+        out = _frame_major_out(q)
+        if rect:
+            q5, out5 = _rect_view(q), _rect_view(out)
+            k5, v5 = k[:, None], v[:, None]
+        else:
+            q5, out5 = q, out
+            k5 = k[:, None].expand(b, f, h, n, d)
+            v5 = v[:, None].expand(b, f, h, n, d)
+        m = l = None
+        if residuals:
+            m, l = (torch.empty(q5.shape[:4], device=q.device, dtype=torch.float32)
+                    for _ in range(2))
+        _flash(q5, k5, v5, out5, m, l)
+        if residuals:
+            ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.rect = rect
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, out, m, l = ctx.saved_tensors
+        if grad_out.stride(-1) != 1:
+            grad_out = grad_out.contiguous()
+        dq, dk, dv = _frame_major_out(q), _kv_major(k), _kv_major(v)
+        fold = _rect_view if ctx.rect else (lambda x: x)
+        _flash_bwd(fold(q), k, v, fold(out), fold(grad_out), m, l, fold(dq), dk, dv)
+        return dq, dk, dv, None, None
+
+
+def _flash_apply(q, k, v, rect: bool) -> torch.Tensor:
+    residuals = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    return _FlashFrameAttention.apply(q, k, v, rect, residuals)
 
 
 def flash_frame_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -238,36 +422,26 @@ def flash_frame_attention(q: torch.Tensor, k: torch.Tensor,
     """Frame attention through the flash kernel with the frame axis as a
     second batch axis (JAX: frames folded into the batch, K/V broadcast per
     frame). Here K/V are not copied: their frame stride is 0, so every frame
-    reads frame 0's K/V in place. A CPU tensor runs
-    :func:`flash_frame_attention_reference`."""
+    reads frame 0's K/V in place. Differentiable through the flash backward
+    kernels. A CPU tensor runs :func:`flash_frame_attention_reference`."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_frame_attention_reference(q, k, v)
     _check_cuda_inputs("flash_frame_attention", q, k, v)
-    b, f, h, n, d = q.shape
-    out = _frame_major_out(q)
-    _flash(q, k[:, None].expand(b, f, h, n, d), v[:, None].expand(b, f, h, n, d), out)
-    return out
+    return _flash_apply(q, k, v, rect=False)
 
 
 def flash_rect_frame_attention(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor) -> torch.Tensor:
     """Frame attention through the flash kernel with frames folded into the
     query length: q (B, H, F·N, D) against k, v (B, H, N, D). Softmax is per
-    row, so the fold is exact. A CPU tensor runs
-    :func:`flash_rect_frame_attention_reference`."""
+    row, so the fold is exact. Differentiable through the flash backward
+    kernels. A CPU tensor runs :func:`flash_rect_frame_attention_reference`."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_rect_frame_attention_reference(q, k, v)
     _check_cuda_inputs("flash_rect_frame_attention", q, k, v)
-    b, f, h, n, d = q.shape
-    # a view for FrameAttention's projections, whose frame stride is N times
-    # their token stride; a copy otherwise
-    qr = q.transpose(1, 2).reshape(b, h, f * n, d)
-    out = _frame_major_out(q)
-    out_r = out.transpose(1, 2).view(b, h, f * n, d)
-    _flash(qr[:, None], k[:, None], v[:, None], out_r[:, None])
-    return out
+    return _flash_apply(q, k, v, rect=True)
 
 
 def make_frame_attention_fn(impl: str = "auto", *,

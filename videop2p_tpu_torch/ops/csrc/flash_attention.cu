@@ -38,6 +38,10 @@
 //   * ragged lengths: keys past Lk score -inf before the max, queries past
 //     Lq load zeros and are not stored; a row whose keys are all masked
 //     keeps a running max of -inf and takes exp2(-inf) = 0, never NaN.
+//   * residuals: when the caller passes m and l, each row's final running
+//     max (of the scaled scores, natural-log units) and running sum are
+//     written to them in f32, the stock forward's save_residuals outputs,
+//     which the backward kernels (flash_attention_bwd.cu) read.
 // wgmma, TMA and warp specialization are later work; the measured times sit
 // in PERF.md.
 
@@ -139,8 +143,15 @@ __device__ __forceinline__ float online_softmax(float (&s)[kKeysPerLane], float&
 template <typename T, int DP>
 __device__ __forceinline__ void store_row(T* o, const Coords& c, const Strides& st,
                                           const Shape& sh, int row, int half,
-                                          const float (&acc)[DP / 2], float l) {
+                                          const float (&acc)[DP / 2], float m, float l,
+                                          float* m_out, float* l_out) {
   if (row >= sh.Lq) return;
+  if (m_out != nullptr && half == 0) {
+    // blockIdx.x flattens (b0, b1, h): the residuals are (B0, B1, H, Lq)
+    const long long r = (long long)blockIdx.x * sh.Lq + row;
+    m_out[r] = m * 0.69314718055994531f;  // log2 units -> natural
+    l_out[r] = l;
+  }
   T* op = o + c.o + (long long)row * st.o[3];
   const float inv = 1.f / l;
 #pragma unroll
@@ -167,7 +178,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_wmma_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ o, Shape sh, Strides st,
+                           __nv_bfloat16* __restrict__ o, float* __restrict__ m_out,
+                           float* __restrict__ l_out, Shape sh, Strides st,
                            float scale_log2) {
   using L = TcSmem<DP>;
   constexpr int LDQ = L::LDQ, LDP = L::LDP, LDS = L::LDS;
@@ -254,7 +266,8 @@ flash_fwd_wmma_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < DP / 2; ++i) acc[i] = acc[i] * alpha + Sw[r * LDS + half + 2 * i];
     __syncwarp();
   }
-  store_row<__nv_bfloat16, DP>(o, c, st, sh, c.q0 + warp * 16 + r, half, acc, l);
+  store_row<__nv_bfloat16, DP>(o, c, st, sh, c.q0 + warp * 16 + r, half, acc, m, l,
+                               m_out, l_out);
 }
 
 // ----------------------------------------------------------------- float32
@@ -270,7 +283,8 @@ struct FmaSmem {
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_fma_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o, Shape sh,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ m_out, float* __restrict__ l_out, Shape sh,
                          Strides st, float scale_log2) {
   using L = FmaSmem<DP>;
   constexpr int LD = L::LD, LDP = L::LDP;
@@ -333,15 +347,15 @@ flash_fwd_fma_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     }
     __syncwarp();
   }
-  store_row<float, DP>(o, c, st, sh, c.q0 + warp * 16 + r, half, acc, l);
+  store_row<float, DP>(o, c, st, sh, c.q0 + warp * 16 + r, half, acc, m, l, m_out, l_out);
 }
 
 // ------------------------------------------------------------------ launch
 
 template <int DP>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o,
-                   int B0, const Shape& sh, const Strides& st, float scale,
-                   cudaStream_t stream) {
+                   float* m, float* l, int B0, const Shape& sh, const Strides& st,
+                   float scale, cudaStream_t stream) {
   const dim3 grid((unsigned)((long long)B0 * sh.B1 * sh.H),
                   (unsigned)((sh.Lq + kBQ - 1) / kBQ));
   const float scale_log2 = scale * 1.4426950408889634f;
@@ -353,8 +367,8 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
     if (err != cudaSuccess) return err;
     flash_fwd_wmma_bf16_kernel<DP><<<grid, kThreads, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sh, st,
-        scale_log2);
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), m, l, sh,
+        st, scale_log2);
   } else {
     const size_t smem = FmaSmem<DP>::bytes;
     err = cudaFuncSetAttribute(flash_fwd_fma_f32_kernel<DP>,
@@ -362,7 +376,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
     if (err != cudaSuccess) return err;
     flash_fwd_fma_f32_kernel<DP><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), sh, st, scale_log2);
+        static_cast<const float*>(v), static_cast<float*>(o), m, l, sh, st, scale_log2);
   }
   return cudaGetLastError();
 }
@@ -370,13 +384,16 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: q, k, v, o, each (b0, b1, h, l)
-// in elements. Returns the cudaError_t of the launch.
+// in elements. m, l: null, or contiguous f32 (B0, B1, H, Lq) buffers for the
+// per-row residuals. Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int dtype, int B0, int B1, int H, int Lq,
+                                   void* o, float* m, float* l, int dtype, int B0,
+                                   int B1, int H, int Lq,
                                    int Lk, int D, const long long* strides, float scale,
                                    void* stream) {
   if (D < 1 || D > 128 || Lq < 1 || Lk < 1 || B0 < 1 || B1 < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
+  if ((m == nullptr) != (l == nullptr)) return (int)cudaErrorInvalidValue;
   if ((long long)B0 * B1 * H > 0x7fffffffLL || (Lq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
@@ -390,14 +407,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   const Shape sh{B1, H, Lq, Lk, D};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((D + 15) / 16) {
-    case 1: return (int)launch<16>(dtype, q, k, v, o, B0, sh, st, scale, s);
-    case 2: return (int)launch<32>(dtype, q, k, v, o, B0, sh, st, scale, s);
-    case 3: return (int)launch<48>(dtype, q, k, v, o, B0, sh, st, scale, s);
-    case 4: return (int)launch<64>(dtype, q, k, v, o, B0, sh, st, scale, s);
-    case 5: return (int)launch<80>(dtype, q, k, v, o, B0, sh, st, scale, s);
-    case 6: return (int)launch<96>(dtype, q, k, v, o, B0, sh, st, scale, s);
-    case 7: return (int)launch<112>(dtype, q, k, v, o, B0, sh, st, scale, s);
-    default: return (int)launch<128>(dtype, q, k, v, o, B0, sh, st, scale, s);
+    case 1: return (int)launch<16>(dtype, q, k, v, o, m, l, B0, sh, st, scale, s);
+    case 2: return (int)launch<32>(dtype, q, k, v, o, m, l, B0, sh, st, scale, s);
+    case 3: return (int)launch<48>(dtype, q, k, v, o, m, l, B0, sh, st, scale, s);
+    case 4: return (int)launch<64>(dtype, q, k, v, o, m, l, B0, sh, st, scale, s);
+    case 5: return (int)launch<80>(dtype, q, k, v, o, m, l, B0, sh, st, scale, s);
+    case 6: return (int)launch<96>(dtype, q, k, v, o, m, l, B0, sh, st, scale, s);
+    case 7: return (int)launch<112>(dtype, q, k, v, o, m, l, B0, sh, st, scale, s);
+    default: return (int)launch<128>(dtype, q, k, v, o, m, l, B0, sh, st, scale, s);
   }
 }
 

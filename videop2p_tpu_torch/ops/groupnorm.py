@@ -8,7 +8,9 @@ two-pass ``F.group_norm``). ``y = (x−mean)·rsqrt(var+eps)·scale + bias``,
 optionally followed by SiLU, in x's dtype.
 
 :func:`fused_group_norm` launches ``csrc/groupnorm.cu`` on a CUDA tensor and
-runs :func:`group_norm_reference` on a CPU tensor. There is no slab-size
+runs :func:`group_norm_reference` on a CPU tensor. On a CUDA tensor its
+backward recomputes through :func:`group_norm_reference` (JAX:
+``_fused_gn_bwd``, videop2p_tpu/ops/groupnorm.py:194-210). There is no slab-size
 gate: the TPU kernel's VMEM limit (rows % 256, ≤ 3 MiB) does not carry over,
 and the CUDA kernel takes every UNet GroupNorm site.
 """
@@ -20,6 +22,7 @@ import functools
 
 import torch
 
+from videop2p_tpu_torch.ops._autograd import recompute_grads
 from videop2p_tpu_torch.ops._build import bind
 
 __all__ = ["fused_group_norm", "group_norm_reference", "launch_count",
@@ -95,7 +98,9 @@ def fused_group_norm(
     act: str = "none",
 ) -> torch.Tensor:
     """GroupNorm(+SiLU) of a (N, rows, C) slab: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    tensor, the plain version for a CPU tensor. Differentiable in x, scale
+    and bias: on a CUDA tensor the backward recomputes through the plain
+    version, as the JAX package's does."""
     if act not in ("none", "silu"):
         raise ValueError(f"act must be 'none' or 'silu', got {act!r}")
     if x.dim() != 3:
@@ -117,6 +122,30 @@ def fused_group_norm(
         raise ValueError("fused_group_norm needs a contiguous x")
     if c > _MAX_CHANNELS:
         raise ValueError(f"fused_group_norm takes at most {_MAX_CHANNELS} channels, got {c}")
+    return _FusedGroupNorm.apply(x, scale, bias, num_groups, float(eps), act)
+
+
+class _FusedGroupNorm(torch.autograd.Function):
+    """The kernel forward; the backward recomputes through
+    :func:`group_norm_reference`."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups: int, eps: float, act: str):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.config = dict(num_groups=num_groups, eps=eps, act=act)
+        return _launch(x, scale, bias, num_groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        def plain(x, scale, bias):
+            return group_norm_reference(x, scale, bias, **ctx.config)
+
+        return recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[:3],
+                               grad_out) + (None, None, None)
+
+
+def _launch(x, scale, bias, num_groups: int, eps: float, act: str) -> torch.Tensor:
+    n, rows, c = x.shape
     scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
     chunks, per = stats_chunks(n, rows)

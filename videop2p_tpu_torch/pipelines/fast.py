@@ -122,5 +122,5 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
     edited = edit_sample(unet_fn, scheduler, trajectory[-1], cond_all, uncond,
                          num_inference_steps=num_inference_steps,
                          guidance_scale=guidance_scale, ctx=ctx,
-                         cached_source=cached)
+                         source_uses_cfg=False, cached_source=cached)
     return trajectory, edited

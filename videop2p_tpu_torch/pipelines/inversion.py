@@ -1,25 +1,37 @@
-"""DDIM inversion (port of ``ddim_inversion`` and ``ddim_inversion_captured``,
-``videop2p_tpu/pipelines/inversion.py:86-350``; no dependent noise, no
+"""DDIM inversion and null-text optimization (port of ``ddim_inversion``,
+``ddim_inversion_captured`` and ``null_text_optimization``,
+``videop2p_tpu/pipelines/inversion.py:86-757``; no dependent noise, no
 attention-map observability record).
 
-Walks clean latents x_0 to noise x_T with forward DDIM steps, conditional
-only (guidance 1), and returns the whole trajectory; the captured form also
-collects what the cached-source edit reads in place of a live source stream.
+Inversion walks clean latents x_0 to noise x_T with forward DDIM steps,
+conditional only (guidance 1), and returns the whole trajectory; the
+captured form also collects what the cached-source edit reads in place of a
+live source stream. Null-text optimization then fits, step by step, the
+unconditional embedding under which the CFG denoise replays that trajectory.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from videop2p_tpu_torch.core.ddim import DDIMScheduler
 from videop2p_tpu_torch.models.attention import BASE_STORE, AttnControl
 from videop2p_tpu_torch.pipelines.cached import CachedSource, filter_site_tree
-from videop2p_tpu_torch.pipelines.sampling import UNetFn
+from videop2p_tpu_torch.pipelines.sampling import UNetFn, unet_module
 from videop2p_tpu_torch.pipelines.stores import blend_maps_from_store
 
-__all__ = ["ddim_inversion", "ddim_inversion_captured"]
+__all__ = ["ddim_inversion", "ddim_inversion_captured", "null_text_optimization",
+           "adam_update", "check_null_text_options", "NULL_TEXT_PRECISIONS",
+           "NULL_TEXT_MODES"]
+
+NULL_TEXT_PRECISIONS = ("fp32", "mixed")
+NULL_TEXT_MODES = ("optimize", "amortized", "hybrid")
+# optax.adam's defaults, which the JAX package's null-text loop takes
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 @torch.no_grad()
@@ -132,3 +144,166 @@ def ddim_inversion_captured(
         cross_maps=cross or None, temporal_maps=temporal or None,
         blend_seq=blend_seq, cross_len=cross_len, self_window=(lo, hi))
     return trajectory, cached
+
+
+def adam_update(param: torch.Tensor, grad: torch.Tensor, state: Optional[tuple],
+                lr: float) -> Tuple[torch.Tensor, tuple]:
+    """One step of ``optax.adam(1.0)`` (b1 0.9, b2 0.999, eps 1e-8, no
+    eps_root), its update scaled by ``lr`` and applied: returns the new
+    parameter and the state ``(mu, nu, count)``; ``state`` None is a fresh
+    one. In the parameter's dtype, as optax computes it."""
+    if state is None:
+        state = (torch.zeros_like(param), torch.zeros_like(param), 0)
+    mu, nu, count = state
+    mu = (1 - _ADAM_B1) * grad + _ADAM_B1 * mu
+    nu = (1 - _ADAM_B2) * grad ** 2 + _ADAM_B2 * nu
+    count += 1
+    # 1 − decay**count in float32, as optax's bias correction
+    c1 = float(np.float32(1) - np.float32(_ADAM_B1) ** np.float32(count))
+    c2 = float(np.float32(1) - np.float32(_ADAM_B2) ** np.float32(count))
+    update = -((mu / c1) / (torch.sqrt(nu / c2) + _ADAM_EPS))
+    return param + lr * update, (mu, nu, count)
+
+
+def check_null_text_options(precision: str, mode: str) -> None:
+    """Raise on a null-text precision or mode the port does not take."""
+    if precision not in NULL_TEXT_PRECISIONS:
+        raise ValueError(f"null_text_precision {precision!r} not in {NULL_TEXT_PRECISIONS}")
+    if mode not in NULL_TEXT_MODES:
+        raise ValueError(f"null_text_mode {mode!r} not in {NULL_TEXT_MODES}")
+    if mode == "hybrid":
+        raise NotImplementedError(
+            "null_text_mode 'hybrid' is not ported yet: it batches the outer "
+            "steps, which needs per-sample timesteps in the port's UNet "
+            "(ROADMAP Queue 1 item 9)")
+
+
+@contextlib.contextmanager
+def _frozen(unet_fn: UNetFn):
+    """The module behind ``unet_fn`` (:func:`unet_module`; raises when it has
+    none) with ``requires_grad`` off on every parameter, so that a backward
+    to the embedding keeps no weight gradients or the activations only they
+    need; the flags are restored afterwards."""
+    params = list(unet_module(unet_fn).parameters())
+    flags = [p.requires_grad for p in params]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, flag in zip(params, flags):
+            p.requires_grad_(flag)
+
+
+def null_text_optimization(
+    unet_fn: UNetFn,
+    scheduler: DDIMScheduler,
+    trajectory: torch.Tensor,
+    cond_embedding: torch.Tensor,
+    uncond_embedding: torch.Tensor,
+    *,
+    num_inference_steps: int = 50,
+    guidance_scale: float = 7.5,
+    num_inner_steps: int = 10,
+    epsilon: float = 1e-5,
+    null_text_precision: str = "fp32",
+    null_text_mode: str = "optimize",
+    early_stop: bool = True,
+    return_losses: bool = False,
+    return_inner_steps: bool = False,
+):
+    """Optimize a per-step unconditional embedding under which CFG denoising
+    replays the recorded inversion trajectory (the reference's
+    run_videop2p.py:580-612; JAX: pipelines/inversion.py:353-757).
+
+    ``trajectory`` (N + 1, B, F, h, w, C) from :func:`ddim_inversion`;
+    ``cond_embedding`` / ``uncond_embedding`` (B, L, D). Outer step i walks
+    x_t → x_{t−Δ} and fits the embedding against ``trajectory[N − i − 1]``
+    by minimizing mean((prev_step(ε_u + g·(ε_c − ε_u)) − x_{t−Δ})²) over the
+    uncond embedding with Adam (``optax.adam(1.0)``, a fresh state each outer
+    step, the step scaled by lr_i = max(1e-2·(1 − i/100), 0)), starting from
+    the previous step's result. With ``early_stop`` the inner loop stops
+    once a loss falls below ε + i·2e-5 (the update of that step is kept),
+    else after ``num_inner_steps``. The step then advances under full CFG
+    with the optimized embedding.
+
+      * ``null_text_mode``: ``"optimize"`` (the loop above);
+        ``"amortized"`` (uncond := cond at every step, so the CFG combine is
+        the conditional prediction: one forward per outer step, no
+        backward, ``inner_steps`` 0); ``"hybrid"`` is not ported (it
+        batches the outer steps, which needs per-sample timesteps in the
+        port's UNet: ROADMAP Queue 1 item 9).
+      * ``null_text_precision``: ``"fp32"``, or ``"mixed"``: the latents
+        and embeddings cross the UNet boundary in bf16 (pass a bf16 clone
+        of the UNet as ``unet_fn``) and the predictions come back as f32;
+        the scheduler, Adam and the loss stay f32.
+
+    ``unet_fn`` must come from ``make_unet_fn``: its module's parameters
+    are frozen for the run (a TypeError otherwise), and each loss is taken
+    under ``torch.enable_grad()``. The JAX package splits this loop into
+    jitted chunks (``outer_chunk``, ``null_text_optimization_fused``) for
+    dispatch and the TPU's watchdog; eagerly those are this one loop, with
+    the same numbers.
+
+    Returns the embeddings (N, B, L, D) float32, plus, with
+    ``return_losses``, the final inner loss of each outer step (N,) (the
+    last pre-update loss; the amortized replay's loss) and, with
+    ``return_inner_steps``, the inner Adam steps each took (N,) int32, both
+    on the CPU."""
+    check_null_text_options(null_text_precision, null_text_mode)
+    N = num_inference_steps
+    trajectory = trajectory.float()
+    uncond = uncond_embedding.float()
+    cond = cond_embedding
+    mixed = null_text_precision == "mixed"
+
+    def fwd(latent, t, text):
+        if mixed:
+            latent, text = latent.to(torch.bfloat16), text.to(torch.bfloat16)
+        eps, _ = unet_fn(latent, t, text, None, store=False)
+        return eps.float()
+
+    def cfg_step(eps_uncond, eps_cond, t, latent):
+        eps = eps_uncond + guidance_scale * (eps_cond - eps_uncond)
+        return scheduler.prev_step(eps, t, latent, N)
+
+    latent_cur = trajectory[-1]
+    embeddings: List[torch.Tensor] = []
+    losses: List[torch.Tensor] = []
+    inner_steps: List[int] = []
+    with _frozen(unet_fn), torch.no_grad():
+        for i, t in enumerate(scheduler.timesteps(N)):
+            t = int(t)
+            latent_prev = trajectory[N - i - 1]
+            eps_cond = fwd(latent_cur, t, cond)
+            if null_text_mode == "amortized":
+                uncond = cond.float()
+                latent_cur = cfg_step(eps_cond, eps_cond, t, latent_cur)
+                losses.append(torch.mean((latent_cur - latent_prev) ** 2))
+                inner_steps.append(0)
+                embeddings.append(uncond)
+                continue
+            # float32 arithmetic, as JAX's per-step lr and threshold arrays
+            lr = float(np.maximum(np.float32(1e-2) * (np.float32(1) - np.float32(i)
+                                                      / np.float32(100)), 0))
+            thresh = float(np.float32(epsilon) + np.float32(i) * np.float32(2e-5))
+            state, loss, j = None, torch.tensor(float("inf")), 0
+            while j < num_inner_steps and (not early_stop or loss.item() >= thresh):
+                with torch.enable_grad():
+                    leaf = uncond.detach().requires_grad_(True)
+                    prev_rec = cfg_step(fwd(latent_cur, t, leaf), eps_cond, t, latent_cur)
+                    loss = torch.mean((prev_rec - latent_prev) ** 2)
+                    (grad,) = torch.autograd.grad(loss, leaf)
+                loss = loss.detach()
+                uncond, state = adam_update(uncond, grad, state, lr)
+                j += 1
+            losses.append(loss.to(latent_cur.device))
+            inner_steps.append(j)
+            embeddings.append(uncond)
+            latent_cur = cfg_step(fwd(latent_cur, t, uncond), eps_cond, t, latent_cur)
+    out = (torch.stack(embeddings),)
+    if return_losses:
+        out += (torch.stack(losses).float().cpu(),)
+    if return_inner_steps:
+        out += (torch.tensor(inner_steps, dtype=torch.int32),)
+    return out if len(out) > 1 else out[0]

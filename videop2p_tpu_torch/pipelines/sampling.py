@@ -1,14 +1,16 @@
 """The attention-controlled denoising loop (port of ``make_unet_fn``,
-``edit_sample`` and ``_edit_sample_cached``,
-``videop2p_tpu/pipelines/sampling.py:135-827``).
+``edit_sample``, ``_edit_sample_cached`` and ``official_edit``,
+``videop2p_tpu/pipelines/sampling.py:135-951``).
 
-A Python loop over the DDIM steps in the fast CFG layout: the batch puts
-U = P − 1 uncond streams ahead of the P cond streams (the source stream
-replays its cond-only prediction, so its uncond forward is not run); the
-controller sees every cross/temporal
-site through :class:`AttnControl`; LocalBlend runs after each scheduler step
-on the running sum of the blend-site maps. Latents and scheduler math stay
-float32. The pipeline works in latent space only.
+A Python loop over the DDIM steps. The batch puts U uncond streams ahead of
+the P cond streams: in the full CFG layout (``source_uses_cfg=True``, the
+official mode) U = P, and the source stream's uncond slot can take a
+per-step null-text embedding; in the fast layout U = P − 1 (the source
+stream replays its cond-only prediction, so its uncond forward is not run).
+The controller sees every cross/temporal site through :class:`AttnControl`;
+LocalBlend runs after each scheduler step on the running sum of the
+blend-site maps. Latents and scheduler math stay float32. The pipeline
+works in latent space only.
 
 With a ``cached_source`` the source stream leaves the batch: its latents
 replay the inversion trajectory and its maps come from the capture
@@ -18,7 +20,9 @@ streams run the UNet, behind their E uncond streams.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import contextlib
+import copy
+from typing import Callable, ContextManager, Optional, Tuple
 
 import torch
 
@@ -29,7 +33,7 @@ from videop2p_tpu_torch.models.attention import AttnControl
 from videop2p_tpu_torch.pipelines.cached import CachedSource
 from videop2p_tpu_torch.pipelines.stores import blend_maps_from_store
 
-__all__ = ["edit_sample", "make_unet_fn", "UNetFn"]
+__all__ = ["edit_sample", "make_unet_fn", "official_edit", "unet_module", "UNetFn"]
 
 # (sample, t, text, control, *, store) -> (eps, store or None)
 UNetFn = Callable[..., Tuple[torch.Tensor, Optional[dict]]]
@@ -45,23 +49,53 @@ def make_unet_fn(model) -> UNetFn:
         maps = {} if store else None
         return model(sample, t, text, control, maps), maps
 
+    # the module, so that null-text optimization can freeze its parameters
+    fn.module = model
     return fn
+
+
+def unet_module(unet_fn: UNetFn) -> torch.nn.Module:
+    """The UNet module behind a :func:`make_unet_fn` callable; raises on a
+    callable that does not carry one."""
+    module = getattr(unet_fn, "module", None)
+    if not isinstance(module, torch.nn.Module):
+        raise TypeError(
+            "unet_fn must come from make_unet_fn: null-text optimization "
+            "freezes its module's parameters, so that the backward keeps no "
+            "weight gradients")
+    return module
 
 
 @torch.no_grad()
 def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor,
                 cond_embeddings: torch.Tensor, uncond_embeddings: torch.Tensor, *,
                 num_inference_steps: int = 50, guidance_scale: float = 7.5,
-                ctx: Optional[ControlContext] = None,
+                ctx: Optional[ControlContext] = None, source_uses_cfg: bool = True,
+                eta: float = 0.0, generator: Optional[torch.Generator] = None,
+                variance_noise: Optional[torch.Tensor] = None,
+                null_uncond_embeddings: Optional[torch.Tensor] = None,
                 cached_source: Optional[CachedSource] = None) -> torch.Tensor:
     """Run the controlled denoise; returns final latents (P, F, h, w, C).
 
     ``latents``: x_T, (1, F, h, w, C) (shared by all streams) or (P, …);
     ``cond_embeddings`` (P, L, D), source prompt first; ``uncond_embeddings``
-    (L, D) or (1, L, D). This is the JAX ``edit_sample`` with
-    ``source_uses_cfg=False`` (the ``--fast`` layout) and η = 0.
-    ``cached_source``: the cached-source mode; its capture must cover
-    ``num_inference_steps`` steps, and stream 0 of the output is its x_0."""
+    (L, D) or (1, L, D), the raw uncond of every stream.
+
+      * ``source_uses_cfg=True`` (JAX's default, the official mode): every
+        stream runs CFG against its uncond stream (U = P);
+        ``source_uses_cfg=False`` is the ``--fast`` layout (U = P − 1).
+      * ``null_uncond_embeddings``: null-text optimization's per-step
+        embeddings, (steps, L, D) or (steps, 1, L, D), injected into the
+        source stream's uncond slot at each step; the edit streams keep the
+        raw uncond (JAX: sampling.py:342-368).
+      * ``eta`` > 0: the stochastic DDIM step; its noise is
+        ``variance_noise[i]`` at step i when given ((steps, P, F, h, w, C),
+        e.g. JAX's draws in a test), else drawn from ``generator`` (the
+        CLI's, seeded from ``--seed``); one of the two is required.
+      * ``cached_source``: the cached-source mode (fast layout, η = 0, no
+        null-text embeddings); its capture must cover
+        ``num_inference_steps`` steps, and stream 0 of the output is its
+        x_0."""
     if cond_embeddings.dim() != 3:
         raise NotImplementedError(
             "per-frame ('multi') conditioning is not ported yet; see ROADMAP Queue 1")
@@ -79,9 +113,21 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
     if uncond_embeddings.dim() != 2:
         raise ValueError(
             f"uncond_embeddings must be (L, D) or (1, L, D), got "
-            f"{tuple(uncond_embeddings.shape)}")
+            f"{tuple(uncond_embeddings.shape)}; per-step null-text embeddings "
+            "go in null_uncond_embeddings")
 
     if cached_source is not None:
+        if source_uses_cfg:
+            raise ValueError("cached_source requires fast mode (source_uses_cfg=False)")
+        if null_uncond_embeddings is not None:
+            raise ValueError(
+                "cached_source replays the source exactly: null-text "
+                "embeddings have nothing left to correct and are not injected")
+        if eta > 0:
+            raise ValueError(
+                "cached_source requires eta=0: η-variance noise would make the "
+                "live source stream stochastic while the cached replay is "
+                "deterministic")
         if cached_source.num_steps != num_inference_steps:
             raise ValueError(
                 f"cached trajectory covers {cached_source.num_steps} steps, "
@@ -91,21 +137,54 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
             cached_source, num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, ctx=ctx)
 
-    U = P - 1
-    text = torch.cat([uncond_embeddings.expand(U, *uncond_embeddings.shape),
-                      cond_embeddings], dim=0)
+    # the source stream's uncond at each step: the null-text sequence when
+    # given, else the raw uncond
+    if null_uncond_embeddings is not None:
+        if null_uncond_embeddings.dim() == 4 and null_uncond_embeddings.shape[1] == 1:
+            null_uncond_embeddings = null_uncond_embeddings[:, 0]
+        if null_uncond_embeddings.dim() == 4:
+            raise ValueError(
+                "null-text embeddings must be optimized on the batch-1 source "
+                f"stream, got shape {tuple(null_uncond_embeddings.shape)}")
+        expected = (num_inference_steps, *uncond_embeddings.shape)
+        if tuple(null_uncond_embeddings.shape) != expected:
+            raise ValueError(
+                f"null-text embeddings must have shape {expected}, got "
+                f"{tuple(null_uncond_embeddings.shape)}")
+    if variance_noise is not None:
+        expected = (num_inference_steps, *latents.shape)
+        if tuple(variance_noise.shape) != expected:
+            raise ValueError(f"variance_noise must have shape {expected}, got "
+                             f"{tuple(variance_noise.shape)}")
+    if eta > 0 and variance_noise is None and generator is None:
+        raise ValueError("eta > 0 needs a generator or variance_noise")
+
+    U = P if source_uses_cfg else P - 1
+    raw = uncond_embeddings.expand(U, *uncond_embeddings.shape)
     use_blend = ctx is not None and ctx.blend is not None
     maps_sum = None
     for i, t in enumerate(scheduler.timesteps(num_inference_steps)):
         t = int(t)
+        uncond = raw
+        if source_uses_cfg and null_uncond_embeddings is not None:
+            uncond = torch.cat([null_uncond_embeddings[i][None].to(raw.dtype), raw[1:]])
+        text = torch.cat([uncond, cond_embeddings], dim=0)
         latent_in = torch.cat([latents[P - U:], latents], dim=0)
         control = AttnControl(ctx, i, U) if ctx is not None else None
         eps_all, store = unet_fn(latent_in, t, text, control, store=use_blend)
         eps_all = eps_all.float()
         eps_uncond, eps_text = eps_all[:U], eps_all[U:]
-        eps_edit = eps_uncond + guidance_scale * (eps_text[1:] - eps_uncond)
-        eps = torch.cat([eps_text[:1], eps_edit], dim=0)
-        latents, _ = scheduler.step(eps, t, latents, num_inference_steps)
+        if source_uses_cfg:
+            eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
+        else:
+            eps_edit = eps_uncond + guidance_scale * (eps_text[1:] - eps_uncond)
+            eps = torch.cat([eps_text[:1], eps_edit], dim=0)
+        noise = None
+        if eta > 0:
+            noise = (variance_noise[i] if variance_noise is not None else
+                     torch.randn(eps.shape, generator=generator, device=eps.device))
+        latents, _ = scheduler.step(eps, t, latents, num_inference_steps, eta=eta,
+                                    variance_noise=noise)
         if use_blend:
             maps = blend_maps_from_store(
                 store, latent_hw=latent_hw, video_length=video_length,
@@ -173,3 +252,61 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
             edit_latents = local_blend(full, maps_sum, ctx.blend, i)[1:]
     # stream 0 is the capture's x_0, copied without arithmetic
     return torch.cat([cached.src_latents[-1], edit_latents], dim=0)
+
+
+def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.Tensor,
+                  cond_embeddings: torch.Tensor, uncond_embedding: torch.Tensor, *,
+                  num_inference_steps: int = 50, guidance_scale: float = 7.5,
+                  ctx: Optional[ControlContext] = None, num_inner_steps: int = 10,
+                  epsilon: float = 1e-5, null_text_precision: str = "fp32",
+                  null_text_mode: str = "optimize", early_stop: bool = True,
+                  eta: float = 0.0, generator: Optional[torch.Generator] = None,
+                  source_embedding: Optional[torch.Tensor] = None,
+                  phase: Optional[Callable[[str], ContextManager]] = None):
+    """The official mode: null-text optimization of the source stream's
+    uncond embedding against ``trajectory`` (N + 1, 1, F, h, w, C), then the
+    controlled full-CFG edit from its x_T with those embeddings injected
+    (JAX: ``official_edit``, sampling.py:829-951, one jitted program there;
+    two eager calls here).
+
+    Under ``null_text_precision="mixed"`` a UNet that is not bf16 runs the
+    null-text phase on a bf16 clone of ``unet_fn``'s module, dropped before
+    the edit (JAX: the CLI's ``bundle.unet.clone(dtype=bf16)``).
+    ``source_embedding`` (1, L, D) conditions the null-text phase in place of
+    ``cond_embeddings[:1]`` (the CLI's source ``prompt``). ``phase``,
+    when given, maps a phase name ("null_text_optimization",
+    "edit_sample") to a context manager entered around that phase (the
+    CLI's timer).
+
+    Returns ``(latents (P, F, h, w, C), {"final_loss", "inner_steps"})``,
+    the null-text record of each outer step."""
+    from videop2p_tpu_torch.pipelines.inversion import null_text_optimization
+
+    if phase is None:
+        phase = lambda name: contextlib.nullcontext()  # noqa: E731
+    if uncond_embedding.dim() == 3 and uncond_embedding.shape[0] == 1:
+        uncond_embedding = uncond_embedding[0]
+    if uncond_embedding.dim() != 2:
+        raise ValueError(f"uncond_embedding must be (L, D) or (1, L, D), got "
+                         f"{tuple(uncond_embedding.shape)}")
+    with phase("null_text_optimization"):
+        null_fn = unet_fn
+        module = unet_module(unet_fn)
+        if (null_text_precision == "mixed"
+                and next(module.parameters()).dtype != torch.bfloat16):
+            null_fn = make_unet_fn(copy.deepcopy(module).to(torch.bfloat16))
+        null_seq, losses, inner = null_text_optimization(
+            null_fn, scheduler, trajectory,
+            cond_embeddings[:1] if source_embedding is None else source_embedding,
+            uncond_embedding[None], num_inference_steps=num_inference_steps,
+            guidance_scale=guidance_scale, num_inner_steps=num_inner_steps,
+            epsilon=epsilon, null_text_precision=null_text_precision,
+            null_text_mode=null_text_mode, early_stop=early_stop,
+            return_losses=True, return_inner_steps=True)
+        del null_fn
+    with phase("edit_sample"):
+        out = edit_sample(unet_fn, scheduler, trajectory[-1], cond_embeddings,
+                          uncond_embedding, num_inference_steps=num_inference_steps,
+                          guidance_scale=guidance_scale, ctx=ctx, source_uses_cfg=True,
+                          eta=eta, generator=generator, null_uncond_embeddings=null_seq)
+    return out, {"final_loss": losses, "inner_steps": inner}
