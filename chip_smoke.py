@@ -5,14 +5,19 @@ Phases, each of which must pass (any failure exits non-zero):
 1. probe the device (``torch.cuda.is_available()``) and print the card's
    name and power limit as ``nvidia-smi`` reports them;
 2. build the CUDA kernels from ``videop2p_tpu_torch/ops/csrc`` (one ``nvcc``
-   per source, all in parallel);
+   per source, all in parallel) and print each kernel's registers, static
+   shared memory and spills from the ``ptxas`` report;
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes of every main path (the live edit's batch B = 3, the cached
    edit's 2 and its capture's 1, the full-CFG edit's 4, null-text's 1;
-   GroupNorm at the same slabs) and two ragged ones, in float32 and
-   bfloat16 — frame attention, GroupNorm, and both wrappers of the flash
-   kernel — and time the kernel, the plain version and one PyTorch library
-   call computing the same function;
+   GroupNorm at the same slabs), at head dims 64 and 128, and at lengths
+   that are not multiples of the bf16 kernels' query or key tiles, in
+   float32 and bfloat16 — frame attention, GroupNorm, and both wrappers of
+   the flash kernel — and time the kernel, the plain version and one
+   PyTorch library call computing the same function (each over windows of
+   at least 20 ms, the median of 3; kernel and library call in turns);
+   that a bf16 q view the TMA path cannot read (a head-dim stride other
+   than 1, a base address off 16 bytes) raises and launches nothing;
 3b. the flash backward (the forward with its residuals, then the dK/dV and
    dQ kernels, through autograd of both wrappers) against the plain
    backward ``attention_reference_bwd`` in float32 on the kernel's own
@@ -98,6 +103,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -175,10 +182,13 @@ FLASH_INNER_STEPS = 2
 # official main path (4b, 10), the official path under each kernel (11, 12)
 PATHS = ("fast", "official", "official_flash")
 GN_LAUNCHES_PER_CALL = 3  # partial sums, statistics, apply
+# timing: windows of at least this many ms of back-to-back calls, the
+# median of three of them
+TIME_WINDOW_MS = 20.0
 # the device kernels of each ported kernel, by name prefix (profile)
-KERNEL_NAMES = {"frame_attention": ("frame_attention_kernel",),
+KERNEL_NAMES = {"frame_attention": ("frame_attention_wgmma_kernel", "frame_attention_kernel"),
                 "group_norm": ("gn_partial_kernel", "gn_stats_kernel", "gn_apply_kernel"),
-                "flash_attention": ("flash_fwd_wmma_bf16_kernel", "flash_fwd_fma_f32_kernel"),
+                "flash_attention": ("flash_fwd_wgmma_kernel", "flash_fwd_fma_f32_kernel"),
                 "flash_attention_bwd": ("flash_bwd_dkv", "flash_bwd_dq")}
 
 
@@ -189,18 +199,44 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 5, warmup: int = 1) -> float:
-    for _ in range(warmup):
-        fn()
+def _window_ms(fn, launches: int) -> float:
+    """Device time per call of ``launches`` back-to-back calls of ``fn``."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
+    for _ in range(launches):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / launches
+
+
+def _launches_per_window(fn) -> int:
+    """Enough calls of ``fn`` (after a warm-up call) to fill TIME_WINDOW_MS,
+    so that a window times the device work and not the launch overhead."""
+    fn()
+    return max(1, math.ceil(TIME_WINDOW_MS / max(_window_ms(fn, 1), 1e-3)))
+
+
+def time_ms(fn) -> float:
+    """The median over three windows of ≥ TIME_WINDOW_MS of ``fn``'s device
+    time per call."""
+    n = _launches_per_window(fn)
+    return statistics.median(_window_ms(fn, n) for _ in range(3))
+
+
+def time_in_turns(kernel, library) -> tuple:
+    """``time_ms`` of a kernel and of the library call that computes the
+    same function, their windows taken in turns (kernel, library, library,
+    kernel, kernel, library), so that a drift of the card's clocks falls on
+    both."""
+    fns = (kernel, library)
+    counts = [_launches_per_window(fn) for fn in fns]
+    times = ([], [])
+    for i in (0, 1, 1, 0, 0, 1):
+        times[i].append(_window_ms(fns[i], counts[i]))
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def limit(dtype, ref: torch.Tensor, f32_tol: float) -> float:
@@ -242,13 +278,15 @@ def check_attention(gen, dtype, b, f, h, n, d, timed: bool) -> dict:
         # the library call on the same fold: (B, H, F·N, D) against (B, H, N, D)
         q4 = q.transpose(1, 2).reshape(b, h, m, d).contiguous()
         k4, v4 = k.contiguous(), v.contiguous()
-        rec["ms"] = time_ms(lambda: fa.fused_frame_attention(q, k, v))
-        rec["plain_ms"] = time_ms(lambda: fa.chunked_frame_attention(q, k, v), iters=2)
-        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        rec["ms"], rec["library_ms"] = time_in_turns(
+            lambda: fa.fused_frame_attention(q, k, v),
+            lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        rec["plain_ms"] = time_ms(lambda: fa.chunked_frame_attention(q, k, v))
+        rec["ratio"] = rec["ms"] / rec["library_ms"]
         rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, dtype)
-        print(f"    kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
-              f"sdpa {rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-              f"({rec['bound_by']})", flush=True)
+        print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
+              f"sdpa {rec['library_ms']:.4f} ms (kernel/sdpa {rec['ratio']:.3f}), bound "
+              f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})", flush=True)
     return rec
 
 
@@ -283,15 +321,64 @@ def check_flash(gen, dtype, b, f, h, n, d, timed: bool) -> list:
             flops = 4.0 * b * h * m * n * d
             q4 = q.transpose(1, 2).reshape(b, h, m, d).contiguous()
             k4, v4 = k.contiguous(), v.contiguous()
-            rec["ms"] = time_ms(lambda: kernel(q, k, v))
-            rec["plain_ms"] = time_ms(lambda: plain(q, k, v), iters=2)
-            rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+            rec["ms"], rec["library_ms"] = time_in_turns(
+                lambda: kernel(q, k, v), lambda: F.scaled_dot_product_attention(q4, k4, v4))
+            rec["plain_ms"] = time_ms(lambda: plain(q, k, v))
+            rec["ratio"] = rec["ms"] / rec["library_ms"]
             rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, dtype)
-            print(f"    kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
-                  f"sdpa {rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-                  f"({rec['bound_by']})", flush=True)
+            print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
+                  f"sdpa {rec['library_ms']:.4f} ms (kernel/sdpa {rec['ratio']:.3f}), "
+                  f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})", flush=True)
         recs.append(rec)
     return recs
+
+
+def check_tma_refusals(gen) -> dict:
+    """That each attention wrapper refuses, on the card and in bfloat16, a q
+    view that the TMA path cannot read — a head-dim stride other than 1,
+    and a base address 2 bytes off a 16-byte boundary — with a ValueError
+    naming the fault, and launches nothing."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    dev, dtype = "cuda", torch.bfloat16
+    b, f, h, n, d = 1, 2, 2, 1024, 40
+    k = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    v = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    wide = torch.randn(b, f, n, h, 2 * d, generator=gen, device=dev).to(dtype)
+    flat = torch.randn(b * f * n * h * d + 1, generator=gen, device=dev).to(dtype)
+    views = {"head-dim stride 2": wide[..., ::2].transpose(2, 3),
+             "base address off 16 bytes": flat[1:].view(b, f, n, h, d).transpose(2, 3)}
+    rec = {}
+    for name in ("fused_frame_attention", "flash_rect_frame_attention",
+                 "flash_frame_attention"):
+        for case, q in views.items():
+            before = (fa.launch_count(), fa.flash_launch_count())
+            try:
+                getattr(fa, name)(q, k, v)
+            except ValueError as err:
+                rec[f"{name}: {case}"] = str(err)
+            else:
+                raise AssertionError(f"{name} took a q with a {case}")
+            if (fa.launch_count(), fa.flash_launch_count()) != before:
+                raise AssertionError(f"{name} launched on a q with a {case}")
+            print(f"  {name}, q with a {case}: refused ({rec[f'{name}: {case}']})",
+                  flush=True)
+    return rec
+
+
+def print_ptxas_reports() -> dict:
+    """Each kernel's registers, static shared memory and spills as ptxas
+    reported them when the libraries were built."""
+    from videop2p_tpu_torch.ops import _build
+
+    reports = {}
+    for src in _build.KERNEL_SOURCES:
+        reports[src] = _build.ptxas_report(src)
+        for r in reports[src]:
+            print(f"  ptxas {src}: {r['kernel']}: {r['registers']} registers, "
+                  f"{r['smem_bytes']} bytes static smem, spills {r['spill_stores']} / "
+                  f"{r['spill_loads']} bytes (stores / loads)", flush=True)
+    return reports
 
 
 def device_ms_by_kernel(fn, prefixes: dict, iters: int = 3) -> dict:
@@ -382,7 +469,7 @@ def check_flash_bwd(gen, dtype, b, f, h, n, d, timed: bool) -> list:
             q5, k5, v5, do5 = fold(q), kv(k), kv(v), fold(do)
             o, m, l = fa.attention_reference(q5, k5, v5, residuals=True)
             rec["plain_ms"] = time_ms(
-                lambda: fa.attention_reference_bwd(q5, k5, v5, o, do5, m, l), iters=2)
+                lambda: fa.attention_reference_bwd(q5, k5, v5, o, do5, m, l))
             del o, m, l
             # the library call: SDPA forward and backward on the fold
             q4 = q.transpose(1, 2).reshape(b, h, f * n, d).contiguous().requires_grad_(True)
@@ -490,13 +577,15 @@ def check_group_norm(gen, dtype, n, rows, c, eps, act, timed: bool) -> dict:
             y = F.group_norm(x_nc, 32, w, bb, eps)
             return F.silu(y) if act == "silu" else y
 
-        rec["ms"] = time_ms(lambda: gn.fused_group_norm(x, scale, bias, **kw), iters=10)
+        rec["ms"], rec["library_ms"] = time_in_turns(
+            lambda: gn.fused_group_norm(x, scale, bias, **kw), library)
         rec["plain_ms"] = time_ms(lambda: gn.group_norm_reference(x, scale, bias, **kw))
-        rec["library_ms"] = time_ms(library, iters=10)
+        rec["ratio"] = rec["ms"] / rec["library_ms"]
         rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, dtype)
-        print(f"    kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
-              f"F.group_norm+silu {rec['library_ms']:.3f} ms, bound "
-              f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})", flush=True)
+        print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
+              f"F.group_norm+silu {rec['library_ms']:.4f} ms (kernel/library "
+              f"{rec['ratio']:.3f}), bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})",
+              flush=True)
     return rec
 
 
@@ -1041,6 +1130,7 @@ def main() -> int:
     _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s ({', '.join(_build.KERNEL_SOURCES)})", flush=True)
+    ptxas = print_ptxas_reports()
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1050,11 +1140,14 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         # B = 3: the live edit's batch; B = 2, 1: the cached edit's and its
         # capture's; B = 4: the full-CFG edit's; B = 1 also the inversion's
-        # and null-text's
+        # and null-text's. Then head dims 64 and 128, and lengths off the
+        # bf16 kernels' tiles (192 or 128 query rows, 128 or 64 keys): N
+        # 1000, 1100, 333 and F·N 3000, 2200, 1665
         for shape in ((3, 8, 8, 4096, 40), (3, 8, 8, 1024, 80), (2, 8, 8, 4096, 40),
                       (1, 8, 8, 4096, 40), (2, 8, 8, 1024, 80), (4, 8, 8, 4096, 40),
-                      (4, 8, 8, 1024, 80), (1, 8, 8, 1024, 80), (1, 3, 2, 1000, 40),
-                      (2, 2, 4, 1100, 64)):
+                      (4, 8, 8, 1024, 80), (1, 8, 8, 1024, 80), (1, 8, 8, 1024, 64),
+                      (1, 8, 8, 1024, 128), (1, 3, 2, 1000, 40), (2, 2, 4, 1100, 64),
+                      (1, 5, 2, 333, 80)):
             timed = shape[0] == 3
             checks["frame_attention"].append(check_attention(gen, dtype, *shape, timed))
             checks["flash_attention"] += check_flash(gen, dtype, *shape, timed)
@@ -1072,6 +1165,7 @@ def main() -> int:
                                             (2, 1000, 96, 1e-5, "silu", False)):
             checks["group_norm"].append(
                 check_group_norm(gen, dtype, n, rows, c, eps, act, timed))
+    checks["tma_refusals"] = check_tma_refusals(gen)
     torch.cuda.empty_cache()
     # 3b. the flash backward against the plain backward (B = 1: null-text's
     # batch; B = 4: the full-CFG edit's), and the gradients through the
@@ -1109,7 +1203,7 @@ def main() -> int:
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                "shape": rec["shape"], "dtype": rec["dtype"]}
+                "ratio": rec["ratio"], "shape": rec["shape"], "dtype": rec["dtype"]}
 
     def bwd_entry(key, grads, replaces):
         """A flash backward kernel's line: its check at null-text's largest
@@ -1126,8 +1220,8 @@ def main() -> int:
                 "max_abs_err": max(rec["max_abs_err"][g] for g in grads),
                 "ms": rec["ms"][key], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"][key], "bound_by": rec["bound_by"],
-                "library_ms": rec["library_ms"], "shape": rec["shape"],
-                "dtype": rec["dtype"]}
+                "library_ms": rec["library_ms"], "ratio": rec["ms"][key] / rec["library_ms"],
+                "shape": rec["shape"], "dtype": rec["dtype"]}
 
     # each kernel's launches come from the main path that runs it: the fast
     # edit where it ran, else official mode
@@ -1163,7 +1257,8 @@ def main() -> int:
 
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
-            json.dump({"card": card, "kind": kind, "build_s": build_s, "checks": checks,
+            json.dump({"card": card, "kind": kind, "build_s": build_s, "ptxas": ptxas,
+                       "checks": checks,
                        "main_path": runs, **records}, fh, indent=1)
     if failures:
         print("chip_smoke failed: " + "; ".join(failures), file=sys.stderr)

@@ -171,3 +171,79 @@ def test_cuda_group_norm_gradients_match_plain(cuda):
         grads.append([x.grad for x in leaves])
     for got, ref in zip(*grads):
         torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["fused_frame_attention", "flash_frame_attention",
+                                     "flash_rect_frame_attention"])
+@pytest.mark.parametrize("shape", [(1, 3, 2, 1000, 40), (2, 2, 4, 1100, 64),
+                                   (1, 5, 2, 333, 80), (1, 2, 2, 1024, 64),
+                                   (1, 2, 2, 1024, 128)])
+def test_cuda_bf16_wgmma_kernels_at_tile_edges(cuda, wrapper, shape):
+    """The bf16 warpgroup kernels (csrc/frame_attention_sm90.cuh) through
+    each wrapper, on the head-split views FrameAttention hands them: query
+    lengths F·N and key lengths N off the query tile (192 or 128 rows) and
+    the key tile (128 or 64 keys), and head dims 64 and 128 (one and two
+    64-column slabs), against the plain version in float32 on the same bf16
+    inputs within 2^-7·max|ref|."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    b, f, h, n, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(b, f, n, h, d, generator=gen, device=cuda).bfloat16().transpose(2, 3)
+    k = torch.randn(b, n, h, d, generator=gen, device=cuda).bfloat16().transpose(1, 2)
+    v = torch.randn(b, n, h, d, generator=gen, device=cuda).bfloat16().transpose(1, 2)
+    out = getattr(fa, wrapper)(q, k, v)
+    ref = fa.chunked_frame_attention(q.float(), k.float(), v.float())
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert (out.float() - ref).abs().max().item() <= 2.0 ** -7 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rect", [True, False])
+def test_cuda_flash_residuals_match_plain(cuda, rect):
+    """The bf16 flash forward's per-row residuals, the max m of the scaled
+    scores and the row sum l that the backward kernels read, against
+    attention_reference(..., residuals=True) on the same inputs, within 1e-4
+    relative, for the flash_rect fold and the frame-batched layout."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    b, f, h, n, d = 1, 3, 2, 1000, 40
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(b, f, n, h, d, generator=gen, device=cuda).bfloat16().transpose(2, 3)
+    k = torch.randn(b, n, h, d, generator=gen, device=cuda).bfloat16().transpose(1, 2)
+    v = torch.randn(b, n, h, d, generator=gen, device=cuda).bfloat16().transpose(1, 2)
+    out = fa._frame_major_out(q)
+    if rect:
+        q5, out5, k5, v5 = fa._rect_view(q), fa._rect_view(out), k[:, None], v[:, None]
+    else:
+        q5, out5 = q, out
+        k5, v5 = k[:, None].expand(b, f, h, n, d), v[:, None].expand(b, f, h, n, d)
+    m, l = (torch.empty(q5.shape[:4], device=cuda) for _ in range(2))
+    fa._flash(q5, k5, v5, out5, m, l)
+    _, m_ref, l_ref = fa.attention_reference(q5.float(), k5.float(), v5.float(),
+                                             residuals=True)
+    torch.testing.assert_close(m, m_ref, rtol=1e-4, atol=0)
+    torch.testing.assert_close(l, l_ref, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["fused_frame_attention", "flash_frame_attention",
+                                     "flash_rect_frame_attention"])
+def test_cuda_bf16_kernels_refuse_what_tma_cannot_read(cuda, wrapper):
+    """A bf16 q with a head-dim stride other than 1, or whose base address
+    is 2 bytes off a 16-byte boundary, raises a ValueError naming the fault
+    and launches nothing: no fallback to another kernel, no silent copy."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    b, f, h, n, d = 1, 2, 2, 1024, 40
+    k = torch.randn(b, h, n, d, device=cuda).bfloat16()
+    wide = torch.randn(b, f, n, h, 2 * d, device=cuda).bfloat16()
+    flat = torch.randn(b * f * n * h * d + 1, device=cuda).bfloat16()
+    cases = ((wide[..., ::2].transpose(2, 3), "contiguous last dimension"),
+             (flat[1:].view(b, f, n, h, d).transpose(2, 3), "aligned to 16 bytes"))
+    for q, message in cases:
+        before = (fa.launch_count(), fa.flash_launch_count())
+        with pytest.raises(ValueError, match=message):
+            getattr(fa, wrapper)(q, k, k)
+        assert (fa.launch_count(), fa.flash_launch_count()) == before

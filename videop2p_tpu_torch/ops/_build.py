@@ -5,8 +5,12 @@ plain C interface, loaded with :mod:`ctypes`. No source includes PyTorch's
 headers, so a build takes seconds instead of minutes. All sources compile in
 parallel (one ``nvcc`` process each, started together) at first use, into
 ``build/torch_kernels/`` at the repository root, a directory that
-``.gitignore`` lists. A library's file name carries a hash of its source and
-the flags, so an edited source rebuilds and an unchanged one loads as it is.
+``.gitignore`` lists. A library's file name carries a hash of its source,
+of every header in ``csrc/`` (``*.cuh``, which the sources include) and of
+the flags, so an edited source or header rebuilds and an unchanged one loads
+as it is. ``nvcc -Xptxas -v`` reports each kernel's registers, shared memory
+and spills; the report is kept beside the library (``<library>.ptxas.txt``)
+and :func:`ptxas_report` reads it.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -17,12 +21,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
-__all__ = ["build_all", "load_library", "bind", "KERNEL_SOURCES", "BUILD_DIR"]
+__all__ = ["build_all", "load_library", "bind", "ptxas_report", "KERNEL_SOURCES",
+           "BUILD_DIR"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -31,7 +37,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
 KERNEL_SOURCES = ("frame_attention.cu", "groupnorm.cu", "flash_attention.cu",
                   "flash_attention_bwd.cu")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -51,11 +57,21 @@ def _nvcc() -> str:
     return found
 
 
+def source_digest(source: str, csrc: str = CSRC) -> str:
+    """Hash of ``source``, of every ``*.cuh`` header in ``csrc`` (by name and
+    content) and of the flags: the part of a library's name that changes
+    whenever anything it is built from changes."""
+    digest = hashlib.sha1()
+    for name in [source] + sorted(f for f in os.listdir(csrc) if f.endswith(".cuh")):
+        with open(os.path.join(csrc, name), "rb") as fh:
+            digest.update(name.encode() + b"\0" + fh.read() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:12]
+
+
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:12]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{source_digest(source)}.so")
 
 
 def build_all() -> Dict[str, str]:
@@ -80,10 +96,59 @@ def build_all() -> Dict[str, str]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {src} (rc={proc.returncode}):\n{out}")
             continue
+        with open(path + ".ptxas.txt", "w") as fh:
+            fh.write(out)
         os.replace(tmp, path)
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                     r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def parse_ptxas(text: str) -> List[dict]:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: its (mangled) name,
+    registers, static shared memory in bytes (dynamic shared memory is set
+    at launch) and spill stores and loads in bytes."""
+    kernels: List[dict] = []
+    for line in text.splitlines():
+        entry = _ENTRY.search(line)
+        if entry:
+            kernels.append({"kernel": entry.group(1), "registers": None, "smem_bytes": 0,
+                            "spill_stores": 0, "spill_loads": 0, "stack_bytes": 0})
+            continue
+        if not kernels:
+            continue
+        rec = kernels[-1]
+        spills = _SPILLS.search(line)
+        if spills:
+            rec["stack_bytes"], rec["spill_stores"], rec["spill_loads"] = map(
+                int, spills.groups())
+        used = _USED.search(line)
+        if used:
+            rec["registers"] = int(used.group(1))
+            smem = _SMEM.search(line)
+            rec["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return kernels
+
+
+def ptxas_report(source: str) -> List[dict]:
+    """The ptxas resource report of the built library of ``source``, the
+    kernel names demangled by the toolkit's ``cu++filt``."""
+    with open(_lib_path(source) + ".ptxas.txt") as fh:
+        kernels = parse_ptxas(fh.read())
+    if kernels:
+        filt = os.path.join(os.path.dirname(_nvcc()), "cu++filt")
+        out = subprocess.run([filt, *(k["kernel"] for k in kernels)],
+                             capture_output=True, text=True, check=True, timeout=60)
+        for rec, name in zip(kernels, out.stdout.splitlines()):
+            rec["kernel"] = name
+    return kernels
 
 
 def load_library(source: str) -> ctypes.CDLL:

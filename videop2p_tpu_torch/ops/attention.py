@@ -11,13 +11,13 @@ Port of ``videop2p_tpu/ops/attention.py``. Shapes: q (B, F, H, N, D); k, v
     fused kernel (a dense score tensor at 64² would need ~13 GB in fp32).
   * :func:`fused_frame_attention` — ``csrc/frame_attention.cu`` on a CUDA
     tensor (frames folded into the query axis, K/V tiles streamed through
-    shared memory with an online softmax, CUDA cores), the chunked plain
-    version on a CPU tensor. Its backward recomputes through the chunked
-    plain version (JAX's ``_fused_bwd``).
+    shared memory with an online softmax), the chunked plain version on a
+    CPU tensor. Its backward recomputes through the chunked plain version
+    (JAX's ``_fused_bwd``).
   * :func:`flash_frame_attention`, :func:`flash_rect_frame_attention` — the
     port of the stock Pallas flash-attention kernel: ``csrc/flash_attention.cu``
-    (tensor cores in bf16) on a CUDA tensor, with K/V read per frame at batch
-    stride 0 or with frames folded into the query length; their plain
+    on a CUDA tensor, with K/V read per frame at batch stride 0 or with
+    frames folded into the query length; their plain
     versions (``*_reference``, through :func:`attention_reference`) on a
     CPU tensor. Their backward is the port of the stock backward kernels:
     ``csrc/flash_attention_bwd.cu`` (dK/dV, then dQ) from the forward's
@@ -25,6 +25,12 @@ Port of ``videop2p_tpu/ops/attention.py``. Shapes: q (B, F, H, N, D); k, v
     version.
   * :func:`make_frame_attention_fn` — the dispatch by implementation name;
     :func:`frame_attention` is its ``"auto"`` rule.
+
+In bfloat16 both kernels run one Hopper design (``csrc/frame_attention_sm90.cuh``:
+``wgmma`` on the tensor cores, K/V tiles fed by TMA, the softmax in
+registers); float32 runs each file's CUDA-core kernel. The TMA path reads
+q, k and v in place, so a bf16 CUDA tensor it cannot take raises
+(:func:`check_tma_operand`), never copies.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ __all__ = [
     "reset_flash_launch_count",
     "flash_bwd_launch_counts",
     "reset_flash_bwd_launch_counts",
+    "check_tma_operand",
     "FRAME_ATTENTION_IMPLS",
     "MIN_LARGE_TOKENS",
 ]
@@ -172,6 +179,31 @@ def _check_cuda_inputs(name, q, k, v):
         raise ValueError(f"{name} needs a contiguous last dimension")
     if q.shape[-1] > _MAX_HEAD_DIM:
         raise ValueError(f"head dim {q.shape[-1]} > {_MAX_HEAD_DIM}")
+    if q.dtype == torch.bfloat16:
+        for operand, t in (("q", q), ("k", k), ("v", v)):
+            check_tma_operand(f"{name} {operand}", t)
+
+
+def check_tma_operand(name: str, t: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the bf16 kernels' TMA path can read ``t``
+    in place: last dimension contiguous, base address aligned to 16 bytes,
+    and the stride of every other dimension longer than 1 a multiple of 16
+    bytes (a TMA tensor map's rule; a stride of 0, K/V shared by frames, is
+    one). The message names the stride or the alignment at fault. Reads only
+    the tensor's metadata, so it runs on a CPU tensor too."""
+    item = t.element_size()
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: the TMA path needs a contiguous last dimension, "
+                         f"got D stride {t.stride(-1)}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the TMA path needs a base address aligned to 16 "
+                         f"bytes, got {t.data_ptr():#x} ({t.data_ptr() % 16} bytes off)")
+    for dim, (size, stride) in enumerate(zip(t.shape[:-1], t.stride()[:-1])):
+        if size > 1 and (stride * item) % 16:
+            raise ValueError(
+                f"{name}: the TMA path needs strides that are multiples of 16 bytes, "
+                f"got stride {stride} ({stride * item} bytes) in dimension {dim} of "
+                f"shape {tuple(t.shape)}")
 
 
 def _frame_major_out(q: torch.Tensor) -> torch.Tensor:
@@ -296,8 +328,9 @@ def attention_reference_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash(q5: torch.Tensor, k5: torch.Tensor, v5: torch.Tensor,
            out5: torch.Tensor, m: Optional[torch.Tensor] = None,
            l: Optional[torch.Tensor] = None) -> None:
-    """Launch ``csrc/flash_attention.cu`` on (B0, B1, H, L, D) views; a
-    batch stride of 0 in k5/v5 shares one K/V batch among query batches.
+    """Launch ``csrc/flash_attention.cu`` on (B0, B1, H, L, D) views; k5
+    and v5 have a batch stride of 0 over B1 (one K/V batch shared by the
+    query batches) or B1 = 1.
     ``m``, ``l``: contiguous f32 (B0, B1, H, Lq) buffers for the per-row
     residuals of the backward, or None."""
     b0, b1, h, lq, d = q5.shape

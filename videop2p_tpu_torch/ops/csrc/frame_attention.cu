@@ -10,15 +10,25 @@
 // frames form one long rectangular attention against the N keys of frame 0,
 // so K/V are shared by every frame and never broadcast per frame.
 //
-// Bound on this card: operations. 4*B*H*(F*N)*N*D FLOPs against
-// (B*H*(2*F*N + 2*N)*D) elements moved; at the 64x64 edit site
-// (B=3, F=8, H=8, N=4096, D=40) that is 5.2e11 FLOPs over 63 MB in fp32,
-// ~8000 FLOP/byte, far above the ridge point of either precision.
+// Bound on this card: operations. 4*B*F*H*N^2*D FLOPs (the true D, not the
+// padded one) against (B*H*(2*F*N + 2*N)*D) elements moved; at the 64x64
+// edit site (B=3, F=8, H=8, N=4096, D=40) 5.2e11 FLOPs over 142 MB in bf16,
+// ~3600 FLOP/byte, far above the ridge point: 0.521 ms at 989 TFLOP/s.
 //
-// Design. The TPU kernel keeps a full 4096-wide f32 score row per query in
-// VMEM; a block's shared memory here (227 KB) cannot hold even 64 such rows,
-// so the kernel streams K/V tiles through shared memory instead and keeps an
-// online softmax (running max and running sum, f32) per query row:
+// bfloat16: the warpgroup core of frame_attention_sm90.cuh, shared with the
+// flash kernel. Tensor cores: Q.K^T and P.V run as wgmma (bf16 in, f32
+// accumulators in registers), the head dim zero-padded to a multiple of 16
+// (40 -> 48). Copies: K/V tiles arrive by TMA into a ring of shared-memory
+// stages that a producer warp keeps full while three consumer warpgroups
+// (two above D = 96) compute; Q is loaded once into registers, and the
+// softmax, P and O never leave registers. L2: the query tiles of one
+// (b, h) run next to each other, so one (b, h)'s K/V is read from HBM
+// about once and from L2 by every block of it, 192 FLOP per byte fetched
+// (192 query rows a block). Numerics: scores and softmax in f32, the
+// unnormalized P rounded to bf16 before P.V (the JAX kernel's
+// p.astype(v.dtype)), the row sum in f32.
+//
+// float32: the simple exact kernel, f32 FMA on the CUDA cores (no TF32):
 //   * one block = one (b, h) and a tile of the folded query axis;
 //   * four threads share a query row, each holding every fourth element of
 //     q and of the f32 accumulator, so D <= 128 fits in registers; a thread
@@ -29,18 +39,21 @@
 //     rescaled once per chunk, and exp2 runs on log2(e)-prescaled scores;
 //   * a ragged F*N (or N) is masked: rows past the end load zeros and are
 //     not stored, keys past the end score -inf.
-// This is the simple, exact kernel: f32 FMA on the CUDA cores, no tensor
-// cores. Tensor-core tiles (mma.sync / wgmma with D padded to 48 or 96) are
-// later work; the measured times sit in PERF.md.
 //
 // q and out are read/written through strides for a (B, F, H, N, D) view
 // (last stride 1), k and v through strides for (B, H, N, D), so callers pass
 // the head-split views of their projections without a transposing copy.
+// The bf16 path reads K/V through TMA and Q as 32-bit pairs: the base
+// addresses of q, k and v must be 16-byte aligned and their strides
+// multiples of 8 elements (ops/attention.py checks this before the launch
+// and raises otherwise).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "frame_attention_sm90.cuh"
 
 namespace {
 
@@ -56,20 +69,12 @@ struct Strides {
   long long o_b, o_f, o_h, o_n;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // DT: elements of D per thread (D <= 4*DT); RPT: query rows per thread;
 // BK: keys per shared-memory tile.
-template <typename T, int DT, int RPT, int BK>
+template <int DT, int RPT, int BK>
 __global__ void __launch_bounds__(kThreads)
-frame_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+frame_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
                        int F, int H, int N, int D, Strides st, float scale_log2) {
   constexpr int DP = DT * kTPR;
   constexpr int kRows = kGroups * RPT;
@@ -95,27 +100,27 @@ frame_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const bool live = row < M;
     const int f = live ? row / N : 0;
     const int n = live ? row - f * N : 0;
-    const T* qp = q + b * st.q_b + f * st.q_f + h * st.q_h + n * st.q_n;
+    const float* qp = q + b * st.q_b + f * st.q_f + h * st.q_h + n * st.q_n;
 #pragma unroll
     for (int i = 0; i < DT; ++i) {
       const int d = i * kTPR + part;
-      qr[r][i] = (live && d < D) ? to_f32(qp[d]) * scale_log2 : 0.f;
+      qr[r][i] = (live && d < D) ? qp[d] * scale_log2 : 0.f;
       acc[r][i] = 0.f;
     }
     mrow[r] = -CUDART_INF_F;
     lrow[r] = 0.f;
   }
 
-  const T* kb = k + b * st.k_b + h * st.k_h;
-  const T* vb = v + b * st.v_b + h * st.v_h;
+  const float* kb = k + b * st.k_b + h * st.k_h;
+  const float* vb = v + b * st.v_b + h * st.v_h;
   for (int kt = 0; kt < N; kt += BK) {
     __syncthreads();
     for (int e = tid; e < BK * DP; e += kThreads) {
       const int key = kt + e / DP;
       const int d = e % DP;
       const bool ok = key < N && d < D;
-      ks[e] = ok ? to_f32(kb[key * st.k_n + d]) : 0.f;
-      vs[e] = ok ? to_f32(vb[key * st.v_n + d]) : 0.f;
+      ks[e] = ok ? kb[key * st.k_n + d] : 0.f;
+      vs[e] = ok ? vb[key * st.v_n + d] : 0.f;
     }
     __syncthreads();
     const int nk = min(BK, N - kt);
@@ -181,17 +186,17 @@ frame_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= M) continue;
     const int f = row / N;
     const int n = row - f * N;
-    T* op = o + b * st.o_b + f * st.o_f + h * st.o_h + n * st.o_n;
+    float* op = o + b * st.o_b + f * st.o_f + h * st.o_h + n * st.o_n;
     const float inv = 1.f / lrow[r];
 #pragma unroll
     for (int i = 0; i < DT; ++i) {
       const int d = i * kTPR + part;
-      if (d < D) op[d] = from_f32<T>(acc[r][i] * inv);
+      if (d < D) op[d] = acc[r][i] * inv;
     }
   }
 }
 
-template <typename T, int DT, int RPT, int BK>
+template <int DT, int RPT, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int F, int H, int N, int D, const Strides& st, float scale,
                    cudaStream_t stream) {
@@ -199,19 +204,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   const long long M = (long long)F * N;
   dim3 grid((unsigned)((M + kRows - 1) / kRows), (unsigned)(B * H));
   const float scale_log2 = scale * 1.4426950408889634f;
-  frame_attention_kernel<T, DT, RPT, BK><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), F, H, N, D, st, scale_log2);
+  frame_attention_kernel<DT, RPT, BK><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), F, H, N, D, st, scale_log2);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                      int F, int H, int N, int D, const Strides& st, float scale,
                      cudaStream_t stream) {
-  if (D <= 40) return launch<T, 10, 4, 64>(q, k, v, o, B, F, H, N, D, st, scale, stream);
-  if (D <= 80) return launch<T, 20, 2, 64>(q, k, v, o, B, F, H, N, D, st, scale, stream);
-  return launch<T, 32, 1, 32>(q, k, v, o, B, F, H, N, D, st, scale, stream);
+  if (D <= 40) return launch<10, 4, 64>(q, k, v, o, B, F, H, N, D, st, scale, stream);
+  if (D <= 80) return launch<20, 2, 64>(q, k, v, o, B, F, H, N, D, st, scale, stream);
+  return launch<32, 1, 32>(q, k, v, o, B, F, H, N, D, st, scale, stream);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(sm90::Config<DP>::kThreads, 1)
+frame_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap, const sm90::Problem p) {
+  sm90::attention_block<DP>(&kmap, &vmap, p);
+}
+
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int F,
+                        int H, int N, int D, const Strides& st, float scale,
+                        cudaStream_t stream) {
+  const sm90::Problem p{static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o),
+                        nullptr, nullptr, st.q_b, st.q_f, st.q_h, st.q_n,
+                        st.o_b, st.o_f, st.o_h, st.o_n, F, H, N, N, D, scale};
+  const long long k_st[3] = {st.k_b, st.k_h, st.k_n};
+  const long long v_st[3] = {st.v_b, st.v_h, st.v_n};
+  return sm90::dispatch_dp(D, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    return sm90::launch<DP>(frame_attention_wgmma_kernel<DP>, p, B, k, k_st, v, v_st, stream);
+  });
 }
 
 }  // namespace
@@ -230,9 +255,8 @@ extern "C" int frame_attention_fwd(const void* q, const void* k, const void* v,
   st.v_b = strides[7]; st.v_h = strides[8]; st.v_n = strides[9];
   st.o_b = strides[10]; st.o_f = strides[11]; st.o_h = strides[12]; st.o_n = strides[13];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(q, k, v, o, B, F, H, N, D, st, scale, s);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, F, H, N, D, st, scale, s);
+  if (dtype == 0) return (int)launch_f32(q, k, v, o, B, F, H, N, D, st, scale, s);
+  if (dtype == 1) return (int)launch_bf16(q, k, v, o, B, F, H, N, D, st, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
