@@ -18,13 +18,16 @@ Phases, each of which must pass (any failure exits non-zero):
    at least 20 ms, the median of 3; kernel and library call in turns);
    that a bf16 q view the TMA path cannot read (a head-dim stride other
    than 1, a base address off 16 bytes) raises and launches nothing;
-3b. the flash backward (the forward with its residuals, then the dK/dV and
-   dQ kernels, through autograd of both wrappers) against the plain
+3b. the flash backward (the forward with its residuals, then the dQ and dK/dV
+   kernels, through autograd of both wrappers) against the plain
    backward ``attention_reference_bwd`` in float32 on the kernel's own
-   inputs, at null-text's shapes (B = 1), the full-CFG edit's (B = 4) and
-   two ragged ones, float32 within 1e-4·max|ref| and bfloat16 within
-   2^-7·max|ref| per gradient; each kernel's time (torch.profiler), the
-   plain backward's and SDPA forward + backward's at the B = 1 shapes; and
+   inputs, at null-text's shapes (B = 1), the full-CFG edit's (B = 4),
+   three ragged ones and head dim 128, float32 within 1e-4·max|ref| and
+   bfloat16 within 2^-7·max|ref| per gradient; at null-text's two shapes
+   in bfloat16 a second backward on the same inputs must give the same
+   bits; there each kernel's time (torch.profiler), the port's whole
+   backward in turns with SDPA's backward alone (from a retained graph),
+   SDPA forward + backward's and the plain backward's; and
    that the fused frame-attention and GroupNorm wrappers return an output
    with a gradient on the card (the autograd fault repaired there: their
    backward is the plain version's recompute, so it matches the plain
@@ -407,9 +410,11 @@ def device_ms_by_kernel(fn, prefixes: dict, iters: int = 3) -> dict:
 
 def check_flash_bwd(gen, dtype, b, f, h, n, d, timed: bool) -> list:
     """Autograd through both flash wrappers on the card (the forward with its
-    residuals, then the dK/dV and dQ kernels) against the plain backward,
+    residuals, then the dQ and dK/dV kernels) against the plain backward,
     ``attention_reference_bwd``, run in float32 on the kernel's own inputs
-    from the plain forward's output and residuals."""
+    from the plain forward's output and residuals. In bfloat16 at the timed
+    (null-text) shapes, a second backward on the same inputs must give the
+    same bits."""
     import torch.nn.functional as F
     from videop2p_tpu_torch.ops import attention as fa
 
@@ -449,6 +454,10 @@ def check_flash_bwd(gen, dtype, b, f, h, n, d, timed: bool) -> list:
         del o
         rec = {"wrapper": name, "shape": [b, f, h, n, d],
                "dtype": str(dtype).replace("torch.", ""), "max_abs_err": {}, "tol": {}}
+        if dtype == torch.bfloat16:
+            # both wrappers give the dK/dV kernel F·N query rows per (b, h)
+            rec["split"] = fa.dkv_split(b * h * -(-n // 128), f * n,
+                                        torch.cuda.get_device_properties(0).multi_processor_count)
         for gname, leaf, ref in zip(("dq", "dk", "dv"), leaves, refs):
             scale = ref.abs().max().item()
             tol = BWD_REL_TOL_F32 * scale if dtype == torch.float32 else BF16_REL_TOL * scale
@@ -459,24 +468,43 @@ def check_flash_bwd(gen, dtype, b, f, h, n, d, timed: bool) -> list:
         del refs
         print(f"  {name} backward {rec['shape']} {rec['dtype']}: max|d| "
               + ", ".join(f"{g} {rec['max_abs_err'][g]:.3e} (limit {rec['tol'][g]:.3e})"
-                          for g in ("dq", "dk", "dv")), flush=True)
+                          for g in ("dq", "dk", "dv"))
+              + (f", dK/dV cluster split {rec['split']}" if "split" in rec else ""), flush=True)
+        if timed and dtype == torch.bfloat16:
+            # determinism: the same inputs through a second backward
+            again = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            kernel(*again).backward(do)
+            rec["deterministic"] = all(torch.equal(a.grad, c.grad)
+                                       for a, c in zip(leaves, again))
+            print(f"    second backward bit-identical: {rec['deterministic']}", flush=True)
+            if not rec["deterministic"]:
+                raise AssertionError(f"{name}: two bf16 backwards on the same inputs differ")
+            del again
         if timed:
-            # the kernels alone, from the residuals of one forward
+            # the kernels alone, from the residuals of one forward (profiler)
             out = kernel(*leaves)
             ms = device_ms_by_kernel(
                 lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
                 {"dkv": "flash_bwd_dkv", "dq": "flash_bwd_dq"})
+            # the library's backward alone, SDPA's from its own retained graph
+            # on the fold, in turns with the port's whole backward (the output
+            # allocations and both kernels; in float32 also the di reduction)
+            q4 = q.transpose(1, 2).reshape(b, h, f * n, d).contiguous().requires_grad_(True)
+            k4, v4 = (x.contiguous().requires_grad_(True) for x in (k, v))
+            do4 = do.transpose(1, 2).reshape(b, h, f * n, d).contiguous()
+            out4 = F.scaled_dot_product_attention(q4, k4, v4)
+            rec["backward_ms"], rec["library_ms"] = time_in_turns(
+                lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True))
+            # and SDPA forward + backward, the column of the earlier runs
+            rec["library_fwd_bwd_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4).backward(do4))
+            del out4
             q5, k5, v5, do5 = fold(q), kv(k), kv(v), fold(do)
             o, m, l = fa.attention_reference(q5, k5, v5, residuals=True)
             rec["plain_ms"] = time_ms(
                 lambda: fa.attention_reference_bwd(q5, k5, v5, o, do5, m, l))
             del o, m, l
-            # the library call: SDPA forward and backward on the fold
-            q4 = q.transpose(1, 2).reshape(b, h, f * n, d).contiguous().requires_grad_(True)
-            k4, v4 = (x.contiguous().requires_grad_(True) for x in (k, v))
-            do4 = do.transpose(1, 2).reshape(b, h, f * n, d).contiguous()
-            rec["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(q4, k4, v4).backward(do4))
             itemsize = torch.finfo(dtype).bits // 8
             # q, o, dO read and dQ written; k, v read and dK, dV written; m, l, di
             nq, nk = b * f * h * n * d, b * h * n * d
@@ -487,10 +515,14 @@ def check_flash_bwd(gen, dtype, b, f, h, n, d, timed: bool) -> list:
             # dK/dV: S, dP, dV, dK; dQ: S, dP, dQ; together S, dP, dV, dK, dQ
             for key, products in (("dkv", 4), ("dq", 3), ("both", 5)):
                 rec["bound_ms"][key], rec["bound_by"] = bound_ms(nbytes, products * unit, dtype)
-            print(f"    dkv kernel {ms['dkv']:.3f} ms, dq kernel {ms['dq']:.3f} ms, plain "
-                  f"{rec['plain_ms']:.3f} ms, sdpa fwd+bwd {rec['library_ms']:.3f} ms, "
-                  f"bound {rec['bound_ms']['dkv']:.3f} / {rec['bound_ms']['dq']:.3f} / "
-                  f"{rec['bound_ms']['both']:.3f} ms ({rec['bound_by']})", flush=True)
+            print(f"    dkv kernel {ms['dkv']:.4f} ms, dq kernel {ms['dq']:.4f} ms (bound "
+                  f"{rec['bound_ms']['dkv']:.4f} / {rec['bound_ms']['dq']:.4f} ms, "
+                  f"{rec['bound_by']}); whole backward {rec['backward_ms']:.4f} ms, sdpa "
+                  f"backward {rec['library_ms']:.4f} ms (kernels/sdpa bwd "
+                  f"{(ms['dkv'] + ms['dq']) / rec['library_ms']:.3f}), sdpa fwd+bwd "
+                  f"{rec['library_fwd_bwd_ms']:.4f} ms (kernels/sdpa fwd+bwd "
+                  f"{(ms['dkv'] + ms['dq']) / rec['library_fwd_bwd_ms']:.3f}), plain "
+                  f"{rec['plain_ms']:.3f} ms", flush=True)
             del q4, k4, v4, do4
         recs.append(rec)
         del leaves, out
@@ -1172,9 +1204,12 @@ def main() -> int:
     # fused frame-attention and GroupNorm wrappers
     print("backward checks:", flush=True)
     for dtype in (torch.float32, torch.bfloat16):
+        # null-text's two sites (timed), the full-CFG edit's batch, lengths
+        # off the bf16 kernels' tiles, and head dim 128 (BQ 32)
         for shape in ((1, 8, 8, 4096, 40), (1, 8, 8, 1024, 80), (4, 8, 8, 4096, 40),
-                      (1, 3, 2, 1000, 40), (2, 2, 4, 1100, 64)):
-            timed = shape[:2] == (1, 8)
+                      (1, 3, 2, 1000, 40), (2, 2, 4, 1100, 64), (1, 5, 2, 333, 80),
+                      (1, 8, 8, 1024, 128)):
+            timed = shape in ((1, 8, 8, 4096, 40), (1, 8, 8, 1024, 80))
             checks["flash_attention_bwd"] += check_flash_bwd(gen, dtype, *shape, timed)
         checks["kernel_grads"][str(dtype).replace("torch.", "")] = \
             check_kernel_grads(gen, dtype)
@@ -1208,8 +1243,9 @@ def main() -> int:
     def bwd_entry(key, grads, replaces):
         """A flash backward kernel's line: its check at null-text's largest
         shape through flash_rect (its plain version and library call compute
-        all three gradients), and its launches on the official flash_rect
-        path."""
+        all three gradients: the library call is SDPA's backward alone, and
+        SDPA's forward + backward rides beside it), and its launches on the
+        official flash_rect path."""
         rec = next(c for c in checks["flash_attention_bwd"]
                    if c["wrapper"] == "flash_rect_frame_attention"
                    and c["shape"] == [1, 8, 8, 4096, 40] and c["dtype"] == dname)
@@ -1221,6 +1257,7 @@ def main() -> int:
                 "ms": rec["ms"][key], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"][key], "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"], "ratio": rec["ms"][key] / rec["library_ms"],
+                "library_fwd_bwd_ms": rec["library_fwd_bwd_ms"],
                 "shape": rec["shape"], "dtype": rec["dtype"]}
 
     # each kernel's launches come from the main path that runs it: the fast

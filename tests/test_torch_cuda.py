@@ -247,3 +247,90 @@ def test_cuda_bf16_kernels_refuse_what_tma_cannot_read(cuda, wrapper):
         with pytest.raises(ValueError, match=message):
             getattr(fa, wrapper)(q, k, k)
         assert (fa.launch_count(), fa.flash_launch_count()) == before
+
+
+def _flash_bwd_case(cuda, wrapper, shape, seed):
+    """Inputs of one bf16 flash backward (the head-split views FrameAttention
+    hands the kernels) and a function that runs the backward through the
+    wrapper, asserting one dK/dV and one dQ launch, and returns (dq, dk,
+    dv)."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    b, f, h, n, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, f, n, h, d, generator=gen, device=cuda).bfloat16().transpose(2, 3)
+    k = torch.randn(b, n, h, d, generator=gen, device=cuda).bfloat16().transpose(1, 2)
+    v = torch.randn(b, n, h, d, generator=gen, device=cuda).bfloat16().transpose(1, 2)
+    do = torch.randn(b, f, h, n, d, generator=gen, device=cuda).bfloat16()
+
+    def grads():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        before = fa.flash_bwd_launch_counts()
+        getattr(fa, wrapper)(*leaves).backward(do)
+        after = fa.flash_bwd_launch_counts()
+        assert {key: after[key] - before[key] for key in after} == {"dkv": 1, "dq": 1}
+        return [x.grad for x in leaves]
+
+    return q, k, v, do, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["flash_frame_attention", "flash_rect_frame_attention"])
+@pytest.mark.parametrize("shape", [(1, 3, 2, 1000, 40), (2, 2, 4, 1100, 64),
+                                   (1, 5, 2, 333, 80), (1, 2, 2, 1024, 128),
+                                   (1, 8, 8, 1024, 80)])
+def test_cuda_bf16_flash_backward_at_tile_edges_is_deterministic(cuda, wrapper, shape):
+    """The bf16 warpgroup backward (csrc/flash_attention_bwd_sm90.cuh)
+    through each flash wrapper: query lengths off its query tiles (64 or 32
+    rows) and key lengths off its 128-key blocks and 64- or 32-key tiles,
+    head dims 40, 64, 80 (one and two 64-column slabs) and 128, and shapes
+    whose dK/dV query walk splits over a cluster of 2 to 8 CTAs (all but
+    (2, 2, 4, 1100, 64) on a 132-SM card). dq, dk, dv against
+    attention_reference_bwd in float32 on the same bf16 inputs within
+    2^-7·max|ref|, and a second backward on the same inputs gives the same
+    bits (fixed summation order, no atomics)."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    q, k, v, do, grads = _flash_bwd_case(cuda, wrapper, shape, seed=6)
+    first, second = grads(), grads()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    o, m, l = fa.attention_reference(q.float(), k[:, None].float(), v[:, None].float(),
+                                     residuals=True)
+    refs = fa.attention_reference_bwd(q.float(), k[:, None].float(), v[:, None].float(), o,
+                                      do.float(), m, l)
+    for got, ref in zip(first, (refs[0], refs[1][:, 0], refs[2][:, 0])):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert torch.isfinite(got).all()
+        assert (got.float() - ref).abs().max().item() <= 2.0 ** -7 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad", ["sum", "slice of a wider tensor"])
+def test_cuda_bf16_flash_backward_takes_a_grad_out_tma_cannot_read(cuda, grad):
+    """autograd chooses the output gradient's layout: ``out.sum()`` hands
+    the backward an expanded scalar (every stride 0), and a slice of a
+    wider tensor has a token stride of 88 bytes. The backward copies either
+    into a layout its TMA maps read and matches the plain backward on the
+    same gradient."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    b, f, h, n, d = 1, 3, 2, 1000, 40
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(b, f, n, h, d, generator=gen, device=cuda).bfloat16().transpose(2, 3)
+    k = torch.randn(b, n, h, d, generator=gen, device=cuda).bfloat16().transpose(1, 2)
+    v = torch.randn(b, n, h, d, generator=gen, device=cuda).bfloat16().transpose(1, 2)
+    wide = torch.randn(b, f, h, n, d + 4, generator=gen, device=cuda).bfloat16()
+    do = torch.ones(b, f, h, n, d, device=cuda).bfloat16() if grad == "sum" else wide[..., :d]
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_rect_frame_attention(*leaves)
+    if grad == "sum":
+        out.sum().backward()
+    else:
+        out.backward(do)
+    o, m, l = fa.attention_reference(q.float(), k[:, None].float(), v[:, None].float(),
+                                     residuals=True)
+    refs = fa.attention_reference_bwd(q.float(), k[:, None].float(), v[:, None].float(), o,
+                                      do.float(), m, l)
+    for leaf, ref in zip(leaves, (refs[0], refs[1][:, 0], refs[2][:, 0])):
+        assert (leaf.grad.float() - ref).abs().max().item() <= 2.0 ** -7 * ref.abs().max().item()

@@ -1,17 +1,22 @@
 """CPU tests of what surrounds the Hopper kernels of videop2p_tpu_torch: the
 TMA-eligibility check of the bf16 attention kernels
-(``ops/attention.py:check_tma_operand``), the build digest that covers the
-headers a source includes, and the reading of ptxas's resource report
-(``ops/_build.py``). No card and no nvcc needed."""
+(``ops/attention.py:check_tma_operand``), the bf16 backward's choice of
+copying an output gradient its TMA maps cannot read (``_tma_rows``) and of
+the dK/dV kernel's cluster split (``dkv_split``), the build digest that
+covers the headers a source includes, and the reading of ptxas's resource
+report (``ops/_build.py``). No card and no nvcc needed."""
 
 import os
+import re
 import shutil
 
 import pytest
 import torch
 
 from videop2p_tpu_torch.ops import _build
-from videop2p_tpu_torch.ops.attention import check_tma_operand
+from videop2p_tpu_torch.ops.attention import _tma_rows, check_tma_operand, dkv_split
+
+ATTENTION_SOURCES = ("frame_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu")
 
 
 @pytest.mark.parametrize("d", [40, 80])
@@ -70,6 +75,94 @@ def test_build_digest_covers_the_headers(tmp_path):
     os.remove(csrc / "frame_attention.cu")
     (csrc / "frame_attention.cu").write_text("// another source\n")
     assert _build.source_digest("frame_attention.cu", str(csrc)) != before["frame_attention.cu"]
+
+
+def _includes(name, csrc=_build.CSRC):
+    """The csrc headers ``name`` includes, directly or through another."""
+    with open(os.path.join(csrc, name)) as fh:
+        direct = re.findall(r'#include "([^"]+)"', fh.read())
+    return set(direct).union(*(_includes(h, csrc) for h in direct))
+
+
+def test_attention_sources_include_the_shared_sm90_header():
+    """The bf16 forward core (fused and flash kernels) and the backward core
+    both build on sm90_common.cuh, the PTX helpers they share."""
+    assert _includes("frame_attention_sm90.cuh") == {"sm90_common.cuh"}
+    assert _includes("flash_attention_bwd_sm90.cuh") == {"sm90_common.cuh"}
+    for src in ATTENTION_SOURCES:
+        assert "sm90_common.cuh" in _includes(src), src
+    assert _includes("flash_attention_bwd.cu") == {"flash_attention_bwd_sm90.cuh",
+                                                    "sm90_common.cuh"}
+
+
+@pytest.mark.parametrize("header", ["sm90_common.cuh", "flash_attention_bwd_sm90.cuh"])
+def test_build_digest_covers_the_shared_headers(tmp_path, header):
+    """Editing the shared PTX header or the backward core renames the library
+    of every attention source, so no stale build of one is loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    before = {src: _build.source_digest(src, str(csrc)) for src in ATTENTION_SOURCES}
+    (csrc / header).write_text((csrc / header).read_text() + "\n// edited\n")
+    after = {src: _build.source_digest(src, str(csrc)) for src in ATTENTION_SOURCES}
+    assert all(after[src] != before[src] for src in ATTENTION_SOURCES)
+
+
+def _strided(shape, strides, offset=0, dtype=torch.bfloat16):
+    storage = torch.zeros(offset + 1 + sum((n - 1) * st for n, st in zip(shape, strides)),
+                          dtype=dtype)
+    return storage.as_strided(shape, strides, offset)
+
+
+@pytest.mark.parametrize("case", ["projection layout", "rect fold", "contiguous"])
+def test_tma_rows_keeps_a_gradient_the_maps_read_in_place(case):
+    """A (B, F, H, N, D) output gradient in the projection layout, its
+    flash_rect fold and a contiguous one: the backward reads each in
+    place, no copy."""
+    b, f, h, n, d = 1, 3, 2, 64, 40
+    g = torch.zeros(b, f, n, h, d, dtype=torch.bfloat16).transpose(2, 3)
+    view = {"projection layout": g,
+            "rect fold": g.transpose(1, 2).reshape(b, h, f * n, d)[:, None],
+            "contiguous": g.contiguous()}[case]
+    assert _tma_rows(view) is view
+
+
+@pytest.mark.parametrize("case", ["expanded scalar", "broadcast frames", "base off 16 bytes",
+                                  "stride off 16 bytes", "head-dim stride 2"])
+def test_tma_rows_copies_a_gradient_the_maps_cannot_read(case):
+    """What autograd may hand the backward and a TMA map cannot step: every
+    stride 0 (the gradient of ``out.sum()``), one frame broadcast over the
+    frame axis, a contiguous tensor whose base is 2 bytes off 16, a slice of
+    a wider tensor (token stride 44 elements, 88 bytes), a head-dim stride
+    of 2. Each comes back as a contiguous copy that the maps read, with the
+    same values."""
+    b, f, h, n, d = 1, 3, 2, 64, 40
+    shape = (b, f, h, n, d)
+    gen = torch.Generator().manual_seed(0)
+    view = {
+        "expanded scalar": torch.ones((), dtype=torch.bfloat16).expand(shape),
+        "broadcast frames": torch.randn(b, 1, h, n, d, generator=gen).bfloat16().expand(shape),
+        "base off 16 bytes": _strided(shape, (f * h * n * d, h * n * d, n * d, d, 1), 1),
+        "stride off 16 bytes": torch.randn(b, f, h, n, d + 4, generator=gen).bfloat16()[..., :d],
+        "head-dim stride 2": torch.randn(b, f, h, n, 2 * d, generator=gen).bfloat16()[..., ::2],
+    }[case]
+    out = _tma_rows(view)
+    assert out is not view and out.is_contiguous()
+    check_tma_operand("copy", out)
+    torch.testing.assert_close(out, view, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("blocks, rows, sms, split", [
+    (256, 32768, 132, 1),   # null-text 64² site: B1 H8, Lk 4096 -> 256 key blocks
+    (64, 8192, 132, 2),     # null-text 32² site: Lk 1024 -> 64 key blocks
+    (256, 32768, 1000, 2),  # a larger card splits the 64² site too
+    (16, 3000, 132, 8),     # capped at the portable cluster size
+    (6, 1665, 132, 8),
+    (72, 2200, 132, 1),     # 2 * 72 > 132
+    (1, 200, 132, 2),       # at most one CTA per 64 query rows
+    (1, 64, 132, 1),
+])
+def test_dkv_split_fills_one_wave(blocks, rows, sms, split):
+    assert dkv_split(blocks, rows, sms) == split
 
 
 def test_parse_ptxas_reads_registers_smem_and_spills():

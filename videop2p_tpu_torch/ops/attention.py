@@ -20,17 +20,22 @@ Port of ``videop2p_tpu/ops/attention.py``. Shapes: q (B, F, H, N, D); k, v
     frames folded into the query length; their plain
     versions (``*_reference``, through :func:`attention_reference`) on a
     CPU tensor. Their backward is the port of the stock backward kernels:
-    ``csrc/flash_attention_bwd.cu`` (dK/dV, then dQ) from the forward's
+    ``csrc/flash_attention_bwd.cu`` (dQ, then dK/dV) from the forward's
     per-row residuals; :func:`attention_reference_bwd` is its plain
     version.
   * :func:`make_frame_attention_fn` — the dispatch by implementation name;
     :func:`frame_attention` is its ``"auto"`` rule.
 
-In bfloat16 both kernels run one Hopper design (``csrc/frame_attention_sm90.cuh``:
-``wgmma`` on the tensor cores, K/V tiles fed by TMA, the softmax in
-registers); float32 runs each file's CUDA-core kernel. The TMA path reads
-q, k and v in place, so a bf16 CUDA tensor it cannot take raises
-(:func:`check_tma_operand`), never copies.
+In bfloat16 both forward kernels run one Hopper design
+(``csrc/frame_attention_sm90.cuh``: ``wgmma`` on the tensor cores, K/V tiles
+fed by TMA, the softmax in registers), and the flash backward another
+(``csrc/flash_attention_bwd_sm90.cuh``: ``wgmma``, Q/dO or K/V tiles fed by
+TMA, p and dS in registers, the dK/dV query walk split over a thread-block
+cluster by :func:`dkv_split`); float32 runs each file's CUDA-core kernels.
+The TMA path reads q, k and v in place, so a bf16 CUDA tensor it cannot take
+raises (:func:`check_tma_operand`), never copies; the backward copies only
+an output gradient (or, rarely, a broadcast q) that its TMA maps cannot
+read (:func:`_tma_rows`), since autograd, not the caller, chose its layout.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ __all__ = [
     "flash_bwd_launch_counts",
     "reset_flash_bwd_launch_counts",
     "check_tma_operand",
+    "dkv_split",
     "FRAME_ATTENTION_IMPLS",
     "MIN_LARGE_TOKENS",
 ]
@@ -74,6 +80,11 @@ _FLASH_SOURCE = "flash_attention.cu"
 _FLASH_BWD_SOURCE = "flash_attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
+# the bf16 dK/dV kernel: keys per block, query rows per tile (at most), and
+# the portable thread-block cluster size
+_DKV_KEYS = 128
+_DKV_ROWS = 64
+_MAX_CLUSTER = 8
 
 _launches = 0
 _flash_launches = 0
@@ -96,9 +107,18 @@ def _flash_launcher():
 
 @functools.lru_cache(maxsize=None)
 def _flash_bwd_launcher(name: str):
+    # q, k, v, o, dout, m, l, di, rows, then dq or dk, dv; the dK/dV launcher
+    # takes the cluster split before the stream
+    outs, split = ([ctypes.c_void_p] * 2, [ctypes.c_int]) if name == "dkv" else (
+        [ctypes.c_void_p], [])
     return bind(_FLASH_BWD_SOURCE, f"flash_attention_bwd_{name}",
-                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+                [ctypes.c_void_p] * 9 + outs + [ctypes.c_int] * 7
+                + [ctypes.c_void_p, ctypes.c_float] + split + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch_count() -> int:
@@ -184,26 +204,63 @@ def _check_cuda_inputs(name, q, k, v):
             check_tma_operand(f"{name} {operand}", t)
 
 
-def check_tma_operand(name: str, t: torch.Tensor) -> None:
-    """Raise ``ValueError`` unless the bf16 kernels' TMA path can read ``t``
-    in place: last dimension contiguous, base address aligned to 16 bytes,
+def _tma_fault(t: torch.Tensor) -> Optional[str]:
+    """Why the bf16 kernels' TMA path cannot read ``t`` in place, or None if
+    it can: last dimension contiguous, base address aligned to 16 bytes,
     and the stride of every other dimension longer than 1 a multiple of 16
     bytes (a TMA tensor map's rule; a stride of 0, K/V shared by frames, is
-    one). The message names the stride or the alignment at fault. Reads only
-    the tensor's metadata, so it runs on a CPU tensor too."""
+    one). Reads only the tensor's metadata, so it runs on a CPU tensor too."""
     item = t.element_size()
     if t.stride(-1) != 1:
-        raise ValueError(f"{name}: the TMA path needs a contiguous last dimension, "
-                         f"got D stride {t.stride(-1)}")
+        return f"the TMA path needs a contiguous last dimension, got D stride {t.stride(-1)}"
     if t.data_ptr() % 16:
-        raise ValueError(f"{name}: the TMA path needs a base address aligned to 16 "
-                         f"bytes, got {t.data_ptr():#x} ({t.data_ptr() % 16} bytes off)")
+        return (f"the TMA path needs a base address aligned to 16 bytes, got "
+                f"{t.data_ptr():#x} ({t.data_ptr() % 16} bytes off)")
     for dim, (size, stride) in enumerate(zip(t.shape[:-1], t.stride()[:-1])):
         if size > 1 and (stride * item) % 16:
-            raise ValueError(
-                f"{name}: the TMA path needs strides that are multiples of 16 bytes, "
-                f"got stride {stride} ({stride * item} bytes) in dimension {dim} of "
-                f"shape {tuple(t.shape)}")
+            return (f"the TMA path needs strides that are multiples of 16 bytes, got "
+                    f"stride {stride} ({stride * item} bytes) in dimension {dim} of shape "
+                    f"{tuple(t.shape)}")
+    return None
+
+
+def check_tma_operand(name: str, t: torch.Tensor) -> None:
+    """Raise ``ValueError`` naming the stride or the alignment at fault
+    unless the bf16 kernels' TMA path can read ``t`` in place
+    (:func:`_tma_fault`)."""
+    fault = _tma_fault(t)
+    if fault is not None:
+        raise ValueError(f"{name}: {fault}")
+
+
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the bf16 backward's row tensor maps can read it in
+    place — :func:`_tma_fault` finds nothing and no dimension longer than 1
+    has a stride of 0 (a map steps every row) — else a contiguous copy in a
+    fresh, aligned allocation (``contiguous()`` would return a contiguous
+    view whose base is off 16 bytes as it is). For the output gradient,
+    whose layout autograd chooses (an expanded scalar from
+    ``sum().backward()`` has every stride 0), and q."""
+    broadcast = any(size > 1 and stride == 0 for size, stride in zip(t.shape, t.stride()))
+    if broadcast or _tma_fault(t) is not None:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def dkv_split(blocks: int, rows: int, sms: int) -> int:
+    """The CTAs of a thread-block cluster that share one key block's query
+    walk in the bf16 dK/dV kernel: ``blocks`` key blocks (B0·H·⌈Lk/128⌉, one
+    a CTA), ``rows`` query rows per (b0, h) (B1·Lq), ``sms`` streaming
+    multiprocessors. The largest power of two, at most 8 (the portable
+    cluster size) and at most one CTA per 64 query rows, that keeps
+    blocks·split within one wave of the card: 1 where the key blocks alone
+    fill it (the 64² null-text site, 256 blocks), 2 at the 32² site (64
+    blocks on 132 SMs)."""
+    split = 1
+    while (split < _MAX_CLUSTER and blocks * split * 2 <= sms
+           and split * 2 * _DKV_ROWS <= rows):
+        split *= 2
+    return split
 
 
 def _frame_major_out(q: torch.Tensor) -> torch.Tensor:
@@ -350,29 +407,43 @@ def _flash(q5: torch.Tensor, k5: torch.Tensor, v5: torch.Tensor,
 
 
 def _flash_bwd(q5, k4, v4, o5, do5, m, l, dq5, dk4, dv4) -> None:
-    """Launch the two kernels of ``csrc/flash_attention_bwd.cu``: q5, o5,
-    do5, dq5 are (B0, B1, H, Lq, D) views, k4, v4, dk4, dv4 (B0, H, Lk, D)
-    views shared by the B1 query batches, m and l the forward's residuals.
-    The dK/dV kernel sums over every query of the B1 batches inside one
-    block, so no two blocks write one K/V row."""
+    """Launch the two kernels of ``csrc/flash_attention_bwd.cu``, dQ first:
+    q5, o5, do5, dq5 are (B0, B1, H, Lq, D) views, k4, v4, dk4, dv4 (B0, H,
+    Lk, D) views shared by the B1 query batches, m and l the forward's
+    residuals. No two blocks write one K/V row: the dK/dV kernel sums over
+    every query of the B1 batches inside one block, or in bf16 inside one
+    cluster of :func:`dkv_split` blocks, in a fixed order. In float32 di =
+    Σ_d o·do is computed here, as in the stock backward; in bf16 the dQ
+    kernel computes it and hands each row's lse and di·scale to the dK/dV
+    kernel through ``rows``."""
     b0, b1, h, lq, d = q5.shape
     lk = k4.shape[2]
     if -(-max(lq, lk) // 64) > 65535:
         raise ValueError(f"lengths {lq}, {lk} exceed the kernels' grid")
-    # di = Σ_d o·do in f32, outside the kernels as in the stock backward
-    di = (o5.float() * do5.float()).sum(-1).contiguous()
-    strides = (ctypes.c_longlong * 24)(
-        *q5.stride()[:4], *do5.stride()[:4], *dq5.stride()[:4], *k4.stride()[:3],
-        *v4.stride()[:3], *dk4.stride()[:3], *dv4.stride()[:3])
+    split, di, rows = 1, None, None
+    if q5.dtype == torch.bfloat16:
+        for name, t in (("q", q5), ("grad_out", do5)):
+            check_tma_operand(f"flash backward {name}", t)
+        split = dkv_split(b0 * h * -(-lk // _DKV_KEYS), b1 * lq,
+                          _sm_count(q5.device.index))
+        # per 64-row tile of each (b0, b1, h): 64 lse, then 64 di·scale
+        rows = torch.empty(b0 * b1 * h * -(-lq // 64) * 128, device=q5.device,
+                           dtype=torch.float32)
+    else:
+        di = (o5.float() * do5.float()).sum(-1).contiguous()
+    strides = (ctypes.c_longlong * 28)(
+        *q5.stride()[:4], *o5.stride()[:4], *do5.stride()[:4], *dq5.stride()[:4],
+        *k4.stride()[:3], *v4.stride()[:3], *dk4.stride()[:3], *dv4.stride()[:3])
     stream = torch.cuda.current_stream(q5.device).cuda_stream
-    common = (q5.data_ptr(), k4.data_ptr(), v4.data_ptr(), do5.data_ptr(),
-              m.data_ptr(), l.data_ptr(), di.data_ptr())
+    common = (q5.data_ptr(), k4.data_ptr(), v4.data_ptr(), o5.data_ptr(), do5.data_ptr(),
+              m.data_ptr(), l.data_ptr(), None if di is None else di.data_ptr(),
+              None if rows is None else rows.data_ptr())
     shape = (_DTYPES[q5.dtype], b0, b1, h, lq, lk, d,
-             ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5), stream)
-    _flash_bwd_launcher("dkv")(*common, dk4.data_ptr(), dv4.data_ptr(), *shape)
-    _flash_bwd_launches["dkv"] += 1
-    _flash_bwd_launcher("dq")(*common, dq5.data_ptr(), None, *shape)
+             ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5))
+    _flash_bwd_launcher("dq")(*common, dq5.data_ptr(), *shape, stream)
     _flash_bwd_launches["dq"] += 1
+    _flash_bwd_launcher("dkv")(*common, dk4.data_ptr(), dv4.data_ptr(), *shape, split, stream)
+    _flash_bwd_launches["dkv"] += 1
 
 
 def _rect_view(x: torch.Tensor) -> torch.Tensor:
@@ -421,7 +492,10 @@ class _FlashFrameAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v, out, m, l = ctx.saved_tensors
-        if grad_out.stride(-1) != 1:
+        if q.dtype == torch.bfloat16:
+            # the bf16 kernels read q and grad_out through TMA maps
+            q, grad_out = _tma_rows(q), _tma_rows(grad_out)
+        elif grad_out.stride(-1) != 1:
             grad_out = grad_out.contiguous()
         dq, dk, dv = _frame_major_out(q), _kv_major(k), _kv_major(v)
         fold = _rect_view if ctx.rect else (lambda x: x)

@@ -1,7 +1,8 @@
 // The backward of flash attention for Hopper (sm_90a): dQ, dK, dV of
 // O = softmax(Q.K^T * scale) . V, non-causal, from the forward's per-row
 // residuals m (max of the scaled scores) and l (sum of exp(s - m)), written
-// by flash_attention.cu, and di = sum_d O*dO (f32, computed by the caller).
+// by flash_attention.cu, and di = sum_d O*dO (f32; computed by the caller in
+// float32, by the dQ kernel in bfloat16).
 //
 // q, do, dq: (B0, B1, H, Lq, D); k, v, dk, dv: (B0, H, Lk, D), shared by the
 // B1 query batches; all strided with a contiguous last dimension.
@@ -13,9 +14,9 @@
 // flash_frame_attention / flash_rect_frame_attention through
 // (jax/experimental/pallas/ops/tpu/flash_attention.py):
 //   * _flash_attention_bwd_dkv (:941, pallas_call :1121, body :796):
-//     flash_bwd_dkv_* below;
+//     flash_bwd_dkv_* (float32 below, bfloat16 in flash_attention_bwd_sm90.cuh);
 //   * _flash_attention_bwd_dq (:1287, pallas_call :1456, body :1146):
-//     flash_bwd_dq_* below.
+//     flash_bwd_dq_* (likewise).
 // The stock kernels carry dK/dV (dQ) in VMEM scratch across a sequential
 // grid axis over query (key) blocks. Blocks of a CUDA grid run in no order,
 // so each block here loops over that axis itself and writes its tile once.
@@ -32,36 +33,35 @@
 // dV, dK, dQ; the dQ kernel recomputes S and dP once more, which the bound
 // does not count) against B*H*(4*Lq + 4*Lk)*D elements moved.
 //
-// Design. Blocks of 4 warps and tiles of 64 rows, as in the forward.
+// bfloat16: the Hopper warpgroup core of flash_attention_bwd_sm90.cuh (wgmma
+// on the tensor cores, Q/dO or K/V tiles fed by TMA, p and dS in
+// registers, the dK/dV query walk split over a thread-block cluster where
+// the key blocks alone leave SMs idle); the design and its bounds are
+// described there. The TMA maps read q and dO in place, so their base
+// addresses are 16-byte aligned and their strides multiples of 8 elements
+// (ops/attention.py checks q in the forward and makes a grad_out TMA cannot
+// read contiguous).
+//
+// float32: blocks of 4 warps and tiles of 64 rows on the CUDA cores, full
+// fp32 FMAs (no TF32); two lanes per row, each owning half of the 64
+// columns of the tile for the scores and half of the head dimension for
+// the accumulators.
 //   * dK/dV: a block owns 64 keys (16 per warp) and walks all query tiles of
 //     all B1 batches: no two blocks write one dK/dV row, so the sum over the
 //     frames needs no atomics.
 //   * dQ: a block owns 64 queries (16 per warp) and walks the key tiles.
-//   * bfloat16: the four products of each tile run on the tensor cores as
-//     WMMA 16x16x16 bf16 fragments with f32 accumulation, the head dimension
-//     zero-padded to DP, a multiple of 16 (40 -> 48). The per-warp K/V (dK/dV
-//     kernel) or Q/dO (dQ kernel) operands stay in fragments for the whole
-//     walk, and so do the f32 dK, dV or dQ accumulators. The S and dP
-//     fragments pass through a per-warp f32 scratch in shared memory, where
-//     two lanes per row compute p and dS elementwise (a WMMA fragment's
-//     element-to-row map is unspecified).
-//   * float32: the same tiling on the CUDA cores, full fp32 FMAs (no TF32);
-//     two lanes per row, each owning half of the 64 columns of the tile for
-//     the scores and half of the head dimension for the accumulators.
 //   * ragged lengths: rows past Lq load zeros and take an infinite
 //     log-sum-exp, so p = 0; keys past Lk take p = 0; neither is stored.
-// wgmma, TMA and a faster design are later work; the measured times sit in
-// PERF.md.
+// The measured times sit in PERF.md.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
-#include <mma.h>
 #include <stdint.h>
 
-namespace {
+#include "flash_attention_bwd_sm90.cuh"
 
-using namespace nvcuda;
+namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -70,8 +70,8 @@ constexpr int kHalf = kTile / 2;        // columns per lane: two lanes share a r
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
-  long long q[4], dout[4], dq[4];  // (b0, b1, h, l)
-  long long k[3], v[3], dk[3], dv[3];  // (b0, h, l)
+  long long q[4], o[4], dout[4], dq[4];  // (b0, b1, h, l)
+  long long k[3], v[3], dk[3], dv[3];    // (b0, h, l)
 };
 
 struct Shape {
@@ -86,12 +86,8 @@ struct RowInputs {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Rows [row0, row0 + 64) of an (L, D) matrix at `src` (row stride `ld`)
 // into shared memory `dst` (64 x DP, row stride LDS), zero past L and D.
@@ -125,262 +121,6 @@ __device__ __forceinline__ RowInputs row_inputs(const float* m, const float* l,
                                                 int Lq) {
   const long long off = batch * Lq;
   return RowInputs{m + off, l + off, di + off};
-}
-
-// Rows of a warp's 16 x DP f32 block at `src` (row stride LDS) to global
-// memory: rows row0 + r < L, columns < D.
-template <typename T, int DP, int LDS>
-__device__ __forceinline__ void store_warp_rows(T* dst, long long ld, const float* src,
-                                                int row0, int L, int D) {
-  const int lane = threadIdx.x % 32;
-  for (int e = lane; e < 16 * DP; e += 32) {
-    const int r = e / DP;
-    const int d = e - r * DP;
-    if (row0 + r < L && d < D) dst[(long long)(row0 + r) * ld + d] = from_f32<T>(src[r * LDS + d]);
-  }
-}
-
-// ---------------------------------------------------------------- bfloat16
-
-template <int DP>
-struct TcSmem {
-  static constexpr int LDQ = DP + 8;     // bf16 tiles; a multiple of 8 for WMMA
-  static constexpr int LDP = kTile + 8;  // bf16 per-warp P / dS
-  static constexpr int LDS = (DP > kTile ? DP : kTile) + 4;  // f32; multiple of 4
-  // every region starts on a 32-byte boundary, as WMMA loads require
-  static constexpr size_t tiles = (size_t)4 * kTile * LDQ * 2;
-  static constexpr size_t pds = (size_t)kWarps * 2 * 16 * LDP * 2;
-  static constexpr size_t sdp = (size_t)kWarps * 2 * 16 * LDS * 4;
-  static constexpr size_t bytes = tiles + pds + sdp + 2 * kTile * 4;
-};
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// out (16 x 64, f32 at `out`, row stride LDS) = A (16 x DP fragments) .
-// T^T, where T is a 64 x DP row-major bf16 tile (row stride LDQ).
-template <int DP, int LDQ, int LDS>
-__device__ __forceinline__ void product_abt(float* out, const FragA (&a)[DP / 16],
-                                            const __nv_bfloat16* t) {
-#pragma unroll
-  for (int j = 0; j < kTile / 16; ++j) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kd = 0; kd < DP / 16; ++kd) {
-      FragBCol b;
-      wmma::load_matrix_sync(b, t + j * 16 * LDQ + kd * 16, LDQ);
-      wmma::mma_sync(c, a[kd], b, c);
-    }
-    wmma::store_matrix_sync(out + j * 16, c, LDS, wmma::mem_row_major);
-  }
-}
-
-// acc (16 x DP) += A (16 x 64 bf16 at `a`, row stride LDP) . T, where T is
-// a 64 x DP row-major bf16 tile (row stride LDQ).
-template <int DP, int LDQ, int LDP>
-__device__ __forceinline__ void accumulate_at(FragC (&acc)[DP / 16], const __nv_bfloat16* a,
-                                              const __nv_bfloat16* t) {
-  FragA af[kTile / 16];
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) wmma::load_matrix_sync(af[kk], a + kk * 16, LDP);
-#pragma unroll
-  for (int n = 0; n < DP / 16; ++n) {
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      FragBRow b;
-      wmma::load_matrix_sync(b, t + kk * 16 * LDQ + n * 16, LDQ);
-      wmma::mma_sync(acc[n], af[kk], b, acc[n]);
-    }
-  }
-}
-
-template <typename T, int DP, int LDS>
-__device__ __forceinline__ void store_acc(T* dst, long long ld, float* scratch,
-                                          FragC (&acc)[DP / 16], int row0, int L, int D) {
-#pragma unroll
-  for (int n = 0; n < DP / 16; ++n)
-    wmma::store_matrix_sync(scratch + n * 16, acc[n], LDS, wmma::mem_row_major);
-  __syncwarp();
-  store_warp_rows<T, DP, LDS>(dst, ld, scratch, row0, L, D);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_wmma_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v,
-                               const __nv_bfloat16* __restrict__ dout,
-                               const float* __restrict__ m, const float* __restrict__ l,
-                               const float* __restrict__ di,
-                               __nv_bfloat16* __restrict__ dk,
-                               __nv_bfloat16* __restrict__ dv, Shape sh, Strides st,
-                               float scale) {
-  using L = TcSmem<DP>;
-  constexpr int LDQ = L::LDQ, LDP = L::LDP, LDS = L::LDS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + kTile * LDQ;
-  __nv_bfloat16* Qs = Vs + kTile * LDQ;
-  __nv_bfloat16* dOs = Qs + kTile * LDQ;
-  __nv_bfloat16* Pbuf = dOs + kTile * LDQ;
-  float* Sbuf = reinterpret_cast<float*>(smem + L::tiles + L::pds);
-  float* lse = reinterpret_cast<float*>(smem + L::tiles + L::pds + L::sdp);
-  float* dis = lse + kTile;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  const int h = blockIdx.x % sh.H;
-  const int b0 = blockIdx.x / sh.H;
-  const int k0 = blockIdx.y * kTile;
-  __nv_bfloat16* Pw = Pbuf + warp * 2 * 16 * LDP;  // P^T of the warp's keys
-  __nv_bfloat16* dSw = Pw + 16 * LDP;              // dS^T
-  float* Sw = Sbuf + warp * 2 * 16 * LDS;           // S^T, then the outputs
-  float* dPw = Sw + 16 * LDS;                       // dP^T
-  const bool key_ok = k0 + warp * 16 + r < sh.Lk;
-
-  load_tile<__nv_bfloat16, DP, LDQ>(Ks, k + b0 * st.k[0] + h * st.k[1], st.k[2], k0,
-                                    sh.Lk, sh.D);
-  load_tile<__nv_bfloat16, DP, LDQ>(Vs, v + b0 * st.v[0] + h * st.v[1], st.v[2], k0,
-                                    sh.Lk, sh.D);
-  __syncthreads();
-  FragA kf[DP / 16], vf[DP / 16];
-#pragma unroll
-  for (int kd = 0; kd < DP / 16; ++kd) {
-    wmma::load_matrix_sync(kf[kd], Ks + warp * 16 * LDQ + kd * 16, LDQ);
-    wmma::load_matrix_sync(vf[kd], Vs + warp * 16 * LDQ + kd * 16, LDQ);
-  }
-  FragC dk_acc[DP / 16], dv_acc[DP / 16];
-#pragma unroll
-  for (int n = 0; n < DP / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
-  }
-  const float scale_log2 = scale * kLog2e;
-
-  for (int b1 = 0; b1 < sh.B1; ++b1) {
-    const __nv_bfloat16* qb = q + b0 * st.q[0] + b1 * st.q[1] + h * st.q[2];
-    const __nv_bfloat16* dob = dout + b0 * st.dout[0] + b1 * st.dout[1] + h * st.dout[2];
-    const RowInputs rows = row_inputs(m, l, di, ((long long)b0 * sh.B1 + b1) * sh.H + h,
-                                      sh.Lq);
-    for (int q0 = 0; q0 < sh.Lq; q0 += kTile) {
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile<__nv_bfloat16, DP, LDQ>(Qs, qb, st.q[3], q0, sh.Lq, sh.D);
-      load_tile<__nv_bfloat16, DP, LDQ>(dOs, dob, st.dout[3], q0, sh.Lq, sh.D);
-      load_rows(lse, dis, rows, q0, sh.Lq);
-      __syncthreads();
-
-      // S^T = K_w . Q^T and dP^T = V_w . dO^T: the warp's 16 keys x 64 queries
-      product_abt<DP, LDQ, LDS>(Sw, kf, Qs);
-      product_abt<DP, LDQ, LDS>(dPw, vf, dOs);
-      __syncwarp();
-#pragma unroll 4
-      for (int j = 0; j < kHalf; ++j) {
-        const int c = half + 2 * j;
-        const float p = key_ok ? exp2f(Sw[r * LDS + c] * scale_log2 - lse[c]) : 0.f;
-        const float ds = p * (dPw[r * LDS + c] - dis[c]) * scale;
-        Pw[r * LDP + c] = __float2bfloat16(p);
-        dSw[r * LDP + c] = __float2bfloat16(ds);
-      }
-      __syncwarp();
-      // dV_w += P^T . dO, dK_w += dS^T . Q
-      accumulate_at<DP, LDQ, LDP>(dv_acc, Pw, dOs);
-      accumulate_at<DP, LDQ, LDP>(dk_acc, dSw, Qs);
-    }
-  }
-  const int row0 = k0 + warp * 16;
-  store_acc<__nv_bfloat16, DP, LDS>(dk + b0 * st.dk[0] + h * st.dk[1], st.dk[2], Sw, dk_acc,
-                                    row0, sh.Lk, sh.D);
-  __syncwarp();
-  store_acc<__nv_bfloat16, DP, LDS>(dv + b0 * st.dv[0] + h * st.dv[1], st.dv[2], Sw, dv_acc,
-                                    row0, sh.Lk, sh.D);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_wmma_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v,
-                              const __nv_bfloat16* __restrict__ dout,
-                              const float* __restrict__ m, const float* __restrict__ l,
-                              const float* __restrict__ di,
-                              __nv_bfloat16* __restrict__ dq, Shape sh, Strides st,
-                              float scale) {
-  using L = TcSmem<DP>;
-  constexpr int LDQ = L::LDQ, LDP = L::LDP, LDS = L::LDS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dOs = Qs + kTile * LDQ;
-  __nv_bfloat16* Ks = dOs + kTile * LDQ;
-  __nv_bfloat16* Vs = Ks + kTile * LDQ;
-  __nv_bfloat16* Pbuf = Vs + kTile * LDQ;
-  float* Sbuf = reinterpret_cast<float*>(smem + L::tiles + L::pds);
-  float* lse = reinterpret_cast<float*>(smem + L::tiles + L::pds + L::sdp);
-  float* dis = lse + kTile;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  // blockIdx.x flattens (b0, b1, h)
-  const int h = blockIdx.x % sh.H;
-  const int b = blockIdx.x / sh.H;
-  const int b1 = b % sh.B1;
-  const int b0 = b / sh.B1;
-  const int q0 = blockIdx.y * kTile;
-  __nv_bfloat16* dSw = Pbuf + warp * 2 * 16 * LDP;
-  float* Sw = Sbuf + warp * 2 * 16 * LDS;
-  float* dPw = Sw + 16 * LDS;
-  const __nv_bfloat16* kb = k + b0 * st.k[0] + h * st.k[1];
-  const __nv_bfloat16* vb = v + b0 * st.v[0] + h * st.v[1];
-
-  load_tile<__nv_bfloat16, DP, LDQ>(Qs, q + b0 * st.q[0] + b1 * st.q[1] + h * st.q[2],
-                                    st.q[3], q0, sh.Lq, sh.D);
-  load_tile<__nv_bfloat16, DP, LDQ>(
-      dOs, dout + b0 * st.dout[0] + b1 * st.dout[1] + h * st.dout[2], st.dout[3], q0, sh.Lq,
-      sh.D);
-  load_rows(lse, dis, row_inputs(m, l, di, blockIdx.x, sh.Lq), q0, sh.Lq);
-  __syncthreads();
-  FragA qf[DP / 16], dof[DP / 16];
-#pragma unroll
-  for (int kd = 0; kd < DP / 16; ++kd) {
-    wmma::load_matrix_sync(qf[kd], Qs + warp * 16 * LDQ + kd * 16, LDQ);
-    wmma::load_matrix_sync(dof[kd], dOs + warp * 16 * LDQ + kd * 16, LDQ);
-  }
-  FragC dq_acc[DP / 16];
-#pragma unroll
-  for (int n = 0; n < DP / 16; ++n) wmma::fill_fragment(dq_acc[n], 0.f);
-  const float scale_log2 = scale * kLog2e;
-  const float row_lse = lse[warp * 16 + r];
-  const float row_di = dis[warp * 16 + r];
-
-  for (int k0 = 0; k0 < sh.Lk; k0 += kTile) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<__nv_bfloat16, DP, LDQ>(Ks, kb, st.k[2], k0, sh.Lk, sh.D);
-    load_tile<__nv_bfloat16, DP, LDQ>(Vs, vb, st.v[2], k0, sh.Lk, sh.D);
-    __syncthreads();
-
-    // S = Q_w . K^T and dP = dO_w . V^T: the warp's 16 queries x 64 keys
-    product_abt<DP, LDQ, LDS>(Sw, qf, Ks);
-    product_abt<DP, LDQ, LDS>(dPw, dof, Vs);
-    __syncwarp();
-    const int nk = min(kTile, sh.Lk - k0);
-#pragma unroll 4
-    for (int j = 0; j < kHalf; ++j) {
-      const int c = half + 2 * j;
-      const float p = c < nk ? exp2f(Sw[r * LDS + c] * scale_log2 - row_lse) : 0.f;
-      dSw[r * LDP + c] = __float2bfloat16(p * (dPw[r * LDS + c] - row_di) * scale);
-    }
-    __syncwarp();
-    // dQ_w += dS . K
-    accumulate_at<DP, LDQ, LDP>(dq_acc, dSw, Ks);
-  }
-  store_acc<__nv_bfloat16, DP, LDS>(dq + b0 * st.dq[0] + b1 * st.dq[1] + h * st.dq[2],
-                                    st.dq[3], Sw, dq_acc, q0 + warp * 16, sh.Lq, sh.D);
 }
 
 // ----------------------------------------------------------------- float32
@@ -594,55 +334,80 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 template <int DP>
-cudaError_t launch_dkv(int dtype, const void* q, const void* k, const void* v,
-                       const void* dout, const float* m, const float* l, const float* di,
-                       void* dk, void* dv, int B0, const Shape& sh, const Strides& st,
-                       float scale, cudaStream_t stream) {
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
+                           const float* m, const float* l, const float* di, void* dk, void* dv,
+                           int B0, const Shape& sh, const Strides& st, float scale,
+                           cudaStream_t stream) {
   const dim3 grid((unsigned)((long long)B0 * sh.H), (unsigned)((sh.Lk + kTile - 1) / kTile));
-  cudaError_t err;
-  if (dtype == 1) {
-    using T = __nv_bfloat16;
-    err = allow_smem(flash_bwd_dkv_wmma_bf16_kernel<DP>, TcSmem<DP>::bytes);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_wmma_bf16_kernel<DP><<<grid, kThreads, TcSmem<DP>::bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), m, l, di, static_cast<T*>(dk), static_cast<T*>(dv), sh,
-        st, scale);
-  } else {
-    err = allow_smem(flash_bwd_dkv_fma_f32_kernel<DP>, FmaSmem<DP>::bytes);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_fma_f32_kernel<DP><<<grid, kThreads, FmaSmem<DP>::bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), m, l, di,
-        static_cast<float*>(dk), static_cast<float*>(dv), sh, st, scale);
-  }
+  const cudaError_t err = allow_smem(flash_bwd_dkv_fma_f32_kernel<DP>, FmaSmem<DP>::bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_fma_f32_kernel<DP><<<grid, kThreads, FmaSmem<DP>::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), m, l, di,
+      static_cast<float*>(dk), static_cast<float*>(dv), sh, st, scale);
   return cudaGetLastError();
 }
 
 template <int DP>
-cudaError_t launch_dq(int dtype, const void* q, const void* k, const void* v,
-                      const void* dout, const float* m, const float* l, const float* di,
-                      void* dq, int B0, const Shape& sh, const Strides& st, float scale,
-                      cudaStream_t stream) {
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                          const float* m, const float* l, const float* di, void* dq, int B0,
+                          const Shape& sh, const Strides& st, float scale,
+                          cudaStream_t stream) {
   const dim3 grid((unsigned)((long long)B0 * sh.B1 * sh.H),
                   (unsigned)((sh.Lq + kTile - 1) / kTile));
-  cudaError_t err;
-  if (dtype == 1) {
-    using T = __nv_bfloat16;
-    err = allow_smem(flash_bwd_dq_wmma_bf16_kernel<DP>, TcSmem<DP>::bytes);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_wmma_bf16_kernel<DP><<<grid, kThreads, TcSmem<DP>::bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), m, l, di, static_cast<T*>(dq), sh, st, scale);
-  } else {
-    err = allow_smem(flash_bwd_dq_fma_f32_kernel<DP>, FmaSmem<DP>::bytes);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_fma_f32_kernel<DP><<<grid, kThreads, FmaSmem<DP>::bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), m, l, di,
-        static_cast<float*>(dq), sh, st, scale);
-  }
+  const cudaError_t err = allow_smem(flash_bwd_dq_fma_f32_kernel<DP>, FmaSmem<DP>::bytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_fma_f32_kernel<DP><<<grid, kThreads, FmaSmem<DP>::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), m, l, di,
+      static_cast<float*>(dq), sh, st, scale);
   return cudaGetLastError();
+}
+
+// The bf16 kernels of the warpgroup core: the dQ kernel (which also writes
+// `rows`), or the dK/dV kernel (which reads them), its query walk split over
+// `split` CTAs of a cluster.
+cudaError_t launch_bf16(bool dkv, const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* m, const float* l, float* rows,
+                        void* out0, void* out1, int B0, const Shape& sh, const Strides& st,
+                        float scale, int split, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  if ((long long)B0 * sh.H > 65535 || rows == nullptr || (!dkv && o == nullptr))
+    return cudaErrorInvalidValue;
+  sm90::bwd::Problem p{};
+  p.q = static_cast<const T*>(q);
+  p.o = static_cast<const T*>(o);
+  p.dout = static_cast<const T*>(dout);
+  p.m = m;
+  p.l = l;
+  p.rows = rows;
+  p.dq = dkv ? nullptr : static_cast<T*>(out0);
+  p.dk = dkv ? static_cast<T*>(out0) : nullptr;
+  p.dv = dkv ? static_cast<T*>(out1) : nullptr;
+  for (int i = 0; i < 4; ++i) {
+    p.q_st[i] = st.q[i];
+    p.o_st[i] = st.o[i];
+    p.do_st[i] = st.dout[i];
+    p.dq_st[i] = st.dq[i];
+  }
+  for (int i = 0; i < 3; ++i) {
+    p.dk_st[i] = st.dk[i];
+    p.dv_st[i] = st.dv[i];
+  }
+  p.B1 = sh.B1;
+  p.H = sh.H;
+  p.Lq = sh.Lq;
+  p.Lk = sh.Lk;
+  p.D = sh.D;
+  p.split = split;
+  p.scale = scale;
+  const long long k_st[3] = {st.k[0], st.k[1], st.k[2]};
+  const long long v_st[3] = {st.v[0], st.v[1], st.v[2]};
+  return sm90::dispatch_dp(sh.D, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    return dkv ? sm90::bwd::launch_dkv<DP>(p, B0, k, k_st, v, v_st, stream)
+               : sm90::bwd::launch_dq<DP>(p, B0, k, k_st, v, v_st, stream);
+  });
 }
 
 bool parse(int dtype, int B0, int B1, int H, int Lq, int Lk, int D, const long long* strides,
@@ -653,14 +418,15 @@ bool parse(int dtype, int B0, int B1, int H, int Lq, int Lk, int D, const long l
   if (dtype != 0 && dtype != 1) return false;
   for (int i = 0; i < 4; ++i) {
     st->q[i] = strides[i];
-    st->dout[i] = strides[4 + i];
-    st->dq[i] = strides[8 + i];
+    st->o[i] = strides[4 + i];
+    st->dout[i] = strides[8 + i];
+    st->dq[i] = strides[12 + i];
   }
   for (int i = 0; i < 3; ++i) {
-    st->k[i] = strides[12 + i];
-    st->v[i] = strides[15 + i];
-    st->dk[i] = strides[18 + i];
-    st->dv[i] = strides[21 + i];
+    st->k[i] = strides[16 + i];
+    st->v[i] = strides[19 + i];
+    st->dk[i] = strides[22 + i];
+    st->dv[i] = strides[25 + i];
   }
   *sh = Shape{B1, H, Lq, Lk, D};
   return true;
@@ -668,57 +434,58 @@ bool parse(int dtype, int B0, int B1, int H, int Lq, int Lk, int D, const long l
 
 }  // namespace
 
-// The dK/dV kernel. dtype: 0 = float32, 1 = bfloat16. m, l, di: contiguous
-// f32 (B0, B1, H, Lq). strides (in elements): q, dout, dq (each b0, b1, h,
-// l), then k, v, dk, dv (each b0, h, l); dq's are not read here. Returns the
+// The dQ kernel, launched first. dtype: 0 = float32, 1 = bfloat16. m, l:
+// contiguous f32 (B0, B1, H, Lq). strides (in elements): q, o, dout, dq
+// (each b0, b1, h, l), then k, v, dk, dv (each b0, h, l); dk's and dv's
+// are not read here. float32 reads di, contiguous f32 (B0, B1, H, Lq)
+// computed by the caller, and ignores o and rows; bfloat16 computes di from
+// o and dout itself and writes each row's lse and di * scale to rows, f32
+// (B0 * B1 * H, ceil(Lq / 64), 2, 64), for the dK/dV kernel. Returns the
 // cudaError_t of the launch.
-extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
-                                       const void* dout, const float* m, const float* l,
-                                       const float* di, void* dk, void* dv, int dtype,
-                                       int B0, int B1, int H, int Lq, int Lk, int D,
-                                       const long long* strides, float scale,
-                                       void* stream) {
-  Shape sh;
-  Strides st;
-  if (dk == nullptr || dv == nullptr ||
-      !parse(dtype, B0, B1, H, Lq, Lk, D, strides, &sh, &st))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((D + 15) / 16) {
-    case 1: return (int)launch_dkv<16>(dtype, q, k, v, dout, m, l, di, dk, dv, B0, sh, st, scale, s);
-    case 2: return (int)launch_dkv<32>(dtype, q, k, v, dout, m, l, di, dk, dv, B0, sh, st, scale, s);
-    case 3: return (int)launch_dkv<48>(dtype, q, k, v, dout, m, l, di, dk, dv, B0, sh, st, scale, s);
-    case 4: return (int)launch_dkv<64>(dtype, q, k, v, dout, m, l, di, dk, dv, B0, sh, st, scale, s);
-    case 5: return (int)launch_dkv<80>(dtype, q, k, v, dout, m, l, di, dk, dv, B0, sh, st, scale, s);
-    case 6: return (int)launch_dkv<96>(dtype, q, k, v, dout, m, l, di, dk, dv, B0, sh, st, scale, s);
-    case 7: return (int)launch_dkv<112>(dtype, q, k, v, dout, m, l, di, dk, dv, B0, sh, st, scale, s);
-    default: return (int)launch_dkv<128>(dtype, q, k, v, dout, m, l, di, dk, dv, B0, sh, st, scale, s);
-  }
-}
-
-// The dQ kernel: the same arguments as flash_attention_bwd_dkv, with dq in
-// the place of dk and an unused dv.
-extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                       const void* dout, const float* m, const float* l,
-                                      const float* di, void* dq, void* unused, int dtype,
-                                      int B0, int B1, int H, int Lq, int Lk, int D,
+                                      const float* di, float* rows, void* dq, int dtype, int B0,
+                                      int B1, int H, int Lq, int Lk, int D,
                                       const long long* strides, float scale, void* stream) {
-  (void)unused;
   Shape sh;
   Strides st;
   if (dq == nullptr || !parse(dtype, B0, B1, H, Lq, Lk, D, strides, &sh, &st))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((D + 15) / 16) {
-    case 1: return (int)launch_dq<16>(dtype, q, k, v, dout, m, l, di, dq, B0, sh, st, scale, s);
-    case 2: return (int)launch_dq<32>(dtype, q, k, v, dout, m, l, di, dq, B0, sh, st, scale, s);
-    case 3: return (int)launch_dq<48>(dtype, q, k, v, dout, m, l, di, dq, B0, sh, st, scale, s);
-    case 4: return (int)launch_dq<64>(dtype, q, k, v, dout, m, l, di, dq, B0, sh, st, scale, s);
-    case 5: return (int)launch_dq<80>(dtype, q, k, v, dout, m, l, di, dq, B0, sh, st, scale, s);
-    case 6: return (int)launch_dq<96>(dtype, q, k, v, dout, m, l, di, dq, B0, sh, st, scale, s);
-    case 7: return (int)launch_dq<112>(dtype, q, k, v, dout, m, l, di, dq, B0, sh, st, scale, s);
-    default: return (int)launch_dq<128>(dtype, q, k, v, dout, m, l, di, dq, B0, sh, st, scale, s);
-  }
+  if (dtype == 1)
+    return (int)launch_bf16(false, q, k, v, o, dout, m, l, rows, dq, nullptr, B0, sh, st, scale,
+                            1, s);
+  if (di == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)sm90::dispatch_dp(D, [&](auto dp) {
+    return launch_dq_f32<decltype(dp)::value>(q, k, v, dout, m, l, di, dq, B0, sh, st, scale,
+                                              s);
+  });
+}
+
+// The dK/dV kernel, launched after the dQ kernel on the same stream: the
+// same arguments, with dk and dv in the place of dq; bfloat16 reads rows
+// (not m, l, di). split: the CTAs of a cluster that share one key block's
+// query walk (bfloat16: 1 .. 8; float32: 1).
+extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                                       const void* o, const void* dout, const float* m,
+                                       const float* l, const float* di, float* rows, void* dk,
+                                       void* dv, int dtype, int B0, int B1, int H, int Lq,
+                                       int Lk, int D, const long long* strides, float scale,
+                                       int split, void* stream) {
+  Shape sh;
+  Strides st;
+  if (dk == nullptr || dv == nullptr || split < 1 || split > 8 ||
+      !parse(dtype, B0, B1, H, Lq, Lk, D, strides, &sh, &st))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)launch_bf16(true, q, k, v, o, dout, m, l, rows, dk, dv, B0, sh, st, scale, split,
+                            s);
+  if (split != 1 || di == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)sm90::dispatch_dp(D, [&](auto dp) {
+    return launch_dkv_f32<decltype(dp)::value>(q, k, v, dout, m, l, di, dk, dv, B0, sh, st,
+                                               scale, s);
+  });
 }
 
 extern "C" const char* flash_attention_bwd_error_string(int code) {
