@@ -17,21 +17,26 @@ Phases, each of which must pass (any failure exits non-zero):
    PyTorch library call computing the same function (each over windows of
    at least 20 ms, the median of 3; kernel and library call in turns);
    that a bf16 q view the TMA path cannot read (a head-dim stride other
-   than 1, a base address off 16 bytes) raises and launches nothing;
+   than 1, a base address off 16 bytes) raises and launches nothing; that
+   "auto" at head dim 160 (N 1024) runs the chunked version, as JAX's
+   dispatch does above 128, and launches no fused kernel;
 3b. the flash backward (the forward with its residuals, then the dQ and dK/dV
    kernels, through autograd of both wrappers) against the plain
    backward ``attention_reference_bwd`` in float32 on the kernel's own
    inputs, at null-text's shapes (B = 1), the full-CFG edit's (B = 4),
    three ragged ones and head dim 128, float32 within 1e-4·max|ref| and
    bfloat16 within 2^-7·max|ref| per gradient; at null-text's two shapes
-   in bfloat16 a second backward on the same inputs must give the same
-   bits; there each kernel's time (torch.profiler), the port's whole
-   backward in turns with SDPA's backward alone (from a retained graph),
+   a second backward on the same inputs must give the same bits, in both
+   dtypes; there each kernel's time (torch.profiler) beside its bounds
+   (float32: the 3×TF32 bound it runs against and the CUDA-core one), the
+   port's whole backward in turns with SDPA's backward alone (from a
+   retained graph),
    SDPA forward + backward's and the plain backward's; and
    that the fused frame-attention and GroupNorm wrappers return an output
    with a gradient on the card (the autograd fault repaired there: their
    backward is the plain version's recompute, so it matches the plain
-   version's autograd by construction; phase 12 holds it on the path);
+   version's autograd up to the order of sums over query chunks; phase 12
+   holds it on the path);
 
 then the paths chosen with ``--paths`` (default all):
 
@@ -77,6 +82,8 @@ official:
    inner Adam steps per outer step, the full-CFG controlled edit, decode —
    under "auto", the null-text record printed, the launch counts asserted
    against the inner steps taken, finite output of shape (2, 8, 512, 512, 3);
+   the null-text phase's peak printed beside the one PERF.md records from
+   before the fused backward recomputed chunk by chunk;
 
 official_flash:
 11. the official path under "auto", "flash_rect" and "flash" with 2 inner
@@ -118,6 +125,7 @@ import torch
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA data sheet):
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # fp32 CUDA cores; bf16 dense tensor cores
+PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor cores: the float32 flash backward's 3×TF32 products
 
 # the rabbit-jump edit (configs/rabbit-jump-p2p.yaml)
 RABBIT = dict(
@@ -179,6 +187,10 @@ OFFICIAL_LOSS_RTOL = 1e-3
 # one null-text gradient under a kernel against the same gradient in
 # float32 through the plain version, relative to its largest element
 GRAD_REL_TOL_F32 = 1e-4
+# the "auto" null-text phase's peak (GiB) of the official path at 4 steps
+# from before the fused kernel's backward recomputed one query chunk at a
+# time (PERF.md §5, PR 3's runs on an H100 80GB HBM3 at 700 W)
+AUTO_NULL_TEXT_PEAK_BEFORE_GIB = {"fp32": 23.37, "bf16": 15.29}
 # null-text inner steps of the official path under each kernel (phase 11)
 FLASH_INNER_STEPS = 2
 # the paths after the kernel checks: the fast edit (phases 4-9), the
@@ -248,9 +260,9 @@ def limit(dtype, ref: torch.Tensor, f32_tol: float) -> float:
     return BF16_REL_TOL * ref.abs().max().item()
 
 
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+def bound_ms(nbytes: float, flops: float, dtype, peak: float = None) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -369,6 +381,33 @@ def check_tma_refusals(gen) -> dict:
     return rec
 
 
+def check_auto_above_head_dim_128(gen) -> dict:
+    """That "auto" frame attention at head dim 160 (N 1024: a 1024² input's
+    32² level) runs chunked_frame_attention on the card, as JAX's dispatch
+    does above 128: its output is the chunked version's, bit for bit, and
+    no fused kernel launches. Both dtypes."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    dev = "cuda"
+    b, f, h, n, d = 1, 8, 8, 1024, 160
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(b, f, n, h, d, generator=gen, device=dev).to(dtype).transpose(2, 3)
+        k = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+        v = torch.randn(b, n, h, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+        before = fa.launch_count()
+        out = fa.make_frame_attention_fn("auto")(q, k, v)
+        launched = fa.launch_count() - before
+        same = torch.equal(out, fa.chunked_frame_attention(q, k, v))
+        name = str(dtype).replace("torch.", "")
+        rec[name] = {"chunked_output": same, "fused_launches": launched}
+        print(f"  auto at {[b, f, h, n, d]} {name}: the chunked output {same}, fused "
+              f"launches {launched}", flush=True)
+        if not (same and launched == 0 and torch.isfinite(out).all()):
+            raise AssertionError(f"auto above head dim 128 did not take the chunked route: {rec}")
+    return rec
+
+
 def print_ptxas_reports() -> dict:
     """Each kernel's registers, static shared memory and spills as ptxas
     reported them when the libraries were built."""
@@ -412,9 +451,8 @@ def check_flash_bwd(gen, dtype, b, f, h, n, d, timed: bool) -> list:
     """Autograd through both flash wrappers on the card (the forward with its
     residuals, then the dQ and dK/dV kernels) against the plain backward,
     ``attention_reference_bwd``, run in float32 on the kernel's own inputs
-    from the plain forward's output and residuals. In bfloat16 at the timed
-    (null-text) shapes, a second backward on the same inputs must give the
-    same bits."""
+    from the plain forward's output and residuals. At the timed (null-text)
+    shapes a second backward on the same inputs must give the same bits."""
     import torch.nn.functional as F
     from videop2p_tpu_torch.ops import attention as fa
 
@@ -470,7 +508,7 @@ def check_flash_bwd(gen, dtype, b, f, h, n, d, timed: bool) -> list:
               + ", ".join(f"{g} {rec['max_abs_err'][g]:.3e} (limit {rec['tol'][g]:.3e})"
                           for g in ("dq", "dk", "dv"))
               + (f", dK/dV cluster split {rec['split']}" if "split" in rec else ""), flush=True)
-        if timed and dtype == torch.bfloat16:
+        if timed:
             # determinism: the same inputs through a second backward
             again = [x.detach().requires_grad_(True) for x in (q, k, v)]
             kernel(*again).backward(do)
@@ -478,17 +516,22 @@ def check_flash_bwd(gen, dtype, b, f, h, n, d, timed: bool) -> list:
                                        for a, c in zip(leaves, again))
             print(f"    second backward bit-identical: {rec['deterministic']}", flush=True)
             if not rec["deterministic"]:
-                raise AssertionError(f"{name}: two bf16 backwards on the same inputs differ")
+                raise AssertionError(f"{name}: two {rec['dtype']} backwards on the same "
+                                     "inputs differ")
             del again
         if timed:
             # the kernels alone, from the residuals of one forward (profiler)
             out = kernel(*leaves)
+            # float32: "dq" holds the prep kernel (flash_bwd_dq_prep_tf32_kernel)
+            # that writes both kernels' tiles; "prep" is that part of it
+            names = {"dkv": "flash_bwd_dkv", "dq": "flash_bwd_dq"}
+            if dtype == torch.float32:
+                names["prep"] = "flash_bwd_dq_prep"
             ms = device_ms_by_kernel(
-                lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
-                {"dkv": "flash_bwd_dkv", "dq": "flash_bwd_dq"})
+                lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), names)
             # the library's backward alone, SDPA's from its own retained graph
             # on the fold, in turns with the port's whole backward (the output
-            # allocations and both kernels; in float32 also the di reduction)
+            # and scratch allocations and the kernels)
             q4 = q.transpose(1, 2).reshape(b, h, f * n, d).contiguous().requires_grad_(True)
             k4, v4 = (x.contiguous().requires_grad_(True) for x in (k, v))
             do4 = do.transpose(1, 2).reshape(b, h, f * n, d).contiguous()
@@ -512,10 +555,30 @@ def check_flash_bwd(gen, dtype, b, f, h, n, d, timed: bool) -> list:
             unit = 2.0 * b * f * h * n * n * d  # one product of the backward
             rec["ms"] = ms
             rec["bound_ms"] = {}
-            # dK/dV: S, dP, dV, dK; dQ: S, dP, dQ; together S, dP, dV, dK, dQ
+            # dK/dV: S, dP, dV, dK; dQ: S, dP, dQ; together S, dP, dV, dK, dQ.
+            # float32 runs each product as three TF32 products on the tensor
+            # cores: its bound is theirs; the CUDA-core bound is printed beside
+            f32 = dtype == torch.float32
+            if f32:
+                rec["bound_cuda_core_ms"] = {}
             for key, products in (("dkv", 4), ("dq", 3), ("both", 5)):
-                rec["bound_ms"][key], rec["bound_by"] = bound_ms(nbytes, products * unit, dtype)
-            print(f"    dkv kernel {ms['dkv']:.4f} ms, dq kernel {ms['dq']:.4f} ms (bound "
+                if f32:
+                    rec["bound_cuda_core_ms"][key] = bound_ms(nbytes, products * unit, dtype)[0]
+                    rec["bound_ms"][key], rec["bound_by"] = bound_ms(
+                        nbytes, 3 * products * unit, dtype, PEAK_TF32_FLOPS)
+                else:
+                    rec["bound_ms"][key], rec["bound_by"] = bound_ms(nbytes, products * unit,
+                                                                     dtype)
+            rec["share"] = {key: rec["bound_ms"][key] / ms[key] for key in ("dkv", "dq")}
+            if f32:
+                print(f"    bounds: 3×TF32 {rec['bound_ms']['dkv']:.4f} / "
+                      f"{rec['bound_ms']['dq']:.4f} ms (share {rec['share']['dkv']:.3f} / "
+                      f"{rec['share']['dq']:.3f}), CUDA-core "
+                      f"{rec['bound_cuda_core_ms']['dkv']:.4f} / "
+                      f"{rec['bound_cuda_core_ms']['dq']:.4f} ms (dkv / dq)", flush=True)
+            print(f"    dkv kernel {ms['dkv']:.4f} ms, dq kernel {ms['dq']:.4f} ms"
+                  + (f" (of which the prep kernel {ms['prep']:.4f} ms)" if "prep" in ms else "")
+                  + " (bound "
                   f"{rec['bound_ms']['dkv']:.4f} / {rec['bound_ms']['dq']:.4f} ms, "
                   f"{rec['bound_by']}); whole backward {rec['backward_ms']:.4f} ms, sdpa "
                   f"backward {rec['library_ms']:.4f} ms (kernels/sdpa bwd "
@@ -534,10 +597,11 @@ def check_kernel_grads(gen, dtype) -> dict:
     """That the fused frame-attention and GroupNorm wrappers return, on the
     card, an output with a ``grad_fn`` whose backward fills every input's
     gradient (the repaired fault: the kernel launch bypassed autograd).
-    Their backward recomputes through the plain version, so the comparison
-    with the plain version's autograd reads 0 by construction and only
-    guards the wiring; phase 12 and the CPU tests against JAX's custom VJPs
-    hold the gradients themselves."""
+    Their backward recomputes through the plain version (frame attention
+    one query chunk at a time, which sums dK and dV over the chunks in its
+    own order), so the comparison with the plain version's autograd reads 0
+    or last-bit differences and only guards the wiring; phase 12 and the
+    CPU tests against JAX's custom VJPs hold the gradients themselves."""
     from videop2p_tpu_torch.ops import attention as fa
     from videop2p_tpu_torch.ops import groupnorm as gn
 
@@ -1081,6 +1145,10 @@ def official_paths(args, frames, dtype) -> tuple:
         runs["official"] = run_main_path(frames, args.steps, args.mixed_precision,
                                          fast=False, num_inner_steps=args.inner_steps)
         expect_launches(runs["official"], args.steps, "auto")
+        peak = runs["official"]["peak_gib_by_phase"]["null_text_optimization"]
+        print(f"  \"auto\" null-text peak {peak:.2f} GiB ({args.steps} steps); PERF.md's "
+              f"from before the fused backward recomputed chunk by chunk (4 steps): "
+              f"{AUTO_NULL_TEXT_PEAK_BEFORE_GIB[args.mixed_precision]:.2f} GiB", flush=True)
     if "official_flash" in args.paths:
         # 11. the official path through the flash kernels, fewer inner steps,
         # against "auto" at the same count; all three run before a failure
@@ -1198,6 +1266,7 @@ def main() -> int:
             checks["group_norm"].append(
                 check_group_norm(gen, dtype, n, rows, c, eps, act, timed))
     checks["tma_refusals"] = check_tma_refusals(gen)
+    checks["auto_head_dim_160"] = check_auto_above_head_dim_128(gen)
     torch.cuda.empty_cache()
     # 3b. the flash backward against the plain backward (B = 1: null-text's
     # batch; B = 4: the full-CFG edit's), and the gradients through the
@@ -1256,6 +1325,7 @@ def main() -> int:
                 "max_abs_err": max(rec["max_abs_err"][g] for g in grads),
                 "ms": rec["ms"][key], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"][key], "bound_by": rec["bound_by"],
+                "bound_cuda_core_ms": rec.get("bound_cuda_core_ms", {}).get(key),
                 "library_ms": rec["library_ms"], "ratio": rec["ms"][key] / rec["library_ms"],
                 "library_fwd_bwd_ms": rec["library_fwd_bwd_ms"],
                 "shape": rec["shape"], "dtype": rec["dtype"]}

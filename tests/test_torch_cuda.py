@@ -249,8 +249,8 @@ def test_cuda_bf16_kernels_refuse_what_tma_cannot_read(cuda, wrapper):
         assert (fa.launch_count(), fa.flash_launch_count()) == before
 
 
-def _flash_bwd_case(cuda, wrapper, shape, seed):
-    """Inputs of one bf16 flash backward (the head-split views FrameAttention
+def _flash_bwd_case(cuda, wrapper, shape, seed, dtype=torch.bfloat16):
+    """Inputs of one flash backward (the head-split views FrameAttention
     hands the kernels) and a function that runs the backward through the
     wrapper, asserting one dK/dV and one dQ launch, and returns (dq, dk,
     dv)."""
@@ -258,10 +258,10 @@ def _flash_bwd_case(cuda, wrapper, shape, seed):
 
     b, f, h, n, d = shape
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    q = torch.randn(b, f, n, h, d, generator=gen, device=cuda).bfloat16().transpose(2, 3)
-    k = torch.randn(b, n, h, d, generator=gen, device=cuda).bfloat16().transpose(1, 2)
-    v = torch.randn(b, n, h, d, generator=gen, device=cuda).bfloat16().transpose(1, 2)
-    do = torch.randn(b, f, h, n, d, generator=gen, device=cuda).bfloat16()
+    q = torch.randn(b, f, n, h, d, generator=gen, device=cuda).to(dtype).transpose(2, 3)
+    k = torch.randn(b, n, h, d, generator=gen, device=cuda).to(dtype).transpose(1, 2)
+    v = torch.randn(b, n, h, d, generator=gen, device=cuda).to(dtype).transpose(1, 2)
+    do = torch.randn(b, f, h, n, d, generator=gen, device=cuda).to(dtype)
 
     def grads():
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
@@ -334,3 +334,79 @@ def test_cuda_bf16_flash_backward_takes_a_grad_out_tma_cannot_read(cuda, grad):
                                       do.float(), m, l)
     for leaf, ref in zip(leaves, (refs[0], refs[1][:, 0], refs[2][:, 0])):
         assert (leaf.grad.float() - ref).abs().max().item() <= 2.0 ** -7 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["flash_frame_attention", "flash_rect_frame_attention"])
+@pytest.mark.parametrize("shape", [(1, 3, 2, 1000, 40), (2, 2, 4, 1100, 64),
+                                   (1, 5, 2, 333, 80), (1, 2, 2, 1024, 128),
+                                   (1, 8, 8, 1024, 80)])
+def test_cuda_f32_flash_backward_at_tile_edges_is_deterministic(cuda, wrapper, shape):
+    """The float32 warpgroup backward on the TF32 tensor cores
+    (csrc/flash_attention_bwd_tf32_sm90.cuh, 3×TF32 products) through each
+    flash wrapper, at the bf16 test's shapes: query and key lengths off its
+    32-, 16- and 8-row tiles and its 64- and 128-row blocks, head dims 40,
+    64 (the two warpgroups own 64 rows each), 80 and 128 (they share 64
+    rows and hand over their sums). dq, dk, dv against
+    attention_reference_bwd on the same inputs within 1e-4·max|ref|, and a
+    second backward on the same inputs gives the same bits."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    q, k, v, do, grads = _flash_bwd_case(cuda, wrapper, shape, seed=8, dtype=torch.float32)
+    first, second = grads(), grads()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    o, m, l = fa.attention_reference(q, k[:, None], v[:, None], residuals=True)
+    refs = fa.attention_reference_bwd(q, k[:, None], v[:, None], o, do, m, l)
+    for got, ref in zip(first, (refs[0], refs[1][:, 0], refs[2][:, 0])):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad", ["sum", "odd base offset"])
+def test_cuda_f32_flash_backward_takes_any_grad_out(cuda, grad):
+    """The float32 backward reads the output gradient with plain loads: an
+    expanded scalar from ``out.sum()`` (every stride 0) and a view one
+    element off an allocation (a base address 4 bytes off 16) both run and
+    match the plain backward on the same gradient."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    b, f, h, n, d = 1, 3, 2, 1000, 40
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(b, f, n, h, d, generator=gen, device=cuda).transpose(2, 3)
+    k = torch.randn(b, n, h, d, generator=gen, device=cuda).transpose(1, 2)
+    v = torch.randn(b, n, h, d, generator=gen, device=cuda).transpose(1, 2)
+    flat = torch.randn(b * f * h * n * d + 1, generator=gen, device=cuda)
+    do = torch.ones(b, f, h, n, d, device=cuda) if grad == "sum" else \
+        flat[1:].view(b, f, h, n, d)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_rect_frame_attention(*leaves)
+    if grad == "sum":
+        out.sum().backward()
+    else:
+        out.backward(do)
+    o, m, l = fa.attention_reference(q, k[:, None], v[:, None], residuals=True)
+    refs = fa.attention_reference_bwd(q, k[:, None], v[:, None], o, do, m, l)
+    for leaf, ref in zip(leaves, (refs[0], refs[1][:, 0], refs[2][:, 0])):
+        assert (leaf.grad - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_auto_above_head_dim_128_runs_chunked(cuda, dtype):
+    """"auto" at (1, 8, 8, 1024, 160), a 1024² input's 32² level: the
+    chunked version's output, bit for bit, and no fused launch (JAX's
+    dispatch sends head dims above 128 to chunked attention)."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    b, f, h, n, d = 1, 8, 8, 1024, 160
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    q = torch.randn(b, f, n, h, d, generator=gen, device=cuda).to(dtype).transpose(2, 3)
+    k = torch.randn(b, n, h, d, generator=gen, device=cuda).to(dtype).transpose(1, 2)
+    v = torch.randn(b, n, h, d, generator=gen, device=cuda).to(dtype).transpose(1, 2)
+    before = fa.launch_count()
+    out = fa.make_frame_attention_fn("auto")(q, k, v)
+    assert fa.launch_count() == before
+    assert torch.equal(out, fa.chunked_frame_attention(q, k, v))

@@ -95,8 +95,9 @@ def test_dispatch_refuses_what_jax_refuses():
 def test_dispatch_routes(monkeypatch):
     """Which version each name takes on a CPU tensor: the flash wrappers
     (their plain version) at N ≥ the cutoff where JAX's flash_ok holds
-    (head dim ≤ 128 or a multiple of 128), chunked otherwise, dense below
-    the cutoff; nothing launches."""
+    (head dim ≤ 128 or a multiple of 128), the fused one where the head dim
+    is at most 128, chunked otherwise, dense below the cutoff; nothing
+    launches."""
     from videop2p_tpu_torch.ops import attention as fa
 
     calls = []
@@ -120,13 +121,37 @@ def test_dispatch_routes(monkeypatch):
     assert routes["flash_rect", 1024, 256] == "flash_rect_frame_attention"
     assert routes["chunked", 1024, 256] == "chunked_frame_attention"
     for impl in ("auto", "fused"):
-        assert (routes[impl, 1024, 8] == routes[impl, 1024, 160] == routes[impl, 1024, 256]
-                == "fused_frame_attention")
+        assert routes[impl, 1024, 8] == "fused_frame_attention"
+        # JAX sends "fused" to its kernel only at head dims up to 128
+        assert routes[impl, 1024, 160] == routes[impl, 1024, 256] == "chunked_frame_attention"
     for impl in ("flash", "flash_rect", "chunked"):
         assert routes[impl, 1024, 160] == "chunked_frame_attention"
     for impl in fa.FRAME_ATTENTION_IMPLS:
         assert routes[impl, 256, 8] == "dense_frame_attention"
     assert fa.launch_count() == fa.flash_launch_count() == 0
+
+
+@pytest.mark.parametrize("impl", ["auto", "fused"])
+@pytest.mark.parametrize("d", [160, 256])
+def test_fused_names_above_head_dim_128_take_jax_chunked_route(monkeypatch, impl, d):
+    """At a head dim above 128, "auto" and "fused" run chunked_frame_attention
+    (JAX's ``d <= 128`` rule, which holds on every backend) and give JAX's
+    "fused" output on the same inputs, which there is its chunked version."""
+    from videop2p_tpu.ops.attention import make_frame_attention_fn as jax_make
+
+    from videop2p_tpu_torch.ops import attention as fa
+
+    calls = []
+    for name in ("fused_frame_attention", "chunked_frame_attention"):
+        real = getattr(fa, name)
+        monkeypatch.setattr(fa, name, lambda *a, _r=real, _n=name, **kw:
+                            calls.append(_n) or _r(*a, **kw))
+    q, k, v = _qkv(7, f=2, h=1, n=1024, d=d)
+    with jax.default_matmul_precision("highest"):
+        want = np32(jax_make("fused", q_chunk=256)(*(jnp.asarray(a) for a in (q, k, v))))
+    got = fa.make_frame_attention_fn(impl, q_chunk=256)(t(q), t(k), t(v))
+    assert calls == ["chunked_frame_attention"]
+    np.testing.assert_allclose(np32(got), want, atol=1e-5)
 
 
 def test_flash_wrappers_check_their_inputs():

@@ -165,3 +165,53 @@ def test_fused_group_norm_gradients_match_jax(act):
     got = _torch_grads(lambda a, b, c: fused_group_norm(a, b, c, **kw),
                        x, scale, bias, g, torch.float32)
     _close(got, want, "float32")
+
+
+def test_chunked_frame_attention_backward_holds_one_chunk():
+    """Under autograd chunked_frame_attention saves only its inputs and its
+    backward recomputes one query chunk at a time (the memory bound of JAX's
+    ``jax.checkpoint`` per chunk): at B1 F2 H2 N2048 D40 the tensors saved
+    for the backward stay below the dense f32 probability tensor (67.1 MB;
+    autograd through the plain chunks saves every chunk's softmax, 140.8
+    MB), and the gradients match jax.vjp of JAX's chunked version."""
+    import videop2p_tpu.ops.attention as jax_fa
+
+    from videop2p_tpu_torch.ops.attention import chunked_frame_attention
+
+    shape = (1, 2, 2, 2048, 40)
+    q, k, v, do = _inputs(8, *shape)
+    dense_probs = 4 * shape[1] * shape[2] * shape[3] * shape[3]
+    saved = []
+
+    def pack(x):
+        saved.append(x.numel() * x.element_size())
+        return x
+
+    leaves = [t(a).requires_grad_(True) for a in (q, k, v)]
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+        out = chunked_frame_attention(*leaves)
+    assert 0 < sum(saved) < dense_probs, (sum(saved), dense_probs)
+    out.backward(t(do))
+    with torch.no_grad():
+        np.testing.assert_array_equal(np32(out), np32(chunked_frame_attention(
+            *(t(a) for a in (q, k, v)))))
+    want = _jax_vjp(jax_fa.chunked_frame_attention, q, k, v, do, jnp.float32)
+    _close([np32(out)] + [np32(x.grad) for x in leaves], want, "float32")
+
+
+def test_fused_backward_rule_takes_the_chunked_gradients_chunk_by_chunk():
+    """The backward of chunked_frame_attention and of the fused kernel on
+    the card, ``_chunked_grads`` (here on CPU tensors): one query chunk
+    recomputed at a time, against jax.vjp of JAX's chunked version, and
+    None for an input that needs none."""
+    import videop2p_tpu.ops.attention as jax_fa
+
+    from videop2p_tpu_torch.ops.attention import _chunked_grads
+
+    q, k, v, do = _inputs(9, 1, 2, 2, 2048, 40)
+    want = _jax_vjp(jax_fa.chunked_frame_attention, q, k, v, do, jnp.float32)
+    got = _chunked_grads([t(a) for a in (q, k, v)], (True, True, True), t(do))
+    _close([np32(x) for x in got], want[1:], "float32")
+    dq, dk, dv = _chunked_grads([t(a) for a in (q, k, v)], (True, False, True), t(do))
+    assert dk is None
+    _close([np32(dq), np32(dv)], [want[1], want[3]], "float32")

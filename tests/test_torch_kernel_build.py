@@ -85,17 +85,21 @@ def _includes(name, csrc=_build.CSRC):
 
 
 def test_attention_sources_include_the_shared_sm90_header():
-    """The bf16 forward core (fused and flash kernels) and the backward core
-    both build on sm90_common.cuh, the PTX helpers they share."""
+    """The bf16 forward core (fused and flash kernels) and the two backward
+    cores (bf16, and float32 on the TF32 tensor cores) all build on
+    sm90_common.cuh, the PTX helpers they share."""
     assert _includes("frame_attention_sm90.cuh") == {"sm90_common.cuh"}
     assert _includes("flash_attention_bwd_sm90.cuh") == {"sm90_common.cuh"}
+    assert _includes("flash_attention_bwd_tf32_sm90.cuh") == {"sm90_common.cuh"}
     for src in ATTENTION_SOURCES:
         assert "sm90_common.cuh" in _includes(src), src
     assert _includes("flash_attention_bwd.cu") == {"flash_attention_bwd_sm90.cuh",
+                                                    "flash_attention_bwd_tf32_sm90.cuh",
                                                     "sm90_common.cuh"}
 
 
-@pytest.mark.parametrize("header", ["sm90_common.cuh", "flash_attention_bwd_sm90.cuh"])
+@pytest.mark.parametrize("header", ["sm90_common.cuh", "flash_attention_bwd_sm90.cuh",
+                                    "flash_attention_bwd_tf32_sm90.cuh"])
 def test_build_digest_covers_the_shared_headers(tmp_path, header):
     """Editing the shared PTX header or the backward core renames the library
     of every attention source, so no stale build of one is loaded."""

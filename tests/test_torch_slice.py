@@ -186,3 +186,27 @@ def test_cli_runs_on_cuda_unless_asked_for_the_cpu():
               save_gifs=False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(**kw)
+
+
+def test_cli_reads_the_cached_maps_budget_override(monkeypatch):
+    """``VIDEOP2P_CACHED_MAPS_BUDGET_GB`` sets the budget that the CLI hands
+    to ``choose_cached_maps`` and records in the decision, as in the JAX
+    CLI; a budget of 0 forces the live-source fallback."""
+    from videop2p_tpu_torch.cli import run_videop2p
+    from videop2p_tpu_torch.cli.run_videop2p import main
+
+    budgets = []
+    real = run_videop2p.choose_cached_maps
+    monkeypatch.setattr(run_videop2p, "choose_cached_maps",
+                        lambda fn, budget_gb: budgets.append(budget_gb) or real(fn, budget_gb=budget_gb))
+    frames = np.random.default_rng(2).integers(0, 256, (2, 16, 16, 3), dtype=np.uint8)
+    kw = dict(RABBIT, fast=True, device="cpu", tiny=True, video_len=2,
+              num_ddim_steps=2, frames=frames, save_gifs=False)
+    monkeypatch.setenv("VIDEOP2P_CACHED_MAPS_BUDGET_GB", "0.25")
+    out = main(**kw)
+    assert budgets == [0.25] and out["cached_maps"]["budget_gib"] == 0.25
+    assert out["mode"] == "cached"
+    monkeypatch.setenv("VIDEOP2P_CACHED_MAPS_BUDGET_GB", "0")
+    out = main(**kw)
+    assert budgets == [0.25, 0.0] and out["cached_maps"]["budget_gib"] == 0.0
+    assert out["mode"] == "live" and not out["cached_maps"]["fits"]

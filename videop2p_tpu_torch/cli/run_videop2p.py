@@ -260,25 +260,28 @@ def main(
             # outside these windows the gates multiply the base maps out, so
             # nothing else is captured
             cross_len, self_window = capture_windows(ctx, num_ddim_steps)
+            # the JAX CLI's override of the budget
+            budget_gb = float(os.environ.get("VIDEOP2P_CACHED_MAPS_BUDGET_GB",
+                                             CACHED_MAPS_BUDGET_GB))
             fits, tm_dtype, map_gb = choose_cached_maps(
                 lambda dt: capture_bytes(
                     bundle.unet, latents.shape, cond_src.shape[-2],
                     cross_len=cross_len, self_window=self_window,
                     temporal_maps_dtype=dt),
-                budget_gb=CACHED_MAPS_BUDGET_GB)
+                budget_gb=budget_gb)
             stored = "bfloat16" if tm_dtype is None else str(tm_dtype).replace("torch.", "")
-            decision = {"fits": fits, "gib": map_gb, "budget_gib": CACHED_MAPS_BUDGET_GB,
+            decision = {"fits": fits, "gib": map_gb, "budget_gib": budget_gb,
                         "temporal_maps_dtype": stored, "cross_len": cross_len,
                         "self_window": self_window}
             if fits:
                 mode = "cached"
                 print(f"[p2p] cached-source fast mode: cross window {cross_len} "
                       f"steps, self window {self_window}, maps {map_gb:.2f} GiB "
-                      f"(budget {CACHED_MAPS_BUDGET_GB:.1f} GiB), temporal maps "
+                      f"(budget {budget_gb:.1f} GiB), temporal maps "
                       f"stored {stored}")
             else:
                 print(f"[p2p] cached-source maps need {map_gb:.1f} GiB even with "
-                      f"1-byte temporal maps (> budget {CACHED_MAPS_BUDGET_GB:.1f} "
+                      f"1-byte temporal maps (> budget {budget_gb:.1f} "
                       "GiB) — falling back to the live source stream")
         if mode == "cached":
             with _phase("cached_invert_edit", timings, device, peaks):

@@ -12,8 +12,8 @@ Port of ``videop2p_tpu/ops/attention.py``. Shapes: q (B, F, H, N, D); k, v
   * :func:`fused_frame_attention` — ``csrc/frame_attention.cu`` on a CUDA
     tensor (frames folded into the query axis, K/V tiles streamed through
     shared memory with an online softmax), the chunked plain version on a
-    CPU tensor. Its backward recomputes through the chunked plain version
-    (JAX's ``_fused_bwd``).
+    CPU tensor. Its backward takes the chunked plain version's gradients
+    one query chunk at a time (JAX's ``_fused_bwd``).
   * :func:`flash_frame_attention`, :func:`flash_rect_frame_attention` — the
     port of the stock Pallas flash-attention kernel: ``csrc/flash_attention.cu``
     on a CUDA tensor, with K/V read per frame at batch stride 0 or with
@@ -31,7 +31,11 @@ In bfloat16 both forward kernels run one Hopper design
 fed by TMA, the softmax in registers), and the flash backward another
 (``csrc/flash_attention_bwd_sm90.cuh``: ``wgmma``, Q/dO or K/V tiles fed by
 TMA, p and dS in registers, the dK/dV query walk split over a thread-block
-cluster by :func:`dkv_split`); float32 runs each file's CUDA-core kernels.
+cluster by :func:`dkv_split`). In float32 the forward kernels run on the
+CUDA cores, and the flash backward on the TF32 tensor cores with
+error-compensated products (``csrc/flash_attention_bwd_tf32_sm90.cuh``:
+3×TF32, a prep kernel writing hi/lo tiles, ``wgmma``); PyTorch's own
+products keep TF32 off.
 The TMA path reads q, k and v in place, so a bf16 CUDA tensor it cannot take
 raises (:func:`check_tma_operand`), never copies; the backward copies only
 an output gradient (or, rarely, a broadcast q) that its TMA maps cannot
@@ -107,13 +111,27 @@ def _flash_launcher():
 
 @functools.lru_cache(maxsize=None)
 def _flash_bwd_launcher(name: str):
-    # q, k, v, o, dout, m, l, di, rows, then dq or dk, dv; the dK/dV launcher
+    # q, k, v, o, dout, m, l, rows, then dq or dk, dv; the dK/dV launcher
     # takes the cluster split before the stream
     outs, split = ([ctypes.c_void_p] * 2, [ctypes.c_int]) if name == "dkv" else (
         [ctypes.c_void_p], [])
     return bind(_FLASH_BWD_SOURCE, f"flash_attention_bwd_{name}",
-                [ctypes.c_void_p] * 9 + outs + [ctypes.c_int] * 7
+                [ctypes.c_void_p] * 8 + outs + [ctypes.c_int] * 7
                 + [ctypes.c_void_p, ctypes.c_float] + split + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_bwd_scratch_query():
+    return bind(_FLASH_BWD_SOURCE, "flash_attention_bwd_scratch_bytes",
+                [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)])
+
+
+def _flash_bwd_scratch_bytes(b0: int, b1: int, h: int, lq: int, lk: int, d: int) -> int:
+    """Bytes of the float32 backward's scratch: the tiles its prep kernel
+    writes for the dQ and dK/dV kernels."""
+    nbytes = ctypes.c_longlong(0)
+    _flash_bwd_scratch_query()(b0, b1, h, lq, lk, d, ctypes.byref(nbytes))
+    return nbytes.value
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,13 +182,52 @@ def dense_frame_attention(q: torch.Tensor, k: torch.Tensor,
 def chunked_frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             *, q_chunk: int = 512) -> torch.Tensor:
     """Exact attention over query chunks of the token axis; dense when N does
-    not split into whole chunks (the JAX version's rule)."""
+    not split into whole chunks (the JAX version's rule). Under autograd it
+    saves only q, k and v, and its backward recomputes one chunk's scores
+    at a time (:func:`_chunked_grads`): the memory bound of JAX's
+    ``jax.checkpoint`` per chunk."""
     n = q.shape[3]
     if n % q_chunk != 0 or n <= q_chunk:
         return dense_frame_attention(q, k, v)
-    return torch.cat(
-        [dense_frame_attention(q[:, :, :, i:i + q_chunk], k, v)
-         for i in range(0, n, q_chunk)], dim=3)
+    return _ChunkedFrameAttention.apply(q, k, v, q_chunk)
+
+
+class _ChunkedFrameAttention(torch.autograd.Function):
+    """The chunks' outputs, nothing of them saved; the backward is
+    :func:`_chunked_grads`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.q_chunk = q_chunk
+        return torch.cat([dense_frame_attention(q[:, :, :, i:i + q_chunk], k, v)
+                          for i in range(0, q.shape[3], q_chunk)], dim=3)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*_chunked_grads(ctx.saved_tensors, ctx.needs_input_grad[:3], grad_out,
+                                ctx.q_chunk), None)
+
+
+def _chunked_grads(inputs, needs, grad_out: torch.Tensor, q_chunk: int = 512) -> tuple:
+    """The gradients of :func:`chunked_frame_attention` at ``inputs`` (q, k,
+    v) against ``grad_out``, None where ``needs`` is false, one query chunk
+    at a time: each chunk's forward is recomputed once and its
+    vector-Jacobian product taken at once, so one chunk's scores are alive
+    at a time; dK and dV sum over the chunks in order."""
+    q, k, v = inputs
+    n = q.shape[3]
+    if n % q_chunk != 0 or n <= q_chunk:
+        return recompute_grads(dense_frame_attention, inputs, needs, grad_out)
+    dq, dk, dv = [], None, None
+    for i in range(0, n, q_chunk):
+        rows = slice(i, i + q_chunk)
+        gq, gk, gv = recompute_grads(dense_frame_attention, (q[:, :, :, rows], k, v), needs,
+                                     grad_out[:, :, :, rows])
+        dq.append(gq)
+        dk = gk if dk is None else dk + gk
+        dv = gv if dv is None else dv + gv
+    return torch.cat(dq, dim=3) if needs[0] else None, dk, dv
 
 
 def _check_shapes(q, k, v):
@@ -271,9 +328,10 @@ def _frame_major_out(q: torch.Tensor) -> torch.Tensor:
 
 
 class _FusedFrameAttention(torch.autograd.Function):
-    """The kernel forward; the backward recomputes through
-    :func:`chunked_frame_attention` (JAX: ``_fused_bwd``,
-    videop2p_tpu/ops/attention.py:186-197)."""
+    """The kernel forward; the backward is :func:`chunked_frame_attention`'s
+    (:func:`_chunked_grads`; JAX: ``_fused_bwd``,
+    videop2p_tpu/ops/attention.py:186-197, a VJP through the checkpointed
+    chunks)."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -282,8 +340,7 @@ class _FusedFrameAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        return recompute_grads(chunked_frame_attention, ctx.saved_tensors,
-                                ctx.needs_input_grad, grad_out)
+        return _chunked_grads(ctx.saved_tensors, ctx.needs_input_grad, grad_out)
 
 
 def fused_frame_attention(q: torch.Tensor, k: torch.Tensor,
@@ -292,8 +349,9 @@ def fused_frame_attention(q: torch.Tensor, k: torch.Tensor,
     plain version for a CPU tensor. q, k and v may be strided views whose
     last dimension is contiguous; the output has the memory layout
     (B, F, N, H, D) seen as (B, F, H, N, D), so merging heads afterwards is
-    a view. Differentiable: on a CUDA tensor the backward recomputes
-    through the chunked plain version, as the JAX package's does."""
+    a view. Differentiable: on a CUDA tensor the backward is the chunked
+    plain version's, which recomputes one chunk at a time, as the JAX
+    package's does through its checkpointed chunks."""
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return chunked_frame_attention(q, k, v)
@@ -407,20 +465,21 @@ def _flash(q5: torch.Tensor, k5: torch.Tensor, v5: torch.Tensor,
 
 
 def _flash_bwd(q5, k4, v4, o5, do5, m, l, dq5, dk4, dv4) -> None:
-    """Launch the two kernels of ``csrc/flash_attention_bwd.cu``, dQ first:
-    q5, o5, do5, dq5 are (B0, B1, H, Lq, D) views, k4, v4, dk4, dv4 (B0, H,
-    Lk, D) views shared by the B1 query batches, m and l the forward's
+    """Launch the kernels of ``csrc/flash_attention_bwd.cu``, dQ first: q5,
+    o5, do5, dq5 are (B0, B1, H, Lq, D) views, k4, v4, dk4, dv4 (B0, H, Lk,
+    D) views shared by the B1 query batches, m and l the forward's
     residuals. No two blocks write one K/V row: the dK/dV kernel sums over
     every query of the B1 batches inside one block, or in bf16 inside one
-    cluster of :func:`dkv_split` blocks, in a fixed order. In float32 di =
-    Σ_d o·do is computed here, as in the stock backward; in bf16 the dQ
-    kernel computes it and hands each row's lse and di·scale to the dK/dV
-    kernel through ``rows``."""
+    cluster of :func:`dkv_split` blocks, in a fixed order. In bf16 the dQ
+    kernel computes di = Σ_d o·do and hands each row's lse and di·scale to
+    the dK/dV kernel through ``rows``; in float32 the dQ launch first runs
+    a prep kernel that writes both kernels' TF32 hi/lo tiles (and those
+    rows) into ``rows``, a scratch freed after the call."""
     b0, b1, h, lq, d = q5.shape
     lk = k4.shape[2]
     if -(-max(lq, lk) // 64) > 65535:
         raise ValueError(f"lengths {lq}, {lk} exceed the kernels' grid")
-    split, di, rows = 1, None, None
+    split = 1
     if q5.dtype == torch.bfloat16:
         for name, t in (("q", q5), ("grad_out", do5)):
             check_tma_operand(f"flash backward {name}", t)
@@ -430,14 +489,14 @@ def _flash_bwd(q5, k4, v4, o5, do5, m, l, dq5, dk4, dv4) -> None:
         rows = torch.empty(b0 * b1 * h * -(-lq // 64) * 128, device=q5.device,
                            dtype=torch.float32)
     else:
-        di = (o5.float() * do5.float()).sum(-1).contiguous()
+        rows = torch.empty(_flash_bwd_scratch_bytes(b0, b1, h, lq, lk, d),
+                           device=q5.device, dtype=torch.uint8)
     strides = (ctypes.c_longlong * 28)(
         *q5.stride()[:4], *o5.stride()[:4], *do5.stride()[:4], *dq5.stride()[:4],
         *k4.stride()[:3], *v4.stride()[:3], *dk4.stride()[:3], *dv4.stride()[:3])
     stream = torch.cuda.current_stream(q5.device).cuda_stream
     common = (q5.data_ptr(), k4.data_ptr(), v4.data_ptr(), o5.data_ptr(), do5.data_ptr(),
-              m.data_ptr(), l.data_ptr(), None if di is None else di.data_ptr(),
-              None if rows is None else rows.data_ptr())
+              m.data_ptr(), l.data_ptr(), rows.data_ptr())
     shape = (_DTYPES[q5.dtype], b0, b1, h, lq, lk, d,
              ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5))
     _flash_bwd_launcher("dq")(*common, dq5.data_ptr(), *shape, stream)
@@ -558,7 +617,8 @@ def make_frame_attention_fn(impl: str = "auto", *,
     ``make_frame_attention_fn``, videop2p_tpu/ops/attention.py:204-262).
 
       * ``"auto"``, ``"fused"`` — :func:`fused_frame_attention` (the fused
-        kernel on a CUDA tensor);
+        kernel on a CUDA tensor) where the head dim is at most 128, as in
+        JAX, ``"chunked"`` otherwise;
       * ``"flash"``, ``"flash_rect"`` — :func:`flash_frame_attention` /
         :func:`flash_rect_frame_attention` (the flash kernel on a CUDA
         tensor) where JAX's ``flash_ok`` holds (head dim ≤ 128 or a
@@ -586,7 +646,12 @@ def make_frame_attention_fn(impl: str = "auto", *,
         if n < min_large_tokens:
             return dense_frame_attention(q, k, v)
         if impl in ("auto", "fused"):
-            return fused_frame_attention(q, k, v)
+            # JAX's rule also asks (F·N) % 256 == 0, a limit of its Pallas
+            # grid; the CUDA kernel takes ragged lengths and both routes
+            # compute one function, so only the head dim decides here
+            if d <= _MAX_HEAD_DIM:
+                return fused_frame_attention(q, k, v)
+            return chunked_frame_attention(q, k, v, q_chunk=q_chunk)
         flash_ok = d <= _MAX_HEAD_DIM or d % 128 == 0
         if impl == "flash_rect" and flash_ok:
             return flash_rect_frame_attention(q, k, v)
