@@ -6,16 +6,23 @@ Phases, each of which must pass (any failure exits non-zero):
    name and power limit as ``nvidia-smi`` reports them;
 2. build the CUDA kernels from ``videop2p_tpu_torch/ops/csrc`` (one ``nvcc``
    per source, all in parallel) and print each kernel's registers, static
-   shared memory and spills from the ``ptxas`` report;
+   shared memory and spills from the ``ptxas`` report, and the float32
+   forward kernels' keys per tile, ring stages and dynamic shared memory
+   at each padded head dim;
 3. hold each kernel against its plain PyTorch version on the card, at the
    shapes of every main path (the live edit's batch B = 3, the cached
    edit's 2 and its capture's 1, the full-CFG edit's 4, null-text's 1;
    GroupNorm at the same slabs), at head dims 64 and 128, and at lengths
    that are not multiples of the bf16 kernels' query or key tiles, in
    float32 and bfloat16 — frame attention, GroupNorm, and both wrappers of
-   the flash kernel — and time the kernel, the plain version and one
-   PyTorch library call computing the same function (each over windows of
-   at least 20 ms, the median of 3; kernel and library call in turns);
+   the flash kernel, with the flash forward's per-row residuals m and l
+   through each wrapper's views (relative: float32 1e-5, bfloat16 1e-4) —
+   and time the kernel, the plain version and one PyTorch library call
+   computing the same function (each over windows of at least 20 ms, the
+   median of 3; kernel and library call in turns) at the live edit's
+   batch, and in float32 null-text's; a float32 forward row also prints
+   the 3×TF32 bound it runs against beside the CUDA-core one, and its prep
+   and attention kernels' times (torch.profiler);
    that a bf16 q view the TMA path cannot read (a head-dim stride other
    than 1, a base address off 16 bytes) raises and launches nothing; that
    "auto" at head dim 160 (N 1024) runs the chunked version, as JAX's
@@ -112,6 +119,7 @@ Run:  python3 chip_smoke.py [--steps 4] [--inner_steps 10]
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import statistics
@@ -125,7 +133,7 @@ import torch
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA data sheet):
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # fp32 CUDA cores; bf16 dense tensor cores
-PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor cores: the float32 flash backward's 3×TF32 products
+PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor cores: the float32 attention kernels' 3×TF32 products
 
 # the rabbit-jump edit (configs/rabbit-jump-p2p.yaml)
 RABBIT = dict(
@@ -147,6 +155,10 @@ RABBIT = dict(
 # and round once on output, which costs at most half a bf16 ulp; the limit
 # is 2^-7·max|ref|, one to two bf16 ulps at the largest output.
 ATTN_TOL_F32 = 1e-4
+# the flash forward's residuals m and l (the backward reads them) against
+# the plain version's, relative (m against max(|m|, 1)): both sum the same
+# scores in another order
+RES_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 GN_TOL_F32 = 2e-4
 BF16_REL_TOL = 2.0 ** -7
 # the flash backward against the plain backward in float32: summation order
@@ -201,9 +213,9 @@ GN_LAUNCHES_PER_CALL = 3  # partial sums, statistics, apply
 # median of three of them
 TIME_WINDOW_MS = 20.0
 # the device kernels of each ported kernel, by name prefix (profile)
-KERNEL_NAMES = {"frame_attention": ("frame_attention_wgmma_kernel", "frame_attention_kernel"),
+KERNEL_NAMES = {"frame_attention": ("frame_attention_wgmma_kernel", "frame_attention_tf32"),
                 "group_norm": ("gn_partial_kernel", "gn_stats_kernel", "gn_apply_kernel"),
-                "flash_attention": ("flash_fwd_wgmma_kernel", "flash_fwd_fma_f32_kernel"),
+                "flash_attention": ("flash_fwd_wgmma_kernel", "flash_fwd_tf32"),
                 "flash_attention_bwd": ("flash_bwd_dkv", "flash_bwd_dq")}
 
 
@@ -266,6 +278,32 @@ def bound_ms(nbytes: float, flops: float, dtype, peak: float = None) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def forward_bounds(rec: dict, fn, dtype, b, f, h, n, d, kernel: str) -> None:
+    """A timed forward row's bounds and share: bf16 at its dense
+    tensor-core rate; float32 at the rate of the 3×TF32 products it runs
+    (three TF32 products per product), the CUDA-core bound beside it, and
+    its prep and attention kernels' device times from a trace of ``fn``
+    (``kernel``: their name prefix)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = b * h * (2 * f * n + 2 * n) * d * itemsize
+    flops = 4.0 * b * h * f * n * n * d
+    if dtype == torch.float32:
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 3 * flops, dtype, PEAK_TF32_FLOPS)
+        rec["bound_cuda_core_ms"] = bound_ms(nbytes, flops, dtype)[0]
+        rec["kernels_ms"] = device_ms_by_kernel(
+            fn, {"attention": f"{kernel}_kernel", "prep": f"{kernel}_prep_kernel"})
+    else:
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, dtype)
+    rec["share"] = rec["bound_ms"] / rec["ms"]
+    print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
+          f"sdpa {rec['library_ms']:.4f} ms (kernel/sdpa {rec['ratio']:.3f}), bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, share {rec['share']:.3f})"
+          + (f", CUDA-core bound {rec['bound_cuda_core_ms']:.4f} ms; prep kernel "
+             f"{rec['kernels_ms']['prep']:.4f} ms, attention kernel "
+             f"{rec['kernels_ms']['attention']:.4f} ms (profiler)"
+             if dtype == torch.float32 else ""), flush=True)
+
+
 def check_attention(gen, dtype, b, f, h, n, d, timed: bool) -> dict:
     import torch.nn.functional as F
     from videop2p_tpu_torch.ops import attention as fa
@@ -286,23 +324,39 @@ def check_attention(gen, dtype, b, f, h, n, d, timed: bool) -> dict:
     if not (err <= tol and torch.isfinite(out).all()):
         raise AssertionError(f"frame attention kernel disagrees: {rec}")
     if timed:
-        itemsize = torch.finfo(dtype).bits // 8
-        m = f * n
-        nbytes = b * h * (2 * m + 2 * n) * d * itemsize
-        flops = 4.0 * b * h * m * n * d
         # the library call on the same fold: (B, H, F·N, D) against (B, H, N, D)
-        q4 = q.transpose(1, 2).reshape(b, h, m, d).contiguous()
+        q4 = q.transpose(1, 2).reshape(b, h, f * n, d).contiguous()
         k4, v4 = k.contiguous(), v.contiguous()
         rec["ms"], rec["library_ms"] = time_in_turns(
             lambda: fa.fused_frame_attention(q, k, v),
             lambda: F.scaled_dot_product_attention(q4, k4, v4))
         rec["plain_ms"] = time_ms(lambda: fa.chunked_frame_attention(q, k, v))
         rec["ratio"] = rec["ms"] / rec["library_ms"]
-        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, dtype)
-        print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
-              f"sdpa {rec['library_ms']:.4f} ms (kernel/sdpa {rec['ratio']:.3f}), bound "
-              f"{rec['bound_ms']:.3f} ms ({rec['bound_by']})", flush=True)
+        forward_bounds(rec, lambda: fa.fused_frame_attention(q, k, v), dtype, b, f, h, n, d,
+                       "frame_attention_tf32")
     return rec
+
+
+def flash_residual_errors(q, k, v, rect: bool) -> dict:
+    """The flash forward's per-row residuals m and l, launched on the views
+    the ``rect`` (flash_rect) or frame-batched (flash) wrapper hands the
+    kernel, against ``attention_reference(..., residuals=True)`` on the same
+    inputs in float32: the largest |Δm| / max(|m|, 1) and |Δl| / l."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    b, f, h, n, d = q.shape
+    out = fa._frame_major_out(q)
+    if rect:
+        q5, out5, k5, v5 = fa._rect_view(q), fa._rect_view(out), k[:, None], v[:, None]
+    else:
+        q5, out5 = q, out
+        k5, v5 = k[:, None].expand(b, f, h, n, d), v[:, None].expand(b, f, h, n, d)
+    m, l = (torch.empty(q5.shape[:4], device=q.device) for _ in range(2))
+    fa._flash(q5, k5, v5, out5, m, l)
+    _, m_ref, l_ref = fa.attention_reference(q5.float(), k5.float(), v5.float(),
+                                             residuals=True)
+    return {"m": ((m - m_ref).abs() / m_ref.abs().clamp(min=1.0)).max().item(),
+            "l": ((l - l_ref).abs() / l_ref).max().item()}
 
 
 def check_flash(gen, dtype, b, f, h, n, d, timed: bool) -> list:
@@ -329,21 +383,20 @@ def check_flash(gen, dtype, b, f, h, n, d, timed: bool) -> list:
               f"(limit {tol:.3e})", flush=True)
         if not (err <= tol and torch.isfinite(out).all()):
             raise AssertionError(f"flash kernel disagrees: {rec}")
+        rec["residual_err"] = flash_residual_errors(q, k, v, name == "flash_rect_frame_attention")
+        print(f"    residuals: max rel |dm| {rec['residual_err']['m']:.3e}, |dl| "
+              f"{rec['residual_err']['l']:.3e} (limit {RES_RTOL[dtype]:.0e})", flush=True)
+        if max(rec["residual_err"].values()) > RES_RTOL[dtype]:
+            raise AssertionError(f"flash residuals disagree: {rec}")
         if timed:
-            itemsize = torch.finfo(dtype).bits // 8
-            m = f * n
-            nbytes = b * h * (2 * m + 2 * n) * d * itemsize
-            flops = 4.0 * b * h * m * n * d
-            q4 = q.transpose(1, 2).reshape(b, h, m, d).contiguous()
+            q4 = q.transpose(1, 2).reshape(b, h, f * n, d).contiguous()
             k4, v4 = k.contiguous(), v.contiguous()
             rec["ms"], rec["library_ms"] = time_in_turns(
                 lambda: kernel(q, k, v), lambda: F.scaled_dot_product_attention(q4, k4, v4))
             rec["plain_ms"] = time_ms(lambda: plain(q, k, v))
             rec["ratio"] = rec["ms"] / rec["library_ms"]
-            rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, dtype)
-            print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
-                  f"sdpa {rec['library_ms']:.4f} ms (kernel/sdpa {rec['ratio']:.3f}), "
-                  f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})", flush=True)
+            forward_bounds(rec, lambda: kernel(q, k, v), dtype, b, f, h, n, d,
+                           "flash_fwd_tf32")
         recs.append(rec)
     return recs
 
@@ -420,13 +473,28 @@ def print_ptxas_reports() -> dict:
             print(f"  ptxas {src}: {r['kernel']}: {r['registers']} registers, "
                   f"{r['smem_bytes']} bytes static smem, spills {r['spill_stores']} / "
                   f"{r['spill_loads']} bytes (stores / loads)", flush=True)
+    # the float32 forward kernels' shared memory is dynamic, set at launch
+    config = _build.bind("frame_attention.cu", "frame_attention_tf32_config",
+                         [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3)
+    reports["frame_attention_tf32_config"] = {}
+    for dp in (16, 32, 40, 48, 64, 80, 96, 128):
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        config(dp, *(ctypes.byref(x) for x in vals))
+        keys, stages, smem = (x.value for x in vals)
+        reports["frame_attention_tf32_config"][dp] = {"keys": keys, "stages": stages,
+                                                      "smem_bytes": smem}
+        print(f"  fp32 forward (frame_attention_tf32 / flash_fwd_tf32) DP {dp}: {keys} keys "
+              f"a tile, {stages} stages, {smem} bytes dynamic smem", flush=True)
     return reports
 
 
 def device_ms_by_kernel(fn, prefixes: dict, iters: int = 3) -> dict:
     """Device time per call of ``fn`` summed over the kernels whose names
     contain each of ``prefixes`` (name → the kernel's function name), from a
-    torch.profiler trace of ``iters`` calls after one warm-up call."""
+    torch.profiler trace of ``iters`` calls after one warm-up call. Every
+    kernel matched is launched once a call, so each kernel's time is the
+    mean over the launches the trace holds: a trace that dropped events
+    does not bias it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -435,13 +503,14 @@ def device_ms_by_kernel(fn, prefixes: dict, iters: int = 3) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = {name: 0.0 for name in prefixes}
+    launches: dict = {}  # kernel name → its durations (ms)
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for name, prefix in prefixes.items():
-            if prefix in e.name:
-                out[name] += (e.time_range.end - e.time_range.start) / 1e3 / iters
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            launches.setdefault(e.name, []).append(
+                (e.time_range.end - e.time_range.start) / 1e3)
+    out = {name: sum(statistics.fmean(ms) for kernel, ms in launches.items()
+                     if prefix in kernel)
+           for name, prefix in prefixes.items()}
     if not all(out.values()):
         raise AssertionError(f"the profiler saw no device time for {out}")
     return out
@@ -1248,7 +1317,9 @@ def main() -> int:
                       (4, 8, 8, 1024, 80), (1, 8, 8, 1024, 80), (1, 8, 8, 1024, 64),
                       (1, 8, 8, 1024, 128), (1, 3, 2, 1000, 40), (2, 2, 4, 1100, 64),
                       (1, 5, 2, 333, 80)):
-            timed = shape[0] == 3
+            # timed: the live edit's two sites, and in float32 null-text's
+            timed = shape[0] == 3 or (dtype == torch.float32 and
+                                      shape in ((1, 8, 8, 4096, 40), (1, 8, 8, 1024, 80)))
             checks["frame_attention"].append(check_attention(gen, dtype, *shape, timed))
             checks["flash_attention"] += check_flash(gen, dtype, *shape, timed)
         # the resnets' slabs (N streams, frames × pixels, C) and the
@@ -1306,7 +1377,9 @@ def main() -> int:
                 "replaces": replaces, "launches": runs[run]["launches"][counter],
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "bound_by": rec["bound_by"],
+                "bound_cuda_core_ms": rec.get("bound_cuda_core_ms"),
+                "library_ms": rec["library_ms"],
                 "ratio": rec["ratio"], "shape": rec["shape"], "dtype": rec["dtype"]}
 
     def bwd_entry(key, grads, replaces):

@@ -227,6 +227,108 @@ def test_cuda_flash_residuals_match_plain(cuda, rect):
     torch.testing.assert_close(l, l_ref, rtol=1e-4, atol=0)
 
 
+def _f32_qkv(cuda, shape, seed):
+    """float32 q, k, v of ``shape`` (B, F, H, N, D) as the head-split views
+    FrameAttention hands the kernels."""
+    b, f, h, n, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, f, n, h, d, generator=gen, device=cuda).transpose(2, 3)
+    k = torch.randn(b, n, h, d, generator=gen, device=cuda).transpose(1, 2)
+    v = torch.randn(b, n, h, d, generator=gen, device=cuda).transpose(1, 2)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["fused_frame_attention", "flash_frame_attention",
+                                     "flash_rect_frame_attention"])
+@pytest.mark.parametrize("shape", [(1, 3, 2, 333, 16), (1, 3, 2, 1000, 40),
+                                   (1, 2, 2, 1000, 64), (1, 5, 2, 333, 80),
+                                   (1, 2, 2, 1000, 128)])
+def test_cuda_f32_tf32_forward_at_tile_edges_is_deterministic(cuda, wrapper, shape):
+    """The float32 3×TF32 forward core (csrc/frame_attention_tf32_sm90.cuh)
+    through each wrapper: key lengths off the key tile (64, 32 or 16 keys)
+    and query lengths off the 128-row block, head dims 16 to 128, against
+    the plain version within 1e-4·max|ref|; a second call gives the same
+    bits, and each call launches the kernel once."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    q, k, v = _f32_qkv(cuda, shape, 7)
+    counter = fa.launch_count if wrapper == "fused_frame_attention" else fa.flash_launch_count
+    before = counter()
+    out = getattr(fa, wrapper)(q, k, v)
+    again = getattr(fa, wrapper)(q, k, v)
+    assert counter() == before + 2
+    ref = fa.chunked_frame_attention(q, k, v)
+    assert out.shape == q.shape and out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["fused_frame_attention", "flash_frame_attention",
+                                     "flash_rect_frame_attention"])
+def test_cuda_f32_forward_takes_any_strides(cuda, wrapper):
+    """float32 q, k, v views the bf16 TMA path would refuse — a base 4 bytes
+    off 16 and row strides that are not multiples of 16 bytes — run, and
+    match the plain version within 1e-4·max|ref|: the float32 core reads
+    every operand at any strides with a contiguous last dimension."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    b, f, h, n, d = 1, 2, 2, 1000, 40
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    wide = torch.randn(b * f * n * h * (d + 3) + 1, generator=gen, device=cuda)
+    q = wide[1:].view(b, f, n, h, d + 3)[..., :d].transpose(2, 3)
+    kv = torch.randn(2, b, n, h, d + 1, generator=gen, device=cuda)[..., 1:]
+    k, v = kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+    assert all(fa._tma_fault(t) is not None for t in (q, k, v))
+    out = getattr(fa, wrapper)(q, k, v)
+    ref = fa.chunked_frame_attention(q, k, v)
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["fused_frame_attention", "flash_frame_attention",
+                                     "flash_rect_frame_attention"])
+@pytest.mark.parametrize("d", [40, 80])
+def test_cuda_f32_forward_rows_do_not_depend_on_the_batch(cuda, wrapper, d):
+    """Row r of a B = 1 call equals row r of the same inputs inside a B = 3
+    call, bit for bit: a row's arithmetic does not depend on where its block
+    lies (the cached edit's src_err == 0.0 rests on it)."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    q, k, v = _f32_qkv(cuda, (3, 2, 2, 1000, d), 9)
+    fn = getattr(fa, wrapper)
+    whole = fn(q, k, v)
+    for i in range(3):
+        assert torch.equal(fn(q[i:i + 1], k[i:i + 1], v[i:i + 1])[0], whole[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rect", [True, False])
+@pytest.mark.parametrize("d", [40, 80])
+def test_cuda_f32_flash_residuals_match_plain(cuda, rect, d):
+    """The float32 flash forward's output and per-row residuals m and l (the
+    float32 backward reads them) against attention_reference(...,
+    residuals=True): the output within 1e-4·max|ref|, m and l within 1e-5
+    relative."""
+    from videop2p_tpu_torch.ops import attention as fa
+
+    b, f, h, n = 1, 3, 2, 1000
+    q, k, v = _f32_qkv(cuda, (b, f, h, n, d), 10)
+    out = fa._frame_major_out(q)
+    if rect:
+        q5, out5, k5, v5 = fa._rect_view(q), fa._rect_view(out), k[:, None], v[:, None]
+    else:
+        q5, out5 = q, out
+        k5, v5 = k[:, None].expand(b, f, h, n, d), v[:, None].expand(b, f, h, n, d)
+    m, l = (torch.empty(q5.shape[:4], device=cuda) for _ in range(2))
+    fa._flash(q5, k5, v5, out5, m, l)
+    o_ref, m_ref, l_ref = fa.attention_reference(q5, k5, v5, residuals=True)
+    assert (out5 - o_ref).abs().max().item() <= 1e-4 * o_ref.abs().max().item()
+    torch.testing.assert_close(m, m_ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(l, l_ref, rtol=1e-5, atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wrapper", ["fused_frame_attention", "flash_frame_attention",
                                      "flash_rect_frame_attention"])

@@ -85,24 +85,32 @@ def _includes(name, csrc=_build.CSRC):
 
 
 def test_attention_sources_include_the_shared_sm90_header():
-    """The bf16 forward core (fused and flash kernels) and the two backward
-    cores (bf16, and float32 on the TF32 tensor cores) all build on
-    sm90_common.cuh, the PTX helpers they share."""
+    """The bf16 forward core (fused and flash kernels), the two backward
+    cores (bf16, and float32 on the TF32 tensor cores) and the float32
+    forward core all build on sm90_common.cuh, the PTX helpers they share;
+    the two float32 cores also on sm90_tf32_common.cuh, the 3×TF32 pieces
+    they share, and both forward sources take both forward cores."""
+    tf32 = {"sm90_tf32_common.cuh", "sm90_common.cuh"}
     assert _includes("frame_attention_sm90.cuh") == {"sm90_common.cuh"}
     assert _includes("flash_attention_bwd_sm90.cuh") == {"sm90_common.cuh"}
-    assert _includes("flash_attention_bwd_tf32_sm90.cuh") == {"sm90_common.cuh"}
+    assert _includes("sm90_tf32_common.cuh") == {"sm90_common.cuh"}
+    assert _includes("flash_attention_bwd_tf32_sm90.cuh") == tf32
+    assert _includes("frame_attention_tf32_sm90.cuh") == tf32
     for src in ATTENTION_SOURCES:
         assert "sm90_common.cuh" in _includes(src), src
+    for src in ("frame_attention.cu", "flash_attention.cu"):
+        assert _includes(src) == {"frame_attention_sm90.cuh",
+                                  "frame_attention_tf32_sm90.cuh"} | tf32, src
     assert _includes("flash_attention_bwd.cu") == {"flash_attention_bwd_sm90.cuh",
-                                                    "flash_attention_bwd_tf32_sm90.cuh",
-                                                    "sm90_common.cuh"}
+                                                    "flash_attention_bwd_tf32_sm90.cuh"} | tf32
 
 
 @pytest.mark.parametrize("header", ["sm90_common.cuh", "flash_attention_bwd_sm90.cuh",
-                                    "flash_attention_bwd_tf32_sm90.cuh"])
+                                    "flash_attention_bwd_tf32_sm90.cuh", "sm90_tf32_common.cuh",
+                                    "frame_attention_tf32_sm90.cuh"])
 def test_build_digest_covers_the_shared_headers(tmp_path, header):
-    """Editing the shared PTX header or the backward core renames the library
-    of every attention source, so no stale build of one is loaded."""
+    """Editing a shared header or a warpgroup core renames the library of
+    every attention source, so no stale build of one is loaded."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     before = {src: _build.source_digest(src, str(csrc)) for src in ATTENTION_SOURCES}

@@ -31,11 +31,14 @@ In bfloat16 both forward kernels run one Hopper design
 fed by TMA, the softmax in registers), and the flash backward another
 (``csrc/flash_attention_bwd_sm90.cuh``: ``wgmma``, Q/dO or K/V tiles fed by
 TMA, p and dS in registers, the dK/dV query walk split over a thread-block
-cluster by :func:`dkv_split`). In float32 the forward kernels run on the
-CUDA cores, and the flash backward on the TF32 tensor cores with
-error-compensated products (``csrc/flash_attention_bwd_tf32_sm90.cuh``:
-3×TF32, a prep kernel writing hi/lo tiles, ``wgmma``); PyTorch's own
-products keep TF32 off.
+cluster by :func:`dkv_split`). In float32 both forward kernels and the
+flash backward run on the TF32 tensor cores with error-compensated products
+(3×TF32: ``csrc/frame_attention_tf32_sm90.cuh`` for the forward,
+``csrc/flash_attention_bwd_tf32_sm90.cuh`` for the backward, on the pieces
+of ``csrc/sm90_tf32_common.cuh``): a prep kernel writes TF32 hi/lo tiles
+into a scratch the wrapper allocates, and ``wgmma`` runs every product as
+three TF32 passes; PyTorch's own products keep TF32 off. The float32 kernels
+read every operand at any strides.
 The TMA path reads q, k and v in place, so a bf16 CUDA tensor it cannot take
 raises (:func:`check_tma_operand`), never copies; the backward copies only
 an output gradient (or, rarely, a broadcast q) that its TMA maps cannot
@@ -97,16 +100,35 @@ _flash_bwd_launches = {"dkv": 0, "dq": 0}
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
+    # q, k, v, out, then the shape, the strides, the scale, the scratch and
+    # the stream
     return bind(_SOURCE, "frame_attention_fwd",
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+                + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
 def _flash_launcher():
     return bind(_FLASH_SOURCE, "flash_attention_fwd",
                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+                + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_scratch_query():
+    return bind(_SOURCE, "frame_attention_tf32_scratch_bytes",
+                [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)])
+
+
+def _fwd_scratch(q: torch.Tensor, b0: int, h: int, lk: int, d: int) -> Optional[torch.Tensor]:
+    """The float32 forward kernels' scratch for a q of B0·H (b0, h)
+    problems of ``lk`` keys (the K/V tiles their prep kernel writes, TF32
+    hi/lo, ≈ 4·B0·H·Lk·D floats), freed after the call; None in bfloat16."""
+    if q.dtype != torch.float32:
+        return None
+    nbytes = ctypes.c_longlong(0)
+    _fwd_scratch_query()(b0, h, lk, d, ctypes.byref(nbytes))
+    return torch.empty(nbytes.value, device=q.device, dtype=torch.uint8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -364,12 +386,14 @@ def _fused_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     if b * h > 65535:
         raise ValueError(f"B·H = {b * h} exceeds the kernel's grid")
     out = _frame_major_out(q)
+    scratch = _fwd_scratch(q, b, h, n, d)
     strides = (ctypes.c_longlong * 14)(
         *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *out.stride()[:4])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 _DTYPES[q.dtype], b, f, h, n, d,
-                ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5), stream)
+                ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5),
+                None if scratch is None else scratch.data_ptr(), stream)
     global _launches
     _launches += 1
     return out
@@ -450,8 +474,9 @@ def _flash(q5: torch.Tensor, k5: torch.Tensor, v5: torch.Tensor,
     residuals of the backward, or None."""
     b0, b1, h, lq, d = q5.shape
     lk = k5.shape[3]
-    if -(-lq // 64) > 65535:
-        raise ValueError(f"query length {lq} exceeds the kernel's grid")
+    if b0 * h > 65535:
+        raise ValueError(f"B·H = {b0 * h} exceeds the kernel's grid")
+    scratch = _fwd_scratch(q5, b0, h, lk, d)
     strides = (ctypes.c_longlong * 16)(
         *q5.stride()[:4], *k5.stride()[:4], *v5.stride()[:4], *out5.stride()[:4])
     stream = torch.cuda.current_stream(q5.device).cuda_stream
@@ -459,7 +484,8 @@ def _flash(q5: torch.Tensor, k5: torch.Tensor, v5: torch.Tensor,
                       None if m is None else m.data_ptr(),
                       None if l is None else l.data_ptr(),
                       _DTYPES[q5.dtype], b0, b1, h, lq, lk, d,
-                      ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5), stream)
+                      ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5),
+                      None if scratch is None else scratch.data_ptr(), stream)
     global _flash_launches
     _flash_launches += 1
 

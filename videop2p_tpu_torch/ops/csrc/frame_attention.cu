@@ -28,17 +28,15 @@
 // unnormalized P rounded to bf16 before P.V (the JAX kernel's
 // p.astype(v.dtype)), the row sum in f32.
 //
-// float32: the simple exact kernel, f32 FMA on the CUDA cores (no TF32):
-//   * one block = one (b, h) and a tile of the folded query axis;
-//   * four threads share a query row, each holding every fourth element of
-//     q and of the f32 accumulator, so D <= 128 fits in registers; a thread
-//     also holds RPT rows, so every K/V element read from shared memory
-//     feeds RPT fused multiply-adds;
-//   * keys are consumed in chunks of KC: the chunk's scores are reduced
-//     across the four threads with two warp shuffles, the accumulator is
-//     rescaled once per chunk, and exp2 runs on log2(e)-prescaled scores;
-//   * a ragged F*N (or N) is masked: rows past the end load zeros and are
-//     not stored, keys past the end score -inf.
+// float32: the 3xTF32 warpgroup core of frame_attention_tf32_sm90.cuh,
+// shared with the flash kernel: a prep kernel writes each K/V tile's TF32
+// hi/lo image (V transposed) into a scratch the caller allocates
+// (frame_attention_tf32_scratch_bytes), then S = Q.K^T and each key tile's
+// P.V run as three TF32 wgmma passes each (about 2^-21 relative error a
+// product; PyTorch's own products keep TF32 off), Q resident in shared
+// memory, the online softmax and O in f32 registers. Bound at the 64x64
+// edit site: 5.2e11 FLOPs x 3 passes at 495 TFLOP/s, 3.126 ms (the CUDA
+// cores' 67 TFLOP/s would give 7.692 ms).
 //
 // q and out are read/written through strides for a (B, F, H, N, D) view
 // (last stride 1), k and v through strides for (B, H, N, D), so callers pass
@@ -46,7 +44,8 @@
 // The bf16 path reads K/V through TMA and Q as 32-bit pairs: the base
 // addresses of q, k and v must be 16-byte aligned and their strides
 // multiples of 8 elements (ops/attention.py checks this before the launch
-// and raises otherwise).
+// and raises otherwise). The float32 path reads every operand at any
+// strides.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -54,13 +53,9 @@
 #include <stdint.h>
 
 #include "frame_attention_sm90.cuh"
+#include "frame_attention_tf32_sm90.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kTPR = 4;                  // threads per query row
-constexpr int kGroups = kThreads / kTPR; // row groups per block
-constexpr int kKC = 8;                   // keys per online-softmax chunk
 
 struct Strides {
   long long q_b, q_f, q_h, q_n;
@@ -69,153 +64,33 @@ struct Strides {
   long long o_b, o_f, o_h, o_n;
 };
 
-// DT: elements of D per thread (D <= 4*DT); RPT: query rows per thread;
-// BK: keys per shared-memory tile.
-template <int DT, int RPT, int BK>
-__global__ void __launch_bounds__(kThreads)
-frame_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       int F, int H, int N, int D, Strides st, float scale_log2) {
-  constexpr int DP = DT * kTPR;
-  constexpr int kRows = kGroups * RPT;
-  __shared__ float ks[BK * DP];
-  __shared__ float vs[BK * DP];
-
-  const int tid = threadIdx.x;
-  const int part = tid % kTPR;
-  const int group = tid / kTPR;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int M = F * N;
-  const int row0 = blockIdx.x * kRows;
-
-  float qr[RPT][DT];
-  float acc[RPT][DT];
-  float mrow[RPT];
-  float lrow[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = row0 + r * kGroups + group;
-    const bool live = row < M;
-    const int f = live ? row / N : 0;
-    const int n = live ? row - f * N : 0;
-    const float* qp = q + b * st.q_b + f * st.q_f + h * st.q_h + n * st.q_n;
-#pragma unroll
-    for (int i = 0; i < DT; ++i) {
-      const int d = i * kTPR + part;
-      qr[r][i] = (live && d < D) ? qp[d] * scale_log2 : 0.f;
-      acc[r][i] = 0.f;
-    }
-    mrow[r] = -CUDART_INF_F;
-    lrow[r] = 0.f;
-  }
-
-  const float* kb = k + b * st.k_b + h * st.k_h;
-  const float* vb = v + b * st.v_b + h * st.v_h;
-  for (int kt = 0; kt < N; kt += BK) {
-    __syncthreads();
-    for (int e = tid; e < BK * DP; e += kThreads) {
-      const int key = kt + e / DP;
-      const int d = e % DP;
-      const bool ok = key < N && d < D;
-      ks[e] = ok ? kb[key * st.k_n + d] : 0.f;
-      vs[e] = ok ? vb[key * st.v_n + d] : 0.f;
-    }
-    __syncthreads();
-    const int nk = min(BK, N - kt);
-    for (int j0 = 0; j0 < nk; j0 += kKC) {
-      float s[RPT][kKC];
-#pragma unroll
-      for (int jj = 0; jj < kKC; ++jj) {
-        const float* kr = ks + (j0 + jj) * DP + part;
-        float kv[DT];
-#pragma unroll
-        for (int i = 0; i < DT; ++i) kv[i] = kr[i * kTPR];
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          float a = 0.f;
-#pragma unroll
-          for (int i = 0; i < DT; ++i) a = fmaf(qr[r][i], kv[i], a);
-          s[r][jj] = a;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-#pragma unroll
-        for (int jj = 0; jj < kKC; ++jj) {
-          float a = s[r][jj];
-          a += __shfl_xor_sync(0xffffffffu, a, 1);
-          a += __shfl_xor_sync(0xffffffffu, a, 2);
-          s[r][jj] = (j0 + jj < nk) ? a : -CUDART_INF_F;
-        }
-        float mc = s[r][0];
-#pragma unroll
-        for (int jj = 1; jj < kKC; ++jj) mc = fmaxf(mc, s[r][jj]);
-        const float mn = fmaxf(mrow[r], mc);
-        const float alpha = exp2f(mrow[r] - mn);
-        lrow[r] *= alpha;
-#pragma unroll
-        for (int i = 0; i < DT; ++i) acc[r][i] *= alpha;
-#pragma unroll
-        for (int jj = 0; jj < kKC; ++jj) {
-          const float p = exp2f(s[r][jj] - mn);
-          lrow[r] += p;
-          s[r][jj] = p;
-        }
-        mrow[r] = mn;
-      }
-#pragma unroll
-      for (int jj = 0; jj < kKC; ++jj) {
-        const float* vr = vs + (j0 + jj) * DP + part;
-        float vv[DT];
-#pragma unroll
-        for (int i = 0; i < DT; ++i) vv[i] = vr[i * kTPR];
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-#pragma unroll
-          for (int i = 0; i < DT; ++i) acc[r][i] = fmaf(s[r][jj], vv[i], acc[r][i]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = row0 + r * kGroups + group;
-    if (row >= M) continue;
-    const int f = row / N;
-    const int n = row - f * N;
-    float* op = o + b * st.o_b + f * st.o_f + h * st.o_h + n * st.o_n;
-    const float inv = 1.f / lrow[r];
-#pragma unroll
-    for (int i = 0; i < DT; ++i) {
-      const int d = i * kTPR + part;
-      if (d < D) op[d] = acc[r][i] * inv;
-    }
-  }
+template <int DP>
+__global__ void __launch_bounds__(sm90::tf32::kPrepThreads)
+frame_attention_tf32_prep_kernel(const sm90::tf32::fwd::Problem p) {
+  sm90::tf32::fwd::prep_tile<DP>(p);
 }
 
-template <int DT, int RPT, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int F, int H, int N, int D, const Strides& st, float scale,
-                   cudaStream_t stream) {
-  constexpr int kRows = kGroups * RPT;
-  const long long M = (long long)F * N;
-  dim3 grid((unsigned)((M + kRows - 1) / kRows), (unsigned)(B * H));
-  const float scale_log2 = scale * 1.4426950408889634f;
-  frame_attention_kernel<DT, RPT, BK><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), F, H, N, D, st, scale_log2);
-  return cudaGetLastError();
+template <int DP>
+__global__ void __launch_bounds__(sm90::tf32::kThreads, 1)
+frame_attention_tf32_kernel(const sm90::tf32::fwd::Problem p) {
+  sm90::tf32::fwd::attention_block<DP>(p);
 }
 
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-                     int F, int H, int N, int D, const Strides& st, float scale,
-                     cudaStream_t stream) {
-  if (D <= 40) return launch<10, 4, 64>(q, k, v, o, B, F, H, N, D, st, scale, stream);
-  if (D <= 80) return launch<20, 2, 64>(q, k, v, o, B, F, H, N, D, st, scale, stream);
-  return launch<32, 1, 32>(q, k, v, o, B, F, H, N, D, st, scale, stream);
+// The frames fold into the query axis: F query batches of N rows against
+// the N keys of frame 0's K/V.
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* scratch,
+                       int B, int F, int H, int N, int D, const Strides& st, float scale,
+                       cudaStream_t stream) {
+  const sm90::tf32::fwd::Problem p{
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), nullptr, nullptr, static_cast<uint8_t*>(scratch),
+      {st.q_b, st.q_f, st.q_h, st.q_n}, {st.o_b, st.o_f, st.o_h, st.o_n},
+      {st.k_b, st.k_h, st.k_n}, {st.v_b, st.v_h, st.v_n}, F, H, N, N, D, 0, scale};
+  return sm90::tf32::dispatch_dp(D, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    return sm90::tf32::fwd::launch<DP>(frame_attention_tf32_prep_kernel<DP>,
+                                       frame_attention_tf32_kernel<DP>, p, B, stream);
+  });
 }
 
 template <int DP>
@@ -241,11 +116,40 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// The bytes of the float32 kernels' scratch (the prep kernel's K/V tiles)
+// for B0 (b0, h) problems of H heads, Lk keys and head dim D, into *bytes;
+// the flash kernel's float32 path takes the same scratch. Returns a
+// cudaError_t.
+extern "C" int frame_attention_tf32_scratch_bytes(int B0, int H, int Lk, int D,
+                                                  long long* bytes) {
+  *bytes = 0;
+  if (B0 < 1 || H < 1 || Lk < 1) return (int)cudaErrorInvalidValue;
+  return (int)sm90::tf32::dispatch_dp(D, [&](auto dp) {
+    *bytes = sm90::tf32::fwd::scratch_bytes<decltype(dp)::value>(B0, H, Lk);
+    return cudaSuccess;
+  });
+}
+
+// The float32 kernels' geometry at head dim D, for reports: keys per
+// streamed tile, ring stages, and the attention kernel's dynamic shared
+// memory in bytes. Returns a cudaError_t.
+extern "C" int frame_attention_tf32_config(int D, int* keys, int* stages, int* smem) {
+  return (int)sm90::tf32::dispatch_dp(D, [&](auto dp) {
+    using C = sm90::tf32::fwd::Config<decltype(dp)::value>;
+    *keys = C::kT;
+    *stages = C::kStages;
+    *smem = C::kSmem;
+    return cudaSuccess;
+  });
+}
+
+// dtype: 0 = float32, 1 = bfloat16. scratch: float32, a device buffer of
+// frame_attention_tf32_scratch_bytes(B, H, N, D) bytes; bfloat16, unused.
+// Returns the cudaError_t of the launch.
 extern "C" int frame_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int dtype, int B, int F, int H, int N,
                                    int D, const long long* strides, float scale,
-                                   void* stream) {
+                                   void* scratch, void* stream) {
   if (D < 1 || D > 128 || N < 1 || F < 1 || B < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   if ((long long)B * H > 65535) return (int)cudaErrorInvalidValue;
@@ -255,7 +159,7 @@ extern "C" int frame_attention_fwd(const void* q, const void* k, const void* v,
   st.v_b = strides[7]; st.v_h = strides[8]; st.v_n = strides[9];
   st.o_b = strides[10]; st.o_f = strides[11]; st.o_h = strides[12]; st.o_n = strides[13];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_f32(q, k, v, o, B, F, H, N, D, st, scale, s);
+  if (dtype == 0) return (int)launch_f32(q, k, v, o, scratch, B, F, H, N, D, st, scale, s);
   if (dtype == 1) return (int)launch_bf16(q, k, v, o, B, F, H, N, D, st, scale, s);
   return (int)cudaErrorInvalidValue;
 }
