@@ -22,7 +22,12 @@ Phases, each of which must pass (any failure exits non-zero):
    median of 3; kernel and library call in turns) at the live edit's
    batch, and in float32 null-text's; a float32 forward row also prints
    the 3×TF32 bound it runs against beside the CUDA-core one, and its prep
-   and attention kernels' times (torch.profiler);
+   and attention kernels' times (torch.profiler); GroupNorm (``GN_SHAPES``)
+   also at a slab whose mean is 8 std, a row that is not a whole number of
+   16-byte vectors and an x off 16-byte alignment, one launch a call and a
+   repeat that gives the same bits, timed in turns with F.group_norm +
+   F.silu at each site class PERF.md's table lists, beside its byte bound
+   and the floor HBM traffic sets where x does not fit on chip;
    that a bf16 q view the TMA path cannot read (a head-dim stride other
    than 1, a base address off 16 bytes) raises and launches nothing; that
    "auto" at head dim 160 (N 1024) runs the chunked version, as JAX's
@@ -109,10 +114,18 @@ official_flash:
 Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
 the card line, then, last, ``{"ok": true, "device": {...}}``.
 
+``--gn_only`` runs GroupNorm's checks and timings alone, its sums over the
+UNet's 61 sites (the kernel, its byte bound, the plain-recompute backward)
+and its summed device time in one edit-batch forward and one null-text
+inner step, in both dtypes (``--gn_kernel_names`` names an older tree's
+kernels, so that a copy of this script in that tree's checkout times it
+the same way).
+
 Run:  python3 chip_smoke.py [--steps 4] [--inner_steps 10]
                             [--mixed_precision fp32|bf16]
                             [--paths [fast] [official] [official_flash]]
                             [--profile [--frame_attention auto flash_rect flash]]
+                            [--gn_only [--gn_kernel_names NAME ...]]
                             [--out PATH.json]
 """
 
@@ -134,6 +147,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # fp32 CUDA cores; bf16 dense tensor cores
 PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor cores: the float32 attention kernels' 3×TF32 products
+L2_BYTES = 50e6  # the H100's L2 cache
 
 # the rabbit-jump edit (configs/rabbit-jump-p2p.yaml)
 RABBIT = dict(
@@ -208,13 +222,13 @@ FLASH_INNER_STEPS = 2
 # the paths after the kernel checks: the fast edit (phases 4-9), the
 # official main path (4b, 10), the official path under each kernel (11, 12)
 PATHS = ("fast", "official", "official_flash")
-GN_LAUNCHES_PER_CALL = 3  # partial sums, statistics, apply
+GN_LAUNCHES_PER_CALL = 1  # one persistent launch (ops/groupnorm.py:plan)
 # timing: windows of at least this many ms of back-to-back calls, the
 # median of three of them
 TIME_WINDOW_MS = 20.0
 # the device kernels of each ported kernel, by name prefix (profile)
 KERNEL_NAMES = {"frame_attention": ("frame_attention_wgmma_kernel", "frame_attention_tf32"),
-                "group_norm": ("gn_partial_kernel", "gn_stats_kernel", "gn_apply_kernel"),
+                "group_norm": ("gn_persistent_kernel",),
                 "flash_attention": ("flash_fwd_wgmma_kernel", "flash_fwd_tf32"),
                 "flash_attention_bwd": ("flash_bwd_dkv", "flash_bwd_dq")}
 
@@ -488,13 +502,9 @@ def print_ptxas_reports() -> dict:
     return reports
 
 
-def device_ms_by_kernel(fn, prefixes: dict, iters: int = 3) -> dict:
-    """Device time per call of ``fn`` summed over the kernels whose names
-    contain each of ``prefixes`` (name → the kernel's function name), from a
-    torch.profiler trace of ``iters`` calls after one warm-up call. Every
-    kernel matched is launched once a call, so each kernel's time is the
-    mean over the launches the trace holds: a trace that dropped events
-    does not bias it."""
+def _trace_kernels(fn, iters: int) -> dict:
+    """Kernel name → its device durations (ms) in a torch.profiler trace of
+    ``iters`` calls of ``fn`` after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -503,17 +513,44 @@ def device_ms_by_kernel(fn, prefixes: dict, iters: int = 3) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    launches: dict = {}  # kernel name → its durations (ms)
+    launches: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             launches.setdefault(e.name, []).append(
                 (e.time_range.end - e.time_range.start) / 1e3)
-    out = {name: sum(statistics.fmean(ms) for kernel, ms in launches.items()
-                     if prefix in kernel)
-           for name, prefix in prefixes.items()}
-    if not all(out.values()):
-        raise AssertionError(f"the profiler saw no device time for {out}")
-    return out
+    return launches
+
+
+# traces of one measurement before it fails for want of events: a trace can
+# come back without some of the kernels it ran
+PROFILE_TRIES = 3
+
+
+def device_ms_by_kernel(fn, prefixes: dict, iters: int = 3) -> dict:
+    """Device time per call of ``fn`` summed over the kernels whose names
+    contain each of ``prefixes`` (name → the kernel's function name), from a
+    torch.profiler trace of ``iters`` calls after one warm-up call. Every
+    kernel matched is launched once a call, so each kernel's time is the
+    mean over the launches the trace holds: a trace that dropped events
+    does not bias it, and one that holds none of a kernel is taken again."""
+    for _ in range(PROFILE_TRIES):
+        launches = _trace_kernels(fn, iters)
+        out = {name: sum(statistics.fmean(ms) for kernel, ms in launches.items()
+                         if prefix in kernel)
+               for name, prefix in prefixes.items()}
+        if all(out.values()):
+            return out
+    raise AssertionError(f"the profiler saw no device time for {out}")
+
+
+def device_ms_total(fn, iters: int = 5) -> float:
+    """Device time per call of ``fn``, summed over every kernel it launches
+    (each once a call: the mean of each kernel's launches in the trace)."""
+    for _ in range(PROFILE_TRIES):
+        launches = _trace_kernels(fn, iters)
+        if launches:
+            return sum(statistics.fmean(ms) for ms in launches.values())
+    raise AssertionError("the profiler saw no device time")
 
 
 def check_flash_bwd(gen, dtype, b, f, h, n, d, timed: bool) -> list:
@@ -712,46 +749,194 @@ def check_kernel_grads(gen, dtype) -> dict:
     return rec
 
 
-def check_group_norm(gen, dtype, n, rows, c, eps, act, timed: bool) -> dict:
+def check_group_norm(gen, dtype, n, rows, c, eps, act, timed: bool, *, groups: int = 32,
+                     mean: float = 0.5, offset: int = 0, expect_launches: bool = True) -> dict:
+    """The GroupNorm kernel against its plain version on x = std·randn + mean
+    (std 2, or 1 where the mean is large) in ``dtype``, ``offset`` elements
+    past a 16-byte boundary; a second call on the same input must give the
+    same bits. Timed: the kernel in turns with F.group_norm + F.silu, the
+    plain version, the byte bound (one read of x, one write of y) and the
+    floor HBM traffic sets where x does not fit on chip (x read once, the
+    part neither the grid's shared memory nor a full 50 MB L2 holds read
+    again, y written once)."""
     import torch.nn.functional as F
     from videop2p_tpu_torch.ops import groupnorm as gn
 
     dev = "cuda"
-    x = (torch.randn(n, rows, c, generator=gen, device=dev) * 2.0 + 0.5).to(dtype)
+    flat = torch.randn(n * rows * c + offset, generator=gen, device=dev)
+    x = (flat * (2.0 if abs(mean) < 1 else 1.0) + mean).to(dtype)[offset:].view(n, rows, c)
+    del flat
     scale = torch.randn(c, generator=gen, device=dev) * 0.2 + 1.0
     bias = torch.randn(c, generator=gen, device=dev) * 0.1
-    kw = dict(num_groups=32, eps=eps, act=act)
+    kw = dict(num_groups=groups, eps=eps, act=act)
+    before = gn.launch_count()
     out = gn.fused_group_norm(x, scale, bias, **kw)
+    launches = gn.launch_count() - before
+    repeat_equal = torch.equal(out, gn.fused_group_norm(x, scale, bias, **kw))
     ref = gn.group_norm_reference(x.float(), scale, bias, **kw)
     err = (out.float() - ref).abs().max().item()
     tol = limit(dtype, ref, GN_TOL_F32)
     rec = {"shape": [n, rows, c], "dtype": str(dtype).replace("torch.", ""),
-           "eps": eps, "act": act, "max_abs_err": err, "tol": tol}
-    print(f"  group_norm {rec['shape']} {rec['dtype']} eps={eps:g} act={act}: "
-          f"max|d| {err:.3e} (limit {tol:.3e})", flush=True)
-    if not (err <= tol and torch.isfinite(out).all()):
+           "groups": groups, "eps": eps, "act": act, "mean": mean, "offset": offset,
+           "max_abs_err": err, "tol": tol, "launches_per_call": launches,
+           "repeat_bit_identical": repeat_equal}
+    del ref
+    itemsize = torch.finfo(dtype).bits // 8
+    x_bytes = n * rows * c * itemsize
+    if hasattr(gn, "plan"):  # a tree from before the persistent kernel has none
+        p = gn.plan(n, rows, c, dtype, torch.cuda.get_device_properties(0).multi_processor_count,
+                    groups, x.data_ptr() % 16 == 0)
+        rec["plan"] = p._asdict()
+        rec["on_chip_bytes"] = min(n * rows, p.grid * p.capacity_rows) * c * itemsize
+    print(f"  group_norm {rec['shape']} {rec['dtype']} G={groups} eps={eps:g} act={act} "
+          f"mean={mean:g} offset={offset}: max|d| {err:.3e} (limit {tol:.3e}), "
+          f"{launches} launch(es) a call, repeat bit-identical {repeat_equal}"
+          + (f", vec {p.vec}, {p.threads} threads, {p.smem_rows} rows on chip a block "
+             f"({rec['on_chip_bytes'] / 1e6:.2f} of {x_bytes / 1e6:.2f} MB)"
+             if "plan" in rec else ""), flush=True)
+    if not (err <= tol and torch.isfinite(out).all() and repeat_equal):
         raise AssertionError(f"group norm kernel disagrees: {rec}")
+    if expect_launches and launches != GN_LAUNCHES_PER_CALL:
+        raise AssertionError(f"group norm launched {launches} kernels a call, expected "
+                             f"{GN_LAUNCHES_PER_CALL}: {rec}")
     if timed:
-        itemsize = torch.finfo(dtype).bits // 8
-        nbytes = 2 * n * rows * c * itemsize
+        nbytes = 2 * x_bytes
         flops = 8.0 * n * rows * c  # stats (2), apply (2), SiLU (~4)
         x_nc = x.transpose(1, 2).contiguous()  # the library's channels-first layout
         w, bb = scale.to(dtype), bias.to(dtype)
 
         def library():
-            y = F.group_norm(x_nc, 32, w, bb, eps)
+            y = F.group_norm(x_nc, groups, w, bb, eps)
             return F.silu(y) if act == "silu" else y
 
-        rec["ms"], rec["library_ms"] = time_in_turns(
-            lambda: gn.fused_group_norm(x, scale, bias, **kw), library)
+        def kernel():
+            return gn.fused_group_norm(x, scale, bias, **kw)
+
+        rec["ms"], rec["library_ms"] = time_in_turns(kernel, library)
         rec["plain_ms"] = time_ms(lambda: gn.group_norm_reference(x, scale, bias, **kw))
         rec["ratio"] = rec["ms"] / rec["library_ms"]
+        # device time alone (the windows above also hold the host's time per
+        # call, which sets them at the small slabs)
+        names = KERNEL_NAMES["group_norm"]
+        rec["device_ms"] = sum(device_ms_by_kernel(kernel, dict(zip(names, names))).values())
+        rec["library_device_ms"] = device_ms_total(library)
         rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, dtype)
+        rec["share"] = rec["bound_ms"] / rec["ms"]
+        rec["device_share"] = rec["bound_ms"] / rec["device_ms"]
+        if "on_chip_bytes" in rec:
+            again = max(0, x_bytes - rec["on_chip_bytes"] - L2_BYTES)
+            rec["hbm_floor_ms"] = (nbytes + again) / HBM_BYTES_PER_S * 1e3
         print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
               f"F.group_norm+silu {rec['library_ms']:.4f} ms (kernel/library "
-              f"{rec['ratio']:.3f}), bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})",
+              f"{rec['ratio']:.3f}); device time (profiler) kernel {rec['device_ms']:.4f} ms, "
+              f"library {rec['library_device_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}, share of the device time {rec['device_share']:.3f})"
+              + (f", HBM floor {rec['hbm_floor_ms']:.4f} ms" if "hbm_floor_ms" in rec else ""),
               flush=True)
+        del x_nc
+    del x, out
     return rec
+
+
+# GroupNorm's shapes in phase 3: (N, rows, C, eps, act, timed, groups, mean,
+# offset). Timed, in each dtype: the classes PERF.md's table needs — the
+# resnets' frame-pooled 64² slabs at C 640 / 960 and B 1-3, the transformer
+# entry's per-frame 64²×320 at N 8 / 16 / 24, and the B 2 resnets at 32²×640
+# and 8²×1280 / 2560. Then the full-CFG edit's batch (4), null-text's (1),
+# a slab whose mean is 8 std (E[x²]−E[x]² cancels), a row that is not a
+# whole number of 16-byte vectors (C 42, 6 groups), an x off 16-byte
+# alignment, and a ragged slab.
+GN_SHAPES = (
+    [(b, 8 * 4096, c, 1e-5, "silu", True, 32, 0.5, 0) for c in (640, 960) for b in (1, 2, 3)]
+    + [(n, 4096, 320, 1e-6, "none", True, 32, 0.5, 0) for n in (8, 16, 24)]
+    + [(2, 8 * 1024, 640, 1e-5, "silu", True, 32, 0.5, 0),
+       (2, 8 * 64, 1280, 1e-5, "silu", True, 32, 0.5, 0),
+       (2, 8 * 64, 2560, 1e-5, "silu", True, 32, 0.5, 0),
+       (4, 8 * 4096, 640, 1e-5, "silu", False, 32, 0.5, 0),
+       (4, 8 * 4096, 320, 1e-5, "silu", False, 32, 0.5, 0),
+       (32, 4096, 320, 1e-6, "none", False, 32, 0.5, 0),
+       (1, 8 * 4096, 320, 1e-5, "silu", False, 32, 0.5, 0),
+       (3, 8 * 64, 1280, 1e-5, "silu", False, 32, 0.5, 0),
+       (2, 8 * 1024, 640, 1e-5, "silu", False, 32, 8.0, 0),
+       (2, 1000, 42, 1e-5, "silu", False, 6, 0.5, 0),
+       (2, 1000, 96, 1e-5, "silu", False, 32, 0.5, 1),
+       (2, 1000, 96, 1e-5, "silu", False, 32, 0.5, 0)])
+
+
+# The 61 GroupNorm sites of one UNet forward at 512² (64² latents, 8 frames):
+# (kind, latent side, channels, sites). Resnet norms (SiLU, eps 1e-5) and
+# conv_norm_out pool the frames: N = B, rows = 8·side²; transformer-entry
+# norms (no activation, eps 1e-6) are per frame: N = 8·B, rows = side².
+UNET_GN_SITES = (
+    ("resnet", 64, 320, 8), ("resnet", 64, 640, 2), ("resnet", 64, 960, 1),
+    ("resnet", 32, 320, 1), ("resnet", 32, 640, 6), ("resnet", 32, 960, 1),
+    ("resnet", 32, 1280, 1), ("resnet", 32, 1920, 1),
+    ("resnet", 16, 640, 1), ("resnet", 16, 1280, 6), ("resnet", 16, 1920, 1),
+    ("resnet", 16, 2560, 2),
+    ("resnet", 8, 1280, 11), ("resnet", 8, 2560, 3),
+    ("transformer", 64, 320, 5), ("transformer", 32, 640, 5),
+    ("transformer", 16, 1280, 5), ("transformer", 8, 1280, 1),
+)
+# the sites upstream of every cross-attention (the first resnet's two norms,
+# the first transformer's entry norm): a null-text backward skips them
+GN_SITES_WITHOUT_GRAD = {("resnet", 64, 320): 2, ("transformer", 64, 320): 1}
+
+
+def gn_site_sums(gen, dtype, batch: int) -> dict:
+    """Over the 61 sites of one UNet forward at ``batch``, each timed alone
+    (device time, torch.profiler) on x = 2·randn + 0.5 with scale and bias
+    in x's dtype, as the model holds them: the kernel's forward, its byte
+    bound, and the backward the port runs on it (the plain version's
+    recompute, the gradient in x alone, as null-text optimization asks:
+    the weights are frozen) at the sites a null-text backward reaches."""
+    from videop2p_tpu_torch.ops import groupnorm as gn
+    from videop2p_tpu_torch.ops._autograd import recompute_grads
+
+    names = KERNEL_NAMES["group_norm"]
+    out = {"sites": 0, "kernel_ms": 0.0, "bound_ms": 0.0, "backward_sites": 0,
+           "backward_ms": 0.0}
+    for kind, side, c, count in UNET_GN_SITES:
+        if kind == "resnet":
+            n, rows, kw = batch, 8 * side * side, dict(num_groups=32, eps=1e-5, act="silu")
+        else:
+            n, rows, kw = 8 * batch, side * side, dict(num_groups=32, eps=1e-6, act="none")
+        x = (torch.randn(n, rows, c, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        scale = (torch.randn(c, generator=gen, device="cuda") * 0.2 + 1).to(dtype)
+        bias = (torch.randn(c, generator=gen, device="cuda") * 0.1).to(dtype)
+        grad_out = torch.randn_like(x)
+        ms = sum(device_ms_by_kernel(lambda: gn.fused_group_norm(x, scale, bias, **kw),
+                                     dict(zip(names, names))).values())
+        backward = count - GN_SITES_WITHOUT_GRAD.get((kind, side, c), 0)
+
+        def plain(xx, ss, bb):
+            return gn.group_norm_reference(xx, ss, bb, **kw)
+
+        bwd = device_ms_total(lambda: recompute_grads(plain, (x, scale, bias),
+                                                       (True, False, False), grad_out))
+        out["sites"] += count
+        out["kernel_ms"] += count * ms
+        out["bound_ms"] += count * 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        out["backward_sites"] += backward
+        out["backward_ms"] += backward * bwd
+        del x, grad_out
+    torch.cuda.empty_cache()
+    print(f"  61 sites at B {batch}, {str(dtype).replace('torch.', '')}: kernel "
+          f"{out['kernel_ms']:.3f} ms (each site alone), byte bound {out['bound_ms']:.3f} ms "
+          f"(share {out['bound_ms'] / out['kernel_ms']:.3f}); the plain recompute backward at "
+          f"{out['backward_sites']} sites {out['backward_ms']:.3f} ms", flush=True)
+    return out
+
+
+def check_group_norm_shapes(gen, expect_launches: bool = True) -> list:
+    """Every GN_SHAPES entry in float32 and bfloat16."""
+    recs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, rows, c, eps, act, timed, groups, mean, offset in GN_SHAPES:
+            recs.append(check_group_norm(gen, dtype, n, rows, c, eps, act, timed,
+                                         groups=groups, mean=mean, offset=offset,
+                                         expect_launches=expect_launches))
+        torch.cuda.empty_cache()
+    return recs
 
 
 def small_edit_check(live_source: bool) -> float:
@@ -1121,7 +1306,7 @@ def run_main_path(frames, steps: int, mixed_precision: str, *, fast: bool = True
 def expect_launches(run: dict, steps: int, frame_attention: str) -> None:
     """The launch counts of one main-path run: ATTN_SITES frame-attention
     launches per UNet forward on the chosen kernel (none on the other),
-    GroupNorm three per site. A fast edit runs one forward per inversion
+    GroupNorm one per site. A fast edit runs one forward per inversion
     and per edit step. Official mode also runs, per null-text outer step,
     the cond forward, one forward per inner step and the advancing forward;
     each inner step's backward launches the flash dK/dV and dQ kernels at
@@ -1258,6 +1443,41 @@ def official_paths(args, frames, dtype) -> tuple:
     return runs, failures, records
 
 
+def group_norm_only(args, card: str, kind: str) -> int:
+    """``--gn_only``: GroupNorm's phase-3 checks and timings, its sums over
+    the UNet's 61 sites (:func:`gn_site_sums`, at the edit forward's B 2 and
+    null-text's B 1), then its summed device time in one edit-batch forward
+    and one null-text inner step per dtype. Launches a call are recorded, not asserted, so that an
+    older tree's kernel is timed by the same code."""
+    # full float32 products and convolutions, as the CLI runs them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print("group norm checks:", flush=True)
+    checks = check_group_norm_shapes(gen, expect_launches=False)
+    print("group norm over the UNet's 61 sites:", flush=True)
+    sums = {f"{mp} B{batch}": gn_site_sums(gen, dtype, batch)
+            for mp, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))
+            for batch in (2, 1)}
+    profiles = []
+    for mixed_precision in ("fp32", "bf16"):
+        profiles.append(profile_edit_forward(mixed_precision, "auto"))
+        profiles.append(profile_null_text_step(mixed_precision, "flash_rect"))
+    summary = {"group_norm_ms": {p["label"]: p["ported_ms"]["group_norm"] for p in profiles}}
+    if args.out:
+        import os
+
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump({"card": card, "kind": kind, "group_norm": checks, "sites": sums,
+                       "profiles": profiles}, fh, indent=1)
+    print(json.dumps(summary))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=4,
@@ -1280,6 +1500,16 @@ def main() -> int:
                         help="the frame-attention implementations to profile")
     parser.add_argument("--out", type=str, default=None,
                         help="also write the measurements to this JSON file")
+    parser.add_argument("--gn_only", action="store_true",
+                        help="GroupNorm alone: its phase-3 checks and timings (GN_SHAPES, "
+                             "both dtypes), then one cached edit-batch UNet forward "
+                             "('auto') and one null-text inner step ('flash_rect') under "
+                             "torch.profiler in float32 and bfloat16, GroupNorm's summed "
+                             "device time printed; runs on any tree's package (a copy of "
+                             "this script in an older checkout times that checkout's kernel)")
+    parser.add_argument("--gn_kernel_names", nargs="+", default=None,
+                        help="the device kernels the profiles sum as GroupNorm (default: "
+                             "this tree's, KERNEL_NAMES['group_norm'])")
     args = parser.parse_args()
 
     # 1. probe
@@ -1299,6 +1529,10 @@ def main() -> int:
     _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s ({', '.join(_build.KERNEL_SOURCES)})", flush=True)
+    if args.gn_kernel_names:
+        KERNEL_NAMES["group_norm"] = tuple(args.gn_kernel_names)
+    if args.gn_only:
+        return group_norm_only(args, card, kind)
     ptxas = print_ptxas_reports()
 
     # 3. kernels against their plain versions
@@ -1322,20 +1556,9 @@ def main() -> int:
                                       shape in ((1, 8, 8, 4096, 40), (1, 8, 8, 1024, 80)))
             checks["frame_attention"].append(check_attention(gen, dtype, *shape, timed))
             checks["flash_attention"] += check_flash(gen, dtype, *shape, timed)
-        # the resnets' slabs (N streams, frames × pixels, C) and the
-        # transformers' (N · frames, pixels, C) at the live edit's batch
-        # (timed), the full-CFG edit's and null-text's, and two ragged ones
-        for n, rows, c, eps, act, timed in ((3, 8 * 4096, 640, 1e-5, "silu", True),
-                                            (24, 4096, 320, 1e-6, "none", True),
-                                            (4, 8 * 4096, 640, 1e-5, "silu", False),
-                                            (4, 8 * 4096, 320, 1e-5, "silu", False),
-                                            (32, 4096, 320, 1e-6, "none", False),
-                                            (1, 8 * 4096, 320, 1e-5, "silu", False),
-                                            (8, 4096, 320, 1e-6, "none", False),
-                                            (3, 8 * 64, 1280, 1e-5, "silu", False),
-                                            (2, 1000, 96, 1e-5, "silu", False)):
-            checks["group_norm"].append(
-                check_group_norm(gen, dtype, n, rows, c, eps, act, timed))
+    # the resnets' slabs (N streams, frames × pixels, C) and the
+    # transformers' (N · frames, pixels, C): GN_SHAPES
+    checks["group_norm"] = check_group_norm_shapes(gen)
     checks["tma_refusals"] = check_tma_refusals(gen)
     checks["auto_head_dim_160"] = check_auto_above_head_dim_128(gen)
     torch.cuda.empty_cache()
