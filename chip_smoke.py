@@ -109,7 +109,34 @@ official_flash:
    through the plain version ("chunked"): in float32 within 1e-4·max|ref|;
    in bfloat16 at most 2 × the bf16 plain version's distance. The forward
    holds the official edit's kernels at its batch, the gradient the
-   backward kernels on the path.
+   backward kernels on the path;
+
+dependent:
+13. the fork's dependent noise (``--dependent_p2p`` with ``DEPENDENT``, the
+   sweep grid's decay 0.3, windows of 4 (two at 8 frames), AR chaining with
+   coefficient 0.1, weight 0.2): (a) the sampler on the card — its
+   transform of normals against the CPU's within 1e-6, the empirical
+   covariance of 2^20 frame vectors drawn with a CUDA generator within 0.01
+   of the closed form, the device time of one draw at (1, 8, 64, 64, 4);
+   (b) the cached fast edit with those flags in turns with the plain one
+   (plain, dependent, dependent, plain): phase 5's launch counts, finite
+   (2, 8, 512, 512, 3) output, src_err == 0.0, the edit moved by the noise
+   (max|Δ| > 0), and with ``dependent_weights`` 0 the plain edit bit for
+   bit; the wall times printed; (c) the live-source edit with η 0.1 and
+   the dependent sampler; (d) the official path with 2 inner steps, the
+   null-text record printed; launch counts asserted on each;
+
+checkpoint:
+14. the seeded SD-1.5 bundle written as a tuned 3-D checkpoint (the UNet by
+   ``save_pipeline`` with a scheduler config of ``steps_offset`` 1,
+   ``vae/`` and ``text_encoder/`` under their diffusers / transformers
+   names) under ``<tmp>/rabbit-jump`` + the Stage-1 suffix of phase 13's
+   settings, then ``main`` on ``<tmp>/rabbit-jump`` with those flags: it
+   resolves the suffixed directory and loads it (phase 5's launch counts),
+   and its edited latents equal those of the same run from the in-memory
+   bundle bit for bit; the write and load times, the bytes read and the
+   host and device peaks of the load printed; the directory (under
+   ``outputs/``) deleted afterwards, also on a failure.
 
 Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
 the card line, then, last, ``{"ok": true, "device": {...}}``.
@@ -123,7 +150,8 @@ the same way).
 
 Run:  python3 chip_smoke.py [--steps 4] [--inner_steps 10]
                             [--mixed_precision fp32|bf16]
-                            [--paths [fast] [official] [official_flash]]
+                            [--paths [fast] [official] [official_flash]
+                                     [dependent] [checkpoint]]
                             [--profile [--frame_attention auto flash_rect flash]]
                             [--gn_only [--gn_kernel_names NAME ...]]
                             [--out PATH.json]
@@ -220,8 +248,24 @@ AUTO_NULL_TEXT_PEAK_BEFORE_GIB = {"fp32": 23.37, "bf16": 15.29}
 # null-text inner steps of the official path under each kernel (phase 11)
 FLASH_INNER_STEPS = 2
 # the paths after the kernel checks: the fast edit (phases 4-9), the
-# official main path (4b, 10), the official path under each kernel (11, 12)
-PATHS = ("fast", "official", "official_flash")
+# official main path (4b, 10), the official path under each kernel (11, 12),
+# the dependent noise (13) and a checkpoint directory (14)
+PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint")
+# the dependent-noise settings of phases 13-14: the sweep grid's values
+# (videop2p_tpu/cli/sweep.py), two AR-chained windows of 4 at 8 frames
+DEPENDENT = dict(dependent=True, dependent_p2p=True, decay_rate=0.3, window_size=4,
+                 ar_sample=True, ar_coeff=0.1, dependent_weights=0.2)
+# the sampler on the card against the CPU's transform of the same normals,
+# and its empirical covariance over SAMPLER_VECTORS frame vectors against
+# the closed form (sampling error ≈ (2/N)^½ = 1.4e-3 an entry)
+SAMPLER_TOL = 1e-6
+SAMPLER_VECTORS = 2 ** 20
+COV_TOL = 0.01
+# the SD-1.5 scheduler config a Stage-1 export writes (phase 14)
+SD_SCHEDULER_CONFIG = {"_class_name": "DDIMScheduler", "num_train_timesteps": 1000,
+                       "beta_start": 0.00085, "beta_end": 0.012,
+                       "beta_schedule": "scaled_linear", "clip_sample": False,
+                       "set_alpha_to_one": False, "steps_offset": 1}
 GN_LAUNCHES_PER_CALL = 1  # one persistent launch (ops/groupnorm.py:plan)
 # timing: windows of at least this many ms of back-to-back calls, the
 # median of three of them
@@ -1260,9 +1304,9 @@ def run_main_path(frames, steps: int, mixed_precision: str, *, fast: bool = True
     fa.reset_flash_launch_count()
     fa.reset_flash_bwd_launch_counts()
     t0 = time.perf_counter()
-    res = run_edit(**RABBIT, fast=fast, device="cuda", mixed_precision=mixed_precision,
-                   width=512, video_len=8, num_ddim_steps=steps, frames=frames,
-                   save_gifs=False, **kw)
+    res = run_edit(**{**RABBIT, **kw}, fast=fast, device="cuda",
+                   mixed_precision=mixed_precision, width=512, video_len=8,
+                   num_ddim_steps=steps, frames=frames, save_gifs=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     bwd = fa.flash_bwd_launch_counts()
@@ -1300,7 +1344,7 @@ def run_main_path(frames, steps: int, mixed_precision: str, *, fast: bool = True
             "timings": res["timings"], "launches": launches, "peak_gib": peak,
             "peak_gib_by_phase": res["peak_gib"], "null_text": null_text,
             "src_err": src_err, "cached_maps": res["cached_maps"],
-            "latents": res["latents"]}
+            "checkpoint_dir": res["checkpoint_dir"], "latents": res["latents"]}
 
 
 def expect_launches(run: dict, steps: int, frame_attention: str) -> None:
@@ -1441,6 +1485,196 @@ def official_paths(args, frames, dtype) -> tuple:
         del run["latents"]
     torch.cuda.empty_cache()
     return runs, failures, records
+
+
+def sampler_check() -> dict:
+    """Phase 13a: the dependent-noise sampler on the card. Its transform of
+    normals drawn on the CPU against the CPU's transform of the same
+    normals; the empirical covariance of SAMPLER_VECTORS frame vectors drawn
+    with a CUDA generator against ``joint_cov()``; the device time of one
+    draw at the main path's latent shape."""
+    from videop2p_tpu_torch.core.noise import DependentNoiseSampler
+
+    kw = dict(num_frames=8, decay_rate=DEPENDENT["decay_rate"],
+              window_size=DEPENDENT["window_size"], ar_sample=DEPENDENT["ar_sample"],
+              ar_coeff=DEPENDENT["ar_coeff"])
+    cpu = DependentNoiseSampler.create(**kw)
+    card = DependentNoiseSampler.create(**kw, device="cuda")
+    z = torch.randn((1, 64, 64, 4, card.num_windows, card.window_size),
+                    generator=torch.Generator().manual_seed(0))
+    err = (card.transform(z.cuda()).cpu() - cpu.transform(z)).abs().max().item()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    draws = card.sample((SAMPLER_VECTORS, 8), gen).double()
+    cov_err = float(np.abs((draws.T @ draws / SAMPLER_VECTORS).cpu().numpy()
+                           - card.joint_cov()).max())
+    shape = (1, 8, 64, 64, 4)
+    draw_ms = time_ms(lambda: card.sample(shape, gen))
+    print(f"  sampler: transform on the card against the CPU max|d| {err:.3e} (limit "
+          f"{SAMPLER_TOL:g}); covariance of {SAMPLER_VECTORS} draws max|d| {cov_err:.4e} "
+          f"(limit {COV_TOL:g}); one draw at {shape}: {draw_ms:.4f} ms", flush=True)
+    if not err <= SAMPLER_TOL:
+        raise AssertionError(f"sampler transform on the card off the CPU's by {err}")
+    if not cov_err <= COV_TOL:
+        raise AssertionError(f"sampler covariance off the closed form by {cov_err}")
+    return {"transform_max_abs_err": err, "cov_max_abs_err": cov_err,
+            "vectors": SAMPLER_VECTORS, "draw_shape": list(shape), "draw_ms": draw_ms}
+
+
+def dependent_paths(args, frames) -> tuple:
+    """Phase 13 (path "dependent"): the sampler on the card, then the main
+    path with ``--dependent_p2p`` and DEPENDENT's settings: the cached fast
+    edit in turns with the plain one (plain, dependent, dependent, plain),
+    the same with ``dependent_weights`` 0, the live-source edit with η 0.1,
+    and the official path with 2 inner steps. Returns (runs, records)."""
+    print("dependent noise (--dependent_p2p, decay 0.3, windows of 4, AR 0.1, "
+          "weight 0.2):", flush=True)
+    records = {"sampler": sampler_check()}
+    steps, mp = args.steps, args.mixed_precision
+    turns = [run_main_path(frames, steps, mp, **(DEPENDENT if dep else {}))
+             for dep in (False, True, True, False)]
+    for run in turns:
+        expect_launches(run, steps, "auto")
+        if run["mode"] != "cached":
+            raise AssertionError("the dependent fast edit did not take the cached source")
+    plain, dep = turns[0], turns[1]
+    moved = (dep["latents"] - plain["latents"]).abs().max().item()
+    repeat = (turns[2]["latents"] - dep["latents"]).abs().max().item()
+    zero = run_main_path(frames, steps, mp, **dict(DEPENDENT, dependent_weights=0.0))
+    zero_d = (zero["latents"] - plain["latents"]).abs().max().item()
+    walls = {"plain": [turns[0]["wall_s"], turns[3]["wall_s"]],
+             "dependent": [turns[1]["wall_s"], turns[2]["wall_s"]]}
+    print(f"  cached edit wall (s), in turns: plain {walls['plain']}, dependent "
+          f"{walls['dependent']}; dependent against plain max|d| {moved:.4e}, dependent "
+          f"repeat max|d| {repeat!r}, weight 0 against plain max|d| {zero_d!r}", flush=True)
+    if not moved > 0:
+        raise AssertionError("the dependent edit equals the plain edit")
+    if zero_d != 0.0:
+        raise AssertionError(f"dependent_weights 0 differs from the plain edit by {zero_d}")
+    runs = {"dependent_cached": dep}
+    runs["dependent_live"] = run_main_path(frames, steps, mp, live_source=True, eta=0.1,
+                                           **DEPENDENT)
+    expect_launches(runs["dependent_live"], steps, "auto")
+    runs["dependent_official"] = run_main_path(frames, steps, mp, fast=False,
+                                               num_inner_steps=FLASH_INNER_STEPS,
+                                               **DEPENDENT)
+    expect_launches(runs["dependent_official"], steps, "auto")
+    records["dependent_cached_edit"] = {"wall_s": walls, "max_abs_diff_vs_plain": moved,
+                                        "repeat_max_abs_diff": repeat,
+                                        "weight0_max_abs_diff_vs_plain": zero_d}
+    for run in runs.values():
+        del run["latents"]
+    del turns, zero
+    torch.cuda.empty_cache()
+    return runs, records
+
+
+class _HostPeak:
+    """The peak resident set of this process while the block runs
+    (``/proc/self/statm``, sampled every 5 ms), in bytes."""
+
+    def __enter__(self):
+        import os
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * self._page
+
+    def _poll(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def checkpoint_path(args, frames, dtype) -> tuple:
+    """Phase 14 (path "checkpoint"): the seeded SD-1.5 bundle written as a
+    tuned 3-D checkpoint under ``<tmp>/rabbit-jump`` + the Stage-1 suffix of
+    DEPENDENT's settings (the UNet through ``save_pipeline`` with the SD
+    scheduler config, ``steps_offset`` 1; ``vae/`` and ``text_encoder/``
+    under their diffusers / transformers names), then ``main`` on
+    ``<tmp>/rabbit-jump`` with DEPENDENT's flags: it must resolve the
+    suffixed directory and load it, and its edited latents must equal, bit
+    for bit, the same run from the in-memory bundle with the same scheduler
+    config. The directory is deleted afterwards, also on a failure. Returns
+    (runs, records)."""
+    import os
+    import shutil
+    import tempfile
+
+    from videop2p_tpu_torch.cli.common import dependent_suffix
+    from videop2p_tpu_torch.cli.run_videop2p import ModelBundle, build_models
+    from videop2p_tpu_torch.models import convert
+    from videop2p_tpu_torch.models.pipeline_io import save_pipeline
+
+    print("checkpoint directory (SD-1.5 width, written, resolved, loaded):", flush=True)
+    os.makedirs("outputs", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_", dir="outputs")
+    try:
+        bundle = build_models(dtype=dtype, device="cuda", seed=0)
+        bundle = ModelBundle(unet=bundle.unet, vae=bundle.vae,
+                             text_encoder=bundle.text_encoder,
+                             scheduler_config=dict(SD_SCHEDULER_CONFIG))
+        base = os.path.join(tmp, "rabbit-jump")
+        suffix_kw = {k: v for k, v in DEPENDENT.items() if k != "dependent_p2p"}
+        ckpt = base + dependent_suffix(eta=0.0, **suffix_kw)
+        t0 = time.perf_counter()
+        nbytes = save_pipeline(ckpt, bundle.unet.config, bundle.unet.state_dict(),
+                               scheduler_config=bundle.scheduler_config)
+        vcfg = bundle.vae.config
+        for sub, cfg, sd, name in (
+                ("vae", {"in_channels": vcfg.in_channels, "out_channels": vcfg.out_channels,
+                         "latent_channels": vcfg.latent_channels,
+                         "block_out_channels": list(vcfg.block_out_channels),
+                         "layers_per_block": vcfg.layers_per_block,
+                         "norm_num_groups": vcfg.norm_num_groups,
+                         "scaling_factor": vcfg.scaling_factor},
+                 bundle.vae.state_dict(), "diffusion_pytorch_model.safetensors"),
+                ("text_encoder", dict(vars(bundle.text_encoder.config)),
+                 convert.clip_state_dict_to_transformers(bundle.text_encoder.state_dict()),
+                 "model.safetensors")):
+            os.makedirs(os.path.join(ckpt, sub))
+            with open(os.path.join(ckpt, sub, "config.json"), "w") as fh:
+                json.dump(cfg, fh)
+            nbytes += convert.save_safetensors(sd, os.path.join(ckpt, sub, name))
+        write_s = time.perf_counter() - t0
+        with _HostPeak() as host:
+            loaded = run_main_path(frames, args.steps, args.mixed_precision,
+                                   pretrained_model_path=base, **DEPENDENT)
+        expect_launches(loaded, args.steps, "auto")
+        if loaded["checkpoint_dir"] != ckpt:
+            raise AssertionError(f"main resolved {loaded['checkpoint_dir']!r}, not {ckpt!r}")
+        if "build_models" not in loaded["timings"]:
+            raise AssertionError("main did not load the checkpoint")
+        memory = run_main_path(frames, args.steps, args.mixed_precision, bundle=bundle,
+                               **DEPENDENT)
+        diff = (loaded["latents"] - memory["latents"]).abs().max().item()
+        rec = {"dir": ckpt, "bytes_written": nbytes, "bytes_read": nbytes,
+               "write_s": write_s, "load_s": loaded["timings"]["build_models"],
+               "host_before_gib": host.start / 2 ** 30, "host_peak_gib": host.peak / 2 ** 30,
+               "device_peak_gib": loaded["peak_gib_by_phase"]["build_models"],
+               "max_abs_diff_vs_memory": diff}
+        print(f"  wrote {nbytes / 1e9:.3f} GB in {write_s:.2f} s; loaded (read "
+              f"{nbytes / 1e9:.3f} GB) in {rec['load_s']:.2f} s, host resident "
+              f"{rec['host_before_gib']:.2f} → peak {rec['host_peak_gib']:.2f} GiB, device peak {rec['device_peak_gib']:.2f} GiB; "
+              f"edited latents against the in-memory run max|d| {diff!r}", flush=True)
+        if diff != 0.0:
+            raise AssertionError(f"the checkpoint run differs from the in-memory run by {diff}")
+        del loaded["latents"], memory, bundle
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"checkpoint": loaded}, {"checkpoint": rec}
 
 
 def group_norm_only(args, card: str, kind: str) -> int:
@@ -1587,6 +1821,14 @@ def main() -> int:
         runs.update(off_runs)
         failures += off_failures
         records.update(off_records)
+    if "dependent" in args.paths:
+        dep_runs, dep_records = dependent_paths(args, frames)
+        runs.update(dep_runs)
+        records.update(dep_records)
+    if "checkpoint" in args.paths:
+        ckpt_runs, ckpt_records = checkpoint_path(args, frames, dtype)
+        runs.update(ckpt_runs)
+        records.update(ckpt_records)
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
@@ -1627,8 +1869,10 @@ def main() -> int:
                 "shape": rec["shape"], "dtype": rec["dtype"]}
 
     # each kernel's launches come from the main path that runs it: the fast
-    # edit where it ran, else official mode
-    auto = "auto" if "auto" in runs else "official" if "official" in runs else None
+    # edit where it ran, else official mode, else the dependent or the
+    # checkpoint path's cached edit
+    auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint")
+                 if r in runs), None)
     rect = ("flash_rect" if "flash_rect" in runs else
             "official_flash_rect" if "official_flash_rect" in runs else None)
     full = ("flash" if "flash" in runs else

@@ -133,8 +133,9 @@ def test_port_imports_nothing_of_jax():
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """Official mode's "hybrid" null-text mode, and a checkpoint on disk
-    (which random weights must not silently replace), raise."""
+    """Official mode's "hybrid" null-text mode raises; a checkpoint
+    directory that does not load (a ``unet/`` without its config) raises
+    too: random weights must not silently replace it."""
     from videop2p_tpu_torch.cli.run_videop2p import main
 
     kw = dict(RABBIT, device="cpu", tiny=True, video_len=2, num_ddim_steps=2,
@@ -143,9 +144,9 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
         main(**kw, fast=False, null_text_mode="hybrid")
     (tmp_path / "unet").mkdir()
     kw["pretrained_model_path"] = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="holds a checkpoint"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         main(**kw, fast=True, live_source=True)
-    with pytest.raises(NotImplementedError, match="holds a checkpoint"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         main(**kw, fast=True)
 
 

@@ -22,11 +22,25 @@ the reconstruction and the edit. The edit is one of:
     DDIM steps, noise seeded from ``--seed``) takes this path in fast mode,
     as the JAX CLI does: the cached replay is deterministic.
 
-Run:  python -m videop2p_tpu_torch.cli.run_videop2p \\
-          --config configs/rabbit-jump-p2p.yaml [--fast [--live_source]]
+The fork's dependent noise (``--dependent_p2p`` with ``--decay_rate``,
+``--window_size``, ``--ar_sample``, ``--ar_coeff``, ``--dependent_weights``):
+every UNet prediction of the inversion and of null-text optimization is
+blended with frame-correlated noise (``core/noise.py``), and with ``--eta``
+> 0 the edit's step noise is drawn from the same sampler.
 
-The models are random-init at SD-1.5 width (seeded), since the repository
-holds no checkpoint. The run is on CUDA unless ``--device cpu`` is given.
+The checkpoint is ``pretrained_model_path`` with the Stage-1 suffix of the
+dependent settings appended (``cli/common.py:resolve_pipeline_dir``): a
+diffusers-layout directory loads (``models/pipeline_io.py``), its scheduler
+from its ``scheduler_config.json``; without one the models are random-init
+at SD-1.5 width (seeded), with a warning. The GIFs go to
+``<checkpoint>/results_dp{dependent_p2p}``, as the JAX CLI writes them.
+
+Run:  python -m videop2p_tpu_torch.cli.run_videop2p \\
+          --config configs/rabbit-jump-p2p.yaml [--fast [--live_source]] \\
+          [--dependent --dependent_p2p --decay_rate 0.3 --window_size 4 \\
+           --ar_sample --ar_coeff 0.1 --dependent_weights 0.2] [--eta 0.1]
+
+The run is on CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -35,14 +49,18 @@ import argparse
 import contextlib
 import os
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from videop2p_tpu_torch.cli.common import add_dependent_args, load_config, resolve_pipeline_dir
 from videop2p_tpu_torch.control.controllers import make_controller
 from videop2p_tpu_torch.core.ddim import DDIMScheduler
+from videop2p_tpu_torch.core.noise import DependentNoiseSampler
+from videop2p_tpu_torch.data.dataset import load_frame_sequence
 from videop2p_tpu_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
 from videop2p_tpu_torch.models.convert import init_weights
 from videop2p_tpu_torch.models.unet import UNet3DConditionModel, UNet3DConfig
@@ -65,7 +83,8 @@ from videop2p_tpu_torch.pipelines.inversion import (
     ddim_inversion,
 )
 from videop2p_tpu_torch.pipelines.sampling import edit_sample, make_unet_fn, official_edit
-from videop2p_tpu_torch.utils.tokenizers import WordTokenizer
+from videop2p_tpu_torch.utils.tokenizers import WordTokenizer, load_tokenizer
+from videop2p_tpu_torch.utils.video_io import save_video_gif
 
 __all__ = ["ModelBundle", "build_models", "encode_prompts", "main",
            "NUM_DDIM_STEPS", "GUIDANCE_SCALE", "MASK_TH"]
@@ -79,58 +98,86 @@ _DTYPES = {"fp32": torch.float32, "no": torch.float32,
 
 @dataclass
 class ModelBundle:
-    """The three models of the edit and their tokenizer."""
+    """The three models of the edit, their tokenizer and the checkpoint's
+    scheduler config (empty: the SD scheduler)."""
 
     unet: UNet3DConditionModel
     vae: AutoencoderKL
     text_encoder: CLIPTextEncoder
     tokenizer: Any = field(default_factory=WordTokenizer)
+    scheduler_config: Dict[str, Any] = field(default_factory=dict)
+
+    def make_scheduler(self) -> DDIMScheduler:
+        if self.scheduler_config:
+            return DDIMScheduler.from_config(self.scheduler_config)
+        return DDIMScheduler.create_sd()
 
 
-def build_models(*, tiny: bool = False, dtype: torch.dtype = torch.float32,
-                 device="cuda", seed: int = 0,
+def _random_models(ucfg: UNet3DConfig, vcfg: VAEConfig, ccfg: CLIPTextConfig, *,
+                   dtype: torch.dtype, device, seed: int, need=(True, True, True)) -> list:
+    """Seeded random-init UNet, VAE and text encoder on ``device`` (seeds
+    ``seed``, ``seed + 1``, ``seed + 2``; None where ``need`` is False)."""
+    out = []
+    for i, (cls, cfg) in enumerate(((UNet3DConditionModel, ucfg), (AutoencoderKL, vcfg),
+                                    (CLIPTextEncoder, ccfg))):
+        model = None
+        if need[i]:
+            with torch.device(device):
+                model = init_weights(cls(cfg), seed + i).to(dtype).eval()
+        out.append(model)
+    return out
+
+
+def build_models(pretrained_model_path: Optional[str] = None, *, tiny: bool = False,
+                 dtype: torch.dtype = torch.float32, device="cuda", seed: int = 0,
                  frame_attention: str = "auto") -> ModelBundle:
-    """Seeded random-init models, built and initialized on ``device``: the
-    SD-1.5 shapes (``UNet3DConfig.sd15()``), or the tiny test shapes. The
-    weights depend on ``seed`` only; ``frame_attention`` picks the UNet's
-    frame-attention implementation (``UNet3DConfig.frame_attention``:
-    "auto", "flash_rect", "flash", "chunked" or "dense")."""
+    """The models, on ``device``. A ``pretrained_model_path`` holding a
+    ``unet/`` is a diffusers-layout checkpoint: it loads
+    (``models/pipeline_io.py``) with its tokenizer and scheduler config; a
+    VAE or text encoder it lacks is random-init (a Stage-1 run from random
+    weights saves only the UNet), with a warning. Otherwise seeded random
+    init, the SD-1.5 shapes (``UNet3DConfig.sd15()``) or the tiny test
+    shapes, with a warning when a path was given. The weights depend on
+    ``seed`` only; ``frame_attention`` picks the UNet's frame-attention
+    implementation (``UNet3DConfig.frame_attention``: "auto", "flash_rect",
+    "flash", "chunked" or "dense")."""
+    if pretrained_model_path is not None and os.path.isdir(
+            os.path.join(pretrained_model_path, "unet")):
+        from videop2p_tpu_torch.models.pipeline_io import load_pipeline
+
+        loaded = load_pipeline(pretrained_model_path, dtype=dtype, device=device,
+                               frame_attention=frame_attention, seed=seed)
+        if loaded.inflation_report["kept_init"]:
+            print(f"[build_models] inflated 2D checkpoint: "
+                  f"{len(loaded.inflation_report['kept_init'])} temporal params keep init")
+        vae, text = loaded.vae, loaded.text_encoder
+        if vae is None or text is None:
+            missing = "/".join(name for name, m in (("vae", vae), ("text_encoder", text))
+                               if m is None)
+            warnings.warn(f"checkpoint {pretrained_model_path!r} has no {missing} — "
+                          "backfilling with RANDOM-INIT components", stacklevel=2)
+            ucfg = loaded.unet.config
+            small = ucfg.block_out_channels[0] < 64  # a tiny-shaped checkpoint
+            vcfg = VAEConfig.tiny() if small else VAEConfig()
+            ccfg = (CLIPTextConfig.tiny(hidden_size=ucfg.cross_attention_dim) if small
+                    else CLIPTextConfig())
+            _, new_vae, new_text = _random_models(
+                ucfg, vcfg, ccfg, dtype=dtype, device=device, seed=seed,
+                need=(False, vae is None, text is None))
+            vae, text = vae or new_vae, text or new_text
+        return ModelBundle(unet=loaded.unet, vae=vae, text_encoder=text,
+                           tokenizer=load_tokenizer(pretrained_model_path),
+                           scheduler_config=loaded.scheduler_config)
+    if pretrained_model_path is not None:
+        warnings.warn(f"no checkpoint at {pretrained_model_path!r} — building RANDOM-INIT "
+                      "models (smoke/benchmark mode; outputs will be noise)", stacklevel=2)
     ccfg = CLIPTextConfig.tiny() if tiny else CLIPTextConfig()
     ucfg = (UNet3DConfig.tiny(cross_attention_dim=ccfg.hidden_size,
                               frame_attention=frame_attention) if tiny
             else UNet3DConfig.sd15(frame_attention=frame_attention))
     vcfg = VAEConfig.tiny() if tiny else VAEConfig()
-    with torch.device(device):
-        models = [UNet3DConditionModel(ucfg), AutoencoderKL(vcfg),
-                  CLIPTextEncoder(ccfg)]
-    unet, vae, text = (init_weights(m, seed + i).to(dtype).eval()
-                       for i, m in enumerate(models))
+    unet, vae, text = _random_models(ucfg, vcfg, ccfg, dtype=dtype, device=device, seed=seed)
     return ModelBundle(unet=unet, vae=vae, text_encoder=text)
-
-
-def load_frame_sequence(path: str, size: int, num_frames: int) -> np.ndarray:
-    """Sorted frames of a directory, center-square-cropped and resized to
-    ``size``² (the JAX package's ``load_frame_sequence``): (F, size, size, 3)
-    uint8. Needs PIL."""
-    from PIL import Image
-
-    def order(name):
-        stem = os.path.splitext(name)[0]
-        return (0, int(stem), name) if stem.isdigit() else (1, 0, name)
-
-    names = sorted((n for n in os.listdir(path)
-                    if n.lower().endswith((".jpg", ".jpeg", ".png"))), key=order)
-    if not names:
-        raise IOError(f"no image frames in {path!r}")
-    out = []
-    for name in names[:num_frames]:
-        img = np.asarray(Image.open(os.path.join(path, name)).convert("RGB"))
-        h, w = img.shape[:2]
-        side = min(h, w)
-        img = img[(h - side) // 2:(h - side) // 2 + side,
-                  (w - side) // 2:(w - side) // 2 + side]
-        out.append(np.asarray(Image.fromarray(img).resize((size, size), Image.BICUBIC)))
-    return np.stack(out).astype(np.uint8)
 
 
 @torch.no_grad()
@@ -184,26 +231,46 @@ def main(
     null_text_precision: str = "fp32",
     null_text_mode: str = "optimize",
     eta: float = 0.0,
+    dependent: bool = False,
+    dependent_p2p: bool = False,
+    num_frames: int = 60,
+    decay_rate: float = 0.1,
+    window_size: int = 60,
+    ar_sample: bool = False,
+    ar_coeff: float = 0.1,
+    dependent_weights: float = 0.0,
     **unused,
 ) -> Dict[str, Any]:
     """Run the edit: official mode unless ``fast``; with ``fast`` the
     cached-source edit, or the live-source one with ``live_source``.
     ``frames`` (F, H, W, 3) uint8 replaces loading ``image_path``; ``bundle``
-    replaces the random-init models (its modules must already be on
-    ``device``). ``num_inner_steps``, ``null_text_precision`` ("fp32" or
-    "mixed": the null-text forwards and backward on a bf16 clone of the
-    UNet) and ``null_text_mode`` ("optimize" or "amortized") set official
-    mode's null-text optimization. ``eta`` > 0 makes the edit's DDIM steps
-    stochastic, their noise drawn from a generator seeded with ``seed`` (in
-    fast mode it takes the live-source edit). Returns the edited latents
-    (stream 0 the
-    source's reconstruction), the inversion's ``x_0`` and ``x_t``, the
-    decoded videos (2, F, H, W, 3) in [0, 1], the mode run (``"official"``,
-    ``"cached"`` or ``"live"``), the cached-maps decision, the null-text
-    record (official mode: ``final_loss`` and ``inner_steps`` per outer
-    step, else None), the phase times in seconds, each phase's peak memory
-    on the card, and the GIF paths written."""
-    del unused
+    replaces the models of the checkpoint directory (its modules must
+    already be on ``device``; its scheduler config sets the scheduler).
+    ``num_inner_steps``, ``null_text_precision`` ("fp32" or "mixed": the
+    null-text forwards and backward on a bf16 clone of the UNet) and
+    ``null_text_mode`` ("optimize" or "amortized") set official mode's
+    null-text optimization. ``eta`` > 0 makes the edit's DDIM steps
+    stochastic (in fast mode it takes the live-source edit).
+
+    The dependent noise, as the JAX CLI: a sampler over the clip's
+    ``video_len`` frames in windows of ``min(window_size, video_len)``
+    (``decay_rate``, ``ar_sample``, ``ar_coeff``) when ``dependent_p2p``, or
+    ``dependent`` with ``eta`` > 0; with ``dependent_p2p`` the inversion's
+    and null-text's predictions are blended with it at weight
+    ``dependent_weights``, and an ``eta`` > 0 edit draws its step noise from
+    it. ``num_frames`` is the Stage-1 flag, unused here. The checkpoint
+    directory is ``pretrained_model_path`` resolved with those settings'
+    suffix (``cli/common.py:resolve_pipeline_dir``). One generator a phase
+    (inversion, null-text, edit) on ``device``, seeded from ``seed``.
+
+    Returns the edited latents (stream 0 the source's reconstruction), the
+    inversion's ``x_0`` and ``x_t``, the decoded videos (2, F, H, W, 3) in
+    [0, 1], the mode run (``"official"``, ``"cached"`` or ``"live"``), the
+    cached-maps decision, the null-text record (official mode:
+    ``final_loss`` and ``inner_steps`` per outer step, else None), the phase
+    times in seconds, each phase's peak memory on the card, the checkpoint
+    directory, the results directory and the GIF paths written."""
+    del unused, num_frames
     if mixed_precision not in _DTYPES:
         raise ValueError(f"mixed_precision must be one of {sorted(_DTYPES)}")
     if not fast:
@@ -220,21 +287,33 @@ def main(
     if tiny and width == 512:
         # the tiny VAE downsamples 2x: keep latents at the tiny UNet's 8x8
         width = 16
+    pretrained_model_path = resolve_pipeline_dir(
+        pretrained_model_path, dependent=dependent, decay_rate=decay_rate,
+        window_size=window_size, ar_sample=ar_sample, ar_coeff=ar_coeff, eta=eta,
+        dependent_weights=dependent_weights)
+    output_dir = os.path.join(pretrained_model_path, f"results_dp{dependent_p2p}")
+    sampler = None
+    if dependent_p2p or (dependent and eta > 0):
+        sampler = DependentNoiseSampler.create(
+            num_frames=video_len, decay_rate=decay_rate,
+            window_size=min(window_size, video_len), ar_sample=ar_sample,
+            ar_coeff=ar_coeff, device=device)
+    dep_w = dependent_weights if dependent_p2p else 0.0
+    # the walks draw from it only at a weight > 0, the edit only at η > 0
+    p2p_sampler = sampler if dependent_p2p else None
+    gens = {name: torch.Generator(device).manual_seed(seed + k)
+            for k, name in enumerate(("edit", "inversion", "null_text"))}
     timings: Dict[str, float] = {}
     peaks: Dict[str, float] = {}
 
     if bundle is None:
-        if os.path.isdir(os.path.join(pretrained_model_path, "unet")):
-            raise NotImplementedError(
-                f"{pretrained_model_path!r} holds a checkpoint; loading one is "
-                "not ported yet (ROADMAP Queue 1 item 8) and the port does not "
-                "silently swap it for random weights")
         with _phase("build_models", timings, device, peaks):
-            bundle = build_models(tiny=tiny, dtype=dtype, device=device, seed=seed)
+            bundle = build_models(pretrained_model_path, tiny=tiny, dtype=dtype,
+                                  device=device, seed=seed)
     unet_fn = make_unet_fn(bundle.unet)
-    sched = DDIMScheduler.create_sd()
+    sched = bundle.make_scheduler()
     if frames is None:
-        frames = load_frame_sequence(image_path, width, video_len)
+        frames = load_frame_sequence(image_path, size=width, num_frames=video_len)
     video = torch.as_tensor(np.asarray(frames), dtype=torch.float32,
                             device=device)[None] / 127.5 - 1.0
 
@@ -289,20 +368,26 @@ def main(
                     unet_fn, sched, latents, cond_src, cond_all, uncond, ctx,
                     num_inference_steps=num_ddim_steps,
                     guidance_scale=GUIDANCE_SCALE, cross_len=cross_len,
-                    self_window=self_window, temporal_maps_dtype=tm_dtype)
+                    self_window=self_window, temporal_maps_dtype=tm_dtype,
+                    dependent_weight=dep_w, dependent_sampler=p2p_sampler,
+                    generator=gens["inversion"])
         else:
             with _phase("ddim_inversion", timings, device, peaks):
                 trajectory = ddim_inversion(unet_fn, sched, latents, cond_src,
-                                            num_inference_steps=num_ddim_steps)
-            generator = torch.Generator(device).manual_seed(seed) if eta > 0 else None
+                                            num_inference_steps=num_ddim_steps,
+                                            dependent_weight=dep_w,
+                                            dependent_sampler=p2p_sampler,
+                                            generator=gens["inversion"])
             if mode == "official":
                 edited, null_stats = official_edit(
                     unet_fn, sched, trajectory, cond_all, uncond,
                     num_inference_steps=num_ddim_steps, guidance_scale=GUIDANCE_SCALE,
                     ctx=ctx, num_inner_steps=num_inner_steps,
                     null_text_precision=null_text_precision,
-                    null_text_mode=null_text_mode, eta=eta, generator=generator,
-                    source_embedding=cond_src,
+                    null_text_mode=null_text_mode, eta=eta, generator=gens["edit"],
+                    dependent_weight=dep_w,
+                    dependent_sampler=p2p_sampler,
+                    null_text_generator=gens["null_text"], source_embedding=cond_src,
                     phase=lambda name: _phase(name, timings, device, peaks))
                 print(f"[p2p] null-text ({null_text_mode}/{null_text_precision}): "
                       f"{int(null_stats['inner_steps'].sum())} inner Adam steps across "
@@ -314,38 +399,35 @@ def main(
                                          num_inference_steps=num_ddim_steps,
                                          guidance_scale=GUIDANCE_SCALE, ctx=ctx,
                                          source_uses_cfg=False, eta=eta,
-                                         generator=generator)
+                                         generator=gens["edit"],
+                                         dependent_sampler=p2p_sampler)
         with _phase("vae_decode", timings, device, peaks):
             videos = (decode_video(bundle.vae, edited).float() + 1.0) / 2.0
 
-    gifs = (_write_gifs(videos, pretrained_model_path, save_name, fast)
-            if save_gifs else ())
+    gifs = _write_gifs(videos, output_dir, save_name, fast) if save_gifs else ()
     print("[p2p] phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
     return {"latents": edited, "x_0": trajectory[0], "x_t": trajectory[-1],
             "videos": videos, "mode": mode, "cached_maps": decision,
             "null_text": null_stats, "timings": timings, "peak_gib": peaks,
+            "checkpoint_dir": pretrained_model_path, "output_dir": output_dir,
             "gifs": gifs}
 
 
-def _write_gifs(videos: torch.Tensor, pretrained_model_path: str, save_name: str,
-                fast: bool):
-    """GIFs of the reconstruction and the edit, 4 fps, under
-    ``<pretrained_model_path>/results_dpFalse`` (names suffixed ``_fast`` in
-    fast mode, as the JAX CLI's); skipped with a note when imageio is not
-    installed."""
+def _write_gifs(videos: torch.Tensor, output_dir: str, save_name: str, fast: bool):
+    """GIFs of the reconstruction and the edit, 4 fps, under ``output_dir``
+    (names suffixed ``_fast`` in fast mode, as the JAX CLI's); skipped with
+    a note when imageio is not installed."""
     try:
-        import imageio.v3 as iio
+        import imageio.v3  # noqa: F401
     except ImportError:
         print("[p2p] imageio is not installed: no GIF written")
         return ()
-    out_dir = os.path.join(pretrained_model_path, "results_dpFalse")
-    os.makedirs(out_dir, exist_ok=True)
     frames = (videos.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
     suffix = "_fast" if fast else ""
-    paths = (os.path.join(out_dir, f"inversion{suffix}.gif"),
-             os.path.join(out_dir, f"{save_name}{suffix}.gif"))
+    paths = (os.path.join(output_dir, f"inversion{suffix}.gif"),
+             os.path.join(output_dir, f"{save_name}{suffix}.gif"))
     for video, path in zip(frames, paths):
-        iio.imwrite(path, video, extension=".gif", duration=250, loop=0)
+        save_video_gif(video, path)
     print(f"[p2p] wrote {paths[0]} and {paths[1]}")
     return paths
 
@@ -356,6 +438,10 @@ if __name__ == "__main__":
     parser.add_argument("--fast", action="store_true",
                         help="the fast edit (default: official mode, null-text "
                              "optimization and the full-CFG edit)")
+    parser.add_argument("--dependent_p2p", default=False, action="store_true",
+                        help="blend the inversion's and null-text's predictions "
+                             "with frame-correlated noise (--dependent_weights), "
+                             "and draw an --eta > 0 edit's noise from it")
     parser.add_argument("--live_source", action="store_true",
                         help="keep the live source stream in fast mode "
                              "(default: the cached-source edit)")
@@ -370,9 +456,6 @@ if __name__ == "__main__":
     parser.add_argument("--steps", type=int, default=NUM_DDIM_STEPS,
                         help="DDIM steps of the inversion and of the edit")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--eta", type=float, default=0.0,
-                        help="DDIM η of the edit (default 0, deterministic; > 0 "
-                             "draws its noise from --seed)")
     parser.add_argument("--num_inner_steps", type=int, default=None,
                         help="official mode: inner Adam steps per outer step "
                              "(default 10, the reference's)")
@@ -388,14 +471,20 @@ if __name__ == "__main__":
                         help="official mode: optimize (default, the reference's "
                              "inner Adam loop) or amortized (uncond := cond, one "
                              "forward per outer step)")
+    # --dependent, --ar_sample, --decay_rate, --window_size, --ar_coeff,
+    # --loss_sig, --num_frames, --eta (the edit's DDIM η, default 0; > 0
+    # draws its noise from --seed) and --dependent_weights
+    add_dependent_args(parser)
     args = parser.parse_args()
-    import yaml
-
-    with open(args.config) as fh:
-        cfg = yaml.safe_load(fh)
+    cfg = load_config(args.config)
     for key in ("mixed_precision", "num_inner_steps", "null_text_precision",
                 "null_text_mode"):
         if getattr(args, key) is not None:
             cfg[key] = getattr(args, key)
     main(**cfg, fast=args.fast, live_source=args.live_source, device=args.device,
-         tiny=args.tiny, seed=args.seed, num_ddim_steps=args.steps, eta=args.eta)
+         tiny=args.tiny, seed=args.seed, num_ddim_steps=args.steps,
+         dependent=args.dependent, dependent_p2p=args.dependent_p2p,
+         num_frames=args.num_frames, decay_rate=args.decay_rate,
+         window_size=args.window_size, ar_sample=args.ar_sample,
+         ar_coeff=args.ar_coeff, eta=args.eta,
+         dependent_weights=args.dependent_weights)

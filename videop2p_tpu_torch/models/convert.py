@@ -11,11 +11,27 @@ the flax→torch direction of ``_vae_flax_to_torch`` (:243-280) and
 
 ``init_weights`` fills a module from a seeded ``torch.Generator`` on the
 module's device, so a full SD-1.5-width model initializes on the card.
+
+Checkpoints on disk use the diffusers / transformers names. The port's UNet
+and VAE keys are diffusers' own (its VAE attention also loads from the older
+``query``/``key``/``value``/``proj_attn`` names); the CLIP text encoder's
+carry transformers' ``text_model.`` prefix on disk. ``read_safetensors`` /
+``save_safetensors`` are the port's own reader and writer of the
+``.safetensors`` format (an 8-byte little-endian header length, a JSON header
+``{name: {dtype, shape, data_offsets}}``, then the raw little-endian bytes);
+``load_state_dict`` also reads torch ``.bin`` files. ``load_weights`` copies
+a state dict into a module: a key the module lacks raises, and so does a
+missing one, except those ``keep_init`` allows (the UNet's temporal
+``_temp.`` parameters when a 2-D checkpoint inflates).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+import json
+import os
+import re
+import struct
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +43,14 @@ __all__ = [
     "vae_state_dict_from_jax",
     "clip_state_dict_from_jax",
     "init_weights",
+    "read_safetensors",
+    "save_safetensors",
+    "load_state_dict",
+    "load_weights",
+    "is_temporal_key",
+    "vae_state_dict_from_diffusers",
+    "clip_state_dict_from_transformers",
+    "clip_state_dict_to_transformers",
 ]
 
 Path = Tuple[str, ...]
@@ -206,3 +230,145 @@ def init_weights(module: nn.Module, seed: int) -> nn.Module:
         else:
             p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
     return module
+
+
+# --------------------------------------------------------------------- #
+# checkpoint files
+# --------------------------------------------------------------------- #
+
+# I64: transformers' CLIP checkpoints carry an int64 position-ids buffer
+_ST_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+              "I64": torch.int64}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file as CPU tensors. The file is read once into one
+    host buffer and every tensor is a view of it (a tensor whose offset is
+    not a multiple of its item size is copied out)."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        buf = bytearray(size - 8 - n)
+        if f.readinto(buf) != len(buf):
+            raise IOError(f"{path!r} is shorter than its header says")
+    base = torch.frombuffer(buf, dtype=torch.uint8) if buf else torch.empty(0, dtype=torch.uint8)
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _ST_DTYPES:
+            raise ValueError(f"{path!r}: tensor {name!r} has dtype {info['dtype']}, "
+                             f"not one of {sorted(_ST_DTYPES)}")
+        dtype = _ST_DTYPES[info["dtype"]]
+        start, end = info["data_offsets"]
+        raw = base[start:end]
+        if start % dtype.itemsize:
+            raw = raw.clone()
+        out[name] = raw.view(dtype).reshape(info["shape"])
+    return out
+
+
+def save_safetensors(tensors: Mapping[str, torch.Tensor], path: str,
+                     metadata: Optional[Dict[str, str]] = None) -> int:
+    """Write ``tensors`` (any device) as a ``.safetensors`` file, the widest
+    dtypes first so that every tensor sits at a multiple of its item size,
+    the header padded to 8 bytes. Returns the bytes written."""
+    order = sorted(tensors, key=lambda k: (-tensors[k].element_size(), k))
+    header: Dict[str, dict] = {"__metadata__": dict(metadata)} if metadata else {}
+    offset = 0
+    for name in order:
+        t = tensors[name]
+        if t.dtype not in _ST_NAMES:
+            raise ValueError(f"tensor {name!r} has dtype {t.dtype}, not one of "
+                             f"{sorted(str(d) for d in _ST_NAMES)}")
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for name in order:
+            t = tensors[name].detach().contiguous().reshape(-1)
+            if t.numel():
+                f.write(memoryview(t.cpu().view(torch.uint8).numpy()))
+    return 8 + len(blob) + offset
+
+
+def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` or torch ``.bin`` weights file as CPU tensors."""
+    if path.endswith(".safetensors"):
+        return read_safetensors(path)
+    return dict(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def is_temporal_key(key: str) -> bool:
+    """A parameter that a 2-D checkpoint lacks (the reference's ``_temp.``
+    rule): the temporal attention and its norm."""
+    return "_temp." in key
+
+
+@torch.no_grad()
+def load_weights(module: nn.Module, state_dict: Mapping[str, torch.Tensor], *,
+                 keep_init: Callable[[str], bool] = lambda key: False) -> Dict[str, list]:
+    """Copy ``state_dict`` into ``module``'s parameters (one copy a tensor,
+    to the parameter's device and dtype). Raises on a key the module lacks,
+    on a shape that differs and on a missing key that ``keep_init`` does not
+    allow; returns ``{"kept_init": [...], "unused": []}``, the missing keys
+    that keep the module's own values."""
+    params = dict(module.named_parameters())
+    unused = sorted(k for k in state_dict if k not in params)
+    if unused:
+        raise KeyError(f"{len(unused)} checkpoint keys the model lacks, e.g. {unused[:5]}")
+    missing = sorted(k for k in params if k not in state_dict)
+    bad = [k for k in missing if not keep_init(k)]
+    if bad:
+        raise KeyError(f"{len(bad)} model keys missing from the checkpoint, e.g. {bad[:5]}")
+    for key, src in state_dict.items():
+        dst = params[key]
+        if src.shape != dst.shape:
+            raise ValueError(f"shape mismatch for {key!r}: checkpoint "
+                             f"{tuple(src.shape)}, model {tuple(dst.shape)}")
+        dst.copy_(src)
+    return {"kept_init": missing, "unused": unused}
+
+
+_VAE_OLD_ATTN = {"query": "to_q", "key": "to_k", "value": "to_v", "proj_attn": "to_out.0"}
+_VAE_OLD_RE = re.compile(r"\.attentions\.(\d+)\.(query|key|value|proj_attn)\.")
+
+
+def vae_state_dict_from_diffusers(state_dict: Mapping[str, torch.Tensor]
+                                  ) -> Dict[str, torch.Tensor]:
+    """A diffusers AutoencoderKL state dict under the port's names: the
+    attention's older ``query``/``key``/``value``/``proj_attn`` become
+    ``to_q``/``to_k``/``to_v``/``to_out.0``; the newer names pass."""
+    return {_VAE_OLD_RE.sub(lambda m: f".attentions.{m.group(1)}."
+                            f"{_VAE_OLD_ATTN[m.group(2)]}.", k): v
+            for k, v in state_dict.items()}
+
+
+_CLIP_PREFIX = "text_model."
+# a buffer of transformers' CLIP (the position ids 0..76), not a parameter
+_CLIP_BUFFERS = ("embeddings.position_ids",)
+
+
+def clip_state_dict_from_transformers(state_dict: Mapping[str, torch.Tensor]
+                                      ) -> Dict[str, torch.Tensor]:
+    """A transformers CLIPTextModel state dict under the port's names: the
+    ``text_model.`` prefix dropped, the position-ids buffer left out."""
+    out = {}
+    for k, v in state_dict.items():
+        k = k[len(_CLIP_PREFIX):] if k.startswith(_CLIP_PREFIX) else k
+        if k not in _CLIP_BUFFERS:
+            out[k] = v
+    return out
+
+
+def clip_state_dict_to_transformers(state_dict: Mapping[str, torch.Tensor]
+                                    ) -> Dict[str, torch.Tensor]:
+    """The port's CLIP state dict under transformers' names."""
+    return {_CLIP_PREFIX + k: v for k, v in state_dict.items()}

@@ -11,6 +11,7 @@ import torch
 
 from videop2p_tpu_torch.control.controllers import ControlContext
 from videop2p_tpu_torch.core.ddim import DDIMScheduler
+from videop2p_tpu_torch.core.noise import DependentNoiseSampler
 from videop2p_tpu_torch.models.attention import ControlledAttention
 from videop2p_tpu_torch.pipelines.inversion import ddim_inversion_captured
 from videop2p_tpu_torch.pipelines.sampling import UNetFn, edit_sample
@@ -108,17 +109,24 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
                      uncond: torch.Tensor, ctx: Optional[ControlContext], *,
                      num_inference_steps: int = 50, guidance_scale: float = 7.5,
                      cross_len: int = 0, self_window: Tuple[int, int] = (0, 0),
-                     temporal_maps_dtype: Optional[torch.dtype] = None):
+                     temporal_maps_dtype: Optional[torch.dtype] = None,
+                     dependent_weight: float = 0.0,
+                     dependent_sampler: Optional[DependentNoiseSampler] = None,
+                     generator: Optional[torch.Generator] = None):
     """Capture-inversion of ``latents`` under ``cond_src``, then the
     cached-source controlled edit under ``cond_all`` / ``uncond``. Returns
     ``(trajectory, edited)``: the trajectory (N + 1, 1, F, h, w, C) and the
-    (P, F, h, w, C) latents whose stream 0 is the trajectory's x_0."""
+    (P, F, h, w, C) latents whose stream 0 is the trajectory's x_0. The
+    dependent-noise arguments go to the capture-inversion (one draw a step);
+    the edit replays the trajectory it recorded, so stream 0 stays x_0
+    exactly under dependent noise too."""
     trajectory, cached = ddim_inversion_captured(
         unet_fn, scheduler, latents, cond_src,
         num_inference_steps=num_inference_steps, cross_len=cross_len,
         self_window=self_window,
         capture_blend=ctx is not None and ctx.blend is not None,
-        temporal_maps_dtype=temporal_maps_dtype)
+        temporal_maps_dtype=temporal_maps_dtype, dependent_weight=dependent_weight,
+        dependent_sampler=dependent_sampler, generator=generator)
     edited = edit_sample(unet_fn, scheduler, trajectory[-1], cond_all, uncond,
                          num_inference_steps=num_inference_steps,
                          guidance_scale=guidance_scale, ctx=ctx,

@@ -1,13 +1,19 @@
 """DDIM inversion and null-text optimization (port of ``ddim_inversion``,
 ``ddim_inversion_captured`` and ``null_text_optimization``,
-``videop2p_tpu/pipelines/inversion.py:86-757``; no dependent noise, no
-attention-map observability record).
+``videop2p_tpu/pipelines/inversion.py:86-757``; no attention-map
+observability record).
 
 Inversion walks clean latents x_0 to noise x_T with forward DDIM steps,
 conditional only (guidance 1), and returns the whole trajectory; the
 captured form also collects what the cached-source edit reads in place of a
 live source stream. Null-text optimization then fits, step by step, the
 unconditional embedding under which the CFG denoise replays that trajectory.
+
+All three take the fork's dependent noise: with ``dependent_weight`` w > 0
+every UNet prediction ε̂ becomes (1 − w)·ε̂ + w·n, n a fresh draw of
+``dependent_sampler`` from ``generator`` (one seeded with 0 on the latents'
+device when None, as JAX's default key), in the draw order of the JAX
+package's key splits.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import numpy as np
 import torch
 
 from videop2p_tpu_torch.core.ddim import DDIMScheduler
+from videop2p_tpu_torch.core.noise import DependentNoiseSampler
 from videop2p_tpu_torch.models.attention import BASE_STORE, AttnControl
 from videop2p_tpu_torch.pipelines.cached import CachedSource, filter_site_tree
 from videop2p_tpu_torch.pipelines.sampling import UNetFn, unet_module
@@ -34,18 +41,47 @@ NULL_TEXT_MODES = ("optimize", "amortized", "hybrid")
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 
 
+def _dependent_generator(weight: float, sampler: Optional[DependentNoiseSampler],
+                         generator: Optional[torch.Generator],
+                         device: torch.device) -> Optional[torch.Generator]:
+    """Raise when ``weight`` > 0 has no sampler; the generator the draws take
+    (None when nothing is drawn)."""
+    if weight <= 0.0:
+        return None
+    if sampler is None:
+        raise ValueError("dependent_weight > 0 requires dependent_sampler")
+    return generator if generator is not None else torch.Generator(device).manual_seed(0)
+
+
+def _dependent_blend(eps: torch.Tensor, weight: float,
+                     sampler: Optional[DependentNoiseSampler],
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    """(1 − w)·ε + w·n with n one draw of ``sampler`` shaped and typed like ε
+    (the blend runs in ε's dtype); ε itself when w ≤ 0."""
+    if weight <= 0.0:
+        return eps
+    return (1.0 - weight) * eps + weight * sampler.sample_like(eps, generator)
+
+
 @torch.no_grad()
 def ddim_inversion(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor,
                    cond_embedding: torch.Tensor, *,
-                   num_inference_steps: int = 50) -> torch.Tensor:
+                   num_inference_steps: int = 50, dependent_weight: float = 0.0,
+                   dependent_sampler: Optional[DependentNoiseSampler] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """``latents`` (B, F, h, w, C) clean scaled latents, ``cond_embedding``
     (B, L, D) source-prompt embedding → the trajectory
     (num_steps + 1, B, F, h, w, C) in float32, ``[0] = x_0``, ``[-1] = x_T``.
-    Latents stay float32 whatever the UNet's compute dtype."""
+    Latents stay float32 whatever the UNet's compute dtype. With
+    ``dependent_weight`` > 0 each step's prediction is blended with one draw
+    of ``dependent_sampler``."""
     latent = latents.float()
+    generator = _dependent_generator(dependent_weight, dependent_sampler, generator,
+                                     latent.device)
     trajectory = [latent]
     for t in scheduler.timesteps(num_inference_steps)[::-1]:
         eps, _ = unet_fn(latent, int(t), cond_embedding, None, store=False)
+        eps = _dependent_blend(eps, dependent_weight, dependent_sampler, generator)
         latent = scheduler.next_step(eps, int(t), latent, num_inference_steps)
         trajectory.append(latent)
     return torch.stack(trajectory)
@@ -74,6 +110,9 @@ def ddim_inversion_captured(
     self_window: Tuple[int, int] = (0, 0),
     capture_blend: bool = False,
     temporal_maps_dtype: Optional[torch.dtype] = None,
+    dependent_weight: float = 0.0,
+    dependent_sampler: Optional[DependentNoiseSampler] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, CachedSource]:
     """:func:`ddim_inversion` that also captures what a cached-source edit
     reads (see :mod:`videop2p_tpu_torch.pipelines.cached`):
@@ -86,8 +125,9 @@ def ddim_inversion_captured(
         ``torch.int8`` as round(p·127));
       * with ``capture_blend``, the source's LocalBlend maps at every step.
 
-    The walk is split at the window edges; edit step *i* reads what
-    inversion step N − 1 − i captured. Each captured map is written at its
+    The dependent-noise arguments are :func:`ddim_inversion`'s, one draw a
+    step in walk order. The walk is split at the window edges; edit step *i*
+    reads what inversion step N − 1 − i captured. Each captured map is written at its
     edit-step index into a buffer allocated at the first capture, so no
     per-step copies pile up. Returns ``(trajectory, CachedSource)``."""
     N = num_inference_steps
@@ -97,6 +137,8 @@ def ddim_inversion_captured(
     if not 0 <= cross_len <= N:
         raise ValueError(f"cross_len {cross_len} outside [0, {N}]")
     latent = latents.float()
+    generator = _dependent_generator(dependent_weight, dependent_sampler, generator,
+                                     latent.device)
     video_length = latent.shape[1]
     latent_hw = tuple(latent.shape[2:4])
     text_len = cond_embedding.shape[-2]
@@ -123,6 +165,7 @@ def ddim_inversion_captured(
             t = int(timesteps[j])
             eps, store = unet_fn(latent, t, cond_embedding, control,
                                  store=capture or capture_blend)
+            eps = _dependent_blend(eps, dependent_weight, dependent_sampler, generator)
             latent = scheduler.next_step(eps, t, latent, N)
             trajectory.append(latent)
             i = N - 1 - j  # the edit step that reads this capture
@@ -211,6 +254,9 @@ def null_text_optimization(
     early_stop: bool = True,
     return_losses: bool = False,
     return_inner_steps: bool = False,
+    dependent_weight: float = 0.0,
+    dependent_sampler: Optional[DependentNoiseSampler] = None,
+    generator: Optional[torch.Generator] = None,
 ):
     """Optimize a per-step unconditional embedding under which CFG denoising
     replays the recorded inversion trajectory (the reference's
@@ -238,6 +284,14 @@ def null_text_optimization(
         of the UNet as ``unet_fn``) and the predictions come back as f32;
         the scheduler, Adam and the loss stay f32.
 
+    With ``dependent_weight`` > 0 every prediction is blended with a fresh
+    draw (after the float32 upcast), in the JAX package's order per outer
+    step: the cond prediction's, one for each inner loss evaluation (so
+    early stop changes how many an outer step takes), then the advance's
+    uncond and cond draws ("amortized": those two only). The cond
+    prediction keeps its draw through the inner loop; gradients flow through
+    the (1 − w)·ε̂ term only.
+
     ``unet_fn`` must come from ``make_unet_fn``: its module's parameters
     are frozen for the run (a TypeError otherwise), and each loss is taken
     under ``torch.enable_grad()``. The JAX package splits this loop into
@@ -253,6 +307,8 @@ def null_text_optimization(
     check_null_text_options(null_text_precision, null_text_mode)
     N = num_inference_steps
     trajectory = trajectory.float()
+    generator = _dependent_generator(dependent_weight, dependent_sampler, generator,
+                                     trajectory.device)
     uncond = uncond_embedding.float()
     cond = cond_embedding
     mixed = null_text_precision == "mixed"
@@ -262,6 +318,9 @@ def null_text_optimization(
             latent, text = latent.to(torch.bfloat16), text.to(torch.bfloat16)
         eps, _ = unet_fn(latent, t, text, None, store=False)
         return eps.float()
+
+    def blend(eps):
+        return _dependent_blend(eps, dependent_weight, dependent_sampler, generator)
 
     def cfg_step(eps_uncond, eps_cond, t, latent):
         eps = eps_uncond + guidance_scale * (eps_cond - eps_uncond)
@@ -275,10 +334,11 @@ def null_text_optimization(
         for i, t in enumerate(scheduler.timesteps(N)):
             t = int(t)
             latent_prev = trajectory[N - i - 1]
-            eps_cond = fwd(latent_cur, t, cond)
+            eps_cond_raw = fwd(latent_cur, t, cond)
             if null_text_mode == "amortized":
                 uncond = cond.float()
-                latent_cur = cfg_step(eps_cond, eps_cond, t, latent_cur)
+                eps_fu = blend(eps_cond_raw)
+                latent_cur = cfg_step(eps_fu, blend(eps_cond_raw), t, latent_cur)
                 losses.append(torch.mean((latent_cur - latent_prev) ** 2))
                 inner_steps.append(0)
                 embeddings.append(uncond)
@@ -287,11 +347,13 @@ def null_text_optimization(
             lr = float(np.maximum(np.float32(1e-2) * (np.float32(1) - np.float32(i)
                                                       / np.float32(100)), 0))
             thresh = float(np.float32(epsilon) + np.float32(i) * np.float32(2e-5))
+            eps_cond = blend(eps_cond_raw)
             state, loss, j = None, torch.tensor(float("inf")), 0
             while j < num_inner_steps and (not early_stop or loss.item() >= thresh):
                 with torch.enable_grad():
                     leaf = uncond.detach().requires_grad_(True)
-                    prev_rec = cfg_step(fwd(latent_cur, t, leaf), eps_cond, t, latent_cur)
+                    prev_rec = cfg_step(blend(fwd(latent_cur, t, leaf)), eps_cond, t,
+                                        latent_cur)
                     loss = torch.mean((prev_rec - latent_prev) ** 2)
                     (grad,) = torch.autograd.grad(loss, leaf)
                 loss = loss.detach()
@@ -300,7 +362,9 @@ def null_text_optimization(
             losses.append(loss.to(latent_cur.device))
             inner_steps.append(j)
             embeddings.append(uncond)
-            latent_cur = cfg_step(fwd(latent_cur, t, uncond), eps_cond, t, latent_cur)
+            # the advance's uncond draw, then its cond draw (JAX's k_fu, k_fc)
+            eps_fu = blend(fwd(latent_cur, t, uncond))
+            latent_cur = cfg_step(eps_fu, blend(eps_cond_raw), t, latent_cur)
     out = (torch.stack(embeddings),)
     if return_losses:
         out += (torch.stack(losses).float().cpu(),)

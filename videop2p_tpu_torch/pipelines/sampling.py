@@ -29,6 +29,7 @@ import torch
 from videop2p_tpu_torch.control.controllers import ControlContext
 from videop2p_tpu_torch.control.local_blend import local_blend
 from videop2p_tpu_torch.core.ddim import DDIMScheduler
+from videop2p_tpu_torch.core.noise import DependentNoiseSampler
 from videop2p_tpu_torch.models.attention import AttnControl
 from videop2p_tpu_torch.pipelines.cached import CachedSource
 from videop2p_tpu_torch.pipelines.stores import blend_maps_from_store
@@ -74,7 +75,8 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
                 eta: float = 0.0, generator: Optional[torch.Generator] = None,
                 variance_noise: Optional[torch.Tensor] = None,
                 null_uncond_embeddings: Optional[torch.Tensor] = None,
-                cached_source: Optional[CachedSource] = None) -> torch.Tensor:
+                cached_source: Optional[CachedSource] = None,
+                dependent_sampler: Optional[DependentNoiseSampler] = None) -> torch.Tensor:
     """Run the controlled denoise; returns final latents (P, F, h, w, C).
 
     ``latents``: x_T, (1, F, h, w, C) (shared by all streams) or (P, …);
@@ -91,7 +93,10 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
       * ``eta`` > 0: the stochastic DDIM step; its noise is
         ``variance_noise[i]`` at step i when given ((steps, P, F, h, w, C),
         e.g. JAX's draws in a test), else drawn from ``generator`` (the
-        CLI's, seeded from ``--seed``); one of the two is required.
+        CLI's, seeded from ``--seed``): frame-correlated through
+        ``dependent_sampler`` when one is given (the fork's dependent
+        noise, JAX: sampling.py:441-447), else i.i.d. normal; one of
+        ``variance_noise`` and ``generator`` is required.
       * ``cached_source``: the cached-source mode (fast layout, η = 0, no
         null-text embeddings); its capture must cover
         ``num_inference_steps`` steps, and stream 0 of the output is its
@@ -181,8 +186,12 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
             eps = torch.cat([eps_text[:1], eps_edit], dim=0)
         noise = None
         if eta > 0:
-            noise = (variance_noise[i] if variance_noise is not None else
-                     torch.randn(eps.shape, generator=generator, device=eps.device))
+            if variance_noise is not None:
+                noise = variance_noise[i]
+            elif dependent_sampler is not None:
+                noise = dependent_sampler.sample_like(eps, generator)
+            else:
+                noise = torch.randn(eps.shape, generator=generator, device=eps.device)
         latents, _ = scheduler.step(eps, t, latents, num_inference_steps, eta=eta,
                                     variance_noise=noise)
         if use_blend:
@@ -261,6 +270,9 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
                   epsilon: float = 1e-5, null_text_precision: str = "fp32",
                   null_text_mode: str = "optimize", early_stop: bool = True,
                   eta: float = 0.0, generator: Optional[torch.Generator] = None,
+                  dependent_weight: float = 0.0,
+                  dependent_sampler: Optional[DependentNoiseSampler] = None,
+                  null_text_generator: Optional[torch.Generator] = None,
                   source_embedding: Optional[torch.Tensor] = None,
                   phase: Optional[Callable[[str], ContextManager]] = None):
     """The official mode: null-text optimization of the source stream's
@@ -268,6 +280,11 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
     controlled full-CFG edit from its x_T with those embeddings injected
     (JAX: ``official_edit``, sampling.py:829-951, one jitted program there;
     two eager calls here).
+
+    ``dependent_weight`` / ``dependent_sampler`` / ``null_text_generator``
+    go to the null-text phase (its dependent-noise blend); with η > 0 the
+    edit also draws its step noise through ``dependent_sampler`` (from
+    ``generator``), as JAX's ``official_edit`` does.
 
     Under ``null_text_precision="mixed"`` a UNet that is not bf16 runs the
     null-text phase on a bf16 clone of ``unet_fn``'s module, dropped before
@@ -302,11 +319,14 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
             guidance_scale=guidance_scale, num_inner_steps=num_inner_steps,
             epsilon=epsilon, null_text_precision=null_text_precision,
             null_text_mode=null_text_mode, early_stop=early_stop,
-            return_losses=True, return_inner_steps=True)
+            return_losses=True, return_inner_steps=True,
+            dependent_weight=dependent_weight, dependent_sampler=dependent_sampler,
+            generator=null_text_generator)
         del null_fn
     with phase("edit_sample"):
         out = edit_sample(unet_fn, scheduler, trajectory[-1], cond_embeddings,
                           uncond_embedding, num_inference_steps=num_inference_steps,
                           guidance_scale=guidance_scale, ctx=ctx, source_uses_cfg=True,
-                          eta=eta, generator=generator, null_uncond_embeddings=null_seq)
+                          eta=eta, generator=generator, null_uncond_embeddings=null_seq,
+                          dependent_sampler=dependent_sampler if eta > 0 else None)
     return out, {"final_loss": losses, "inner_steps": inner}

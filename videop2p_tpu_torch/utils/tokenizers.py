@@ -1,19 +1,25 @@
-"""The word-level tokenizer (port of ``WordTokenizer``,
-``videop2p_tpu/utils/tokenizers.py``).
+"""Tokenizers (port of ``videop2p_tpu/utils/tokenizers.py``).
 
-A deterministic, dependency-free tokenizer with CLIP-compatible special ids:
-each lowercase word hashes to a stable id, so the control layer's token
-alignment works without vocabulary files. With a random-init text encoder it
-is the tokenizer the JAX package uses too, so both give the same ids.
+``WordTokenizer`` is deterministic and dependency-free, with CLIP-compatible
+special ids: each lowercase word hashes to a stable id, so the control
+layer's token alignment works without vocabulary files. With a random-init
+text encoder it is the tokenizer the JAX package uses too, so both give the
+same ids. ``CLIPTokenizerWrapper`` is the real CLIP BPE tokenizer of a
+checkpoint's ``tokenizer/`` directory, through ``transformers`` (imported
+when one is built); ``load_tokenizer`` picks between them as the JAX
+package does.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import re
-from typing import List, Protocol
+import warnings
+from typing import List, Optional, Protocol
 
-__all__ = ["Tokenizer", "WordTokenizer", "MAX_NUM_WORDS"]
+__all__ = ["Tokenizer", "WordTokenizer", "CLIPTokenizerWrapper", "load_tokenizer",
+           "MAX_NUM_WORDS"]
 
 # CLIP context length
 MAX_NUM_WORDS = 77
@@ -37,12 +43,22 @@ class Tokenizer(Protocol):
         ...
 
 
-class WordTokenizer:
+class _Padded:
+    model_max_length = MAX_NUM_WORDS
+
+    def encode_padded(self, text: str) -> List[int]:
+        """``model_max_length`` ids, EOS-padded; a longer text is cut with
+        EOS kept last."""
+        ids = self.encode(text)
+        if len(ids) > self.model_max_length:
+            ids = ids[: self.model_max_length - 1] + [self.eos_token_id]
+        return ids + [self.eos_token_id] * (self.model_max_length - len(ids))
+
+
+class WordTokenizer(_Padded):
     """Each lowercase word hashes to an id in [0, vocab_size − 2); BOS/EOS
     take the last two ids. ``decode_token`` reads a reverse memo filled by
     ``encode``, which covers every id the control layer decodes."""
-
-    model_max_length = MAX_NUM_WORDS
 
     def __init__(self, vocab_size: int = 49408):
         self.vocab_size = vocab_size
@@ -73,8 +89,40 @@ class WordTokenizer:
     def decode_token(self, token_id: int) -> str:
         return self._reverse.get(int(token_id), "")
 
-    def encode_padded(self, text: str) -> List[int]:
-        ids = self.encode(text)
-        if len(ids) > self.model_max_length:
-            ids = ids[: self.model_max_length - 1] + [self.eos_token_id]
-        return ids + [self.eos_token_id] * (self.model_max_length - len(ids))
+
+class CLIPTokenizerWrapper(_Padded):
+    """The CLIP BPE tokenizer of a local checkpoint directory."""
+
+    def __init__(self, path: str):
+        from transformers import CLIPTokenizer
+
+        self._tok = CLIPTokenizer.from_pretrained(path)
+        self.model_max_length = int(self._tok.model_max_length)
+        self.bos_token_id = int(self._tok.bos_token_id)
+        self.eos_token_id = int(self._tok.eos_token_id)
+
+    def encode(self, text: str) -> List[int]:
+        return list(self._tok.encode(text))
+
+    def decode_token(self, token_id: int) -> str:
+        # '#' continuation markers stripped, as the reference does; CLIP's
+        # '</w>' word ends are dropped by decode
+        return self._tok.decode([int(token_id)]).strip("#")
+
+
+def load_tokenizer(checkpoint_path: Optional[str]) -> Tokenizer:
+    """The CLIP tokenizer of ``<checkpoint_path>/tokenizer`` when there is
+    one, else the word tokenizer; when that directory does not load, a
+    warning and the word tokenizer (the JAX package's behaviour)."""
+    if checkpoint_path is not None:
+        tok_dir = os.path.join(checkpoint_path, "tokenizer")
+        if os.path.isdir(tok_dir):
+            try:
+                return CLIPTokenizerWrapper(tok_dir)
+            except Exception as exc:
+                warnings.warn(
+                    f"failed to load CLIP tokenizer from {tok_dir!r} ({exc!r}); "
+                    "falling back to WordTokenizer — token ids will NOT match "
+                    "a real CLIP text encoder, so word-level edits may target "
+                    "the wrong tokens", stacklevel=2)
+    return WordTokenizer()
