@@ -138,6 +138,26 @@ checkpoint:
    host and device peaks of the load printed; the directory (under
    ``outputs/``) deleted afterwards, also on a failure.
 
+tune:
+15. Stage 1 (``cli.run_tuning.main``) on configs/rabbit-jump-tune.yaml at
+   its width (``TUNE``: SD-1.5, 8 frames of data/rabbit, 512², bf16 compute
+   on float32 weights, checkpointed blocks, seed 33), cut to 4 steps with a
+   checkpoint at 2 and validation at 4 (4 inversion and 4 sampling steps),
+   from phase 14's seeded bundle written as a float32 checkpoint
+   directory: GroupNorm launched (61 + 60) a step (the forward, then the
+   recomputed blocks) and 61 a validation forward, no frame-attention
+   kernel ("chunked", as JAX's tuner); every loss finite; the export
+   float32, every frozen tensor bit for bit the loaded one, every
+   trainable tensor moved; a run preempted at step 2 and resumed from
+   "latest" exports the uninterrupted run's bytes; Stage 2 (fast,
+   ``--steps``) loads the export through the suffix, src_err == 0.0; one
+   train step's pre-clip gradients in float32 with the kernel against the
+   plain version and with checkpointing against without, within
+   1e-4·max|ref|; each step's time and the peak memory of 4 steps of bf16
+   and fp32 with checkpointing on and off (frozen weights bit for bit in
+   memory); with ``--profile`` one bf16 step traced. The directory is
+   deleted afterwards.
+
 Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
 the card line, then, last, ``{"ok": true, "device": {...}}``.
 
@@ -151,7 +171,7 @@ the same way).
 Run:  python3 chip_smoke.py [--steps 4] [--inner_steps 10]
                             [--mixed_precision fp32|bf16]
                             [--paths [fast] [official] [official_flash]
-                                     [dependent] [checkpoint]]
+                                     [dependent] [checkpoint] [tune]]
                             [--profile [--frame_attention auto flash_rect flash]]
                             [--gn_only [--gn_kernel_names NAME ...]]
                             [--out PATH.json]
@@ -160,6 +180,7 @@ Run:  python3 chip_smoke.py [--steps 4] [--inner_steps 10]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -250,7 +271,7 @@ FLASH_INNER_STEPS = 2
 # the paths after the kernel checks: the fast edit (phases 4-9), the
 # official main path (4b, 10), the official path under each kernel (11, 12),
 # the dependent noise (13) and a checkpoint directory (14)
-PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint")
+PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint", "tune")
 # the dependent-noise settings of phases 13-14: the sweep grid's values
 # (videop2p_tpu/cli/sweep.py), two AR-chained windows of 4 at 8 frames
 DEPENDENT = dict(dependent=True, dependent_p2p=True, decay_rate=0.3, window_size=4,
@@ -267,6 +288,30 @@ SD_SCHEDULER_CONFIG = {"_class_name": "DDIMScheduler", "num_train_timesteps": 10
                        "beta_schedule": "scaled_linear", "clip_sample": False,
                        "set_alpha_to_one": False, "steps_offset": 1}
 GN_LAUNCHES_PER_CALL = 1  # one persistent launch (ops/groupnorm.py:plan)
+# Stage 1 (path "tune", phase 15): configs/rabbit-jump-tune.yaml at its
+# width (SD-1.5, 8 frames, 512², bf16, checkpointed blocks), cut to 4 steps
+# with a checkpoint at 2 and validation at 4 at 4 inversion and 4 sampling
+# steps (written out: PyYAML may be missing on the card)
+TUNE = dict(
+    train_data={"video_path": "./data/rabbit", "prompt": "a rabbit is jumping on the grass",
+                "n_sample_frames": 8, "width": 512, "height": 512, "sample_start_idx": 0,
+                "sample_frame_rate": 1},
+    validation_data={"prompts": ["a origami rabbit is jumping on the grass"],
+                     "video_length": 8, "width": 512, "height": 512,
+                     "num_inference_steps": 4, "guidance_scale": 12.5,
+                     "use_inv_latent": True, "num_inv_steps": 4},
+    learning_rate=3e-5, train_batch_size=1, max_train_steps=4, checkpointing_steps=2,
+    validation_steps=4, trainable_modules=["attn1.to_q", "attn2.to_q", "attn_temp"],
+    seed=33, mixed_precision="bf16", gradient_checkpointing=True)
+# GroupNorm sites inside the blocks that gradient checkpointing recomputes:
+# all but conv_norm_out
+GN_REMAT_SITES = 60
+# one train step's pre-clip gradients with the kernels against the plain
+# versions, and with the blocks recomputed against without, in float32,
+# relative to the largest gradient element
+TUNE_GRAD_REL_TOL = 1e-4
+# train steps timed per configuration (the median of steps 2 on)
+TUNE_TIMED_STEPS = 4
 # timing: windows of at least this many ms of back-to-back calls, the
 # median of three of them
 TIME_WINDOW_MS = 20.0
@@ -565,36 +610,74 @@ def _trace_kernels(fn, iters: int) -> dict:
     return launches
 
 
-# traces of one measurement before it fails for want of events: a trace can
-# come back without some of the kernels it ran
-PROFILE_TRIES = 3
+# traces of one measurement, at most, before it gives up on the profiler:
+# on the H100 a torch.profiler trace now and then comes back without some or
+# all of the kernels it ran, at times several traces in a row, so the
+# launches of successive traces are pooled, with a growing pause between
+# tries to wait out such a run
+PROFILE_TRIES = 10
+
+
+def _profile_pause(i: int) -> None:
+    """The pause before the ``i``-th try of a trace (none before the first)."""
+    if i:
+        time.sleep(min(0.1 * 2 ** (i - 1), 1.0))
+
+
+def _pooled_launches(fn, iters: int, enough) -> dict:
+    """Kernel name → its device durations (ms), pooled over traces of
+    ``fn`` (``_trace_kernels``) until ``enough(launches)`` holds or
+    PROFILE_TRIES traces were taken."""
+    launches: dict = {}
+    for i in range(PROFILE_TRIES):
+        _profile_pause(i)
+        for name, ms in _trace_kernels(fn, iters).items():
+            launches.setdefault(name, []).extend(ms)
+        if enough(launches):
+            break
+    return launches
 
 
 def device_ms_by_kernel(fn, prefixes: dict, iters: int = 3) -> dict:
     """Device time per call of ``fn`` summed over the kernels whose names
-    contain each of ``prefixes`` (name → the kernel's function name), from a
-    torch.profiler trace of ``iters`` calls after one warm-up call. Every
+    contain each of ``prefixes`` (name → the kernel's function name), from
+    torch.profiler traces of ``iters`` calls after one warm-up call. Every
     kernel matched is launched once a call, so each kernel's time is the
-    mean over the launches the trace holds: a trace that dropped events
-    does not bias it, and one that holds none of a kernel is taken again."""
-    for _ in range(PROFILE_TRIES):
-        launches = _trace_kernels(fn, iters)
-        out = {name: sum(statistics.fmean(ms) for kernel, ms in launches.items()
-                         if prefix in kernel)
-               for name, prefix in prefixes.items()}
-        if all(out.values()):
-            return out
-    raise AssertionError(f"the profiler saw no device time for {out}")
+    mean over the launches the traces hold: a trace that dropped events
+    does not bias it, and one that holds none of a kernel is taken again.
+    Where the profiler saw no kernel of a one-kernel call in any trace, the
+    call's time comes from CUDA events instead (``time_ms``), said on a
+    line of its own; a call of several kernels then fails."""
+
+    def sums(launches):
+        return {name: sum(statistics.fmean(ms) for kernel, ms in launches.items()
+                          if prefix in kernel)
+                for name, prefix in prefixes.items()}
+
+    out = sums(_pooled_launches(fn, iters, lambda ls: all(sums(ls).values())))
+    if all(out.values()):
+        return out
+    if len(prefixes) == 1:
+        (name,) = prefixes
+        out[name] = time_ms(fn)
+        print(f"    the profiler saw no {prefixes[name]} in {PROFILE_TRIES} traces: "
+              f"its time, {out[name]:.4f} ms, is from CUDA events", flush=True)
+        return out
+    raise AssertionError(f"the profiler saw no device time for {out} in "
+                         f"{PROFILE_TRIES} traces")
 
 
 def device_ms_total(fn, iters: int = 5) -> float:
     """Device time per call of ``fn``, summed over every kernel it launches
-    (each once a call: the mean of each kernel's launches in the trace)."""
-    for _ in range(PROFILE_TRIES):
-        launches = _trace_kernels(fn, iters)
-        if launches:
-            return sum(statistics.fmean(ms) for ms in launches.values())
-    raise AssertionError("the profiler saw no device time")
+    (each once a call: the mean of each kernel's launches in the traces);
+    from CUDA events (``time_ms``) where no trace held a kernel."""
+    launches = _pooled_launches(fn, iters, bool)
+    if launches:
+        return sum(statistics.fmean(ms) for ms in launches.values())
+    ms = time_ms(fn)
+    print(f"    the profiler saw no kernel in {PROFILE_TRIES} traces: the time, {ms:.4f} ms, "
+          "is from CUDA events", flush=True)
+    return ms
 
 
 def check_flash_bwd(gen, dtype, b, f, h, n, d, timed: bool) -> list:
@@ -1096,15 +1179,20 @@ def profile_device(fn, label: str) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise AssertionError("torch.profiler recorded no device activity")
+    for i in range(PROFILE_TRIES):  # a trace may come back empty (PROFILE_TRIES)
+        _profile_pause(i)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    else:
+        raise AssertionError(f"torch.profiler recorded no device activity in "
+                             f"{PROFILE_TRIES} traces")
     by_name: dict = {}
     spans = []
     for e in kernels:
@@ -1289,30 +1377,44 @@ def null_text_grad_check(mixed_precision: str) -> dict:
             "loss": losses, "ref_loss": ref_loss}
 
 
+def reset_launch_counts() -> None:
+    """Every kernel's launch count set to 0."""
+    from videop2p_tpu_torch.ops import attention as fa
+    from videop2p_tpu_torch.ops import groupnorm as gn
+
+    fa.reset_launch_count()
+    gn.reset_launch_count()
+    fa.reset_flash_launch_count()
+    fa.reset_flash_bwd_launch_counts()
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since :func:`reset_launch_counts`."""
+    from videop2p_tpu_torch.ops import attention as fa
+    from videop2p_tpu_torch.ops import groupnorm as gn
+
+    bwd = fa.flash_bwd_launch_counts()
+    return {"frame_attention": fa.launch_count(), "group_norm": gn.launch_count(),
+            "flash_attention": fa.flash_launch_count(),
+            "flash_bwd_dkv": bwd["dkv"], "flash_bwd_dq": bwd["dq"]}
+
+
 def run_main_path(frames, steps: int, mixed_precision: str, *, fast: bool = True,
                   **kw) -> dict:
     """One edit through ``cli.run_videop2p.main`` with every launch count set
     to 0 just before and read just after; checks the output and, for the
     cached-source path, src_err == 0.0 exactly."""
     from videop2p_tpu_torch.cli.run_videop2p import main as run_edit
-    from videop2p_tpu_torch.ops import attention as fa
-    from videop2p_tpu_torch.ops import groupnorm as gn
 
     torch.cuda.empty_cache()
-    fa.reset_launch_count()
-    gn.reset_launch_count()
-    fa.reset_flash_launch_count()
-    fa.reset_flash_bwd_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     res = run_edit(**{**RABBIT, **kw}, fast=fast, device="cuda",
                    mixed_precision=mixed_precision, width=512, video_len=8,
                    num_ddim_steps=steps, frames=frames, save_gifs=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    bwd = fa.flash_bwd_launch_counts()
-    launches = {"frame_attention": fa.launch_count(), "group_norm": gn.launch_count(),
-                "flash_attention": fa.flash_launch_count(),
-                "flash_bwd_dkv": bwd["dkv"], "flash_bwd_dq": bwd["dq"]}
+    launches = launch_counts()
     # the CLI resets the peak at each phase and records it
     peak = max(res["peak_gib"].values())
     videos = res["videos"]
@@ -1597,6 +1699,37 @@ class _HostPeak:
         self.peak = max(self.peak, self._rss())
 
 
+def write_checkpoint(ckpt: str, bundle) -> int:
+    """``bundle`` as a diffusers-layout checkpoint directory: the UNet
+    through ``save_pipeline`` with the bundle's scheduler config, ``vae/``
+    and ``text_encoder/`` under their diffusers / transformers names.
+    Returns the bytes written."""
+    import os
+
+    from videop2p_tpu_torch.models import convert
+    from videop2p_tpu_torch.models.pipeline_io import save_pipeline
+
+    nbytes = save_pipeline(ckpt, bundle.unet.config, bundle.unet.state_dict(),
+                           scheduler_config=bundle.scheduler_config)
+    vcfg = bundle.vae.config
+    for sub, cfg, sd, name in (
+            ("vae", {"in_channels": vcfg.in_channels, "out_channels": vcfg.out_channels,
+                     "latent_channels": vcfg.latent_channels,
+                     "block_out_channels": list(vcfg.block_out_channels),
+                     "layers_per_block": vcfg.layers_per_block,
+                     "norm_num_groups": vcfg.norm_num_groups,
+                     "scaling_factor": vcfg.scaling_factor},
+             bundle.vae.state_dict(), "diffusion_pytorch_model.safetensors"),
+            ("text_encoder", dict(vars(bundle.text_encoder.config)),
+             convert.clip_state_dict_to_transformers(bundle.text_encoder.state_dict()),
+             "model.safetensors")):
+        os.makedirs(os.path.join(ckpt, sub))
+        with open(os.path.join(ckpt, sub, "config.json"), "w") as fh:
+            json.dump(cfg, fh)
+        nbytes += convert.save_safetensors(sd, os.path.join(ckpt, sub, name))
+    return nbytes
+
+
 def checkpoint_path(args, frames, dtype) -> tuple:
     """Phase 14 (path "checkpoint"): the seeded SD-1.5 bundle written as a
     tuned 3-D checkpoint under ``<tmp>/rabbit-jump`` + the Stage-1 suffix of
@@ -1612,10 +1745,7 @@ def checkpoint_path(args, frames, dtype) -> tuple:
     import shutil
     import tempfile
 
-    from videop2p_tpu_torch.cli.common import dependent_suffix
-    from videop2p_tpu_torch.cli.run_videop2p import ModelBundle, build_models
-    from videop2p_tpu_torch.models import convert
-    from videop2p_tpu_torch.models.pipeline_io import save_pipeline
+    from videop2p_tpu_torch.cli.common import ModelBundle, build_models, dependent_suffix
 
     print("checkpoint directory (SD-1.5 width, written, resolved, loaded):", flush=True)
     os.makedirs("outputs", exist_ok=True)
@@ -1629,24 +1759,7 @@ def checkpoint_path(args, frames, dtype) -> tuple:
         suffix_kw = {k: v for k, v in DEPENDENT.items() if k != "dependent_p2p"}
         ckpt = base + dependent_suffix(eta=0.0, **suffix_kw)
         t0 = time.perf_counter()
-        nbytes = save_pipeline(ckpt, bundle.unet.config, bundle.unet.state_dict(),
-                               scheduler_config=bundle.scheduler_config)
-        vcfg = bundle.vae.config
-        for sub, cfg, sd, name in (
-                ("vae", {"in_channels": vcfg.in_channels, "out_channels": vcfg.out_channels,
-                         "latent_channels": vcfg.latent_channels,
-                         "block_out_channels": list(vcfg.block_out_channels),
-                         "layers_per_block": vcfg.layers_per_block,
-                         "norm_num_groups": vcfg.norm_num_groups,
-                         "scaling_factor": vcfg.scaling_factor},
-                 bundle.vae.state_dict(), "diffusion_pytorch_model.safetensors"),
-                ("text_encoder", dict(vars(bundle.text_encoder.config)),
-                 convert.clip_state_dict_to_transformers(bundle.text_encoder.state_dict()),
-                 "model.safetensors")):
-            os.makedirs(os.path.join(ckpt, sub))
-            with open(os.path.join(ckpt, sub, "config.json"), "w") as fh:
-                json.dump(cfg, fh)
-            nbytes += convert.save_safetensors(sd, os.path.join(ckpt, sub, name))
+        nbytes = write_checkpoint(ckpt, bundle)
         write_s = time.perf_counter() - t0
         with _HostPeak() as host:
             loaded = run_main_path(frames, args.steps, args.mixed_precision,
@@ -1675,6 +1788,329 @@ def checkpoint_path(args, frames, dtype) -> tuple:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return {"checkpoint": loaded}, {"checkpoint": rec}
+
+
+class _GradRecorder:
+    """Wraps the tuner's optimizer and keeps the gradients it is given."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, []
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def update_(self, params, grads, state):
+        self.grads.append([g.detach().clone() for g in grads])
+        return self.tx.update_(params, grads, state)
+
+
+@contextlib.contextmanager
+def plain_group_norm():
+    """The UNet's GroupNorm sites through the plain version on the card (its
+    autograd through plain PyTorch ops) for the block."""
+    from videop2p_tpu_torch.models import layers
+    from videop2p_tpu_torch.ops import groupnorm as gn
+
+    kernel = layers.fused_group_norm
+    layers.fused_group_norm = gn.group_norm_reference
+    try:
+        yield
+    finally:
+        layers.fused_group_norm = kernel
+
+
+def tune_step_checks(profile: bool) -> dict:
+    """One Stage-1 train step at SD-1.5 width (8 frames, 64² latents, the
+    rabbit prompt, fixed noise and timestep 500), from the seeded weights:
+    its pre-clip gradients in float32 with the GroupNorm kernel against the
+    plain version, and with the blocks recomputed against without (both
+    within TUNE_GRAD_REL_TOL·max|ref|, whether the bits are equal printed);
+    then TUNE_TIMED_STEPS steps of each of bf16 / fp32 × checkpointed
+    blocks on / off, each step's wall time (synchronised), the median of
+    steps 2 on and the peak memory, the frozen weights held bit for bit and
+    the trainable ones moved; with ``profile`` one bf16 checkpointed step
+    under ``torch.profiler``. The weights are restored after every step."""
+    import contextlib as ctx
+    import dataclasses
+
+    from videop2p_tpu_torch.cli.common import build_models, encode_prompts
+    from videop2p_tpu_torch.cli.run_tuning import deterministic_convolutions
+    from videop2p_tpu_torch.core import DDPMScheduler
+    from videop2p_tpu_torch.ops import groupnorm as gn
+    from videop2p_tpu_torch.pipelines import make_unet_fn
+    from videop2p_tpu_torch.train import (
+        TrainState,
+        TuneConfig,
+        make_optimizer,
+        step_generator,
+        train_step,
+    )
+
+    bundle = build_models(dtype=torch.float32, device="cuda", seed=0,
+                          frame_attention="chunked")
+    unet, fn = bundle.unet, make_unet_fn(bundle.unet)
+    text = encode_prompts(bundle, [TUNE["train_data"]["prompt"]], "cuda")
+    del bundle
+    gen = torch.Generator("cuda").manual_seed(0)
+    latents = 0.8 * torch.randn((1, 8, 64, 64, 4), generator=gen, device="cuda")
+    noise = torch.randn(latents.shape, generator=gen, device="cuda")
+    timesteps = torch.tensor([500], device="cuda")
+    sched, cfg = DDPMScheduler.create_sd(), TuneConfig(learning_rate=TUNE["learning_rate"])
+    # the weights to restore after each step, on the host: a copy on the
+    # card would add 3.4 GiB to every peak below
+    start = {k: v.detach().to("cpu", copy=True) for k, v in unet.state_dict().items()}
+
+    def configure(remat: bool, dtype) -> None:
+        unet.config = dataclasses.replace(unet.config, gradient_checkpointing=remat)
+        unet.compute_dtype = None if dtype == torch.float32 else dtype
+
+    def restore() -> None:
+        with torch.no_grad():
+            for k, v in unet.state_dict().items():
+                v.copy_(start[k])
+
+    def grads_of_one_step(remat: bool, plain: bool = False):
+        configure(remat, torch.float32)
+        tx = _GradRecorder(make_optimizer(cfg))
+        state = TrainState.create(unet, tx)
+        gn.reset_launch_count()
+        with deterministic_convolutions(), (plain_group_norm() if plain else ctx.nullcontext()):
+            _, loss = train_step(fn, tx, state, sched, latents, text, noise=noise,
+                                 timesteps=timesteps)
+        launches = gn.launch_count()
+        restore()
+        return loss.item(), tx.grads[0], launches
+
+    print("one train step's gradients (fp32, trainable tensors, before clipping):",
+          flush=True)
+    ref_loss, ref, plain_launches = grads_of_one_step(True, plain=True)
+    loss, got, launches = grads_of_one_step(True)
+    off_loss, off, off_launches = grads_of_one_step(False)
+    scale = max(g.abs().max().item() for g in ref)
+    tol = TUNE_GRAD_REL_TOL * scale
+    err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    remat_err = max((a - b).abs().max().item() for a, b in zip(got, off))
+    remat_equal = all(torch.equal(a, b) for a, b in zip(got, off))
+    print(f"  kernel against plain (checkpointed blocks): loss {loss:.6e} (plain "
+          f"{ref_loss:.6e}), max|d| {err:.4e}, limit {tol:.4e} (max|ref| {scale:.4e}); "
+          f"GroupNorm launches {launches} (plain {plain_launches})", flush=True)
+    print(f"  checkpointed blocks on against off: loss {loss:.6e} / {off_loss:.6e}, max|d| "
+          f"{remat_err:.4e}, bits equal: {remat_equal}; GroupNorm launches {launches} / "
+          f"{off_launches}", flush=True)
+    if plain_launches != 0 or launches != GN_SITES + GN_REMAT_SITES or off_launches != GN_SITES:
+        raise AssertionError(f"GroupNorm launches of one step: kernel {launches}, plain "
+                             f"{plain_launches}, without checkpointing {off_launches}")
+    if not (err <= tol and remat_err <= tol):
+        raise AssertionError(f"train-step gradients off: kernel {err}, checkpointing "
+                             f"{remat_err} (limit {tol})")
+    del ref, got, off
+    rec = {"grad_max_abs_ref": scale, "grad_tol": tol, "grad_max_abs_err": err,
+           "remat_grad_max_abs_err": remat_err, "remat_bits_equal": remat_equal,
+           "loss": loss, "plain_loss": ref_loss, "steps": {}}
+
+    print(f"train steps ({TUNE_TIMED_STEPS} a configuration; ms of each, the median of "
+          "steps 2 on, peak memory):", flush=True)
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        for remat in (True, False):
+            configure(remat, dtype)
+            tx = make_optimizer(cfg)
+            state = TrainState.create(unet, tx)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms, losses = [], []
+            with deterministic_convolutions():
+                for step in range(TUNE_TIMED_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, loss = train_step(fn, tx, state, sched, latents, text,
+                                         step_generator(0, step, "cuda"))
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(loss.item())
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            frozen_equal = all(torch.equal(p.cpu(), start[k]) for k, p in state.frozen.items())
+            moved = all(not torch.equal(p.cpu(), start[k])
+                        for k, p in state.trainable.items())
+            del state, tx
+            restore()
+            label = f"{name}, checkpointed blocks {'on' if remat else 'off'}"
+            median = statistics.median(ms[1:])
+            print(f"  {label}: {', '.join(f'{m:.1f}' for m in ms)} ms, median {median:.2f} "
+                  f"ms, peak {peak:.2f} GiB; losses {losses}; frozen bit for bit "
+                  f"{frozen_equal}, every trainable tensor moved {moved}", flush=True)
+            if not (frozen_equal and moved and all(np.isfinite(losses))):
+                raise AssertionError(f"train steps ({label}): frozen equal {frozen_equal}, "
+                                     f"trainable moved {moved}, losses {losses}")
+            rec["steps"][label] = {"ms": ms, "median_ms": median, "peak_gib": peak,
+                                   "losses": losses}
+    if profile:
+        configure(True, torch.bfloat16)
+        tx = make_optimizer(cfg)
+        state = TrainState.create(unet, tx)
+
+        def one_step():
+            with deterministic_convolutions():
+                train_step(fn, tx, state, sched, latents, text, step_generator(0, 0, "cuda"))
+
+        rec["profile"] = profile_device(one_step, "one Stage-1 train step (bf16, "
+                                                  "checkpointed blocks)")
+        del state, tx
+        restore()
+    del unet, fn, start
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_tuning_main(**kw) -> dict:
+    """One ``cli.run_tuning.main`` run of TUNE updated with ``kw`` on the
+    card, every launch count set to 0 just before and read just after;
+    returns its directory, wall time, launches, phase times and peak
+    memory."""
+    from videop2p_tpu_torch.cli import run_tuning
+    from videop2p_tpu_torch.utils import profiling
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    profiling.reset()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run_tuning.main(**{**TUNE, **kw}, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = {"dir": out, "wall_s": wall, "launches": launch_counts(),
+           "phases_s": profiling.phase_records(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"  {out}: {wall:.2f} s; phases (s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in run["phases_s"].items())
+          + f"; launches {run['launches']}; peak {run['peak_gib']:.2f} GiB", flush=True)
+    return run
+
+
+def expect_tune_launches(run: dict, steps: int, validations: int) -> None:
+    """GroupNorm once a site a forward: each train step's forward (GN_SITES)
+    and, under checkpointing, its recompute of the blocks (GN_REMAT_SITES);
+    each validation's inversion steps and one CFG forward a sampling step a
+    prompt. No frame-attention kernel: the tuner's UNet runs "chunked"."""
+    val = TUNE["validation_data"]
+    forwards = val["num_inv_steps"] + val["num_inference_steps"] * len(val["prompts"])
+    want = {"frame_attention": 0, "flash_attention": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+            "group_norm": GN_LAUNCHES_PER_CALL * (
+                (GN_SITES + GN_REMAT_SITES * TUNE["gradient_checkpointing"]) * steps
+                + GN_SITES * forwards * validations)}
+    if run["launches"] != want:
+        raise AssertionError(f"tune launches {run['launches']}, expected {want}")
+
+
+def tune_path(args, frames) -> tuple:
+    """Phase 15 (path "tune"): Stage 1 on the card. The seeded SD-1.5 bundle
+    written as a float32 checkpoint directory (phase 14's writer) is
+    ``pretrained_model_path``; ``cli.run_tuning.main`` on TUNE (4 bf16
+    steps, checkpointed blocks, checkpoint at 2, validation at 4, export),
+    its launches asserted (:func:`expect_tune_launches`), every loss
+    finite, the export float32 with every frozen tensor bit for bit the
+    loaded one and every trainable tensor moved; a run preempted at step 2
+    (the preemption event set) and resumed from "latest" to step 4 exports
+    the same bytes as the uninterrupted run; Stage 2 (``run_videop2p.main``
+    fast, ``--steps``) loads the export through the suffix and edits with
+    src_err == 0.0; then :func:`tune_step_checks`. The directory is deleted
+    afterwards, also on a failure. Returns (runs, records)."""
+    import os
+    import shutil
+    import tempfile
+
+    from videop2p_tpu_torch.cli import run_tuning
+    from videop2p_tpu_torch.cli.common import ModelBundle, build_models
+    from videop2p_tpu_torch.models import convert
+    from videop2p_tpu_torch.train import latest_checkpoint, trainable_mask
+
+    print("Stage-1 tuning (configs/rabbit-jump-tune.yaml: SD-1.5 width, 512², 8 frames, "
+          "bf16, checkpointed blocks; 4 steps):", flush=True)
+    os.makedirs("outputs", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_", dir="outputs")
+    try:
+        bundle = build_models(dtype=torch.float32, device="cuda", seed=0)
+        pretrained = os.path.join(tmp, "sd15")
+        nbytes = write_checkpoint(pretrained, ModelBundle(
+            unet=bundle.unet, vae=bundle.vae, text_encoder=bundle.text_encoder,
+            scheduler_config=dict(SD_SCHEDULER_CONFIG)))
+        loaded = {k: v.cpu() for k, v in bundle.unet.state_dict().items()}
+        mask = trainable_mask(bundle.unet)
+        del bundle
+        print(f"  wrote the seeded SD-1.5 checkpoint ({nbytes / 1e9:.3f} GB); trainable "
+              f"{sum(loaded[k].numel() for k, m in mask.items() if m)} of "
+              f"{sum(v.numel() for v in loaded.values())} UNet parameters", flush=True)
+        steps = TUNE["max_train_steps"]
+        straight = run_tuning_main(pretrained_model_path=pretrained,
+                                   output_dir=os.path.join(tmp, "straight", "rabbit-jump"))
+        expect_tune_launches(straight, steps, 1)
+        with open(os.path.join(straight["dir"], "metrics.jsonl")) as fh:
+            losses = [json.loads(line)["train_loss"] for line in fh]
+        weights = os.path.join(straight["dir"], "unet", "diffusion_pytorch_model.safetensors")
+        exported = convert.read_safetensors(weights)
+        frozen_equal = all(torch.equal(exported[k], loaded[k]) for k, m in mask.items()
+                           if not m)
+        moved = all(not torch.equal(exported[k], loaded[k]) for k, m in mask.items() if m)
+        dtypes = sorted({str(v.dtype) for v in exported.values()})
+        export_bytes = os.path.getsize(weights)
+        print(f"  losses {losses}; export {export_bytes} bytes in "
+              f"{straight['phases_s']['export']:.2f} s, dtypes {dtypes}; frozen tensors bit "
+              f"for bit the loaded ones: {frozen_equal}; every trainable tensor moved: "
+              f"{moved}; validation {straight['phases_s']['validation']:.2f} s", flush=True)
+        if not (len(losses) == steps and all(np.isfinite(losses))):
+            raise AssertionError(f"tune losses {losses}")
+        if not (sorted(exported) == sorted(loaded) and frozen_equal and moved
+                and dtypes == ["torch.float32"]):
+            raise AssertionError("the exported UNet is not the loaded one with its "
+                                 "trainable tensors moved, in float32")
+        del exported
+
+        print("  preempted at step 2, resumed from latest to step 4:", flush=True)
+        resumed_dir = os.path.join(tmp, "resumed", "rabbit-jump")
+        run_tuning._PREEMPT_EVENT.set()
+        try:
+            preempted = run_tuning_main(pretrained_model_path=pretrained,
+                                        output_dir=resumed_dir)
+        finally:
+            run_tuning._PREEMPT_EVENT.clear()
+        if not (latest_checkpoint(preempted["dir"]).endswith("checkpoint-2")
+                and not os.path.exists(os.path.join(preempted["dir"], "model_index.json"))):
+            raise AssertionError("the preempted run did not stop at checkpoint-2")
+        expect_tune_launches(preempted, 2, 0)
+        resumed = run_tuning_main(pretrained_model_path=pretrained, output_dir=resumed_dir,
+                                  resume_from_checkpoint="latest")
+        expect_tune_launches(resumed, steps - 2, 1)
+        with open(weights, "rb") as fa_, open(os.path.join(
+                resumed["dir"], "unet", "diffusion_pytorch_model.safetensors"), "rb") as fb:
+            same = fa_.read() == fb.read()
+        diff = {}
+        if not same:
+            a = convert.read_safetensors(weights)
+            b = convert.read_safetensors(os.path.join(
+                resumed["dir"], "unet", "diffusion_pytorch_model.safetensors"))
+            diff = {k: (a[k] - b[k]).abs().max().item() for k in a
+                    if not torch.equal(a[k], b[k])}
+        print(f"  resumed export equal to the uninterrupted one byte for byte: {same}"
+              + (f"; differing tensors {diff}" if diff else ""), flush=True)
+        if not same:
+            raise AssertionError(f"the resumed run differs from the uninterrupted run: {diff}")
+
+        print("  Stage 2 from the export (run_videop2p fast):", flush=True)
+        stage2 = run_main_path(frames, args.steps, args.mixed_precision,
+                               pretrained_model_path=os.path.join(tmp, "straight",
+                                                                  "rabbit-jump"))
+        expect_launches(stage2, args.steps, "auto")
+        if stage2["checkpoint_dir"] != straight["dir"] or "build_models" not in stage2["timings"]:
+            raise AssertionError(f"Stage 2 did not load {straight['dir']!r}")
+        del stage2["latents"]
+        torch.cuda.empty_cache()
+        steps_rec = tune_step_checks(args.profile)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rec = {"losses": losses, "export_bytes": export_bytes, "frozen_equal": frozen_equal,
+           "trainable_moved": moved, "resumed_bit_identical": same, **steps_rec,
+           "preempted": preempted, "resumed": resumed}
+    return {"tune": straight, "tune_stage2": stage2}, {"tune": rec}
 
 
 def group_norm_only(args, card: str, kind: str) -> int:
@@ -1727,8 +2163,8 @@ def main() -> int:
                              "none: the kernel checks only)")
     parser.add_argument("--profile", action="store_true",
                         help="also trace with torch.profiler one cached edit-batch UNet "
-                             "forward (path fast) and one null-text inner step (path "
-                             "official)")
+                             "forward (path fast), one null-text inner step (path "
+                             "official) and one Stage-1 train step (path tune)")
     parser.add_argument("--frame_attention", nargs="+", default=["auto"],
                         choices=("auto", "flash_rect", "flash"),
                         help="the frame-attention implementations to profile")
@@ -1829,17 +2265,24 @@ def main() -> int:
         ckpt_runs, ckpt_records = checkpoint_path(args, frames, dtype)
         runs.update(ckpt_runs)
         records.update(ckpt_records)
+    if "tune" in args.paths:
+        tune_runs, tune_records = tune_path(args, frames)
+        runs.update(tune_runs)
+        records.update(tune_records)
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
 
     def entry(name, kind, shape, run, counter, source, replaces):
         """A kernel's line: its check at the largest main-path shape in the
-        main path's dtype, and its launches on the path that runs it."""
+        main path's dtype, its launches on the path that runs it, and on
+        each path that ran (``launches_by_path``)."""
         rec = next(c for c in checks[kind] if c.get("wrapper", kind) == name
                    and c["shape"] == shape and c["dtype"] == dname)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": runs[run]["launches"][counter],
+                "launches_by_path": {path: r["launches"][counter] for path, r in runs.items()
+                                     if r.get("launches", {}).get(counter)},
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
@@ -1870,7 +2313,8 @@ def main() -> int:
 
     # each kernel's launches come from the main path that runs it: the fast
     # edit where it ran, else official mode, else the dependent or the
-    # checkpoint path's cached edit
+    # checkpoint path's cached edit; GroupNorm's, when only Stage 1 ran, from
+    # the tuning run (which runs no frame-attention kernel)
     auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint")
                  if r in runs), None)
     rect = ("flash_rect" if "flash_rect" in runs else
@@ -1886,6 +2330,10 @@ def main() -> int:
             entry("group_norm", "group_norm", [3, 8 * 4096, 640], auto, "group_norm",
                   "videop2p_tpu_torch/ops/csrc/groupnorm.cu",
                   "videop2p_tpu/ops/groupnorm.py:69")]
+    elif "tune" in runs:
+        kernels.append(entry("group_norm", "group_norm", [3, 8 * 4096, 640], "tune",
+                             "group_norm", "videop2p_tpu_torch/ops/csrc/groupnorm.cu",
+                             "videop2p_tpu/ops/groupnorm.py:69"))
     if rect:
         kernels.append(entry("flash_rect_frame_attention", "flash_attention", big_attn, rect,
                              "flash_attention", "videop2p_tpu_torch/ops/csrc/flash_attention.cu",

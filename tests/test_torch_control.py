@@ -182,29 +182,29 @@ def test_ddim_scheduler_matches_jax(config):
 
 
 def test_ddim_prediction_types_match_jax():
-    """The scheduler's own defaults (linear betas, clipped x0, final ᾱ = 1,
-    epsilon prediction) on a 10-step grid down to t < 0; the prediction
-    types and beta schedules that are not ported raise."""
+    """The scheduler's own defaults (linear betas, clipped x0, final ᾱ = 1)
+    on a 10-step grid down to t < 0, under each prediction type and with
+    the cosine β schedule; an unknown name raises."""
     from videop2p_tpu.core import DDIMScheduler as JaxDDIM
 
     from videop2p_tpu_torch.core import DDIMScheduler
 
-    for unported in (dict(prediction_type="v_prediction"),
-                     dict(prediction_type="sample"),
-                     dict(beta_schedule="squaredcos_cap_v2")):
-        with pytest.raises(NotImplementedError):
-            DDIMScheduler.create(**unported)
-    jsched = JaxDDIM.create()
-    psched = DDIMScheduler.create()
+    for unknown in (dict(prediction_type="x0"), dict(beta_schedule="quadratic")):
+        with pytest.raises(ValueError):
+            DDIMScheduler.create(**unknown)
     rng = np.random.default_rng(3)
     x = rng.normal(size=(2, 4, 4, 4)).astype(np.float32)
     out = rng.normal(size=x.shape).astype(np.float32)
-    for ts in psched.timesteps(10):
-        want, want_x0 = jsched.step(jnp.asarray(out), jnp.asarray(int(ts)),
-                                    jnp.asarray(x), 10)
-        got, got_x0 = psched.step(t(out), int(ts), t(x), 10)
-        np.testing.assert_allclose(np32(got), np32(want), atol=1e-6, rtol=1e-6)
-        np.testing.assert_allclose(np32(got_x0), np32(want_x0), atol=1e-6, rtol=1e-6)
+    for kw in (dict(), dict(prediction_type="v_prediction"), dict(prediction_type="sample"),
+               dict(beta_schedule="squaredcos_cap_v2")):
+        jsched = JaxDDIM.create(**kw)
+        psched = DDIMScheduler.create(**kw)
+        for ts in psched.timesteps(10):
+            want, want_x0 = jsched.step(jnp.asarray(out), jnp.asarray(int(ts)),
+                                        jnp.asarray(x), 10)
+            got, got_x0 = psched.step(t(out), int(ts), t(x), 10)
+            np.testing.assert_allclose(np32(got), np32(want), atol=1e-6, rtol=1e-6)
+            np.testing.assert_allclose(np32(got_x0), np32(want_x0), atol=1e-6, rtol=1e-6)
 
 
 def test_equalizer_raises_where_the_reference_is_silent():

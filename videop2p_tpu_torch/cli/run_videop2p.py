@@ -49,27 +49,23 @@ import argparse
 import contextlib
 import os
 import time
-import warnings
-from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from videop2p_tpu_torch.cli.common import add_dependent_args, load_config, resolve_pipeline_dir
+from videop2p_tpu_torch.cli.common import (
+    ModelBundle,
+    add_dependent_args,
+    build_models,
+    encode_prompts,
+    load_config,
+    resolve_pipeline_dir,
+)
 from videop2p_tpu_torch.control.controllers import make_controller
-from videop2p_tpu_torch.core.ddim import DDIMScheduler
 from videop2p_tpu_torch.core.noise import DependentNoiseSampler
 from videop2p_tpu_torch.data.dataset import load_frame_sequence
-from videop2p_tpu_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
-from videop2p_tpu_torch.models.convert import init_weights
-from videop2p_tpu_torch.models.unet import UNet3DConditionModel, UNet3DConfig
-from videop2p_tpu_torch.models.vae import (
-    AutoencoderKL,
-    VAEConfig,
-    decode_video,
-    encode_video,
-)
+from videop2p_tpu_torch.models.vae import decode_video, encode_video
 from videop2p_tpu_torch.pipelines.cached import capture_windows
 from videop2p_tpu_torch.pipelines.fast import (
     CACHED_MAPS_BUDGET_GB,
@@ -83,7 +79,6 @@ from videop2p_tpu_torch.pipelines.inversion import (
     ddim_inversion,
 )
 from videop2p_tpu_torch.pipelines.sampling import edit_sample, make_unet_fn, official_edit
-from videop2p_tpu_torch.utils.tokenizers import WordTokenizer, load_tokenizer
 from videop2p_tpu_torch.utils.video_io import save_video_gif
 
 __all__ = ["ModelBundle", "build_models", "encode_prompts", "main",
@@ -94,98 +89,6 @@ GUIDANCE_SCALE = 7.5
 MASK_TH = (0.3, 0.3)
 _DTYPES = {"fp32": torch.float32, "no": torch.float32,
            "bf16": torch.bfloat16, "fp16": torch.bfloat16}
-
-
-@dataclass
-class ModelBundle:
-    """The three models of the edit, their tokenizer and the checkpoint's
-    scheduler config (empty: the SD scheduler)."""
-
-    unet: UNet3DConditionModel
-    vae: AutoencoderKL
-    text_encoder: CLIPTextEncoder
-    tokenizer: Any = field(default_factory=WordTokenizer)
-    scheduler_config: Dict[str, Any] = field(default_factory=dict)
-
-    def make_scheduler(self) -> DDIMScheduler:
-        if self.scheduler_config:
-            return DDIMScheduler.from_config(self.scheduler_config)
-        return DDIMScheduler.create_sd()
-
-
-def _random_models(ucfg: UNet3DConfig, vcfg: VAEConfig, ccfg: CLIPTextConfig, *,
-                   dtype: torch.dtype, device, seed: int, need=(True, True, True)) -> list:
-    """Seeded random-init UNet, VAE and text encoder on ``device`` (seeds
-    ``seed``, ``seed + 1``, ``seed + 2``; None where ``need`` is False)."""
-    out = []
-    for i, (cls, cfg) in enumerate(((UNet3DConditionModel, ucfg), (AutoencoderKL, vcfg),
-                                    (CLIPTextEncoder, ccfg))):
-        model = None
-        if need[i]:
-            with torch.device(device):
-                model = init_weights(cls(cfg), seed + i).to(dtype).eval()
-        out.append(model)
-    return out
-
-
-def build_models(pretrained_model_path: Optional[str] = None, *, tiny: bool = False,
-                 dtype: torch.dtype = torch.float32, device="cuda", seed: int = 0,
-                 frame_attention: str = "auto") -> ModelBundle:
-    """The models, on ``device``. A ``pretrained_model_path`` holding a
-    ``unet/`` is a diffusers-layout checkpoint: it loads
-    (``models/pipeline_io.py``) with its tokenizer and scheduler config; a
-    VAE or text encoder it lacks is random-init (a Stage-1 run from random
-    weights saves only the UNet), with a warning. Otherwise seeded random
-    init, the SD-1.5 shapes (``UNet3DConfig.sd15()``) or the tiny test
-    shapes, with a warning when a path was given. The weights depend on
-    ``seed`` only; ``frame_attention`` picks the UNet's frame-attention
-    implementation (``UNet3DConfig.frame_attention``: "auto", "flash_rect",
-    "flash", "chunked" or "dense")."""
-    if pretrained_model_path is not None and os.path.isdir(
-            os.path.join(pretrained_model_path, "unet")):
-        from videop2p_tpu_torch.models.pipeline_io import load_pipeline
-
-        loaded = load_pipeline(pretrained_model_path, dtype=dtype, device=device,
-                               frame_attention=frame_attention, seed=seed)
-        if loaded.inflation_report["kept_init"]:
-            print(f"[build_models] inflated 2D checkpoint: "
-                  f"{len(loaded.inflation_report['kept_init'])} temporal params keep init")
-        vae, text = loaded.vae, loaded.text_encoder
-        if vae is None or text is None:
-            missing = "/".join(name for name, m in (("vae", vae), ("text_encoder", text))
-                               if m is None)
-            warnings.warn(f"checkpoint {pretrained_model_path!r} has no {missing} — "
-                          "backfilling with RANDOM-INIT components", stacklevel=2)
-            ucfg = loaded.unet.config
-            small = ucfg.block_out_channels[0] < 64  # a tiny-shaped checkpoint
-            vcfg = VAEConfig.tiny() if small else VAEConfig()
-            ccfg = (CLIPTextConfig.tiny(hidden_size=ucfg.cross_attention_dim) if small
-                    else CLIPTextConfig())
-            _, new_vae, new_text = _random_models(
-                ucfg, vcfg, ccfg, dtype=dtype, device=device, seed=seed,
-                need=(False, vae is None, text is None))
-            vae, text = vae or new_vae, text or new_text
-        return ModelBundle(unet=loaded.unet, vae=vae, text_encoder=text,
-                           tokenizer=load_tokenizer(pretrained_model_path),
-                           scheduler_config=loaded.scheduler_config)
-    if pretrained_model_path is not None:
-        warnings.warn(f"no checkpoint at {pretrained_model_path!r} — building RANDOM-INIT "
-                      "models (smoke/benchmark mode; outputs will be noise)", stacklevel=2)
-    ccfg = CLIPTextConfig.tiny() if tiny else CLIPTextConfig()
-    ucfg = (UNet3DConfig.tiny(cross_attention_dim=ccfg.hidden_size,
-                              frame_attention=frame_attention) if tiny
-            else UNet3DConfig.sd15(frame_attention=frame_attention))
-    vcfg = VAEConfig.tiny() if tiny else VAEConfig()
-    unet, vae, text = _random_models(ucfg, vcfg, ccfg, dtype=dtype, device=device, seed=seed)
-    return ModelBundle(unet=unet, vae=vae, text_encoder=text)
-
-
-@torch.no_grad()
-def encode_prompts(bundle: ModelBundle, prompts: Sequence[str], device) -> torch.Tensor:
-    """(P, 77, D) text embeddings."""
-    ids = torch.tensor([bundle.tokenizer.encode_padded(p) for p in prompts],
-                       dtype=torch.long, device=device)
-    return bundle.text_encoder(ids)
 
 
 @contextlib.contextmanager

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from videop2p_tpu_torch.control.controllers import ControlContext, control_attention
-from videop2p_tpu_torch.models.layers import TpuGroupNorm
+from videop2p_tpu_torch.models.layers import LayerNorm, Linear, TpuGroupNorm, as_input_dtype
 from videop2p_tpu_torch.ops.attention import make_frame_attention_fn
 
 __all__ = [
@@ -106,10 +106,10 @@ class FrameAttention(nn.Module):
         self.heads = heads
         self.dim_head = dim_head
         self.attention_fn = make_frame_attention_fn(frame_attention)
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_k = nn.Linear(dim, inner, bias=False)
-        self.to_v = nn.Linear(dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, dim)])
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_k = Linear(dim, inner, bias=False)
+        self.to_v = Linear(dim, inner, bias=False)
+        self.to_out = nn.ModuleList([Linear(inner, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, f, n, _ = x.shape
@@ -137,10 +137,10 @@ class ControlledAttention(nn.Module):
         self.site = site
         self.path = site
         ctx_dim = dim if context_dim is None else context_dim
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_k = nn.Linear(ctx_dim, inner, bias=False)
-        self.to_v = nn.Linear(ctx_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, dim)])
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_k = Linear(ctx_dim, inner, bias=False)
+        self.to_v = Linear(ctx_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([Linear(inner, dim)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 control: Optional[AttnControl] = None,
@@ -182,7 +182,7 @@ class ControlledAttention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = Linear(dim, inner * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -196,7 +196,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
-                                  nn.Linear(dim * mult, dim)])
+                                  Linear(dim * mult, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.net:
@@ -211,13 +211,13 @@ class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
                  frame_attention: str = "auto"):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm1 = LayerNorm(dim, eps=_LN_EPS)
         self.attn1 = FrameAttention(dim, heads, dim_head, frame_attention)
-        self.norm2 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm2 = LayerNorm(dim, eps=_LN_EPS)
         self.attn2 = ControlledAttention(dim, heads, dim_head, "cross", context_dim)
-        self.norm3 = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm3 = LayerNorm(dim, eps=_LN_EPS)
         self.ff = FeedForward(dim)
-        self.norm_temp = nn.LayerNorm(dim, eps=_LN_EPS)
+        self.norm_temp = LayerNorm(dim, eps=_LN_EPS)
         self.attn_temp = ControlledAttention(dim, heads, dim_head, "temporal")
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
@@ -252,7 +252,8 @@ class Conv1x1(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight[:, :, 0, 0], self.bias)
+        return F.linear(x, as_input_dtype(self.weight[:, :, 0, 0], x),
+                        as_input_dtype(self.bias, x))
 
 
 class Transformer3DModel(nn.Module):

@@ -5,6 +5,14 @@ Port of ``videop2p_tpu/models/layers.py``. Activations are channels-last
 ``(B, F, H, W, C)``; :class:`InflatedConv` folds frames into the batch and
 views the tensor as NCHW for ``F.conv2d``. Parameter names follow the
 diffusers/Tune-A-Video layout (``conv1.weight``, ``norm1.weight``, ...).
+
+Every parameterized layer of the UNet computes in its input's dtype: a
+weight of another dtype is cast at use (:func:`as_input_dtype`), as a flax
+layer casts its ``param_dtype`` weights to its ``dtype``. So float32
+weights run a bfloat16 forward when the UNet casts its input to bfloat16
+(``UNet3DConditionModel.compute_dtype``, Stage-1 mixed precision), their
+gradients arriving in float32 through the cast; where weight and input
+share a dtype nothing is cast, and the layer is the plain torch one.
 """
 
 from __future__ import annotations
@@ -19,6 +27,9 @@ from torch import nn
 from videop2p_tpu_torch.ops.groupnorm import fused_group_norm
 
 __all__ = [
+    "as_input_dtype",
+    "Linear",
+    "LayerNorm",
     "get_timestep_embedding",
     "TimestepEmbedding",
     "TpuGroupNorm",
@@ -27,6 +38,28 @@ __all__ = [
     "Downsample3D",
     "ResnetBlock3D",
 ]
+
+
+def as_input_dtype(param: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    """``param`` in ``x``'s dtype (itself when it already is)."""
+    if param is None or param.dtype == x.dtype:
+        return param
+    return param.to(x.dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, as_input_dtype(self.weight, x), as_input_dtype(self.bias, x))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computing in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape, as_input_dtype(self.weight, x),
+                            as_input_dtype(self.bias, x), self.eps)
 
 
 class TpuGroupNorm(nn.Module):
@@ -48,7 +81,8 @@ class TpuGroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c = x.shape[0], x.shape[-1]
         y = fused_group_norm(
-            x.reshape(n, -1, c).contiguous(), self.weight, self.bias,
+            x.reshape(n, -1, c).contiguous(), as_input_dtype(self.weight, x),
+            as_input_dtype(self.bias, x),
             num_groups=self.num_groups, eps=self.eps, act=self.act)
         return y.reshape(x.shape)
 
@@ -76,8 +110,8 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_dim: int, time_embed_dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.linear_1 = Linear(in_dim, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, emb: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(emb)))
@@ -88,7 +122,8 @@ class InflatedConv(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, f, h, w, c = x.shape
-        y = super().forward(x.reshape(b * f, h, w, c).permute(0, 3, 1, 2))
+        y = self._conv_forward(x.reshape(b * f, h, w, c).permute(0, 3, 1, 2),
+                               as_input_dtype(self.weight, x), as_input_dtype(self.bias, x))
         y = y.permute(0, 2, 3, 1)
         return y.reshape(b, f, *y.shape[1:])
 
@@ -126,7 +161,7 @@ class ResnetBlock3D(nn.Module):
         super().__init__()
         self.norm1 = TpuGroupNorm(in_channels, groups, eps, act="silu")
         self.conv1 = InflatedConv(in_channels, out_channels, 3, padding=1)
-        self.time_emb_proj = nn.Linear(temb_channels, out_channels)
+        self.time_emb_proj = Linear(temb_channels, out_channels)
         self.norm2 = TpuGroupNorm(out_channels, groups, eps, act="silu")
         self.conv2 = InflatedConv(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (

@@ -109,16 +109,19 @@ def _build(module_cls, cfg, device, seed: int, path: str, to_port, **kw):
 
 
 def load_pipeline(path: str, *, dtype: torch.dtype = torch.float32, device="cuda",
-                  frame_attention: str = "auto", seed: int = 0) -> LoadedPipeline:
+                  frame_attention: str = "auto", gradient_checkpointing: bool = False,
+                  seed: int = 0) -> LoadedPipeline:
     """Load a diffusers-layout checkpoint directory onto ``device`` in
-    ``dtype``, the UNet with ``frame_attention``. A 2-D UNet inflates: its
+    ``dtype``, the UNet with ``frame_attention`` and
+    ``gradient_checkpointing``. A 2-D UNet inflates: its
     temporal parameters keep the port's init (``seed``), whose temporal
     output projection is zero, so the inflated model equals its 2-D self;
     any other missing or unused key raises."""
     device = torch.device(device)
     unet_dir = os.path.join(path, "unet")
     ucfg = unet_config_from_diffusers(_read_json(os.path.join(unet_dir, "config.json")),
-                                      frame_attention=frame_attention)
+                                      frame_attention=frame_attention,
+                                      gradient_checkpointing=gradient_checkpointing)
     unet, report = _build(UNet3DConditionModel, ucfg, device, seed, _find_weights(unet_dir),
                           dict, keep_init=convert.is_temporal_key)
     unet = unet.to(dtype).eval()

@@ -5,6 +5,12 @@ The inflated Stable-Diffusion 1.x denoiser over channels-last
 a cross-attention mid block, and the mirrored up path, driven by
 :class:`UNet3DConfig`. Parameter names are the diffusers/Tune-A-Video ones,
 so a state dict from ``models/convert.py`` loads with ``strict=True``.
+
+``UNet3DConfig.gradient_checkpointing`` recomputes each down, mid and up
+block in the backward instead of keeping its activations (the blocks the
+JAX package wraps in ``nn.remat``); ``compute_dtype`` runs the forward in
+another dtype than the weights' (Stage-1 mixed precision: float32 weights,
+bfloat16 compute).
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from videop2p_tpu_torch.models.attention import AttnControl, ControlledAttention
 from videop2p_tpu_torch.models.layers import (
@@ -60,6 +67,18 @@ class UNet3DConfig:
     # make_frame_attention_fn): "auto"/"fused", "flash", "flash_rect",
     # "chunked" or "dense"
     frame_attention: str = "auto"
+    # recompute each down/mid/up block in the backward (JAX: nn.remat)
+    gradient_checkpointing: bool = False
+    # JAX names a jax.checkpoint_policies entry here; the port recomputes
+    # whole blocks only (None)
+    remat_policy: Optional[str] = None
+
+    def __post_init__(self):
+        if self.remat_policy is not None:
+            raise NotImplementedError(
+                f"remat_policy {self.remat_policy!r} is not ported (ROADMAP Queue 1 "
+                "item 12): the port's gradient checkpointing recomputes whole "
+                "blocks (remat_policy None)")
 
     @classmethod
     def sd15(cls, **overrides) -> "UNet3DConfig":
@@ -88,11 +107,13 @@ class UNet3DConditionModel(nn.Module):
 
     ``control`` threads the P2P edit into every cross/temporal site; a
     ``store`` dict collects the head-mean maps of the controlled sites with
-    at most 32² queries, keyed by module path."""
+    at most 32² queries, keyed by module path. ``compute_dtype`` (None: the
+    weights' dtype) is the dtype the forward runs in."""
 
     def __init__(self, config: UNet3DConfig):
         super().__init__()
         self.config = cfg = config
+        self.compute_dtype: Optional[torch.dtype] = None
         n_blocks = len(cfg.block_out_channels)
         depths = _per_block(cfg.transformer_depth, n_blocks)
         heads = _per_block(cfg.attention_head_dim, n_blocks)
@@ -164,7 +185,15 @@ class UNet3DConditionModel(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.conv_in.weight.dtype
+        """The compute dtype: ``compute_dtype``, else the weights'."""
+        return self.compute_dtype or self.conv_in.weight.dtype
+
+    def _block(self, block: nn.Module, *args):
+        """``block(*args)``, recomputed in the backward under
+        ``gradient_checkpointing``."""
+        if self.config.gradient_checkpointing and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
     def forward(self, sample: torch.Tensor, timesteps, encoder_hidden_states: torch.Tensor,
                 control: Optional[AttnControl] = None,
@@ -185,20 +214,20 @@ class UNet3DConditionModel(nn.Module):
         res_stack = [x]
         for block in self.down_blocks:
             if isinstance(block, unet_blocks.CrossAttnDownBlock3D):
-                x, res = block(x, temb, context, control, store)
+                x, res = self._block(block, x, temb, context, control, store)
             else:
-                x, res = block(x, temb)
+                x, res = self._block(block, x, temb)
             res_stack.extend(res)
 
-        x = self.mid_block(x, temb, context, control, store)
+        x = self._block(self.mid_block, x, temb, context, control, store)
 
         num_layers = cfg.layers_per_block + 1
         for block in self.up_blocks:
             res = res_stack[-num_layers:]
             del res_stack[-num_layers:]
             if isinstance(block, unet_blocks.CrossAttnUpBlock3D):
-                x = block(x, res, temb, context, control, store)
+                x = self._block(block, x, res, temb, context, control, store)
             else:
-                x = block(x, res, temb)
+                x = self._block(block, x, res, temb)
 
         return self.conv_out(self.conv_norm_out(x))

@@ -12,7 +12,7 @@ at a time to bound memory.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -214,12 +214,18 @@ class AutoencoderKL(nn.Module):
         return self.decoder(self.post_quant_conv(z))
 
 
-def encode_video(vae: AutoencoderKL, video: torch.Tensor) -> torch.Tensor:
-    """(B, F, H, W, 3) in [-1, 1] → scaled latents (B, F, H/8, W/8, 4) at the
-    posterior mean (inversion fidelity)."""
+def encode_video(vae: AutoencoderKL, video: torch.Tensor,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """(B, F, H, W, 3) in [-1, 1] → scaled latents (B, F, H/8, W/8, 4): at
+    the posterior mean (inversion fidelity), or with a ``generator`` a draw
+    from the posterior (Stage-1 training, JAX's ``sample=True``)."""
     b, f = video.shape[:2]
-    mean, _ = vae.encode(video.reshape(b * f, *video.shape[2:]).to(vae.dtype))
-    z = mean * vae.config.scaling_factor
+    mean, logvar = vae.encode(video.reshape(b * f, *video.shape[2:]).to(vae.dtype))
+    z = mean
+    if generator is not None:
+        z = mean + torch.exp(0.5 * logvar) * torch.randn(
+            mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+    z = z * vae.config.scaling_factor
     return z.reshape(b, f, *z.shape[1:])
 
 

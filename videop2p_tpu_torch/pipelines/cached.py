@@ -30,15 +30,18 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
     "CachedSource",
     "capture_windows",
+    "check_subset_windows",
     "filter_site_tree",
     "merge_site_trees",
     "slice_site_tree",
     "tree_bytes",
+    "validate_step_positions",
 ]
 
 SiteTree = Dict[str, torch.Tensor]
@@ -54,6 +57,48 @@ def capture_windows(ctx, num_steps: int) -> Tuple[int, Tuple[int, int]]:
     idx = active.nonzero()
     cross_len = int(idx.max()) + 1 if idx.numel() else 0
     return cross_len, tuple(ctx.self_replace_range)
+
+
+def validate_step_positions(positions, base_steps: int) -> np.ndarray:
+    """A timestep-subset walk's positions into the ``base_steps`` edit-order
+    grid (``DDIMScheduler.subset_positions`` makes them), checked: 1-D,
+    starting at 0 (the capture's x_T), strictly increasing, inside the base
+    grid. Returns them as int64."""
+    pos = np.asarray(positions, dtype=np.int64)
+    if pos.ndim != 1 or pos.size < 1:
+        raise ValueError(f"step_positions must be a 1-D sequence, got {positions!r}")
+    if pos[0] != 0:
+        raise ValueError(
+            f"step_positions must start at 0 (the capture's x_T), got {pos[0]}")
+    if pos.size > 1 and (np.diff(pos) <= 0).any():
+        raise ValueError(f"step_positions must be strictly increasing: {pos.tolist()}")
+    if pos[-1] >= base_steps:
+        raise ValueError(
+            f"step_positions reach {pos[-1]} but the capture covers [0, {base_steps})")
+    return pos
+
+
+def check_subset_windows(ctx, cached: "CachedSource", positions, num_steps: int) -> None:
+    """Every step of a ``num_steps``-step subset walk whose controller gate
+    is open must map, through ``positions``, inside the captured window of
+    ``cached``: a step outside it would read a clamped, stale base map."""
+    if ctx is None or ctx.kind == "empty":
+        return
+    cross_len_sub, (lo_s, hi_s) = capture_windows(ctx, num_steps)
+    pos = np.asarray(positions)
+    if cross_len_sub > 0:
+        mapped = pos[:cross_len_sub]
+        if cached.cross_len <= 0 or int(mapped.max()) >= cached.cross_len:
+            raise ValueError(
+                f"subset cross window maps to base steps {mapped.tolist()} "
+                f"outside the captured cross window [0, {cached.cross_len})")
+    if hi_s > lo_s:
+        mapped = pos[lo_s:hi_s]
+        lo_b, hi_b = cached.self_window
+        if mapped.size and (int(mapped.min()) < lo_b or int(mapped.max()) >= hi_b):
+            raise ValueError(
+                f"subset self window maps to base steps {mapped.tolist()} "
+                f"outside the captured self window [{lo_b}, {hi_b})")
 
 
 def filter_site_tree(tree: SiteTree, site_name: str) -> SiteTree:

@@ -24,6 +24,7 @@ import contextlib
 import copy
 from typing import Callable, ContextManager, Optional, Tuple
 
+import numpy as np
 import torch
 
 from videop2p_tpu_torch.control.controllers import ControlContext
@@ -31,7 +32,11 @@ from videop2p_tpu_torch.control.local_blend import local_blend
 from videop2p_tpu_torch.core.ddim import DDIMScheduler
 from videop2p_tpu_torch.core.noise import DependentNoiseSampler
 from videop2p_tpu_torch.models.attention import AttnControl
-from videop2p_tpu_torch.pipelines.cached import CachedSource
+from videop2p_tpu_torch.pipelines.cached import (
+    CachedSource,
+    check_subset_windows,
+    validate_step_positions,
+)
 from videop2p_tpu_torch.pipelines.stores import blend_maps_from_store
 
 __all__ = ["edit_sample", "make_unet_fn", "official_edit", "unet_module", "UNetFn"]
@@ -76,7 +81,8 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
                 variance_noise: Optional[torch.Tensor] = None,
                 null_uncond_embeddings: Optional[torch.Tensor] = None,
                 cached_source: Optional[CachedSource] = None,
-                dependent_sampler: Optional[DependentNoiseSampler] = None) -> torch.Tensor:
+                dependent_sampler: Optional[DependentNoiseSampler] = None,
+                step_positions=None) -> torch.Tensor:
     """Run the controlled denoise; returns final latents (P, F, h, w, C).
 
     ``latents``: x_T, (1, F, h, w, C) (shared by all streams) or (P, …);
@@ -100,7 +106,15 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
       * ``cached_source``: the cached-source mode (fast layout, η = 0, no
         null-text embeddings); its capture must cover
         ``num_inference_steps`` steps, and stream 0 of the output is its
-        x_0."""
+        x_0.
+      * ``step_positions`` (cached mode only): ``num_inference_steps``
+        strictly increasing positions into the capture's base edit-step grid
+        (``DDIMScheduler.subset_positions`` makes them): the edit visits only
+        those base timesteps of one inversion, reading the source replay and
+        the captured maps at them and stepping the non-uniform grid through
+        explicit ``prev_timestep``. The controller is built for the subset's
+        step count; its open gates must map inside the captured windows
+        (``pipelines/cached.py:check_subset_windows``)."""
     if cond_embeddings.dim() != 3:
         raise NotImplementedError(
             "per-frame ('multi') conditioning is not ported yet; see ROADMAP Queue 1")
@@ -121,6 +135,10 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
             f"{tuple(uncond_embeddings.shape)}; per-step null-text embeddings "
             "go in null_uncond_embeddings")
 
+    if step_positions is not None and cached_source is None:
+        raise ValueError(
+            "step_positions is the cached fast path's step-reduction seam: "
+            "it requires cached_source")
     if cached_source is not None:
         if source_uses_cfg:
             raise ValueError("cached_source requires fast mode (source_uses_cfg=False)")
@@ -133,14 +151,22 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
                 "cached_source requires eta=0: η-variance noise would make the "
                 "live source stream stochastic while the cached replay is "
                 "deterministic")
-        if cached_source.num_steps != num_inference_steps:
+        if step_positions is not None:
+            step_positions = validate_step_positions(step_positions,
+                                                     cached_source.num_steps)
+            if len(step_positions) != num_inference_steps:
+                raise ValueError(
+                    f"step_positions has {len(step_positions)} entries, edit "
+                    f"runs {num_inference_steps}")
+        elif cached_source.num_steps != num_inference_steps:
             raise ValueError(
                 f"cached trajectory covers {cached_source.num_steps} steps, "
-                f"edit runs {num_inference_steps}")
+                f"edit runs {num_inference_steps} (pass step_positions for a "
+                "timestep-subset fast path from one inversion)")
         return _edit_sample_cached(
             unet_fn, scheduler, latents, cond_embeddings, uncond_embeddings,
             cached_source, num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale, ctx=ctx)
+            guidance_scale=guidance_scale, ctx=ctx, step_positions=step_positions)
 
     # the source stream's uncond at each step: the null-text sequence when
     # given, else the raw uncond
@@ -207,11 +233,15 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
                         latents: torch.Tensor, cond_embeddings: torch.Tensor,
                         uncond_embeddings: torch.Tensor, cached: CachedSource, *,
                         num_inference_steps: int, guidance_scale: float,
-                        ctx: Optional[ControlContext]) -> torch.Tensor:
+                        ctx: Optional[ControlContext], step_positions=None) -> torch.Tensor:
     """The cached-source loop: the batch is E uncond + E edit streams, the
     controllers read the captured base maps of each step, and LocalBlend
     sums the source's captured blend maps with the edit streams' live ones,
-    source first. Deterministic: η = 0."""
+    source first. Deterministic: η = 0. ``step_positions`` (validated)
+    walks a timestep subset of the capture's base grid: step j runs at base
+    position ``step_positions[j]`` and lands on the next one (the last on
+    the base walk's terminal target), the controller's gates in subset-step
+    space."""
     P = cond_embeddings.shape[0]
     E = U = P - 1
     if E < 1:
@@ -219,6 +249,20 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
     video_length = latents.shape[1]
     latent_hw = tuple(latents.shape[2:4])
     text_len = cond_embeddings.shape[-2]
+    base_steps = cached.num_steps
+    if step_positions is None:
+        positions = np.arange(num_inference_steps)
+        timesteps = scheduler.timesteps(num_inference_steps)
+        prev_timesteps = [None] * num_inference_steps
+    else:
+        positions = np.asarray(step_positions, dtype=np.int64)
+        base_ts = scheduler.timesteps(base_steps)
+        timesteps = base_ts[positions]
+        ratio = scheduler.num_train_timesteps // base_steps
+        prev_timesteps = [int(p) for p in np.append(timesteps[1:], base_ts[-1] - ratio)]
+        check_subset_windows(ctx, cached, positions, num_inference_steps)
+    # the source latent after step i: the next visited grid point, x_0 last
+    src_after = np.append(positions[1:], base_steps)
     edit_latents = latents[1:]
     text = torch.cat([uncond_embeddings.expand(E, *uncond_embeddings.shape),
                       cond_embeddings[1:]], dim=0)
@@ -240,24 +284,24 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
             "LocalBlend is configured but the capture has no blend_seq: run "
             "ddim_inversion_captured(capture_blend=True)")
     maps_sum = None
-    for i, t in enumerate(scheduler.timesteps(num_inference_steps)):
-        t = int(t)
+    for i, t in enumerate(timesteps):
+        t, base_i = int(t), int(positions[i])
         latent_in = torch.cat([edit_latents, edit_latents], dim=0)
-        control = (AttnControl(ctx, i, U, cached_base=cached.base_tree_at(i),
+        control = (AttnControl(ctx, i, U, cached_base=cached.base_tree_at(base_i),
                                cached_source=True) if ctx is not None else None)
         eps_all, store = unet_fn(latent_in, t, text, control, store=use_blend)
         eps_all = eps_all.float()
         eps_uncond, eps_text = eps_all[:E], eps_all[E:]
         eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
-        edit_latents, _ = scheduler.step(eps, t, edit_latents, num_inference_steps)
+        edit_latents, _ = scheduler.step(eps, t, edit_latents, num_inference_steps,
+                                         prev_timestep=prev_timesteps[i])
         if use_blend:
             edit_maps = blend_maps_from_store(
                 store, latent_hw=latent_hw, video_length=video_length,
                 num_prompts=E, text_len=text_len, num_uncond=U).float()
-            maps = torch.cat([cached.blend_seq[i], edit_maps], dim=0)
+            maps = torch.cat([cached.blend_seq[base_i], edit_maps], dim=0)
             maps_sum = maps if maps_sum is None else maps_sum + maps
-            # the source latent after step i is src_latents[i + 1]
-            full = torch.cat([cached.src_latents[i + 1], edit_latents], dim=0)
+            full = torch.cat([cached.src_latents[int(src_after[i])], edit_latents], dim=0)
             edit_latents = local_blend(full, maps_sum, ctx.blend, i)[1:]
     # stream 0 is the capture's x_0, copied without arithmetic
     return torch.cat([cached.src_latents[-1], edit_latents], dim=0)
