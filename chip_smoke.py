@@ -158,6 +158,29 @@ tune:
    memory); with ``--profile`` one bf16 step traced. The directory is
    deleted afterwards.
 
+surface:
+16. the rest of Stage 2's surface through ``main`` at SD-1.5 width, 512², 8
+   frames, ``--steps``: (a) official mode with "hybrid" null-text (3 Adam
+   steps an outer step against the recorded trajectory) in float32 under
+   "auto" and "flash_rect": inner steps 3 everywhere, launches as the steps
+   imply (the flash backward 9 × steps × 3 under "flash_rect", none under
+   "auto"), flash_rect's losses and latents against "auto" printed (phase
+   4b also runs "hybrid", card against CPU); (b) persisted inversion reuse:
+   the seeded bundle written as a float32 checkpoint directory (phase 14's
+   writer), official mode with 2 inner steps twice on it: the repeat runs
+   no inversion and no null-text phase, launches the edit's kernels only,
+   and its GIF frames and latents equal the first run's bit for bit; a
+   cached fast run saves its trajectory to a fresh ``inv_store``, and an
+   official run on that store skips its inversion and runs null-text;
+   ``reuse_inversion=False`` recomputes both; (c) ``multi`` (per-frame
+   conditioning) cached: src_err == 0.0; (d) ``quant_mode`` off, w8 and
+   w8a8 cached: the UNet's weight bytes on the card and the peak printed,
+   phase 5's launch counts; (e) one full (capture) and one shallow UNet
+   step's launches (10 + 61 and 5 + 16), then the cached edit with
+   ``reuse_schedule`` uniform:2 beside off: launches as the schedule
+   implies, src_err == 0.0, wall times printed. The directory is deleted
+   afterwards.
+
 Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
 the card line, then, last, ``{"ok": true, "device": {...}}``.
 
@@ -171,7 +194,7 @@ the same way).
 Run:  python3 chip_smoke.py [--steps 4] [--inner_steps 10]
                             [--mixed_precision fp32|bf16]
                             [--paths [fast] [official] [official_flash]
-                                     [dependent] [checkpoint] [tune]]
+                                     [dependent] [checkpoint] [tune] [surface]]
                             [--profile [--frame_attention auto flash_rect flash]]
                             [--gn_only [--gn_kernel_names NAME ...]]
                             [--out PATH.json]
@@ -270,8 +293,24 @@ AUTO_NULL_TEXT_PEAK_BEFORE_GIB = {"fp32": 23.37, "bf16": 15.29}
 FLASH_INNER_STEPS = 2
 # the paths after the kernel checks: the fast edit (phases 4-9), the
 # official main path (4b, 10), the official path under each kernel (11, 12),
-# the dependent noise (13) and a checkpoint directory (14)
-PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint", "tune")
+# the dependent noise (13), a checkpoint directory (14), Stage 1 (15) and
+# the rest of Stage 2's surface (16)
+PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint", "tune",
+         "surface")
+# phase 4b's final losses in "hybrid" null-text mode are compared relative
+# to max(|loss|, this): its last outer step lands on x_0, where both losses
+# sit at float32 rounding noise (~1e-15) and have no relative meaning
+OFFICIAL_LOSS_FLOOR = 1e-10
+# the surface path (phase 16): "hybrid" null-text's Adam steps per outer
+# step (JAX's default), the persisted-reuse runs' inner steps, and the
+# frame-attention and GroupNorm sites of a shallow reuse step (the first
+# down block's 2 resnets and 2 transformers at 64², the last up block's 3
+# and 3, conv_norm_out)
+HYBRID_INNER_STEPS = 3
+REUSE_INNER_STEPS = 2
+SHALLOW_ATTN_SITES = 5
+SHALLOW_GN_SITES = 16
+REUSE_SCHEDULE = "uniform:2"
 # the dependent-noise settings of phases 13-14: the sweep grid's values
 # (videop2p_tpu/cli/sweep.py), two AR-chained windows of 4 at 8 frames
 DEPENDENT = dict(dependent=True, dependent_p2p=True, decay_rate=0.3, window_size=4,
@@ -1265,11 +1304,13 @@ def profile_null_text_step(mixed_precision: str, frame_attention: str) -> dict:
     return dict(rec, dtype=mixed_precision, frame_attention=frame_attention)
 
 
-def small_official_check(frame_attention: str, on_cpu: dict) -> dict:
+def small_official_check(frame_attention: str, on_cpu: dict,
+                         null_text_mode: str = "optimize") -> dict:
     """The tiny-model official edit (32² latents, so the attention kernels
-    run at their 1024-token sites; 2 outer × 2 inner steps) on the card
-    under ``frame_attention``, against ``on_cpu``, the same edit on the
-    CPU from the same weights: the final losses and the edited latents."""
+    run at their 1024-token sites; 2 outer × 2 inner steps, "hybrid": 2 × 3)
+    on the card under ``frame_attention``, against ``on_cpu``, the same edit
+    on the CPU from the same weights: the final losses and the edited
+    latents."""
     import copy
 
     from videop2p_tpu_torch.cli.run_videop2p import build_models, main
@@ -1280,16 +1321,21 @@ def small_official_check(frame_attention: str, on_cpu: dict) -> dict:
     for mod in (gpu_bundle.unet, gpu_bundle.vae, gpu_bundle.text_encoder):
         mod.to("cuda")
     before = (fa.launch_count(), fa.flash_bwd_launch_counts())
-    on_card = main(**SMALL_OFFICIAL, device="cuda", bundle=gpu_bundle)
+    on_card = main(**SMALL_OFFICIAL, device="cuda", bundle=gpu_bundle,
+                   null_text_mode=null_text_mode)
     after = (fa.launch_count(), fa.flash_bwd_launch_counts())
     if frame_attention == "auto" and after[0] == before[0]:
         raise AssertionError("the small official edit did not reach the frame-attention kernel")
     if frame_attention != "auto" and any(after[1][k] == before[1][k] for k in after[1]):
         raise AssertionError("the small official edit did not reach the flash backward kernels")
     want, got = on_cpu["null_text"]["final_loss"], on_card["null_text"]["final_loss"]
-    loss_err = ((got - want).abs() / want.abs()).max().item()
+    scale = want.abs()
+    if null_text_mode == "hybrid":
+        scale = scale.clamp(min=OFFICIAL_LOSS_FLOOR)
+    loss_err = ((got - want).abs() / scale).max().item()
     err = (on_card["latents"].cpu() - on_cpu["latents"]).abs().max().item()
-    print(f"  small official edit ({frame_attention}), card vs cpu: final losses "
+    print(f"  small official edit ({frame_attention}, {null_text_mode}), card vs cpu: "
+          f"inner steps {on_card['null_text']['inner_steps'].tolist()}, final losses "
           f"{got.tolist()} vs {want.tolist()}, max rel |d| {loss_err:.3e} (limit "
           f"{OFFICIAL_LOSS_RTOL:g}); edited latents max|d| {err:.3e} (limit {E2E_TOL:g})",
           flush=True)
@@ -1400,12 +1446,17 @@ def launch_counts() -> dict:
 
 
 def run_main_path(frames, steps: int, mixed_precision: str, *, fast: bool = True,
-                  **kw) -> dict:
+                  keep_outputs: bool = False, **kw) -> dict:
     """One edit through ``cli.run_videop2p.main`` with every launch count set
     to 0 just before and read just after; checks the output and, for the
-    cached-source path, src_err == 0.0 exactly."""
+    cached-source path, src_err == 0.0 exactly. ``keep_outputs`` also
+    returns x_T and the uint8 frames a GIF would hold (the caller deletes
+    them with the latents)."""
     from videop2p_tpu_torch.cli.run_videop2p import main as run_edit
 
+    # every run a fresh one unless a phase asks for persisted reuse: a
+    # reused inversion would drop launches and time from its counts
+    kw.setdefault("reuse_inversion", False)
     torch.cuda.empty_cache()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -1446,10 +1497,15 @@ def run_main_path(frames, steps: int, mixed_precision: str, *, fast: bool = True
             "timings": res["timings"], "launches": launches, "peak_gib": peak,
             "peak_gib_by_phase": res["peak_gib"], "null_text": null_text,
             "src_err": src_err, "cached_maps": res["cached_maps"],
-            "checkpoint_dir": res["checkpoint_dir"], "latents": res["latents"]}
+            "reused": res["reused"], "unet_bytes": res["unet_bytes"],
+            "checkpoint_dir": res["checkpoint_dir"], "latents": res["latents"],
+            **({"x_t": res["x_t"],
+                "frames_u8": (videos.clamp(0, 1) * 255).to(torch.uint8).cpu()}
+               if keep_outputs else {})}
 
 
-def expect_launches(run: dict, steps: int, frame_attention: str) -> None:
+def expect_launches(run: dict, steps: int, frame_attention: str, *,
+                    hybrid: bool = False, edit_only: bool = False) -> None:
     """The launch counts of one main-path run: ATTN_SITES frame-attention
     launches per UNet forward on the chosen kernel (none on the other),
     GroupNorm one per site. A fast edit runs one forward per inversion
@@ -1457,9 +1513,14 @@ def expect_launches(run: dict, steps: int, frame_attention: str) -> None:
     the cond forward, one forward per inner step and the advancing forward;
     each inner step's backward launches the flash dK/dV and dQ kernels at
     the ATTN_GRAD_SITES sites that depend on the embedding (under "flash"
-    and "flash_rect"; "auto" recomputes through the plain version)."""
+    and "flash_rect"; "auto" recomputes through the plain version).
+    "hybrid" null-text runs no advancing forward (its outer steps start
+    from the recorded trajectory); ``edit_only``: a run that reused its
+    persisted inversion and null-text embeddings runs the edit's forwards
+    only."""
     inner = sum(run["null_text"]["inner_steps"]) if run["null_text"] else 0
-    forwards = 2 * steps + (2 * steps + inner if run["null_text"] else 0)
+    null_forwards = (steps if hybrid else 2 * steps) + inner if run["null_text"] else 0
+    forwards = steps if edit_only else 2 * steps + null_forwards
     want = {"frame_attention": 0, "flash_attention": 0,
             "group_norm": GN_LAUNCHES_PER_CALL * GN_SITES * forwards,
             "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
@@ -1534,10 +1595,13 @@ def official_paths(args, frames, dtype) -> tuple:
     if "official" in args.paths:
         # 4b. the small official edit, card against cpu
         print("small official edit:", flush=True)
-        on_cpu = run_edit(**SMALL_OFFICIAL, device="cpu",
-                          bundle=build_models(tiny=True, device="cpu", seed=3))
-        records["small_official"] = {impl: small_official_check(impl, on_cpu)
-                                     for impl in ("auto", "flash_rect")}
+        records["small_official"] = {}
+        for mode in ("optimize", "hybrid"):
+            on_cpu = run_edit(**SMALL_OFFICIAL, device="cpu", null_text_mode=mode,
+                              bundle=build_models(tiny=True, device="cpu", seed=3))
+            records["small_official"][mode] = {
+                impl: small_official_check(impl, on_cpu, mode)
+                for impl in ("auto", "flash_rect")}
         # 10. the official main path, after an untimed 1-step, 1-inner-step run
         print(f"official main path (SD-1.5 width, 512², 8 frames, "
               f"{args.inner_steps} inner steps):", flush=True)
@@ -1788,6 +1852,200 @@ def checkpoint_path(args, frames, dtype) -> tuple:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return {"checkpoint": loaded}, {"checkpoint": rec}
+
+
+def _step_launches(unet, deep_mode: str, deep_feature=None):
+    """The kernels one UNet forward of the cached edit's batch (1 uncond + 1
+    edit stream × 8 frames at 64²) launches under ``deep_mode``; returns
+    (launches, the deep feature of a "capture")."""
+    x = torch.randn(2, 8, 64, 64, 4, generator=torch.Generator("cuda").manual_seed(3),
+                    device="cuda")
+    text = torch.zeros(2, 77, 768, device="cuda")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.no_grad():
+        out = unet(x, 500, text, deep_mode=deep_mode, deep_feature=deep_feature)
+    torch.cuda.synchronize()
+    return launch_counts(), (out[1] if deep_mode == "capture" else None)
+
+
+def _drop_outputs(*runs) -> None:
+    for run in runs:
+        for key in ("latents", "x_t", "frames_u8"):
+            run.pop(key, None)
+
+
+def surface_path(args, frames) -> tuple:
+    """Phase 16 (path "surface"): the rest of Stage 2's surface through
+    ``main`` at SD-1.5 width, 512², 8 frames, ``--steps``: (a) "hybrid"
+    null-text under "auto" and "flash_rect" in float32; (b) persisted
+    inversion reuse on a float32 checkpoint directory; (c) ``--multi``;
+    (d) ``--quant_mode`` w8 and w8a8 beside off; (e) ``--reuse_schedule``
+    uniform:2 beside off. Returns (runs, records)."""
+    import os
+    import shutil
+    import tempfile
+
+    from videop2p_tpu_torch.cli.common import ModelBundle, build_models
+
+    steps, mp = args.steps, args.mixed_precision
+    runs, records = {}, {}
+    # a. hybrid null-text, each kernel in turn
+    print(f"surface: hybrid null-text ({HYBRID_INNER_STEPS} Adam steps an outer step, "
+          "fp32):", flush=True)
+    for impl in ("auto", "flash_rect"):
+        bundle = (None if impl == "auto" else
+                  build_models(dtype=torch.float32, device="cuda", seed=0,
+                               frame_attention=impl))
+        run = runs[f"surface_hybrid_{impl}"] = run_main_path(
+            frames, steps, "fp32", fast=False, null_text_mode="hybrid", bundle=bundle,
+            keep_outputs=True)
+        del bundle
+        if run["null_text"]["inner_steps"] != [HYBRID_INNER_STEPS] * steps:
+            raise AssertionError(f"hybrid inner steps {run['null_text']['inner_steps']}")
+        expect_launches(run, steps, impl, hybrid=True)
+    auto, rect = runs["surface_hybrid_auto"], runs["surface_hybrid_flash_rect"]
+    loss_d = max(abs(a - b) / max(abs(b), OFFICIAL_LOSS_FLOOR) for a, b in zip(
+        rect["null_text"]["final_loss"], auto["null_text"]["final_loss"]))
+    lat_d = (rect["latents"] - auto["latents"]).abs().max().item()
+    records["surface_hybrid"] = {"final_loss_rel_diff": loss_d, "latents_max_abs_diff": lat_d}
+    print(f"  flash_rect against auto: final losses max rel |d| {loss_d:.4e}; edited "
+          f"latents max|d| {lat_d:.4e} (not gated: phase 12 holds the gradient)",
+          flush=True)
+    _drop_outputs(auto, rect)
+
+    # b. persisted reuse, from a checkpoint directory (reuse is off for an
+    # in-memory bundle)
+    print(f"surface: persisted inversion reuse (official, {REUSE_INNER_STEPS} inner "
+          "steps, a float32 checkpoint directory):", flush=True)
+    os.makedirs("outputs", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_surface_", dir="outputs")
+    try:
+        seeded = build_models(dtype=torch.float32, device="cuda", seed=0)
+        base = os.path.join(tmp, "rabbit-jump")
+        write_checkpoint(base, ModelBundle(unet=seeded.unet, vae=seeded.vae,
+                                           text_encoder=seeded.text_encoder,
+                                           scheduler_config=dict(SD_SCHEDULER_CONFIG)))
+        del seeded
+        torch.cuda.empty_cache()
+        kw = dict(fast=False, num_inner_steps=REUSE_INNER_STEPS, pretrained_model_path=base,
+                  reuse_inversion=True, keep_outputs=True)
+        first = runs["surface_reuse_first"] = run_main_path(frames, steps, "fp32", **kw)
+        expect_launches(first, steps, "auto")
+        repeat = runs["surface_reuse_repeat"] = run_main_path(frames, steps, "fp32", **kw)
+        expect_launches(repeat, steps, "auto", edit_only=True)
+        skipped = {"ddim_inversion", "null_text_optimization"} & set(repeat["timings"])
+        same = (torch.equal(repeat["frames_u8"], first["frames_u8"])
+                and torch.equal(repeat["latents"], first["latents"]))
+        print(f"  repeat: reused {repeat['reused']}, phases {list(repeat['timings'])}, "
+              f"frames bit for bit the first run's: {same}", flush=True)
+        if repeat["reused"] != {"trajectory": True, "null_text": True} or skipped:
+            raise AssertionError(f"the repeat run did not reuse both products: "
+                                 f"{repeat['reused']}, ran {skipped}")
+        if not same:
+            raise AssertionError("the repeat run's output differs from the first run's")
+        store = os.path.join(tmp, "store")
+        cached = runs["surface_reuse_cached"] = run_main_path(
+            frames, steps, "fp32", pretrained_model_path=base, reuse_inversion=True,
+            inv_store=store, keep_outputs=True)
+        expect_launches(cached, steps, "auto")
+        after = runs["surface_reuse_after_cached"] = run_main_path(
+            frames, steps, "fp32", inv_store=store, **kw)
+        inner = sum(after["null_text"]["inner_steps"]) if after["null_text"] else 0
+        print(f"  official after a cached run: reused {after['reused']}, phases "
+              f"{list(after['timings'])}, launches {after['launches']}", flush=True)
+        if (after["reused"] != {"trajectory": True, "null_text": False}
+                or "ddim_inversion" in after["timings"]
+                or "null_text_optimization" not in after["timings"]
+                or not torch.equal(after["x_t"], cached["x_t"])):
+            raise AssertionError("the official run did not take the cached run's trajectory")
+        # inversion skipped: the null-text phase and the edit's forwards
+        want_gn = GN_SITES * (steps + 2 * steps + inner)
+        if after["launches"]["group_norm"] != want_gn:
+            raise AssertionError(f"GroupNorm launches {after['launches']['group_norm']}, "
+                                 f"expected {want_gn}")
+        fresh = runs["surface_reuse_off"] = run_main_path(
+            frames, steps, "fp32", **dict(kw, reuse_inversion=False))
+        expect_launches(fresh, steps, "auto")
+        recomputed = {"ddim_inversion", "null_text_optimization"} <= set(fresh["timings"])
+        d = (fresh["latents"] - first["latents"]).abs().max().item()
+        print(f"  --no_reuse_inversion: reused {fresh['reused']}, both phases run: "
+              f"{recomputed}; against the first run max|d| {d!r}", flush=True)
+        if fresh["reused"] != {"trajectory": False, "null_text": False} or not recomputed:
+            raise AssertionError("--no_reuse_inversion did not recompute")
+        records["surface_reuse"] = {
+            "walls_s": {k: runs[f"surface_reuse_{k}"]["wall_s"]
+                        for k in ("first", "repeat", "cached", "after_cached", "off")},
+            "repeat_bit_identical": same, "off_max_abs_diff_vs_first": d}
+        _drop_outputs(first, repeat, cached, after, fresh)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # c. per-frame conditioning
+    print("surface: --multi (cached fast edit):", flush=True)
+    runs["surface_multi"] = run_main_path(frames, steps, mp, multi=True)
+    if runs["surface_multi"]["mode"] != "cached":
+        raise AssertionError("the multi edit did not take the cached source")
+    expect_launches(runs["surface_multi"], steps, "auto")
+
+    # d. weight quantization beside off
+    print("surface: --quant_mode (cached fast edits):", flush=True)
+    quant = {}
+    for mode in ("off", "w8", "w8a8"):
+        run = runs[f"surface_quant_{mode}"] = run_main_path(frames, steps, mp,
+                                                            quant_mode=mode)
+        expect_launches(run, steps, "auto")
+        quant[mode] = {"unet_bytes": run["unet_bytes"], "peak_gib": run["peak_gib"],
+                       "wall_s": run["wall_s"]}
+        if mode != "off":
+            quant[mode]["max_abs_diff_vs_off"] = (
+                run["latents"] - runs["surface_quant_off"]["latents"]).abs().max().item()
+        print(f"  {mode}: UNet weights on the card {run['unet_bytes'] / 1e9:.3f} GB "
+              f"({run['unet_bytes'] / runs['surface_quant_off']['unet_bytes']:.3f} of off), "
+              f"peak {run['peak_gib']:.2f} GiB, wall {run['wall_s']:.2f} s"
+              + (f", edited latents against off max|d| {quant[mode]['max_abs_diff_vs_off']:.4e}"
+                 if mode != "off" else ""), flush=True)
+    records["surface_quant"] = quant
+    _drop_outputs(*(runs[f"surface_quant_{m}"] for m in ("off", "w8", "w8a8")))
+
+    # e. deep-feature reuse beside off, one full and one shallow step first
+    print(f"surface: --reuse_schedule {REUSE_SCHEDULE} (cached fast edit):", flush=True)
+    bundle = build_models(dtype={"fp32": torch.float32, "bf16": torch.bfloat16}[mp],
+                          device="cuda", seed=0)
+    full_step, deep = _step_launches(bundle.unet, "capture")
+    shallow_step, _ = _step_launches(bundle.unet, "shallow", deep)
+    del bundle, deep
+    torch.cuda.empty_cache()
+    print(f"  one full step: {full_step}; one shallow step: {shallow_step}", flush=True)
+    if (full_step["frame_attention"], full_step["group_norm"]) != (ATTN_SITES, GN_SITES) or (
+            shallow_step["frame_attention"], shallow_step["group_norm"]) != (
+            SHALLOW_ATTN_SITES, SHALLOW_GN_SITES):
+        raise AssertionError("a full or shallow step's launches are off their sites")
+    off = runs["surface_reuse_schedule_off"] = run_main_path(frames, steps, mp)
+    sched = runs["surface_reuse_schedule"] = run_main_path(frames, steps, mp,
+                                                           reuse_schedule=REUSE_SCHEDULE)
+    from videop2p_tpu_torch.pipelines.reuse import parse_reuse_schedule
+
+    full = sum(parse_reuse_schedule(REUSE_SCHEDULE, steps))
+    want = {k: steps * full_step[k] + full * full_step[k] + (steps - full) * shallow_step[k]
+            for k in full_step}
+    if sched["launches"] != want:
+        raise AssertionError(f"reuse-schedule launches {sched['launches']}, expected {want}")
+    d = (sched["latents"] - off["latents"]).abs().max().item()
+    records["surface_reuse_schedule"] = {
+        "full_step_launches": full_step, "shallow_step_launches": shallow_step,
+        "wall_s": sched["wall_s"], "off_wall_s": off["wall_s"],
+        "edit_s": sched["timings"]["cached_invert_edit"],
+        "off_edit_s": off["timings"]["cached_invert_edit"], "max_abs_diff_vs_off": d}
+    print(f"  {full} full + {steps - full} shallow edit steps: wall {sched['wall_s']:.2f} s "
+          f"(off {off['wall_s']:.2f} s), cached_invert_edit "
+          f"{sched['timings']['cached_invert_edit']:.3f} s (off "
+          f"{off['timings']['cached_invert_edit']:.3f} s); edited latents against off "
+          f"max|d| {d:.4e}", flush=True)
+    _drop_outputs(off, sched, runs["surface_multi"])
+    torch.cuda.empty_cache()
+    return runs, records
 
 
 class _GradRecorder:
@@ -2269,6 +2527,10 @@ def main() -> int:
         tune_runs, tune_records = tune_path(args, frames)
         runs.update(tune_runs)
         records.update(tune_records)
+    if "surface" in args.paths:
+        surface_runs, surface_records = surface_path(args, frames)
+        runs.update(surface_runs)
+        records.update(surface_records)
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
@@ -2290,7 +2552,7 @@ def main() -> int:
                 "library_ms": rec["library_ms"],
                 "ratio": rec["ratio"], "shape": rec["shape"], "dtype": rec["dtype"]}
 
-    def bwd_entry(key, grads, replaces):
+    def bwd_entry(key, grads, replaces, run):
         """A flash backward kernel's line: its check at null-text's largest
         shape through flash_rect (its plain version and library call compute
         all three gradients: the library call is SDPA's backward alone, and
@@ -2302,7 +2564,10 @@ def main() -> int:
         return {"name": f"flash_attention_bwd_{key}", "route": "cuda",
                 "source": "videop2p_tpu_torch/ops/csrc/flash_attention_bwd.cu",
                 "replaces": replaces,
-                "launches": runs["official_flash_rect"]["launches"][f"flash_bwd_{key}"],
+                "launches": runs[run]["launches"][f"flash_bwd_{key}"],
+                "launches_by_path": {
+                    path: r["launches"][f"flash_bwd_{key}"] for path, r in runs.items()
+                    if r.get("launches", {}).get(f"flash_bwd_{key}")},
                 "max_abs_err": max(rec["max_abs_err"][g] for g in grads),
                 "ms": rec["ms"][key], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"][key], "bound_by": rec["bound_by"],
@@ -2315,10 +2580,12 @@ def main() -> int:
     # edit where it ran, else official mode, else the dependent or the
     # checkpoint path's cached edit; GroupNorm's, when only Stage 1 ran, from
     # the tuning run (which runs no frame-attention kernel)
-    auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint")
-                 if r in runs), None)
-    rect = ("flash_rect" if "flash_rect" in runs else
-            "official_flash_rect" if "official_flash_rect" in runs else None)
+    auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint",
+                             "surface_multi") if r in runs), None)
+    rect = next((r for r in ("flash_rect", "official_flash_rect",
+                             "surface_hybrid_flash_rect") if r in runs), None)
+    rect_bwd = next((r for r in ("official_flash_rect", "surface_hybrid_flash_rect")
+                     if r in runs), None)
     full = ("flash" if "flash" in runs else
             "official_flash" if "official_flash" in runs else None)
     kernels = []
@@ -2342,11 +2609,12 @@ def main() -> int:
         kernels.append(entry("flash_frame_attention", "flash_attention", big_attn, full,
                              "flash_attention", "videop2p_tpu_torch/ops/csrc/flash_attention.cu",
                              "videop2p_tpu/ops/attention.py:81"))
-    if "official_flash_rect" in runs:
+    if rect_bwd:
         kernels += [
             bwd_entry("dkv", ("dk", "dv"),
-                      "jax/experimental/pallas/ops/tpu/flash_attention.py:941"),
-            bwd_entry("dq", ("dq",), "jax/experimental/pallas/ops/tpu/flash_attention.py:1287")]
+                      "jax/experimental/pallas/ops/tpu/flash_attention.py:941", rect_bwd),
+            bwd_entry("dq", ("dq",), "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+                      rect_bwd)]
     if args.out:
         import os
 

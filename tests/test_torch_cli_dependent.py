@@ -125,7 +125,8 @@ def test_cli_module_runs_the_dependent_flags(tmp_path):
     argv = [sys.executable, "-m", "videop2p_tpu_torch.cli.run_videop2p", "--config",
             str(cfg), "--fast", "--live_source", "--tiny", "--device", "cpu", "--steps", "2",
             "--dependent", "--dependent_p2p", "--decay_rate", "0.3", "--window_size", "4",
-            "--ar_sample", "--ar_coeff", "0.1", "--dependent_weights", "0.2", "--eta", "0.1"]
+            "--ar_sample", "--ar_coeff", "0.1", "--dependent_weights", "0.2", "--eta", "0.1",
+            "--no_reuse_inversion"]
     res = subprocess.run(argv, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr

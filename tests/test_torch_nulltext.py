@@ -152,8 +152,11 @@ def test_null_text_refuses_what_is_not_ported(setup):
 
     s = setup
     args = (s["pfn"], s["psched"], t(s["traj"]), t(s["cond"]), t(s["uncond"]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        null_text_optimization(*args, num_inference_steps=STEPS, null_text_mode="hybrid")
+    with pytest.raises(ValueError, match="null_text_mode"):
+        null_text_optimization(*args, num_inference_steps=STEPS, null_text_mode="joint")
+    with pytest.raises(ValueError, match="hybrid_inner_steps"):
+        null_text_optimization(*args, num_inference_steps=STEPS, null_text_mode="hybrid",
+                               hybrid_inner_steps=0)
     with pytest.raises(ValueError, match="null_text_precision"):
         null_text_optimization(*args, num_inference_steps=STEPS, null_text_precision="bf16")
 

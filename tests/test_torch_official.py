@@ -188,7 +188,8 @@ def test_official_edit_mixed_runs_the_null_text_on_a_bf16_clone(setup):
 
 def test_cli_runs_official_mode():
     """``main(fast=False)`` runs inversion → null-text → full-CFG edit →
-    decode and reports the null-text record; "hybrid" raises."""
+    decode and reports the null-text record; "hybrid" takes 3 inner steps
+    an outer step."""
     from videop2p_tpu_torch.cli.run_videop2p import main
 
     from tests.test_torch_slice import RABBIT
@@ -206,8 +207,9 @@ def test_cli_runs_official_mode():
     assert out["videos"].shape == (2, 2, 16, 16, 3) and torch.isfinite(out["videos"]).all()
     amortized = main(**kw, null_text_mode="amortized")
     assert amortized["null_text"]["inner_steps"].tolist() == [0, 0]
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        main(**kw, null_text_mode="hybrid")
+    hybrid = main(**kw, null_text_mode="hybrid")
+    assert hybrid["null_text"]["inner_steps"].tolist() == [3, 3]
+    assert torch.isfinite(hybrid["videos"]).all()
 
 
 def test_cli_eta_is_seeded_and_fast_mode_takes_the_live_source():

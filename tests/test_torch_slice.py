@@ -35,6 +35,8 @@ RABBIT = dict(
     # wide enough that 2 steps keep the cross edit active
     cross_replace_steps=0.8,
     self_replace_steps=0.5,
+    # every run a fresh one: no inversion persisted between the tests' runs
+    reuse_inversion=False,
 )
 STEPS = 2
 
@@ -133,15 +135,15 @@ def test_port_imports_nothing_of_jax():
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """Official mode's "hybrid" null-text mode raises; a checkpoint
+    """A device mesh (``--mesh``, multi-GPU) raises; a checkpoint
     directory that does not load (a ``unet/`` without its config) raises
     too: random weights must not silently replace it."""
     from videop2p_tpu_torch.cli.run_videop2p import main
 
     kw = dict(RABBIT, device="cpu", tiny=True, video_len=2, num_ddim_steps=2,
               frames=np.zeros((2, 16, 16, 3), np.uint8), save_gifs=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        main(**kw, fast=False, null_text_mode="hybrid")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        main(**kw, fast=False, mesh="1,2,1")
     (tmp_path / "unet").mkdir()
     kw["pretrained_model_path"] = str(tmp_path)
     with pytest.raises(FileNotFoundError, match="config.json"):

@@ -38,8 +38,20 @@ def _jax_mask_as_port(params, patterns=None):
     return {k: bool(v.reshape(-1)[0]) for k, v in unet_state_dict_from_jax(marked).items()}
 
 
-@pytest.mark.parametrize("patterns", [None, ("attn2.to_q",), ("attn_temp", "ff")],
-                         ids=["default", "cross_q", "temporal_ff"])
+# the patterns where a torch-name suffix rule and JAX's token rule disagree
+# (ROADMAP Queue 3 fault 6), with JAX's count of trainable tensors on the
+# tiny UNet
+TOKEN_RULE_PATTERNS = {
+    "1.to_q": 0, "q": 0, "to_out.0": 0, "attentions.0": 0,
+    "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q": 0,
+    "norm": 8, "proj_in": 8,
+}
+
+
+@pytest.mark.parametrize(
+    "patterns", [None, ("attn2.to_q",), ("attn_temp", "ff")]
+    + [(p,) for p in TOKEN_RULE_PATTERNS],
+    ids=["default", "cross_q", "temporal_ff"] + list(TOKEN_RULE_PATTERNS))
 def test_trainable_set_maps_one_to_one_onto_jax(patterns):
     from videop2p_tpu.models import UNet3DConditionModel, UNet3DConfig
 
@@ -55,7 +67,10 @@ def test_trainable_set_maps_one_to_one_onto_jax(patterns):
         pmodel = PortUNet(PortConfig.tiny())
     got = trainable_mask(pmodel) if patterns is None else trainable_mask(pmodel, patterns)
     assert got == want
-    assert 0 < sum(got.values()) < len(got)
+    if patterns is not None and patterns[0] in TOKEN_RULE_PATTERNS:
+        assert sum(got.values()) == TOKEN_RULE_PATTERNS[patterns[0]]
+    else:
+        assert 0 < sum(got.values()) < len(got)
     trainable, frozen = partition_params(pmodel, *(() if patterns is None else (patterns,)))
     assert sorted(trainable) == sorted(k for k, m in got.items() if m)
     assert all(p.requires_grad for p in trainable.values())

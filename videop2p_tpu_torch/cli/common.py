@@ -26,7 +26,7 @@ from videop2p_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from videop2p_tpu_torch.utils.tokenizers import WordTokenizer, load_tokenizer
 
 __all__ = ["ModelBundle", "build_models", "encode_prompts", "add_dependent_args",
-           "dependent_suffix", "resolve_pipeline_dir", "load_config"]
+           "add_unported_args", "dependent_suffix", "resolve_pipeline_dir", "load_config"]
 
 
 def load_config(path: str) -> Dict[str, Any]:
@@ -50,6 +50,32 @@ def add_dependent_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--num_frames", default=60, type=int)
     parser.add_argument("--eta", default=0.0, type=float)
     parser.add_argument("--dependent_weights", default=0.0, type=float)
+
+
+# the JAX CLIs' observability flags (``add_obs_args``), not ported yet
+OBS_FLAGS = ("--telemetry", "--ledger", "--no_program_analysis", "--device_telemetry",
+             "--latency", "--trace_analysis", "--attn_maps", "--quality", "--report",
+             "--incidents")
+
+
+class _NotPorted(argparse.Action):
+    """A JAX CLI flag the port does not take yet: using it is an error
+    naming the ROADMAP item that ports it."""
+
+    def __init__(self, option_strings, dest, item: str = "", **kwargs):
+        self.item = item
+        super().__init__(option_strings, dest, nargs="?", **kwargs)
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} is not ported (ROADMAP Queue 1 item {self.item})")
+
+
+def add_unported_args(parser: argparse.ArgumentParser) -> None:
+    """The JAX CLIs' observability flags, each refused with the ROADMAP item
+    (14) that ports it."""
+    for flag in OBS_FLAGS:
+        parser.add_argument(flag, action=_NotPorted, item="14",
+                            help="observability: not ported (ROADMAP Queue 1 item 14)")
 
 
 def dependent_suffix(*, dependent: bool, decay_rate: float, window_size: int,

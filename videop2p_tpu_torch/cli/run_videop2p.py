@@ -28,6 +28,15 @@ every UNet prediction of the inversion and of null-text optimization is
 blended with frame-correlated noise (``core/noise.py``), and with ``--eta``
 > 0 the edit's step noise is drawn from the same sampler.
 
+The rest of the JAX CLI's Stage-2 surface: ``--null_text_mode hybrid``;
+``--multi`` (per-frame conditioning); persisted inversion reuse, on by
+default (``--no_reuse_inversion``, ``--inv_store``): a repeat run of the
+same clip skips the inversion and, in official mode, null-text
+optimization; ``--quant_mode w8|w8a8`` (int8 UNet weights, ``--fast``
+only); ``--reuse_schedule uniform:K|custom:<p0,...>`` (deep-feature reuse
+in the cached fast edit). ``--mesh`` (item 13) and the observability flags
+(item 14) raise, naming their ROADMAP item.
+
 The checkpoint is ``pretrained_model_path`` with the Stage-1 suffix of the
 dependent settings appended (``cli/common.py:resolve_pipeline_dir``): a
 diffusers-layout directory loads (``models/pipeline_io.py``), its scheduler
@@ -38,7 +47,9 @@ at SD-1.5 width (seeded), with a warning. The GIFs go to
 Run:  python -m videop2p_tpu_torch.cli.run_videop2p \\
           --config configs/rabbit-jump-p2p.yaml [--fast [--live_source]] \\
           [--dependent --dependent_p2p --decay_rate 0.3 --window_size 4 \\
-           --ar_sample --ar_coeff 0.1 --dependent_weights 0.2] [--eta 0.1]
+           --ar_sample --ar_coeff 0.1 --dependent_weights 0.2] [--eta 0.1] \\
+          [--null_text_mode hybrid] [--multi] [--no_reuse_inversion] \\
+          [--inv_store DIR] [--quant_mode w8] [--reuse_schedule uniform:2]
 
 The run is on CUDA unless ``--device cpu`` is given.
 """
@@ -47,6 +58,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import dataclasses
+import hashlib
 import os
 import time
 from typing import Any, Dict, Optional, Sequence
@@ -57,12 +71,15 @@ import torch
 from videop2p_tpu_torch.cli.common import (
     ModelBundle,
     add_dependent_args,
+    add_unported_args,
     build_models,
     encode_prompts,
     load_config,
     resolve_pipeline_dir,
 )
 from videop2p_tpu_torch.control.controllers import make_controller
+from videop2p_tpu_torch.models.convert import quantize_unet_params
+from videop2p_tpu_torch.models.quant import QUANT_MODES, validate_quant_mode
 from videop2p_tpu_torch.core.noise import DependentNoiseSampler
 from videop2p_tpu_torch.data.dataset import load_frame_sequence
 from videop2p_tpu_torch.models.vae import decode_video, encode_video
@@ -74,15 +91,25 @@ from videop2p_tpu_torch.pipelines.fast import (
     choose_cached_maps,
 )
 from videop2p_tpu_torch.pipelines.inversion import (
+    NULL_TEXT_MODES,
     NULL_TEXT_PRECISIONS,
     check_null_text_options,
     ddim_inversion,
 )
-from videop2p_tpu_torch.pipelines.sampling import edit_sample, make_unet_fn, official_edit
+from videop2p_tpu_torch.pipelines.reuse import validate_reuse_schedule
+from videop2p_tpu_torch.pipelines.sampling import (
+    edit_sample,
+    make_unet_fn,
+    official_edit,
+    official_null_text,
+)
+from videop2p_tpu_torch.serve.store import load_persisted_inversion, save_persisted_inversion
+from videop2p_tpu_torch.utils.inv_cache import content_fingerprint, inversion_cache_key
 from videop2p_tpu_torch.utils.video_io import save_video_gif
 
 __all__ = ["ModelBundle", "build_models", "encode_prompts", "main",
-           "NUM_DDIM_STEPS", "GUIDANCE_SCALE", "MASK_TH"]
+           "inversion_determinants", "null_text_tag", "NUM_DDIM_STEPS",
+           "GUIDANCE_SCALE", "MASK_TH"]
 
 NUM_DDIM_STEPS = 50
 GUIDANCE_SCALE = 7.5
@@ -105,6 +132,42 @@ def _phase(name: str, timings: Dict[str, float], device: torch.device,
         torch.cuda.synchronize(device)
         peaks[name] = torch.cuda.max_memory_allocated(device) / 2 ** 30
     timings[name] = time.perf_counter() - t0
+
+
+def _frames_fingerprint(frames) -> str:
+    """A content digest of in-memory frames: the clip's identity in the
+    inversion key when no path names it."""
+    arr = np.ascontiguousarray(np.asarray(frames))
+    h = hashlib.sha256(f"{arr.shape}{arr.dtype}".encode())
+    h.update(arr.tobytes())
+    return "frames:" + h.hexdigest()[:16]
+
+
+def inversion_determinants(*, image_path: str, prompt: str, steps: int, width: int,
+                           video_len: int, dependent_p2p: bool, dependent_weights: float,
+                           decay_rate: float, window_size: int, ar_sample: bool,
+                           ar_coeff: float, seed: int, checkpoint_dir: str, tiny: bool,
+                           mixed_precision: str, frames=None) -> Dict[str, Any]:
+    """Everything that determines the inversion products: the JAX CLI's
+    determinants (``run_videop2p.py:506-520``), the checkpoint and the clip
+    by content, and ``impl="torch"``, so that a port run and a JAX run of
+    the same clip never replay each other's floats. In-memory ``frames``
+    are fingerprinted by their bytes."""
+    return dict(
+        image_path=os.path.abspath(image_path), prompt=prompt, steps=steps, width=width,
+        video_len=video_len, dependent_p2p=dependent_p2p, dependent_weights=dependent_weights,
+        decay_rate=decay_rate, window_size=window_size, ar_sample=ar_sample,
+        ar_coeff=ar_coeff, seed=seed, checkpoint=content_fingerprint(checkpoint_dir),
+        clip=(content_fingerprint(image_path) if frames is None
+              else _frames_fingerprint(frames)),
+        tiny=tiny, guidance=GUIDANCE_SCALE, mixed_precision=mixed_precision, impl="torch")
+
+
+def null_text_tag(num_inner_steps: int, null_text_precision: str, null_text_mode: str) -> str:
+    """The persisted null embeddings' name suffix: inner steps, precision
+    and mode each give their own entry (JAX's ``run_videop2p.py:579-581``)."""
+    return (f"_i{num_inner_steps}" + ("_mixed" if null_text_precision == "mixed" else "")
+            + ("" if null_text_mode == "optimize" else f"_{null_text_mode}"))
 
 
 def main(
@@ -142,6 +205,12 @@ def main(
     ar_sample: bool = False,
     ar_coeff: float = 0.1,
     dependent_weights: float = 0.0,
+    multi: bool = False,
+    quant_mode: str = "off",
+    reuse_schedule: str = "off",
+    reuse_inversion: bool = True,
+    inv_store: Optional[str] = None,
+    mesh: Optional[str] = None,
     **unused,
 ) -> Dict[str, Any]:
     """Run the edit: official mode unless ``fast``; with ``fast`` the
@@ -151,9 +220,31 @@ def main(
     already be on ``device``; its scheduler config sets the scheduler).
     ``num_inner_steps``, ``null_text_precision`` ("fp32" or "mixed": the
     null-text forwards and backward on a bf16 clone of the UNet) and
-    ``null_text_mode`` ("optimize" or "amortized") set official mode's
-    null-text optimization. ``eta`` > 0 makes the edit's DDIM steps
-    stochastic (in fast mode it takes the live-source edit).
+    ``null_text_mode`` ("optimize", "amortized", or "hybrid": 3 Adam steps
+    an outer step against the recorded trajectory) set official mode's
+    null-text optimization.
+    ``eta`` > 0 makes the edit's DDIM steps stochastic (in fast mode it
+    takes the live-source edit).
+
+    ``multi``: per-frame conditioning, each prompt's embedding repeated over
+    the frames. ``quant_mode`` ("off", "w8", "w8a8"; ``--fast`` only: official
+    mode differentiates through full-precision weights) quantizes the UNet
+    at load (``models/convert.py:quantize_unet_params``; a given ``bundle``'s
+    UNet is copied first). ``reuse_schedule`` ("off", "uniform:K",
+    "custom:<p0,...>") reuses the deep feature across the cached edit's
+    steps (``pipelines/reuse.py``); it needs the cached fast path (``--fast``,
+    η = 0, no ``live_source``), and the maps-budget fallback turns it off.
+
+    ``reuse_inversion`` (JAX's default True): the trajectory, and in
+    official mode the null-text embeddings, persist under
+    ``<results>/inv_cache/<key>`` (or under ``inv_store``, a root shared
+    across results directories), keyed by
+    :func:`inversion_determinants`; a repeat run of the same clip reuses
+    them and skips the inversion and the null-text phase. As in JAX, the
+    store is consulted only once the cached-maps decision is final and
+    never on the cached fast path, which still saves its trajectory. It is
+    off when ``bundle`` is given: a path no longer names the weights.
+    ``mesh`` (multi-GPU) raises: ROADMAP Queue 1 item 13.
 
     The dependent noise, as the JAX CLI: a sampler over the clip's
     ``video_len`` frames in windows of ``min(window_size, video_len)``
@@ -170,14 +261,32 @@ def main(
     inversion's ``x_0`` and ``x_t``, the decoded videos (2, F, H, W, 3) in
     [0, 1], the mode run (``"official"``, ``"cached"`` or ``"live"``), the
     cached-maps decision, the null-text record (official mode:
-    ``final_loss`` and ``inner_steps`` per outer step, else None), the phase
-    times in seconds, each phase's peak memory on the card, the checkpoint
-    directory, the results directory and the GIF paths written."""
+    ``final_loss`` and ``inner_steps`` per outer step, else None, and None
+    when the embeddings were reused), which persisted products were reused
+    (``{"trajectory", "null_text"}``) and the key, the phase times in
+    seconds, each phase's peak memory on the card, the UNet's weight bytes,
+    the checkpoint directory, the results directory and the GIF paths
+    written."""
     del unused, num_frames
+    if mesh is not None:
+        raise NotImplementedError(
+            f"mesh {mesh!r}: multi-GPU editing is not ported (ROADMAP Queue 1 item 13)")
     if mixed_precision not in _DTYPES:
         raise ValueError(f"mixed_precision must be one of {sorted(_DTYPES)}")
     if not fast:
         check_null_text_options(null_text_precision, null_text_mode)
+    reuse_schedule = validate_reuse_schedule(reuse_schedule, num_ddim_steps)
+    if reuse_schedule != "off" and not (fast and not live_source and eta == 0):
+        raise ValueError(
+            "reuse_schedule is a cached-fast-path knob: it needs --fast with "
+            "eta=0 and the cached source (the deep-feature cache rides the "
+            "cached edit)")
+    quant_mode = validate_quant_mode(quant_mode)
+    if quant_mode != "off" and not fast:
+        raise ValueError(
+            "quant_mode is an INFERENCE knob: full mode differentiates "
+            "through the UNet (null-text optimization) and must see the "
+            "full-precision weights — run it with --fast")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
@@ -209,16 +318,38 @@ def main(
     timings: Dict[str, float] = {}
     peaks: Dict[str, float] = {}
 
+    # a given bundle is not named by any path: nothing is persisted for it
+    reuse_inversion = reuse_inversion and bundle is None
+    if reuse_inversion:
+        # before the key, as the JAX CLI: the checkpoint's fingerprint then
+        # reads the same on the first run as on a repeat
+        os.makedirs(output_dir, exist_ok=True)
     if bundle is None:
         with _phase("build_models", timings, device, peaks):
             bundle = build_models(pretrained_model_path, tiny=tiny, dtype=dtype,
                                   device=device, seed=seed)
+            if quant_mode != "off":
+                quantize_unet_params(bundle.unet, quant_mode)
+    elif quant_mode != "off":
+        bundle = dataclasses.replace(
+            bundle, unet=quantize_unet_params(copy.deepcopy(bundle.unet), quant_mode))
     unet_fn = make_unet_fn(bundle.unet)
     sched = bundle.make_scheduler()
+    inv_key = inversion_cache_key(**inversion_determinants(
+        image_path=image_path, prompt=prompt, steps=num_ddim_steps, width=width,
+        video_len=video_len, dependent_p2p=dependent_p2p, dependent_weights=dep_w,
+        decay_rate=decay_rate, window_size=window_size, ar_sample=ar_sample,
+        ar_coeff=ar_coeff, seed=seed, checkpoint_dir=pretrained_model_path, tiny=tiny,
+        mixed_precision=mixed_precision, frames=frames))
     if frames is None:
         frames = load_frame_sequence(image_path, size=width, num_frames=video_len)
     video = torch.as_tensor(np.asarray(frames), dtype=torch.float32,
                             device=device)[None] / 127.5 - 1.0
+    # the disk layer's root: a shared --inv_store amortizes one inversion
+    # across output directories (the keys are content-addressed)
+    store_root = inv_store or output_dir
+    meta = {"image_path": image_path, "prompt": prompt, "steps": num_ddim_steps,
+            "width": width, "video_len": video_len, "fast": fast}
 
     with torch.no_grad():
         with _phase("vae_encode", timings, device, peaks):
@@ -227,6 +358,9 @@ def main(
             cond_src = encode_prompts(bundle, [prompt], device)
             cond_all = encode_prompts(bundle, list(prompts), device)
             uncond = encode_prompts(bundle, [""], device)[0]
+        if multi:
+            # per-frame conditioning: each prompt's embedding over the frames
+            cond_all = cond_all[:, None].repeat(1, video_len, 1, 1)
         blend_words = ((blend_word[0],), (blend_word[1],)) if blend_word else None
         ctx = make_controller(
             list(prompts), bundle.tokenizer, num_ddim_steps,
@@ -265,6 +399,18 @@ def main(
                 print(f"[p2p] cached-source maps need {map_gb:.1f} GiB even with "
                       f"1-byte temporal maps (> budget {budget_gb:.1f} "
                       "GiB) — falling back to the live source stream")
+                if reuse_schedule != "off":
+                    print("[p2p] reuse_schedule disabled with it — the deep-"
+                          "feature cache rides the cached edit")
+                    reuse_schedule = "off"
+        # consulted only once the cached-maps decision is final, and never on
+        # the cached path (its captured maps are not persisted: a repeat run
+        # must take the same path to give the same output)
+        null_tag = null_text_tag(num_inner_steps, null_text_precision, null_text_mode)
+        reused = (load_persisted_inversion(store_root, inv_key, want_null=not fast,
+                                           null_tag=null_tag)
+                  if reuse_inversion and mode != "cached" else None)
+        null_embeddings = None
         if mode == "cached":
             with _phase("cached_invert_edit", timings, device, peaks):
                 trajectory, edited = cached_fast_edit(
@@ -273,29 +419,54 @@ def main(
                     guidance_scale=GUIDANCE_SCALE, cross_len=cross_len,
                     self_window=self_window, temporal_maps_dtype=tm_dtype,
                     dependent_weight=dep_w, dependent_sampler=p2p_sampler,
-                    generator=gens["inversion"])
+                    generator=gens["inversion"], reuse_schedule=reuse_schedule)
+            if reuse_inversion:
+                save_persisted_inversion(store_root, inv_key, trajectory.cpu().numpy(),
+                                         meta=meta)
         else:
-            with _phase("ddim_inversion", timings, device, peaks):
-                trajectory = ddim_inversion(unet_fn, sched, latents, cond_src,
-                                            num_inference_steps=num_ddim_steps,
-                                            dependent_weight=dep_w,
-                                            dependent_sampler=p2p_sampler,
-                                            generator=gens["inversion"])
+            if reused is not None:
+                traj_np, null_np = reused
+                print(f"[p2p] reusing persisted inversion products (key {inv_key}) — "
+                      "skipping DDIM inversion"
+                      + (" and null-text optimization" if null_np is not None else ""))
+                trajectory = torch.as_tensor(traj_np, device=device)
+                if null_np is not None:
+                    null_embeddings = torch.as_tensor(null_np, device=device)
+            else:
+                with _phase("ddim_inversion", timings, device, peaks):
+                    trajectory = ddim_inversion(unet_fn, sched, latents, cond_src,
+                                                num_inference_steps=num_ddim_steps,
+                                                dependent_weight=dep_w,
+                                                dependent_sampler=p2p_sampler,
+                                                generator=gens["inversion"])
+                if reuse_inversion:
+                    save_persisted_inversion(store_root, inv_key,
+                                             trajectory.cpu().numpy(), meta=meta)
             if mode == "official":
-                edited, null_stats = official_edit(
+                phase = lambda name: _phase(name, timings, device, peaks)  # noqa: E731
+                if null_embeddings is None:
+                    null_embeddings, null_stats = official_null_text(
+                        unet_fn, sched, trajectory, cond_src, uncond, phase,
+                        num_inference_steps=num_ddim_steps,
+                        guidance_scale=GUIDANCE_SCALE, num_inner_steps=num_inner_steps,
+                        null_text_precision=null_text_precision,
+                        null_text_mode=null_text_mode,
+                        dependent_weight=dep_w, dependent_sampler=p2p_sampler,
+                        generator=gens["null_text"])
+                    print(f"[p2p] null-text ({null_text_mode}/{null_text_precision}): "
+                          f"{int(null_stats['inner_steps'].sum())} inner Adam steps "
+                          f"across {num_ddim_steps} outer steps, final loss "
+                          f"{float(null_stats['final_loss'][-1]):.3e}")
+                    if reuse_inversion:
+                        save_persisted_inversion(store_root, inv_key, None,
+                                                 null_embeddings.cpu().numpy(),
+                                                 null_tag=null_tag)
+                edited, _ = official_edit(
                     unet_fn, sched, trajectory, cond_all, uncond,
                     num_inference_steps=num_ddim_steps, guidance_scale=GUIDANCE_SCALE,
-                    ctx=ctx, num_inner_steps=num_inner_steps,
-                    null_text_precision=null_text_precision,
-                    null_text_mode=null_text_mode, eta=eta, generator=gens["edit"],
-                    dependent_weight=dep_w,
-                    dependent_sampler=p2p_sampler,
-                    null_text_generator=gens["null_text"], source_embedding=cond_src,
-                    phase=lambda name: _phase(name, timings, device, peaks))
-                print(f"[p2p] null-text ({null_text_mode}/{null_text_precision}): "
-                      f"{int(null_stats['inner_steps'].sum())} inner Adam steps across "
-                      f"{num_ddim_steps} outer steps, final loss "
-                      f"{float(null_stats['final_loss'][-1]):.3e}")
+                    ctx=ctx, eta=eta, generator=gens["edit"],
+                    dependent_sampler=p2p_sampler, phase=phase,
+                    null_embeddings=null_embeddings)
             else:
                 with _phase("edit_sample", timings, device, peaks):
                     edited = edit_sample(unet_fn, sched, trajectory[-1], cond_all, uncond,
@@ -312,8 +483,18 @@ def main(
     return {"latents": edited, "x_0": trajectory[0], "x_t": trajectory[-1],
             "videos": videos, "mode": mode, "cached_maps": decision,
             "null_text": null_stats, "timings": timings, "peak_gib": peaks,
+            "reused": {"trajectory": reused is not None,
+                       "null_text": reused is not None and reused[1] is not None},
+            "inv_key": inv_key, "unet_bytes": _module_bytes(bundle.unet),
             "checkpoint_dir": pretrained_model_path, "output_dir": output_dir,
             "gifs": gifs}
+
+
+def _module_bytes(module: torch.nn.Module) -> int:
+    """Bytes of a module's parameters and buffers (a quantized UNet's
+    1-byte weights and their scales included)."""
+    return sum(t.numel() * t.element_size()
+               for t in list(module.parameters()) + list(module.buffers()))
 
 
 def _write_gifs(videos: torch.Tensor, output_dir: str, save_name: str, fast: bool):
@@ -370,24 +551,54 @@ if __name__ == "__main__":
                              "forwards and backward; scheduler, Adam and loss in "
                              "fp32)")
     parser.add_argument("--null_text_mode", type=str, default=None,
-                        choices=["optimize", "amortized"],
+                        choices=list(NULL_TEXT_MODES),
                         help="official mode: optimize (default, the reference's "
-                             "inner Adam loop) or amortized (uncond := cond, one "
-                             "forward per outer step)")
+                             "inner Adam loop), amortized (uncond := cond, one "
+                             "forward per outer step) or hybrid (3 Adam steps per "
+                             "outer step from the cond embedding, against the "
+                             "recorded trajectory)")
+    parser.add_argument("--multi", action="store_true",
+                        help="per-frame text-embedding mode")
+    parser.add_argument("--no_reuse_inversion", action="store_true",
+                        help="do not persist/reuse inversion products "
+                             "(trajectory + null embeddings) across runs")
+    parser.add_argument("--inv_store", type=str, default=None,
+                        help="shared content-addressed root for persisted "
+                             "inversion products (serve/store.py's disk layer): "
+                             "sweeps reuse one inversion per clip across cells; "
+                             "default keeps the per-results-dir layout")
+    parser.add_argument("--quant_mode", type=str, default="off", choices=list(QUANT_MODES),
+                        help="UNet weight quantization at load (--fast only): w8 = "
+                             "int8 weights + per-output-channel scales, dequantized "
+                             "at use; w8a8 adds activation fake-quant at the "
+                             "attention Dense boundaries")
+    parser.add_argument("--reuse_schedule", type=str, default="off",
+                        help="cross-step deep-feature reuse in the cached fast edit "
+                             "('uniform:K' or 'custom:<p0,p1,...>'): listed steps "
+                             "run the full UNet, the rest the shallow path on the "
+                             "cached deep feature")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="device mesh dp,sp,tp: not ported (ROADMAP Queue 1 item 13)")
     # --dependent, --ar_sample, --decay_rate, --window_size, --ar_coeff,
     # --loss_sig, --num_frames, --eta (the edit's DDIM η, default 0; > 0
     # draws its noise from --seed) and --dependent_weights
     add_dependent_args(parser)
+    add_unported_args(parser)
     args = parser.parse_args()
     cfg = load_config(args.config)
     for key in ("mixed_precision", "num_inner_steps", "null_text_precision",
                 "null_text_mode"):
         if getattr(args, key) is not None:
             cfg[key] = getattr(args, key)
+    # flags win over config for the keys both surfaces expose
+    args.multi = args.multi or bool(cfg.pop("multi", False))
+    args.mesh = args.mesh or cfg.pop("mesh", None)
     main(**cfg, fast=args.fast, live_source=args.live_source, device=args.device,
          tiny=args.tiny, seed=args.seed, num_ddim_steps=args.steps,
          dependent=args.dependent, dependent_p2p=args.dependent_p2p,
          num_frames=args.num_frames, decay_rate=args.decay_rate,
          window_size=args.window_size, ar_sample=args.ar_sample,
          ar_coeff=args.ar_coeff, eta=args.eta,
-         dependent_weights=args.dependent_weights)
+         dependent_weights=args.dependent_weights, multi=args.multi, mesh=args.mesh,
+         quant_mode=args.quant_mode, reuse_schedule=args.reuse_schedule,
+         reuse_inversion=not args.no_reuse_inversion, inv_store=args.inv_store)

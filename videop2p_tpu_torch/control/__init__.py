@@ -5,6 +5,7 @@ from videop2p_tpu_torch.control.controllers import (
     control_attention,
     get_equalizer,
     make_controller,
+    make_spatial_replace_controller,
 )
 from videop2p_tpu_torch.control.local_blend import (
     LocalBlendConfig,
@@ -26,6 +27,7 @@ __all__ = [
     "control_attention",
     "get_equalizer",
     "make_controller",
+    "make_spatial_replace_controller",
     "LocalBlendConfig",
     "blend_mask",
     "local_blend",

@@ -9,7 +9,9 @@ streams are edited: cross-attention maps of the source stream are mapped into
 each edit stream (refine: per-token gather and alpha blend; replace: a soft
 77×77 permutation), optionally reweighted by an equalizer and gated by the
 per-step cross-replace alpha; temporal maps of the source stream replace the
-edit streams' inside the self-replace step window.
+edit streams' inside the self-replace step window. The SpatialReplace
+controller edits no map: it copies the source stream's latent into every
+edit stream after the scheduler step, for the first steps of the walk.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from videop2p_tpu_torch.control.schedules import (
 )
 from videop2p_tpu_torch.utils.tokenizers import MAX_NUM_WORDS, Tokenizer
 
-__all__ = ["ControlContext", "make_controller", "control_attention", "get_equalizer"]
+__all__ = ["ControlContext", "make_controller", "make_spatial_replace_controller",
+           "control_attention", "get_equalizer"]
 
 
 @dataclass
@@ -45,6 +48,9 @@ class ControlContext:
     kind: str = "refine"  # "replace" | "refine" | "empty"
     num_prompts: int = 2
     self_replace_range: Tuple[int, int] = (0, 0)
+    # SpatialReplace: the sampling loops copy the source stream's latent
+    # into every edit stream after each step i < this (0: off)
+    spatial_replace_until: int = 0
 
     @property
     def n_edits(self) -> int:
@@ -128,6 +134,19 @@ def make_controller(prompts: Sequence[str], tokenizer: Tokenizer, num_steps: int
         refine_alphas=refine_alphas, replace_mapper=replace_mapper,
         equalizer=equalizer, blend=blend, kind=kind, num_prompts=n_prompts,
         self_replace_range=srr)
+
+
+def make_spatial_replace_controller(stop_inject: float, num_steps: int, *,
+                                    num_prompts: int = 2, device=None) -> ControlContext:
+    """SpatialReplace (JAX: ``controllers.py:187-204``): no attention edit;
+    for the first ``int((1 − stop_inject)·num_steps)`` steps every edited
+    stream's latent is replaced with the source stream's after the
+    scheduler step."""
+    return ControlContext(
+        cross_replace_alpha=torch.zeros(
+            (num_steps + 1, max(num_prompts - 1, 1), 1, 1, MAX_NUM_WORDS), device=device),
+        kind="empty", num_prompts=num_prompts, self_replace_range=(0, 0),
+        spatial_replace_until=int((1.0 - stop_inject) * num_steps))
 
 
 def _edit_cross(base: torch.Tensor, repl: torch.Tensor, ctx: ControlContext,

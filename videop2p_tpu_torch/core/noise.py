@@ -20,7 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["toeplitz_cov", "ar_window_cov", "DependentNoiseSampler"]
+__all__ = ["toeplitz_cov", "ar_window_cov", "DependentNoiseSampler", "step_generator"]
 
 
 def toeplitz_cov(size: int, decay_rate: float) -> np.ndarray:
@@ -145,3 +145,11 @@ class DependentNoiseSampler:
         if x.device != self.device:
             raise ValueError(f"x on {x.device}, sampler on {self.device}")
         return self.sample(x.shape, generator, frame_axis=frame_axis, dtype=x.dtype)
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of step ``step`` of the run seeded ``seed`` (JAX's
+    ``fold_in(key, step)``): its seed mixes the two (numpy's SeedSequence),
+    so it depends on nothing else."""
+    mixed = np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(mixed))

@@ -18,6 +18,11 @@ its full per-head pre-edit probabilities, in bf16, into the nested dict
 collection). In cached-source mode a site reads the source stream's maps
 for this step from ``AttnControl.cached_base``.
 
+Each attention, feed-forward and transformer module has an
+``act_quant_fn`` seam (None; ``models/quant.py:set_act_quant``): the ``w8a8``
+quant mode's activation fake-quant at every Dense input, where JAX's
+``_aq`` applies it.
+
 Batch layout matches the JAX package so the control layer can factor the
 batch: frames fold batch-major ``(B, F, …) → (B·F, …)`` at the cross site,
 spatial positions fold batch-major ``(B·N, F, C)`` at the temporal site.
@@ -84,6 +89,12 @@ class AttnControl:
         return self.cached_base.get(path)
 
 
+def _aq(fn, x: torch.Tensor) -> torch.Tensor:
+    """The activation fake-quant seam (``w8a8``, ``models/quant.py``) on a
+    Dense input: ``x`` itself when no seam is set."""
+    return x if fn is None else fn(x)
+
+
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     """(B, N, H·D) → (B, H, N, D) view."""
     b, n, _ = x.shape
@@ -110,17 +121,19 @@ class FrameAttention(nn.Module):
         self.to_k = Linear(dim, inner, bias=False)
         self.to_v = Linear(dim, inner, bias=False)
         self.to_out = nn.ModuleList([Linear(inner, dim)])
+        self.act_quant_fn = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, f, n, _ = x.shape
         inner = self.heads * self.dim_head
+        x = _aq(self.act_quant_fn, x)
         q = self.to_q(x).reshape(b, f, n, self.heads, self.dim_head).transpose(2, 3)
         kv_src = x[:, 0]
         k = _split_heads(self.to_k(kv_src), self.heads)
         v = _split_heads(self.to_v(kv_src), self.heads)
         out = self.attention_fn(q, k, v)  # (B, F, H, N, D)
         out = out.transpose(2, 3).reshape(b, f, n, inner)
-        return self.to_out[0](out)
+        return self.to_out[0](_aq(self.act_quant_fn, out))
 
 
 class ControlledAttention(nn.Module):
@@ -141,12 +154,14 @@ class ControlledAttention(nn.Module):
         self.to_k = Linear(ctx_dim, inner, bias=False)
         self.to_v = Linear(ctx_dim, inner, bias=False)
         self.to_out = nn.ModuleList([Linear(inner, dim)])
+        self.act_quant_fn = None
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 control: Optional[AttnControl] = None,
                 video_length: Optional[int] = None,
                 store: Optional[dict] = None) -> torch.Tensor:
-        ctx_in = x if context is None else context
+        x = _aq(self.act_quant_fn, x)
+        ctx_in = x if context is None else _aq(self.act_quant_fn, context)
         q = _split_heads(self.to_q(x), self.heads)
         k = _split_heads(self.to_k(ctx_in), self.heads)
         v = _split_heads(self.to_v(ctx_in), self.heads)
@@ -176,7 +191,7 @@ class ControlledAttention(nn.Module):
                     step_index=control.step_index, video_length=video_length,
                     num_uncond=control.num_uncond, base_map=base_map)
         out = torch.matmul(probs, v)
-        return self.to_out[0](_merge_heads(out))
+        return self.to_out[0](_aq(self.act_quant_fn, _merge_heads(out)))
 
 
 class GEGLU(nn.Module):
@@ -197,11 +212,11 @@ class FeedForward(nn.Module):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
                                   Linear(dim * mult, dim)])
+        self.act_quant_fn = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.net:
-            x = layer(x)
-        return x
+        h = self.net[0](_aq(self.act_quant_fn, x))
+        return self.net[2](_aq(self.act_quant_fn, self.net[1](h)))
 
 
 class BasicTransformerBlock(nn.Module):
@@ -252,7 +267,7 @@ class Conv1x1(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, as_input_dtype(self.weight[:, :, 0, 0], x),
+        return F.linear(x, as_input_dtype(self.weight, x)[:, :, 0, 0],
                         as_input_dtype(self.bias, x))
 
 
@@ -270,6 +285,7 @@ class Transformer3DModel(nn.Module):
             BasicTransformerBlock(inner, heads, dim_head, context_dim, frame_attention)
             for _ in range(depth)])
         self.proj_out = Conv1x1(inner, channels)
+        self.act_quant_fn = None
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 control: Optional[AttnControl] = None,
@@ -277,10 +293,10 @@ class Transformer3DModel(nn.Module):
         b, f, hh, ww, c = x.shape
         # frames fold into the batch BEFORE the norm: statistics per frame
         h = self.norm(x.reshape(b * f, hh, ww, c)).reshape(b, f, hh, ww, c)
-        h = self.proj_in(h)
+        h = self.proj_in(_aq(self.act_quant_fn, h))
         inner = h.shape[-1]
         h = h.reshape(b, f, hh * ww, inner)
         for block in self.transformer_blocks:
             h = block(h, context=context, control=control, store=store)
-        h = self.proj_out(h.reshape(b, f, hh, ww, inner))
+        h = self.proj_out(_aq(self.act_quant_fn, h.reshape(b, f, hh, ww, inner)))
         return h + x

@@ -40,6 +40,8 @@ from torch import nn
 __all__ = [
     "state_dict_from_jax",
     "unet_state_dict_from_jax",
+    "unet_jax_paths",
+    "quantize_unet_params",
     "vae_state_dict_from_jax",
     "clip_state_dict_from_jax",
     "init_weights",
@@ -123,6 +125,59 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
+# the inverse of _unet_key's segment rules: torch segments → one flax token
+_TORCH_PAIRS = {("downsamplers", "0"): "downsample", ("upsamplers", "0"): "upsample",
+                ("to_out", "0"): "to_out", ("net", "2"): "proj_out"}
+_TORCH_INDEXED = ("down_blocks", "up_blocks", "attentions", "resnets", "layers")
+
+
+def _flax_module_tokens(name: str) -> list:
+    """A torch module name of the UNet → its flax module path tokens."""
+    segs, out, i = name.split(".") if name else [], [], 0
+    while i < len(segs):
+        s, nxt = segs[i], segs[i + 1] if i + 1 < len(segs) else None
+        if s == "net" and nxt == "0" and i + 2 < len(segs) and segs[i + 2] == "proj":
+            out.append("proj_geglu")
+            i += 3
+        elif (s, nxt) in _TORCH_PAIRS:
+            out.append(_TORCH_PAIRS[s, nxt])
+            i += 2
+        elif s == "transformer_blocks":
+            out.append(f"blocks_{nxt}")
+            i += 2
+        elif s in _TORCH_INDEXED and nxt is not None and nxt.isdigit():
+            out.append(f"{s}_{nxt}")
+            i += 2
+        else:
+            out.append(s)
+            i += 1
+    return out
+
+
+def unet_jax_paths(module: nn.Module) -> Dict[str, Path]:
+    """{port UNet parameter name: its flax parameter path}, the inverse of
+    :func:`unet_state_dict_from_jax`'s name map: a convolution's weight sits
+    under the flax ``conv`` submodule as ``kernel``, a linear or 1×1
+    projection's weight is a ``kernel``, a norm's weight a ``scale``, an
+    embedding's an ``embedding``."""
+    from videop2p_tpu_torch.models.attention import Conv1x1
+
+    out = {}
+    for mname, mod in module.named_modules():
+        body = _flax_module_tokens(mname)
+        for pname, _ in mod.named_parameters(recurse=False):
+            if isinstance(mod, nn.Conv2d):
+                path = body + ["conv", "kernel" if pname == "weight" else pname]
+            elif isinstance(mod, (nn.Linear, Conv1x1)):
+                path = body + ["kernel" if pname == "weight" else pname]
+            elif isinstance(mod, nn.Embedding):
+                path = body + ["embedding"]
+            else:
+                path = body + ["scale" if pname == "weight" else pname]
+            out[f"{mname}.{pname}" if mname else pname] = tuple(path)
+    return out
+
+
 def unet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax video-UNet params → the port's UNet state dict. The transformer's
     ``proj_in``/``proj_out`` become 1×1 conv weights (out, in, 1, 1)."""
@@ -134,6 +189,41 @@ def unet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
                    and path[-3].startswith("attentions_"))
         out[key] = _tensor(_from_flax_tensor(leaf, kind, conv1x1))
     return out
+
+
+@torch.no_grad()
+def quantize_unet_params(unet: nn.Module, mode: str = "w8",
+                         weight_dtype: str = "int8") -> nn.Module:
+    """Post-training quantization of the UNet in place (JAX:
+    ``convert.py:quantize_unet_params``): every weight of two or more
+    dimensions (the linear, convolution and 1×1 projection weights, JAX's
+    ``kernel`` leaves) outside the full-precision islands ``SKIP_MODULES``
+    becomes a :class:`~videop2p_tpu_torch.models.quant.QuantizedWeight`;
+    biases and norms stay. ``w8a8`` also sets the activation fake-quant
+    seam. ``mode="off"`` returns ``unet`` untouched."""
+    from videop2p_tpu_torch.models.quant import (
+        SKIP_MODULES,
+        fake_quant_act,
+        quant_weight_dtype,
+        quantize_weight,
+        set_act_quant,
+        validate_quant_mode,
+    )
+
+    mode = validate_quant_mode(mode)
+    if mode == "off":
+        return unet
+    dtype = quant_weight_dtype(weight_dtype)
+    for name, module in list(unet.named_modules()):
+        weight = module._parameters.get("weight")
+        if (weight is None or weight.dim() < 2
+                or any(s in name.split(".") for s in SKIP_MODULES)):
+            continue
+        del module._parameters["weight"]
+        module.weight = quantize_weight(weight, dtype=dtype)
+    if mode == "w8a8":
+        set_act_quant(unet, fake_quant_act)
+    return unet
 
 
 def _vae_key(path: Path) -> str:

@@ -12,7 +12,8 @@ layer casts its ``param_dtype`` weights to its ``dtype``. So float32
 weights run a bfloat16 forward when the UNet casts its input to bfloat16
 (``UNet3DConditionModel.compute_dtype``, Stage-1 mixed precision), their
 gradients arriving in float32 through the cast; where weight and input
-share a dtype nothing is cast, and the layer is the plain torch one.
+share a dtype nothing is cast, and the layer is the plain torch one. A
+weight quantized at load (``models/quant.py``) is dequantized there too.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from videop2p_tpu_torch.models.quant import QuantizedWeight
 from videop2p_tpu_torch.ops.groupnorm import fused_group_norm
 
 __all__ = [
@@ -40,8 +42,11 @@ __all__ = [
 ]
 
 
-def as_input_dtype(param: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
-    """``param`` in ``x``'s dtype (itself when it already is)."""
+def as_input_dtype(param, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """``param`` in ``x``'s dtype (itself when it already is); a quantized
+    weight (``models/quant.py``) is dequantized to it."""
+    if isinstance(param, QuantizedWeight):
+        return param.dequantize(x.dtype)
     if param is None or param.dtype == x.dtype:
         return param
     return param.to(x.dtype)

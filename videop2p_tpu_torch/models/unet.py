@@ -6,6 +6,12 @@ a cross-attention mid block, and the mirrored up path, driven by
 :class:`UNet3DConfig`. Parameter names are the diffusers/Tune-A-Video ones,
 so a state dict from ``models/convert.py`` loads with ``strict=True``.
 
+``forward(deep_mode=...)`` is the cross-step deep-feature reuse seam
+(``pipelines/reuse.py``; JAX: ``unet.py:193-226``): ``"capture"`` also
+returns the deep feature, the input of the final up block; ``"shallow"``
+runs conv_in, the first down block (without its downsampler), the final up
+block seeded with a given ``deep_feature`` and the output convolutions.
+
 ``UNet3DConfig.gradient_checkpointing`` recomputes each down, mid and up
 block in the backward instead of keeping its activations (the blocks the
 JAX package wraps in ``nn.remat``); ``compute_dtype`` runs the forward in
@@ -197,8 +203,22 @@ class UNet3DConditionModel(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps, encoder_hidden_states: torch.Tensor,
                 control: Optional[AttnControl] = None,
-                store: Optional[dict] = None) -> torch.Tensor:
+                store: Optional[dict] = None, deep_mode: str = "full",
+                deep_feature: Optional[torch.Tensor] = None):
+        """ε, or ``(ε, deep feature)`` under ``deep_mode="capture"``;
+        ``"shallow"`` skips the deep stages and starts the final up block
+        from ``deep_feature`` (a capture of an earlier step)."""
         cfg = self.config
+        n_blocks = len(cfg.block_out_channels)
+        if deep_mode not in ("full", "capture", "shallow"):
+            raise ValueError(
+                f"deep_mode={deep_mode!r} is not 'full', 'capture' or 'shallow'")
+        if deep_mode != "full" and n_blocks < 2:
+            raise ValueError("deep-feature reuse needs >= 2 resolution levels; this "
+                             f"config has {n_blocks}")
+        if deep_mode == "shallow" and deep_feature is None:
+            raise ValueError("deep_mode='shallow' requires deep_feature")
+        shallow = deep_mode == "shallow"
         dtype = self.dtype
         sample = sample.to(dtype)
         context = encoder_hidden_states.to(dtype)
@@ -212,22 +232,37 @@ class UNet3DConditionModel(nn.Module):
 
         x = self.conv_in(sample)
         res_stack = [x]
-        for block in self.down_blocks:
+        if shallow:
+            # the first down block without its downsampler: its output feeds
+            # only the deep stages a shallow step skips
+            block = self.down_blocks[0]
             if isinstance(block, unet_blocks.CrossAttnDownBlock3D):
-                x, res = self._block(block, x, temb, context, control, store)
+                _, res = block(x, temb, context, control, store, downsample=False)
             else:
-                x, res = self._block(block, x, temb)
+                _, res = block(x, temb, downsample=False)
             res_stack.extend(res)
-
-        x = self._block(self.mid_block, x, temb, context, control, store)
+            x = deep_feature.to(dtype)
+        else:
+            for block in self.down_blocks:
+                if isinstance(block, unet_blocks.CrossAttnDownBlock3D):
+                    x, res = self._block(block, x, temb, context, control, store)
+                else:
+                    x, res = self._block(block, x, temb)
+                res_stack.extend(res)
+            x = self._block(self.mid_block, x, temb, context, control, store)
 
         num_layers = cfg.layers_per_block + 1
-        for block in self.up_blocks:
+        deep = None
+        up_blocks = self.up_blocks[-1:] if shallow else self.up_blocks
+        for block in up_blocks:
             res = res_stack[-num_layers:]
             del res_stack[-num_layers:]
+            if deep_mode == "capture" and block is self.up_blocks[-1]:
+                deep = x
             if isinstance(block, unet_blocks.CrossAttnUpBlock3D):
                 x = self._block(block, x, res, temb, context, control, store)
             else:
                 x = self._block(block, x, res, temb)
 
-        return self.conv_out(self.conv_norm_out(x))
+        out = self.conv_out(self.conv_norm_out(x))
+        return (out, deep) if deep_mode == "capture" else out

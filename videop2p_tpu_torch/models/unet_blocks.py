@@ -42,13 +42,16 @@ class CrossAttnDownBlock3D(nn.Module):
                              if add_downsample else None)
 
     def forward(self, x, temb, context, control: Optional[AttnControl] = None,
-                store: Optional[dict] = None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                store: Optional[dict] = None, downsample: bool = True
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """``downsample=False`` skips the downsampler (the UNet's shallow
+        deep-feature reuse step, which never descends)."""
         outputs = []
         for resnet, attn in zip(self.resnets, self.attentions):
             x = resnet(x, temb)
             x = attn(x, context=context, control=control, store=store)
             outputs.append(x)
-        if self.downsamplers is not None:
+        if self.downsamplers is not None and downsample:
             x = self.downsamplers[0](x)
             outputs.append(x)
         return x, outputs
@@ -67,12 +70,13 @@ class DownBlock3D(nn.Module):
         self.downsamplers = (nn.ModuleList([Downsample3D(out_channels)])
                              if add_downsample else None)
 
-    def forward(self, x, temb) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def forward(self, x, temb, downsample: bool = True
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         outputs = []
         for resnet in self.resnets:
             x = resnet(x, temb)
             outputs.append(x)
-        if self.downsamplers is not None:
+        if self.downsamplers is not None and downsample:
             x = self.downsamplers[0](x)
             outputs.append(x)
         return x, outputs

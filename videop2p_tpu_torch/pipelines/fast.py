@@ -112,14 +112,17 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
                      temporal_maps_dtype: Optional[torch.dtype] = None,
                      dependent_weight: float = 0.0,
                      dependent_sampler: Optional[DependentNoiseSampler] = None,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     reuse_schedule: Optional[str] = None):
     """Capture-inversion of ``latents`` under ``cond_src``, then the
     cached-source controlled edit under ``cond_all`` / ``uncond``. Returns
     ``(trajectory, edited)``: the trajectory (N + 1, 1, F, h, w, C) and the
     (P, F, h, w, C) latents whose stream 0 is the trajectory's x_0. The
     dependent-noise arguments go to the capture-inversion (one draw a step);
     the edit replays the trajectory it recorded, so stream 0 stays x_0
-    exactly under dependent noise too."""
+    exactly under dependent noise too. ``reuse_schedule`` reuses the deep
+    feature across the edit's steps (``pipelines/reuse.py``); the capture
+    always runs the full UNet (its maps feed the controllers)."""
     trajectory, cached = ddim_inversion_captured(
         unet_fn, scheduler, latents, cond_src,
         num_inference_steps=num_inference_steps, cross_len=cross_len,
@@ -130,5 +133,6 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
     edited = edit_sample(unet_fn, scheduler, trajectory[-1], cond_all, uncond,
                          num_inference_steps=num_inference_steps,
                          guidance_scale=guidance_scale, ctx=ctx,
-                         source_uses_cfg=False, cached_source=cached)
+                         source_uses_cfg=False, cached_source=cached,
+                         reuse_schedule=reuse_schedule)
     return trajectory, edited

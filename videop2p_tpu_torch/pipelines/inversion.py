@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from videop2p_tpu_torch.core.ddim import DDIMScheduler
-from videop2p_tpu_torch.core.noise import DependentNoiseSampler
+from videop2p_tpu_torch.core.noise import DependentNoiseSampler, step_generator
 from videop2p_tpu_torch.models.attention import BASE_STORE, AttnControl
 from videop2p_tpu_torch.pipelines.cached import CachedSource, filter_site_tree
 from videop2p_tpu_torch.pipelines.sampling import UNetFn, unet_module
@@ -214,11 +214,6 @@ def check_null_text_options(precision: str, mode: str) -> None:
         raise ValueError(f"null_text_precision {precision!r} not in {NULL_TEXT_PRECISIONS}")
     if mode not in NULL_TEXT_MODES:
         raise ValueError(f"null_text_mode {mode!r} not in {NULL_TEXT_MODES}")
-    if mode == "hybrid":
-        raise NotImplementedError(
-            "null_text_mode 'hybrid' is not ported yet: it batches the outer "
-            "steps, which needs per-sample timesteps in the port's UNet "
-            "(ROADMAP Queue 1 item 9)")
 
 
 @contextlib.contextmanager
@@ -238,6 +233,71 @@ def _frozen(unet_fn: UNetFn):
             p.requires_grad_(flag)
 
 
+def _lr_and_threshold(i: int, epsilon: float) -> Tuple[float, float]:
+    """Outer step i's Adam lr max(1e-2·(1 − i/100), 0) and early-stop
+    threshold ε + i·2e-5, in float32 arithmetic as JAX's arrays."""
+    lr = float(np.maximum(np.float32(1e-2) * (np.float32(1) - np.float32(i)
+                                              / np.float32(100)), 0))
+    thresh = float(np.float32(epsilon) + np.float32(i) * np.float32(2e-5))
+    return lr, thresh
+
+
+def _pack(embeddings, losses, inner_steps, return_losses: bool, return_inner_steps: bool):
+    """The embeddings (N, B, L, D), with the final losses (N,) and the
+    inner steps (N,) int32 on the CPU where asked for."""
+    out = (torch.stack(embeddings),)
+    if return_losses:
+        out += (torch.stack(losses).float().cpu(),)
+    if return_inner_steps:
+        out += (torch.tensor(inner_steps, dtype=torch.int32),)
+    return out if len(out) > 1 else out[0]
+
+
+def _hybrid(fwd, scheduler: DDIMScheduler, trajectory: torch.Tensor,
+            cond: torch.Tensor, *, num_inference_steps: int, guidance_scale: float,
+            num_inner_steps: int,
+            outer_chunk: Optional[int], dependent_weight: float,
+            dependent_sampler: Optional[DependentNoiseSampler], seed: int,
+            unet_fn: UNetFn, return_losses: bool, return_inner_steps: bool):
+    """The "hybrid" null-text mode (JAX: ``inversion.py:613-710``): K Adam
+    steps per outer step from the cond embedding, against the recorded
+    trajectory, each outer step on its own."""
+    K = num_inner_steps
+    if K < 1:
+        raise ValueError(f"hybrid_inner_steps must be >= 1, got {K}")
+    N = num_inference_steps
+    timesteps = scheduler.timesteps(N)
+    chunk = outer_chunk if outer_chunk and outer_chunk < N else N
+    device = trajectory.device
+    embeddings: List[torch.Tensor] = []
+    losses: List[torch.Tensor] = []
+    with _frozen(unet_fn), torch.no_grad():
+        for start in range(0, N, chunk):
+            for i in range(start, min(start + chunk, N)):
+                t = int(timesteps[i])
+                latent, latent_prev = trajectory[N - i], trajectory[N - i - 1]
+                gen = (step_generator(seed, i, device) if dependent_weight > 0.0 else None)
+
+                def blend(eps):
+                    return _dependent_blend(eps, dependent_weight, dependent_sampler, gen)
+
+                lr, _ = _lr_and_threshold(i, 0.0)
+                eps_cond = blend(fwd(latent, t, cond))
+                uncond, state = cond.float(), None
+                for _ in range(K):
+                    with torch.enable_grad():
+                        leaf = uncond.detach().requires_grad_(True)
+                        eps_u = blend(fwd(latent, t, leaf))
+                        eps = eps_u + guidance_scale * (eps_cond - eps_u)
+                        prev_rec = scheduler.prev_step(eps, t, latent, N)
+                        loss = torch.mean((prev_rec - latent_prev) ** 2)
+                        (grad,) = torch.autograd.grad(loss, leaf)
+                    uncond, state = adam_update(uncond, grad, state, lr)
+                losses.append(loss.detach())
+                embeddings.append(uncond)
+    return _pack(embeddings, losses, [K] * N, return_losses, return_inner_steps)
+
+
 def null_text_optimization(
     unet_fn: UNetFn,
     scheduler: DDIMScheduler,
@@ -251,12 +311,14 @@ def null_text_optimization(
     epsilon: float = 1e-5,
     null_text_precision: str = "fp32",
     null_text_mode: str = "optimize",
+    hybrid_inner_steps: int = 3,
     early_stop: bool = True,
     return_losses: bool = False,
     return_inner_steps: bool = False,
     dependent_weight: float = 0.0,
     dependent_sampler: Optional[DependentNoiseSampler] = None,
     generator: Optional[torch.Generator] = None,
+    outer_chunk: Optional[int] = None,
 ):
     """Optimize a per-step unconditional embedding under which CFG denoising
     replays the recorded inversion trajectory (the reference's
@@ -276,9 +338,15 @@ def null_text_optimization(
       * ``null_text_mode``: ``"optimize"`` (the loop above);
         ``"amortized"`` (uncond := cond at every step, so the CFG combine is
         the conditional prediction: one forward per outer step, no
-        backward, ``inner_steps`` 0); ``"hybrid"`` is not ported (it
-        batches the outer steps, which needs per-sample timesteps in the
-        port's UNet: ROADMAP Queue 1 item 9).
+        backward, ``inner_steps`` 0); ``"hybrid"`` (outer step i starts
+        from the cond embedding and takes ``hybrid_inner_steps`` (K) Adam
+        steps against the *recorded* trajectory, entering at
+        ``trajectory[N − i]`` and fitting ``trajectory[N − i − 1]``, no
+        early stop: the outer steps are independent, so this loop computes
+        what JAX's ``vmap`` over them computes; ``final_loss`` is the last
+        pre-update loss and ``inner_steps`` reads K; with dependent noise
+        step i draws from its own generator, seeded from (``generator``'s
+        seed, i), as JAX's ``fold_in(key, i)``).
       * ``null_text_precision``: ``"fp32"``, or ``"mixed"``: the latents
         and embeddings cross the UNet boundary in bf16 (pass a bf16 clone
         of the UNet as ``unet_fn``) and the predictions come back as f32;
@@ -297,7 +365,9 @@ def null_text_optimization(
     under ``torch.enable_grad()``. The JAX package splits this loop into
     jitted chunks (``outer_chunk``, ``null_text_optimization_fused``) for
     dispatch and the TPU's watchdog; eagerly those are this one loop, with
-    the same numbers.
+    the same numbers: ``outer_chunk`` is taken for JAX's signature, and
+    the chunks of a "hybrid" run are walked in turn (chunked equals
+    unchunked).
 
     Returns the embeddings (N, B, L, D) float32, plus, with
     ``return_losses``, the final inner loss of each outer step (N,) (the
@@ -326,6 +396,15 @@ def null_text_optimization(
         eps = eps_uncond + guidance_scale * (eps_cond - eps_uncond)
         return scheduler.prev_step(eps, t, latent, N)
 
+    if null_text_mode == "hybrid":
+        return _hybrid(fwd, scheduler, trajectory, cond, num_inference_steps=N,
+                       guidance_scale=guidance_scale,
+                       num_inner_steps=int(hybrid_inner_steps), outer_chunk=outer_chunk,
+                       dependent_weight=dependent_weight, dependent_sampler=dependent_sampler,
+                       seed=generator.initial_seed() if generator is not None else 0,
+                       unet_fn=unet_fn, return_losses=return_losses,
+                       return_inner_steps=return_inner_steps)
+
     latent_cur = trajectory[-1]
     embeddings: List[torch.Tensor] = []
     losses: List[torch.Tensor] = []
@@ -343,10 +422,7 @@ def null_text_optimization(
                 inner_steps.append(0)
                 embeddings.append(uncond)
                 continue
-            # float32 arithmetic, as JAX's per-step lr and threshold arrays
-            lr = float(np.maximum(np.float32(1e-2) * (np.float32(1) - np.float32(i)
-                                                      / np.float32(100)), 0))
-            thresh = float(np.float32(epsilon) + np.float32(i) * np.float32(2e-5))
+            lr, thresh = _lr_and_threshold(i, epsilon)
             eps_cond = blend(eps_cond_raw)
             state, loss, j = None, torch.tensor(float("inf")), 0
             while j < num_inner_steps and (not early_stop or loss.item() >= thresh):
@@ -365,9 +441,4 @@ def null_text_optimization(
             # the advance's uncond draw, then its cond draw (JAX's k_fu, k_fc)
             eps_fu = blend(fwd(latent_cur, t, uncond))
             latent_cur = cfg_step(eps_fu, blend(eps_cond_raw), t, latent_cur)
-    out = (torch.stack(embeddings),)
-    if return_losses:
-        out += (torch.stack(losses).float().cpu(),)
-    if return_inner_steps:
-        out += (torch.tensor(inner_steps, dtype=torch.int32),)
-    return out if len(out) > 1 else out[0]
+    return _pack(embeddings, losses, inner_steps, return_losses, return_inner_steps)

@@ -15,7 +15,14 @@ works in latent space only.
 With a ``cached_source`` the source stream leaves the batch: its latents
 replay the inversion trajectory and its maps come from the capture
 (:mod:`videop2p_tpu_torch.pipelines.cached`), so only the E = P − 1 edit
-streams run the UNet, behind their E uncond streams.
+streams run the UNet, behind their E uncond streams; a ``reuse_schedule``
+(:mod:`videop2p_tpu_torch.pipelines.reuse`) then runs the full UNet on its
+listed steps only and the shallow path on the others.
+
+Per-frame ("multi") conditioning: cond embeddings of shape (P, F, L, D),
+the uncond and null-text embeddings broadcast per frame. A SpatialReplace
+controller (``ControlContext.spatial_replace_until``) copies the source
+stream's latent into every edit stream after the first steps.
 """
 
 from __future__ import annotations
@@ -37,9 +44,11 @@ from videop2p_tpu_torch.pipelines.cached import (
     check_subset_windows,
     validate_step_positions,
 )
+from videop2p_tpu_torch.pipelines.reuse import parse_reuse_schedule
 from videop2p_tpu_torch.pipelines.stores import blend_maps_from_store
 
-__all__ = ["edit_sample", "make_unet_fn", "official_edit", "unet_module", "UNetFn"]
+__all__ = ["edit_sample", "make_unet_fn", "official_edit", "official_null_text",
+           "unet_module", "UNetFn"]
 
 # (sample, t, text, control, *, store) -> (eps, store or None)
 UNetFn = Callable[..., Tuple[torch.Tensor, Optional[dict]]]
@@ -49,11 +58,17 @@ def make_unet_fn(model) -> UNetFn:
     """Adapter from the UNet module to the pipelines' callable contract:
     ``fn(sample, t, text, control=None, *, store=True)`` returns
     ``(eps, store)``, the store being the dict of head-mean maps of the
-    controlled sites (None when ``store=False``)."""
+    controlled sites (None when ``store=False``). ``deep_mode`` /
+    ``deep_feature`` forward the UNet's deep-feature reuse seam: under
+    ``"capture"`` the first element is ``(eps, deep feature)``."""
 
-    def fn(sample, t, text, control=None, *, store: bool = True):
+    def fn(sample, t, text, control=None, *, store: bool = True, deep_mode: str = "full",
+           deep_feature=None):
         maps = {} if store else None
-        return model(sample, t, text, control, maps), maps
+        if deep_mode == "full":
+            return model(sample, t, text, control, maps), maps
+        return model(sample, t, text, control, maps, deep_mode=deep_mode,
+                     deep_feature=deep_feature), maps
 
     # the module, so that null-text optimization can freeze its parameters
     fn.module = model
@@ -82,11 +97,13 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
                 null_uncond_embeddings: Optional[torch.Tensor] = None,
                 cached_source: Optional[CachedSource] = None,
                 dependent_sampler: Optional[DependentNoiseSampler] = None,
-                step_positions=None) -> torch.Tensor:
+                step_positions=None, reuse_schedule: Optional[str] = None) -> torch.Tensor:
     """Run the controlled denoise; returns final latents (P, F, h, w, C).
 
     ``latents``: x_T, (1, F, h, w, C) (shared by all streams) or (P, …);
-    ``cond_embeddings`` (P, L, D), source prompt first; ``uncond_embeddings``
+    ``cond_embeddings`` (P, L, D), source prompt first, or (P, F, L, D) per
+    frame ("multi" conditioning: the uncond then broadcasts per frame, and
+    null-text embeddings may be (steps, F, L, D)); ``uncond_embeddings``
     (L, D) or (1, L, D), the raw uncond of every stream.
 
       * ``source_uses_cfg=True`` (JAX's default, the official mode): every
@@ -114,10 +131,16 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
         the captured maps at them and stepping the non-uniform grid through
         explicit ``prev_timestep``. The controller is built for the subset's
         step count; its open gates must map inside the captured windows
-        (``pipelines/cached.py:check_subset_windows``)."""
-    if cond_embeddings.dim() != 3:
-        raise NotImplementedError(
-            "per-frame ('multi') conditioning is not ported yet; see ROADMAP Queue 1")
+        (``pipelines/cached.py:check_subset_windows``).
+      * ``reuse_schedule`` (cached mode only): ``"uniform:K"`` or
+        ``"custom:<p0,...>"`` marks the steps that run the full UNet
+        (capturing its deep feature); the others run the shallow path on the
+        last full step's deep feature, LocalBlend re-adding that step's
+        edit-stream maps. ``"off"`` / None is the plain loop."""
+    if cond_embeddings.dim() not in (3, 4):
+        raise ValueError(f"cond_embeddings must be (P, L, D) or (P, F, L, D), got "
+                         f"{tuple(cond_embeddings.shape)}")
+    multi = cond_embeddings.dim() == 4
     P = cond_embeddings.shape[0]
     latents = latents.float()
     if latents.shape[0] == 1 and P > 1:
@@ -127,6 +150,9 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
     video_length = latents.shape[1]
     latent_hw = tuple(latents.shape[2:4])
     text_len = cond_embeddings.shape[-2]
+    if multi and cond_embeddings.shape[1] != video_length:
+        raise ValueError(f"per-frame cond_embeddings {tuple(cond_embeddings.shape)} do not "
+                         f"match video_length {video_length}")
     if uncond_embeddings.dim() == 3 and uncond_embeddings.shape[0] == 1:
         uncond_embeddings = uncond_embeddings[0]
     if uncond_embeddings.dim() != 2:
@@ -134,10 +160,18 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
             f"uncond_embeddings must be (L, D) or (1, L, D), got "
             f"{tuple(uncond_embeddings.shape)}; per-step null-text embeddings "
             "go in null_uncond_embeddings")
+    if multi:
+        # every stream's uncond, per frame
+        uncond_embeddings = uncond_embeddings[None].expand(
+            video_length, *uncond_embeddings.shape)
 
     if step_positions is not None and cached_source is None:
         raise ValueError(
             "step_positions is the cached fast path's step-reduction seam: "
+            "it requires cached_source")
+    if reuse_schedule not in (None, "off") and cached_source is None:
+        raise ValueError(
+            "reuse_schedule is the cached fast path's deep-feature reuse seam: "
             "it requires cached_source")
     if cached_source is not None:
         if source_uses_cfg:
@@ -166,17 +200,23 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
         return _edit_sample_cached(
             unet_fn, scheduler, latents, cond_embeddings, uncond_embeddings,
             cached_source, num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale, ctx=ctx, step_positions=step_positions)
+            guidance_scale=guidance_scale, ctx=ctx, step_positions=step_positions,
+            reuse_schedule=reuse_schedule)
 
     # the source stream's uncond at each step: the null-text sequence when
     # given, else the raw uncond
     if null_uncond_embeddings is not None:
         if null_uncond_embeddings.dim() == 4 and null_uncond_embeddings.shape[1] == 1:
             null_uncond_embeddings = null_uncond_embeddings[:, 0]
-        if null_uncond_embeddings.dim() == 4:
+        if not multi and null_uncond_embeddings.dim() == 4:
             raise ValueError(
                 "null-text embeddings must be optimized on the batch-1 source "
                 f"stream, got shape {tuple(null_uncond_embeddings.shape)}")
+        if multi and null_uncond_embeddings.dim() == 3:
+            # one (L, D) a step, broadcast over the frames
+            null_uncond_embeddings = null_uncond_embeddings[:, None].expand(
+                null_uncond_embeddings.shape[0], video_length,
+                *null_uncond_embeddings.shape[1:])
         expected = (num_inference_steps, *uncond_embeddings.shape)
         if tuple(null_uncond_embeddings.shape) != expected:
             raise ValueError(
@@ -226,6 +266,9 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
                 num_prompts=P, text_len=text_len, num_uncond=U).float()
             maps_sum = maps if maps_sum is None else maps_sum + maps
             latents = local_blend(latents, maps_sum, ctx.blend, i)
+        if ctx is not None and i < ctx.spatial_replace_until:
+            # SpatialReplace: every edit stream takes the source's latent
+            latents = latents[:1].expand_as(latents).contiguous()
     return latents
 
 
@@ -233,7 +276,8 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
                         latents: torch.Tensor, cond_embeddings: torch.Tensor,
                         uncond_embeddings: torch.Tensor, cached: CachedSource, *,
                         num_inference_steps: int, guidance_scale: float,
-                        ctx: Optional[ControlContext], step_positions=None) -> torch.Tensor:
+                        ctx: Optional[ControlContext], step_positions=None,
+                        reuse_schedule: Optional[str] = None) -> torch.Tensor:
     """The cached-source loop: the batch is E uncond + E edit streams, the
     controllers read the captured base maps of each step, and LocalBlend
     sums the source's captured blend maps with the edit streams' live ones,
@@ -241,7 +285,8 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
     walks a timestep subset of the capture's base grid: step j runs at base
     position ``step_positions[j]`` and lands on the next one (the last on
     the base walk's terminal target), the controller's gates in subset-step
-    space."""
+    space. ``reuse_schedule``: a full step captures the deep feature and,
+    with LocalBlend, its edit-stream maps; a shallow step reuses both."""
     P = cond_embeddings.shape[0]
     E = U = P - 1
     if E < 1:
@@ -283,26 +328,46 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
         raise ValueError(
             "LocalBlend is configured but the capture has no blend_seq: run "
             "ddim_inversion_captured(capture_blend=True)")
+    full_steps = (None if reuse_schedule in (None, "off")
+                  else parse_reuse_schedule(reuse_schedule, num_inference_steps))
+    deep_feature = last_maps = None
+
+    def edit_maps_of(store):
+        return blend_maps_from_store(
+            store, latent_hw=latent_hw, video_length=video_length,
+            num_prompts=E, text_len=text_len, num_uncond=U).float()
+
     maps_sum = None
     for i, t in enumerate(timesteps):
         t, base_i = int(t), int(positions[i])
         latent_in = torch.cat([edit_latents, edit_latents], dim=0)
         control = (AttnControl(ctx, i, U, cached_base=cached.base_tree_at(base_i),
                                cached_source=True) if ctx is not None else None)
-        eps_all, store = unet_fn(latent_in, t, text, control, store=use_blend)
+        if full_steps is None:
+            eps_all, store = unet_fn(latent_in, t, text, control, store=use_blend)
+            edit_maps = edit_maps_of(store) if use_blend else None
+        elif full_steps[i]:
+            (eps_all, deep_feature), store = unet_fn(latent_in, t, text, control,
+                                                     store=use_blend, deep_mode="capture")
+            edit_maps = last_maps = edit_maps_of(store) if use_blend else None
+        else:
+            # the shallow path re-adds the last full step's edit maps
+            eps_all, _ = unet_fn(latent_in, t, text, control, store=False,
+                                 deep_mode="shallow", deep_feature=deep_feature)
+            edit_maps = last_maps
         eps_all = eps_all.float()
         eps_uncond, eps_text = eps_all[:E], eps_all[E:]
         eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
         edit_latents, _ = scheduler.step(eps, t, edit_latents, num_inference_steps,
                                          prev_timestep=prev_timesteps[i])
+        source_after = cached.src_latents[int(src_after[i])]
         if use_blend:
-            edit_maps = blend_maps_from_store(
-                store, latent_hw=latent_hw, video_length=video_length,
-                num_prompts=E, text_len=text_len, num_uncond=U).float()
             maps = torch.cat([cached.blend_seq[base_i], edit_maps], dim=0)
             maps_sum = maps if maps_sum is None else maps_sum + maps
-            full = torch.cat([cached.src_latents[int(src_after[i])], edit_latents], dim=0)
+            full = torch.cat([source_after, edit_latents], dim=0)
             edit_latents = local_blend(full, maps_sum, ctx.blend, i)[1:]
+        if ctx is not None and i < ctx.spatial_replace_until:
+            edit_latents = source_after.expand_as(edit_latents).contiguous()
     # stream 0 is the capture's x_0, copied without arithmetic
     return torch.cat([cached.src_latents[-1], edit_latents], dim=0)
 
@@ -312,13 +377,15 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
                   num_inference_steps: int = 50, guidance_scale: float = 7.5,
                   ctx: Optional[ControlContext] = None, num_inner_steps: int = 10,
                   epsilon: float = 1e-5, null_text_precision: str = "fp32",
-                  null_text_mode: str = "optimize", early_stop: bool = True,
+                  null_text_mode: str = "optimize", hybrid_inner_steps: int = 3,
+                  early_stop: bool = True,
                   eta: float = 0.0, generator: Optional[torch.Generator] = None,
                   dependent_weight: float = 0.0,
                   dependent_sampler: Optional[DependentNoiseSampler] = None,
                   null_text_generator: Optional[torch.Generator] = None,
                   source_embedding: Optional[torch.Tensor] = None,
-                  phase: Optional[Callable[[str], ContextManager]] = None):
+                  phase: Optional[Callable[[str], ContextManager]] = None,
+                  null_embeddings: Optional[torch.Tensor] = None):
     """The official mode: null-text optimization of the source stream's
     uncond embedding against ``trajectory`` (N + 1, 1, F, h, w, C), then the
     controlled full-CFG edit from its x_T with those embeddings injected
@@ -337,12 +404,12 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
     ``cond_embeddings[:1]`` (the CLI's source ``prompt``). ``phase``,
     when given, maps a phase name ("null_text_optimization",
     "edit_sample") to a context manager entered around that phase (the
-    CLI's timer).
+    CLI's timer). ``null_embeddings`` (N, 1, L, D), e.g. persisted by an
+    earlier run, skip the null-text phase.
 
     Returns ``(latents (P, F, h, w, C), {"final_loss", "inner_steps"})``,
-    the null-text record of each outer step."""
-    from videop2p_tpu_torch.pipelines.inversion import null_text_optimization
-
+    the null-text record of each outer step (None when ``null_embeddings``
+    were given)."""
     if phase is None:
         phase = lambda name: contextlib.nullcontext()  # noqa: E731
     if uncond_embedding.dim() == 3 and uncond_embedding.shape[0] == 1:
@@ -350,6 +417,39 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
     if uncond_embedding.dim() != 2:
         raise ValueError(f"uncond_embedding must be (L, D) or (1, L, D), got "
                          f"{tuple(uncond_embedding.shape)}")
+    stats = None
+    if null_embeddings is not None:
+        null_seq = null_embeddings
+    else:
+        null_seq, stats = official_null_text(
+            unet_fn, scheduler, trajectory,
+            cond_embeddings[:1] if source_embedding is None else source_embedding,
+            uncond_embedding, phase, num_inference_steps=num_inference_steps,
+            guidance_scale=guidance_scale, num_inner_steps=num_inner_steps,
+            epsilon=epsilon, null_text_precision=null_text_precision,
+            null_text_mode=null_text_mode, hybrid_inner_steps=hybrid_inner_steps,
+            early_stop=early_stop, dependent_weight=dependent_weight,
+            dependent_sampler=dependent_sampler, generator=null_text_generator)
+    with phase("edit_sample"):
+        out = edit_sample(unet_fn, scheduler, trajectory[-1], cond_embeddings,
+                          uncond_embedding, num_inference_steps=num_inference_steps,
+                          guidance_scale=guidance_scale, ctx=ctx, source_uses_cfg=True,
+                          eta=eta, generator=generator, null_uncond_embeddings=null_seq,
+                          dependent_sampler=dependent_sampler if eta > 0 else None)
+    return out, stats
+
+
+def official_null_text(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.Tensor,
+                     cond: torch.Tensor, uncond_embedding: torch.Tensor, phase, *,
+                     null_text_precision: str, **kw):
+    """The official mode's null-text phase, inside ``phase(
+    "null_text_optimization")``: ``null_text_optimization`` of
+    ``uncond_embedding`` (L, D) under the source embedding ``cond``, on a
+    bf16 clone of the UNet under "mixed" precision when the UNet is not
+    bf16. Returns the embeddings (N, 1, L, D) and the record
+    ``{"final_loss", "inner_steps"}``."""
+    from videop2p_tpu_torch.pipelines.inversion import null_text_optimization
+
     with phase("null_text_optimization"):
         null_fn = unet_fn
         module = unet_module(unet_fn)
@@ -357,20 +457,8 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
                 and next(module.parameters()).dtype != torch.bfloat16):
             null_fn = make_unet_fn(copy.deepcopy(module).to(torch.bfloat16))
         null_seq, losses, inner = null_text_optimization(
-            null_fn, scheduler, trajectory,
-            cond_embeddings[:1] if source_embedding is None else source_embedding,
-            uncond_embedding[None], num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale, num_inner_steps=num_inner_steps,
-            epsilon=epsilon, null_text_precision=null_text_precision,
-            null_text_mode=null_text_mode, early_stop=early_stop,
-            return_losses=True, return_inner_steps=True,
-            dependent_weight=dependent_weight, dependent_sampler=dependent_sampler,
-            generator=null_text_generator)
+            null_fn, scheduler, trajectory, cond, uncond_embedding[None],
+            null_text_precision=null_text_precision, return_losses=True,
+            return_inner_steps=True, **kw)
         del null_fn
-    with phase("edit_sample"):
-        out = edit_sample(unet_fn, scheduler, trajectory[-1], cond_embeddings,
-                          uncond_embedding, num_inference_steps=num_inference_steps,
-                          guidance_scale=guidance_scale, ctx=ctx, source_uses_cfg=True,
-                          eta=eta, generator=generator, null_uncond_embeddings=null_seq,
-                          dependent_sampler=dependent_sampler if eta > 0 else None)
-    return out, {"final_loss": losses, "inner_steps": inner}
+    return null_seq, {"final_loss": losses, "inner_steps": inner}

@@ -23,12 +23,11 @@ import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from videop2p_tpu_torch.core.ddpm import DDPMScheduler
-from videop2p_tpu_torch.core.noise import DependentNoiseSampler
+from videop2p_tpu_torch.core.noise import DependentNoiseSampler, step_generator
 from videop2p_tpu_torch.train.masking import DEFAULT_TRAINABLE, merge_params, partition_params
 
 __all__ = ["TuneConfig", "make_lr_schedule", "ClippedAdamW", "make_optimizer",
@@ -98,7 +97,8 @@ def make_lr_schedule(cfg: TuneConfig) -> Callable[[int], float]:
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """√(Σ x²) over every element of ``tensors``, in float32 (optax's)."""
-    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors)
+                      if tensors else torch.zeros(()))
 
 
 class ClippedAdamW:
@@ -141,6 +141,10 @@ class ClippedAdamW:
             for acc in state["acc"]:
                 acc.zero_()
             state["mini_step"] = 0
+        if not grads:
+            # an empty trainable set: the update counts and nothing moves
+            state["count"] += 1
+            return False
         norm = global_norm(grads)
         grads = [torch.where(norm < self.max_grad_norm, g, g / norm * self.max_grad_norm)
                  for g in grads]
@@ -191,13 +195,6 @@ class TrainState:
         return merge_params(self.trainable, self.frozen)
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of step ``step`` of the run seeded ``seed``: its seed
-    mixes the two (numpy's SeedSequence), so it depends on nothing else."""
-    mixed = np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(mixed))
-
-
 def train_step(unet_fn, tx: ClippedAdamW, state: TrainState, scheduler: DDPMScheduler,
                latents: torch.Tensor, text_embeddings: torch.Tensor,
                generator: Optional[torch.Generator] = None, *,
@@ -228,7 +225,8 @@ def train_step(unet_fn, tx: ClippedAdamW, state: TrainState, scheduler: DDPMSche
     with torch.enable_grad():
         pred, _ = unet_fn(noisy, timesteps, text_embeddings, None, store=False)
         loss = torch.mean((pred.float() - target.float()) ** 2)
-        grads = torch.autograd.grad(loss, params)
+        # an empty trainable set still takes the step (JAX's train_step)
+        grads = torch.autograd.grad(loss, params) if params else []
     grad_norm = global_norm(grads) if return_grad_norm else None
     tx.update_(params, grads, state.opt_state)
     state.step += 1
