@@ -153,10 +153,13 @@ tune:
    ``--steps``) loads the export through the suffix, src_err == 0.0; one
    train step's pre-clip gradients in float32 with the kernel against the
    plain version and with checkpointing against without, within
-   1e-4·max|ref|; each step's time and the peak memory of 4 steps of bf16
-   and fp32 with checkpointing on and off (frozen weights bit for bit in
-   memory); with ``--profile`` one bf16 step traced. The directory is
-   deleted afterwards.
+   1e-4·max|ref|; one bf16 step's gradients under ``remat_policy``
+   "dots_with_no_batch_dims_saveable" bit for bit those of full
+   recompute; each step's time and the peak memory of 4 steps of bf16
+   and fp32 with checkpointing on and off, and bf16 under that policy
+   (frozen weights bit for bit in memory); with ``--profile`` one bf16
+   step traced. With path ``distill`` phase 17 runs on the export. The
+   directory is deleted afterwards.
 
 surface:
 16. the rest of Stage 2's surface through ``main`` at SD-1.5 width, 512², 8
@@ -172,7 +175,12 @@ surface:
    and its GIF frames and latents equal the first run's bit for bit; a
    cached fast run saves its trajectory to a fresh ``inv_store``, and an
    official run on that store skips its inversion and runs null-text;
-   ``reuse_inversion=False`` recomputes both; (c) ``multi`` (per-frame
+   ``reuse_inversion=False`` recomputes both and gives the first run's
+   bits (fault 7: the null-text phase runs with cuDNN's deterministic
+   algorithms; its time printed beside the time before that), after a probe of one
+   null-text inner step under "auto" and "flash_rect" (repeats with and
+   without deterministic convolutions, and what
+   ``torch.use_deterministic_algorithms`` warns about); (c) ``multi`` (per-frame
    conditioning) cached: src_err == 0.0; (d) ``quant_mode`` off, w8 and
    w8a8 cached: the UNet's weight bytes on the card and the peak printed,
    phase 5's launch counts; (e) one full (capture) and one shallow UNet
@@ -180,6 +188,26 @@ surface:
    ``reuse_schedule`` uniform:2 beside off: launches as the schedule
    implies, src_err == 0.0, wall times printed. The directory is deleted
    afterwards.
+
+distill:
+17. consistency distillation (``cli.run_tuning.run_distillation``, 4 fp32
+   steps on the 50-point grid) from the tune path's export, or from phase
+   14's seeded directory: ms a step, peak, GroupNorm at 3 × 61 sites a
+   step and no frame-attention kernel; the student saved and loaded with
+   the same tensors; on the teacher's capture of the clip (``--steps`` × 2
+   base steps) a zero head's cached edit at ``--steps`` subset steps equal
+   to the teacher's bit for bit, the trained student's finite, src_err ==
+   0.0, launches as the steps imply.
+
+sdxl:
+18. ``UNet3DConfig.sdxl()`` at full width in bf16: one forward of (1, 8,
+   128, 128, 4) against (1, 77, 2048) and one 3-stream controlled edit
+   step (refine, equalizer "origami" 2.0): wall and device times, peak,
+   one frame-attention launch a transformer block and one GroupNorm a
+   site; frame attention at D 64 ((B, 8, 10, 4096, 64), (B, 8, 20, 1024,
+   64), B 1 and 3) and GroupNorm at every site of the forward against
+   their plain versions in fp32 and bf16 (timed beside SDPA /
+   F.group_norm + F.silu and the bound); one fp32 forward where it fits.
 
 Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
 the card line, then, last, ``{"ok": true, "device": {...}}``.
@@ -194,7 +222,8 @@ the same way).
 Run:  python3 chip_smoke.py [--steps 4] [--inner_steps 10]
                             [--mixed_precision fp32|bf16]
                             [--paths [fast] [official] [official_flash]
-                                     [dependent] [checkpoint] [tune] [surface]]
+                                     [dependent] [checkpoint] [tune] [surface]
+                                     [distill] [sdxl]]
                             [--profile [--frame_attention auto flash_rect flash]]
                             [--gn_only [--gn_kernel_names NAME ...]]
                             [--out PATH.json]
@@ -207,13 +236,23 @@ import contextlib
 import ctypes
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
-import numpy as np
-import torch
+# Re-initialise CUPTI for every torch.profiler session. Kept alive across
+# sessions (Kineto's default), CUPTI's GPU timestamps drift from the host
+# clock over minutes, and Kineto then drops every kernel record of a later
+# trace as outside its capture window (measured on an H100 host:
+# videop2p_tpu_torch/utils/profiler_probe.py). Set before torch loads Kineto.
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA data sheet):
 HBM_BYTES_PER_S = 3.35e12
@@ -293,10 +332,11 @@ AUTO_NULL_TEXT_PEAK_BEFORE_GIB = {"fp32": 23.37, "bf16": 15.29}
 FLASH_INNER_STEPS = 2
 # the paths after the kernel checks: the fast edit (phases 4-9), the
 # official main path (4b, 10), the official path under each kernel (11, 12),
-# the dependent noise (13), a checkpoint directory (14), Stage 1 (15) and
-# the rest of Stage 2's surface (16)
+# the dependent noise (13), a checkpoint directory (14), Stage 1 (15), the
+# rest of Stage 2's surface (16), consistency distillation and the few-step
+# student (17), and SDXL's width (18)
 PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint", "tune",
-         "surface")
+         "surface", "distill", "sdxl")
 # phase 4b's final losses in "hybrid" null-text mode are compared relative
 # to max(|loss|, this): its last outer step lands on x_0, where both losses
 # sit at float32 rounding noise (~1e-15) and have no relative meaning
@@ -327,6 +367,17 @@ SD_SCHEDULER_CONFIG = {"_class_name": "DDIMScheduler", "num_train_timesteps": 10
                        "beta_schedule": "scaled_linear", "clip_sample": False,
                        "set_alpha_to_one": False, "steps_offset": 1}
 GN_LAUNCHES_PER_CALL = 1  # one persistent launch (ops/groupnorm.py:plan)
+# official mode's null-text phase (s) in phase 16b's first and
+# recomputed runs before it ran with deterministic convolutions (PERF.md
+# §5: two chip_smoke runs on an H100 80GB HBM3 at 700 W)
+NULL_TEXT_S_BEFORE_DETERMINISM = (8.455, 8.366)
+# consistency distillation (path "distill", phase 17): fp32 steps on the
+# DDIM grid of the CLI's default, from the tune path's export
+DISTILL_STEPS = 4
+DISTILL_GRID = 50
+# the remat policy Stage 1's step is timed under beside full recompute
+# (phase 15, bf16)
+REMAT_POLICY = "dots_with_no_batch_dims_saveable"
 # Stage 1 (path "tune", phase 15): configs/rabbit-jump-tune.yaml at its
 # width (SD-1.5, 8 frames, 512², bf16, checkpointed blocks), cut to 4 steps
 # with a checkpoint at 2 and validation at 4 at 4 inversion and 4 sampling
@@ -432,6 +483,7 @@ def forward_bounds(rec: dict, fn, dtype, b, f, h, n, d, kernel: str) -> None:
     if dtype == torch.float32:
         rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 3 * flops, dtype, PEAK_TF32_FLOPS)
         rec["bound_cuda_core_ms"] = bound_ms(nbytes, flops, dtype)[0]
+        # None where the profiler missed them (device_ms_by_kernel)
         rec["kernels_ms"] = device_ms_by_kernel(
             fn, {"attention": f"{kernel}_kernel", "prep": f"{kernel}_prep_kernel"})
     else:
@@ -440,9 +492,11 @@ def forward_bounds(rec: dict, fn, dtype, b, f, h, n, d, kernel: str) -> None:
     print(f"    kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
           f"sdpa {rec['library_ms']:.4f} ms (kernel/sdpa {rec['ratio']:.3f}), bound "
           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, share {rec['share']:.3f})"
-          + (f", CUDA-core bound {rec['bound_cuda_core_ms']:.4f} ms; prep kernel "
-             f"{rec['kernels_ms']['prep']:.4f} ms, attention kernel "
-             f"{rec['kernels_ms']['attention']:.4f} ms (profiler)"
+          + (f", CUDA-core bound {rec['bound_cuda_core_ms']:.4f} ms; " + (
+              f"prep kernel {rec['kernels_ms']['prep']:.4f} ms, attention kernel "
+              f"{rec['kernels_ms']['attention']:.4f} ms (profiler)"
+              if None not in rec["kernels_ms"].values()
+              else "prep / attention split not measured")
              if dtype == torch.float32 else ""), flush=True)
 
 
@@ -630,14 +684,16 @@ def print_ptxas_reports() -> dict:
     return reports
 
 
-def _trace_kernels(fn, iters: int) -> dict:
+def _trace_kernels(fn, iters: int, cpu: bool = False) -> dict:
     """Kernel name → its device durations (ms) in a torch.profiler trace of
-    ``iters`` calls of ``fn`` after one warm-up call."""
+    ``iters`` calls of ``fn`` after one warm-up call (CUDA activity only,
+    or with the host's too under ``cpu``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -650,10 +706,9 @@ def _trace_kernels(fn, iters: int) -> dict:
 
 
 # traces of one measurement, at most, before it gives up on the profiler:
-# on the H100 a torch.profiler trace now and then comes back without some or
-# all of the kernels it ran, at times several traces in a row, so the
-# launches of successive traces are pooled, with a growing pause between
-# tries to wait out such a run
+# a torch.profiler trace now and then comes back without some or all of the
+# kernels it ran (Kineto counts them "out of range"), so the launches of
+# successive traces are pooled, with a growing pause between tries
 PROFILE_TRIES = 10
 
 
@@ -684,26 +739,36 @@ def device_ms_by_kernel(fn, prefixes: dict, iters: int = 3) -> dict:
     kernel matched is launched once a call, so each kernel's time is the
     mean over the launches the traces hold: a trace that dropped events
     does not bias it, and one that holds none of a kernel is taken again.
-    Where the profiler saw no kernel of a one-kernel call in any trace, the
-    call's time comes from CUDA events instead (``time_ms``), said on a
-    line of its own; a call of several kernels then fails."""
+    Where the traces missed a kernel, one more is taken with the host's
+    activity too; where that misses it as well, a one-kernel call's time
+    comes from CUDA events (``time_ms``), and a call of several is timed
+    whole by CUDA events, each kernel's time None (not measured). Each
+    miss is said on a line of its own, with what the traces did hold."""
 
     def sums(launches):
         return {name: sum(statistics.fmean(ms) for kernel, ms in launches.items()
                           if prefix in kernel)
                 for name, prefix in prefixes.items()}
 
-    out = sums(_pooled_launches(fn, iters, lambda ls: all(sums(ls).values())))
+    launches = _pooled_launches(fn, iters, lambda ls: all(sums(ls).values()))
+    out = sums(launches)
     if all(out.values()):
         return out
+    missed = [prefixes[name] for name, ms in out.items() if not ms]
+    held = sorted(launches, key=lambda k: -len(launches[k]))[:4]
+    # one trace with the host's activity too, as profile_device takes them
+    with_cpu = sums(_trace_kernels(fn, iters, cpu=True))
+    print(f"    the profiler saw no {', '.join(missed)} in {PROFILE_TRIES} CUDA-only traces "
+          f"(they held {sum(map(len, launches.values()))} kernel events of {len(launches)} "
+          "names" + (f", most often {[k[:60] for k in held]}" if held else "") + "); a "
+          f"trace with the host's activity too: {with_cpu}", flush=True)
+    if all(with_cpu.values()):
+        return with_cpu
+    call_ms = time_ms(fn)
+    print(f"    the whole call takes {call_ms:.4f} ms by CUDA events", flush=True)
     if len(prefixes) == 1:
-        (name,) = prefixes
-        out[name] = time_ms(fn)
-        print(f"    the profiler saw no {prefixes[name]} in {PROFILE_TRIES} traces: "
-              f"its time, {out[name]:.4f} ms, is from CUDA events", flush=True)
-        return out
-    raise AssertionError(f"the profiler saw no device time for {out} in "
-                         f"{PROFILE_TRIES} traces")
+        return {name: call_ms for name in prefixes}
+    return {name: None for name in prefixes}
 
 
 def device_ms_total(fn, iters: int = 5) -> float:
@@ -801,6 +866,9 @@ def check_flash_bwd(gen, dtype, b, f, h, n, d, timed: bool) -> list:
                 names["prep"] = "flash_bwd_dq_prep"
             ms = device_ms_by_kernel(
                 lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), names)
+            if None in ms.values():
+                raise AssertionError(f"{name}: the profiler saw no device time for the "
+                                     f"backward's kernels {names}")
             # the library's backward alone, SDPA's from its own retained graph
             # on the fold, in turns with the port's whole backward (the output
             # and scratch allocations and the kernels)
@@ -1914,8 +1982,11 @@ def surface_path(args, frames) -> tuple:
           flush=True)
     _drop_outputs(auto, rect)
 
-    # b. persisted reuse, from a checkpoint directory (reuse is off for an
-    # in-memory bundle)
+    # b. fault 7 first: which operations of a null-text step sum in an order
+    # that varies; then persisted reuse, from a checkpoint directory (reuse
+    # is off for an in-memory bundle)
+    print("surface: determinism of a null-text inner step (fp32):", flush=True)
+    records["determinism"] = determinism_probe()
     print(f"surface: persisted inversion reuse (official, {REUSE_INNER_STEPS} inner "
           "steps, a float32 checkpoint directory):", flush=True)
     os.makedirs("outputs", exist_ok=True)
@@ -1969,14 +2040,25 @@ def surface_path(args, frames) -> tuple:
         expect_launches(fresh, steps, "auto")
         recomputed = {"ddim_inversion", "null_text_optimization"} <= set(fresh["timings"])
         d = (fresh["latents"] - first["latents"]).abs().max().item()
+        # fault 7: two recomputed official runs of one clip give the same bits
+        reproduced = torch.equal(fresh["latents"], first["latents"])
+        null_s = [r["timings"]["null_text_optimization"] for r in (first, fresh)]
         print(f"  --no_reuse_inversion: reused {fresh['reused']}, both phases run: "
-              f"{recomputed}; against the first run max|d| {d!r}", flush=True)
+              f"{recomputed}; against the first run max|d| {d!r}, the same bits: "
+              f"{reproduced}; null-text phase {null_s[0]:.3f}, {null_s[1]:.3f} s "
+              f"(deterministic convolutions; before: "
+              f"{', '.join(f'{v:.3f}' for v in NULL_TEXT_S_BEFORE_DETERMINISM)} s)",
+              flush=True)
         if fresh["reused"] != {"trajectory": False, "null_text": False} or not recomputed:
             raise AssertionError("--no_reuse_inversion did not recompute")
+        if not reproduced:
+            raise AssertionError(f"two recomputed official runs differ: max|d| {d!r}")
         records["surface_reuse"] = {
             "walls_s": {k: runs[f"surface_reuse_{k}"]["wall_s"]
                         for k in ("first", "repeat", "cached", "after_cached", "off")},
-            "repeat_bit_identical": same, "off_max_abs_diff_vs_first": d}
+            "repeat_bit_identical": same, "off_max_abs_diff_vs_first": d,
+            "off_bit_identical": reproduced, "null_text_s": null_s,
+            "null_text_s_before_determinism": list(NULL_TEXT_S_BEFORE_DETERMINISM)}
         _drop_outputs(first, repeat, cached, after, fresh)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2082,9 +2164,11 @@ def tune_step_checks(profile: bool) -> dict:
     rabbit prompt, fixed noise and timestep 500), from the seeded weights:
     its pre-clip gradients in float32 with the GroupNorm kernel against the
     plain version, and with the blocks recomputed against without (both
-    within TUNE_GRAD_REL_TOL·max|ref|, whether the bits are equal printed);
-    then TUNE_TIMED_STEPS steps of each of bf16 / fp32 × checkpointed
-    blocks on / off, each step's wall time (synchronised), the median of
+    within TUNE_GRAD_REL_TOL·max|ref|, whether the bits are equal printed),
+    and one bf16 step's under REMAT_POLICY against full recompute (bit for
+    bit); then TUNE_TIMED_STEPS steps of each of bf16 / fp32 × checkpointed
+    blocks on / off, and bf16 under REMAT_POLICY, each step's wall time
+    (synchronised), the median of
     steps 2 on and the peak memory, the frozen weights held bit for bit and
     the trainable ones moved; with ``profile`` one bf16 checkpointed step
     under ``torch.profiler``. The weights are restored after every step."""
@@ -2118,8 +2202,9 @@ def tune_step_checks(profile: bool) -> dict:
     # card would add 3.4 GiB to every peak below
     start = {k: v.detach().to("cpu", copy=True) for k, v in unet.state_dict().items()}
 
-    def configure(remat: bool, dtype) -> None:
-        unet.config = dataclasses.replace(unet.config, gradient_checkpointing=remat)
+    def configure(remat: bool, dtype, policy=None) -> None:
+        unet.config = dataclasses.replace(unet.config, gradient_checkpointing=remat,
+                                          remat_policy=policy)
         unet.compute_dtype = None if dtype == torch.float32 else dtype
 
     def restore() -> None:
@@ -2127,8 +2212,9 @@ def tune_step_checks(profile: bool) -> dict:
             for k, v in unet.state_dict().items():
                 v.copy_(start[k])
 
-    def grads_of_one_step(remat: bool, plain: bool = False):
-        configure(remat, torch.float32)
+    def grads_of_one_step(remat: bool, plain: bool = False, dtype=torch.float32,
+                          policy=None):
+        configure(remat, dtype, policy)
         tx = _GradRecorder(make_optimizer(cfg))
         state = TrainState.create(unet, tx)
         gn.reset_launch_count()
@@ -2162,45 +2248,61 @@ def tune_step_checks(profile: bool) -> dict:
         raise AssertionError(f"train-step gradients off: kernel {err}, checkpointing "
                              f"{remat_err} (limit {tol})")
     del ref, got, off
+    # the remat policy keeps the linear layers' products instead of
+    # recomputing them: the same arithmetic, so the same bits
+    _, full, _ = grads_of_one_step(True, dtype=torch.bfloat16)
+    _, kept, policy_launches = grads_of_one_step(True, dtype=torch.bfloat16,
+                                                 policy=REMAT_POLICY)
+    policy_equal = all(torch.equal(a, b) for a, b in zip(kept, full))
+    print(f"  bf16, remat_policy {REMAT_POLICY} against full recompute: gradients bit for "
+          f"bit: {policy_equal}; GroupNorm launches {policy_launches}", flush=True)
+    if not policy_equal or policy_launches != GN_SITES + GN_REMAT_SITES:
+        raise AssertionError(f"remat_policy {REMAT_POLICY}: gradients equal {policy_equal}, "
+                             f"GroupNorm launches {policy_launches}")
+    del full, kept
     rec = {"grad_max_abs_ref": scale, "grad_tol": tol, "grad_max_abs_err": err,
            "remat_grad_max_abs_err": remat_err, "remat_bits_equal": remat_equal,
+           "remat_policy_bits_equal": policy_equal,
            "loss": loss, "plain_loss": ref_loss, "steps": {}}
 
     print(f"train steps ({TUNE_TIMED_STEPS} a configuration; ms of each, the median of "
           "steps 2 on, peak memory):", flush=True)
-    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        for remat in (True, False):
-            configure(remat, dtype)
-            tx = make_optimizer(cfg)
-            state = TrainState.create(unet, tx)
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            ms, losses = [], []
-            with deterministic_convolutions():
-                for step in range(TUNE_TIMED_STEPS):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    _, loss = train_step(fn, tx, state, sched, latents, text,
-                                         step_generator(0, step, "cuda"))
-                    torch.cuda.synchronize()
-                    ms.append((time.perf_counter() - t0) * 1e3)
-                    losses.append(loss.item())
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            frozen_equal = all(torch.equal(p.cpu(), start[k]) for k, p in state.frozen.items())
-            moved = all(not torch.equal(p.cpu(), start[k])
-                        for k, p in state.trainable.items())
-            del state, tx
-            restore()
-            label = f"{name}, checkpointed blocks {'on' if remat else 'off'}"
-            median = statistics.median(ms[1:])
-            print(f"  {label}: {', '.join(f'{m:.1f}' for m in ms)} ms, median {median:.2f} "
-                  f"ms, peak {peak:.2f} GiB; losses {losses}; frozen bit for bit "
-                  f"{frozen_equal}, every trainable tensor moved {moved}", flush=True)
-            if not (frozen_equal and moved and all(np.isfinite(losses))):
-                raise AssertionError(f"train steps ({label}): frozen equal {frozen_equal}, "
-                                     f"trainable moved {moved}, losses {losses}")
-            rec["steps"][label] = {"ms": ms, "median_ms": median, "peak_gib": peak,
-                                   "losses": losses}
+    for name, dtype, remat, policy in (
+            ("bf16", torch.bfloat16, True, None), ("bf16", torch.bfloat16, True, REMAT_POLICY),
+            ("bf16", torch.bfloat16, False, None), ("fp32", torch.float32, True, None),
+            ("fp32", torch.float32, False, None)):
+        configure(remat, dtype, policy)
+        tx = make_optimizer(cfg)
+        state = TrainState.create(unet, tx)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        with deterministic_convolutions():
+            for step in range(TUNE_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, loss = train_step(fn, tx, state, sched, latents, text,
+                                     step_generator(0, step, "cuda"))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss.item())
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        frozen_equal = all(torch.equal(p.cpu(), start[k]) for k, p in state.frozen.items())
+        moved = all(not torch.equal(p.cpu(), start[k])
+                    for k, p in state.trainable.items())
+        del state, tx
+        restore()
+        label = (f"{name}, checkpointed blocks {'on' if remat else 'off'}"
+                 + (f", remat_policy {policy}" if policy else ""))
+        median = statistics.median(ms[1:])
+        print(f"  {label}: {', '.join(f'{m:.1f}' for m in ms)} ms, median {median:.2f} "
+              f"ms, peak {peak:.2f} GiB; losses {losses}; frozen bit for bit "
+              f"{frozen_equal}, every trainable tensor moved {moved}", flush=True)
+        if not (frozen_equal and moved and all(np.isfinite(losses))):
+            raise AssertionError(f"train steps ({label}): frozen equal {frozen_equal}, "
+                                 f"trainable moved {moved}, losses {losses}")
+        rec["steps"][label] = {"ms": ms, "median_ms": median, "peak_gib": peak,
+                               "losses": losses}
     if profile:
         configure(True, torch.bfloat16)
         tx = make_optimizer(cfg)
@@ -2259,7 +2361,7 @@ def expect_tune_launches(run: dict, steps: int, validations: int) -> None:
         raise AssertionError(f"tune launches {run['launches']}, expected {want}")
 
 
-def tune_path(args, frames) -> tuple:
+def tune_path(args, frames, tmp: str) -> tuple:
     """Phase 15 (path "tune"): Stage 1 on the card. The seeded SD-1.5 bundle
     written as a float32 checkpoint directory (phase 14's writer) is
     ``pretrained_model_path``; ``cli.run_tuning.main`` on TUNE (4 bf16
@@ -2270,11 +2372,10 @@ def tune_path(args, frames) -> tuple:
     (the preemption event set) and resumed from "latest" to step 4 exports
     the same bytes as the uninterrupted run; Stage 2 (``run_videop2p.main``
     fast, ``--steps``) loads the export through the suffix and edits with
-    src_err == 0.0; then :func:`tune_step_checks`. The directory is deleted
-    afterwards, also on a failure. Returns (runs, records)."""
+    src_err == 0.0; then :func:`tune_step_checks`. Everything is written
+    under ``tmp``, which the caller deletes; the export is
+    ``runs["tune"]["dir"]``. Returns (runs, records)."""
     import os
-    import shutil
-    import tempfile
 
     from videop2p_tpu_torch.cli import run_tuning
     from videop2p_tpu_torch.cli.common import ModelBundle, build_models
@@ -2283,92 +2384,476 @@ def tune_path(args, frames) -> tuple:
 
     print("Stage-1 tuning (configs/rabbit-jump-tune.yaml: SD-1.5 width, 512², 8 frames, "
           "bf16, checkpointed blocks; 4 steps):", flush=True)
-    os.makedirs("outputs", exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_", dir="outputs")
+    bundle = build_models(dtype=torch.float32, device="cuda", seed=0)
+    pretrained = os.path.join(tmp, "sd15")
+    nbytes = write_checkpoint(pretrained, ModelBundle(
+        unet=bundle.unet, vae=bundle.vae, text_encoder=bundle.text_encoder,
+        scheduler_config=dict(SD_SCHEDULER_CONFIG)))
+    loaded = {k: v.cpu() for k, v in bundle.unet.state_dict().items()}
+    mask = trainable_mask(bundle.unet)
+    del bundle
+    print(f"  wrote the seeded SD-1.5 checkpoint ({nbytes / 1e9:.3f} GB); trainable "
+          f"{sum(loaded[k].numel() for k, m in mask.items() if m)} of "
+          f"{sum(v.numel() for v in loaded.values())} UNet parameters", flush=True)
+    steps = TUNE["max_train_steps"]
+    straight = run_tuning_main(pretrained_model_path=pretrained,
+                               output_dir=os.path.join(tmp, "straight", "rabbit-jump"))
+    expect_tune_launches(straight, steps, 1)
+    with open(os.path.join(straight["dir"], "metrics.jsonl")) as fh:
+        losses = [json.loads(line)["train_loss"] for line in fh]
+    weights = os.path.join(straight["dir"], "unet", "diffusion_pytorch_model.safetensors")
+    exported = convert.read_safetensors(weights)
+    frozen_equal = all(torch.equal(exported[k], loaded[k]) for k, m in mask.items()
+                       if not m)
+    moved = all(not torch.equal(exported[k], loaded[k]) for k, m in mask.items() if m)
+    dtypes = sorted({str(v.dtype) for v in exported.values()})
+    export_bytes = os.path.getsize(weights)
+    print(f"  losses {losses}; export {export_bytes} bytes in "
+          f"{straight['phases_s']['export']:.2f} s, dtypes {dtypes}; frozen tensors bit "
+          f"for bit the loaded ones: {frozen_equal}; every trainable tensor moved: "
+          f"{moved}; validation {straight['phases_s']['validation']:.2f} s", flush=True)
+    if not (len(losses) == steps and all(np.isfinite(losses))):
+        raise AssertionError(f"tune losses {losses}")
+    if not (sorted(exported) == sorted(loaded) and frozen_equal and moved
+            and dtypes == ["torch.float32"]):
+        raise AssertionError("the exported UNet is not the loaded one with its "
+                             "trainable tensors moved, in float32")
+    del exported
+
+    print("  preempted at step 2, resumed from latest to step 4:", flush=True)
+    resumed_dir = os.path.join(tmp, "resumed", "rabbit-jump")
+    run_tuning._PREEMPT_EVENT.set()
     try:
-        bundle = build_models(dtype=torch.float32, device="cuda", seed=0)
-        pretrained = os.path.join(tmp, "sd15")
-        nbytes = write_checkpoint(pretrained, ModelBundle(
-            unet=bundle.unet, vae=bundle.vae, text_encoder=bundle.text_encoder,
-            scheduler_config=dict(SD_SCHEDULER_CONFIG)))
-        loaded = {k: v.cpu() for k, v in bundle.unet.state_dict().items()}
-        mask = trainable_mask(bundle.unet)
-        del bundle
-        print(f"  wrote the seeded SD-1.5 checkpoint ({nbytes / 1e9:.3f} GB); trainable "
-              f"{sum(loaded[k].numel() for k, m in mask.items() if m)} of "
-              f"{sum(v.numel() for v in loaded.values())} UNet parameters", flush=True)
-        steps = TUNE["max_train_steps"]
-        straight = run_tuning_main(pretrained_model_path=pretrained,
-                                   output_dir=os.path.join(tmp, "straight", "rabbit-jump"))
-        expect_tune_launches(straight, steps, 1)
-        with open(os.path.join(straight["dir"], "metrics.jsonl")) as fh:
-            losses = [json.loads(line)["train_loss"] for line in fh]
-        weights = os.path.join(straight["dir"], "unet", "diffusion_pytorch_model.safetensors")
-        exported = convert.read_safetensors(weights)
-        frozen_equal = all(torch.equal(exported[k], loaded[k]) for k, m in mask.items()
-                           if not m)
-        moved = all(not torch.equal(exported[k], loaded[k]) for k, m in mask.items() if m)
-        dtypes = sorted({str(v.dtype) for v in exported.values()})
-        export_bytes = os.path.getsize(weights)
-        print(f"  losses {losses}; export {export_bytes} bytes in "
-              f"{straight['phases_s']['export']:.2f} s, dtypes {dtypes}; frozen tensors bit "
-              f"for bit the loaded ones: {frozen_equal}; every trainable tensor moved: "
-              f"{moved}; validation {straight['phases_s']['validation']:.2f} s", flush=True)
-        if not (len(losses) == steps and all(np.isfinite(losses))):
-            raise AssertionError(f"tune losses {losses}")
-        if not (sorted(exported) == sorted(loaded) and frozen_equal and moved
-                and dtypes == ["torch.float32"]):
-            raise AssertionError("the exported UNet is not the loaded one with its "
-                                 "trainable tensors moved, in float32")
-        del exported
-
-        print("  preempted at step 2, resumed from latest to step 4:", flush=True)
-        resumed_dir = os.path.join(tmp, "resumed", "rabbit-jump")
-        run_tuning._PREEMPT_EVENT.set()
-        try:
-            preempted = run_tuning_main(pretrained_model_path=pretrained,
-                                        output_dir=resumed_dir)
-        finally:
-            run_tuning._PREEMPT_EVENT.clear()
-        if not (latest_checkpoint(preempted["dir"]).endswith("checkpoint-2")
-                and not os.path.exists(os.path.join(preempted["dir"], "model_index.json"))):
-            raise AssertionError("the preempted run did not stop at checkpoint-2")
-        expect_tune_launches(preempted, 2, 0)
-        resumed = run_tuning_main(pretrained_model_path=pretrained, output_dir=resumed_dir,
-                                  resume_from_checkpoint="latest")
-        expect_tune_launches(resumed, steps - 2, 1)
-        with open(weights, "rb") as fa_, open(os.path.join(
-                resumed["dir"], "unet", "diffusion_pytorch_model.safetensors"), "rb") as fb:
-            same = fa_.read() == fb.read()
-        diff = {}
-        if not same:
-            a = convert.read_safetensors(weights)
-            b = convert.read_safetensors(os.path.join(
-                resumed["dir"], "unet", "diffusion_pytorch_model.safetensors"))
-            diff = {k: (a[k] - b[k]).abs().max().item() for k in a
-                    if not torch.equal(a[k], b[k])}
-        print(f"  resumed export equal to the uninterrupted one byte for byte: {same}"
-              + (f"; differing tensors {diff}" if diff else ""), flush=True)
-        if not same:
-            raise AssertionError(f"the resumed run differs from the uninterrupted run: {diff}")
-
-        print("  Stage 2 from the export (run_videop2p fast):", flush=True)
-        stage2 = run_main_path(frames, args.steps, args.mixed_precision,
-                               pretrained_model_path=os.path.join(tmp, "straight",
-                                                                  "rabbit-jump"))
-        expect_launches(stage2, args.steps, "auto")
-        if stage2["checkpoint_dir"] != straight["dir"] or "build_models" not in stage2["timings"]:
-            raise AssertionError(f"Stage 2 did not load {straight['dir']!r}")
-        del stage2["latents"]
-        torch.cuda.empty_cache()
-        steps_rec = tune_step_checks(args.profile)
+        preempted = run_tuning_main(pretrained_model_path=pretrained,
+                                    output_dir=resumed_dir)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        run_tuning._PREEMPT_EVENT.clear()
+    if not (latest_checkpoint(preempted["dir"]).endswith("checkpoint-2")
+            and not os.path.exists(os.path.join(preempted["dir"], "model_index.json"))):
+        raise AssertionError("the preempted run did not stop at checkpoint-2")
+    expect_tune_launches(preempted, 2, 0)
+    resumed = run_tuning_main(pretrained_model_path=pretrained, output_dir=resumed_dir,
+                              resume_from_checkpoint="latest")
+    expect_tune_launches(resumed, steps - 2, 1)
+    with open(weights, "rb") as fa_, open(os.path.join(
+            resumed["dir"], "unet", "diffusion_pytorch_model.safetensors"), "rb") as fb:
+        same = fa_.read() == fb.read()
+    diff = {}
+    if not same:
+        a = convert.read_safetensors(weights)
+        b = convert.read_safetensors(os.path.join(
+            resumed["dir"], "unet", "diffusion_pytorch_model.safetensors"))
+        diff = {k: (a[k] - b[k]).abs().max().item() for k in a
+                if not torch.equal(a[k], b[k])}
+    print(f"  resumed export equal to the uninterrupted one byte for byte: {same}"
+          + (f"; differing tensors {diff}" if diff else ""), flush=True)
+    if not same:
+        raise AssertionError(f"the resumed run differs from the uninterrupted run: {diff}")
+
+    print("  Stage 2 from the export (run_videop2p fast):", flush=True)
+    stage2 = run_main_path(frames, args.steps, args.mixed_precision,
+                           pretrained_model_path=os.path.join(tmp, "straight",
+                                                              "rabbit-jump"))
+    expect_launches(stage2, args.steps, "auto")
+    if stage2["checkpoint_dir"] != straight["dir"] or "build_models" not in stage2["timings"]:
+        raise AssertionError(f"Stage 2 did not load {straight['dir']!r}")
+    del stage2["latents"]
+    torch.cuda.empty_cache()
+    steps_rec = tune_step_checks(args.profile)
     torch.cuda.empty_cache()
     rec = {"losses": losses, "export_bytes": export_bytes, "frozen_equal": frozen_equal,
            "trainable_moved": moved, "resumed_bit_identical": same, **steps_rec,
            "preempted": preempted, "resumed": resumed}
     return {"tune": straight, "tune_stage2": stage2}, {"tune": rec}
+
+
+def determinism_probe() -> dict:
+    """Fault 7 (phase 16b): one fp32 null-text inner step (forward, backward
+    to the embedding, an Adam step) at the main path's shape under "auto"
+    and "flash_rect", twice as the CLI ran it before (cuDNN free to choose
+    algorithms that add with atomics), twice under
+    ``deterministic_convolutions``, and once under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, which
+    names each operation that has no deterministic version (the operations
+    it makes deterministic, such as an index_select backward, it does not
+    name); then two forwards alone, the inversion's work. Prints whether
+    each pair gives the same bits and what was warned."""
+    import warnings
+
+    from videop2p_tpu_torch.cli.common import build_models, deterministic_convolutions
+    from videop2p_tpu_torch.pipelines.inversion import adam_update
+
+    out = {}
+    for impl in ("auto", "flash_rect"):
+        bundle = build_models(dtype=torch.float32, device="cuda", seed=0, frame_attention=impl)
+        value_and_grad = null_text_inputs(bundle)
+
+        def inner_step():
+            loss, grad = value_and_grad()
+            moved, _ = adam_update(torch.zeros_like(grad), grad, None, 1e-2)
+            return loss, grad, moved
+
+        def same(a, b):
+            return a[0] == b[0] and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+        free = same(inner_step(), inner_step())
+        with deterministic_convolutions():
+            held = same(inner_step(), inner_step())
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                inner_step()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        warned = sorted({str(w.message).split("\n")[0][:160] for w in caught})
+        x = torch.randn(1, 8, 64, 64, 4, generator=torch.Generator("cuda").manual_seed(5),
+                        device="cuda")
+        text = torch.zeros(1, 77, 768, device="cuda")
+        with torch.no_grad():
+            forwards = torch.equal(bundle.unet(x, 500, text), bundle.unet(x, 500, text))
+        del bundle, value_and_grad
+        torch.cuda.empty_cache()
+        out[impl] = {"inner_step_repeats_equal": free,
+                     "inner_step_repeats_equal_deterministic_convolutions": held,
+                     "forward_repeats_equal": forwards, "deterministic_mode_warnings": warned}
+        print(f"  {impl}: a null-text inner step repeated gives the same bits: {free}; under "
+              f"deterministic_convolutions: {held}; two forwards alone: {forwards}; "
+              f"use_deterministic_algorithms warns about {warned or 'nothing'}", flush=True)
+        if not (held and forwards):
+            raise AssertionError(f"{impl}: repeats differ under deterministic_convolutions")
+    return out
+
+
+def distill_path(args, frames, pipeline_dir=None) -> tuple:
+    """Phase 17 (path "distill"): consistency distillation and the few-step
+    student at SD-1.5 width. ``cli.run_tuning.run_distillation`` for
+    DISTILL_STEPS fp32 steps on the grid of DISTILL_GRID from
+    ``pipeline_dir`` (the tune path's export) or, without one, from the
+    seeded SD-1.5 bundle written as a float32 checkpoint directory (phase
+    14's writer): its ms a step, peak and launches (GroupNorm at every site
+    of its three forwards a step, the teacher's, the EMA target's and the
+    student's; the student's backward recomputes through the plain version
+    and launches none; no frame-attention kernel: "chunked"); the student
+    loaded, saved and loaded again with the same tensors; then on the
+    teacher's capture of the clip (``--steps`` × 2 base steps, "auto"), a
+    zero head's cached edit at ``--steps`` subset steps equal to the
+    teacher's bit for bit, and the trained student's finite, both with
+    src_err == 0.0 and the launches the steps imply. The directory it
+    writes, and the student, are deleted afterwards. Returns (runs,
+    records)."""
+    import os
+    import shutil
+    import tempfile
+
+    from videop2p_tpu_torch.cli import run_tuning
+    from videop2p_tpu_torch.cli.common import ModelBundle, build_models, encode_prompts
+    from videop2p_tpu_torch.control import make_controller
+    from videop2p_tpu_torch.models.vae import encode_video
+    from videop2p_tpu_torch.pipelines import make_unet_fn
+    from videop2p_tpu_torch.pipelines.cached import capture_windows
+    from videop2p_tpu_torch.pipelines.inversion import ddim_inversion_captured
+    from videop2p_tpu_torch.pipelines.sampling import edit_sample
+    from videop2p_tpu_torch.train import (
+        DistillConfig,
+        DistillState,
+        init_time_head,
+        load_student,
+        make_distill_optimizer,
+        save_student,
+    )
+    from videop2p_tpu_torch.utils import profiling
+
+    print(f"consistency distillation ({DISTILL_STEPS} fp32 steps, grid {DISTILL_GRID}, "
+          "SD-1.5 width, 512², 8 frames) and the few-step student:", flush=True)
+    os.makedirs("outputs", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_distill_", dir="outputs")
+    runs, rec = {}, {}
+    try:
+        if pipeline_dir is None:
+            seeded = build_models(dtype=torch.float32, device="cuda", seed=0)
+            pipeline_dir = os.path.join(tmp, "sd15")
+            write_checkpoint(pipeline_dir, ModelBundle(
+                unet=seeded.unet, vae=seeded.vae, text_encoder=seeded.text_encoder,
+                scheduler_config=dict(SD_SCHEDULER_CONFIG)))
+            del seeded
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        profiling.reset()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        path = run_tuning.run_distillation(
+            pipeline_dir, TUNE["train_data"], distill_steps=DISTILL_STEPS,
+            distill_grid=DISTILL_GRID, seed=TUNE["seed"], device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        phases = profiling.phase_records()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = phases["distill_steps"] / DISTILL_STEPS * 1e3
+        want = {k: 0 for k in launches}
+        want["group_norm"] = GN_LAUNCHES_PER_CALL * 3 * GN_SITES * DISTILL_STEPS
+        print(f"  run_distillation: {wall:.2f} s; phases (s) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+              + f"; {step_ms:.1f} ms a step (the mean of {DISTILL_STEPS}, the first "
+              f"included); peak {peak:.2f} GiB; launches {launches}", flush=True)
+        if launches != want:
+            raise AssertionError(f"distillation launches {launches}, expected {want}")
+        if not path.endswith(f"student{os.sep}checkpoint-{DISTILL_STEPS}"):
+            raise AssertionError(f"the student went to {path!r}")
+        runs["distill"] = {"wall_s": wall, "launches": launches, "peak_gib": peak,
+                           "phases_s": phases, "step_ms": step_ms}
+
+        teacher = build_models(pipeline_dir, dtype=torch.float32, device="cuda", seed=0)
+        unet = teacher.unet
+        params, head = load_student(path, unet, unet.config)
+        own = {k: p.detach().clone() for k, p in unet.named_parameters()}
+        unet.load_state_dict(params)
+        state = DistillState.create(unet, head, make_distill_optimizer(DistillConfig()))
+        again, head2 = load_student(save_student(os.path.join(tmp, "resaved"), state,
+                                                 DISTILL_STEPS), unet, unet.config)
+        round_trip = (all(torch.equal(again[k], params[k]) for k in params)
+                      and all(torch.equal(head2[k], head[k]) for k in head))
+        moved = sum(not torch.equal(params[k], own[k]) for k in own)
+        print(f"  the student: {moved} tensors moved from the teacher's, head "
+              f"max|dense2| {head['dense2.kernel'].abs().max().item():.3e}; saved and "
+              f"loaded again with the same tensors: {round_trip}", flush=True)
+        if not (round_trip and moved == len(state.trainable)):
+            raise AssertionError("the student checkpoint did not round-trip")
+        del state, again, head2
+        with torch.no_grad():
+            unet.load_state_dict(own)
+
+        steps, base = args.steps, 2 * args.steps
+        fn, sched = make_unet_fn(unet), teacher.make_scheduler()
+        video = torch.as_tensor(frames, device="cuda")[None].float() / 127.5 - 1.0
+        with torch.no_grad():
+            latents = encode_video(teacher.vae, video).float()
+        cond = encode_prompts(teacher, RABBIT["prompts"], "cuda")
+        uncond = encode_prompts(teacher, [""], "cuda")[0]
+        words = RABBIT["blend_word"]
+        ctrl = dict(is_replace_controller=False, cross_replace_steps=0.8,
+                    self_replace_steps=0.4, blend_words=((words[0],), (words[1],)),
+                    equalizer_params=dict(RABBIT["eq_params"]), device="cuda")
+        cross_len, window = capture_windows(
+            make_controller(RABBIT["prompts"], teacher.tokenizer, base, **ctrl), base)
+        trajectory, cached = ddim_inversion_captured(
+            fn, sched, latents, cond[:1], num_inference_steps=base, cross_len=cross_len,
+            self_window=window, capture_blend=True)
+        positions = sched.subset_positions(base, steps)
+        ctx = make_controller(RABBIT["prompts"], teacher.tokenizer, steps, **ctrl)
+
+        def edit(student_head=None):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = edit_sample(fn, sched, trajectory[-1], cond, uncond,
+                              num_inference_steps=steps, ctx=ctx, source_uses_cfg=False,
+                              cached_source=cached, step_positions=positions,
+                              student_head=student_head)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, launch_counts()
+
+        want = {k: 0 for k in launches}
+        want.update(frame_attention=ATTN_SITES * steps,
+                    group_norm=GN_LAUNCHES_PER_CALL * GN_SITES * steps)
+        zero = init_time_head(torch.Generator("cuda").manual_seed(1), unet.config)
+        out_t, wall_t, launches_t = edit()
+        out_z, wall_z, _ = edit(zero)
+        with torch.no_grad():
+            unet.load_state_dict(params)
+        out_s, wall_s, launches_s = edit(head)
+        src_err = {name: (o[0] - cached.src_latents[-1][0]).abs().max().item()
+                   for name, o in (("teacher", out_t), ("zero", out_z), ("student", out_s))}
+        bit_equal = torch.equal(out_z, out_t)
+        d = (out_s[1:] - out_t[1:]).abs().max().item()
+        print(f"  cached edits at {steps} subset steps of a {base}-step capture: teacher "
+              f"{wall_t:.3f} s, zero-head student {wall_z:.3f} s (the teacher's bit for bit: "
+              f"{bit_equal}), trained student {wall_s:.3f} s (against the teacher max|d| "
+              f"{d:.4e}); src_err {src_err}; launches {launches_s}", flush=True)
+        if not (bit_equal and all(v == 0.0 for v in src_err.values())):
+            raise AssertionError(f"student edits: zero head equal {bit_equal}, src_err "
+                                 f"{src_err}")
+        if not torch.isfinite(out_s).all() or launches_t != want or launches_s != want:
+            raise AssertionError(f"student edit launches {launches_s} (teacher "
+                                 f"{launches_t}), expected {want}")
+        runs["student_edit"] = {"wall_s": wall_s, "launches": launches_s}
+        rec = {"distill": runs["distill"], "round_trip": round_trip,
+               "edit_wall_s": {"teacher": wall_t, "zero_head": wall_z, "student": wall_s},
+               "zero_head_bit_identical": bit_equal, "student_vs_teacher_max_abs": d,
+               "src_err": src_err}
+        del teacher, unet, fn, cached, trajectory, out_t, out_z, out_s, params, own
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if pipeline_dir is not None:
+            shutil.rmtree(os.path.join(pipeline_dir, "student"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    return runs, {"distill": rec}
+
+
+def sdxl_gn_sites(unet, x, t, text) -> dict:
+    """{(n, rows, c, eps, act): calls} of the GroupNorm calls of one forward."""
+    from videop2p_tpu_torch.models.layers import TpuGroupNorm
+
+    sites = {}
+
+    def record(module, inputs):
+        x = inputs[0]
+        key = (x.shape[0], x[0, ..., 0].numel(), x.shape[-1], module.eps, module.act)
+        sites[key] = sites.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(record) for m in unet.modules()
+             if isinstance(m, TpuGroupNorm)]
+    try:
+        with torch.no_grad():
+            unet(x, t, text)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sites
+
+
+def sdxl_path(args) -> tuple:
+    """Phase 18 (path "sdxl"): ``UNet3DConfig.sdxl()`` at full width on the
+    card. Seeded bf16 weights (built in float32, cast); one forward of
+    (1, 8, 128, 128, 4) latents against (1, 77, 2048) seeded embeddings and
+    one controlled fast-mode edit step with 3 streams (refine, equalizer
+    "origami" 2.0), as the JAX benchmark's SDXL cell: wall and device
+    times, peak, launches (frame attention at every transformer block,
+    GroupNorm at every site); then frame attention at SDXL's two 64-wide
+    shapes (H 10 N 4096, H 20 N 1024) for B 1 and 3, and GroupNorm at every
+    site the forward ran, each against its plain version in bf16 and fp32
+    (timed: the forward's attention shapes and GroupNorm at 128²×320 and the
+    32²×1280 stack); then one fp32 forward where it fits. Returns (runs,
+    records)."""
+    from videop2p_tpu_torch.control import make_controller
+    from videop2p_tpu_torch.core import DDIMScheduler
+    from videop2p_tpu_torch.models.convert import init_weights
+    from videop2p_tpu_torch.models.layers import TpuGroupNorm
+    from videop2p_tpu_torch.models.unet import UNet3DConditionModel, UNet3DConfig
+    from videop2p_tpu_torch.ops.attention import MIN_LARGE_TOKENS
+    from videop2p_tpu_torch.pipelines import make_unet_fn
+    from videop2p_tpu_torch.pipelines.fast import _controlled_sites
+    from videop2p_tpu_torch.pipelines.sampling import edit_sample
+    from videop2p_tpu_torch.utils.tokenizers import WordTokenizer
+
+    print("SDXL (UNet3DConfig.sdxl(): 3 levels, depths 1/2/10, 64-wide heads, 2048-wide "
+          "context; bf16, (1, 8, 128, 128, 4) latents):", flush=True)
+    runs, rec = {}, {}
+    cfg = UNet3DConfig.sdxl()
+    with torch.device("cuda"):
+        unet = init_weights(UNet3DConditionModel(cfg), 0)
+    params = sum(p.numel() for p in unet.parameters())
+    unet = unet.to(torch.bfloat16).eval()
+    side = cfg.sample_size
+    # one frame-attention launch a transformer block at MIN_LARGE_TOKENS
+    # tokens or more (all of SDXL's: 64² and 32²), one GroupNorm a site
+    blocks = sum(site == "cross" and tokens >= MIN_LARGE_TOKENS
+                 for site, _, tokens in _controlled_sites(unet, (side, side)).values())
+    norms = sum(isinstance(m, TpuGroupNorm) for m in unet.modules())
+    gen = torch.Generator("cuda").manual_seed(77)
+    x = torch.randn(1, 8, side, side, 4, generator=gen, device="cuda").to(torch.bfloat16)
+    width = cfg.cross_attention_dim
+    text = torch.randn(1, 77, width, generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.tensor([500], device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            return unet(x, t, text)
+
+    def timed(fn):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, (time.perf_counter() - t0) * 1e3, launch_counts(),
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    # the kernels first, at the shapes the model gives them
+    sites = sdxl_gn_sites(unet, x, t, text)
+    print("  kernel checks at SDXL's shapes:", flush=True)
+    checks = {"frame_attention": [], "group_norm": []}
+    timed_gn = {(1, 8 * side * side, 320, 1e-5, "silu"),
+                (1, 8 * (side // 4) ** 2, 1280, 1e-5, "silu"),
+                (8, (side // 4) ** 2, 1280, 1e-6, "none")}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (1, 3):
+            for h, n in ((10, 4096), (20, 1024)):
+                checks["frame_attention"].append(
+                    check_attention(gen, dtype, b, 8, h, n, 64, timed=b == 1))
+        for (n, rows, c, eps, act), calls in sorted(sites.items()):
+            r = check_group_norm(gen, dtype, n, rows, c, eps, act,
+                                 timed=(n, rows, c, eps, act) in timed_gn)
+            r["calls_a_forward"] = calls
+            checks["group_norm"].append(r)
+        torch.cuda.empty_cache()
+
+    out, fwd_ms, fwd_launches, fwd_peak = timed(forward)
+    want = {k: 0 for k in fwd_launches}
+    want.update(frame_attention=blocks, group_norm=GN_LAUNCHES_PER_CALL * norms)
+    fwd_profile = profile_device(forward, "one SDXL forward (bf16, B 1)")
+    print(f"  {params / 1e9:.3f} B parameters; forward wall {fwd_ms:.1f} ms, device kernel "
+          f"time {fwd_profile['kernel_ms']:.1f} ms, peak {fwd_peak:.2f} GiB, launches "
+          f"{fwd_launches}", flush=True)
+    if fwd_launches != want or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"SDXL forward: launches {fwd_launches} (expected {want}), "
+                             f"finite {bool(torch.isfinite(out.float()).all())}")
+    del out
+    prompts = RABBIT["prompts"]
+    ctx = make_controller(prompts, WordTokenizer(), 1, is_replace_controller=False,
+                          cross_replace_steps=1.0, self_replace_steps=1.0,
+                          equalizer_params={"words": ["origami"], "values": [2.0]},
+                          device="cuda")
+    cond = torch.randn(2, 77, width, generator=gen, device="cuda").to(torch.bfloat16)
+    uncond = torch.zeros(77, width, device="cuda", dtype=torch.bfloat16)
+    fn, sched = make_unet_fn(unet), DDIMScheduler.create_sd()
+
+    def step():
+        return edit_sample(fn, sched, x, cond, uncond, num_inference_steps=1, ctx=ctx,
+                           source_uses_cfg=False)
+
+    out, step_ms, step_launches, step_peak = timed(step)
+    step_profile = profile_device(step, "one SDXL controlled edit step (bf16, 3 streams)")
+    print(f"  controlled edit step: wall {step_ms:.1f} ms, device kernel time "
+          f"{step_profile['kernel_ms']:.1f} ms, peak {step_peak:.2f} GiB, launches "
+          f"{step_launches}", flush=True)
+    if step_launches != want or not torch.isfinite(out).all() or tuple(out.shape) != (
+            2, 8, side, side, 4):
+        raise AssertionError(f"SDXL controlled step: launches {step_launches} (expected "
+                             f"{want}), shape {tuple(out.shape)}")
+    runs["sdxl"] = {"launches": step_launches}
+    del out, fn, ctx
+    torch.cuda.empty_cache()
+
+    fp32 = {}
+    unet = unet.float()
+    x, text = x.float(), text.float()
+    try:
+        out, fp32["wall_ms"], fp32["launches"], fp32["peak_gib"] = timed(forward)
+        fp32["finite"] = bool(torch.isfinite(out).all())
+        del out
+        print(f"  fp32 forward: wall {fp32['wall_ms']:.1f} ms, peak {fp32['peak_gib']:.2f} GiB, "
+              f"finite {fp32['finite']}", flush=True)
+    except torch.cuda.OutOfMemoryError:
+        fp32 = {"fits": False}
+        print("  fp32 forward: does not fit on the card", flush=True)
+    del unet, x, text
+    torch.cuda.empty_cache()
+    rec = {"params": params, "transformer_blocks": blocks, "group_norm_sites": norms,
+           "forward": {"wall_ms": fwd_ms, "device_kernel_ms": fwd_profile["kernel_ms"],
+                       "busy_ms": fwd_profile["busy_ms"], "peak_gib": fwd_peak,
+                       "launches": fwd_launches},
+           "controlled_step": {"wall_ms": step_ms,
+                               "device_kernel_ms": step_profile["kernel_ms"],
+                               "busy_ms": step_profile["busy_ms"], "peak_gib": step_peak,
+                               "launches": step_launches},
+           "gn_sites": {repr(k): v for k, v in sites.items()}, "checks": checks,
+           "fp32_forward": fp32}
+    return runs, {"sdxl": rec}
 
 
 def group_norm_only(args, card: str, kind: str) -> int:
@@ -2509,7 +2994,9 @@ def main() -> int:
     dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[args.mixed_precision]
     runs, failures, records = {}, [], {}
     if "fast" in args.paths:
-        runs, failures, records = fast_paths(args, frames, dtype, checks)
+        fast_runs, failures, fast_records = fast_paths(args, frames, dtype, checks)
+        runs.update(fast_runs)
+        records.update(fast_records)
     if {"official", "official_flash"} & set(args.paths):
         off_runs, off_failures, off_records = official_paths(args, frames, dtype)
         runs.update(off_runs)
@@ -2523,28 +3010,47 @@ def main() -> int:
         ckpt_runs, ckpt_records = checkpoint_path(args, frames, dtype)
         runs.update(ckpt_runs)
         records.update(ckpt_records)
-    if "tune" in args.paths:
-        tune_runs, tune_records = tune_path(args, frames)
-        runs.update(tune_runs)
-        records.update(tune_records)
-    if "surface" in args.paths:
-        surface_runs, surface_records = surface_path(args, frames)
-        runs.update(surface_runs)
-        records.update(surface_records)
+    # the tune path's export stays on disk until the distill path has
+    # started from it
+    os.makedirs("outputs", exist_ok=True)
+    tune_tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_", dir="outputs")
+    try:
+        if "tune" in args.paths:
+            tune_runs, tune_records = tune_path(args, frames, tune_tmp)
+            runs.update(tune_runs)
+            records.update(tune_records)
+        if "surface" in args.paths:
+            surface_runs, surface_records = surface_path(args, frames)
+            runs.update(surface_runs)
+            records.update(surface_records)
+        if "distill" in args.paths:
+            distill_runs, distill_records = distill_path(
+                args, frames, runs["tune"]["dir"] if "tune" in runs else None)
+            runs.update(distill_runs)
+            records.update(distill_records)
+    finally:
+        shutil.rmtree(tune_tmp, ignore_errors=True)
+    if "sdxl" in args.paths:
+        sdxl_runs, sdxl_records = sdxl_path(args)
+        runs.update(sdxl_runs)
+        records.update(sdxl_records)
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
 
-    def entry(name, kind, shape, run, counter, source, replaces):
-        """A kernel's line: its check at the largest main-path shape in the
-        main path's dtype, its launches on the path that runs it, and on
-        each path that ran (``launches_by_path``)."""
-        rec = next(c for c in checks[kind] if c.get("wrapper", kind) == name
-                   and c["shape"] == shape and c["dtype"] == dname)
+    def entry(name, kind, shape, run, counter, source, replaces, pool=checks, dt=dname,
+              wrapper=None):
+        """A kernel's line: its check (from ``pool``) at the largest
+        main-path shape in the main path's dtype, its launches on the path
+        that runs it, and on each path that ran (``launches_by_path``); the
+        SDXL lines' launches are the SDXL path's alone."""
+        rec = next(c for c in pool[kind] if c.get("wrapper", kind) == (wrapper or name)
+                   and c["shape"] == shape and c["dtype"] == dt and "ms" in c)
+        by_path = {path: r["launches"][counter] for path, r in runs.items()
+                   if r.get("launches", {}).get(counter) and (path == "sdxl") == (run == "sdxl")}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": runs[run]["launches"][counter],
-                "launches_by_path": {path: r["launches"][counter] for path, r in runs.items()
-                                     if r.get("launches", {}).get(counter)},
+                "launches_by_path": by_path,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
@@ -2577,11 +3083,13 @@ def main() -> int:
                 "shape": rec["shape"], "dtype": rec["dtype"]}
 
     # each kernel's launches come from the main path that runs it: the fast
-    # edit where it ran, else official mode, else the dependent or the
-    # checkpoint path's cached edit; GroupNorm's, when only Stage 1 ran, from
-    # the tuning run (which runs no frame-attention kernel)
+    # edit where it ran, else official mode, else the dependent, the
+    # checkpoint, the surface path's cached edit or the student's;
+    # GroupNorm's, when only Stage 1 or distillation ran, from that run
+    # (neither runs a frame-attention kernel). SDXL's run has lines of its
+    # own, at its shapes (head dim 64) in bf16, the dtype it runs in.
     auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint",
-                             "surface_multi") if r in runs), None)
+                             "surface_multi", "student_edit") if r in runs), None)
     rect = next((r for r in ("flash_rect", "official_flash_rect",
                              "surface_hybrid_flash_rect") if r in runs), None)
     rect_bwd = next((r for r in ("official_flash_rect", "surface_hybrid_flash_rect")
@@ -2597,10 +3105,21 @@ def main() -> int:
             entry("group_norm", "group_norm", [3, 8 * 4096, 640], auto, "group_norm",
                   "videop2p_tpu_torch/ops/csrc/groupnorm.cu",
                   "videop2p_tpu/ops/groupnorm.py:69")]
-    elif "tune" in runs:
-        kernels.append(entry("group_norm", "group_norm", [3, 8 * 4096, 640], "tune",
+    elif {"tune", "distill"} & set(runs):
+        kernels.append(entry("group_norm", "group_norm", [3, 8 * 4096, 640],
+                             "tune" if "tune" in runs else "distill",
                              "group_norm", "videop2p_tpu_torch/ops/csrc/groupnorm.cu",
                              "videop2p_tpu/ops/groupnorm.py:69"))
+    if "sdxl" in runs:
+        sdxl_checks, side = records["sdxl"]["checks"], 128
+        kernels += [
+            entry("frame_attention_sdxl", "frame_attention", [1, 8, 10, side * side // 4, 64],
+                  "sdxl", "frame_attention", "videop2p_tpu_torch/ops/csrc/frame_attention.cu",
+                  "videop2p_tpu/ops/attention.py:111", sdxl_checks, "bfloat16",
+                  "frame_attention"),
+            entry("group_norm_sdxl", "group_norm", [1, 8 * side * side, 320], "sdxl",
+                  "group_norm", "videop2p_tpu_torch/ops/csrc/groupnorm.cu",
+                  "videop2p_tpu/ops/groupnorm.py:69", sdxl_checks, "bfloat16", "group_norm")]
     if rect:
         kernels.append(entry("flash_rect_frame_attention", "flash_attention", big_attn, rect,
                              "flash_attention", "videop2p_tpu_torch/ops/csrc/flash_attention.cu",
@@ -2616,8 +3135,6 @@ def main() -> int:
             bwd_entry("dq", ("dq",), "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
                       rect_bwd)]
     if args.out:
-        import os
-
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kind": kind, "build_s": build_s, "ptxas": ptxas,

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests.test_torch_parity  # noqa: F401  (one intra-op thread a test process)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

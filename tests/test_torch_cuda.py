@@ -21,6 +21,10 @@ most half an ulp).
 import pytest
 import torch
 
+# one intra-op thread a test process, as tests/test_torch_parity.py sets it for
+# the other port tests (that module imports JAX, which this file must not)
+torch.set_num_threads(1)
+
 
 def _limit(dtype, ref, f32_tol):
     return f32_tol if dtype == torch.float32 else 2.0 ** -7 * ref.abs().max().item()

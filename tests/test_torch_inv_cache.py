@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.test_torch_parity  # noqa: F401  (one intra-op thread a test process)
 from tests.test_torch_slice import RABBIT
 
 STEPS = 3

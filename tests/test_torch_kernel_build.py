@@ -13,6 +13,7 @@ import shutil
 import pytest
 import torch
 
+import tests.test_torch_parity  # noqa: F401  (one intra-op thread a test process)
 from videop2p_tpu_torch.ops import _build
 from videop2p_tpu_torch.ops.attention import _tma_rows, check_tma_operand, dkv_split
 

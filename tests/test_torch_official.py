@@ -233,3 +233,31 @@ def test_cli_eta_is_seeded_and_fast_mode_takes_the_live_source():
     official = main(**dict(kw, fast=False), eta=0.5, num_inner_steps=1)
     assert official["mode"] == "official"
     assert torch.isfinite(official["latents"]).all()
+
+
+@pytest.mark.parametrize("mode", ["optimize", "amortized", "hybrid"])
+def test_cli_null_text_phase_runs_with_deterministic_convolutions(monkeypatch, mode):
+    """Official mode's null-text phase, in each of its modes, runs with
+    cuDNN held to its deterministic algorithms (its backward's convolutions
+    sum in a fixed order on the card, so two runs give the same bits), and
+    the setting is restored after it."""
+    from videop2p_tpu_torch.cli import run_videop2p
+
+    from tests.test_torch_slice import RABBIT
+
+    seen = []
+
+    def recording(*args, **kw):
+        seen.append((kw["null_text_mode"], torch.backends.cudnn.deterministic))
+        return official_null_text(*args, **kw)
+
+    official_null_text = run_videop2p.official_null_text
+    monkeypatch.setattr(run_videop2p, "official_null_text", recording)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    frames = np.random.default_rng(3).integers(0, 256, (2, 16, 16, 3), dtype=np.uint8)
+    out = run_videop2p.main(**RABBIT, fast=False, device="cpu", tiny=True, video_len=2,
+                            num_ddim_steps=2, frames=frames, save_gifs=False,
+                            num_inner_steps=1, null_text_mode=mode)
+    assert out["mode"] == "official"
+    assert seen == [(mode, True)]
+    assert torch.backends.cudnn.deterministic is False

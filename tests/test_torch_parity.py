@@ -16,10 +16,22 @@ back into the port with the port's ``models/convert.py``.
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+# One intra-op thread a test process. The suite runs in several worker
+# processes at once (pytest-xdist, one per core or close to it); torch's
+# default of one thread per core in each of them oversubscribes the cores
+# many times over, and a tiny CLI run that takes ~2 s alone then takes
+# minutes. Every tests/test_torch_*.py imports this module; the variable
+# carries the same setting into the CLI subprocesses some tests start.
+TEST_THREADS = 1
+torch.set_num_threads(TEST_THREADS)
+os.environ.setdefault("OMP_NUM_THREADS", str(TEST_THREADS))
 
 
 def np32(x) -> np.ndarray:

@@ -16,6 +16,7 @@ import threading
 
 import pytest
 
+import tests.test_torch_parity  # noqa: F401  (one intra-op thread a test process)
 from tests.test_torch_cli_tuning import REPO, _cfg
 
 
@@ -111,11 +112,13 @@ def test_unported_options_raise(tmp_path):
 
     with pytest.raises(NotImplementedError, match="item 13"):
         run_tuning.main(**_cfg(tmp_path, "mesh"), mesh="1,2,1", device="cpu")
+    # through the CLI: a config's mesh (consistency distillation, which this
+    # test refused before it was ported, is tests/test_torch_distill.py's)
     cfg = tmp_path / "tune.yaml"
     cfg.write_text("pretrained_model_path: x\noutput_dir: y\ntrain_data: {}\n"
-                   "validation_data: {}\n")
+                   "validation_data: {}\nmesh: '1,2,1'\n")
     proc = subprocess.run([sys.executable, "-m", "videop2p_tpu_torch.cli.run_tuning",
                            "--config", str(cfg), "--distill_steps", "1", "--device", "cpu"],
                           cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
-    assert "item 12" in proc.stderr
+    assert "item 13" in proc.stderr

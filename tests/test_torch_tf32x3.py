@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests.test_torch_parity  # noqa: F401  (one intra-op thread a test process)
+
 LOG2E = 1.4426950408889634
 
 

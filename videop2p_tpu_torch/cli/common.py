@@ -11,6 +11,7 @@ same directory and writes its results under it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import warnings
 from dataclasses import dataclass, field
@@ -26,7 +27,23 @@ from videop2p_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from videop2p_tpu_torch.utils.tokenizers import WordTokenizer, load_tokenizer
 
 __all__ = ["ModelBundle", "build_models", "encode_prompts", "add_dependent_args",
-           "add_unported_args", "dependent_suffix", "resolve_pipeline_dir", "load_config"]
+           "add_unported_args", "dependent_suffix", "resolve_pipeline_dir", "load_config",
+           "deterministic_convolutions"]
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN held to its deterministic algorithms inside the block. A
+    convolution's backward may otherwise sum with atomics in an order that
+    changes from run to run: Stage 1 runs under it so that a resumed run
+    repeats an uninterrupted one bit for bit, and Stage 2's null-text phase
+    so that two official runs of one clip give the same bits."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
 
 
 def load_config(path: str) -> Dict[str, Any]:

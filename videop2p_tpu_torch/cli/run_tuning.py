@@ -24,12 +24,16 @@ checkpoint; ``resume_from_checkpoint: latest`` continues it with the same
 bits as an uninterrupted run. ``steps_per_call`` sets how often the losses
 are synchronised to the host.
 
-Not ported: ``mesh`` (multi-GPU, ROADMAP Queue 1 item 13) and
-``--distill_steps`` (consistency distillation, item 12's second part); both
-raise.
+``--distill_steps N`` then consistency-distils the few-step student from
+the tuned pipeline (:func:`run_distillation`, ``train/distill.py``) and
+writes it to ``<pipeline_dir>/student/checkpoint-<N>``.
+
+Not ported: ``mesh`` (multi-GPU, ROADMAP Queue 1 item 13); it raises.
 
 Run:  python -m videop2p_tpu_torch.cli.run_tuning --config configs/rabbit-jump-tune.yaml
       [--dependent --decay_rate 0.3 --window_size 4 --ar_sample ...] [--device cpu] [--tiny]
+      [--distill_steps N [--distill_grid 50] [--distill_lr 1e-4] [--distill_ema 0.95]
+                         [--distill_boundary_weight 1.0]]
 
 then Stage 2 on its output:
       python -m videop2p_tpu_torch.cli.run_videop2p --config configs/rabbit-jump-p2p.yaml
@@ -38,7 +42,6 @@ then Stage 2 on its output:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import math
 import os
@@ -54,6 +57,7 @@ from videop2p_tpu_torch.cli.common import (
     add_dependent_args,
     build_models,
     dependent_suffix,
+    deterministic_convolutions,
     encode_prompts,
     load_config,
 )
@@ -65,20 +69,27 @@ from videop2p_tpu_torch.pipelines.inversion import ddim_inversion
 from videop2p_tpu_torch.pipelines.sampling import edit_sample, make_unet_fn
 from videop2p_tpu_torch.train import (
     DEFAULT_TRAINABLE,
+    DistillConfig,
+    DistillState,
     TrainState,
     TuneConfig,
+    init_time_head,
     latest_checkpoint,
+    make_distill_optimizer,
     make_lr_schedule,
     make_optimizer,
     restore_checkpoint,
     save_checkpoint,
+    save_student,
     train_steps,
 )
+# the loop under another name: run_distillation's argument is distill_steps
+from videop2p_tpu_torch.train import distill_steps as distill_loop
 from videop2p_tpu_torch.utils.metrics import MetricsLogger
 from videop2p_tpu_torch.utils.profiling import phase_timer
 from videop2p_tpu_torch.utils.video_io import save_videos_grid
 
-__all__ = ["main", "deterministic_convolutions"]
+__all__ = ["main", "run_distillation", "deterministic_convolutions"]
 
 _DTYPES = {"fp16": torch.bfloat16, "bf16": torch.bfloat16, "no": torch.float32}
 # the scheduler config of the exported pipeline (JAX's, and the reference's)
@@ -121,19 +132,6 @@ def _install_preempt_handlers():
             except (ValueError, OSError):
                 continue
     return _restore
-
-
-@contextlib.contextmanager
-def deterministic_convolutions():
-    """cuDNN held to its deterministic algorithms inside the block: a
-    convolution's backward may otherwise sum with atomics, and a resumed run
-    would not repeat an uninterrupted one bit for bit."""
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = prev
 
 
 def _sync(device: torch.device) -> None:
@@ -227,21 +225,7 @@ def main(
         bundle.vae.to(dtype)
         bundle.text_encoder.to(dtype)
 
-    ds = SingleVideoDataset(
-        video_path=train_data["video_path"],
-        prompt=train_data["prompt"],
-        width=int(train_data.get("width", 512)),
-        height=int(train_data.get("height", 512)),
-        n_sample_frames=n_frames,
-        sample_start_idx=int(train_data.get("sample_start_idx", 0)),
-        sample_frame_rate=int(train_data.get("sample_frame_rate", 1)),
-    )
-    video = torch.as_tensor(ds.load(), device=device)[None]  # (1, F, H, W, 3)
-    with torch.no_grad(), phase_timer("vae_encode"):
-        latents = encode_video(bundle.vae, video,
-                               torch.Generator(device).manual_seed(run_seed)).float()
-        _sync(device)
-    text_emb = encode_prompts(bundle, [train_data["prompt"]], device)
+    latents, text_emb = _clip_latents(bundle, train_data, run_seed, device)
 
     tune_cfg = TuneConfig(
         learning_rate=learning_rate, scale_lr=scale_lr, lr_scheduler=lr_scheduler,
@@ -341,6 +325,75 @@ def main(
     return output_dir
 
 
+def _clip_latents(bundle, train_data: Dict[str, Any], seed: int,
+                  device: torch.device) -> tuple:
+    """The clip's latents (1, F, h, w, C), a VAE posterior draw seeded from
+    ``seed``, and its prompt's text embedding (1, 77, D)."""
+    ds = SingleVideoDataset(
+        video_path=train_data["video_path"],
+        prompt=train_data["prompt"],
+        width=int(train_data.get("width", 512)),
+        height=int(train_data.get("height", 512)),
+        n_sample_frames=int(train_data.get("n_sample_frames", 8)),
+        sample_start_idx=int(train_data.get("sample_start_idx", 0)),
+        sample_frame_rate=int(train_data.get("sample_frame_rate", 1)),
+    )
+    video = torch.as_tensor(ds.load(), device=device)[None]  # (1, F, H, W, 3)
+    with torch.no_grad(), phase_timer("vae_encode"):
+        latents = encode_video(bundle.vae, video,
+                               torch.Generator(device).manual_seed(seed)).float()
+        _sync(device)
+    return latents, encode_prompts(bundle, [train_data["prompt"]], device)
+
+
+def run_distillation(pipeline_dir: str, train_data: Dict[str, Any], *, distill_steps: int,
+                     distill_grid: int = 50, distill_lr: float = 1e-4,
+                     distill_ema: float = 0.95, distill_boundary_weight: float = 1.0,
+                     tiny: bool = False, seed: Optional[int] = None,
+                     steps_per_call: int = 50, device: str = "cuda") -> str:
+    """Consistency-distil the few-step student from a tuned pipeline
+    directory (``train/distill.py``): its UNet, built in float32 with
+    "chunked" frame attention as Stage 1's, is the frozen teacher; the
+    student trains Stage 1's parameter subset and the time head on the
+    latents of the clip Stage 1 tuned on. Prints a ``[distill] step i/N``
+    line every ``steps_per_call`` steps and at the end, and writes the
+    student to ``<pipeline_dir>/student/checkpoint-<distill_steps>``;
+    returns that path."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is "
+                           "available; pass --device cpu to run on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run_seed = seed if seed is not None else 0
+    bundle = build_models(pipeline_dir, dtype=torch.float32, device=device,
+                          frame_attention="chunked", tiny=tiny, seed=run_seed)
+    latents, text_emb = _clip_latents(bundle, train_data, run_seed, device)
+    cfg = DistillConfig(learning_rate=distill_lr, max_train_steps=distill_steps,
+                        distill_grid=distill_grid, ema_decay=distill_ema,
+                        boundary_weight=distill_boundary_weight)
+    tx = make_distill_optimizer(cfg)
+    head = init_time_head(torch.Generator(device).manual_seed(run_seed + 1),
+                          bundle.unet.config)
+    state = DistillState.create(bundle.unet, head, tx, cfg.trainable_modules)
+    sched = bundle.make_scheduler()  # the DDIM grid the student walks
+    unet_fn = make_unet_fn(bundle.unet)
+    steps_per_call = max(int(steps_per_call), 1)
+    i, t0 = 0, time.perf_counter()
+    with deterministic_convolutions(), phase_timer("distill_steps"):
+        while i < distill_steps:
+            n = min(steps_per_call, distill_steps - i)
+            _, losses = distill_loop(unet_fn, tx, state, sched, latents, text_emb, run_seed,
+                                     num_steps=n, cfg=cfg)
+            i += n
+            loss = float(losses[-1])
+            rate = i / max(time.perf_counter() - t0, 1e-9)
+            print(f"[distill] step {i}/{distill_steps} loss={loss:.5f} ({rate:.2f} it/s)")
+    path = save_student(os.path.join(pipeline_dir, "student"), state, i)
+    print(f"[distill] saved student to {path}")
+    return path
+
+
 def _validate(bundle, latents: torch.Tensor, validation_data: Dict[str, Any],
               output_dir: str, step: int, *, dependent_weights: float,
               sampler: Optional[DependentNoiseSampler], text_emb: torch.Tensor,
@@ -397,16 +450,30 @@ if __name__ == "__main__":
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain versions of the kernels")
     parser.add_argument("--distill_steps", type=int, default=0,
-                        help="consistency-distillation steps after tuning: not ported "
-                             "(ROADMAP Queue 1 item 12); a value above 0 raises")
+                        help="consistency-distillation steps to run after tuning "
+                             "(0 = off); writes the few-step student to "
+                             "<output_dir>/student/checkpoint-<N>")
+    parser.add_argument("--distill_grid", type=int, default=50,
+                        help="DDIM grid points the self-consistency chain walks "
+                             "(the teacher's solver discretization)")
+    parser.add_argument("--distill_lr", type=float, default=1e-4,
+                        help="student learning rate (Stage 1's clipped AdamW)")
+    parser.add_argument("--distill_ema", type=float, default=0.95,
+                        help="EMA decay of the consistency target network")
+    parser.add_argument("--distill_boundary_weight", type=float, default=1.0,
+                        help="loss weight of the boundary term (final grid point, "
+                             "target = the data x0)")
     add_dependent_args(parser)
     args = parser.parse_args()
+    cfg = load_config(args.config)
+    out_dir = main(**cfg, tiny=args.tiny, device=args.device,
+                   dependent=args.dependent, num_frames=args.num_frames,
+                   decay_rate=args.decay_rate, window_size=args.window_size,
+                   ar_sample=args.ar_sample, ar_coeff=args.ar_coeff, eta=args.eta,
+                   dependent_weights=args.dependent_weights)
     if args.distill_steps > 0:
-        raise NotImplementedError(
-            "--distill_steps: consistency distillation (train/distill.py) is not "
-            "ported (ROADMAP Queue 1 item 12, its second part)")
-    main(**load_config(args.config), tiny=args.tiny, device=args.device,
-         dependent=args.dependent, num_frames=args.num_frames,
-         decay_rate=args.decay_rate, window_size=args.window_size,
-         ar_sample=args.ar_sample, ar_coeff=args.ar_coeff, eta=args.eta,
-         dependent_weights=args.dependent_weights)
+        run_distillation(out_dir, cfg["train_data"], distill_steps=args.distill_steps,
+                         distill_grid=args.distill_grid, distill_lr=args.distill_lr,
+                         distill_ema=args.distill_ema,
+                         distill_boundary_weight=args.distill_boundary_weight,
+                         tiny=args.tiny, seed=cfg.get("seed"), device=args.device)

@@ -73,6 +73,7 @@ from videop2p_tpu_torch.cli.common import (
     add_dependent_args,
     add_unported_args,
     build_models,
+    deterministic_convolutions,
     encode_prompts,
     load_config,
     resolve_pipeline_dir,
@@ -445,14 +446,18 @@ def main(
             if mode == "official":
                 phase = lambda name: _phase(name, timings, device, peaks)  # noqa: E731
                 if null_embeddings is None:
-                    null_embeddings, null_stats = official_null_text(
-                        unet_fn, sched, trajectory, cond_src, uncond, phase,
-                        num_inference_steps=num_ddim_steps,
-                        guidance_scale=GUIDANCE_SCALE, num_inner_steps=num_inner_steps,
-                        null_text_precision=null_text_precision,
-                        null_text_mode=null_text_mode,
-                        dependent_weight=dep_w, dependent_sampler=p2p_sampler,
-                        generator=gens["null_text"])
+                    # the backward's convolutions in a fixed summation order:
+                    # two runs of one clip give the same bits
+                    with deterministic_convolutions():
+                        null_embeddings, null_stats = official_null_text(
+                            unet_fn, sched, trajectory, cond_src, uncond, phase,
+                            num_inference_steps=num_ddim_steps,
+                            guidance_scale=GUIDANCE_SCALE,
+                            num_inner_steps=num_inner_steps,
+                            null_text_precision=null_text_precision,
+                            null_text_mode=null_text_mode,
+                            dependent_weight=dep_w, dependent_sampler=p2p_sampler,
+                            generator=gens["null_text"])
                     print(f"[p2p] null-text ({null_text_mode}/{null_text_precision}): "
                           f"{int(null_stats['inner_steps'].sum())} inner Adam steps "
                           f"across {num_ddim_steps} outer steps, final loss "

@@ -1,7 +1,8 @@
 """DDIM scheduler (port of ``videop2p_tpu/core/ddim.py``: η ≥ 0 with the
 caller's noise; epsilon, sample or v prediction; linear, scaled-linear or
 cosine (``squaredcos_cap_v2``) betas; the timestep-subset walk of the cached
-fast path).
+fast path; the forward process ``add_noise`` / ``get_velocity`` that
+consistency distillation noises its latents with).
 
 Every step is an fp32 island: ``model_output`` and ``sample`` are cast to
 float32 on entry and the ᾱ-coefficient math runs in float32, whatever the
@@ -18,7 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["DDIMScheduler", "make_beta_schedule", "PREDICTION_TYPES"]
+__all__ = ["DDIMScheduler", "ForwardProcess", "make_beta_schedule", "PREDICTION_TYPES"]
 
 PREDICTION_TYPES = ("epsilon", "sample", "v_prediction")
 
@@ -49,8 +50,34 @@ def _f32(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return tuple(t.float() for t in tensors)
 
 
+class ForwardProcess:
+    """The forward process over the scheduler's ``alphas_cumprod``, at a ()
+    or (B,) timestep per sample (both schedulers' ``add_noise``)."""
+
+    def alpha_coefficients(self, timesteps, ref: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(√ᾱ_t, √(1 − ᾱ_t)) per sample, shaped to broadcast over ``ref``."""
+        table = torch.as_tensor(self.alphas_cumprod, device=ref.device)
+        alpha_prod = table[torch.as_tensor(timesteps, device=ref.device)]
+        shape = alpha_prod.shape + (1,) * (ref.dim() - alpha_prod.dim())
+        return (torch.sqrt(alpha_prod).reshape(shape),
+                torch.sqrt(1.0 - alpha_prod).reshape(shape))
+
+    def add_noise(self, original_samples: torch.Tensor, noise: torch.Tensor,
+                  timesteps) -> torch.Tensor:
+        """q(x_t | x_0) at each sample's timestep."""
+        a, b = self.alpha_coefficients(timesteps, original_samples)
+        return a * original_samples + b * noise
+
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                     timesteps) -> torch.Tensor:
+        """The v-prediction target at each sample's timestep."""
+        a, b = self.alpha_coefficients(timesteps, sample)
+        return a * noise - b * sample
+
+
 @dataclasses.dataclass(frozen=True)
-class DDIMScheduler:
+class DDIMScheduler(ForwardProcess):
     alphas_cumprod: np.ndarray  # (num_train_timesteps,) float32
     final_alpha_cumprod: float
     num_train_timesteps: int = 1000

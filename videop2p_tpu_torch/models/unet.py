@@ -14,19 +14,23 @@ block seeded with a given ``deep_feature`` and the output convolutions.
 
 ``UNet3DConfig.gradient_checkpointing`` recomputes each down, mid and up
 block in the backward instead of keeping its activations (the blocks the
-JAX package wraps in ``nn.remat``); ``compute_dtype`` runs the forward in
-another dtype than the weights' (Stage-1 mixed precision: float32 weights,
-bfloat16 compute).
+JAX package wraps in ``nn.remat``); its ``remat_policy`` names what a
+checkpointed block keeps, by JAX's ``jax.checkpoint_policies`` names
+(:data:`REMAT_POLICIES`: the outputs of the matrix products, through
+``torch.utils.checkpoint``'s selective checkpointing, or everything);
+``compute_dtype`` runs the forward in another dtype than the weights'
+(Stage-1 mixed precision: float32 weights, bfloat16 compute).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from videop2p_tpu_torch.models.attention import AttnControl, ControlledAttention
 from videop2p_tpu_torch.models.layers import (
@@ -37,7 +41,24 @@ from videop2p_tpu_torch.models.layers import (
 )
 from videop2p_tpu_torch.models import unet_blocks
 
-__all__ = ["UNet3DConfig", "UNet3DConditionModel"]
+__all__ = ["UNet3DConfig", "UNet3DConditionModel", "REMAT_POLICIES"]
+
+# remat_policy: JAX's jax.checkpoint_policies names → the aten ops whose
+# outputs a checkpointed block keeps for the backward (() recomputes the
+# whole block; None keeps everything, no recompute). JAX's dots are
+# dot_generals: mm / addmm (the linear layers) have no batch dimensions,
+# bmm (attention's products) has one; convolutions are not dots.
+_DOTS = ("mm", "addmm", "bmm")
+_DOTS_NO_BATCH = ("mm", "addmm")
+REMAT_POLICIES = {
+    None: (),
+    "nothing_saveable": (),
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": _DOTS_NO_BATCH,
+    "checkpoint_dots_with_no_batch_dims": _DOTS_NO_BATCH,
+    "everything_saveable": None,
+}
 
 
 def _per_block(value: Union[int, Tuple[int, ...]], num_blocks: int) -> Tuple[int, ...]:
@@ -75,20 +96,43 @@ class UNet3DConfig:
     frame_attention: str = "auto"
     # recompute each down/mid/up block in the backward (JAX: nn.remat)
     gradient_checkpointing: bool = False
-    # JAX names a jax.checkpoint_policies entry here; the port recomputes
-    # whole blocks only (None)
+    # what a checkpointed block keeps, by jax.checkpoint_policies name
+    # (REMAT_POLICIES; None: the whole block is recomputed)
     remat_policy: Optional[str] = None
 
     def __post_init__(self):
-        if self.remat_policy is not None:
+        if self.remat_policy not in REMAT_POLICIES:
+            names = ", ".join(repr(k) for k in REMAT_POLICIES)
             raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r} is not ported (ROADMAP Queue 1 "
-                "item 12): the port's gradient checkpointing recomputes whole "
-                "blocks (remat_policy None)")
+                f"remat_policy {self.remat_policy!r} is not mapped; the port takes "
+                f"{names} (JAX's other jax.checkpoint_policies entries are mostly "
+                "policy factories, not policies)")
 
     @classmethod
     def sd15(cls, **overrides) -> "UNet3DConfig":
         return cls(**overrides)
+
+    @classmethod
+    def sdxl(cls, **overrides) -> "UNet3DConfig":
+        """The SDXL-shaped config (JAX's ``UNet3DConfig.sdxl``): 3 levels,
+        deep upper transformer stacks (depth 2 and 10), 64-wide heads, a
+        2048-wide text context, 128² latents (1024² pixels). The first level
+        has no attention (SDXL's DownBlock2D), so its depth entry is unused.
+        SDXL's added embeddings (text_embeds / time_ids) are left out: the
+        case is the per-block topology."""
+        cfg = dict(
+            sample_size=128,
+            down_block_types=("DownBlock3D", "CrossAttnDownBlock3D",
+                              "CrossAttnDownBlock3D"),
+            up_block_types=("CrossAttnUpBlock3D", "CrossAttnUpBlock3D", "UpBlock3D"),
+            block_out_channels=(320, 640, 1280),
+            layers_per_block=2,
+            transformer_depth=(1, 2, 10),
+            attention_head_dim=(5, 10, 20),  # 64-wide heads at each level
+            cross_attention_dim=2048,
+        )
+        cfg.update(overrides)
+        return cls(**cfg)
 
     @classmethod
     def tiny(cls, **overrides) -> "UNet3DConfig":
@@ -196,10 +240,18 @@ class UNet3DConditionModel(nn.Module):
 
     def _block(self, block: nn.Module, *args):
         """``block(*args)``, recomputed in the backward under
-        ``gradient_checkpointing``."""
-        if self.config.gradient_checkpointing and torch.is_grad_enabled():
+        ``gradient_checkpointing``, keeping what ``remat_policy`` saves."""
+        saved = REMAT_POLICIES[self.config.remat_policy]
+        # "everything_saveable" (saved None) is gradient_checkpointing=False
+        if saved is None or not (self.config.gradient_checkpointing
+                                 and torch.is_grad_enabled()):
+            return block(*args)
+        if not saved:
             return checkpoint(block, *args, use_reentrant=False)
-        return block(*args)
+        ops = [getattr(torch.ops.aten, name).default for name in saved]
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       ops))
 
     def forward(self, sample: torch.Tensor, timesteps, encoder_hidden_states: torch.Tensor,
                 control: Optional[AttnControl] = None,

@@ -113,7 +113,8 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
                      dependent_weight: float = 0.0,
                      dependent_sampler: Optional[DependentNoiseSampler] = None,
                      generator: Optional[torch.Generator] = None,
-                     reuse_schedule: Optional[str] = None):
+                     reuse_schedule: Optional[str] = None,
+                     student_head: Optional[dict] = None):
     """Capture-inversion of ``latents`` under ``cond_src``, then the
     cached-source controlled edit under ``cond_all`` / ``uncond``. Returns
     ``(trajectory, edited)``: the trajectory (N + 1, 1, F, h, w, C) and the
@@ -122,7 +123,10 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
     the edit replays the trajectory it recorded, so stream 0 stays x_0
     exactly under dependent noise too. ``reuse_schedule`` reuses the deep
     feature across the edit's steps (``pipelines/reuse.py``); the capture
-    always runs the full UNet (its maps feed the controllers)."""
+    always runs the full UNet (its maps feed the controllers).
+    ``student_head`` runs the edit as the consistency-distilled student
+    (``train/distill.py``): its time head modulates the edit streams' ε;
+    the capture runs the UNet it is given without the head."""
     trajectory, cached = ddim_inversion_captured(
         unet_fn, scheduler, latents, cond_src,
         num_inference_steps=num_inference_steps, cross_len=cross_len,
@@ -134,5 +138,5 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
                          num_inference_steps=num_inference_steps,
                          guidance_scale=guidance_scale, ctx=ctx,
                          source_uses_cfg=False, cached_source=cached,
-                         reuse_schedule=reuse_schedule)
+                         reuse_schedule=reuse_schedule, student_head=student_head)
     return trajectory, edited

@@ -97,7 +97,8 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
                 null_uncond_embeddings: Optional[torch.Tensor] = None,
                 cached_source: Optional[CachedSource] = None,
                 dependent_sampler: Optional[DependentNoiseSampler] = None,
-                step_positions=None, reuse_schedule: Optional[str] = None) -> torch.Tensor:
+                step_positions=None, reuse_schedule: Optional[str] = None,
+                student_head: Optional[dict] = None) -> torch.Tensor:
     """Run the controlled denoise; returns final latents (P, F, h, w, C).
 
     ``latents``: x_T, (1, F, h, w, C) (shared by all streams) or (P, …);
@@ -136,7 +137,11 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
         ``"custom:<p0,...>"`` marks the steps that run the full UNet
         (capturing its deep feature); the others run the shallow path on the
         last full step's deep feature, LocalBlend re-adding that step's
-        edit-stream maps. ``"off"`` / None is the plain loop."""
+        edit-stream maps. ``"off"`` / None is the plain loop.
+      * ``student_head`` (cached mode only): the consistency-distilled
+        student's time head (``train/distill.py``), which modulates the edit
+        streams' ε before CFG; pass the student's parameters in the UNet.
+        None is the teacher's loop."""
     if cond_embeddings.dim() not in (3, 4):
         raise ValueError(f"cond_embeddings must be (P, L, D) or (P, F, L, D), got "
                          f"{tuple(cond_embeddings.shape)}")
@@ -173,6 +178,10 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
         raise ValueError(
             "reuse_schedule is the cached fast path's deep-feature reuse seam: "
             "it requires cached_source")
+    if student_head is not None and cached_source is None:
+        raise ValueError(
+            "student_head is the cached fast path's few-step student seam — "
+            "it requires cached_source")
     if cached_source is not None:
         if source_uses_cfg:
             raise ValueError("cached_source requires fast mode (source_uses_cfg=False)")
@@ -201,7 +210,7 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
             unet_fn, scheduler, latents, cond_embeddings, uncond_embeddings,
             cached_source, num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, ctx=ctx, step_positions=step_positions,
-            reuse_schedule=reuse_schedule)
+            reuse_schedule=reuse_schedule, student_head=student_head)
 
     # the source stream's uncond at each step: the null-text sequence when
     # given, else the raw uncond
@@ -277,7 +286,8 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
                         uncond_embeddings: torch.Tensor, cached: CachedSource, *,
                         num_inference_steps: int, guidance_scale: float,
                         ctx: Optional[ControlContext], step_positions=None,
-                        reuse_schedule: Optional[str] = None) -> torch.Tensor:
+                        reuse_schedule: Optional[str] = None,
+                        student_head: Optional[dict] = None) -> torch.Tensor:
     """The cached-source loop: the batch is E uncond + E edit streams, the
     controllers read the captured base maps of each step, and LocalBlend
     sums the source's captured blend maps with the edit streams' live ones,
@@ -286,7 +296,9 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
     position ``step_positions[j]`` and lands on the next one (the last on
     the base walk's terminal target), the controller's gates in subset-step
     space. ``reuse_schedule``: a full step captures the deep feature and,
-    with LocalBlend, its edit-stream maps; a shallow step reuses both."""
+    with LocalBlend, its edit-stream maps; a shallow step reuses both.
+    ``student_head``: the few-step student's time head
+    (``train/distill.py``) modulates the edit streams' ε before CFG."""
     P = cond_embeddings.shape[0]
     E = U = P - 1
     if E < 1:
@@ -355,6 +367,12 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
             eps_all, _ = unet_fn(latent_in, t, text, control, store=False,
                                  deep_mode="shallow", deep_feature=deep_feature)
             edit_maps = last_maps
+        if student_head is not None:
+            # only the edit streams run the UNet; the source stream is the
+            # capture's replay below, so src_err == 0.0 is untouched
+            from videop2p_tpu_torch.train.distill import apply_time_head
+
+            eps_all = apply_time_head(student_head, eps_all, t)
         eps_all = eps_all.float()
         eps_uncond, eps_text = eps_all[:E], eps_all[E:]
         eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
