@@ -209,6 +209,32 @@ sdxl:
    their plain versions in fp32 and bf16 (timed beside SDPA /
    F.group_norm + F.silu and the bound); one fp32 forward where it fits.
 
+serve:
+19. the serving engine (``serve/engine.py``) at SD-1.5 width, ``--steps``,
+   ``--mixed_precision``: (a) an ``EditEngine`` with seeded random weights,
+   warmed on the rabbit prompts' controller structure and a batch of 2,
+   behind ``EditServer`` on 127.0.0.1 (an ephemeral port), talked to only
+   through ``EngineClient``: the rabbit-jump request ("origami" refine,
+   LocalBlend, equalizer; 8 frames of data/rabbit), the same clip with
+   another edit prompt (a store hit), request 1 again (the same
+   ``content_sha256``), two compatible requests together (one scan
+   dispatch of 2, each video the singleton's bit for bit), a request for
+   unwarmed steps (HTTP 400 with the warm list) and one through an injected
+   transient fault (``fail@5``) that succeeds on its retry: every request
+   done with src_err == 0.0, GIFs written, finite (2, 8, 512, 512, 3)
+   videos; launches as the steps imply (2·steps forwards fresh, steps a
+   hit, 2·steps the batch); no kernel build and no program-cache miss
+   after warm; the last request's peak memory, and the memory allocated
+   after it, no higher than the second's plus the store's growth (and 64
+   MiB); request 1's
+   videos against ``run_main_path``'s cached fast edit of the same frames,
+   seed, weights and prompts, bit for bit; printed: warm seconds, each
+   request's queue / resolve / dispatch seconds, the store entry's bytes,
+   ``/metrics``' capacity section, the peak; (b) ``python -m
+   videop2p_tpu_torch.cli.serve`` as a subprocess, in fp32 (its default)
+   and in bf16: ``/healthz``, one request done (its store entry's bytes
+   printed), SIGTERM → exit 0 with ``serve_health`` in its ledger.
+
 Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
 the card line, then, last, ``{"ok": true, "device": {...}}``.
 
@@ -223,7 +249,7 @@ Run:  python3 chip_smoke.py [--steps 4] [--inner_steps 10]
                             [--mixed_precision fp32|bf16]
                             [--paths [fast] [official] [official_flash]
                                      [dependent] [checkpoint] [tune] [surface]
-                                     [distill] [sdxl]]
+                                     [distill] [sdxl] [serve]]
                             [--profile [--frame_attention auto flash_rect flash]]
                             [--gn_only [--gn_kernel_names NAME ...]]
                             [--out PATH.json]
@@ -334,9 +360,9 @@ FLASH_INNER_STEPS = 2
 # official main path (4b, 10), the official path under each kernel (11, 12),
 # the dependent noise (13), a checkpoint directory (14), Stage 1 (15), the
 # rest of Stage 2's surface (16), consistency distillation and the few-step
-# student (17), and SDXL's width (18)
+# student (17), SDXL's width (18), and the serving engine (19)
 PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint", "tune",
-         "surface", "distill", "sdxl")
+         "surface", "distill", "sdxl", "serve")
 # phase 4b's final losses in "hybrid" null-text mode are compared relative
 # to max(|loss|, this): its last outer step lands on x_0, where both losses
 # sit at float32 rounding noise (~1e-15) and have no relative meaning
@@ -1514,12 +1540,12 @@ def launch_counts() -> dict:
 
 
 def run_main_path(frames, steps: int, mixed_precision: str, *, fast: bool = True,
-                  keep_outputs: bool = False, **kw) -> dict:
+                  keep_outputs: bool = False, keep_videos: bool = False, **kw) -> dict:
     """One edit through ``cli.run_videop2p.main`` with every launch count set
     to 0 just before and read just after; checks the output and, for the
     cached-source path, src_err == 0.0 exactly. ``keep_outputs`` also
     returns x_T and the uint8 frames a GIF would hold (the caller deletes
-    them with the latents)."""
+    them with the latents); ``keep_videos`` the decoded [0, 1] videos."""
     from videop2p_tpu_torch.cli.run_videop2p import main as run_edit
 
     # every run a fresh one unless a phase asks for persisted reuse: a
@@ -1569,7 +1595,8 @@ def run_main_path(frames, steps: int, mixed_precision: str, *, fast: bool = True
             "checkpoint_dir": res["checkpoint_dir"], "latents": res["latents"],
             **({"x_t": res["x_t"],
                 "frames_u8": (videos.clamp(0, 1) * 255).to(torch.uint8).cpu()}
-               if keep_outputs else {})}
+               if keep_outputs else {}),
+            **({"videos": videos} if keep_videos else {})}
 
 
 def expect_launches(run: dict, steps: int, frame_attention: str, *,
@@ -2856,6 +2883,311 @@ def sdxl_path(args) -> tuple:
     return runs, {"sdxl": rec}
 
 
+SERVE_STORE_BUDGET_GB = 8.0
+# the memory the engine may keep per request beyond the store's growth
+# (small per-request leftovers of the last dispatch: embeddings, the
+# controller); an edit that kept its autograd graph would hold gigabytes
+SERVE_MEM_SLACK_BYTES = 64 << 20
+
+
+def _serve_request(**overrides) -> dict:
+    """The rabbit-jump edit as an HTTP request body (``EditRequest``'s
+    fields): the "origami" refine edit with LocalBlend and the equalizer."""
+    body = {k: RABBIT[k] for k in ("prompt", "prompts", "blend_word", "eq_params",
+                                   "save_name", "is_word_swap")}
+    body.update(image_path=RABBIT["image_path"], **overrides)
+    return body
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_engine_phase(args, tmp: str) -> tuple:
+    """Phase 19a: an ``EditEngine`` at SD-1.5 width behind ``EditServer`` on
+    127.0.0.1, talked to only through ``EngineClient``. Returns (run,
+    record)."""
+    from videop2p_tpu_torch.serve import EditEngine, EngineClient, FaultPlan, ProgramSpec
+    from videop2p_tpu_torch.serve.http import EditServer
+
+    steps, mp = args.steps, args.mixed_precision
+    # the fault request is the fifth dispatch attempt: requests 1-3, the
+    # batch of 2, then it (the unwarmed-steps request never dispatches)
+    fault_attempt = 5
+    spec = ProgramSpec(width=512, video_len=8, steps=steps, mixed_precision=mp, seed=0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = EditEngine(spec, out_dir=os.path.join(tmp, "engine"),
+                        store_budget_bytes=int(SERVE_STORE_BUDGET_GB * (1 << 30)),
+                        max_batch=2, max_wait_s=0.1, keep_videos=True,
+                        faults=FaultPlan(fail=[fault_attempt], spec=f"fail@{fault_attempt}"),
+                        device="cuda")
+    build_s = time.perf_counter() - t0
+    server = None
+    try:
+        ctrl = {"blend_word": RABBIT["blend_word"], "eq_params": RABBIT["eq_params"]}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        warm = engine.warm(tuple(RABBIT["prompts"]), controller_kwargs=ctrl)
+        warm_launches = launch_counts()
+        warm_peak = torch.cuda.max_memory_allocated()
+        misses_after_warm = engine.programs.cache_misses
+        print(f"  engine built in {build_s:.2f} s, warm {warm['seconds']:.2f} s "
+              f"(launches {warm_launches}; src_err {warm['src_err']!r}), "
+              f"{misses_after_warm} programs built", flush=True)
+        server = EditServer(engine, host="127.0.0.1", port=0).start()
+        client = EngineClient(server.url, timeout_s=60.0)
+        if not client.healthz()["ok"]:
+            raise AssertionError("/healthz is not ok")
+        totals = {k: 0 for k in launch_counts()}
+        recs, launches, mem, peaks, store_bytes = {}, {}, {}, {}, {}
+
+        def serve(name, *bodies):
+            """Submit ``bodies`` together, wait for each; the kernels'
+            launches over them, the peak memory while they ran, the memory
+            allocated and the store's bytes after them."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            rids = [client.submit(b) for b in bodies]
+            out = [client.wait(r, timeout_s=600.0) for r in rids]
+            torch.cuda.synchronize()
+            launches[name] = launch_counts()
+            for k, v in launches[name].items():
+                totals[k] += v
+            mem[name] = torch.cuda.memory_allocated()
+            peaks[name] = torch.cuda.max_memory_allocated()
+            store_bytes[name] = engine.store.stats()["bytes_in_use"]
+            for i, rec in enumerate(out):
+                recs[name if len(out) == 1 else f"{name}_{i}"] = rec
+                print(f"  {name}{'' if len(out) == 1 else f'[{i}]'}: {rec['status']}, store "
+                      f"{rec.get('store_source')}, queue_wait {rec.get('queue_wait_s')} s, "
+                      f"resolve {rec.get('resolve_s')} s, dispatch {rec.get('dispatch_s')} s, "
+                      f"total {rec.get('total_s')} s, batch {rec.get('batch_size')}/"
+                      f"{rec.get('padded_size')}, attempts {rec.get('dispatch_attempts')}, "
+                      f"src_err {rec.get('src_err')!r}, compile events "
+                      f"{rec.get('compile_events')}, program-cache misses "
+                      f"{rec.get('program_cache_misses')}; launches {launches[name]}",
+                      flush=True)
+            return out
+
+        serve("fresh", _serve_request())
+        entry_bytes = engine.store.stats()["bytes_in_use"]
+        serve("hit", _serve_request(prompts=[RABBIT["prompt"],
+                                             "a lego rabbit is jumping on the grass"],
+                                    eq_params=None, save_name="lego"))
+        serve("repeat", _serve_request())
+        serve("batch", _serve_request(), _serve_request(save_name="origami_again"))
+        try:
+            client.submit(_serve_request(steps=steps + 1))
+            raise AssertionError("a request for unwarmed steps was admitted")
+        except RuntimeError as e:
+            unwarmed = str(e)
+        print(f"  unwarmed steps {steps + 1}: {unwarmed}", flush=True)
+        if "400" not in unwarmed or f"warmed: [{steps}]" not in unwarmed:
+            raise AssertionError(f"unwarmed steps: {unwarmed}")
+        if engine.faults.attempts != fault_attempt - 1:
+            raise AssertionError(f"{engine.faults.attempts} dispatch attempts before the "
+                                 f"fault request, expected {fault_attempt - 1}")
+        serve("fault", _serve_request())
+        metrics = client.metrics()
+        prom = client.metrics_prometheus()
+        peak_gib = max(warm_peak, *peaks.values()) / 2 ** 30
+        videos = {name: engine.videos(rec["id"]) for name, rec in recs.items()}
+        done = list(recs.values())
+    finally:
+        if server is not None:
+            server.close()
+        engine.close()
+    record = {"build_s": build_s, "warm": warm, "warm_launches": warm_launches,
+              "records": {k: {f: v.get(f) for f in (
+                  "status", "store_source", "queue_wait_s", "resolve_s", "dispatch_s",
+                  "total_s", "batch_size", "padded_size", "dispatch_attempts", "src_err",
+                  "compile_events", "program_cache_misses", "content_sha256", "cost")}
+                  for k, v in recs.items()},
+              "launches": launches, "store_entry_bytes": entry_bytes,
+              "store": metrics["store"], "capacity": metrics["capacity"],
+              "compile": metrics["compile"], "programs": metrics["programs"],
+              "memory_allocated": mem, "memory_peak": peaks, "store_bytes": store_bytes,
+              "peak_gib": peak_gib}
+    print(f"  store entry: {entry_bytes} bytes ({entry_bytes / 2 ** 30:.3f} GiB) at 512², "
+          f"8 frames, {steps} steps, {mp}; budget {SERVE_STORE_BUDGET_GB} GiB holds the "
+          f"{metrics['store']['entries']} clips served (evictions "
+          f"{metrics['store']['evictions']}, refused {metrics['store']['rejected_oversize']})",
+          flush=True)
+    print(f"  /metrics capacity: {json.dumps(metrics['capacity'])}", flush=True)
+    print(f"  peak allocated {peak_gib:.2f} GiB (warm {warm_peak / 2 ** 30:.3f}); each "
+          "request's peak / allocated after it (GiB): "
+          + ", ".join(f"{k} {peaks[k] / 2 ** 30:.3f} / {v / 2 ** 30:.3f}"
+                      for k, v in mem.items()), flush=True)
+
+    # gates
+    failures = []
+    for name, rec in recs.items():
+        if rec["status"] != "done" or rec.get("src_err") != 0.0:
+            failures.append(f"{name}: status {rec['status']} ({rec.get('error')}), "
+                            f"src_err {rec.get('src_err')!r}")
+        elif not (os.path.isfile(rec["edit_gif"]) and os.path.isfile(rec["inversion_gif"])):
+            failures.append(f"{name}: GIFs not written")
+    for name, v in videos.items():
+        if v is None or v.shape != (2, 8, 512, 512, 3) or not np.isfinite(v).all():
+            failures.append(f"{name}: videos {None if v is None else v.shape} not finite "
+                            "of shape (2, 8, 512, 512, 3)")
+    hits = [n for n, r in recs.items() if n != "fresh"]
+    if recs["fresh"].get("store_source") != "fresh" or any(
+            recs[n].get("store_source") != "memory" for n in hits):
+        failures.append("store: request 1 must invert, every later one hit the store")
+    if any(recs[n].get("compile_events") or recs[n].get("program_cache_misses")
+           for n in recs):
+        failures.append("a request built a kernel or a program after warm")
+    if engine.programs.cache_misses != misses_after_warm:
+        failures.append(f"program-cache misses after warm: "
+                        f"{engine.programs.cache_misses - misses_after_warm}")
+    if recs["repeat"]["content_sha256"] != recs["fresh"]["content_sha256"]:
+        failures.append("the repeat request's content_sha256 differs from request 1's")
+    if not (recs["batch_0"]["batch_size"] == recs["batch_1"]["batch_size"] == 2
+            and recs["batch_0"]["padded_size"] == 2):
+        failures.append("the two compatible requests did not form one scan dispatch of 2")
+    for i in (0, 1):
+        if not np.array_equal(videos[f"batch_{i}"], videos["fresh"]):
+            failures.append(f"batch member {i} is not its singleton's videos bit for bit")
+    if recs["fault"]["dispatch_attempts"] != 2 or metrics["counters"]["retries"] != 1:
+        failures.append(f"the injected fault: attempts {recs['fault']['dispatch_attempts']}, "
+                        f"retries {metrics['counters']['retries']}")
+    forwards = {"fresh": 2 * steps, "hit": steps, "repeat": steps, "batch": 2 * steps,
+                "fault": steps}
+    for name, n in forwards.items():
+        want = {k: 0 for k in launches[name]}
+        want.update(frame_attention=ATTN_SITES * n,
+                    group_norm=GN_LAUNCHES_PER_CALL * GN_SITES * n)
+        if launches[name] != want:
+            failures.append(f"{name}: launches {launches[name]}, expected {want}")
+    growth = store_bytes["fault"] - store_bytes["hit"]
+    for what, by in (("allocated after", mem), ("peak of", peaks)):
+        if by["fault"] > by["hit"] + growth + SERVE_MEM_SLACK_BYTES:
+            failures.append(f"memory grows with the requests: {what} request 2 {by['hit']} "
+                            f"B, the last {by['fault']} B (store growth {growth} B)")
+    if metrics["store"]["rejected_oversize"] or metrics["store"]["evictions"]:
+        failures.append(f"the store budget does not hold the clips: {metrics['store']}")
+    if "videop2p_capacity_busy_seconds" not in prom:
+        failures.append("/metrics?format=prometheus lacks the capacity section")
+    run = {"launches": totals, "wall_s": sum(r["total_s"] for r in done),
+           "videos_fresh": videos["fresh"]}
+    return run, record, failures
+
+
+def serve_cli_phase(args, tmp: str, mp: str) -> tuple:
+    """Phase 19b: ``python -m videop2p_tpu_torch.cli.serve`` as a subprocess
+    on an ephemeral port, in ``mp`` (fp32 by the CLI's default, bf16 by its
+    flag): one request, then SIGTERM. Returns (record, failures)."""
+    import signal
+
+    from videop2p_tpu_torch.obs import read_ledger
+    from videop2p_tpu_torch.serve import EngineClient
+
+    port = _free_port()
+    out_dir = os.path.join(tmp, f"cli_{mp}")
+    log_path = os.path.join(tmp, f"cli_{mp}.log")
+    cmd = [sys.executable, "-m", "videop2p_tpu_torch.cli.serve", "--port", str(port),
+           "--out_dir", out_dir, "--steps", str(args.steps),
+           "--store_budget_gb", str(SERVE_STORE_BUDGET_GB),
+           "--warm_prompts", *RABBIT["prompts"],
+           *(() if mp == "fp32" else ("--mixed_precision", mp))]
+    failures = []
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            client = EngineClient(f"http://127.0.0.1:{port}", timeout_s=60.0, retries=0)
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"the server exited {proc.returncode} before "
+                                         "/healthz answered")
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("/healthz did not answer in 600 s")
+                try:
+                    health = client.healthz()
+                    break
+                except Exception:  # noqa: BLE001 — not listening yet
+                    time.sleep(1.0)
+            up_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            done = client.wait(client.submit(_serve_request()), timeout_s=600.0)
+            request_s = time.perf_counter() - t1
+            metrics = client.metrics()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+        except Exception as e:
+            with open(log_path) as fh:
+                raise AssertionError(f"cli serve: {e}\n{fh.read()[-4000:]}") from e
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log_path) as fh:
+        log_tail = fh.read()[-4000:]
+    events = read_ledger(os.path.join(out_dir, "serve_ledger.jsonl"))
+    kinds = [e["event"] for e in events]
+    rec = {"dtype": mp, "up_s": up_s, "warm": health.get("warm"), "request_s": request_s,
+           "status": done["status"], "src_err": done.get("src_err"),
+           "store_entry_bytes": metrics["store"]["bytes_in_use"], "rc": rc,
+           "ledger_tail": kinds[-4:]}
+    print(f"  cli ({mp}): /healthz after {up_s:.1f} s (warm "
+          f"{(health.get('warm') or {}).get('seconds')} s), request {done['status']} in "
+          f"{request_s:.2f} s, src_err {done.get('src_err')!r}, store entry "
+          f"{rec['store_entry_bytes']} bytes; SIGTERM → exit {rc}; ledger ends "
+          f"{kinds[-4:]}", flush=True)
+    if done["status"] != "done" or done.get("src_err") != 0.0:
+        failures.append(f"cli request: {done['status']} ({done.get('error')}), src_err "
+                        f"{done.get('src_err')!r}")
+    elif not os.path.isfile(done["edit_gif"]):
+        failures.append("cli request: no GIF written")
+    if rc != 0:
+        failures.append(f"cli exit code {rc} after SIGTERM:\n{log_tail}")
+    if "serve_health" not in kinds or kinds.index("serve_health") < max(
+            i for i, k in enumerate(kinds) if k == "serve_request"):
+        failures.append(f"cli ledger does not close with serve_health: {kinds[-6:]}")
+    return rec, failures
+
+
+def serve_path(args, frames_unused) -> tuple:
+    """Phase 19 (path "serve"): the serving engine. 19a in process (then the
+    edit of request 1 against ``run_main_path``'s cached fast edit of the
+    same clip, seed, weights and prompts), 19b the entry point in fp32 (its default) and bf16. Returns
+    (runs, records)."""
+    from videop2p_tpu_torch.data.dataset import load_frame_sequence
+
+    os.makedirs("outputs", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir="outputs")
+    try:
+        print("serve (SD-1.5 width, 512², 8 frames of data/rabbit):", flush=True)
+        run, record, failures = serve_engine_phase(args, tmp)
+        rabbit = load_frame_sequence(RABBIT["image_path"], size=512, num_frames=8)
+        main = run_main_path(rabbit, args.steps, args.mixed_precision, keep_videos=True)
+        served = run.pop("videos_fresh")
+        ref = main.pop("videos").cpu().numpy()
+        diff = float(np.abs(served - ref).max())
+        record["main_path_max_abs_diff"] = diff
+        print(f"  request 1 against run_main_path's cached fast edit: max|d| {diff!r} "
+              "(gate: bit for bit)", flush=True)
+        if not np.array_equal(served, ref):
+            failures.append(f"the served edit differs from the main path's by {diff}")
+        record["cli"] = {}
+        for mp in ("fp32", "bf16"):
+            record["cli"][mp], cli_failures = serve_cli_phase(args, tmp, mp)
+            failures += cli_failures
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("serve path: " + "; ".join(failures))
+    return {"serve": run}, {"serve": record}
+
+
 def group_norm_only(args, card: str, kind: str) -> int:
     """``--gn_only``: GroupNorm's phase-3 checks and timings, its sums over
     the UNet's 61 sites (:func:`gn_site_sums`, at the edit forward's B 2 and
@@ -3034,6 +3366,10 @@ def main() -> int:
         sdxl_runs, sdxl_records = sdxl_path(args)
         runs.update(sdxl_runs)
         records.update(sdxl_records)
+    if "serve" in args.paths:
+        serve_runs, serve_records = serve_path(args, frames)
+        runs.update(serve_runs)
+        records.update(serve_records)
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
@@ -3084,12 +3420,13 @@ def main() -> int:
 
     # each kernel's launches come from the main path that runs it: the fast
     # edit where it ran, else official mode, else the dependent, the
-    # checkpoint, the surface path's cached edit or the student's;
+    # checkpoint, the surface path's cached edit, the student's or the served
+    # edits';
     # GroupNorm's, when only Stage 1 or distillation ran, from that run
     # (neither runs a frame-attention kernel). SDXL's run has lines of its
     # own, at its shapes (head dim 64) in bf16, the dtype it runs in.
     auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint",
-                             "surface_multi", "student_edit") if r in runs), None)
+                             "surface_multi", "student_edit", "serve") if r in runs), None)
     rect = next((r for r in ("flash_rect", "official_flash_rect",
                              "surface_hybrid_flash_rect") if r in runs), None)
     rect_bwd = next((r for r in ("official_flash_rect", "surface_hybrid_flash_rect")

@@ -28,7 +28,7 @@ from videop2p_tpu_torch.utils.tokenizers import WordTokenizer, load_tokenizer
 
 __all__ = ["ModelBundle", "build_models", "encode_prompts", "add_dependent_args",
            "add_unported_args", "dependent_suffix", "resolve_pipeline_dir", "load_config",
-           "deterministic_convolutions"]
+           "deterministic_convolutions", "make_run_ledger"]
 
 
 @contextlib.contextmanager
@@ -224,3 +224,13 @@ def encode_prompts(bundle: ModelBundle, prompts: Sequence[str], device) -> torch
     ids = torch.tensor([bundle.tokenizer.encode_padded(p) for p in prompts],
                        dtype=torch.long, device=device)
     return bundle.text_encoder(ids)
+
+
+def make_run_ledger(path: str, *, meta: Optional[Dict[str, Any]] = None, device=None):
+    """The activated :class:`~videop2p_tpu_torch.obs.RunLedger` at ``path``,
+    with execute timing on and scoped to this ledger (the subset of the JAX
+    CLIs' wiring that the serving engine calls)."""
+    from videop2p_tpu_torch.obs import RunLedger
+
+    return RunLedger(path, meta={"latency": True, **(meta or {})}, latency=True,
+                     device=device).activate()

@@ -504,13 +504,7 @@ def _module_bytes(module: torch.nn.Module) -> int:
 
 def _write_gifs(videos: torch.Tensor, output_dir: str, save_name: str, fast: bool):
     """GIFs of the reconstruction and the edit, 4 fps, under ``output_dir``
-    (names suffixed ``_fast`` in fast mode, as the JAX CLI's); skipped with
-    a note when imageio is not installed."""
-    try:
-        import imageio.v3  # noqa: F401
-    except ImportError:
-        print("[p2p] imageio is not installed: no GIF written")
-        return ()
+    (names suffixed ``_fast`` in fast mode, as the JAX CLI's)."""
     frames = (videos.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
     suffix = "_fast" if fast else ""
     paths = (os.path.join(output_dir, f"inversion{suffix}.gif"),

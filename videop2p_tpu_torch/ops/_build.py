@@ -25,10 +25,11 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from typing import Callable, Dict, List
 
 __all__ = ["build_all", "load_library", "bind", "ptxas_report", "KERNEL_SOURCES",
-           "BUILD_DIR"]
+           "BUILD_DIR", "BUILD_LISTENERS"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -41,6 +42,9 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# called with (source, seconds) after each successful nvcc build (the run
+# ledger records them as ``compile`` events)
+BUILD_LISTENERS: List[Callable[[str, float], None]] = []
 
 
 def _nvcc() -> str:
@@ -78,6 +82,7 @@ def build_all() -> Dict[str, str]:
     """Compile every missing library in parallel; returns source → path.
     Raises with the compiler's output when a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
     paths = {}
     for src in KERNEL_SOURCES:
@@ -99,6 +104,8 @@ def build_all() -> Dict[str, str]:
         with open(path + ".ptxas.txt", "w") as fh:
             fh.write(out)
         os.replace(tmp, path)
+        for listener in list(BUILD_LISTENERS):
+            listener(src, time.perf_counter() - t0)
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths

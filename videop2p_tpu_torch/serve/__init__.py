@@ -1,6 +1,73 @@
-"""Serving: the disk layer of the inversion store (the in-memory store and
-the engine are ROADMAP Queue 1 item 14)."""
+"""Persistent edit serving on one device (port of ``videop2p_tpu/serve/``'s
+single-replica path).
 
-from videop2p_tpu_torch.serve.store import load_persisted_inversion, save_persisted_inversion
+  * :mod:`~videop2p_tpu_torch.serve.programs` — :class:`ProgramSet`: the
+    models, the scheduler and the instrumented programs (VAE encode,
+    capture-inversion, cached-source edit + decode), built once per
+    :class:`ProgramSpec`; :class:`ProgramCache` keeps a few sets.
+  * :mod:`~videop2p_tpu_torch.serve.store` — :class:`InversionStore`: a
+    byte-budgeted device-resident LRU of inversion products, keyed by
+    content, with disk write-through of trajectories shared with the CLIs
+    (``--inv_store``).
+  * :mod:`~videop2p_tpu_torch.serve.batching` — deterministic grouping of
+    compatible concurrent requests into one dispatch (``scan``).
+  * :mod:`~videop2p_tpu_torch.serve.sched` — the ``drain``, ``continuous``
+    and ``fair`` scheduling policies.
+  * :mod:`~videop2p_tpu_torch.serve.engine` — :class:`EditEngine`: the
+    request lifecycle (admit → resolve → batch → dispatch → decode) on one
+    worker thread, with the run ledger as live telemetry.
+  * :mod:`~videop2p_tpu_torch.serve.faults` — fault injection, retry, the
+    circuit breaker and the fast-fail exceptions.
+  * :mod:`~videop2p_tpu_torch.serve.http` / :mod:`~videop2p_tpu_torch.
+    serve.client` — the stdlib JSON API (``cli/serve.py`` is the entry
+    point) and its urllib client.
 
-__all__ = ["load_persisted_inversion", "save_persisted_inversion"]
+The fleet tier (replicas, router, collector, prober) waits for ROADMAP Queue
+1 item 14's rest; ``vmap`` dispatch over a data mesh for item 13.
+"""
+
+from videop2p_tpu_torch.serve.batching import (
+    Batch,
+    compat_key,
+    plan_batches,
+    stack_items,
+    unstack_outputs,
+)
+from videop2p_tpu_torch.serve.client import EngineClient
+from videop2p_tpu_torch.serve.engine import TERMINAL_STATUSES, EditEngine, EditRequest
+from videop2p_tpu_torch.serve.faults import (
+    CircuitBreaker,
+    DeadlineExceeded,
+    EngineUnavailable,
+    FaultPlan,
+    QueueFull,
+    RetryPolicy,
+    is_transient,
+)
+from videop2p_tpu_torch.serve.programs import ProgramCache, ProgramSet, ProgramSpec
+from videop2p_tpu_torch.serve.sched import (
+    SCHEDULER_POLICIES,
+    ContinuousScheduler,
+    DrainScheduler,
+    FairScheduler,
+    Scheduler,
+    TenantConfig,
+    make_scheduler,
+    parse_tenants,
+)
+from videop2p_tpu_torch.serve.store import (
+    InversionStore,
+    load_persisted_inversion,
+    save_persisted_inversion,
+)
+
+__all__ = [
+    "Batch", "compat_key", "plan_batches", "stack_items",
+    "unstack_outputs", "EngineClient", "TERMINAL_STATUSES",
+    "EditEngine", "EditRequest", "CircuitBreaker", "DeadlineExceeded",
+    "EngineUnavailable", "FaultPlan", "QueueFull", "RetryPolicy", "is_transient",
+    "ProgramCache", "ProgramSet", "ProgramSpec", "SCHEDULER_POLICIES",
+    "ContinuousScheduler", "DrainScheduler", "FairScheduler", "Scheduler",
+    "TenantConfig", "make_scheduler", "parse_tenants", "InversionStore",
+    "load_persisted_inversion", "save_persisted_inversion",
+]

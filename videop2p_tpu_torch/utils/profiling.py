@@ -1,6 +1,7 @@
 """Per-phase wall-clock timing (port of ``phase_timer``, ``phase_records``
-and ``reset`` of ``videop2p_tpu/utils/profiling.py``, without its
-run-ledger hook). ``time.perf_counter`` is monotonic. On the
+and ``reset`` of ``videop2p_tpu/utils/profiling.py``): each phase also goes
+to the active run ledger (``obs/ledger.py``) as a ``phase`` event, where
+there is one. ``time.perf_counter`` is monotonic. On the
 card a phase's time includes only the work the host waited for: a caller
 that wants device work inside it synchronises before it closes."""
 
@@ -44,3 +45,8 @@ def phase_timer(name: str) -> Iterator[None]:
         with _RECORDS_LOCK:
             _RECORDS.append((name, dt))
         print(f"[phase] {name}: {dt:.2f}s")
+        from videop2p_tpu_torch.obs.ledger import current_ledger
+
+        led = current_ledger()
+        if led is not None:
+            led.phase(name, dt)

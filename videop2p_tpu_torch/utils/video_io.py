@@ -2,7 +2,9 @@
 
 A batch of videos is tiled into one animated grid; a single video is written
 as a looping GIF. Inputs are channels-last numpy arrays, float in [0, 1] or
-uint8. imageio is imported where a file is written.
+uint8. A single video is written with PIL (imageio, which writes the same
+bytes through PIL, may be missing); a grid with imageio, imported where the
+file is written.
 """
 
 from __future__ import annotations
@@ -41,10 +43,12 @@ def make_grid(frames: np.ndarray, n_rows: int, pad: int = 2) -> np.ndarray:
 def save_video_gif(video: np.ndarray, path: str, *, fps: int = 4) -> str:
     """Write one (F, H, W, C) video as a looping GIF (the Stage-2 artifact:
     250 ms a frame at the default 4 fps)."""
-    import imageio.v3 as iio
+    from PIL import Image
 
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
-    iio.imwrite(path, to_uint8(video), extension=".gif", duration=int(1000 / fps), loop=0)
+    frames = [Image.fromarray(f) for f in to_uint8(video)]
+    frames[0].save(path, format="GIF", save_all=True, append_images=frames[1:],
+                   duration=int(1000 / fps), loop=0)
     return path
 
 
