@@ -235,6 +235,49 @@ serve:
    and in bf16: ``/healthz``, one request done (its store entry's bytes
    printed), SIGTERM → exit 0 with ``serve_health`` in its ledger.
 
+fleet:
+20. replicas behind a router (``serve/replica.py``, ``serve/router.py``) at
+   SD-1.5 width, ``--steps``, ``--mixed_precision``: (a) a
+   ``ReplicaSupervisor`` in "inproc" mode, 2 replicas sharing one warm
+   ``ProgramSet`` and one disk inversion store, a ``RouterServer`` on
+   127.0.0.1, talked to only through ``EngineClient``: the rabbit-jump
+   request through the router (its videos against ``run_main_path``'s
+   cached fast edit, bit for bit), the same clip with another edit prompt
+   straight to the other replica (a disk-store hit, no program-cache miss),
+   then data/car to one replica and data/tiger to the other at once (the
+   pair's launches twice a fresh request's; each one's videos equal, bit
+   for bit, to the same request served alone afterwards by a fresh engine
+   over the same set); every request done with src_err == 0.0 and finite
+   (2, 8, 512, 512, 3) videos; the router's /healthz and /metrics list both
+   replicas; a second supervisor with replica 0 under ``unavail@1-999``
+   (its breaker opens on one failure): the router sheds to replica 1 and
+   the request completes, ``router_health`` in the router's ledger at
+   close; printed: the router's overhead a request, the pair's wall time
+   against the two served alone, the card's busy share over each (kernel
+   intervals of a ``torch.profiler`` trace), the peak; (b) ``python -m
+   videop2p_tpu_torch.cli.router --spawn 2`` as a subprocess (two
+   ``cli.serve`` children on this card, fp32): the fleet's /healthz, one
+   request through the router, SIGTERM → exit 0 with ``router_health`` in
+   the router's ledger and ``serve_health`` in each child's.
+
+stream:
+21. streaming long-video editing (``stream/``) at SD-1.5 width, 512²,
+   ``--steps``: ``run_stream_job`` on an engine over
+   ``synthetic_clip(20, 512, seed=0)``, windows of 8, overlap 2 (windows
+   [0, 8), [6, 14), [12, 20), two seams), one window in flight: every
+   window done with src_err == 0.0, the final video finite (20, 512, 512,
+   3), each window's launches a fresh request's, the memory allocated after
+   each window no higher than after the first plus the store's growth and
+   64 MiB; window 0's edited frames equal to a direct engine request for
+   frames 0-7, bit for bit; a job stopped once its first window is
+   harvested returns ``interrupted``, and its rerun skips that window (no
+   request for it) and gives the uninterrupted run's video bit for bit;
+   then ``python -m videop2p_tpu_torch.cli.stream --synthetic 20 --width
+   512 --video_len 8 --overlap 2`` as a subprocess, SIGKILLed once its
+   first window's sidecar appears and run again: its ``final.npy`` equal to
+   the in-process run's bit for bit; printed: each window's queue / resolve
+   / dispatch seconds, the seams' PSNR, the job's wall time and the peak.
+
 Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
 the card line, then, last, ``{"ok": true, "device": {...}}``.
 
@@ -249,7 +292,7 @@ Run:  python3 chip_smoke.py [--steps 4] [--inner_steps 10]
                             [--mixed_precision fp32|bf16]
                             [--paths [fast] [official] [official_flash]
                                      [dependent] [checkpoint] [tune] [surface]
-                                     [distill] [sdxl] [serve]]
+                                     [distill] [sdxl] [serve] [fleet] [stream]]
                             [--profile [--frame_attention auto flash_rect flash]]
                             [--gn_only [--gn_kernel_names NAME ...]]
                             [--out PATH.json]
@@ -260,6 +303,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import gc
 import json
 import math
 import os
@@ -268,6 +312,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # Re-initialise CUPTI for every torch.profiler session. Kept alive across
@@ -360,9 +405,10 @@ FLASH_INNER_STEPS = 2
 # official main path (4b, 10), the official path under each kernel (11, 12),
 # the dependent noise (13), a checkpoint directory (14), Stage 1 (15), the
 # rest of Stage 2's surface (16), consistency distillation and the few-step
-# student (17), SDXL's width (18), and the serving engine (19)
+# student (17), SDXL's width (18), the serving engine (19), replicas behind a
+# router (20) and streaming long-video editing (21)
 PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint", "tune",
-         "surface", "distill", "sdxl", "serve")
+         "surface", "distill", "sdxl", "serve", "fleet", "stream")
 # phase 4b's final losses in "hybrid" null-text mode are compared relative
 # to max(|loss|, this): its last outer step lands on x_0, where both losses
 # sit at float32 rounding noise (~1e-15) and have no relative meaning
@@ -3188,6 +3234,625 @@ def serve_path(args, frames_unused) -> tuple:
     return {"serve": run}, {"serve": record}
 
 
+# the car and tiger edits (configs/car-drive-p2p.yaml, tiger-forest-p2p.yaml)
+# as request bodies: the fleet path's concurrent pair
+CAR = dict(image_path="./data/car", prompt="a car is driving on the road",
+           prompts=["a car is driving on the road", "a car is driving on the railway"],
+           blend_word=["road", "railway"], eq_params={"words": ["railway"], "values": [2]},
+           save_name="railway", is_word_swap=True)
+TIGER = dict(image_path="./data/tiger", prompt="a tiger is walking in the forest",
+             prompts=["a tiger is walking in the forest",
+                      "a Lego tiger is walking in the forest"],
+             blend_word=["tiger", "tiger"], eq_params={"words": ["Lego"], "values": [2]},
+             save_name="lego", is_word_swap=False)
+# the fault plan of the fleet's chaos run (tests/test_sched.py's): every
+# dispatch of replica 0 raises backend-unavailable
+FLEET_CHAOS = "unavail@1-999"
+# the stream path: synthetic_clip(STREAM_FRAMES, 512), windows of the
+# engine's 8 frames overlapping by STREAM_OVERLAP (windows [0, 8), [6, 14),
+# [12, 20)), and the stream CLI's default prompts and edit, which the
+# in-process job uses too, so that the CLI's final.npy compares with it
+STREAM_FRAMES = 20
+STREAM_OVERLAP = 2
+STREAM_PROMPTS = ["a rabbit is jumping", "a origami rabbit is jumping"]
+STREAM_REQUEST = dict(is_word_swap=False, blend_word=None, cross_replace_steps=0.2,
+                      self_replace_steps=0.5)
+
+
+def _release() -> None:
+    """Free what earlier phases left (the programs hold reference cycles, so
+    only the cyclic collector frees their weights), so that a phase's peak
+    is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _allocated_line() -> str:
+    _release()
+    return f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated before it"
+
+
+def _busy_traced(fn) -> tuple:
+    """``fn()`` under a CUDA-only ``torch.profiler`` trace: (its result, the
+    host wall seconds, the card's busy seconds — the union of the kernels'
+    intervals — or None where the trace held no kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return out, wall, None
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    return out, wall, (busy + cur_e - cur_s) / 1e6
+
+
+def _fresh_launches(steps: int) -> dict:
+    """The kernels' launches of one fresh request: 2·steps forwards
+    (inversion and edit) on "auto"."""
+    want = {k: 0 for k in launch_counts()}
+    want.update(frame_attention=ATTN_SITES * 2 * steps,
+                group_norm=GN_LAUNCHES_PER_CALL * GN_SITES * 2 * steps)
+    return want
+
+
+def _check_record(name: str, rec: dict, videos, failures: list, shape=(2, 8, 512, 512, 3)):
+    if rec["status"] != "done" or rec.get("src_err") != 0.0:
+        failures.append(f"{name}: status {rec['status']} ({rec.get('error')}), src_err "
+                        f"{rec.get('src_err')!r}")
+    if videos is None or videos.shape != shape or not np.isfinite(videos).all():
+        failures.append(f"{name}: videos {None if videos is None else videos.shape} not "
+                        f"finite of shape {shape}")
+
+
+def _print_record(name: str, rec: dict, wall_s: float = None) -> None:
+    print(f"  {name}: {rec['status']} on {rec.get('replica', '-')}, store "
+          f"{rec.get('store_source')}, queue_wait {rec.get('queue_wait_s')} s, resolve "
+          f"{rec.get('resolve_s')} s, dispatch {rec.get('dispatch_s')} s, total "
+          f"{rec.get('total_s')} s" + ("" if wall_s is None else
+                                        f", the client's wall {wall_s:.3f} s")
+          + f", src_err {rec.get('src_err')!r}, program-cache misses "
+          f"{rec.get('program_cache_misses')}", flush=True)
+
+
+def fleet_inproc_phase(args, tmp: str) -> tuple:
+    """Phase 20a: two in-process replicas over one shared warm ProgramSet
+    behind a RouterServer, talked to through ``EngineClient``. Returns (run,
+    record, failures)."""
+    from videop2p_tpu_torch.obs import read_ledger
+    from videop2p_tpu_torch.serve import (
+        EditEngine,
+        EngineClient,
+        ProgramSet,
+        ProgramSpec,
+        ReplicaSupervisor,
+        Router,
+        RouterServer,
+    )
+
+    steps, mp = args.steps, args.mixed_precision
+    spec = ProgramSpec(width=512, video_len=8, steps=steps, mixed_precision=mp, seed=0)
+    ctrl = {"blend_word": RABBIT["blend_word"], "eq_params": RABBIT["eq_params"]}
+    store = os.path.join(tmp, "inv_store")
+    engine_kwargs = dict(keep_videos=True, device="cuda", max_wait_s=0.05,
+                         store_budget_bytes=int(SERVE_STORE_BUDGET_GB * (1 << 30)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    programs = ProgramSet(spec, device="cuda")
+    sup = ReplicaSupervisor(spec, 2, out_dir=os.path.join(tmp, "fleet"), persist_dir=store,
+                            programs=programs, warm_prompts=tuple(RABBIT["prompts"]),
+                            warm_kwargs={"controller_kwargs": ctrl},
+                            engine_kwargs=engine_kwargs)
+    sup.start()
+    up_s = time.perf_counter() - t0
+    router = Router(sup.urls, probe_ttl_s=0.05, timeout_s=60.0,
+                    ledger_path=os.path.join(tmp, "router_ledger.jsonl"))
+    server = RouterServer(router).start()
+    failures, recs, videos, walls = [], {}, {}, {}
+    misses_after_warm = programs.cache_misses
+    print(f"  2 replicas up in {up_s:.2f} s (one ProgramSet, warm "
+          f"{programs.warmed['seconds']} s), router at {server.url}", flush=True)
+    try:
+        client = EngineClient(server.url, timeout_s=60.0)
+        direct = [EngineClient(u, timeout_s=60.0) for u in sup.urls]
+        engines = {r.name: r.engine for r in sup.replicas}
+
+        t1 = time.perf_counter()
+        rec1 = client.result(client.submit(_serve_request()), wait_s=600.0)
+        walls["router_fresh"] = time.perf_counter() - t1
+        recs["router_fresh"] = rec1
+        videos["router_fresh"] = engines[rec1["replica"]].videos(rec1["id"])
+        _print_record("router_fresh", rec1, walls["router_fresh"])
+        other = 1 - int(rec1["replica"][-1])
+        rec2 = direct[other].result(direct[other].submit(_serve_request(
+            prompts=[RABBIT["prompt"], "a lego rabbit is jumping on the grass"],
+            eq_params=None, save_name="lego")), wait_s=600.0)
+        rec2["replica"] = f"replica{other}"
+        recs["direct_hit"], videos["direct_hit"] = rec2, engines[rec2["replica"]].videos(rec2["id"])
+        _print_record("direct_hit", rec2)
+        # the concurrent pair: car to replica 0, tiger to replica 1, at once
+        pair = {"car": (0, CAR), "tiger": (1, TIGER)}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+
+        def run_pair():
+            rids = {n: direct[i].submit(body) for n, (i, body) in pair.items()}
+            return {n: direct[pair[n][0]].result(r, wait_s=600.0) for n, r in rids.items()}
+
+        pair_recs, pair_wall, pair_busy = _busy_traced(run_pair)
+        pair_launches = launch_counts()
+        pair_peak = torch.cuda.max_memory_allocated()
+        for n, rec in pair_recs.items():
+            rec["replica"] = f"replica{pair[n][0]}"
+            recs[f"pair_{n}"] = rec
+            videos[f"pair_{n}"] = engines[rec["replica"]].videos(rec["id"])
+            _print_record(f"pair_{n}", rec)
+        health = client.healthz()
+        metrics = client.metrics()
+        prom = client.metrics_prometheus()
+        router_health = router.health_record()
+    finally:
+        server.close()
+        sup.stop()
+    # the same two requests served alone, one after the other, by a fresh
+    # engine (no store: each inverts again) over the same programs
+    from videop2p_tpu_torch.serve import EditRequest
+
+    alone = EditEngine(spec, out_dir=os.path.join(tmp, "alone"), programs=programs,
+                       keep_videos=True, device="cuda")
+    try:
+        def run_alone():
+            out = {}
+            for n, (_, body) in pair.items():
+                rec = alone.result(alone.submit(EditRequest(**body)), wait_s=600.0)
+                out[n] = (rec, alone.videos(rec["id"]))
+            return out
+
+        alone_out, alone_wall, alone_busy = _busy_traced(run_alone)
+    finally:
+        alone.close()
+    for n, (rec, vid) in alone_out.items():
+        _print_record(f"alone_{n}", rec)
+        _check_record(f"alone_{n}", rec, vid, failures)
+        if not np.array_equal(vid, videos[f"pair_{n}"]):
+            failures.append(f"the concurrent {n} request differs from it served alone by "
+                            f"{float(np.abs(vid - videos[f'pair_{n}']).max())}")
+    for name, rec in recs.items():
+        _check_record(name, rec, videos[name], failures)
+    if rec2.get("store_source") != "disk" or rec2.get("program_cache_misses"):
+        failures.append(f"request 2 on the other replica: store {rec2.get('store_source')}, "
+                        f"program-cache misses {rec2.get('program_cache_misses')} (want a "
+                        "disk hit and none)")
+    if programs.cache_misses != misses_after_warm:
+        failures.append(f"program-cache misses after warm: "
+                        f"{programs.cache_misses - misses_after_warm}")
+    want = {k: 2 * v for k, v in _fresh_launches(steps).items()}
+    if pair_launches != want:
+        failures.append(f"the concurrent pair's launches {pair_launches}, expected {want}")
+    if set(health.get("replicas", {})) != {"replica0", "replica1"} or health["healthy"] != 2:
+        failures.append(f"the router's /healthz: {health}")
+    if set(metrics.get("replicas", {})) != {"replica0", "replica1"}:
+        failures.append(f"the router's /metrics lists {sorted(metrics.get('replicas', {}))}")
+    if 'videop2p_replica_in_flight{replica="replica1"}' not in prom:
+        failures.append("the router's Prometheus text lacks replica1")
+    if "router_health" not in [e["event"] for e in read_ledger(router.ledger.path)]:
+        failures.append("the router's ledger lacks router_health at close")
+    overhead = walls["router_fresh"] - recs["router_fresh"]["total_s"]
+    serial_s = sum(rec["total_s"] for rec, _ in alone_out.values())
+    print(f"  the router's overhead on request 1: {overhead:.4f} s (the client's "
+          f"{walls['router_fresh']:.4f} s less the replica's total "
+          f"{recs['router_fresh']['total_s']} s)", flush=True)
+    print(f"  the concurrent pair: {pair_wall:.3f} s wall (launches {pair_launches}), card "
+          f"busy {'not measured' if pair_busy is None else f'{pair_busy:.3f} s, {100 * pair_busy / pair_wall:.1f} %'}; "
+          f"served alone one after the other: {alone_wall:.3f} s wall (totals "
+          f"{serial_s:.3f} s), busy "
+          f"{'not measured' if alone_busy is None else f'{alone_busy:.3f} s, {100 * alone_busy / alone_wall:.1f} %'}; "
+          f"peak over the pair {pair_peak / 2 ** 30:.2f} GiB", flush=True)
+    record = {"up_s": up_s, "warm": programs.warmed, "router_overhead_s": overhead,
+              "walls": walls, "pair_wall_s": pair_wall, "pair_busy_s": pair_busy,
+              "alone_wall_s": alone_wall, "alone_busy_s": alone_busy,
+              "pair_launches": pair_launches, "pair_peak_gib": pair_peak / 2 ** 30,
+              "router_health": router_health,
+              "records": {k: {f: v.get(f) for f in (
+                  "status", "replica", "store_source", "queue_wait_s", "resolve_s",
+                  "dispatch_s", "total_s", "src_err", "program_cache_misses")}
+                  for k, v in recs.items()},
+              "alone": {n: {f: rec.get(f) for f in ("resolve_s", "dispatch_s", "total_s")}
+                        for n, (rec, _) in alone_out.items()}}
+    run = {"launches": pair_launches, "wall_s": pair_wall,
+           "videos_router": videos["router_fresh"], "programs": programs}
+    return run, record, failures
+
+
+def fleet_chaos_phase(args, tmp: str, programs) -> tuple:
+    """Phase 20a's chaos run: a second supervisor over the same warm
+    programs with replica 0 under FLEET_CHAOS; a request straight to replica
+    0 opens its breaker, then one through the router must be shed to
+    replica 1 and complete. Returns (record, failures)."""
+    from videop2p_tpu_torch.obs import read_ledger
+    from videop2p_tpu_torch.serve import EngineClient, ReplicaSupervisor, Router, RouterServer
+
+    sup = ReplicaSupervisor(
+        programs.spec, 2, out_dir=os.path.join(tmp, "chaos"),
+        persist_dir=os.path.join(tmp, "inv_store"), programs=programs,
+        warm_prompts=tuple(RABBIT["prompts"]),
+        warm_kwargs={"controller_kwargs": {"blend_word": RABBIT["blend_word"],
+                                           "eq_params": RABBIT["eq_params"]}},
+        engine_kwargs=dict(keep_videos=True, device="cuda", max_retries=0,
+                           breaker_threshold=1, breaker_open_s=60.0),
+        faults={0: FLEET_CHAOS})
+    sup.start()
+    ledger_path = os.path.join(tmp, "chaos_router_ledger.jsonl")
+    router = Router(sup.urls, probe_ttl_s=0.05, suspend_s=5.0, timeout_s=60.0,
+                    ledger_path=ledger_path)
+    server = RouterServer(router).start()
+    try:
+        doomed = EngineClient(sup.urls[0], timeout_s=60.0)
+        rec_a = doomed.result(doomed.submit(_serve_request()), wait_s=600.0)
+        client = EngineClient(server.url, timeout_s=60.0)
+        rec_b = client.result(client.submit(_serve_request()), wait_s=600.0)
+        vid_b = sup.replicas[1].engine.videos(rec_b["id"]) if rec_b.get("replica") == \
+            "replica1" else None
+        breaker0 = sup.replicas[0].engine.breaker.snapshot()
+    finally:
+        server.close()
+        sup.stop()
+    health = [e for e in read_ledger(ledger_path) if e["event"] == "router_health"]
+    print(f"  chaos: replica 0 under {FLEET_CHAOS!r}: its request {rec_a['status']} "
+          f"({rec_a.get('error')}), breaker {breaker0.get('state')}; through the router: "
+          f"{rec_b['status']} on {rec_b.get('replica')}, total {rec_b.get('total_s')} s; "
+          f"router_health {health[-1] if health else None}", flush=True)
+    failures = []
+    if rec_a["status"] != "error" or breaker0.get("state") != "open":
+        failures.append(f"chaos: replica 0's request {rec_a['status']}, breaker "
+                        f"{breaker0.get('state')} (want error, open)")
+    if rec_b.get("replica") != "replica1":
+        failures.append(f"chaos: the router sent the request to {rec_b.get('replica')}")
+    else:
+        _check_record("chaos", rec_b, vid_b, failures)
+    if not health or health[-1]["routed_around"] != 1 or health[-1]["healthy"] != 1:
+        failures.append(f"chaos: router_health {health[-1] if health else None}")
+    return {"replica0": rec_a["status"], "breaker0": breaker0,
+            "shed": {f: rec_b.get(f) for f in ("status", "replica", "total_s", "src_err")},
+            "router_health": health[-1] if health else None}, failures
+
+
+def fleet_cli_phase(args, tmp: str) -> tuple:
+    """Phase 20b: ``python -m videop2p_tpu_torch.cli.router --spawn 2`` as a
+    subprocess (two ``cli.serve`` children on this card, fp32): the fleet's
+    /healthz, one request through the router, SIGTERM → exit 0. Returns
+    (record, failures)."""
+    import signal
+
+    from videop2p_tpu_torch.obs import read_ledger
+    from videop2p_tpu_torch.serve import EngineClient
+
+    port = _free_port()
+    out_dir = os.path.join(tmp, "router_cli")
+    log_path = os.path.join(tmp, "router_cli.log")
+    cmd = [sys.executable, "-m", "videop2p_tpu_torch.cli.router", "--spawn", "2",
+           "--port", str(port), "--out_dir", out_dir, "--steps", str(args.steps),
+           "--serve_arg=--store_budget_gb", f"--serve_arg={SERVE_STORE_BUDGET_GB}"]
+    failures = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        # its own session: a failure below kills the router and both children
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            client = EngineClient(f"http://127.0.0.1:{port}", timeout_s=60.0, retries=0)
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"the router exited {proc.returncode} before "
+                                         "/healthz answered")
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("the fleet's /healthz did not answer in 600 s")
+                try:
+                    health = client.healthz()
+                    break
+                except Exception:  # noqa: BLE001 — not listening yet
+                    time.sleep(1.0)
+            up_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            done = client.result(client.submit(_serve_request()), wait_s=600.0)
+            request_s = time.perf_counter() - t1
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+        except Exception as e:
+            with open(log_path) as fh:
+                raise AssertionError(f"cli router: {e}\n{fh.read()[-4000:]}") from e
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    with open(log_path) as fh:
+        log_tail = fh.read()[-4000:]
+    kinds = {name: [e["event"] for e in read_ledger(
+        os.path.join(out_dir, name, "serve_ledger.jsonl"))] for name in ("replica0", "replica1")}
+    router_kinds = [e["event"] for e in read_ledger(os.path.join(out_dir, "router_ledger.jsonl"))]
+    print(f"  cli router --spawn 2: /healthz after {up_s:.1f} s ({health['healthy']} of "
+          f"{health['total']} healthy), request {done['status']} on {done.get('replica')} in "
+          f"{request_s:.2f} s (replica total {done.get('total_s')} s), src_err "
+          f"{done.get('src_err')!r}; SIGTERM → exit {rc}; the children's ledgers end "
+          f"{ {n: k[-2:] for n, k in kinds.items()} }", flush=True)
+    if health.get("healthy") != 2:
+        failures.append(f"cli router: /healthz {health}")
+    if done["status"] != "done" or done.get("src_err") != 0.0:
+        failures.append(f"cli router request: {done['status']} ({done.get('error')}), src_err "
+                        f"{done.get('src_err')!r}")
+    if rc != 0:
+        failures.append(f"cli router exit code {rc} after SIGTERM:\n{log_tail}")
+    for name, k in kinds.items():
+        if "serve_health" not in k:
+            failures.append(f"cli router: {name}'s ledger lacks serve_health: {k[-6:]}")
+    if "router_health" not in router_kinds:
+        failures.append("cli router: its ledger lacks router_health")
+    return {"up_s": up_s, "request_s": request_s, "replica_total_s": done.get("total_s"),
+            "status": done["status"], "src_err": done.get("src_err"), "rc": rc}, failures
+
+
+def fleet_path(args) -> tuple:
+    """Phase 20 (path "fleet"): replicas behind a router. 20a in process
+    (request 1 against ``run_main_path``'s cached fast edit, then the chaos
+    run), 20b the router CLI with two spawned children. Returns (runs,
+    records)."""
+    from videop2p_tpu_torch.data.dataset import load_frame_sequence
+
+    os.makedirs("outputs", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_", dir="outputs")
+    t0 = time.perf_counter()
+    try:
+        print(f"fleet (2 replicas, SD-1.5 width, 512², 8 frames; {_allocated_line()}):",
+              flush=True)
+        run, record, failures = fleet_inproc_phase(args, tmp)
+        programs = run.pop("programs")
+        record["chaos"], chaos_failures = fleet_chaos_phase(args, tmp, programs)
+        failures += chaos_failures
+        del programs
+        _release()
+        rabbit = load_frame_sequence(RABBIT["image_path"], size=512, num_frames=8)
+        main = run_main_path(rabbit, args.steps, args.mixed_precision, keep_videos=True)
+        routed = run.pop("videos_router")
+        ref = main.pop("videos").cpu().numpy()
+        diff = float(np.abs(routed - ref).max())
+        record["main_path_max_abs_diff"] = diff
+        print(f"  request 1 through the router against run_main_path's cached fast edit: "
+              f"max|d| {diff!r} (gate: bit for bit)", flush=True)
+        if not np.array_equal(routed, ref):
+            failures.append(f"the routed edit differs from the main path's by {diff}")
+        del main, ref
+        record["cli"], cli_failures = fleet_cli_phase(args, tmp)
+        failures += cli_failures
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _release()
+    record["path_s"] = time.perf_counter() - t0
+    print(f"  fleet path: {record['path_s']:.1f} s", flush=True)
+    if failures:
+        raise AssertionError("fleet path: " + "; ".join(failures))
+    return {"fleet": run}, {"fleet": record}
+
+
+def stream_cli_phase(args, tmp: str, reference: np.ndarray) -> tuple:
+    """Phase 21's CLI part: ``python -m videop2p_tpu_torch.cli.stream`` as a
+    subprocess, SIGKILLed once its first window's sidecar appears, then run
+    again to the end: its final.npy against ``reference``, bit for bit.
+    Returns (record, failures)."""
+    import signal
+
+    job = os.path.join(tmp, "cli_job")
+    cmd = [sys.executable, "-m", "videop2p_tpu_torch.cli.stream", "--synthetic",
+           str(STREAM_FRAMES), "--width", "512", "--video_len", "8", "--overlap",
+           str(STREAM_OVERLAP), "--steps", str(args.steps), "--job_dir", job,
+           *(() if args.mixed_precision == "fp32" else
+             ("--mixed_precision", args.mixed_precision))]
+    sidecar = os.path.join(job, "windows", "w0000.npz")
+    failures = []
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log_path = os.path.join(tmp, "cli_stream_1.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while not os.path.exists(sidecar):
+                if proc.poll() is not None:
+                    with open(log_path) as fh:
+                        raise AssertionError(f"cli stream exited {proc.returncode} before "
+                                             f"its first window:\n{fh.read()[-4000:]}")
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("cli stream: no window in 600 s")
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGKILL)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    killed_s = time.perf_counter() - t0
+    with open(os.path.join(job, "manifest.json")) as fh:
+        persisted = sorted(w["index"] for w in json.load(fh)["windows"]
+                           if w["status"] == "done")
+    t1 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    resume_s = time.perf_counter() - t1
+    health = next((json.loads(line)["stream_health"] for line in out.stdout.splitlines()
+                   if line.startswith('{"stream_health"')), None)
+    print(f"  cli stream: SIGKILL after {killed_s:.1f} s with windows {persisted} persisted; "
+          f"the rerun exited {out.returncode} in {resume_s:.1f} s: {health}", flush=True)
+    if out.returncode != 0 or health is None:
+        failures.append(f"cli stream rerun exit {out.returncode}:\n{out.stdout[-2000:]}"
+                        f"{out.stderr[-2000:]}")
+        return {"killed_s": killed_s, "persisted": persisted}, failures
+    if health["windows_skipped"] != len(persisted) or health["src_err_max"] != 0.0:
+        failures.append(f"cli stream rerun: skipped {health['windows_skipped']} of the "
+                        f"{len(persisted)} persisted, src_err_max {health['src_err_max']}")
+    final = np.load(os.path.join(job, "final.npy"))
+    diff = float(np.abs(final - reference).max()) if final.shape == reference.shape else None
+    print(f"  cli stream final.npy against the in-process job: max|d| {diff!r} (gate: bit "
+          "for bit)", flush=True)
+    if not np.array_equal(final, reference):
+        failures.append(f"cli stream: final.npy differs from the in-process job's by {diff}")
+    return {"killed_s": killed_s, "persisted": persisted, "resume_s": resume_s,
+            "health": health, "max_abs_diff": diff}, failures
+
+
+def stream_path(args) -> tuple:
+    """Phase 21 (path "stream"): streaming long-video editing on an engine
+    at SD-1.5 width. Returns (runs, records)."""
+    from videop2p_tpu_torch.serve import EditEngine, EditRequest, ProgramSpec
+    from videop2p_tpu_torch.stream import run_stream_job, synthetic_clip
+
+    steps, mp = args.steps, args.mixed_precision
+    os.makedirs("outputs", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_", dir="outputs")
+    failures = []
+    t0 = time.perf_counter()
+    try:
+        print(f"stream ({STREAM_FRAMES} synthetic frames, windows of 8 overlapping by "
+              f"{STREAM_OVERLAP}, SD-1.5 width, 512²; {_allocated_line()}):", flush=True)
+        spec = ProgramSpec(width=512, video_len=8, steps=steps, mixed_precision=mp, seed=0)
+        t1 = time.perf_counter()
+        engine = EditEngine(spec, out_dir=os.path.join(tmp, "engine"),
+                            persist_dir=os.path.join(tmp, "inv_store"), keep_videos=True,
+                            store_budget_bytes=int(SERVE_STORE_BUDGET_GB * (1 << 30)),
+                            device="cuda")
+        try:
+            warm = engine.warm(tuple(STREAM_PROMPTS), controller_kwargs=STREAM_REQUEST)
+            print(f"  engine up in {time.perf_counter() - t1:.2f} s (warm {warm['seconds']} "
+                  "s)", flush=True)
+            clip = synthetic_clip(STREAM_FRAMES, 512, seed=0)
+            per_window = []
+            take = engine.take_videos
+
+            def take_and_measure(rid):
+                """The stream job's harvest, with what each window cost: its
+                record, its launches and the memory after it."""
+                videos = take(rid)
+                torch.cuda.synchronize()
+                rec = engine.poll(rid)
+                per_window.append({
+                    "launches": launch_counts(),
+                    "allocated": torch.cuda.memory_allocated(),
+                    "store_bytes": engine.store.stats()["bytes_in_use"],
+                    **{f: rec.get(f) for f in ("queue_wait_s", "resolve_s", "dispatch_s",
+                                               "total_s", "store_source", "src_err")}})
+                reset_launch_counts()
+                return videos
+
+            engine.take_videos = take_and_measure
+            job_kw = dict(overlap=STREAM_OVERLAP, seed=0, request_kwargs=STREAM_REQUEST,
+                          max_inflight=1)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t1 = time.perf_counter()
+            res = run_stream_job(engine, clip, STREAM_PROMPTS,
+                                 job_dir=os.path.join(tmp, "job"), **job_kw)
+            job_s = time.perf_counter() - t1
+            peak = torch.cuda.max_memory_allocated()
+            del engine.take_videos
+            totals = {k: sum(w["launches"][k] for w in per_window) for k in launch_counts()}
+            for i, w in enumerate(per_window):
+                print(f"  window {i}: store {w['store_source']}, queue {w['queue_wait_s']} s, "
+                      f"resolve {w['resolve_s']} s, dispatch {w['dispatch_s']} s, total "
+                      f"{w['total_s']} s, src_err {w['src_err']!r}; launches "
+                      f"{w['launches']}; allocated after it "
+                      f"{w['allocated'] / 2 ** 30:.3f} GiB, store "
+                      f"{w['store_bytes'] / 2 ** 30:.3f} GiB", flush=True)
+            print(f"  job: {job_s:.3f} s wall, health {res.health}; seams "
+                  f"{[(s['start'], s['stop'], s['seam_psnr'], s['source_psnr']) for s in res.seams]}; "
+                  f"peak {peak / 2 ** 30:.2f} GiB", flush=True)
+            h = res.health
+            if not (res.complete and h["windows_done"] == 3 and h["windows_total"] == 3
+                    and h["seams"] == 2 and h["src_err_max"] == 0.0):
+                failures.append(f"stream job: {h}")
+            if any(w["status"] != "done" or w["src_err"] != 0.0 for w in res.windows):
+                failures.append(f"stream windows: {res.windows}")
+            if res.video is None or res.video.shape != (STREAM_FRAMES, 512, 512, 3) or \
+                    not np.isfinite(res.video).all():
+                failures.append(f"stream video: {None if res.video is None else res.video.shape}")
+            want = _fresh_launches(steps)
+            for i, w in enumerate(per_window):
+                if w["launches"] != want:
+                    failures.append(f"window {i}: launches {w['launches']}, expected {want}")
+            if len(per_window) == 3:
+                for i, w in enumerate(per_window[1:], 1):
+                    growth = w["store_bytes"] - per_window[0]["store_bytes"]
+                    if w["allocated"] > per_window[0]["allocated"] + growth + SERVE_MEM_SLACK_BYTES:
+                        failures.append(
+                            f"memory grows with the windows: after window {i} "
+                            f"{w['allocated']} B, after window 0 {per_window[0]['allocated']} "
+                            f"B (store growth {growth} B)")
+            if engine._videos:
+                failures.append(f"{len(engine._videos)} windows' videos left in the engine")
+            # window 0 against a direct request for frames 0-7
+            direct = engine.result(engine.submit(EditRequest(
+                frames=clip[:8], prompt=STREAM_PROMPTS[0], prompts=list(STREAM_PROMPTS),
+                seed=0, **STREAM_REQUEST)), wait_s=600.0)
+            direct_vid = engine.take_videos(direct["id"])
+            w0 = res.manifest.valid_output(0)
+            w0_ok = direct_vid is not None and np.array_equal(direct_vid[-1], w0)
+            print(f"  window 0 against a direct request for frames 0-7 ({direct['status']}, "
+                  f"store {direct.get('store_source')}): "
+                  f"{'bit for bit' if w0_ok else 'DIFFERS'}", flush=True)
+            if not w0_ok:
+                failures.append("window 0 differs from a direct request for frames 0-7")
+            # checkpoint-then-exit once the first window is harvested, then resume
+            stop = threading.Event()
+
+            def take_then_stop(rid):
+                stop.set()
+                return take(rid)
+
+            engine.take_videos = take_then_stop
+            part = run_stream_job(engine, clip, STREAM_PROMPTS,
+                                  job_dir=os.path.join(tmp, "job_int"), stop_event=stop,
+                                  **job_kw)
+            del engine.take_videos
+            before = len(engine._requests)
+            resumed = run_stream_job(engine, clip, STREAM_PROMPTS,
+                                     job_dir=os.path.join(tmp, "job_int"), **job_kw)
+            requests = len(engine._requests) - before
+            print(f"  stopped after window 0: interrupted {part.health['interrupted']}, done "
+                  f"{part.health['windows_done']}; the rerun skipped "
+                  f"{resumed.health['windows_skipped']} and sent {requests} requests: "
+                  f"{'bit for bit' if resumed.complete and np.array_equal(resumed.video, res.video) else 'DIFFERS'}",
+                  flush=True)
+            if part.health["interrupted"] != 1 or part.health["windows_done"] != 1 or \
+                    part.video is not None:
+                failures.append(f"the stopped job: {part.health}")
+            if resumed.health["windows_skipped"] != 1 or requests != 2 or \
+                    not resumed.complete or not np.array_equal(resumed.video, res.video):
+                failures.append(f"the resumed job: {resumed.health}, {requests} requests")
+        finally:
+            engine.close()
+        record = {"job_s": job_s, "peak_gib": peak / 2 ** 30, "health": res.health,
+                  "seams": res.seams, "windows": per_window, "warm": warm}
+        reference = res.video
+        del res, part, resumed
+        record["cli"], cli_failures = stream_cli_phase(args, tmp, reference)
+        failures += cli_failures
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _release()
+    record["path_s"] = time.perf_counter() - t0
+    print(f"  stream path: {record['path_s']:.1f} s", flush=True)
+    if failures:
+        raise AssertionError("stream path: " + "; ".join(failures))
+    return {"stream": {"launches": totals, "wall_s": job_s}}, {"stream": record}
+
+
 def group_norm_only(args, card: str, kind: str) -> int:
     """``--gn_only``: GroupNorm's phase-3 checks and timings, its sums over
     the UNet's 61 sites (:func:`gn_site_sums`, at the edit forward's B 2 and
@@ -3370,6 +4035,14 @@ def main() -> int:
         serve_runs, serve_records = serve_path(args, frames)
         runs.update(serve_runs)
         records.update(serve_records)
+    if "fleet" in args.paths:
+        fleet_runs, fleet_records = fleet_path(args)
+        runs.update(fleet_runs)
+        records.update(fleet_records)
+    if "stream" in args.paths:
+        stream_runs, stream_records = stream_path(args)
+        runs.update(stream_runs)
+        records.update(stream_records)
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
@@ -3420,13 +4093,14 @@ def main() -> int:
 
     # each kernel's launches come from the main path that runs it: the fast
     # edit where it ran, else official mode, else the dependent, the
-    # checkpoint, the surface path's cached edit, the student's or the served
-    # edits';
+    # checkpoint, the surface path's cached edit, the student's, the served
+    # edits', the fleet's or the streamed windows';
     # GroupNorm's, when only Stage 1 or distillation ran, from that run
     # (neither runs a frame-attention kernel). SDXL's run has lines of its
     # own, at its shapes (head dim 64) in bf16, the dtype it runs in.
     auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint",
-                             "surface_multi", "student_edit", "serve") if r in runs), None)
+                             "surface_multi", "student_edit", "serve", "fleet", "stream")
+                 if r in runs), None)
     rect = next((r for r in ("flash_rect", "official_flash_rect",
                              "surface_hybrid_flash_rect") if r in runs), None)
     rect_bwd = next((r for r in ("official_flash_rect", "surface_hybrid_flash_rect")

@@ -1,8 +1,9 @@
-"""Prometheus text exposition for the serving ``/metrics`` record (port
+"""Prometheus text exposition for the serving ``/metrics`` records (port
 of ``videop2p_tpu/obs/prom.py``, stdlib only; its output is byte for byte
 the JAX package's for the same record).
 
-``/metrics`` (``serve/http.py``) serves a nested JSON record. This module
+``/metrics`` on a replica (``serve/http.py``) and on the router
+(``serve/router.py``) serves a nested JSON record. This module
 renders that SAME record — no second bookkeeping path — into the Prometheus
 text exposition format (version 0.0.4), so a stock scrape job can point at
 ``/metrics?format=prometheus`` and get gauges.
@@ -38,6 +39,7 @@ __all__ = [
     "render_prometheus",
     "parse_prometheus",
     "engine_metrics_prometheus",
+    "router_metrics_prometheus",
 ]
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
@@ -165,6 +167,11 @@ def render_prometheus(metrics: Dict[str, Any], *,
 
 def engine_metrics_prometheus(metrics: Dict[str, Any]) -> str:
     """Exposition text for a replica engine's ``metrics()`` record."""
+    return render_prometheus(metrics)
+
+
+def router_metrics_prometheus(metrics: Dict[str, Any]) -> str:
+    """Exposition text for the router's fleet ``metrics()`` record."""
     return render_prometheus(metrics)
 
 

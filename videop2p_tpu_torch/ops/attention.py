@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -96,6 +97,9 @@ _MAX_CLUSTER = 8
 _launches = 0
 _flash_launches = 0
 _flash_bwd_launches = {"dkv": 0, "dq": 0}
+# two engines may launch from two threads at once: a count is one
+# read-modify-write under this lock, so none is lost
+_count_lock = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -395,7 +399,8 @@ def _fused_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
                 ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5),
                 None if scratch is None else scratch.data_ptr(), stream)
     global _launches
-    _launches += 1
+    with _count_lock:
+        _launches += 1
     return out
 
 
@@ -487,7 +492,8 @@ def _flash(q5: torch.Tensor, k5: torch.Tensor, v5: torch.Tensor,
                       ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5),
                       None if scratch is None else scratch.data_ptr(), stream)
     global _flash_launches
-    _flash_launches += 1
+    with _count_lock:
+        _flash_launches += 1
 
 
 def _flash_bwd(q5, k4, v4, o5, do5, m, l, dq5, dk4, dv4) -> None:
@@ -526,9 +532,11 @@ def _flash_bwd(q5, k4, v4, o5, do5, m, l, dq5, dk4, dv4) -> None:
     shape = (_DTYPES[q5.dtype], b0, b1, h, lq, lk, d,
              ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5))
     _flash_bwd_launcher("dq")(*common, dq5.data_ptr(), *shape, stream)
-    _flash_bwd_launches["dq"] += 1
+    with _count_lock:
+        _flash_bwd_launches["dq"] += 1
     _flash_bwd_launcher("dkv")(*common, dk4.data_ptr(), dv4.data_ptr(), *shape, split, stream)
-    _flash_bwd_launches["dkv"] += 1
+    with _count_lock:
+        _flash_bwd_launches["dkv"] += 1
 
 
 def _rect_view(x: torch.Tensor) -> torch.Tensor:

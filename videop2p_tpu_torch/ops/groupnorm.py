@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -49,6 +50,8 @@ _SCRATCH_HEAD = 16
 LAUNCHES_PER_CALL = 1
 
 _launches = 0
+# two engines may launch from two threads at once (see ops/attention.py)
+_count_lock = threading.Lock()
 # (device index, stream) → the scratch buffer, grown on demand
 _scratch: dict = {}
 
@@ -269,5 +272,6 @@ def _launch(x, scale, bias, num_groups: int, eps: float, act: str) -> torch.Tens
                 p.samples_per_block, p.blocks_per_sample, p.smem_rows, p.smem_bytes,
                 float(eps), int(act == "silu"), stream)
     global _launches
-    _launches += p.launches
+    with _count_lock:
+        _launches += p.launches
     return y

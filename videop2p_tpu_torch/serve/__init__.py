@@ -1,5 +1,5 @@
-"""Persistent edit serving on one device (port of ``videop2p_tpu/serve/``'s
-single-replica path).
+"""Persistent edit serving on one device, and the fleet over it (port of
+``videop2p_tpu/serve/``).
 
   * :mod:`~videop2p_tpu_torch.serve.programs` — :class:`ProgramSet`: the
     models, the scheduler and the instrumented programs (VAE encode,
@@ -21,9 +21,17 @@ single-replica path).
   * :mod:`~videop2p_tpu_torch.serve.http` / :mod:`~videop2p_tpu_torch.
     serve.client` — the stdlib JSON API (``cli/serve.py`` is the entry
     point) and its urllib client.
+  * :mod:`~videop2p_tpu_torch.serve.replica` / :mod:`~videop2p_tpu_torch.
+    serve.router` — the fleet tier: a :class:`ReplicaSupervisor` running N
+    engines (in this process over one shared warm :class:`ProgramSet`, or
+    one ``cli/serve.py`` child each) over ONE shared disk inversion store,
+    and a stdlib :class:`Router` that ranks replicas by ``/healthz`` and
+    ``/metrics``, routes around open breakers, retries deterministically
+    and aggregates the fleet's health (``cli/router.py`` is the entry
+    point).
 
-The fleet tier (replicas, router, collector, prober) waits for ROADMAP Queue
-1 item 14's rest; ``vmap`` dispatch over a data mesh for item 13.
+The collector and the prober wait for ROADMAP Queue 1 item 14's rest;
+``vmap`` dispatch over a data mesh for item 13.
 """
 
 from videop2p_tpu_torch.serve.batching import (
@@ -33,7 +41,7 @@ from videop2p_tpu_torch.serve.batching import (
     stack_items,
     unstack_outputs,
 )
-from videop2p_tpu_torch.serve.client import EngineClient
+from videop2p_tpu_torch.serve.client import EngineClient, engine_available
 from videop2p_tpu_torch.serve.engine import TERMINAL_STATUSES, EditEngine, EditRequest
 from videop2p_tpu_torch.serve.faults import (
     CircuitBreaker,
@@ -45,6 +53,13 @@ from videop2p_tpu_torch.serve.faults import (
     is_transient,
 )
 from videop2p_tpu_torch.serve.programs import ProgramCache, ProgramSet, ProgramSpec
+from videop2p_tpu_torch.serve.replica import Replica, ReplicaSupervisor, free_port
+from videop2p_tpu_torch.serve.router import (
+    ROUTER_HEALTH_FIELDS,
+    Router,
+    RouterServer,
+    make_router_server,
+)
 from videop2p_tpu_torch.serve.sched import (
     SCHEDULER_POLICIES,
     ContinuousScheduler,
@@ -63,11 +78,13 @@ from videop2p_tpu_torch.serve.store import (
 
 __all__ = [
     "Batch", "compat_key", "plan_batches", "stack_items",
-    "unstack_outputs", "EngineClient", "TERMINAL_STATUSES",
+    "unstack_outputs", "EngineClient", "engine_available", "TERMINAL_STATUSES",
     "EditEngine", "EditRequest", "CircuitBreaker", "DeadlineExceeded",
     "EngineUnavailable", "FaultPlan", "QueueFull", "RetryPolicy", "is_transient",
     "ProgramCache", "ProgramSet", "ProgramSpec", "SCHEDULER_POLICIES",
     "ContinuousScheduler", "DrainScheduler", "FairScheduler", "Scheduler",
     "TenantConfig", "make_scheduler", "parse_tenants", "InversionStore",
-    "load_persisted_inversion", "save_persisted_inversion",
+    "load_persisted_inversion", "save_persisted_inversion", "Replica",
+    "ReplicaSupervisor", "free_port", "Router", "RouterServer", "make_router_server",
+    "ROUTER_HEALTH_FIELDS",
 ]

@@ -20,7 +20,7 @@ import urllib.error
 import urllib.request
 from typing import Any, Dict, Optional
 
-__all__ = ["EngineClient"]
+__all__ = ["EngineClient", "engine_available"]
 
 # the fast-fail statuses worth retrying: the server TOLD us to come back
 _RETRYABLE = (429, 503)
@@ -149,3 +149,14 @@ class EngineClient:
                     f"{timeout_s:.0f}s"
                 )
             time.sleep(poll_interval_s)
+
+
+def engine_available(base_url: Optional[str], *, timeout_s: float = 2.0) -> bool:
+    """True when a healthy engine answers at ``base_url`` (the replica
+    supervisor's start-up check). Never raises."""
+    if not base_url:
+        return False
+    try:
+        return bool(EngineClient(base_url, timeout_s=timeout_s).healthz().get("ok"))
+    except Exception:  # noqa: BLE001 — availability probes must not throw
+        return False

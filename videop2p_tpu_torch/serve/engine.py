@@ -484,6 +484,12 @@ class EditEngine:
         callers (kept only with ``keep_videos=True``)."""
         return self._videos.get(rid)
 
+    def take_videos(self, rid: str) -> Optional[np.ndarray]:
+        """Pop (and return) one request's kept videos: a streaming job's
+        harvest, so a long job holds only its in-flight windows
+        instead of every decoded window for the life of the engine."""
+        return self._videos.pop(rid, None)
+
     def metrics(self) -> Dict[str, Any]:
         """The live record ``/metrics`` serves: per-program and per-phase
         latency distributions from the ledger's reservoirs, compile events,
