@@ -69,7 +69,7 @@ fast:
    ``"flash"`` (same seed, same weights): the flash kernel launched
    10 × 2 × steps times and the fused kernel not at all, src_err == 0.0;
    the edited latents' distance to the ``"auto"`` edit is printed, and in
-   float32 at the default 4 steps or fewer held within 2e-3 (guidance 7.5
+   float32 at 4 steps or fewer held within 2e-3 (guidance 7.5
    and LocalBlend's thresholded mask amplify per-call differences with the
    steps, so a longer run only prints it);
 8. one UNet forward of the cached edit's batch (refine controller on
@@ -90,7 +90,7 @@ official:
    CPU from the same weights: final null-text losses within 1e-3 relative,
    the same inner steps, edited latents within 2e-3;
 10. the official main path — ``main`` without ``fast``: DDIM inversion,
-   null-text optimization with ``--inner_steps`` (10, the reference's)
+   null-text optimization with ``--inner_steps`` (2; the reference's 10)
    inner Adam steps per outer step, the full-CFG controlled edit, decode —
    under "auto", the null-text record printed, the launch counts asserted
    against the inner steps taken, finite output of shape (2, 8, 512, 512, 3);
@@ -263,20 +263,48 @@ fleet:
 stream:
 21. streaming long-video editing (``stream/``) at SD-1.5 width, 512²,
    ``--steps``: ``run_stream_job`` on an engine over
-   ``synthetic_clip(20, 512, seed=0)``, windows of 8, overlap 2 (windows
-   [0, 8), [6, 14), [12, 20), two seams), one window in flight: every
-   window done with src_err == 0.0, the final video finite (20, 512, 512,
+   ``synthetic_clip(14, 512, seed=0)``, windows of 8, overlap 2 (windows
+   [0, 8), [6, 14), one seam), one window in flight: every
+   window done with src_err == 0.0, the final video finite (14, 512, 512,
    3), each window's launches a fresh request's, the memory allocated after
    each window no higher than after the first plus the store's growth and
    64 MiB; window 0's edited frames equal to a direct engine request for
    frames 0-7, bit for bit; a job stopped once its first window is
    harvested returns ``interrupted``, and its rerun skips that window (no
    request for it) and gives the uninterrupted run's video bit for bit;
-   then ``python -m videop2p_tpu_torch.cli.stream --synthetic 20 --width
+   then ``python -m videop2p_tpu_torch.cli.stream --synthetic 14 --width
    512 --video_len 8 --overlap 2`` as a subprocess, SIGKILLed once its
    first window's sidecar appears and run again: its ``final.npy`` equal to
    the in-process run's bit for bit; printed: each window's queue / resolve
    / dispatch seconds, the seams' PSNR, the job's wall time and the peak.
+
+observe:
+22. the fleet's telemetry, correctness and incident planes at SD-1.5
+   width, 512², 8 frames, ``--steps``, fp32, over one warm ``ProgramSet``
+   (random weights from seed 0), (c) and (d) started at the phase's start,
+   (b) while they start, (a) last: (d) ``python -m
+   videop2p_tpu_torch.cli.router --spawn 2 --incidents``: the canary once
+   on each ``cli.serve`` child through the router, both answers the same
+   bits, and (checked after (a)) the in-process replica 0's (the answer
+   audit across processes); (c) ``python -m videop2p_tpu_torch.cli.serve
+   --slo --incidents``: SIGUSR1 → a ``sigusr1`` bundle, SIGTERM → exit 0
+   with ``slo_report`` events; (a) ``tools/serve_loadgen.main``
+   (``--router 2 --requests 8 --concurrency 2 --collector --probes --slo
+   --incidents --replica_faults 1:wrong:* --window_scale 0.02 --scheduler
+   fair --tenants client:1 --tracing``): the probe round before the load
+   names replica 1 in a ``probe_audit`` event, the router's final /healthz
+   shows it quarantined and every load request (routed after the verdict)
+   avoids it, every probe of replica 0 and of the router passes (cached
+   replay src_err == 0.0, determinism bit-identical), a ``probe_failed``
+   bundle holds manifest.json, flight.jsonl and targets.json, the ledger has
+   ``fleet_signals``, ``fleet_series`` (+ its ``.npz``) and ``slo_report``,
+   and the launches are the warm-up's and each fresh or rehydrated
+   request's 2·steps forwards plus each hit's steps; (b) the loadgen with
+   ``--replica_faults 0:unavail@1-999 --breaker_threshold 1 --incidents``:
+   a ``breaker_open`` bundle, the router sheds to replica 1, at least half
+   the accepted requests done; printed: each probe's latency and
+   a round's wall per target, the collector's scrape cost and its share of
+   the run, the client lane's p50/p99, every bundle's bytes, the peak.
 
 Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
 the card line, then, last, ``{"ok": true, "device": {...}}``.
@@ -288,11 +316,12 @@ inner step, in both dtypes (``--gn_kernel_names`` names an older tree's
 kernels, so that a copy of this script in that tree's checkout times it
 the same way).
 
-Run:  python3 chip_smoke.py [--steps 4] [--inner_steps 10]
+Run:  python3 chip_smoke.py [--steps 2] [--inner_steps 2]
                             [--mixed_precision fp32|bf16]
                             [--paths [fast] [official] [official_flash]
                                      [dependent] [checkpoint] [tune] [surface]
-                                     [distill] [sdxl] [serve] [fleet] [stream]]
+                                     [distill] [sdxl] [serve] [fleet] [stream]
+                                     [observe]]
                             [--profile [--frame_attention auto flash_rect flash]]
                             [--gn_only [--gn_kernel_names NAME ...]]
                             [--out PATH.json]
@@ -406,9 +435,10 @@ FLASH_INNER_STEPS = 2
 # the dependent noise (13), a checkpoint directory (14), Stage 1 (15), the
 # rest of Stage 2's surface (16), consistency distillation and the few-step
 # student (17), SDXL's width (18), the serving engine (19), replicas behind a
-# router (20) and streaming long-video editing (21)
+# router (20), streaming long-video editing (21) and the fleet's telemetry,
+# correctness and incident planes (22)
 PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint", "tune",
-         "surface", "distill", "sdxl", "serve", "fleet", "stream")
+         "surface", "distill", "sdxl", "serve", "fleet", "stream", "observe")
 # phase 4b's final losses in "hybrid" null-text mode are compared relative
 # to max(|loss|, this): its last outer step lands on x_0, where both losses
 # sit at float32 rounding noise (~1e-15) and have no relative meaning
@@ -3249,11 +3279,14 @@ TIGER = dict(image_path="./data/tiger", prompt="a tiger is walking in the forest
 # dispatch of replica 0 raises backend-unavailable
 FLEET_CHAOS = "unavail@1-999"
 # the stream path: synthetic_clip(STREAM_FRAMES, 512), windows of the
-# engine's 8 frames overlapping by STREAM_OVERLAP (windows [0, 8), [6, 14),
-# [12, 20)), and the stream CLI's default prompts and edit, which the
-# in-process job uses too, so that the CLI's final.npy compares with it
-STREAM_FRAMES = 20
+# engine's 8 frames overlapping by STREAM_OVERLAP (windows [0, 8), [6, 14):
+# STREAM_WINDOWS windows, one seam, a depth that keeps the default run within
+# its time limit), and the stream CLI's
+# default prompts and edit, which the in-process job uses too, so that the
+# CLI's final.npy compares with it
+STREAM_FRAMES = 14
 STREAM_OVERLAP = 2
+STREAM_WINDOWS = 2
 STREAM_PROMPTS = ["a rabbit is jumping", "a origami rabbit is jumping"]
 STREAM_REQUEST = dict(is_word_swap=False, blend_word=None, cross_replace_steps=0.2,
                       self_replace_steps=0.5)
@@ -3774,8 +3807,9 @@ def stream_path(args) -> tuple:
                   f"{[(s['start'], s['stop'], s['seam_psnr'], s['source_psnr']) for s in res.seams]}; "
                   f"peak {peak / 2 ** 30:.2f} GiB", flush=True)
             h = res.health
-            if not (res.complete and h["windows_done"] == 3 and h["windows_total"] == 3
-                    and h["seams"] == 2 and h["src_err_max"] == 0.0):
+            if not (res.complete and h["windows_done"] == STREAM_WINDOWS
+                    and h["windows_total"] == STREAM_WINDOWS
+                    and h["seams"] == STREAM_WINDOWS - 1 and h["src_err_max"] == 0.0):
                 failures.append(f"stream job: {h}")
             if any(w["status"] != "done" or w["src_err"] != 0.0 for w in res.windows):
                 failures.append(f"stream windows: {res.windows}")
@@ -3786,7 +3820,7 @@ def stream_path(args) -> tuple:
             for i, w in enumerate(per_window):
                 if w["launches"] != want:
                     failures.append(f"window {i}: launches {w['launches']}, expected {want}")
-            if len(per_window) == 3:
+            if len(per_window) == STREAM_WINDOWS:
                 for i, w in enumerate(per_window[1:], 1):
                     growth = w["store_bytes"] - per_window[0]["store_bytes"]
                     if w["allocated"] > per_window[0]["allocated"] + growth + SERVE_MEM_SLACK_BYTES:
@@ -3832,7 +3866,7 @@ def stream_path(args) -> tuple:
             if part.health["interrupted"] != 1 or part.health["windows_done"] != 1 or \
                     part.video is not None:
                 failures.append(f"the stopped job: {part.health}")
-            if resumed.health["windows_skipped"] != 1 or requests != 2 or \
+            if resumed.health["windows_skipped"] != 1 or requests != STREAM_WINDOWS - 1 or \
                     not resumed.complete or not np.array_equal(resumed.video, res.video):
                 failures.append(f"the resumed job: {resumed.health}, {requests} requests")
         finally:
@@ -3851,6 +3885,462 @@ def stream_path(args) -> tuple:
     if failures:
         raise AssertionError("stream path: " + "; ".join(failures))
     return {"stream": {"launches": totals, "wall_s": job_s}}, {"stream": record}
+
+
+# the observability path (phase 22): the loadgen's --router 2 with every
+# plane on and replica 1 wrong-but-healthy (OBSERVE_WRONG); its load, and
+# the breaker run's (OBSERVE_BREAKER) on replica 0
+OBSERVE_REQUESTS = 8
+OBSERVE_CONCURRENCY = 2
+OBSERVE_WINDOW_SCALE = 0.02
+OBSERVE_WRONG = "1:wrong:*"
+OBSERVE_BREAKER = "0:unavail@1-999"
+OBSERVE_BREAKER_REQUESTS = 6
+# the probe records of the run's one round (before the load; the loop's
+# next is due an hour later): five single-target probes on each replica and
+# on the router, and the store round trip both ways around the ring of two
+PROBES_PER_ROUND = 17
+
+
+def _hit_launches(steps: int) -> dict:
+    """The kernels' launches of a store hit: the edit's steps forwards."""
+    return {k: v // 2 for k, v in _fresh_launches(steps).items()}
+
+
+def _bundle_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _bundle_files(path: str) -> list:
+    return sorted(os.listdir(path))
+
+
+class _Child:
+    """A subprocess entry point on this card in its own session (so a
+    failure kills it and every process it spawned), its output in a log."""
+
+    def __init__(self, name: str, cmd: list, log_path: str, url: str):
+        from videop2p_tpu_torch.serve import EngineClient
+
+        self.name, self.log_path = name, log_path
+        self.t0 = time.perf_counter()
+        self.log = open(log_path, "w")
+        self.proc = subprocess.Popen(cmd, stdout=self.log, stderr=subprocess.STDOUT,
+                                     start_new_session=True)
+        self.client = EngineClient(url, timeout_s=60.0, retries=0)
+        self.up_s = None
+
+    def tail(self) -> str:
+        if not self.log.closed:
+            self.log.flush()
+        with open(self.log_path) as fh:
+            return fh.read()[-4000:]
+
+    def wait_up(self, timeout_s: float = 600.0) -> dict:
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"{self.name} exited {self.proc.returncode} before "
+                                     f"/healthz answered:\n{self.tail()}")
+            if time.perf_counter() - self.t0 > timeout_s:
+                raise AssertionError(f"{self.name}: /healthz did not answer in {timeout_s} s")
+            try:
+                health = self.client.healthz()
+                self.up_s = time.perf_counter() - self.t0
+                return health
+            except Exception:  # noqa: BLE001 — not listening yet
+                time.sleep(0.5)
+
+    def stop(self, sig=None, timeout_s: float = 300.0):
+        """Signal (SIGTERM by default) and wait; None when it had to be killed."""
+        import signal
+
+        try:
+            self.proc.send_signal(sig or signal.SIGTERM)
+            return self.proc.wait(timeout=timeout_s)
+        except Exception:  # noqa: BLE001 — killed below
+            return None
+        finally:
+            self.kill()
+
+    def kill(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        if not self.log.closed:
+            self.log.close()
+
+
+def observe_children(args, tmp: str) -> dict:
+    """Start phase 22's subprocesses at once, so that their start-up (≈ 15-30
+    s each: a process, the weights, the warm-up) overlaps the in-process
+    work: (c) ``cli.serve --slo --incidents`` and (d) ``cli.router --spawn
+    2 --incidents``."""
+    serve_port, router_port = _free_port(), _free_port()
+    common = ["--steps", str(args.steps)]
+    return {
+        "serve": _Child("cli.serve", [
+            sys.executable, "-m", "videop2p_tpu_torch.cli.serve", "--port", str(serve_port),
+            "--out_dir", os.path.join(tmp, "serve_cli"), "--slo",
+            "--incidents", os.path.join(tmp, "serve_incidents"),
+            "--store_budget_gb", str(SERVE_STORE_BUDGET_GB), *common],
+            os.path.join(tmp, "serve_cli.log"), f"http://127.0.0.1:{serve_port}"),
+        "router": _Child("cli.router", [
+            sys.executable, "-m", "videop2p_tpu_torch.cli.router", "--spawn", "2",
+            "--port", str(router_port), "--out_dir", os.path.join(tmp, "router_cli"),
+            "--incidents", os.path.join(tmp, "router_incidents"),
+            "--serve_arg=--store_budget_gb", f"--serve_arg={SERVE_STORE_BUDGET_GB}", *common],
+            os.path.join(tmp, "router_cli.log"), f"http://127.0.0.1:{router_port}"),
+    }
+
+
+def observe_router_cli(child, canary: dict, fp: str) -> tuple:
+    """Phase 22d: the answer audit across processes — the canary through
+    ``cli.router --spawn 2 --incidents`` once on each ``cli.serve`` child
+    (two CUDA contexts): both answers must be the same bits (and, checked
+    after phase 22a, the in-process replica 0's). Returns (record,
+    failures)."""
+    from videop2p_tpu_torch.obs.probe import AnswerAudit
+    from videop2p_tpu_torch.serve import EngineClient
+
+    failures = []
+    health = child.wait_up()
+    client = EngineClient(child.client.base_url, timeout_s=60.0)
+    t0 = time.perf_counter()
+    rid_a = client.submit(dict(canary))
+    time.sleep(1.0)  # past the router's probe TTL: replica 0 now shows the load
+    rid_b = client.submit(dict(canary))
+    recs = [client.result(r, wait_s=600.0) for r in (rid_a, rid_b)]
+    pair_s = time.perf_counter() - t0
+    metrics = client.metrics()
+    rc = child.stop()
+    fps = {name: r.get("spec_fingerprint") for name, r in metrics["replicas"].items()}
+    audit = AnswerAudit()
+    for rec in recs:
+        audit.observe(fps.get(rec.get("replica")), rec.get("replica"),
+                      rec.get("content_sha256") or "")
+    print(f"  cli.router --spawn 2 --incidents up in {child.up_s:.1f} s; the canary on "
+          f"{[r.get('replica') for r in recs]}: {[r['status'] for r in recs]}, hashes "
+          f"{[str(r.get('content_sha256'))[:16] for r in recs]}, totals "
+          f"{[r.get('total_s') for r in recs]} s ({pair_s:.2f} s both); the audit across "
+          f"the processes: {audit.summary()}; SIGTERM → exit {rc}", flush=True)
+    if health.get("healthy") != 2:
+        failures.append(f"cli router: /healthz {health}")
+    if sorted(r.get("replica") for r in recs) != ["replica0", "replica1"]:
+        failures.append(f"cli router: the two canaries went to {[r.get('replica') for r in recs]}")
+    if any(r["status"] != "done" or r.get("src_err") != 0.0 for r in recs):
+        failures.append(f"cli router canaries: {[(r['status'], r.get('src_err')) for r in recs]}")
+    if recs[0].get("content_sha256") != recs[1].get("content_sha256"):
+        failures.append("cli router: the two cli.serve children's canary answers differ: "
+                        f"{[r.get('content_sha256') for r in recs]}")
+    if set(fps.values()) != {fp} or not audit.summary()["ok"]:
+        failures.append(f"cli router: fingerprints {fps} against {fp}, audit {audit.summary()}")
+    if rc != 0:
+        failures.append(f"cli router exit code {rc} after SIGTERM:\n{child.tail()}")
+    return {"up_s": child.up_s, "pair_s": pair_s, "rc": rc,
+            "replicas": [r.get("replica") for r in recs],
+            "totals_s": [r.get("total_s") for r in recs],
+            "hashes": [r.get("content_sha256") for r in recs]}, failures
+
+
+def observe_serve_cli(child, tmp: str) -> tuple:
+    """Phase 22c: ``cli.serve --slo --incidents DIR``: SIGUSR1 → a
+    ``sigusr1`` bundle; SIGTERM → exit 0 with ``slo_report`` events and the
+    ``incident`` in its ledger. Returns (record, failures)."""
+    import signal
+
+    from videop2p_tpu_torch.obs import read_ledger
+
+    failures = []
+    child.wait_up()
+    root = os.path.join(tmp, "serve_incidents")
+    t0 = time.perf_counter()
+    child.proc.send_signal(signal.SIGUSR1)
+    bundles = []
+    while time.perf_counter() - t0 < 60.0 and not bundles:
+        bundles = [d for d in os.listdir(root) if d.startswith("incident_") and ".tmp" not in d]
+        time.sleep(0.1)
+    capture_s = time.perf_counter() - t0
+    rc = child.stop()
+    events = read_ledger(os.path.join(tmp, "serve_cli", "serve_ledger.jsonl"))
+    slo = [e for e in events if e["event"] == "slo_report"]
+    incidents = [e for e in events if e["event"] == "incident"]
+    man = (json.load(open(os.path.join(root, bundles[0], "manifest.json")))
+           if bundles else {})
+    nbytes = _bundle_bytes(os.path.join(root, bundles[0])) if bundles else 0
+    print(f"  cli.serve --slo --incidents up in {child.up_s:.1f} s; SIGUSR1 → bundle "
+          f"{bundles} in {capture_s:.2f} s ({nbytes} bytes: "
+          f"{_bundle_files(os.path.join(root, bundles[0])) if bundles else []}); SIGTERM → "
+          f"exit {rc}; slo_report {[(e['name'], e['actual'], e['compliant']) for e in slo]}",
+          flush=True)
+    if len(bundles) != 1 or man.get("trigger") != "sigusr1":
+        failures.append(f"cli serve: SIGUSR1 bundles {bundles}, trigger {man.get('trigger')}")
+    elif not {"manifest.json", "flight.jsonl", "targets.json"} <= set(
+            _bundle_files(os.path.join(root, bundles[0]))):
+        failures.append(f"cli serve: the sigusr1 bundle holds "
+                        f"{_bundle_files(os.path.join(root, bundles[0]))}")
+    if rc != 0:
+        failures.append(f"cli serve exit code {rc} after SIGTERM:\n{child.tail()}")
+    if [e["name"] for e in slo] != ["availability", "deadline_miss_rate"]:
+        failures.append(f"cli serve: slo_report events {slo}")
+    if [e["trigger"] for e in incidents] != ["sigusr1"]:
+        failures.append(f"cli serve: incident events {incidents}")
+    return {"up_s": child.up_s, "capture_s": capture_s, "bundle_bytes": nbytes, "rc": rc,
+            "slo": [{k: e[k] for k in ("name", "actual", "compliant", "budget_burn")}
+                    for e in slo]}, failures
+
+
+def _loadgen(argv: list, **kw) -> tuple:
+    """``tools/serve_loadgen.main`` in this process: (exit code, its summary
+    record, wall seconds)."""
+    import contextlib
+    import io
+
+    from videop2p_tpu_torch.tools import serve_loadgen
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = serve_loadgen.main(argv, **kw)
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        print(f"    {line}", flush=True)
+    return rc, json.loads(lines[-1]), wall
+
+
+def observe_loadgen_phase(args, tmp: str, programs) -> tuple:
+    """Phase 22a: the loadgen's ``--router 2`` with the collector, the
+    prober, the SLO reports and the incident plane, replica 1 wrong (two
+    answers tie and the first replica's wins: replica 0's). Returns (run,
+    record, failures)."""
+    from videop2p_tpu_torch.obs import read_ledger
+
+    steps, failures = args.steps, []
+    out_dir, inc = os.path.join(tmp, "loadgen"), os.path.join(tmp, "incidents")
+    ledger = os.path.join(tmp, "fleet.jsonl")
+    argv = ["--router", "2", "--requests", str(OBSERVE_REQUESTS),
+            "--concurrency", str(OBSERVE_CONCURRENCY), "--collector", "--probes", "--slo",
+            "--incidents", inc, "--replica_faults", OBSERVE_WRONG,
+            "--window_scale", str(OBSERVE_WINDOW_SCALE), "--ledger", ledger,
+            "--out_dir", out_dir, "--inv_store", os.path.join(tmp, "inv_store"),
+            "--scheduler", "fair", "--tenants", "client:1", "--tracing",
+            "--probe_interval_s", "3600", "--steps", str(steps), "--device", "cuda"]
+    print(f"  loadgen {' '.join(argv)}", flush=True)
+    reset_launch_counts()
+    rc, rec, wall = _loadgen(argv, programs=programs)
+    launches = launch_counts()
+    events = read_ledger(ledger)
+    by = {}
+    for e in events:
+        by.setdefault(e["event"], []).append(e)
+    probes = by.get("probe", [])
+    rounds = [probes[i:i + PROBES_PER_ROUND] for i in range(0, len(probes), PROBES_PER_ROUND)]
+    # per target and round: the wall of its probes, and each probe's latency
+    for i, rnd in enumerate(rounds):
+        per_target = {}
+        for p in rnd:
+            per_target.setdefault(p["target"], []).append(p)
+        print(f"  probe round {i + 1}: " + "; ".join(
+            f"{t} {sum(p['latency_s'] for p in ps):.2f} s ("
+            + ", ".join(f"{p['probe']} {p['latency_s']} s{'' if p['ok'] else ' FAIL'}"
+                        for p in ps) + ")" for t, ps in per_target.items()), flush=True)
+    audits = by.get("probe_audit", [])
+    inc_events = by.get("incident", [])
+    audit_incidents = [e for e in inc_events if e["trigger"] == "probe_failed"
+                       and str(e["detail"]).startswith("answer audit")]
+    # the routed submits after the verdict (the router's spans, joined to
+    # the load's trace ids through the loadgen's spans)
+    router_spans = [e for e in read_ledger(os.path.join(out_dir, "router_ledger.jsonl"))
+                    if e["event"] == "span" and e.get("name") == "router.submit"
+                    and e.get("replica")]
+    load_traces = {e["trace_id"] for e in by.get("span", []) if e.get("name") == "loadgen.request"}
+    verdict_ns = audit_incidents[0]["wall_ns"] if audit_incidents else None
+    after = ([s for s in router_spans if s["wall_ns"] > verdict_ns]
+             if verdict_ns is not None else [])
+    load_after = [s for s in after if s["trace_id"] in load_traces]
+    per_replica_load = {}
+    for s in router_spans:
+        if s["trace_id"] in load_traces:
+            per_replica_load[s["replica"]] = per_replica_load.get(s["replica"], 0) + 1
+    # launches: one warm-up and every fresh or rehydrated request a fresh
+    # request's, every memory hit a hit's
+    health = {e["label"]: e for e in by.get("serve_health", [])}
+    full = 1 + sum(h["fresh_inversions"] + h["rehydrations"] for h in health.values())
+    hits = sum(h["done"] for h in health.values()) - (full - 1)
+    fresh, hit = _fresh_launches(steps), _hit_launches(steps)
+    want = {k: full * fresh[k] + hits * hit[k] for k in fresh}
+    bundles = {e["bundle"]: _bundle_bytes(e["bundle"]) for e in inc_events
+               if e.get("bundle")}
+    signals = rec.get("signals", {})
+    tenants = rec.get("tenants", {})
+    healthz = rec.get("router_healthz", {}).get("replicas", {})
+    print(f"  loadgen --router 2: rc {rc}, {rec['done']}/{rec['requests']} done, errors "
+          f"{rec['errors']}, wall {rec['wall_s']} s (the whole run {wall:.1f} s); client lane "
+          f"p50 {tenants.get('client', {}).get('p50_s')} p99 "
+          f"{tenants.get('client', {}).get('p99_s')} s, queue-wait p99 "
+          f"{tenants.get('client', {}).get('queue_wait_p99_s')} s; load per replica "
+          f"{per_replica_load}", flush=True)
+    print(f"  collector: {signals.get('scrapes')} passes over 3 targets, "
+          f"{signals.get('scrape_s')} s in all ("
+          f"{1e3 * signals.get('scrape_s', 0) / max(signals.get('scrapes') or 1, 1):.2f} ms a "
+          f"pass, {100 * signals.get('scrape_s', 0) / wall:.3f} % of the run), errors "
+          f"{signals.get('scrape_errors')}, {signals.get('series')} series, "
+          f"{signals.get('samples')} samples; fleet_signals {len(by.get('fleet_signals', []))}, "
+          f"advice {signals.get('advice')}, burn alerts {signals.get('burn_alerts')}", flush=True)
+    print(f"  prober: {rec.get('probes', {}).get('rounds')} rounds, "
+          f"{rec.get('probes', {}).get('probes')} probes, failures "
+          f"{rec.get('probes', {}).get('probe_failures')}, status "
+          f"{rec.get('probes', {}).get('status')}; audits "
+          f"{[(a['divergent'], a['hash_a'][:12], a['hash_b'][:12]) for a in audits]}; the "
+          f"router's /healthz: replica1 {healthz.get('replica1', {}).get('probe_status')}; "
+          f"routed after the verdict: {[s['replica'] for s in after]} ({len(load_after)} of "
+          f"them load); router_health {rec.get('router')}", flush=True)
+    print(f"  incidents: {[(e['trigger'], e['events'], e['suppressed']) for e in inc_events]}, "
+          f"bundles {list(bundles.values())} bytes; slo_report "
+          f"{[(e['name'], e['actual'], e['compliant']) for e in by.get('slo_report', [])]}; "
+          f"launches {launches} (want {want}: {full} fresh-or-rehydrated incl. the warm-up, "
+          f"{hits} hits)", flush=True)
+    if rc != 0 or rec["done"] != OBSERVE_REQUESTS or rec["errors"]:
+        failures.append(f"observe loadgen: rc {rc}, done {rec['done']}, errors {rec['errors']}")
+    if not audits or {a["divergent"] for a in audits} != {"replica1"} or \
+            audits[0]["replica_a"] != "replica0":
+        failures.append(f"observe: probe_audit events {audits}")
+    if rec.get("probes", {}).get("quarantined") != ["replica1"] or \
+            healthz.get("replica1", {}).get("probe_status") != "quarantine" or \
+            not healthz.get("replica1", {}).get("quarantined"):
+        failures.append(f"observe: quarantine {rec.get('probes', {}).get('quarantined')}, the "
+                        f"router's /healthz {healthz}")
+    # the round ran before the load: every load request came after the
+    # verdict, and none of them went to replica 1
+    if verdict_ns is None or len(load_after) != OBSERVE_REQUESTS or any(
+            s["replica"] == "replica1" for s in after):
+        failures.append(f"observe: routed after the verdict {[s['replica'] for s in after]}, "
+                        f"{len(load_after)} of them load (verdict at {verdict_ns})")
+    if len(probes) != PROBES_PER_ROUND:
+        failures.append(f"observe: {len(probes)} probe records, not one round of "
+                        f"{PROBES_PER_ROUND}")
+    else:
+        judged = [p for p in probes if p["target"] in ("replica0", "router")]
+        bad = [p for p in judged if not p["ok"]
+               or (p["probe"] == "cached_replay" and "src_err=0.0" not in p["detail"])
+               or (p["probe"] == "determinism" and p["detail"] != "bit-identical")]
+        if bad:
+            failures.append(f"observe: probes of replica 0 / the router: {bad}")
+    if not audit_incidents or not {"manifest.json", "flight.jsonl", "targets.json"} <= set(
+            _bundle_files(audit_incidents[0]["bundle"])):
+        failures.append(f"observe: probe_failed incidents {inc_events}")
+    sidecar = (by.get("fleet_series") or [{}])[0].get("sidecar")
+    if not by.get("fleet_signals") or not sidecar or not os.path.isfile(sidecar) or \
+            not by.get("slo_report"):
+        failures.append(f"observe: fleet_signals {len(by.get('fleet_signals', []))}, "
+                        f"fleet_series {by.get('fleet_series')}, slo_report "
+                        f"{len(by.get('slo_report', []))}")
+    if launches != want:
+        failures.append(f"observe: launches {launches}, expected {want}")
+    record = {"rc": rc, "wall_s": wall, "summary": {k: rec.get(k) for k in (
+        "requests", "done", "errors", "store_hits", "wall_s", "latency", "tenants", "router",
+        "signals", "probes", "incidents")},
+        "rounds": [[{k: p[k] for k in ("probe", "target", "ok", "latency_s")} for p in r]
+                   for r in rounds],
+        "answer": audits[0]["hash_a"] if audits else None,
+        "routed_after_verdict": [s["replica"] for s in after], "load_after_verdict":
+        len(load_after), "load_per_replica": per_replica_load, "bundle_bytes": bundles,
+        "launches": launches, "want_launches": want}
+    return {"launches": launches, "wall_s": wall}, record, failures
+
+
+def observe_breaker_phase(args, tmp: str, programs) -> tuple:
+    """Phase 22b: the loadgen's ``--router 2 --incidents`` with replica 0
+    unavailable: its breaker opens on the first failed dispatch and stays
+    open, a ``breaker_open`` bundle is written, the router sheds to replica
+    1 (the chaos default: at least half the accepted requests done).
+    Returns (record, failures)."""
+    from videop2p_tpu_torch.obs import read_ledger
+
+    failures = []
+    inc, ledger = os.path.join(tmp, "breaker_incidents"), os.path.join(tmp, "breaker.jsonl")
+    argv = ["--router", "2", "--requests", str(OBSERVE_BREAKER_REQUESTS), "--concurrency",
+            str(OBSERVE_CONCURRENCY), "--incidents", inc, "--replica_faults", OBSERVE_BREAKER,
+            "--breaker_threshold", "1", "--breaker_open_s", "600", "--ledger", ledger,
+            "--out_dir", os.path.join(tmp, "breaker"), "--inv_store",
+            os.path.join(tmp, "inv_store"), "--steps", str(args.steps), "--device", "cuda"]
+    rc, rec, wall = _loadgen(argv, programs=programs)
+    incs = [e for e in read_ledger(ledger) if e["event"] == "incident"]
+    opened = [e for e in incs if e["trigger"] == "breaker_open"]
+    files = _bundle_files(opened[0]["bundle"]) if opened else []
+    nbytes = _bundle_bytes(opened[0]["bundle"]) if opened else 0
+    man = json.load(open(os.path.join(opened[0]["bundle"], "manifest.json"))) if opened else {}
+    print(f"  breaker: rc {rc}, {rec['done']}/{rec['requests']} done, errors {rec['errors']}, "
+          f"router {rec.get('router')}; incidents {[e['trigger'] for e in incs]}, the "
+          f"breaker_open bundle {nbytes} bytes {files} ({man.get('detail')}); {wall:.1f} s",
+          flush=True)
+    if rc != 0 or not opened or not {"manifest.json", "flight.jsonl", "targets.json"} <= set(
+            files):
+        failures.append(f"observe breaker: rc {rc}, incidents {incs}, bundle files {files}")
+    if (rec.get("router") or {}).get("per_replica", {}).get("replica1", 0) < 1:
+        failures.append(f"observe breaker: nothing shed to replica 1: {rec.get('router')}")
+    return {"rc": rc, "wall_s": wall, "done": rec["done"], "errors": rec["errors"],
+            "bundle_bytes": nbytes, "router": rec.get("router")}, failures
+
+
+def observe_path(args) -> tuple:
+    """Phase 22 (path "observe"): the fleet's telemetry, correctness and
+    incident planes at SD-1.5 width, 512², 8 frames, ``--steps``, fp32.
+    Returns (runs, records)."""
+    from videop2p_tpu_torch.obs.probe import ProbeSuite
+    from videop2p_tpu_torch.serve import ProgramSet, ProgramSpec
+    from videop2p_tpu_torch.tools.serve_loadgen import build_parser, request_from_args
+
+    os.makedirs("outputs", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_observe_", dir="outputs")
+    t0 = time.perf_counter()
+    failures, record = [], {}
+    children = {}
+    try:
+        print(f"observe (SD-1.5 width, 512², 8 frames, fp32; {_allocated_line()}):", flush=True)
+        children = observe_children(args, tmp)
+        torch.cuda.reset_peak_memory_stats()
+        # the loadgen's request and the canary its prober derives from it
+        canary = ProbeSuite(request_from_args(build_parser().parse_args(["--inproc"]))).canary
+        t1 = time.perf_counter()
+        programs = ProgramSet(ProgramSpec(width=512, video_len=8, steps=args.steps),
+                              device="cuda")
+        warm = programs.warm(tuple(canary["prompts"]))
+        print(f"  the set built and warm in {time.perf_counter() - t1:.2f} s "
+              f"(warm {warm['seconds']} s)", flush=True)
+        # (b) while the children start, then (d) and (c), so that (a) has
+        # the card and the host to itself
+        record["breaker"], f = observe_breaker_phase(args, tmp, programs)
+        failures += f
+        record["router_cli"], f = observe_router_cli(children["router"], canary,
+                                                     programs.spec.fingerprint())
+        failures += f
+        record["serve_cli"], f = observe_serve_cli(children["serve"], tmp)
+        failures += f
+        run, record["loadgen"], f = observe_loadgen_phase(args, tmp, programs)
+        failures += f
+        answer = record["loadgen"]["answer"]
+        print(f"  the canary's answer: in process (replica 0) {str(answer)[:16]}…, the "
+              f"cli.serve children {[str(h)[:16] for h in record['router_cli']['hashes']]}",
+              flush=True)
+        if set(record["router_cli"]["hashes"]) != {answer}:
+            failures.append(f"observe: the children's canary answers "
+                            f"{record['router_cli']['hashes']} against the in-process {answer}")
+        record["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del programs
+    finally:
+        for child in children.values():
+            child.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    _release()
+    record["path_s"] = time.perf_counter() - t0
+    print(f"  observe path: {record['path_s']:.1f} s, peak {record['peak_gib']:.2f} GiB "
+          f"(this process)", flush=True)
+    if failures:
+        raise AssertionError("observe path: " + "; ".join(failures))
+    return {"observe": run}, {"observe": record}
 
 
 def group_norm_only(args, card: str, kind: str) -> int:
@@ -3890,10 +4380,11 @@ def group_norm_only(args, card: str, kind: str) -> int:
 
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--steps", type=int, default=4,
+    parser.add_argument("--steps", type=int, default=2,
                         help="DDIM steps of every main-path run's inversion and edit "
-                             "(official mode: also its null-text outer steps)")
-    parser.add_argument("--inner_steps", type=int, default=10,
+                             "(official mode: also its null-text outer steps); 2 keeps the "
+                             "default run, every path, within its time limit")
+    parser.add_argument("--inner_steps", type=int, default=2,
                         help="null-text inner steps of the official main path (phase 10; "
                              "the reference's 10)")
     parser.add_argument("--mixed_precision", choices=("fp32", "bf16"), default="fp32",
@@ -4043,6 +4534,10 @@ def main() -> int:
         stream_runs, stream_records = stream_path(args)
         runs.update(stream_runs)
         records.update(stream_records)
+    if "observe" in args.paths:
+        observe_runs, observe_records = observe_path(args)
+        runs.update(observe_runs)
+        records.update(observe_records)
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
@@ -4094,12 +4589,13 @@ def main() -> int:
     # each kernel's launches come from the main path that runs it: the fast
     # edit where it ran, else official mode, else the dependent, the
     # checkpoint, the surface path's cached edit, the student's, the served
-    # edits', the fleet's or the streamed windows';
+    # edits', the fleet's, the streamed windows' or the observed fleet's;
     # GroupNorm's, when only Stage 1 or distillation ran, from that run
     # (neither runs a frame-attention kernel). SDXL's run has lines of its
     # own, at its shapes (head dim 64) in bf16, the dtype it runs in.
     auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint",
-                             "surface_multi", "student_edit", "serve", "fleet", "stream")
+                             "surface_multi", "student_edit", "serve", "fleet", "stream",
+                             "observe")
                  if r in runs), None)
     rect = next((r for r in ("flash_rect", "official_flash_rect",
                              "surface_hybrid_flash_rect") if r in runs), None)

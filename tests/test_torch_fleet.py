@@ -348,7 +348,7 @@ def test_router_prometheus_and_schema_match_jax():
     assert ROUTER_HEALTH_FIELDS == JAX_FIELDS
 
 
-def test_router_cli_parses_the_jax_flags():
+def test_router_cli_parses_the_jax_flags(monkeypatch):
     from videop2p_tpu.cli.router import build_parser as jax_parser
 
     from videop2p_tpu_torch.cli.router import build_parser, main
@@ -361,8 +361,19 @@ def test_router_cli_parses_the_jax_flags():
         assert (mine.option_strings, mine.default, mine.nargs, mine.type) == (
             act.option_strings, act.default, act.nargs, act.type), dest
     assert ours["device"].default == "cuda"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        main(["--spawn", "2", "--incidents", "dir"])
+    # --incidents (item 14's rest) is ported: the router is built with it
+    import videop2p_tpu_torch.serve.router as router_mod
+
+    seen = {}
+
+    def router(urls, **kw):
+        seen.update(kw, urls=list(urls))
+        raise KeyboardInterrupt  # stop before serving
+
+    monkeypatch.setattr(router_mod, "Router", router)
+    with pytest.raises(KeyboardInterrupt):
+        main(["--replicas", "http://127.0.0.1:1", "--incidents", "dir"])
+    assert seen["incidents"] == "dir" and seen["urls"] == ["http://127.0.0.1:1"]
     with pytest.raises(SystemExit):
         main([])
 

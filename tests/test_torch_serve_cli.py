@@ -50,11 +50,28 @@ def test_cli_parses_the_jax_flags():
     (["--slo"], "item 14"),
     (["--incidents", "incidents_dir"], "item 14"),
 ])
-def test_cli_refuses_what_is_not_ported(argv, item):
+def test_cli_refuses_what_is_not_ported(argv, item, monkeypatch):
+    """The multi-GPU flags (item 13) raise; ``--slo`` and ``--incidents``
+    (item 14's rest) are ported: they reach the engine as its options."""
     from videop2p_tpu_torch.cli.serve import main
 
-    with pytest.raises(NotImplementedError, match=item):
+    if item == "item 13":
+        with pytest.raises(NotImplementedError, match=item):
+            main(["--device", "cpu", "--tiny", *argv])
+        return
+    import videop2p_tpu_torch.serve as serve
+
+    seen = {}
+
+    def engine(spec, **kw):
+        seen.update(kw)
+        raise KeyboardInterrupt  # stop before warming and serving
+
+    monkeypatch.setattr(serve, "EditEngine", engine)
+    with pytest.raises(KeyboardInterrupt):
         main(["--device", "cpu", "--tiny", *argv])
+    assert seen["slo"] is (argv == ["--slo"])
+    assert seen["incidents"] == (argv[1] if argv[0] == "--incidents" else None)
 
 
 def _free_port() -> int:

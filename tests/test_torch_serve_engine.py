@@ -370,12 +370,25 @@ def test_close_writes_health_and_fails_nothing_in_flight(programs, tmp_path):
 
 
 def test_options_not_ported_raise(programs, tmp_path):
+    """The multi-GPU options raise naming item 13; ``slo=`` and
+    ``incidents=`` (item 14's rest) are ported: the engine takes them."""
+    from videop2p_tpu_torch.obs import IncidentManager, read_ledger
     from videop2p_tpu_torch.serve import ProgramSet, ProgramSpec
 
     for kw, item in ((dict(slo=True), "item 14"), (dict(incidents=str(tmp_path)), "item 14"),
                      (dict(batch_dispatch="vmap"), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            _engine(programs, tmp_path, **kw)
+        if item == "item 13":
+            with pytest.raises(NotImplementedError, match=item):
+                _engine(programs, tmp_path, **kw)
+            continue
+        eng = _engine(programs, tmp_path / next(iter(kw)), **kw)
+        eng.close()
+        kinds = [e["event"] for e in read_ledger(eng.ledger.path)]
+        if "slo" in kw:
+            assert "slo_report" in kinds and eng.incidents is None
+        else:
+            assert isinstance(eng.incidents, IncidentManager) and "slo_report" not in kinds
+            assert eng.incidents.root == str(tmp_path) and eng.ledger.flight is not None
     for kw in (dict(mesh="1,2,1"), dict(ring_variant="bidir"),
                dict(tp_collectives="psum_scatter")):
         with pytest.raises(NotImplementedError, match="item 13"):

@@ -386,15 +386,33 @@ def test_stream_driver_validation(engine, clip, stream_root):
         run_stream_job(engine, clip[..., 0], PROMPTS, job_dir=str(stream_root / "badshape"))
 
 
-def test_stream_cli_refuses_what_is_not_ported(tmp_path):
+def test_stream_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """The multi-GPU flags (item 13) raise; ``--incidents`` (item 14's rest)
+    is ported: it reaches the engine as its option."""
     from videop2p_tpu_torch.cli.stream import main
 
     for argv, item in ((["--mesh", "1,2,1"], "item 13"), (["--ring_variant", "bidir"], "item 13"),
                        (["--tp_collectives", "psum_scatter"], "item 13"),
                        (["--incidents", "dir"], "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            main(["--device", "cpu", "--tiny", "--synthetic", "5", "--video_len", "2",
-                  "--job_dir", str(tmp_path / "job"), *argv])
+        cmd = ["--device", "cpu", "--tiny", "--synthetic", "5", "--video_len", "2",
+               "--job_dir", str(tmp_path / "job"), *argv]
+        if item == "item 13":
+            with pytest.raises(NotImplementedError, match=item):
+                main(cmd)
+            continue
+        import videop2p_tpu_torch.serve as serve
+
+        seen = {}
+
+        def engine(spec, **kw):
+            seen.update(kw)
+            raise KeyboardInterrupt  # stop before warming
+
+        with monkeypatch.context() as m:
+            m.setattr(serve, "EditEngine", engine)
+            with pytest.raises(KeyboardInterrupt):
+                main(cmd)
+        assert seen["incidents"] == "dir" and seen["device"] == "cpu"
 
 
 # ------------------------------------------------ kill-and-resume e2e ----

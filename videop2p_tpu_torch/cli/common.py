@@ -69,7 +69,10 @@ def add_dependent_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--dependent_weights", default=0.0, type=float)
 
 
-# the JAX CLIs' observability flags (``add_obs_args``), not ported yet
+# the JAX run CLIs' observability flags (``add_obs_args``), not ported yet.
+# ``--incidents`` is ported for the serving CLIs (serve, router, stream); on
+# the run CLIs JAX arms it through the run ledger that ``--ledger`` names
+# (``make_run_ledger``'s default path), which comes with the rest of obs/
 OBS_FLAGS = ("--telemetry", "--ledger", "--no_program_analysis", "--device_telemetry",
              "--latency", "--trace_analysis", "--attn_maps", "--quality", "--report",
              "--incidents")
@@ -84,15 +87,21 @@ class _NotPorted(argparse.Action):
         super().__init__(option_strings, dest, nargs="?", **kwargs)
 
     def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported (ROADMAP Queue 1 item {self.item})")
+        parser.error(f"{option_string} is not ported on this CLI (ROADMAP Queue 1 "
+                     f"item {self.item})")
 
 
 def add_unported_args(parser: argparse.ArgumentParser) -> None:
-    """The JAX CLIs' observability flags, each refused with the ROADMAP item
-    (14) that ports it."""
+    """The JAX run CLIs' observability flags, each refused with the ROADMAP
+    item that ports it: item 14's step 3, the rest of ``obs/``. ``--incidents``
+    is among them: the serving CLIs take it, but a run CLI arms it through
+    the run ledger of ``--ledger``, which that step ports."""
     for flag in OBS_FLAGS:
-        parser.add_argument(flag, action=_NotPorted, item="14",
-                            help="observability: not ported (ROADMAP Queue 1 item 14)")
+        item = ("14, step 3: a run CLI arms the incident plane through the run ledger "
+                "of --ledger" if flag == "--incidents" else "14, step 3")
+        parser.add_argument(flag, action=_NotPorted, item=item,
+                            help=f"observability: not ported on this CLI (ROADMAP Queue 1 "
+                                 f"item {item})")
 
 
 def dependent_suffix(*, dependent: bool, decay_rate: float, window_size: int,

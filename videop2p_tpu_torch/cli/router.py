@@ -24,8 +24,10 @@ refused submits deterministically, and serves the fleet's ``/healthz`` and
 the engine's JSON API. SIGTERM stops the router, then the spawned replicas
 (each drains on its own SIGTERM), and exits 0. Every spawned child gets
 ``--device`` and the ``--serve_arg`` flags (e.g. ``--serve_arg=--mixed_precision
---serve_arg=bf16``); on one host they all serve on that device. Not ported:
-``--incidents`` (ROADMAP Queue 1 item 14, its rest).
+--serve_arg=bf16``); on one host they all serve on that device.
+``--incidents DIR`` tees the router's ledger into a flight ring and writes
+crash and ``kill -USR1 <pid>`` bundles under DIR, each with every replica's
+``/healthz`` + ``/metrics``.
 """
 
 from __future__ import annotations
@@ -85,8 +87,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "replica — run the replicas with --tracing too "
                          "and join the ledgers by trace id")
     ap.add_argument("--incidents", type=str, default=None, metavar="DIR",
-                    help="the incident plane: not ported (ROADMAP Queue 1 item 14, its "
-                         "rest)")
+                    help="arm the incident plane (obs/incident.py): the router ledger "
+                         "tees into a flight ring, replicas become bundle probe targets, "
+                         "and crash/SIGUSR1 triggers write debounced capture bundles under "
+                         "DIR — render with tools/incident_report.py")
     return ap
 
 
@@ -99,10 +103,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if bool(args.replicas) == bool(args.spawn):
         build_parser().error("exactly one of --replicas / --spawn required")
-    if args.incidents is not None:
-        raise NotImplementedError(
-            "--incidents: the incident plane (obs/incident.py) is not ported "
-            "(ROADMAP Queue 1 item 14, its rest)")
 
     supervisor = None
     if args.spawn:
@@ -134,6 +134,7 @@ def main(argv=None) -> int:
         ledger_path=(args.ledger
                      or os.path.join(args.out_dir, "router_ledger.jsonl")),
         tracing=args.tracing,
+        incidents=args.incidents,
     )
     server = RouterServer(router, host=args.host, port=args.port)
     print(f"[router] listening on {server.url} over {len(urls)} replica(s):")

@@ -55,6 +55,7 @@ import torch
 
 from videop2p_tpu_torch.cli.common import (
     add_dependent_args,
+    add_unported_args,
     build_models,
     dependent_suffix,
     deterministic_convolutions,
@@ -464,6 +465,7 @@ if __name__ == "__main__":
                         help="loss weight of the boundary term (final grid point, "
                              "target = the data x0)")
     add_dependent_args(parser)
+    add_unported_args(parser)
     args = parser.parse_args()
     cfg = load_config(args.config)
     out_dir = main(**cfg, tiny=args.tiny, device=args.device,

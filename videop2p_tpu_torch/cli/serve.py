@@ -15,10 +15,12 @@ Run:  python -m videop2p_tpu_torch.cli.serve [--checkpoint DIR] --port 8000
 Then ``POST /v1/edits`` a JSON request (``serve/engine.py:EditRequest``),
 ``GET /v1/edits/<id>/result?wait_s=60`` for its record, ``GET /healthz`` and
 ``GET /metrics[?format=prometheus]``. SIGTERM drains (``--drain_s``) and exits
-0. Not ported: ``--mesh``, non-default ``--ring_variant`` /
-``--tp_collectives`` and ``--batch_dispatch vmap`` (multi-GPU, ROADMAP Queue 1
-item 13); ``--slo`` and ``--incidents`` (item 14's rest). The engine
-raises for each, naming the item.
+0. ``--slo`` writes the SLO reports into the ledger at shutdown;
+``--incidents DIR`` arms the incident plane (breaker-open, deadline, crash
+and ``kill -USR1 <pid>`` bundles under DIR). Not ported: ``--mesh``,
+non-default ``--ring_variant`` / ``--tp_collectives`` and ``--batch_dispatch
+vmap`` (multi-GPU, ROADMAP Queue 1 item 13); the engine raises for each,
+naming the item.
 """
 
 from __future__ import annotations
@@ -153,17 +155,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="deterministic fault-injection plan (serve/faults.py DSL, e.g. "
                          "'fail@2,hang@4:1.5,unavail@5-7,corrupt:*'); also via "
                          "VIDEOP2P_SERVE_FAULTS — chaos testing only")
-    # request tracing (obs/spans.py); the SLO report and the incident plane
+    # request tracing (obs/spans.py), the SLO report and the incident plane
     ap.add_argument("--tracing", action="store_true",
                     help="request-scoped tracing: every request's admit → queue → "
                          "resolve → dispatch → decode lifecycle lands as span ledger "
                          "events; an inbound traceparent header continues the caller's "
                          "trace")
     ap.add_argument("--slo", action="store_true",
-                    help="the SLO report: not ported (ROADMAP Queue 1 item 14, its rest)")
+                    help="evaluate the default SLO objectives (obs/slo.py: availability, "
+                         "deadline-miss rate, served p99) over the run at shutdown into "
+                         "slo_report ledger events — obs_diff SLO_RULES gate budget burn")
     ap.add_argument("--incidents", type=str, default=None, metavar="DIR",
-                    help="the incident plane: not ported (ROADMAP Queue 1 item 14, its "
-                         "rest)")
+                    help="arm the incident plane (obs/incident.py): the flight recorder "
+                         "tees ledger events into a bounded ring, and breaker-open / "
+                         "dispatch-deadline / crash / SIGUSR1 triggers write debounced "
+                         "atomic capture bundles under DIR — render with "
+                         "tools/incident_report.py")
     return ap
 
 

@@ -19,9 +19,10 @@ Run:  python -m videop2p_tpu_torch.cli.stream --checkpoint <dir> \
       python -m videop2p_tpu_torch.cli.stream --device cpu --tiny --synthetic 20 \
           --video_len 4 --steps 2 --overlap 1 --job_dir /tmp/job   # a CPU smoke run
 
-Not ported: ``--mesh``, non-default ``--ring_variant`` / ``--tp_collectives``
-(multi-GPU, ROADMAP Queue 1 item 13) and ``--incidents`` (item 14's rest);
-the engine raises for each, naming the item.
+``--incidents DIR`` arms the incident plane: breaker-open, deadline,
+poisoned-window and crash bundles under DIR. Not ported: ``--mesh``,
+non-default ``--ring_variant`` / ``--tp_collectives`` (multi-GPU, ROADMAP
+Queue 1 item 13); the engine raises for each, naming the item.
 """
 
 from __future__ import annotations
@@ -120,8 +121,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(resumed windows show as cached spans) plus the engine's "
                          "per-request span tree")
     ap.add_argument("--incidents", type=str, default=None, metavar="DIR",
-                    help="the incident plane: not ported (ROADMAP Queue 1 item 14, its "
-                         "rest)")
+                    help="arm the incident plane (obs/incident.py): the job ledger tees "
+                         "into a flight ring, and breaker-open / deadline / poisoned-window "
+                         "/ crash triggers write debounced capture bundles under DIR "
+                         "(default off) — render with tools/incident_report.py")
     return ap
 
 

@@ -150,6 +150,11 @@ class RunLedger:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         self._fh = open(path, "a", buffering=1)  # line-buffered: kill-safe
         self._lock = threading.Lock()
+        # optional flight-recorder tee (obs/flight.py): an IncidentManager
+        # attaches a FlightRecorder here and every event record is ALSO
+        # appended to its bounded ring; with None (the default) the cost is
+        # one attribute check and the written stream is the same either way
+        self.flight: Optional[Any] = None
         self._t0 = time.perf_counter()
         self._closed = False
         self._activated = False
@@ -180,6 +185,9 @@ class RunLedger:
         field may itself be named ``kind`` (the ``fault`` events)."""
         rec = {"event": kind, "t": round(time.perf_counter() - self._t0, 4)}
         rec.update(fields)
+        flight = self.flight
+        if flight is not None:
+            flight.record(rec)  # bounded ring append; never raises
         try:
             line = json.dumps(rec, default=str)
         except (TypeError, ValueError):

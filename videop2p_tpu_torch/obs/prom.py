@@ -40,6 +40,7 @@ __all__ = [
     "parse_prometheus",
     "engine_metrics_prometheus",
     "router_metrics_prometheus",
+    "samples_by_name",
 ]
 
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
@@ -275,3 +276,12 @@ def parse_prometheus(text: str) -> Dict[str, Any]:
             "value": _parse_value(value_text),
         })
     return {"samples": samples, "types": types, "help": help_text}
+
+
+def samples_by_name(parsed: Dict[str, Any],
+                    ) -> Dict[str, List[Dict[str, Any]]]:
+    """Convenience index: ``{metric name: [sample, ...]}``."""
+    out: Dict[str, List[Dict[str, Any]]] = {}
+    for s in parsed.get("samples", ()):
+        out.setdefault(s["name"], []).append(s)
+    return out

@@ -29,9 +29,17 @@
     ``/metrics``, routes around open breakers, retries deterministically
     and aggregates the fleet's health (``cli/router.py`` is the entry
     point).
+  * :mod:`~videop2p_tpu_torch.serve.collector` — the fleet telemetry
+    plane's ingest half: :class:`FleetCollector` scrapes every replica's
+    and the router's ``/healthz`` + ``/metrics`` into a bounded
+    time-series store (``obs/tsdb.py``) and evaluates burn, trend and
+    demand signals over it (``obs/signals.py``).
+  * :mod:`~videop2p_tpu_torch.serve.prober` — the correctness plane's
+    scheduler: :class:`FleetProber` runs the known-answer suite
+    (``obs/probe.py``) in the ``probe`` tenant lane, audits canary answers
+    across replicas and serves quarantine verdicts to the router.
 
-The collector and the prober wait for ROADMAP Queue 1 item 14's rest;
-``vmap`` dispatch over a data mesh for item 13.
+``vmap`` dispatch over a data mesh waits for ROADMAP Queue 1 item 13.
 """
 
 from videop2p_tpu_torch.serve.batching import (
@@ -42,6 +50,7 @@ from videop2p_tpu_torch.serve.batching import (
     unstack_outputs,
 )
 from videop2p_tpu_torch.serve.client import EngineClient, engine_available
+from videop2p_tpu_torch.serve.collector import FleetCollector
 from videop2p_tpu_torch.serve.engine import TERMINAL_STATUSES, EditEngine, EditRequest
 from videop2p_tpu_torch.serve.faults import (
     CircuitBreaker,
@@ -52,6 +61,7 @@ from videop2p_tpu_torch.serve.faults import (
     RetryPolicy,
     is_transient,
 )
+from videop2p_tpu_torch.serve.prober import FleetProber
 from videop2p_tpu_torch.serve.programs import ProgramCache, ProgramSet, ProgramSpec
 from videop2p_tpu_torch.serve.replica import Replica, ReplicaSupervisor, free_port
 from videop2p_tpu_torch.serve.router import (
@@ -86,5 +96,5 @@ __all__ = [
     "TenantConfig", "make_scheduler", "parse_tenants", "InversionStore",
     "load_persisted_inversion", "save_persisted_inversion", "Replica",
     "ReplicaSupervisor", "free_port", "Router", "RouterServer", "make_router_server",
-    "ROUTER_HEALTH_FIELDS",
+    "ROUTER_HEALTH_FIELDS", "FleetCollector", "FleetProber",
 ]

@@ -45,11 +45,13 @@ Resilience:
 
 Observability is the engine's run ledger (execute timing on): every
 program call, kernel build, fault and breaker transition is an event;
-close() writes the ``cost_attribution`` rows and one ``serve_health``
-summary. Every device computation runs under ``torch.no_grad`` in the
-thread that launches it (grad mode is thread-local in PyTorch), on the
-engine's device. Not ported here: the SLO report and the incident plane
-(``slo=`` / ``incidents=`` raise, ROADMAP Queue 1 item 14).
+close() writes the ``slo_report`` events (``slo=True``, obs/slo.py), the
+``cost_attribution`` rows and one ``serve_health`` summary. ``incidents=``
+(a bundle root, or a shared :class:`~videop2p_tpu_torch.obs.incident.
+IncidentManager`) tees the ledger into a flight ring and captures a bundle
+when the breaker opens or the dispatch watchdog fires. Every device
+computation runs under ``torch.no_grad`` in the thread that launches it
+(grad mode is thread-local in PyTorch), on the engine's device.
 """
 
 from __future__ import annotations
@@ -106,8 +108,6 @@ _FAULT_LOG_MAX = 256
 # how long close() waits for each dispatch thread the watchdog abandoned: a
 # thread still running when the interpreter exits aborts the process
 _ABANDONED_JOIN_S = 60.0
-
-_NOT_PORTED_ITEM_14 = "ROADMAP Queue 1 item 14, its rest"
 
 
 @dataclass
@@ -242,13 +242,6 @@ class EditEngine:
     ):
         from videop2p_tpu_torch.cli.common import make_run_ledger
 
-        if slo:
-            raise NotImplementedError(
-                f"slo: the SLO report (obs/slo.py) is not ported ({_NOT_PORTED_ITEM_14})")
-        if incidents is not None:
-            raise NotImplementedError(
-                f"incidents: the incident plane (obs/incident.py) is not ported "
-                f"({_NOT_PORTED_ITEM_14})")
         if batch_dispatch == "vmap":
             raise NotImplementedError(
                 "batch_dispatch 'vmap' shards a batch over a data mesh: multi-GPU "
@@ -288,6 +281,8 @@ class EditEngine:
                   "faults": getattr(self.faults, "spec", None), "tracing": bool(tracing)})
         self.tracer = Tracer(self.ledger, enabled=tracing)
         self._tracing = self.tracer.enabled
+        # `slo` evaluates DEFAULT_SLOS into slo_report events at close
+        self._slo = bool(slo)
         # cost & capacity plane (obs/cost.py): the worker prices every
         # successful dispatch by fair share, terminal records carry the
         # per-request cost vector, close() emits the chargeback rows
@@ -322,6 +317,27 @@ class EditEngine:
         self.store = InversionStore(store_budget_bytes, persist_dir=persist_dir,
                                     faults=self.faults)
         self._spec_fp = self.spec.fingerprint()
+        # incident plane: tee this ledger into the manager's flight ring,
+        # register this engine as a /healthz + /metrics snapshot target and
+        # its reservoirs as the trace-id exemplar source. A shared manager
+        # (an in-process fleet) is used as-is and NOT closed by this
+        # engine; a directory builds an owned one with crash hooks.
+        self.incidents = None
+        self._own_incidents = False
+        if incidents is not None:
+            from videop2p_tpu_torch.obs.incident import IncidentManager
+
+            if isinstance(incidents, IncidentManager):
+                self.incidents = incidents
+            else:
+                self.incidents = IncidentManager(str(incidents), crash_hooks=True)
+                self._own_incidents = True
+            self.incidents.attach_ledger(self.ledger)
+            self.incidents.note_fingerprint(f"engine:{self.ledger.run_id}", self._spec_fp)
+            self.incidents.register_target(
+                f"engine:{self.ledger.run_id}",
+                lambda: {"healthz": self.health_record(), "metrics": self.metrics()})
+            self.incidents.register_exemplars(self.ledger.execute_timing_summary)
         self._requests: Dict[str, Dict[str, Any]] = {}
         self._videos: Dict[str, np.ndarray] = {}
         self._req_lock = threading.Lock()
@@ -631,11 +647,26 @@ class EditEngine:
         for rid in pending:
             self._fail_status(rid, "engine_closed", "engine closed before completion")
         health = self.health_record()
+        if self._slo:
+            # the declarative objectives over the LIVE summaries, one
+            # slo_report event each, before the health summary
+            from videop2p_tpu_torch.obs.slo import emit_slo_reports, record_from_summaries
+
+            try:
+                emit_slo_reports(self.ledger, record_from_summaries(
+                    health=health, timing=self.ledger.execute_timing_summary()))
+            except Exception:  # noqa: BLE001 — obs never blocks shutdown
+                pass
         for row in self.cost_records():
             self.ledger.event("cost_attribution", label="serve", **row)
         self.ledger.memory_snapshot("at close")
         self.ledger.event("serve_health", **health)
         self.ledger.event("serve_shutdown", requests=len(self._requests))
+        if self.incidents is not None and self._own_incidents:
+            try:
+                self.incidents.close()  # restores the crash hooks
+            except Exception:  # noqa: BLE001 — obs never blocks shutdown
+                pass
         self.ledger.close()
 
     def __enter__(self) -> "EditEngine":
@@ -677,6 +708,14 @@ class EditEngine:
                                "trips": trips})
         self.ledger.breaker(state_from, state_to,
                             consecutive_failures=consecutive_failures, trips=trips)
+        if state_to == "open" and self.incidents is not None:
+            # the breaker declaring the backend unhealthy IS the incident:
+            # capture the flight ring while the evidence is still hot
+            self.incidents.trigger(
+                "breaker_open",
+                detail=(f"{state_from}->open after {consecutive_failures} "
+                        f"consecutive dispatch failures (trip {trips})"),
+                consecutive_failures=consecutive_failures, trips=trips)
 
     # ---- worker ----------------------------------------------------------
 
@@ -1029,6 +1068,10 @@ class EditEngine:
             except DeadlineExceeded as e:
                 # the budget is burned: never retried; the breaker counts it
                 self.breaker.record_failure()
+                if self.incidents is not None:
+                    self.incidents.trigger("deadline_exceeded",
+                                           detail=f"dispatch watchdog: {e}",
+                                           batch_size=len(live))
                 for p in live:
                     self._fail_status(p.rid, "deadline_exceeded", str(e))
                 return

@@ -32,8 +32,10 @@ already expose:
 
 With ``tracing`` on, each routed request is a ``router.submit`` span in the
 router's ledger and the chosen replica gets the child ``traceparent``, so
-the router's and the replicas' ledgers join into one tree. The incident
-plane (``incidents=``) is not ported (ROADMAP Queue 1 item 14, its rest).
+the router's and the replicas' ledgers join into one tree. ``incidents=``
+(a bundle root, or a shared :class:`~videop2p_tpu_torch.obs.incident.
+IncidentManager`) tees the router's ledger into the flight ring and makes
+every replica's ``/healthz`` + ``/metrics`` a bundle snapshot target.
 
 Stdlib only, apart from the port's own modules.
 """
@@ -170,10 +172,6 @@ class Router:
         incidents: Any = None,
         probe_status: Any = None,
     ):
-        if incidents is not None:
-            raise NotImplementedError(
-                "incidents: the incident plane (obs/incident.py) is not ported "
-                "(ROADMAP Queue 1 item 14, its rest)")
         urls = [str(u) for u in replica_urls if str(u).strip()]
         if not urls:
             raise ValueError("router needs at least one replica URL")
@@ -214,6 +212,27 @@ class Router:
         self._probe_status_provider = probe_status
         self.started = time.perf_counter()
         self._closed = False
+        # incident plane: a directory means the router OWNS a manager (crash
+        # hooks installed, closed with the router); an IncidentManager
+        # instance means fleet-shared debounce — the router only contributes
+        # its ledger tee and the replicas as probe targets
+        self.incidents = None
+        self._own_incidents = False
+        if incidents is not None:
+            from videop2p_tpu_torch.obs.incident import IncidentManager
+
+            if isinstance(incidents, IncidentManager):
+                self.incidents = incidents
+            else:
+                self.incidents = IncidentManager(str(incidents), crash_hooks=True)
+                self._own_incidents = True
+            if self.ledger is not None:
+                self.incidents.attach_ledger(self.ledger)
+            for v in self.views:
+                self.incidents.register_target(
+                    f"router:{v.name}",
+                    (lambda pc: lambda: {"healthz": pc.healthz(),
+                                         "metrics": pc.metrics()})(v.probe_client))
 
     # ---- placement -------------------------------------------------------
 
@@ -495,6 +514,12 @@ class Router:
         self._closed = True
         if self.ledger is not None:
             self.ledger.event("router_health", **self.health_record())
+        if self.incidents is not None and self._own_incidents:
+            try:
+                self.incidents.close()
+            except Exception:  # noqa: BLE001 — obs never blocks shutdown
+                pass
+        if self.ledger is not None:
             self.ledger.close()
 
     def __enter__(self) -> "Router":

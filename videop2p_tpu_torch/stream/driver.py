@@ -330,6 +330,15 @@ def run_stream_job(
                 f"window {w.index} poisoned after {attempts} attempt(s): "
                 f"{error} (degrade=False)"
             )
+        # incident plane: a poisoned window that degrades to passthrough is
+        # quality loss the job will not report as an error — capture the
+        # evidence now (debounced: a poisoned RUN is one bundle)
+        inc = getattr(engine, "incidents", None)
+        if inc is not None:
+            inc.trigger("window_poisoned",
+                        detail=f"window {w.index} degraded to passthrough "
+                               f"after {attempts} attempt(s): {error}",
+                        index=w.index, attempts=attempts)
         src01 = frames[w.start:w.stop].astype(np.float32) / 255.0
         _finish_window(w, "passthrough", src01, attempts, None, error=error)
 
