@@ -306,6 +306,29 @@ observe:
    a round's wall per target, the collector's scrape cost and its share of
    the run, the client lane's p50/p99, every bundle's bytes, the peak.
 
+runs:
+23. the run CLIs' observability (``run_videop2p`` / ``run_tuning`` with
+   ``--ledger --telemetry --attn_maps --quality --report --latency
+   --incidents``) at SD-1.5 width, 512², 8 frames, ``--steps``: (a) the
+   cached fast edit once with the flags off, then twice with them on one
+   ledger: the flags-on videos and latents equal the flags-off ones bit
+   for bit, the launches equal each other and phase 5's, the ledger holds
+   ``phase``, ``execute_timing`` (``cached_invert_edit``), ``telemetry``
+   (steps = ``--steps``, no NaN), ``attn_maps`` (``inversion`` and
+   ``edit``), a finite ``quality`` record and ``memory`` snapshots, the
+   second run ``regression_verdicts``; the report exists, no incident
+   bundle; (b) official mode with ``--telemetry --latency`` at 2 inner
+   steps beside the same run without them: the ``null_text_fused`` record
+   (the loss curve and inner steps of the run, its latent summary without
+   NaN), ``execute_timing`` for ``ddim_inversion``, ``null_text_fused`` and
+   ``edit_sample``, the edit's below the null-text phase's (two programs,
+   not nested), the same bits and launches; (c) ``cli.run_tuning.main`` on ``TUNE`` cut to 2
+   steps (validation at 2 × 2 steps) with ``--ledger --telemetry
+   --latency`` beside the same without: finite grad norms in the ``metric``
+   events, ``execute_timing`` for ``train_steps``, the same losses and
+   launches; printed: each run's wall with the flags on against off, the
+   bytes of the ledger, the sidecar and the report.
+
 Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
 the card line, then, last, ``{"ok": true, "device": {...}}``.
 
@@ -321,7 +344,7 @@ Run:  python3 chip_smoke.py [--steps 2] [--inner_steps 2]
                             [--paths [fast] [official] [official_flash]
                                      [dependent] [checkpoint] [tune] [surface]
                                      [distill] [sdxl] [serve] [fleet] [stream]
-                                     [observe]]
+                                     [observe] [runs]]
                             [--profile [--frame_attention auto flash_rect flash]]
                             [--gn_only [--gn_kernel_names NAME ...]]
                             [--out PATH.json]
@@ -435,10 +458,10 @@ FLASH_INNER_STEPS = 2
 # the dependent noise (13), a checkpoint directory (14), Stage 1 (15), the
 # rest of Stage 2's surface (16), consistency distillation and the few-step
 # student (17), SDXL's width (18), the serving engine (19), replicas behind a
-# router (20), streaming long-video editing (21) and the fleet's telemetry,
-# correctness and incident planes (22)
+# router (20), streaming long-video editing (21), the fleet's telemetry,
+# correctness and incident planes (22) and the run CLIs' observability (23)
 PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint", "tune",
-         "surface", "distill", "sdxl", "serve", "fleet", "stream", "observe")
+         "surface", "distill", "sdxl", "serve", "fleet", "stream", "observe", "runs")
 # phase 4b's final losses in "hybrid" null-text mode are compared relative
 # to max(|loss|, this): its last outer step lands on x_0, where both losses
 # sit at float32 rounding noise (~1e-15) and have no relative meaning
@@ -1651,7 +1674,9 @@ def run_main_path(frames, steps: int, mixed_precision: str, *, fast: bool = True
               f"self window {tuple(cm['self_window'])}", flush=True)
     null_text = None
     if res["null_text"] is not None:
-        null_text = {k: v.tolist() for k, v in res["null_text"].items()}
+        # (with telemetry the record also holds the latent statistics)
+        null_text = {k: v.tolist() for k, v in res["null_text"].items()
+                     if isinstance(v, torch.Tensor)}
         print(f"  null-text: inner steps {null_text['inner_steps']}, final losses "
               f"{null_text['final_loss']}", flush=True)
     print(f"  launches: {launches}; peak memory {peak:.2f} GiB (by phase: "
@@ -1669,6 +1694,7 @@ def run_main_path(frames, steps: int, mixed_precision: str, *, fast: bool = True
             "src_err": src_err, "cached_maps": res["cached_maps"],
             "reused": res["reused"], "unet_bytes": res["unet_bytes"],
             "checkpoint_dir": res["checkpoint_dir"], "latents": res["latents"],
+            "ledger": res["ledger"], "sidecar": res["sidecar"], "report": res["report"],
             **({"x_t": res["x_t"],
                 "frames_u8": (videos.clamp(0, 1) * 255).to(torch.uint8).cpu()}
                if keep_outputs else {}),
@@ -2449,12 +2475,13 @@ def run_tuning_main(**kw) -> dict:
     return run
 
 
-def expect_tune_launches(run: dict, steps: int, validations: int) -> None:
+def expect_tune_launches(run: dict, steps: int, validations: int, val: dict = None) -> None:
     """GroupNorm once a site a forward: each train step's forward (GN_SITES)
     and, under checkpointing, its recompute of the blocks (GN_REMAT_SITES);
     each validation's inversion steps and one CFG forward a sampling step a
-    prompt. No frame-attention kernel: the tuner's UNet runs "chunked"."""
-    val = TUNE["validation_data"]
+    prompt (``val``: the run's validation data, TUNE's by default). No
+    frame-attention kernel: the tuner's UNet runs "chunked"."""
+    val = val or TUNE["validation_data"]
     forwards = val["num_inv_steps"] + val["num_inference_steps"] * len(val["prompts"])
     want = {"frame_attention": 0, "flash_attention": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
             "group_norm": GN_LAUNCHES_PER_CALL * (
@@ -4343,6 +4370,213 @@ def observe_path(args) -> tuple:
     return {"observe": run}, {"observe": record}
 
 
+# the run CLIs' observability (path "runs", phase 23): the flags every
+# flags-on run of run_videop2p takes, official mode's inner steps and the
+# tuning run's depth (TUNE cut to 2 steps, validation at 2 × 2 steps)
+RUN_OBS_FLAGS = dict(telemetry=True, attn_maps=True, quality=True, report=True,
+                     latency=True)
+RUN_OBS_INNER_STEPS = 2
+RUN_OBS_TUNE = dict(max_train_steps=2, checkpointing_steps=0, validation_steps=2,
+                    log_every=1, validation_data=dict(TUNE["validation_data"],
+                                                      num_inv_steps=2,
+                                                      num_inference_steps=2))
+
+
+def _bundles(root: str) -> list:
+    """The capture bundles under an incident root (directories with a
+    manifest; the root also holds the faulthandler log)."""
+    if not os.path.isdir(root):
+        return []
+    return sorted(d for d in os.listdir(root)
+                  if os.path.isfile(os.path.join(root, d, "manifest.json")))
+
+
+def _same_bits(name: str, a: dict, b: dict, failures: list, keys=("latents", "videos")):
+    for k in keys:
+        if not torch.equal(a[k], b[k]):
+            failures.append(f"{name}: {k} differ with the flags on")
+    if a["launches"] != b["launches"]:
+        failures.append(f"{name}: launches {b['launches']} with the flags on, "
+                        f"{a['launches']} off")
+
+
+def _file_bytes(path) -> int:
+    return os.path.getsize(path) if path and os.path.isfile(path) else 0
+
+
+def runs_fast_phase(args, frames, tmp: str, failures: list) -> dict:
+    """Phase 23a: the cached fast edit off, on, on (one ledger)."""
+    from videop2p_tpu_torch.obs import history
+    from videop2p_tpu_torch.obs.ledger import read_ledger
+    from videop2p_tpu_torch.obs.quality import QUALITY_SUMMARY_FIELDS
+
+    ckpt, led, inc = (os.path.join(tmp, n) for n in ("rabbit-jump", "fast_ledger.jsonl",
+                                                     "incidents"))
+    kw = dict(pretrained_model_path=ckpt, keep_videos=True)
+    off = run_main_path(frames, args.steps, args.mixed_precision, **kw)
+    expect_launches(off, args.steps, "auto")
+    on = [run_main_path(frames, args.steps, args.mixed_precision, ledger=led, incidents=inc,
+                        **RUN_OBS_FLAGS, **kw) for _ in range(2)]
+    for i, run in enumerate(on):
+        _same_bits(f"23a run {i + 1}", off, run, failures)
+    runs = history.split_runs(read_ledger(led))
+    if len(runs) != 2:
+        failures.append(f"23a: the ledger holds {len(runs)} runs, not 2")
+        return {"off": off, "on": on}
+    for i, events in enumerate(runs):
+        by_kind = {}
+        for e in events:
+            by_kind.setdefault(e["event"], []).append(e)
+        need = {"phase", "execute_timing", "telemetry", "attn_maps", "quality", "memory"}
+        missing = need - set(by_kind)
+        if missing:
+            failures.append(f"23a run {i + 1}: no {sorted(missing)} event")
+            continue
+        if [e["program"] for e in by_kind["execute_timing"]] != ["cached_invert_edit"]:
+            failures.append(f"23a run {i + 1}: execute_timing {by_kind['execute_timing']}")
+        tel = by_kind["telemetry"][0]
+        if (tel["program"] != "cached_invert_edit" or tel["summary"]["steps"] != args.steps
+                or tel["summary"]["nan_total"] or tel["summary"]["inf_total"]):
+            failures.append(f"23a run {i + 1}: telemetry {tel['summary']}")
+        if sorted(e["scope"] for e in by_kind["attn_maps"]) != ["edit", "inversion"]:
+            failures.append(f"23a run {i + 1}: attn_maps scopes")
+        quality = by_kind["quality"][0]
+        if not all(math.isfinite(quality[k]) for k in QUALITY_SUMMARY_FIELDS):
+            failures.append(f"23a run {i + 1}: quality {quality}")
+        mem = [e for e in by_kind["memory"] if e["note"] == "after_cached_edit"]
+        if not mem or not mem[0]["supported"] or not mem[0]["peak_bytes_in_use"]:
+            failures.append(f"23a run {i + 1}: memory snapshot {mem}")
+        has_verdicts = "regression_verdicts" in by_kind
+        if has_verdicts != (i == 1):
+            failures.append(f"23a run {i + 1}: regression_verdicts {has_verdicts}")
+        elif has_verdicts:
+            v = by_kind["regression_verdicts"][0]
+            print(f"  23a verdicts: pass {v['pass']}, {len(v['verdicts'])} verdicts, "
+                  f"regressions {[r['rule'] for r in v['regressions']]}", flush=True)
+        print(f"  23a run {i + 1}: telemetry {tel['summary']}; quality "
+              + ", ".join(f"{k} {quality[k]}" for k in QUALITY_SUMMARY_FIELDS), flush=True)
+    for run in on:
+        if not run["report"] or not os.path.isfile(run["report"]):
+            failures.append(f"23a: no report at {run['report']!r}")
+    if _bundles(inc):
+        failures.append(f"23a: incident bundles on a healthy run: {_bundles(inc)}")
+    sizes = {"ledger": _file_bytes(led), "sidecar": _file_bytes(on[-1]["sidecar"]),
+             "report": _file_bytes(on[-1]["report"])}
+    print(f"  23a wall off {off['wall_s']:.3f} s, on {on[0]['wall_s']:.3f} / "
+          f"{on[1]['wall_s']:.3f} s; cached_invert_edit off "
+          f"{off['timings']['cached_invert_edit']:.3f} s, on "
+          f"{on[0]['timings']['cached_invert_edit']:.3f} / "
+          f"{on[1]['timings']['cached_invert_edit']:.3f} s; bytes {sizes}", flush=True)
+    return {"off": off, "on": on, "bytes": sizes}
+
+
+def runs_official_phase(args, frames, tmp: str, failures: list) -> dict:
+    """Phase 23b: official mode with --telemetry --latency beside the same
+    run off; the null-text phase and the edit are two programs, so the edit's
+    execute timing holds the edit alone."""
+    from videop2p_tpu_torch.obs.ledger import read_ledger
+
+    ckpt, led = os.path.join(tmp, "rabbit-jump"), os.path.join(tmp, "official_ledger.jsonl")
+    kw = dict(pretrained_model_path=ckpt, keep_videos=True, fast=False,
+              num_inner_steps=RUN_OBS_INNER_STEPS)
+    off = run_main_path(frames, args.steps, args.mixed_precision, **kw)
+    on = run_main_path(frames, args.steps, args.mixed_precision, ledger=led, telemetry=True,
+                       latency=True, **kw)
+    _same_bits("23b", off, on, failures)
+    expect_launches(on, args.steps, "auto")
+    events = read_ledger(led)
+    timing = {e["program"]: e for e in events if e["event"] == "execute_timing"}
+    if sorted(timing) != ["ddim_inversion", "edit_sample", "null_text_fused"]:
+        failures.append(f"23b: execute_timing programs {sorted(timing)}")
+    else:
+        edit_s, null_s = (timing[p]["blocked_p50_s"] for p in ("edit_sample",
+                                                               "null_text_fused"))
+        if not edit_s < null_s:
+            failures.append(f"23b: edit_sample {edit_s} s, not below null_text_fused "
+                            f"{null_s} s: the edit's timing holds the null-text phase")
+        print(f"  23b execute timing: ddim_inversion "
+              f"{timing['ddim_inversion']['blocked_p50_s']} s, null_text_fused {null_s} s, "
+              f"edit_sample {edit_s} s", flush=True)
+    tel = {e["program"]: e for e in events if e["event"] == "telemetry"}
+    rec = tel.get("null_text_fused")
+    if (rec is None or len(rec["loss_curve"]) != args.steps
+            or rec["inner_steps"] != on["null_text"]["inner_steps"]
+            or rec["latent"]["steps"] != args.steps or rec["latent"]["nan_total"]):
+        failures.append(f"23b: null-text record {rec}")
+    else:
+        print(f"  23b null-text record: loss curve {rec['loss_curve']}, inner steps "
+              f"{rec['inner_steps']}, latent {rec['latent']}", flush=True)
+    print(f"  23b wall off {off['wall_s']:.3f} s, on {on['wall_s']:.3f} s; null-text off "
+          f"{off['timings']['null_text_optimization']:.3f} s, on "
+          f"{on['timings']['null_text_optimization']:.3f} s; ledger {_file_bytes(led)} B",
+          flush=True)
+    return {"off": off, "on": on}
+
+
+def runs_tune_phase(tmp: str, failures: list) -> dict:
+    """Phase 23c: the tuning run with --ledger --telemetry --latency beside
+    the same without."""
+    from videop2p_tpu_torch.obs.ledger import read_ledger
+
+    led = os.path.join(tmp, "tune_ledger.jsonl")
+    out = {}
+    for name, extra in (("off", {}), ("on", dict(ledger=led, telemetry=True, latency=True))):
+        out[name] = run_tuning_main(
+            **RUN_OBS_TUNE, pretrained_model_path=os.path.join(tmp, "no_checkpoint"),
+            output_dir=os.path.join(tmp, f"tune_{name}", "rabbit-jump"), **extra)
+        expect_tune_launches(out[name], RUN_OBS_TUNE["max_train_steps"], 1,
+                             RUN_OBS_TUNE["validation_data"])
+        with open(os.path.join(out[name]["dir"], "metrics.jsonl")) as f:
+            out[name]["metrics"] = [json.loads(line) for line in f]
+    losses = {k: [m["train_loss"] for m in v["metrics"]] for k, v in out.items()}
+    if losses["on"] != losses["off"]:
+        failures.append(f"23c: losses {losses['on']} with the flags on, {losses['off']} off")
+    if out["on"]["launches"] != out["off"]["launches"]:
+        failures.append("23c: launches differ with the flags on")
+    events = read_ledger(led)
+    norms = [e.get("grad_norm") for e in events if e["event"] == "metric"]
+    if len(norms) != RUN_OBS_TUNE["max_train_steps"] or not all(
+            n is not None and math.isfinite(n) and n > 0 for n in norms):
+        failures.append(f"23c: grad norms {norms}")
+    timing = [(e["program"], e["count"]) for e in events if e["event"] == "execute_timing"]
+    if timing != [("train_steps", RUN_OBS_TUNE["max_train_steps"])]:
+        failures.append(f"23c: execute_timing {timing}")
+    print(f"  23c grad norms {norms}, losses {losses['on']}, execute_timing {timing}; wall "
+          f"off {out['off']['wall_s']:.3f} s, on {out['on']['wall_s']:.3f} s; ledger "
+          f"{_file_bytes(led)} B", flush=True)
+    return out
+
+
+def runs_path(args, frames) -> tuple:
+    """Phase 23 (path "runs"): the run CLIs' observability. Returns (runs,
+    records); raises on a failed gate."""
+    print(f"run CLIs' observability (phase 23; {_allocated_line()}):", flush=True)
+    os.makedirs("outputs", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_runs_", dir="outputs")
+    failures: list = []
+    t0 = time.perf_counter()
+    try:
+        fast = runs_fast_phase(args, frames, tmp, failures)
+        official = runs_official_phase(args, frames, tmp, failures)
+        tune = runs_tune_phase(tmp, failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    print(f"  phase 23: {wall:.1f} s", flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    def slim(run):
+        return {k: v for k, v in run.items() if k not in ("latents", "videos", "x_t")}
+
+    record = {"wall_s": wall, "bytes": fast["bytes"],
+              "fast": {"off": slim(fast["off"]), "on": [slim(r) for r in fast["on"]]},
+              "official": {k: slim(v) for k, v in official.items()},
+              "tune": {k: {kk: vv for kk, vv in v.items() if kk != "metrics"}
+                       for k, v in tune.items()}}
+    return {"runs": slim(fast["on"][0])}, {"runs": record}
+
+
 def group_norm_only(args, card: str, kind: str) -> int:
     """``--gn_only``: GroupNorm's phase-3 checks and timings, its sums over
     the UNet's 61 sites (:func:`gn_site_sums`, at the edit forward's B 2 and
@@ -4538,6 +4772,10 @@ def main() -> int:
         observe_runs, observe_records = observe_path(args)
         runs.update(observe_runs)
         records.update(observe_records)
+    if "runs" in args.paths:
+        obs_runs, obs_records = runs_path(args, frames)
+        runs.update(obs_runs)
+        records.update(obs_records)
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
@@ -4595,7 +4833,7 @@ def main() -> int:
     # own, at its shapes (head dim 64) in bf16, the dtype it runs in.
     auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint",
                              "surface_multi", "student_edit", "serve", "fleet", "stream",
-                             "observe")
+                             "observe", "runs")
                  if r in runs), None)
     rect = next((r for r in ("flash_rect", "official_flash_rect",
                              "surface_hybrid_flash_rect") if r in runs), None)

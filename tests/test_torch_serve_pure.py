@@ -485,7 +485,8 @@ def test_ledger_records_programs_phases_and_memory(tmp_path):
     from videop2p_tpu_torch.utils.profiling import phase_timer
 
     path = str(tmp_path / "l.jsonl")
-    led = make_run_ledger(path, device="cpu")
+    led = make_run_ledger(path, enable=True, latency=True, set_latency_env=False,
+                          device="cpu")
     synced = []
     prog = instrumented_program(lambda x: x + 1, program="p", sync=lambda: synced.append(1))
     assert prog(1) == 2 and prog(2) == 3

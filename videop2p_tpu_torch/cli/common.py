@@ -27,8 +27,8 @@ from videop2p_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from videop2p_tpu_torch.utils.tokenizers import WordTokenizer, load_tokenizer
 
 __all__ = ["ModelBundle", "build_models", "encode_prompts", "add_dependent_args",
-           "add_unported_args", "dependent_suffix", "resolve_pipeline_dir", "load_config",
-           "deterministic_convolutions", "make_run_ledger"]
+           "add_obs_args", "add_unported_args", "dependent_suffix", "resolve_pipeline_dir",
+           "load_config", "deterministic_convolutions", "make_run_ledger"]
 
 
 @contextlib.contextmanager
@@ -69,13 +69,50 @@ def add_dependent_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--dependent_weights", default=0.0, type=float)
 
 
-# the JAX run CLIs' observability flags (``add_obs_args``), not ported yet.
-# ``--incidents`` is ported for the serving CLIs (serve, router, stream); on
-# the run CLIs JAX arms it through the run ledger that ``--ledger`` names
-# (``make_run_ledger``'s default path), which comes with the rest of obs/
-OBS_FLAGS = ("--telemetry", "--ledger", "--no_program_analysis", "--device_telemetry",
-             "--latency", "--trace_analysis", "--attn_maps", "--quality", "--report",
-             "--incidents")
+def add_obs_args(parser: argparse.ArgumentParser) -> None:
+    """The run CLIs' observability flags (JAX's ``add_obs_args``, with its
+    defaults), but for the three :func:`add_unported_args` refuses."""
+    parser.add_argument(
+        "--telemetry", action="store_true",
+        help="collect per-step telemetry in the pipelines' loops (loss curves, "
+             "inner steps taken, latent abs-max / NaN counts, grad norms), kept on "
+             "the device and read once after each loop; decoded into the run ledger")
+    parser.add_argument(
+        "--ledger", type=str, default=None,
+        help="write a JSONL run ledger (phases, kernel builds, program calls, "
+             "telemetry summaries, memory snapshots) to this path; default when "
+             "any observability flag is set: <output dir>/run_ledger.jsonl")
+    parser.add_argument(
+        "--latency", action="store_true",
+        help="per-program execute-latency distributions (obs/timing.py): every "
+             "instrumented program synchronizes the card after its call and "
+             "records dispatch-return and synchronized wall times in bounded "
+             "reservoirs, flushed as execute_timing ledger events; implies a run "
+             "ledger. Trades the host/card overlap for a measured latency; the "
+             "values are the same bits either way")
+    parser.add_argument(
+        "--attn_maps", action="store_true",
+        help="capture per-step cross-attention observability in the edit's loops "
+             "(obs/attention.py): pooled per-token heatmaps, per-site attention "
+             "entropies, the LocalBlend mask series; the arrays go to an .npz "
+             "sidecar referenced by attn_maps ledger events; outputs unchanged")
+    parser.add_argument(
+        "--quality", action="store_true",
+        help="compute edit-quality metrics after decode (obs/quality.py): "
+             "reconstruction PSNR/SSIM against the input frames, background PSNR "
+             "outside the blend mask, adjacent-frame consistency; a quality ledger "
+             "event gated by the quality rules")
+    parser.add_argument(
+        "--report", action="store_true",
+        help="render a self-contained HTML edit report (per-word heatmaps, mask "
+             "overlays, null-text loss sparkline, quality table, regression "
+             "verdicts) next to the run's outputs; python -m "
+             "videop2p_tpu_torch.obs.report re-renders it from the ledger")
+    parser.add_argument(
+        "--incidents", type=str, default=None, metavar="DIR",
+        help="arm the incident plane (obs/incident.py) on the run ledger: a "
+             "flight recorder tees its most recent events into a bounded ring, "
+             "and an unhandled crash or SIGUSR1 writes a capture bundle under DIR")
 
 
 class _NotPorted(argparse.Action):
@@ -91,17 +128,22 @@ class _NotPorted(argparse.Action):
                      f"item {self.item})")
 
 
+# the JAX run CLIs' observability flags the port refuses, with the ROADMAP
+# item of each: XLA's program analysis and device traces have no torch
+# counterpart yet, and per-device telemetry needs a mesh
+UNPORTED_OBS_FLAGS = {
+    "--no_program_analysis": "14, step 3c: program analysis on the GPU",
+    "--trace_analysis": "14, step 3c: device traces on the GPU",
+    "--device_telemetry": "13: multi-GPU (it needs --mesh)",
+}
+
+
 def add_unported_args(parser: argparse.ArgumentParser) -> None:
-    """The JAX run CLIs' observability flags, each refused with the ROADMAP
-    item that ports it: item 14's step 3, the rest of ``obs/``. ``--incidents``
-    is among them: the serving CLIs take it, but a run CLI arms it through
-    the run ledger of ``--ledger``, which that step ports."""
-    for flag in OBS_FLAGS:
-        item = ("14, step 3: a run CLI arms the incident plane through the run ledger "
-                "of --ledger" if flag == "--incidents" else "14, step 3")
+    """The JAX run CLIs' observability flags the port does not take, each
+    refused with the ROADMAP item that ports it."""
+    for flag, item in UNPORTED_OBS_FLAGS.items():
         parser.add_argument(flag, action=_NotPorted, item=item,
-                            help=f"observability: not ported on this CLI (ROADMAP Queue 1 "
-                                 f"item {item})")
+                            help=f"not ported on this CLI (ROADMAP Queue 1 item {item})")
 
 
 def dependent_suffix(*, dependent: bool, decay_rate: float, window_size: int,
@@ -235,11 +277,53 @@ def encode_prompts(bundle: ModelBundle, prompts: Sequence[str], device) -> torch
     return bundle.text_encoder(ids)
 
 
-def make_run_ledger(path: str, *, meta: Optional[Dict[str, Any]] = None, device=None):
-    """The activated :class:`~videop2p_tpu_torch.obs.RunLedger` at ``path``,
-    with execute timing on and scoped to this ledger (the subset of the JAX
-    CLIs' wiring that the serving engine calls)."""
+def make_run_ledger(default_path: str, *, ledger: Optional[str] = None,
+                    meta: Optional[Dict[str, Any]] = None, telemetry: bool = False,
+                    attn_maps: bool = False, quality: bool = False, report: bool = False,
+                    latency: bool = False, enable: bool = False,
+                    set_latency_env: bool = True, incidents: Optional[str] = None,
+                    device=None):
+    """The observability flags → an activated
+    :class:`~videop2p_tpu_torch.obs.RunLedger` (JAX's wiring, shared by both
+    run CLIs and the serving engine), or None when nothing asked for one.
+
+    Any flag implies a ledger, at ``ledger`` or ``default_path``;
+    ``enable`` forces one. ``latency`` turns execute timing on for the
+    ledger and, with ``set_latency_env``, process-wide
+    (``VIDEOP2P_OBS_LATENCY``) until the ledger closes, which restores the
+    variable's previous value; a long-lived engine passes
+    ``set_latency_env=False`` to keep it scoped to its ledger.
+    ``incidents`` arms an :class:`~videop2p_tpu_torch.obs.IncidentManager`
+    with crash hooks on the ledger (its flight ring tees the events; an
+    unhandled crash or SIGUSR1 writes a bundle under that directory) for the
+    rest of the process. ``device`` is the device the run computes on."""
+    if not (enable or telemetry or ledger or attn_maps or quality or report or latency
+            or incidents):
+        return None
+    set_env = latency and set_latency_env
+    if set_env:
+        prev_env = os.environ.get("VIDEOP2P_OBS_LATENCY")
+        os.environ["VIDEOP2P_OBS_LATENCY"] = "1"
     from videop2p_tpu_torch.obs import RunLedger
 
-    return RunLedger(path, meta={"latency": True, **(meta or {})}, latency=True,
-                     device=device).activate()
+    base_meta = {"telemetry": bool(telemetry), "attn_maps": bool(attn_maps),
+                 "quality": bool(quality), "device_telemetry": False,
+                 "latency": bool(latency), "trace_analysis": False}
+    base_meta.update(meta or {})
+    led = RunLedger(ledger or default_path, meta=base_meta, latency=latency,
+                    device=device).activate()
+    if set_env:
+        def restore_env():
+            if prev_env is None:
+                os.environ.pop("VIDEOP2P_OBS_LATENCY", None)
+            else:
+                os.environ["VIDEOP2P_OBS_LATENCY"] = prev_env
+
+        led.on_close(restore_env)
+    if incidents:
+        from videop2p_tpu_torch.obs.incident import IncidentManager
+
+        mgr = IncidentManager(str(incidents), crash_hooks=True)
+        mgr.attach_ledger(led)
+        led.incidents = mgr
+    return led

@@ -28,12 +28,25 @@ are synchronised to the host.
 the tuned pipeline (:func:`run_distillation`, ``train/distill.py``) and
 writes it to ``<pipeline_dir>/student/checkpoint-<N>``.
 
-Not ported: ``mesh`` (multi-GPU, ROADMAP Queue 1 item 13); it raises.
+Observability (JAX's flags): ``--ledger PATH`` (default
+``<output_dir>/run_ledger.jsonl`` when any of these is set) records the
+phases, every logged step as a ``metric`` event, a memory snapshot after
+training and the ``artifacts`` event (``preempted`` on a stop);
+``--telemetry`` adds each step's pre-clip gradient norm to the logged
+metrics; ``--latency`` times the ``train_steps`` program (each chunk of
+steps) into ``execute_timing`` events; ``--incidents DIR`` writes a crash
+bundle under DIR. ``--attn_maps``, ``--quality`` and ``--report`` are the
+edit's flags: parsed and ignored here, as JAX's CLI does.
+
+Not ported: ``mesh`` and ``--device_telemetry`` (multi-GPU, ROADMAP Queue 1
+item 13), ``--no_program_analysis`` and ``--trace_analysis`` (item 14,
+step 3c); they raise.
 
 Run:  python -m videop2p_tpu_torch.cli.run_tuning --config configs/rabbit-jump-tune.yaml
       [--dependent --decay_rate 0.3 --window_size 4 --ar_sample ...] [--device cpu] [--tiny]
       [--distill_steps N [--distill_grid 50] [--distill_lr 1e-4] [--distill_ema 0.95]
                          [--distill_boundary_weight 1.0]]
+      [--ledger L] [--telemetry] [--latency] [--incidents DIR]
 
 then Stage 2 on its output:
       python -m videop2p_tpu_torch.cli.run_videop2p --config configs/rabbit-jump-p2p.yaml
@@ -55,17 +68,20 @@ import torch
 
 from videop2p_tpu_torch.cli.common import (
     add_dependent_args,
+    add_obs_args,
     add_unported_args,
     build_models,
     dependent_suffix,
     deterministic_convolutions,
     encode_prompts,
     load_config,
+    make_run_ledger,
 )
 from videop2p_tpu_torch.core import DDIMScheduler, DDPMScheduler, DependentNoiseSampler
 from videop2p_tpu_torch.data import SingleVideoDataset
 from videop2p_tpu_torch.models.pipeline_io import save_pipeline
 from videop2p_tpu_torch.models.vae import decode_video, encode_video
+from videop2p_tpu_torch.obs.ledger import instrumented_program
 from videop2p_tpu_torch.pipelines.inversion import ddim_inversion
 from videop2p_tpu_torch.pipelines.sampling import edit_sample, make_unet_fn
 from videop2p_tpu_torch.train import (
@@ -174,14 +190,28 @@ def main(
     log_every: int = 50,
     steps_per_call: int = 100,
     device: str = "cuda",
+    telemetry: bool = False,
+    ledger: Optional[str] = None,
+    latency: bool = False,
+    incidents: Optional[str] = None,
+    device_telemetry: bool = False,
+    trace_analysis: bool = False,
+    program_analysis: bool = True,
     **unused,
 ) -> str:
     """Tune, validate and export; returns the (suffixed) output directory.
-    The arguments are the YAML config's keys and the dependent flags."""
+    The arguments are the YAML config's keys, the dependent flags and the
+    observability flags of the module docstring (``device_telemetry``,
+    ``trace_analysis`` and ``program_analysis=False`` raise)."""
     del unused
-    if mesh:
+    if mesh or device_telemetry:
         raise NotImplementedError(
-            f"mesh {mesh!r}: multi-GPU tuning is not ported (ROADMAP Queue 1 item 13)")
+            f"mesh {mesh!r} / device_telemetry: multi-GPU tuning is not ported "
+            "(ROADMAP Queue 1 item 13)")
+    if trace_analysis or not program_analysis:
+        raise NotImplementedError(
+            "program analysis and device traces on the GPU are not ported "
+            "(ROADMAP Queue 1 item 14, step 3c)")
     if mixed_precision not in _DTYPES:
         raise ValueError(f"mixed_precision must be one of {sorted(_DTYPES)}")
     device = torch.device(device)
@@ -203,6 +233,11 @@ def main(
                    if isinstance(v, (str, int, float, bool, dict, list, tuple, type(None)))},
                   f, indent=2, default=str)
     run_seed = seed if seed is not None else 0
+    # one JSONL record of the run: phases, metrics, execute timing, memory
+    run_ledger = make_run_ledger(
+        os.path.join(output_dir, "run_ledger.jsonl"), ledger=ledger,
+        meta={"cli": "run_tuning", "max_train_steps": max_train_steps},
+        telemetry=telemetry, latency=latency, incidents=incidents, device=device)
 
     sampler = None
     if dependent:
@@ -249,18 +284,28 @@ def main(
     noise_sched = DDPMScheduler.create_sd(prediction_type=prediction_type)
     unet_fn = make_unet_fn(bundle.unet)
     lr_schedule = make_lr_schedule(tune_cfg)
-    metrics = MetricsLogger(output_dir)
+    # with a run ledger every logged step is also a `metric` event
+    metrics = MetricsLogger(output_dir, ledger=run_ledger)
     losses: List[torch.Tensor] = []
+    grad_norms: List[torch.Tensor] = []  # telemetry: each step's pre-clip norm
 
     def flush_losses(next_step: int) -> float:
         # one device → host copy for the whole buffer
         flat = torch.cat(losses).cpu().numpy()
+        gflat = torch.cat(grad_norms).cpu().numpy() if grad_norms else None
         start = next_step - len(flat)
         for j, value in enumerate(flat):
-            metrics.log(start + j + 1, {"train_loss": float(value),
-                                        "lr": float(lr_schedule(start + j))})
+            rec = {"train_loss": float(value), "lr": float(lr_schedule(start + j))}
+            if gflat is not None:
+                rec["grad_norm"] = float(gflat[j])
+            metrics.log(start + j + 1, rec)
         losses.clear()
+        grad_norms.clear()
         return float(flat[-1])
+
+    steps_fn = instrumented_program(
+        train_steps, program="train_steps",
+        sync=(lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None)
 
     # chunks end on every log / checkpoint / validation boundary; a cadence
     # of 0 or None turns that feature off. steps_per_call is rounded down to
@@ -284,10 +329,12 @@ def main(
             while i < max_train_steps:
                 nxt = min([max_train_steps, i + steps_per_call]
                           + [(i // p + 1) * p for p in cadences])
-                _, chunk = train_steps(unet_fn, tx, state, noise_sched, latents, text_emb,
-                                       run_seed, num_steps=nxt - i,
-                                       dependent_sampler=sampler)
-                losses.append(chunk)
+                out = steps_fn(unet_fn, tx, state, noise_sched, latents, text_emb,
+                               run_seed, num_steps=nxt - i, dependent_sampler=sampler,
+                               telemetry=telemetry)
+                losses.append(out[1])
+                if telemetry:
+                    grad_norms.append(out[2])
                 first_chunk = i == first_step
                 i = nxt
                 if _PREEMPT_EVENT.is_set():
@@ -313,17 +360,34 @@ def main(
         ckpt_path = save_checkpoint(output_dir, state, i, seed=run_seed)
         print(f"[tune] preempted at step {i}: checkpoint saved to {ckpt_path}; "
               "resume with resume_from_checkpoint: latest")
+        if run_ledger is not None:
+            run_ledger.event("preempted", step=i, checkpoint=ckpt_path)
+            _close_ledger(run_ledger)
         return output_dir
     if losses:
         flush_losses(max_train_steps)
     metrics.close()
+    if run_ledger is not None:
+        run_ledger.memory_snapshot(note="after_training")
 
     with phase_timer("export"):
         nbytes = save_pipeline(output_dir, bundle.unet.config, state.params,
                                source_dir=bundle.source_dir,
                                scheduler_config=dict(_EXPORT_SCHEDULER_CONFIG))
     print(f"[tune] saved pipeline to {output_dir} (unet {nbytes} bytes)")
+    if run_ledger is not None:
+        run_ledger.event("artifacts", pipeline_dir=output_dir)
+        _close_ledger(run_ledger)
+        print(f"[tune] run ledger: {run_ledger.path}")
     return output_dir
+
+
+def _close_ledger(run_ledger) -> None:
+    """Close the run ledger and, the run having ended without a crash, the
+    incident plane it armed (its hooks restored)."""
+    run_ledger.close()
+    if getattr(run_ledger, "incidents", None) is not None:
+        run_ledger.incidents.close()
 
 
 def _clip_latents(bundle, train_data: Dict[str, Any], seed: int,
@@ -381,11 +445,16 @@ def run_distillation(pipeline_dir: str, train_data: Dict[str, Any], *, distill_s
     unet_fn = make_unet_fn(bundle.unet)
     steps_per_call = max(int(steps_per_call), 1)
     i, t0 = 0, time.perf_counter()
+    # the JAX package's label: with an active ledger and execute timing on,
+    # each chunk of steps lands in its `distill_steps` reservoir
+    steps_fn = instrumented_program(
+        distill_loop, program="distill_steps",
+        sync=(lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None)
     with deterministic_convolutions(), phase_timer("distill_steps"):
         while i < distill_steps:
             n = min(steps_per_call, distill_steps - i)
-            _, losses = distill_loop(unet_fn, tx, state, sched, latents, text_emb, run_seed,
-                                     num_steps=n, cfg=cfg)
+            _, losses = steps_fn(unet_fn, tx, state, sched, latents, text_emb, run_seed,
+                                 num_steps=n, cfg=cfg)
             i += n
             loss = float(losses[-1])
             rate = i / max(time.perf_counter() - t0, 1e-9)
@@ -465,14 +534,20 @@ if __name__ == "__main__":
                         help="loss weight of the boundary term (final grid point, "
                              "target = the data x0)")
     add_dependent_args(parser)
+    add_obs_args(parser)
     add_unported_args(parser)
     args = parser.parse_args()
+    if args.attn_maps or args.quality or args.report:
+        # the edit's flags (run_videop2p), as JAX's CLI says
+        print("[tune] --attn_maps/--quality/--report are Stage-2 (editing) "
+              "knobs — ignored by the tuning CLI")
     cfg = load_config(args.config)
     out_dir = main(**cfg, tiny=args.tiny, device=args.device,
                    dependent=args.dependent, num_frames=args.num_frames,
                    decay_rate=args.decay_rate, window_size=args.window_size,
                    ar_sample=args.ar_sample, ar_coeff=args.ar_coeff, eta=args.eta,
-                   dependent_weights=args.dependent_weights)
+                   dependent_weights=args.dependent_weights, telemetry=args.telemetry,
+                   ledger=args.ledger, latency=args.latency, incidents=args.incidents)
     if args.distill_steps > 0:
         run_distillation(out_dir, cfg["train_data"], distill_steps=args.distill_steps,
                          distill_grid=args.distill_grid, distill_lr=args.distill_lr,

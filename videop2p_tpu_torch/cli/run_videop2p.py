@@ -6,10 +6,11 @@ Flow: frames → VAE encode (posterior mean) → CLIP text encode → controller
 the reconstruction and the edit. The edit is one of:
 
   * official mode (no ``--fast``, the reference's): a DDIM inversion, then
-    ``pipelines/sampling.py:official_edit``: null-text optimization of the
-    source stream's uncond embedding (a backward through the UNet per inner
-    step), then the controlled edit in the full CFG layout with those
-    embeddings injected;
+    ``pipelines/sampling.py:official_edit``'s two phases as two programs:
+    null-text optimization of the source stream's uncond embedding (a
+    backward through the UNet per inner step, ``official_null_text``),
+    then the controlled edit in the full CFG layout with those embeddings
+    injected (``edit_sample``);
   * ``--fast``: by default the cached-source fast edit
     (``pipelines/fast.py:cached_fast_edit``): a DDIM inversion that
     captures the source stream's attention maps, then a controlled edit of
@@ -34,8 +35,22 @@ default (``--no_reuse_inversion``, ``--inv_store``): a repeat run of the
 same clip skips the inversion and, in official mode, null-text
 optimization; ``--quant_mode w8|w8a8`` (int8 UNet weights, ``--fast``
 only); ``--reuse_schedule uniform:K|custom:<p0,...>`` (deep-feature reuse
-in the cached fast edit). ``--mesh`` (item 13) and the observability flags
-(item 14) raise, naming their ROADMAP item.
+in the cached fast edit). ``--mesh`` (item 13), ``--device_telemetry``
+(item 13), ``--no_program_analysis`` and ``--trace_analysis`` (item 14,
+step 3c) raise, naming their ROADMAP item.
+
+Observability (JAX's flags): ``--ledger PATH`` writes the run ledger
+(``obs/ledger.py``; default ``<results>/run_ledger.jsonl`` when any of these
+flags is set): phases, program calls, memory snapshots after each stage and
+the ``artifacts`` event; ``--telemetry`` adds the loops' per-step
+statistics as ``telemetry`` events; ``--latency`` each program's execute
+timing (``cached_invert_edit``, ``ddim_inversion``, ``null_text_fused``,
+``edit_sample``); ``--attn_maps`` the attention records (``attn_maps``
+events, arrays in ``obs_sidecar_<name>.npz``); ``--quality`` the
+edit-quality record; ``--report`` the HTML report; ``--incidents DIR`` a
+crash bundle under DIR. A repeat run on one ledger gets
+``regression_verdicts`` against the previous run (``obs/history.py``).
+None of them changes an output bit.
 
 The checkpoint is ``pretrained_model_path`` with the Stage-1 suffix of the
 dependent settings appended (``cli/common.py:resolve_pipeline_dir``): a
@@ -49,7 +64,9 @@ Run:  python -m videop2p_tpu_torch.cli.run_videop2p \\
           [--dependent --dependent_p2p --decay_rate 0.3 --window_size 4 \\
            --ar_sample --ar_coeff 0.1 --dependent_weights 0.2] [--eta 0.1] \\
           [--null_text_mode hybrid] [--multi] [--no_reuse_inversion] \\
-          [--inv_store DIR] [--quant_mode w8] [--reuse_schedule uniform:2]
+          [--inv_store DIR] [--quant_mode w8] [--reuse_schedule uniform:2] \\
+          [--ledger L] [--telemetry] [--attn_maps] [--quality] [--report] \\
+          [--latency] [--incidents DIR]
 
 The run is on CUDA unless ``--device cpu`` is given.
 """
@@ -62,7 +79,6 @@ import copy
 import dataclasses
 import hashlib
 import os
-import time
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -71,11 +87,13 @@ import torch
 from videop2p_tpu_torch.cli.common import (
     ModelBundle,
     add_dependent_args,
+    add_obs_args,
     add_unported_args,
     build_models,
     deterministic_convolutions,
     encode_prompts,
     load_config,
+    make_run_ledger,
     resolve_pipeline_dir,
 )
 from videop2p_tpu_torch.control.controllers import make_controller
@@ -84,6 +102,13 @@ from videop2p_tpu_torch.models.quant import QUANT_MODES, validate_quant_mode
 from videop2p_tpu_torch.core.noise import DependentNoiseSampler
 from videop2p_tpu_torch.data.dataset import load_frame_sequence
 from videop2p_tpu_torch.models.vae import decode_video, encode_video
+from videop2p_tpu_torch.obs.ledger import instrumented_program
+from videop2p_tpu_torch.obs.telemetry import (
+    decode_null_text_stats,
+    decode_step_stats,
+    summarize_step_stats,
+    to_host,
+)
 from videop2p_tpu_torch.pipelines.cached import capture_windows
 from videop2p_tpu_torch.pipelines.fast import (
     CACHED_MAPS_BUDGET_GB,
@@ -101,11 +126,11 @@ from videop2p_tpu_torch.pipelines.reuse import validate_reuse_schedule
 from videop2p_tpu_torch.pipelines.sampling import (
     edit_sample,
     make_unet_fn,
-    official_edit,
     official_null_text,
 )
 from videop2p_tpu_torch.serve.store import load_persisted_inversion, save_persisted_inversion
 from videop2p_tpu_torch.utils.inv_cache import content_fingerprint, inversion_cache_key
+from videop2p_tpu_torch.utils.profiling import last_phase_seconds, phase_timer
 from videop2p_tpu_torch.utils.video_io import save_video_gif
 
 __all__ = ["ModelBundle", "build_models", "encode_prompts", "main",
@@ -121,18 +146,134 @@ _DTYPES = {"fp32": torch.float32, "no": torch.float32,
 
 @contextlib.contextmanager
 def _phase(name: str, timings: Dict[str, float], device: torch.device,
-           peaks: Dict[str, float]):
+           peaks: Dict[str, float], **count):
     """Wall time of a phase, synchronised with the card on both ends, and on
-    the card the phase's peak allocated memory in GiB."""
+    the card the phase's peak allocated memory in GiB. The phase goes
+    through ``utils/profiling.py:phase_timer``, so an active run ledger
+    records it (``count``: its ``count`` and ``unit``)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.perf_counter()
-    yield
+    with phase_timer(name, verbose=False, **count):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
         peaks[name] = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    timings[name] = time.perf_counter() - t0
+    timings[name] = last_phase_seconds(name)
+
+
+def _word_token_records(prompts: Sequence[str], tokenizer) -> list:
+    """Word → token positions of every prompt (the report's key for the
+    per-word heatmaps)."""
+    from videop2p_tpu_torch.control.schedules import get_word_inds
+
+    recs, seen = [], set()
+    for pi, text in enumerate(prompts):
+        for word in text.split():
+            if (pi, word) in seen:
+                continue
+            seen.add((pi, word))
+            toks = get_word_inds(text, word, tokenizer)
+            if len(toks):
+                recs.append({"prompt": pi, "word": word, "tokens": [int(t) for t in toks]})
+    return recs
+
+
+def _telemetry_record(tel) -> Dict[str, Any]:
+    return {"summary": summarize_step_stats(tel), "steps": decode_step_stats(tel)}
+
+
+def _semantic_obs(run_ledger, *, output_dir: str, save_name: str, suffix: str,
+                  prompts: Sequence[str], tokenizer, attn_records: Dict,
+                  stream_map: Dict, quality: bool, report: bool, source01: np.ndarray,
+                  videos: np.ndarray):
+    """After decode (JAX's ``_semantic_obs``): the ``.npz`` sidecar, the
+    ``attn_maps`` and ``quality`` events, the regression verdicts against
+    the ledger's previous run and the HTML report. Returns ``(report path
+    or None, sidecar path)``."""
+    from videop2p_tpu_torch.obs.attention import save_obs_sidecar, summarize_attn_record
+
+    sidecar_path = os.path.join(output_dir, f"obs_sidecar_{save_name}{suffix}.npz")
+    sidecar: Dict[str, np.ndarray] = {}
+    word_recs = _word_token_records(prompts, tokenizer)
+    summaries = {}
+    for scope, rec in attn_records.items():
+        sidecar[f"attn_{scope}/cross_heat"] = np.asarray(rec["cross_heat"])
+        for site, curve in sorted(rec.get("entropy", {}).items()):
+            sidecar[f"attn_{scope}/entropy/{site}"] = np.asarray(curve)
+        for k in ("mask_cov", "mask_heat", "blend_active"):
+            if k in rec:
+                sidecar[f"attn_{scope}/{k}"] = np.asarray(rec[k])
+        summaries[scope] = summarize_attn_record(rec)
+
+    # reference frames for the report's overlays, at most 128 px
+    stride = max(1, int(videos.shape[-3]) // 128)
+
+    def to_u8(v):
+        return (np.clip(v[:, ::stride, ::stride], 0, 1) * 255).astype(np.uint8)
+
+    sidecar["frames/source"] = to_u8(source01)
+    sidecar["frames/recon"] = to_u8(videos[0])
+    sidecar["frames/edit"] = to_u8(videos[1])
+
+    quality_summary = None
+    if quality:
+        from videop2p_tpu_torch.obs.quality import edit_quality_record
+
+        mask = None
+        mh = attn_records.get("edit", {}).get("mask_heat")
+        if mh is not None:
+            mh = np.asarray(mh)  # (T, P, F, rh, rw), source stream first
+            if mh.ndim == 5 and mh.shape[1] >= 2:
+                m = np.clip(mh[-1, 1], 0.0, 1.0)  # final step, first edit
+                F, H, W = videos.shape[1], videos.shape[2], videos.shape[3]
+                yi = (np.arange(H) * m.shape[1] // max(H, 1)).clip(0, m.shape[1] - 1)
+                xi = (np.arange(W) * m.shape[2] // max(W, 1)).clip(0, m.shape[2] - 1)
+                mask = m[:F][:, yi][:, :, xi]
+        quality_summary, curves = edit_quality_record(source01, videos[0], videos[1],
+                                                      mask=mask)
+        for k, v in curves.items():
+            sidecar[f"quality/{k}"] = v
+
+    save_obs_sidecar(sidecar_path, sidecar)
+    for scope, summary in summaries.items():
+        streams = stream_map.get(scope, [])
+        run_ledger.event("attn_maps", scope=scope, program=f"attn_{scope}",
+                         sidecar=sidecar_path, streams=streams,
+                         words=[w for w in word_recs if w["prompt"] in streams], **summary)
+    if quality_summary is not None:
+        run_ledger.event("quality", program="edit_quality", sidecar=sidecar_path,
+                         **quality_summary)
+        print("[p2p] quality: " + ", ".join(f"{k}={v}" for k, v in quality_summary.items()))
+
+    # regression verdicts against the ledger's previous run (the file
+    # appends across runs); best effort, as JAX's
+    try:
+        from videop2p_tpu_torch.obs import history
+        from videop2p_tpu_torch.obs.ledger import read_ledger
+
+        recs = [history.extract_run(r) for r in history.split_runs(read_ledger(run_ledger.path))]
+        if len(recs) >= 2:
+            cur = recs[-1]
+            base = history.RunHistory(recs[:-1]).baseline_for(cur) or recs[-2]
+            res = history.evaluate_rules(base, cur)
+            run_ledger.event("regression_verdicts", baseline_run_id=base.get("run_id"), **res)
+            if not res["pass"]:
+                print(f"[p2p] REGRESSIONS vs run {base.get('run_id')}: "
+                      + ", ".join(v["rule"] for v in res["regressions"]))
+    except Exception as e:  # noqa: BLE001 — observability never kills a run
+        print(f"[p2p] regression verdicts skipped: {e}")
+
+    report_path = None
+    if report:
+        from videop2p_tpu_torch.obs.report import write_report
+
+        report_path = write_report(
+            run_ledger.path, os.path.join(output_dir, f"report_{save_name}{suffix}.html"),
+            sidecar_path)
+        print(f"[p2p] edit report: {report_path}")
+    return report_path, sidecar_path
 
 
 def _frames_fingerprint(frames) -> str:
@@ -212,6 +353,16 @@ def main(
     reuse_inversion: bool = True,
     inv_store: Optional[str] = None,
     mesh: Optional[str] = None,
+    telemetry: bool = False,
+    ledger: Optional[str] = None,
+    attn_maps: bool = False,
+    quality: bool = False,
+    report: bool = False,
+    latency: bool = False,
+    incidents: Optional[str] = None,
+    device_telemetry: bool = False,
+    trace_analysis: bool = False,
+    program_analysis: bool = True,
     **unused,
 ) -> Dict[str, Any]:
     """Run the edit: official mode unless ``fast``; with ``fast`` the
@@ -247,6 +398,12 @@ def main(
     off when ``bundle`` is given: a path no longer names the weights.
     ``mesh`` (multi-GPU) raises: ROADMAP Queue 1 item 13.
 
+    Observability (the module docstring's flags): ``ledger``, ``telemetry``,
+    ``attn_maps``, ``quality``, ``report``, ``latency``, ``incidents``; any
+    of them opens the run ledger. ``device_telemetry`` (item 13),
+    ``trace_analysis`` and ``program_analysis=False`` (item 14, step 3c)
+    raise.
+
     The dependent noise, as the JAX CLI: a sampler over the clip's
     ``video_len`` frames in windows of ``min(window_size, video_len)``
     (``decay_rate``, ``ar_sample``, ``ar_coeff``) when ``dependent_p2p``, or
@@ -267,11 +424,20 @@ def main(
     (``{"trajectory", "null_text"}``) and the key, the phase times in
     seconds, each phase's peak memory on the card, the UNet's weight bytes,
     the checkpoint directory, the results directory and the GIF paths
-    written."""
+    written, and the run ledger's, the sidecar's and the report's paths
+    (None when not written)."""
     del unused, num_frames
     if mesh is not None:
         raise NotImplementedError(
             f"mesh {mesh!r}: multi-GPU editing is not ported (ROADMAP Queue 1 item 13)")
+    if device_telemetry:
+        raise NotImplementedError(
+            "device_telemetry probes the replicas of a mesh: multi-GPU is not "
+            "ported (ROADMAP Queue 1 item 13)")
+    if trace_analysis or not program_analysis:
+        raise NotImplementedError(
+            "program analysis and device traces on the GPU are not ported "
+            "(ROADMAP Queue 1 item 14, step 3c)")
     if mixed_precision not in _DTYPES:
         raise ValueError(f"mixed_precision must be one of {sorted(_DTYPES)}")
     if not fast:
@@ -305,6 +471,18 @@ def main(
         window_size=window_size, ar_sample=ar_sample, ar_coeff=ar_coeff, eta=eta,
         dependent_weights=dependent_weights)
     output_dir = os.path.join(pretrained_model_path, f"results_dp{dependent_p2p}")
+    suffix = "_fast" if fast else ""
+    # one JSONL record of the run: phases, program calls, telemetry, memory
+    run_ledger = make_run_ledger(
+        os.path.join(output_dir, "run_ledger.jsonl"), ledger=ledger,
+        meta={"cli": "run_videop2p", "fast": fast, "save_name": save_name,
+              "prompt": prompt, "prompts": list(prompts),
+              "null_text_precision": null_text_precision, "null_text_mode": null_text_mode},
+        telemetry=telemetry, attn_maps=attn_maps, quality=quality, report=report,
+        latency=latency, incidents=incidents, device=device)
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
+    # {"inversion": record, "edit": record} of what --attn_maps captured
+    attn_records: Dict[str, Any] = {}
     sampler = None
     if dependent_p2p or (dependent and eta > 0):
         sampler = DependentNoiseSampler.create(
@@ -414,13 +592,24 @@ def main(
         null_embeddings = None
         if mode == "cached":
             with _phase("cached_invert_edit", timings, device, peaks):
-                trajectory, edited = cached_fast_edit(
+                res = instrumented_program(cached_fast_edit, program="cached_invert_edit",
+                                           sync=sync)(
                     unet_fn, sched, latents, cond_src, cond_all, uncond, ctx,
                     num_inference_steps=num_ddim_steps,
                     guidance_scale=GUIDANCE_SCALE, cross_len=cross_len,
                     self_window=self_window, temporal_maps_dtype=tm_dtype,
                     dependent_weight=dep_w, dependent_sampler=p2p_sampler,
-                    generator=gens["inversion"], reuse_schedule=reuse_schedule)
+                    generator=gens["inversion"], reuse_schedule=reuse_schedule,
+                    telemetry=telemetry, attn_maps=attn_maps)
+            trajectory, edited, extras = res[0], res[1], list(res[2:])
+            if telemetry:
+                tel = extras.pop(0)
+                if run_ledger is not None:
+                    run_ledger.telemetry("cached_invert_edit", _telemetry_record(tel))
+            if attn_maps:
+                attn_records = to_host(extras.pop(0))
+            if run_ledger is not None:
+                run_ledger.memory_snapshot(note="after_cached_edit")
             if reuse_inversion:
                 save_persisted_inversion(store_root, inv_key, trajectory.cpu().numpy(),
                                          meta=meta)
@@ -435,16 +624,27 @@ def main(
                     null_embeddings = torch.as_tensor(null_np, device=device)
             else:
                 with _phase("ddim_inversion", timings, device, peaks):
-                    trajectory = ddim_inversion(unet_fn, sched, latents, cond_src,
-                                                num_inference_steps=num_ddim_steps,
-                                                dependent_weight=dep_w,
-                                                dependent_sampler=p2p_sampler,
-                                                generator=gens["inversion"])
+                    trajectory = instrumented_program(ddim_inversion, program="ddim_inversion",
+                                                      sync=sync)(
+                        unet_fn, sched, latents, cond_src,
+                        num_inference_steps=num_ddim_steps, dependent_weight=dep_w,
+                        dependent_sampler=p2p_sampler, generator=gens["inversion"],
+                        attn_maps=attn_maps)
+                if attn_maps:
+                    trajectory, inv_attn = trajectory
+                    attn_records["inversion"] = to_host(inv_attn)
                 if reuse_inversion:
                     save_persisted_inversion(store_root, inv_key,
                                              trajectory.cpu().numpy(), meta=meta)
+            edit_tel = None
             if mode == "official":
-                phase = lambda name: _phase(name, timings, device, peaks)  # noqa: E731
+                per_outer = {"optimize": num_inner_steps, "hybrid": 3,
+                             "amortized": 1}[null_text_mode]
+
+                def phase(name):  # official_null_text's "null_text_optimization"
+                    return _phase(name, timings, device, peaks,
+                                  count=num_ddim_steps * per_outer, unit="inner-step")
+
                 if null_embeddings is None:
                     # the backward's convolutions in a fixed summation order:
                     # two runs of one clip give the same bits
@@ -457,7 +657,11 @@ def main(
                             null_text_precision=null_text_precision,
                             null_text_mode=null_text_mode,
                             dependent_weight=dep_w, dependent_sampler=p2p_sampler,
-                            generator=gens["null_text"])
+                            generator=gens["null_text"], telemetry=telemetry)
+                    if run_ledger is not None:
+                        run_ledger.telemetry("null_text_fused",
+                                             decode_null_text_stats(null_stats))
+                        run_ledger.memory_snapshot(note="after_null_text")
                     print(f"[p2p] null-text ({null_text_mode}/{null_text_precision}): "
                           f"{int(null_stats['inner_steps'].sum())} inner Adam steps "
                           f"across {num_ddim_steps} outer steps, final loss "
@@ -466,25 +670,58 @@ def main(
                         save_persisted_inversion(store_root, inv_key, None,
                                                  null_embeddings.cpu().numpy(),
                                                  null_tag=null_tag)
-                edited, _ = official_edit(
-                    unet_fn, sched, trajectory, cond_all, uncond,
+            # the edit alone is the program "edit_sample" (the null-text
+            # phase above is its own program): the full CFG layout with the
+            # null-text embeddings in official mode, the fast layout otherwise
+            official = mode == "official"
+            with _phase("edit_sample", timings, device, peaks):
+                edited = instrumented_program(edit_sample, program="edit_sample",
+                                              sync=sync)(
+                    unet_fn, sched, trajectory[-1], cond_all, uncond,
                     num_inference_steps=num_ddim_steps, guidance_scale=GUIDANCE_SCALE,
-                    ctx=ctx, eta=eta, generator=gens["edit"],
-                    dependent_sampler=p2p_sampler, phase=phase,
-                    null_embeddings=null_embeddings)
-            else:
-                with _phase("edit_sample", timings, device, peaks):
-                    edited = edit_sample(unet_fn, sched, trajectory[-1], cond_all, uncond,
-                                         num_inference_steps=num_ddim_steps,
-                                         guidance_scale=GUIDANCE_SCALE, ctx=ctx,
-                                         source_uses_cfg=False, eta=eta,
-                                         generator=gens["edit"],
-                                         dependent_sampler=p2p_sampler)
+                    ctx=ctx, source_uses_cfg=official, eta=eta, generator=gens["edit"],
+                    null_uncond_embeddings=null_embeddings if official else None,
+                    dependent_sampler=p2p_sampler, telemetry=telemetry,
+                    attn_maps=attn_maps)
+            if telemetry or attn_maps:
+                edited, *extras = edited
+                if telemetry:
+                    edit_tel = extras.pop(0)
+                if attn_maps:
+                    attn_records["edit"] = to_host(extras.pop(0))
+            if telemetry and run_ledger is not None:
+                run_ledger.telemetry("edit_sample", _telemetry_record(edit_tel))
+            if run_ledger is not None:
+                run_ledger.memory_snapshot(note="after_edit")
         with _phase("vae_decode", timings, device, peaks):
             videos = (decode_video(bundle.vae, edited).float() + 1.0) / 2.0
 
     gifs = _write_gifs(videos, output_dir, save_name, fast) if save_gifs else ()
     print("[p2p] phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
+    report_path = sidecar_path = None
+    if run_ledger is not None:
+        if attn_records or quality or report:
+            videos_np = videos.cpu().numpy()
+            report_path, sidecar_path = _semantic_obs(
+                run_ledger, output_dir=output_dir, save_name=save_name, suffix=suffix,
+                prompts=list(prompts), tokenizer=bundle.tokenizer,
+                attn_records=attn_records,
+                # the prompt streams each capture's heat holds: the inversion
+                # sees the source only; the cached edit drops the source
+                # stream, the live and official edits keep all P
+                stream_map={"inversion": [0],
+                            "edit": (list(range(1, len(prompts))) if mode == "cached"
+                                     else list(range(len(prompts))))},
+                quality=quality, report=report,
+                source01=((video[0] + 1.0) / 2.0).cpu().numpy(), videos=videos_np)
+        run_ledger.event("artifacts", inversion_gif=gifs[0] if gifs else None,
+                         edit_gif=gifs[1] if gifs else None, report=report_path)
+        run_ledger.memory_snapshot(note="run_end")
+        run_ledger.close()
+        print(f"[p2p] run ledger: {run_ledger.path}")
+        if getattr(run_ledger, "incidents", None) is not None:
+            # the run ended without a crash: restore the hooks it armed
+            run_ledger.incidents.close()
     return {"latents": edited, "x_0": trajectory[0], "x_t": trajectory[-1],
             "videos": videos, "mode": mode, "cached_maps": decision,
             "null_text": null_stats, "timings": timings, "peak_gib": peaks,
@@ -492,7 +729,8 @@ def main(
                        "null_text": reused is not None and reused[1] is not None},
             "inv_key": inv_key, "unet_bytes": _module_bytes(bundle.unet),
             "checkpoint_dir": pretrained_model_path, "output_dir": output_dir,
-            "gifs": gifs}
+            "gifs": gifs, "ledger": None if run_ledger is None else run_ledger.path,
+            "sidecar": sidecar_path, "report": report_path}
 
 
 def _module_bytes(module: torch.nn.Module) -> int:
@@ -582,6 +820,7 @@ if __name__ == "__main__":
     # --loss_sig, --num_frames, --eta (the edit's DDIM η, default 0; > 0
     # draws its noise from --seed) and --dependent_weights
     add_dependent_args(parser)
+    add_obs_args(parser)
     add_unported_args(parser)
     args = parser.parse_args()
     cfg = load_config(args.config)
@@ -600,4 +839,7 @@ if __name__ == "__main__":
          ar_coeff=args.ar_coeff, eta=args.eta,
          dependent_weights=args.dependent_weights, multi=args.multi, mesh=args.mesh,
          quant_mode=args.quant_mode, reuse_schedule=args.reuse_schedule,
-         reuse_inversion=not args.no_reuse_inversion, inv_store=args.inv_store)
+         reuse_inversion=not args.no_reuse_inversion, inv_store=args.inv_store,
+         telemetry=args.telemetry, ledger=args.ledger, attn_maps=args.attn_maps,
+         quality=args.quality, report=args.report, latency=args.latency,
+         incidents=args.incidents)

@@ -1,15 +1,32 @@
-"""Observability of the port (the part of ``videop2p_tpu/obs/`` the serving
-fleet reads): the run ledger and its flight-recorder tee, execute-latency
-reservoirs, request spans, the cost and capacity model, Prometheus
-rendering, the edit-quality metrics, and the fleet's three planes —
+"""Observability of the port (``videop2p_tpu/obs/`` but for XLA's program
+analysis, device traces and multi-device accounting): the run ledger and
+its flight-recorder tee, execute-latency reservoirs, the pipelines'
+per-step telemetry and attention records, the edit-quality metrics, run
+history and its rule packs, the HTML edit report, request spans, the cost
+and capacity model, Prometheus rendering, and the fleet's three planes —
 telemetry (the time-series store and the signals over it), correctness
 (the known-answer probes and the answer audit) and incidents (the SLO
 reports and the capture bundles)."""
 
-from videop2p_tpu_torch.obs.attention import load_obs_sidecar, save_obs_sidecar
+from videop2p_tpu_torch.obs.attention import (
+    ATTN_HEAT_RES,
+    ATTN_SUMMARY_FIELDS,
+    attn_step_record,
+    load_obs_sidecar,
+    save_obs_sidecar,
+    summarize_attn_record,
+)
 from videop2p_tpu_torch.obs.cost import CostModel
 from videop2p_tpu_torch.obs.flight import FLIGHT_DEFAULT_CAPACITY, FlightRecorder
-from videop2p_tpu_torch.obs.history import SLO_RULES, RegressionRule
+from videop2p_tpu_torch.obs.history import (
+    DEFAULT_RULES,
+    SLO_RULES,
+    RegressionRule,
+    RunHistory,
+    evaluate_rules,
+    extract_run,
+    split_runs,
+)
 from videop2p_tpu_torch.obs.incident import INCIDENT_FIELDS, INCIDENT_TRIGGERS, IncidentManager
 from videop2p_tpu_torch.obs.ledger import (
     RunLedger,
@@ -37,7 +54,14 @@ from videop2p_tpu_torch.obs.slo import (
     record_from_summaries,
 )
 from videop2p_tpu_torch.obs.spans import Tracer, parse_traceparent
-from videop2p_tpu_torch.obs.timing import LatencyReservoir
+from videop2p_tpu_torch.obs.quality import QUALITY_SUMMARY_FIELDS, edit_quality_record
+from videop2p_tpu_torch.obs.telemetry import (
+    decode_null_text_stats,
+    decode_step_stats,
+    latent_stats,
+    summarize_step_stats,
+)
+from videop2p_tpu_torch.obs.timing import LatencyReservoir, measure_overhead_p50
 from videop2p_tpu_torch.obs.tsdb import FLEET_SERIES_FIELDS, TimeSeriesStore, load_series_sidecar
 
 __all__ = ["CostModel", "RunLedger", "current_ledger", "instrumented_program",
@@ -50,4 +74,8 @@ __all__ = ["CostModel", "RunLedger", "current_ledger", "instrumented_program",
            "FLEET_SIGNALS_FIELDS", "SignalEngine", "theil_sen_slope", "DEFAULT_SLOS",
            "SLO_REPORT_FIELDS", "SLOSpec", "emit_slo_reports", "evaluate_slos",
            "record_from_summaries", "FLEET_SERIES_FIELDS", "TimeSeriesStore",
-           "load_series_sidecar"]
+           "load_series_sidecar", "ATTN_HEAT_RES", "ATTN_SUMMARY_FIELDS", "attn_step_record",
+           "summarize_attn_record", "DEFAULT_RULES", "RunHistory", "evaluate_rules",
+           "extract_run", "split_runs", "QUALITY_SUMMARY_FIELDS", "edit_quality_record",
+           "decode_null_text_stats", "decode_step_stats", "latent_stats",
+           "summarize_step_stats", "measure_overhead_p50"]

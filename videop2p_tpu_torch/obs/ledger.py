@@ -20,7 +20,14 @@ after :meth:`RunLedger.close`):
     ``torch.cuda.synchronize``) seconds (``obs/timing.py``), at close;
   * ``memory`` — ``torch.cuda.memory_stats`` of the device, with
     ``supported: false`` on the CPU;
+  * ``telemetry`` — a pipeline loop's decoded per-step statistics
+    (``obs/telemetry.py``), under its program's label;
   * ``fault`` / ``breaker`` — the serving resilience layer's events.
+
+With ``max_bytes`` a write that would cross the bound first shifts the file
+to ``<stem>.1.jsonl`` (older segments shift up) and the fresh file opens
+with a ``ledger_rotated`` marker; :func:`read_ledger` reads the chain back
+oldest first.
 
 The port has no counterpart to XLA's program analysis
 (``videop2p_tpu/obs/introspect.py``): no ``program_analysis`` event is
@@ -120,7 +127,11 @@ def _power_limit() -> Optional[str]:
 
 
 def _device_record(device: Optional[torch.device]) -> Dict[str, Any]:
-    rec: Dict[str, Any] = {"device": None if device is None else str(device)}
+    # `backend` and `mesh` under the JAX package's names (its report and
+    # history read them); a port run is on one device, with no mesh
+    rec: Dict[str, Any] = {"device": None if device is None else str(device),
+                           "backend": None if device is None else device.type,
+                           "mesh": None}
     if device is not None and device.type == "cuda":
         try:
             rec["device_name"] = torch.cuda.get_device_name(device)
@@ -143,12 +154,18 @@ class RunLedger:
 
     def __init__(self, path: str, *, run_id: Optional[str] = None,
                  meta: Optional[Dict[str, Any]] = None, device=None,
-                 latency: bool = False):
+                 latency: bool = False, max_bytes: Optional[int] = None):
         self.path = path
         self.run_id = run_id or uuid.uuid4().hex[:12]
         self.device = None if device is None else torch.device(device)
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         self._fh = open(path, "a", buffering=1)  # line-buffered: kill-safe
+        self.max_bytes = int(max_bytes) if max_bytes else None
+        try:
+            self._bytes = os.path.getsize(path)
+        except OSError:
+            self._bytes = 0
+        self._rotations = 0
         self._lock = threading.Lock()
         # optional flight-recorder tee (obs/flight.py): an IncidentManager
         # attaches a FlightRecorder here and every event record is ALSO
@@ -164,6 +181,8 @@ class RunLedger:
         self.latency = bool(latency)
         self._timing: Dict[str, LatencyReservoir] = {}
         self._timing_lock = threading.Lock()
+        # callables run once by close(), after the run_end event
+        self._on_close: List[Callable[[], None]] = []
         _install_build_listener()
         start: Dict[str, Any] = {
             "run_id": self.run_id,
@@ -192,13 +211,58 @@ class RunLedger:
             line = json.dumps(rec, default=str)
         except (TypeError, ValueError):
             line = json.dumps({"event": "encode_error", "kind": kind})
+        data = line + "\n"
         with self._lock:
             if self._closed:
                 return
+            if (self.max_bytes is not None and self._bytes > 0
+                    and self._bytes + len(data) > self.max_bytes):
+                self._rotate_locked()
             try:
-                self._fh.write(line + "\n")
+                self._fh.write(data)
+                self._bytes += len(data)
             except (OSError, ValueError):
                 pass
+
+    def _rotate_locked(self) -> None:
+        """Shift the full file aside and reopen it fresh (the caller holds
+        the lock): ``<stem>.1.jsonl`` is the newest rotated segment, older
+        ones shift up first; the new file opens with a ``ledger_rotated``
+        marker."""
+        try:
+            self._fh.close()
+        except OSError:
+            pass
+        stem = self.path[:-len(".jsonl")] if self.path.endswith(".jsonl") else self.path
+        try:
+            n = 1
+            while os.path.exists(f"{stem}.{n}.jsonl"):
+                n += 1
+            for i in range(n - 1, 0, -1):
+                os.replace(f"{stem}.{i}.jsonl", f"{stem}.{i + 1}.jsonl")
+            os.replace(self.path, f"{stem}.1.jsonl")
+        except OSError:
+            pass
+        self._rotations += 1
+        rotated_bytes, self._bytes = self._bytes, 0
+        try:
+            self._fh = open(self.path, "a", buffering=1)
+        except OSError:
+            return  # writes degrade to event()'s silent drop
+        marker = {"event": "ledger_rotated",
+                  "t": round(time.perf_counter() - self._t0, 4),
+                  "run_id": self.run_id, "previous": f"{stem}.1.jsonl",
+                  "rotated_bytes": rotated_bytes, "index": self._rotations}
+        try:
+            data = json.dumps(marker) + "\n"
+            self._fh.write(data)
+            self._bytes += len(data)
+        except (OSError, ValueError):
+            pass
+
+    def telemetry(self, program: str, record: Dict[str, Any]) -> None:
+        """One decoded telemetry record of ``program``."""
+        self.event("telemetry", program=program, **record)
 
     def phase(self, name: str, seconds: float, **fields: Any) -> None:
         self.event("phase", name=name, seconds=round(float(seconds), 4), **fields)
@@ -264,8 +328,16 @@ class RunLedger:
                          "bytes_limit": torch.cuda.get_device_properties(dev).total_memory}
             except Exception:  # noqa: BLE001 — observability never kills a run
                 supported = False
+        # JAX's per-device list beside the flat fields, so that its
+        # history engine reads the peak of either package's event
+        devices = [{"device": (dev.index or 0) if dev is not None else 0, "coords": None,
+                    "process_index": 0,
+                    "bytes_in_use": stats.get("bytes_in_use"),
+                    "peak_bytes_in_use": stats.get("peak_bytes_in_use"),
+                    "bytes_limit": stats.get("bytes_limit"), "live_bytes": None}]
         self.event("memory", note=note, supported=supported,
-                   device=None if dev is None else str(dev), **stats)
+                   device=None if dev is None else str(dev), devices=devices,
+                   live_arrays=None, **stats)
 
     # ---- lifecycle -------------------------------------------------------
 
@@ -297,6 +369,12 @@ class RunLedger:
                 self._fh.close()
             except OSError:
                 pass
+        for fn in self._on_close:
+            fn()
+
+    def on_close(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` once when the ledger closes (after its last event)."""
+        self._on_close.append(fn)
 
     def __enter__(self) -> "RunLedger":
         return self.activate()
@@ -361,15 +439,22 @@ def instrumented_program(fn: Callable, *, program: str,
 
 def read_ledger(path: str) -> List[Dict[str, Any]]:
     """Parse a ledger file back into event dicts (a torn final line from a
-    killed run is skipped)."""
+    killed run is skipped). Rotation-aware: the segments ``<stem>.N.jsonl``
+    … ``<stem>.1.jsonl`` a ``max_bytes`` ledger shifted aside are read
+    first, oldest first."""
+    stem = path[:-len(".jsonl")] if path.endswith(".jsonl") else path
+    n = 1
+    while os.path.exists(f"{stem}.{n}.jsonl"):
+        n += 1
     events = []
-    with open(path) as f:
-        for line in f:
-            line = line.strip()
-            if not line:
-                continue
-            try:
-                events.append(json.loads(line))
-            except ValueError:
-                continue
+    for p in [f"{stem}.{i}.jsonl" for i in range(n - 1, 0, -1)] + [path]:
+        with open(p) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    events.append(json.loads(line))
+                except ValueError:
+                    continue
     return events

@@ -1,6 +1,9 @@
-"""Edit-quality metrics in plain PyTorch (port of ``psnr``, ``ssim``,
-``frame_psnr`` and ``adjacent_frame_psnr`` of
-``videop2p_tpu/obs/quality.py``).
+"""Edit-quality metrics in plain PyTorch (port of
+``videop2p_tpu/obs/quality.py``): PSNR and SSIM, the inversion's
+reconstruction PSNR, the background-preservation PSNR outside the
+LocalBlend mask (:func:`masked_psnr`), adjacent-frame consistency, and
+:func:`edit_quality_record`, which folds them into the run ledger's
+``quality`` event and the per-frame curves of its sidecar.
 
 Identical inputs give the closed forms exactly: PSNR → +inf, SSIM → 1.0.
 Every function computes in float32 on the inputs' device.
@@ -9,11 +12,23 @@ Every function computes in float32 on the inputs' device.
 from __future__ import annotations
 
 import math
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["psnr", "ssim", "frame_psnr", "adjacent_frame_psnr"]
+__all__ = ["psnr", "ssim", "masked_psnr", "frame_psnr", "adjacent_frame_psnr",
+           "edit_quality_record", "QUALITY_SUMMARY_FIELDS"]
+
+# the scalar keys every edit_quality_record summary carries (the ledger
+# `quality` event); background_psnr and mask_coverage appear only with a mask
+QUALITY_SUMMARY_FIELDS = (
+    "recon_psnr",
+    "recon_ssim",
+    "edit_adjacent_psnr",
+    "source_adjacent_psnr",
+)
 
 
 def _f32(x) -> torch.Tensor:
@@ -25,6 +40,18 @@ def psnr(a, b, *, data_range: float = 1.0) -> torch.Tensor:
     ``10·log10(R²/MSE)``; identical inputs → +inf."""
     a, b = _f32(a), _f32(b)
     mse = torch.mean((a - b) ** 2)
+    return 10.0 * (2 * math.log10(data_range) - torch.log10(mse))
+
+
+def masked_psnr(a, b, weight, *, data_range: float = 1.0) -> torch.Tensor:
+    """PSNR over the region where ``weight`` (broadcast against ``a``) is
+    nonzero, each element weighted; an all-zero weight gives NaN (there was
+    nothing to measure)."""
+    a, b = _f32(a), _f32(b)
+    w = torch.broadcast_to(_f32(weight).to(a.device), a.shape)
+    denom = w.sum()
+    mse = (w * (a - b) ** 2).sum() / torch.where(
+        denom > 0, denom, torch.full_like(denom, float("nan")))
     return 10.0 * (2 * math.log10(data_range) - torch.log10(mse))
 
 
@@ -65,3 +92,49 @@ def adjacent_frame_psnr(video, *, data_range: float = 1.0) -> torch.Tensor:
     (F, H, W, C) video → (F − 1,)."""
     v = _f32(video)
     return frame_psnr(v[1:], v[:-1], data_range=data_range)
+
+
+def _scalar(x) -> float:
+    return float(x.detach().cpu()) if isinstance(x, torch.Tensor) else float(x)
+
+
+def edit_quality_record(source, recon, edited, *, mask=None,
+                        data_range: float = 1.0) -> Tuple[Dict[str, float],
+                                                           Dict[str, np.ndarray]]:
+    """All edit-quality metrics of one run, as ``(summary, curves)``.
+
+    ``source`` / ``recon`` / ``edited``: (F, H, W, C) videos in
+    [0, ``data_range``] (the input frames, stream 0 of the edit output and
+    the edited stream); ``mask``: optional (F, H, W) in [0, 1], 1 inside
+    the edit region, whose complement the background metrics score. The
+    summary is the ledger ``quality`` event's payload (the
+    :data:`QUALITY_SUMMARY_FIELDS` always, finite values rounded to 4
+    places); the curves are the per-frame arrays for the sidecar."""
+    source, recon, edited = _f32(source), _f32(recon), _f32(edited)
+    recon_curve = frame_psnr(recon, source, data_range=data_range)
+    edit_adj = adjacent_frame_psnr(edited, data_range=data_range)
+    src_adj = adjacent_frame_psnr(source, data_range=data_range)
+    summary: Dict[str, float] = {
+        "recon_psnr": _scalar(psnr(recon, source, data_range=data_range)),
+        "recon_ssim": _scalar(ssim(recon, source, data_range=data_range)),
+        "edit_adjacent_psnr": _scalar(edit_adj.mean()),
+        "source_adjacent_psnr": _scalar(src_adj.mean()),
+    }
+    curves: Dict[str, np.ndarray] = {
+        "recon_psnr_frames": recon_curve.cpu().numpy(),
+        "edit_adjacent_psnr_frames": edit_adj.cpu().numpy(),
+        "source_adjacent_psnr_frames": src_adj.cpu().numpy(),
+    }
+    if mask is not None:
+        bg = 1.0 - torch.clamp(_f32(mask).to(edited.device), 0.0, 1.0)
+        if bg.dim() == edited.dim() - 1:
+            bg = bg[..., None]
+        summary["background_psnr"] = _scalar(
+            masked_psnr(edited, source, bg, data_range=data_range))
+        summary["mask_coverage"] = _scalar(1.0 - bg.mean())
+        bg_full = torch.broadcast_to(bg, edited.shape)
+        curves["background_psnr_frames"] = torch.stack([
+            masked_psnr(e, s, w, data_range=data_range)
+            for e, s, w in zip(edited, source, bg_full)]).cpu().numpy()
+    summary = {k: (round(v, 4) if np.isfinite(v) else v) for k, v in summary.items()}
+    return summary, curves

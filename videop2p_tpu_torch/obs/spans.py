@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 __all__ = [
     "SPAN_EVENT_FIELDS",
+    "SPAN_SEGMENTS",
     "Tracer",
     "format_traceparent",
     "make_span_id",
@@ -44,6 +45,15 @@ SPAN_EVENT_FIELDS = (
     "duration_s",  # float seconds, monotonic-measured
     "status",      # "ok" | terminal request status | "cached"
 )
+
+# span name → critical-path segment: the run history aggregates these
+# spans' durations into per-segment latency percentiles
+SPAN_SEGMENTS = {
+    "serve.queue": "queue",
+    "serve.resolve": "resolve",
+    "serve.dispatch": "dispatch",
+    "serve.decode": "decode",
+}
 
 def make_trace_id() -> str:
     """A fresh 128-bit trace id (32 lowercase hex chars)."""

@@ -29,6 +29,7 @@ import math
 import os
 import random
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = [
@@ -36,6 +37,7 @@ __all__ = [
     "RESERVOIR_CAPACITY",
     "LatencyReservoir",
     "latency_enabled",
+    "measure_overhead_p50",
     "percentile",
 ]
 
@@ -172,3 +174,27 @@ class LatencyReservoir:
             "max_trace_id": max_trace,
             "p99_trace_id": p99_trace,
         }
+
+
+def measure_overhead_p50(run_off, run_on, *, repeats: int = 9) -> Dict[str, float]:
+    """Overhead of ``run_on`` over ``run_off`` (each must wait for its own
+    result) on the p50s of interleaved reservoirs: both warm up once, then
+    the repeats alternate off / on so that a drifting machine biases both
+    sides alike. Returns ``obs/telemetry.py:telemetry_overhead_record``'s
+    schema."""
+    from videop2p_tpu_torch.obs.telemetry import telemetry_overhead_record
+
+    run_off()
+    run_on()
+    off, on = LatencyReservoir(), LatencyReservoir()
+    for _ in range(max(int(repeats), 1)):
+        t0 = time.perf_counter()
+        run_off()
+        dt = time.perf_counter() - t0
+        off.add(dt, dt)
+        t0 = time.perf_counter()
+        run_on()
+        dt = time.perf_counter() - t0
+        on.add(dt, dt)
+    return telemetry_overhead_record(off.summary()["blocked_p50_s"],
+                                     on.summary()["blocked_p50_s"])

@@ -114,7 +114,8 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
                      dependent_sampler: Optional[DependentNoiseSampler] = None,
                      generator: Optional[torch.Generator] = None,
                      reuse_schedule: Optional[str] = None,
-                     student_head: Optional[dict] = None):
+                     student_head: Optional[dict] = None, telemetry: bool = False,
+                     attn_maps: bool = False):
     """Capture-inversion of ``latents`` under ``cond_src``, then the
     cached-source controlled edit under ``cond_all`` / ``uncond``. Returns
     ``(trajectory, edited)``: the trajectory (N + 1, 1, F, h, w, C) and the
@@ -126,17 +127,39 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
     always runs the full UNet (its maps feed the controllers).
     ``student_head`` runs the edit as the consistency-distilled student
     (``train/distill.py``): its time head modulates the edit streams' ε;
-    the capture runs the UNet it is given without the head."""
-    trajectory, cached = ddim_inversion_captured(
+    the capture runs the UNet it is given without the head.
+
+    ``telemetry`` adds the edit's per-step statistics, ``attn_maps`` the
+    attention records ``{"inversion": the source stream's, from the
+    capture walk; "edit": the edit streams' with the blend-mask series}``
+    (``edit_sample``'s records); the return is then ``(trajectory, edited[,
+    tel][, attn])``, the outputs the same bits as without them."""
+    if attn_maps and reuse_schedule not in (None, "off"):
+        # edit_sample refuses it too; refuse before the capture runs
+        raise ValueError(
+            "attn_maps capture reads every step's attention store and "
+            "shallow reuse steps do not produce one — run attention "
+            "capture with reuse_schedule='off'")
+    inv = ddim_inversion_captured(
         unet_fn, scheduler, latents, cond_src,
         num_inference_steps=num_inference_steps, cross_len=cross_len,
         self_window=self_window,
         capture_blend=ctx is not None and ctx.blend is not None,
         temporal_maps_dtype=temporal_maps_dtype, dependent_weight=dependent_weight,
-        dependent_sampler=dependent_sampler, generator=generator)
+        dependent_sampler=dependent_sampler, generator=generator, attn_maps=attn_maps)
+    trajectory, cached = inv[0], inv[1]
     edited = edit_sample(unet_fn, scheduler, trajectory[-1], cond_all, uncond,
                          num_inference_steps=num_inference_steps,
                          guidance_scale=guidance_scale, ctx=ctx,
                          source_uses_cfg=False, cached_source=cached,
-                         reuse_schedule=reuse_schedule, student_head=student_head)
-    return trajectory, edited
+                         reuse_schedule=reuse_schedule, student_head=student_head,
+                         telemetry=telemetry, attn_maps=attn_maps)
+    if not (telemetry or attn_maps):
+        return trajectory, edited
+    edited, *extras = edited
+    out = (trajectory, edited)
+    if telemetry:
+        out += (extras.pop(0),)
+    if attn_maps:
+        out += ({"inversion": inv[2], "edit": extras.pop(0)},)
+    return out

@@ -1,7 +1,11 @@
 """DDIM inversion and null-text optimization (port of ``ddim_inversion``,
 ``ddim_inversion_captured`` and ``null_text_optimization``,
-``videop2p_tpu/pipelines/inversion.py:86-757``; no attention-map
-observability record).
+``videop2p_tpu/pipelines/inversion.py:86-757``), with the JAX package's
+observability seams: ``attn_maps`` on the two inversions (the source
+stream's per-step attention record, ``obs/attention.py``) and
+``telemetry`` on null-text optimization (each outer step's latent
+statistics, ``obs/telemetry.py``), both stacked on the device and read by
+the caller after the loop.
 
 Inversion walks clean latents x_0 to noise x_T with forward DDIM steps,
 conditional only (guidance 1), and returns the whole trajectory; the
@@ -27,6 +31,9 @@ import torch
 from videop2p_tpu_torch.core.ddim import DDIMScheduler
 from videop2p_tpu_torch.core.noise import DependentNoiseSampler, step_generator
 from videop2p_tpu_torch.models.attention import BASE_STORE, AttnControl
+from videop2p_tpu_torch.obs.attention import attn_step_record
+from videop2p_tpu_torch.obs.ledger import instrumented_program
+from videop2p_tpu_torch.obs.telemetry import latent_stats, stack_step_stats
 from videop2p_tpu_torch.pipelines.cached import CachedSource, filter_site_tree
 from videop2p_tpu_torch.pipelines.sampling import UNetFn, unet_module
 from videop2p_tpu_torch.pipelines.stores import blend_maps_from_store
@@ -68,23 +75,38 @@ def ddim_inversion(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Ten
                    cond_embedding: torch.Tensor, *,
                    num_inference_steps: int = 50, dependent_weight: float = 0.0,
                    dependent_sampler: Optional[DependentNoiseSampler] = None,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None, attn_maps: bool = False):
     """``latents`` (B, F, h, w, C) clean scaled latents, ``cond_embedding``
     (B, L, D) source-prompt embedding → the trajectory
     (num_steps + 1, B, F, h, w, C) in float32, ``[0] = x_0``, ``[-1] = x_T``.
     Latents stay float32 whatever the UNet's compute dtype. With
     ``dependent_weight`` > 0 each step's prediction is blended with one draw
-    of ``dependent_sampler``."""
+    of ``dependent_sampler``. ``attn_maps``: return ``(trajectory, attn)``,
+    ``attn`` the stacked per-step attention record of the walk
+    (:func:`_inversion_attn_record`), step axis x_0 → x_T."""
     latent = latents.float()
     generator = _dependent_generator(dependent_weight, dependent_sampler, generator,
                                      latent.device)
     trajectory = [latent]
+    attn_steps = []
     for t in scheduler.timesteps(num_inference_steps)[::-1]:
-        eps, _ = unet_fn(latent, int(t), cond_embedding, None, store=False)
+        eps, store = unet_fn(latent, int(t), cond_embedding, None, store=attn_maps)
         eps = _dependent_blend(eps, dependent_weight, dependent_sampler, generator)
         latent = scheduler.next_step(eps, int(t), latent, num_inference_steps)
         trajectory.append(latent)
+        if attn_maps:
+            attn_steps.append(_inversion_attn_record(store, latent, cond_embedding))
+    if attn_maps:
+        return torch.stack(trajectory), stack_step_stats(attn_steps)
     return torch.stack(trajectory)
+
+
+def _inversion_attn_record(store, latent: torch.Tensor, cond_embedding: torch.Tensor):
+    """One inversion step's attention record: the conditional stream(s)
+    only (no uncond stream runs)."""
+    return attn_step_record(store, num_uncond=0, num_cond=latent.shape[0],
+                            video_length=latent.shape[1], text_len=cond_embedding.shape[-2],
+                            latent_hw=tuple(latent.shape[2:4]))
 
 
 def _encode_temporal(leaf: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -113,7 +135,8 @@ def ddim_inversion_captured(
     dependent_weight: float = 0.0,
     dependent_sampler: Optional[DependentNoiseSampler] = None,
     generator: Optional[torch.Generator] = None,
-) -> Tuple[torch.Tensor, CachedSource]:
+    attn_maps: bool = False,
+):
     """:func:`ddim_inversion` that also captures what a cached-source edit
     reads (see :mod:`videop2p_tpu_torch.pipelines.cached`):
 
@@ -129,7 +152,11 @@ def ddim_inversion_captured(
     step in walk order. The walk is split at the window edges; edit step *i*
     reads what inversion step N − 1 − i captured. Each captured map is written at its
     edit-step index into a buffer allocated at the first capture, so no
-    per-step copies pile up. Returns ``(trajectory, CachedSource)``."""
+    per-step copies pile up. Returns ``(trajectory, CachedSource)``, and
+    with ``attn_maps`` a third element: the source stream's stacked
+    per-step attention record, in walk order (in the cached fast edit the
+    only place the source's maps show, its stream having left the edit
+    batch)."""
     N = num_inference_steps
     lo, hi = self_window
     if not 0 <= lo <= hi <= N:
@@ -155,6 +182,7 @@ def ddim_inversion_captured(
             buffers[path][index] = leaf
 
     trajectory = [latent]
+    attn_steps = []
     bounds = sorted({0, N - hi, N - lo, N - cross_len, N})
     for s, e in zip(bounds[:-1], bounds[1:]):
         want_cross = s >= N - cross_len
@@ -164,10 +192,12 @@ def ddim_inversion_captured(
         for j in range(s, e):
             t = int(timesteps[j])
             eps, store = unet_fn(latent, t, cond_embedding, control,
-                                 store=capture or capture_blend)
+                                 store=capture or capture_blend or attn_maps)
             eps = _dependent_blend(eps, dependent_weight, dependent_sampler, generator)
             latent = scheduler.next_step(eps, t, latent, N)
             trajectory.append(latent)
+            if attn_maps:
+                attn_steps.append(_inversion_attn_record(store, latent, cond_embedding))
             i = N - 1 - j  # the edit step that reads this capture
             if capture_blend:
                 maps = blend_maps_from_store(
@@ -186,6 +216,8 @@ def ddim_inversion_captured(
         src_latents=torch.flip(trajectory, dims=(0,)),
         cross_maps=cross or None, temporal_maps=temporal or None,
         blend_seq=blend_seq, cross_len=cross_len, self_window=(lo, hi))
+    if attn_maps:
+        return trajectory, cached, stack_step_stats(attn_steps)
     return trajectory, cached
 
 
@@ -242,14 +274,19 @@ def _lr_and_threshold(i: int, epsilon: float) -> Tuple[float, float]:
     return lr, thresh
 
 
-def _pack(embeddings, losses, inner_steps, return_losses: bool, return_inner_steps: bool):
+def _pack(embeddings, losses, inner_steps, return_losses: bool, return_inner_steps: bool,
+          tel=None):
     """The embeddings (N, B, L, D), with the final losses (N,) and the
-    inner steps (N,) int32 on the CPU where asked for."""
+    inner steps (N,) int32 on the CPU where asked for, and the stacked
+    per-outer-step latent statistics (on the device) when ``tel`` is
+    given."""
     out = (torch.stack(embeddings),)
     if return_losses:
         out += (torch.stack(losses).float().cpu(),)
     if return_inner_steps:
         out += (torch.tensor(inner_steps, dtype=torch.int32),)
+    if tel is not None:
+        out += (stack_step_stats(tel),)
     return out if len(out) > 1 else out[0]
 
 
@@ -258,7 +295,8 @@ def _hybrid(fwd, scheduler: DDIMScheduler, trajectory: torch.Tensor,
             num_inner_steps: int,
             outer_chunk: Optional[int], dependent_weight: float,
             dependent_sampler: Optional[DependentNoiseSampler], seed: int,
-            unet_fn: UNetFn, return_losses: bool, return_inner_steps: bool):
+            unet_fn: UNetFn, return_losses: bool, return_inner_steps: bool,
+            telemetry: bool = False, program: Optional[str] = None):
     """The "hybrid" null-text mode (JAX: ``inversion.py:613-710``): K Adam
     steps per outer step from the cond embedding, against the recorded
     trajectory, each outer step on its own."""
@@ -271,31 +309,41 @@ def _hybrid(fwd, scheduler: DDIMScheduler, trajectory: torch.Tensor,
     device = trajectory.device
     embeddings: List[torch.Tensor] = []
     losses: List[torch.Tensor] = []
+    tel: List[dict] = []
+
+    def run_chunk(start: int, stop: int) -> None:
+        for i in range(start, stop):
+            t = int(timesteps[i])
+            latent, latent_prev = trajectory[N - i], trajectory[N - i - 1]
+            gen = (step_generator(seed, i, device) if dependent_weight > 0.0 else None)
+
+            def blend(eps):
+                return _dependent_blend(eps, dependent_weight, dependent_sampler, gen)
+
+            lr, _ = _lr_and_threshold(i, 0.0)
+            eps_cond = blend(fwd(latent, t, cond))
+            uncond, state = cond.float(), None
+            for _ in range(K):
+                with torch.enable_grad():
+                    leaf = uncond.detach().requires_grad_(True)
+                    eps_u = blend(fwd(latent, t, leaf))
+                    eps = eps_u + guidance_scale * (eps_cond - eps_u)
+                    prev_rec = scheduler.prev_step(eps, t, latent, N)
+                    loss = torch.mean((prev_rec - latent_prev) ** 2)
+                    (grad,) = torch.autograd.grad(loss, leaf)
+                uncond, state = adam_update(uncond, grad, state, lr)
+            losses.append(loss.detach())
+            embeddings.append(uncond)
+            if telemetry:
+                # the last inner iteration's reconstruction, as JAX's
+                tel.append(latent_stats(prev_rec.detach()))
+
+    step = run_chunk if program is None else instrumented_program(run_chunk, program=program)
     with _frozen(unet_fn), torch.no_grad():
         for start in range(0, N, chunk):
-            for i in range(start, min(start + chunk, N)):
-                t = int(timesteps[i])
-                latent, latent_prev = trajectory[N - i], trajectory[N - i - 1]
-                gen = (step_generator(seed, i, device) if dependent_weight > 0.0 else None)
-
-                def blend(eps):
-                    return _dependent_blend(eps, dependent_weight, dependent_sampler, gen)
-
-                lr, _ = _lr_and_threshold(i, 0.0)
-                eps_cond = blend(fwd(latent, t, cond))
-                uncond, state = cond.float(), None
-                for _ in range(K):
-                    with torch.enable_grad():
-                        leaf = uncond.detach().requires_grad_(True)
-                        eps_u = blend(fwd(latent, t, leaf))
-                        eps = eps_u + guidance_scale * (eps_cond - eps_u)
-                        prev_rec = scheduler.prev_step(eps, t, latent, N)
-                        loss = torch.mean((prev_rec - latent_prev) ** 2)
-                        (grad,) = torch.autograd.grad(loss, leaf)
-                    uncond, state = adam_update(uncond, grad, state, lr)
-                losses.append(loss.detach())
-                embeddings.append(uncond)
-    return _pack(embeddings, losses, [K] * N, return_losses, return_inner_steps)
+            step(start, min(start + chunk, N))
+    return _pack(embeddings, losses, [K] * N, return_losses, return_inner_steps,
+                 tel if telemetry else None)
 
 
 def null_text_optimization(
@@ -319,6 +367,7 @@ def null_text_optimization(
     dependent_sampler: Optional[DependentNoiseSampler] = None,
     generator: Optional[torch.Generator] = None,
     outer_chunk: Optional[int] = None,
+    telemetry: bool = False,
 ):
     """Optimize a per-step unconditional embedding under which CFG denoising
     replays the recorded inversion trajectory (the reference's
@@ -364,10 +413,17 @@ def null_text_optimization(
     are frozen for the run (a TypeError otherwise), and each loss is taken
     under ``torch.enable_grad()``. The JAX package splits this loop into
     jitted chunks (``outer_chunk``, ``null_text_optimization_fused``) for
-    dispatch and the TPU's watchdog; eagerly those are this one loop, with
-    the same numbers: ``outer_chunk`` is taken for JAX's signature, and
-    the chunks of a "hybrid" run are walked in turn (chunked equals
-    unchunked).
+    dispatch and the TPU's watchdog; eagerly those are this one loop,
+    walked chunk by chunk with the same numbers (chunked equals
+    unchunked). With ``outer_chunk`` < N each chunk of outer steps is one
+    call of an ``instrumented_program`` labelled "null_text_chunked" (the
+    JAX package's label of its chunk programs), so a run ledger records
+    each chunk's dispatch.
+
+    ``telemetry``: also return each outer step's latent statistics
+    (``obs/telemetry.py:latent_stats`` of the advanced latent; "hybrid":
+    of its last inner reconstruction), stacked on the device, as the last
+    element.
 
     Returns the embeddings (N, B, L, D) float32, plus, with
     ``return_losses``, the final inner loss of each outer step (N,) (the
@@ -396,6 +452,8 @@ def null_text_optimization(
         eps = eps_uncond + guidance_scale * (eps_cond - eps_uncond)
         return scheduler.prev_step(eps, t, latent, N)
 
+    chunk = outer_chunk if outer_chunk and outer_chunk < N else N
+    program = "null_text_chunked" if chunk < N else None
     if null_text_mode == "hybrid":
         return _hybrid(fwd, scheduler, trajectory, cond, num_inference_steps=N,
                        guidance_scale=guidance_scale,
@@ -403,15 +461,20 @@ def null_text_optimization(
                        dependent_weight=dependent_weight, dependent_sampler=dependent_sampler,
                        seed=generator.initial_seed() if generator is not None else 0,
                        unet_fn=unet_fn, return_losses=return_losses,
-                       return_inner_steps=return_inner_steps)
+                       return_inner_steps=return_inner_steps, telemetry=telemetry,
+                       program=program)
 
-    latent_cur = trajectory[-1]
+    timesteps = scheduler.timesteps(N)
     embeddings: List[torch.Tensor] = []
     losses: List[torch.Tensor] = []
     inner_steps: List[int] = []
-    with _frozen(unet_fn), torch.no_grad():
-        for i, t in enumerate(scheduler.timesteps(N)):
-            t = int(t)
+    tel: List[dict] = []
+    carry = {"latent": trajectory[-1], "uncond": uncond}
+
+    def run_chunk(start: int, stop: int) -> None:
+        latent_cur, uncond = carry["latent"], carry["uncond"]
+        for i in range(start, stop):
+            t = int(timesteps[i])
             latent_prev = trajectory[N - i - 1]
             eps_cond_raw = fwd(latent_cur, t, cond)
             if null_text_mode == "amortized":
@@ -421,24 +484,33 @@ def null_text_optimization(
                 losses.append(torch.mean((latent_cur - latent_prev) ** 2))
                 inner_steps.append(0)
                 embeddings.append(uncond)
-                continue
-            lr, thresh = _lr_and_threshold(i, epsilon)
-            eps_cond = blend(eps_cond_raw)
-            state, loss, j = None, torch.tensor(float("inf")), 0
-            while j < num_inner_steps and (not early_stop or loss.item() >= thresh):
-                with torch.enable_grad():
-                    leaf = uncond.detach().requires_grad_(True)
-                    prev_rec = cfg_step(blend(fwd(latent_cur, t, leaf)), eps_cond, t,
-                                        latent_cur)
-                    loss = torch.mean((prev_rec - latent_prev) ** 2)
-                    (grad,) = torch.autograd.grad(loss, leaf)
-                loss = loss.detach()
-                uncond, state = adam_update(uncond, grad, state, lr)
-                j += 1
-            losses.append(loss.to(latent_cur.device))
-            inner_steps.append(j)
-            embeddings.append(uncond)
-            # the advance's uncond draw, then its cond draw (JAX's k_fu, k_fc)
-            eps_fu = blend(fwd(latent_cur, t, uncond))
-            latent_cur = cfg_step(eps_fu, blend(eps_cond_raw), t, latent_cur)
-    return _pack(embeddings, losses, inner_steps, return_losses, return_inner_steps)
+            else:
+                lr, thresh = _lr_and_threshold(i, epsilon)
+                eps_cond = blend(eps_cond_raw)
+                state, loss, j = None, torch.tensor(float("inf")), 0
+                while j < num_inner_steps and (not early_stop or loss.item() >= thresh):
+                    with torch.enable_grad():
+                        leaf = uncond.detach().requires_grad_(True)
+                        prev_rec = cfg_step(blend(fwd(latent_cur, t, leaf)), eps_cond, t,
+                                            latent_cur)
+                        loss = torch.mean((prev_rec - latent_prev) ** 2)
+                        (grad,) = torch.autograd.grad(loss, leaf)
+                    loss = loss.detach()
+                    uncond, state = adam_update(uncond, grad, state, lr)
+                    j += 1
+                losses.append(loss.to(latent_cur.device))
+                inner_steps.append(j)
+                embeddings.append(uncond)
+                # the advance's uncond draw, then its cond draw (JAX's k_fu, k_fc)
+                eps_fu = blend(fwd(latent_cur, t, uncond))
+                latent_cur = cfg_step(eps_fu, blend(eps_cond_raw), t, latent_cur)
+            if telemetry:
+                tel.append(latent_stats(latent_cur))
+        carry["latent"], carry["uncond"] = latent_cur, uncond
+
+    step = run_chunk if program is None else instrumented_program(run_chunk, program=program)
+    with _frozen(unet_fn), torch.no_grad():
+        for start in range(0, N, chunk):
+            step(start, min(start + chunk, N))
+    return _pack(embeddings, losses, inner_steps, return_losses, return_inner_steps,
+                 tel if telemetry else None)

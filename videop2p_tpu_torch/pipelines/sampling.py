@@ -19,6 +19,12 @@ streams run the UNet, behind their E uncond streams; a ``reuse_schedule``
 (:mod:`videop2p_tpu_torch.pipelines.reuse`) then runs the full UNet on its
 listed steps only and the shallow path on the others.
 
+Observability (the JAX package's seams, off by default): ``telemetry``
+collects each step's latent statistics and controller gates
+(``obs/telemetry.py``), ``attn_maps`` each step's attention record and the
+LocalBlend mask series (``obs/attention.py``). Both stay on the device
+until the loop ends and change no output bit.
+
 Per-frame ("multi") conditioning: cond embeddings of shape (P, F, L, D),
 the uncond and null-text embeddings broadcast per frame. A SpatialReplace
 controller (``ControlContext.spatial_replace_until``) copies the source
@@ -35,10 +41,12 @@ import numpy as np
 import torch
 
 from videop2p_tpu_torch.control.controllers import ControlContext
-from videop2p_tpu_torch.control.local_blend import local_blend
+from videop2p_tpu_torch.control.local_blend import blend_mask, local_blend
 from videop2p_tpu_torch.core.ddim import DDIMScheduler
 from videop2p_tpu_torch.core.noise import DependentNoiseSampler
 from videop2p_tpu_torch.models.attention import AttnControl
+from videop2p_tpu_torch.obs.attention import ATTN_HEAT_RES, attn_step_record, resize_linear
+from videop2p_tpu_torch.obs.telemetry import latent_stats, stack_step_stats
 from videop2p_tpu_torch.pipelines.cached import (
     CachedSource,
     check_subset_windows,
@@ -52,6 +60,44 @@ __all__ = ["edit_sample", "make_unet_fn", "official_edit", "official_null_text",
 
 # (sample, t, text, control, *, store) -> (eps, store or None)
 UNetFn = Callable[..., Tuple[torch.Tensor, Optional[dict]]]
+
+
+def _controller_gates(ctx: Optional[ControlContext], i: int, device) -> dict:
+    """The controller's edit activity at step ``i``, as 0-d tensors on
+    ``device``: the mean cross-replace gate and whether the self/temporal
+    replacement window covers the step (made on the device: no copy from
+    the host inside the loop)."""
+    if ctx is None:
+        return {"cross_gate_mean": torch.zeros((), device=device),
+                "self_edit_active": torch.zeros((), dtype=torch.int32, device=device)}
+    lo, hi = ctx.self_replace_range
+    return {"cross_gate_mean": ctx.cross_replace_alpha[i].float().mean(),
+            "self_edit_active": torch.full((), int(lo <= i < hi), dtype=torch.int32,
+                                           device=device)}
+
+
+def _mask_series_entry(maps_sum: torch.Tensor, blend_cfg, step_index: int,
+                       latent_hw) -> dict:
+    """The LocalBlend channels of one step: the mask the blend used, pooled
+    to ``ATTN_HEAT_RES``, its coverage per stream and frame, and whether
+    the blend gate was open."""
+    mask = blend_mask(maps_sum, blend_cfg, latent_hw).float()
+    return {"mask_cov": mask.mean(dim=(2, 3)),
+            "mask_heat": resize_linear(mask, ATTN_HEAT_RES),
+            "blend_active": torch.full((), int(step_index >= blend_cfg.start_blend),
+                                       dtype=torch.int32, device=mask.device)}
+
+
+def _pack_step_outputs(latents: torch.Tensor, telemetry: bool, tel: list,
+                       attn_maps: bool, attn: list):
+    """``latents``, then the stacked records asked for, in JAX's order:
+    ``(latents[, tel][, attn])``; the latents alone when neither is."""
+    out = (latents,)
+    if telemetry:
+        out += (stack_step_stats(tel),)
+    if attn_maps:
+        out += (stack_step_stats(attn),)
+    return out if len(out) > 1 else latents
 
 
 def make_unet_fn(model) -> UNetFn:
@@ -98,7 +144,8 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
                 cached_source: Optional[CachedSource] = None,
                 dependent_sampler: Optional[DependentNoiseSampler] = None,
                 step_positions=None, reuse_schedule: Optional[str] = None,
-                student_head: Optional[dict] = None) -> torch.Tensor:
+                student_head: Optional[dict] = None, telemetry: bool = False,
+                attn_maps: bool = False):
     """Run the controlled denoise; returns final latents (P, F, h, w, C).
 
     ``latents``: x_T, (1, F, h, w, C) (shared by all streams) or (P, …);
@@ -141,7 +188,20 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
       * ``student_head`` (cached mode only): the consistency-distilled
         student's time head (``train/distill.py``), which modulates the edit
         streams' ε before CFG; pass the student's parameters in the UNet.
-        None is the teacher's loop."""
+        None is the teacher's loop.
+      * ``telemetry``: also return the stacked per-step statistics of the
+        latents after each step (the edit streams only in cached mode) with
+        the controller's gates (``cross_gate_mean``, ``self_edit_active``).
+      * ``attn_maps``: also return the stacked per-step attention record
+        (``obs/attention.py:attn_step_record`` over the conditional
+        streams: all P live, the E edit streams cached) and, with
+        LocalBlend, the mask series (``mask_cov``, ``mask_heat``,
+        ``blend_active``; all streams, source first). The UNet is then asked
+        for its store at every step; storing reads the probabilities and
+        changes no output. It refuses a ``reuse_schedule`` (a shallow step
+        stores nothing).
+
+    With either, the return is ``(latents[, tel][, attn])``."""
     if cond_embeddings.dim() not in (3, 4):
         raise ValueError(f"cond_embeddings must be (P, L, D) or (P, F, L, D), got "
                          f"{tuple(cond_embeddings.shape)}")
@@ -174,10 +234,16 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
         raise ValueError(
             "step_positions is the cached fast path's step-reduction seam: "
             "it requires cached_source")
-    if reuse_schedule not in (None, "off") and cached_source is None:
-        raise ValueError(
-            "reuse_schedule is the cached fast path's deep-feature reuse seam: "
-            "it requires cached_source")
+    if reuse_schedule not in (None, "off"):
+        if cached_source is None:
+            raise ValueError(
+                "reuse_schedule is the cached fast path's deep-feature reuse seam: "
+                "it requires cached_source")
+        if attn_maps:
+            raise ValueError(
+                "attn_maps capture reads every step's attention store and "
+                "shallow reuse steps do not produce one — run attention "
+                "capture with reuse_schedule='off'")
     if student_head is not None and cached_source is None:
         raise ValueError(
             "student_head is the cached fast path's few-step student seam — "
@@ -210,7 +276,8 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
             unet_fn, scheduler, latents, cond_embeddings, uncond_embeddings,
             cached_source, num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, ctx=ctx, step_positions=step_positions,
-            reuse_schedule=reuse_schedule, student_head=student_head)
+            reuse_schedule=reuse_schedule, student_head=student_head,
+            telemetry=telemetry, attn_maps=attn_maps)
 
     # the source stream's uncond at each step: the null-text sequence when
     # given, else the raw uncond
@@ -243,6 +310,7 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
     raw = uncond_embeddings.expand(U, *uncond_embeddings.shape)
     use_blend = ctx is not None and ctx.blend is not None
     maps_sum = None
+    tel, attn = [], []
     for i, t in enumerate(scheduler.timesteps(num_inference_steps)):
         t = int(t)
         uncond = raw
@@ -251,7 +319,7 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
         text = torch.cat([uncond, cond_embeddings], dim=0)
         latent_in = torch.cat([latents[P - U:], latents], dim=0)
         control = AttnControl(ctx, i, U) if ctx is not None else None
-        eps_all, store = unet_fn(latent_in, t, text, control, store=use_blend)
+        eps_all, store = unet_fn(latent_in, t, text, control, store=use_blend or attn_maps)
         eps_all = eps_all.float()
         eps_uncond, eps_text = eps_all[:U], eps_all[U:]
         if source_uses_cfg:
@@ -278,7 +346,16 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
         if ctx is not None and i < ctx.spatial_replace_until:
             # SpatialReplace: every edit stream takes the source's latent
             latents = latents[:1].expand_as(latents).contiguous()
-    return latents
+        if telemetry:
+            tel.append(dict(latent_stats(latents), **_controller_gates(ctx, i, latents.device)))
+        if attn_maps:
+            rec = attn_step_record(store, num_uncond=U, num_cond=P,
+                                   video_length=video_length, text_len=text_len,
+                                   latent_hw=latent_hw)
+            if use_blend:
+                rec.update(_mask_series_entry(maps_sum, ctx.blend, i, latent_hw))
+            attn.append(rec)
+    return _pack_step_outputs(latents, telemetry, tel, attn_maps, attn)
 
 
 def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
@@ -287,7 +364,8 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
                         num_inference_steps: int, guidance_scale: float,
                         ctx: Optional[ControlContext], step_positions=None,
                         reuse_schedule: Optional[str] = None,
-                        student_head: Optional[dict] = None) -> torch.Tensor:
+                        student_head: Optional[dict] = None, telemetry: bool = False,
+                        attn_maps: bool = False):
     """The cached-source loop: the batch is E uncond + E edit streams, the
     controllers read the captured base maps of each step, and LocalBlend
     sums the source's captured blend maps with the edit streams' live ones,
@@ -298,7 +376,10 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
     space. ``reuse_schedule``: a full step captures the deep feature and,
     with LocalBlend, its edit-stream maps; a shallow step reuses both.
     ``student_head``: the few-step student's time head
-    (``train/distill.py``) modulates the edit streams' ε before CFG."""
+    (``train/distill.py``) modulates the edit streams' ε before CFG.
+    ``telemetry`` / ``attn_maps``: :func:`edit_sample`'s records, over the
+    edit streams (the source stream is the capture's replay; its maps show
+    in the capture's own record); the mask series keeps all streams."""
     P = cond_embeddings.shape[0]
     E = U = P - 1
     if E < 1:
@@ -350,13 +431,14 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
             num_prompts=E, text_len=text_len, num_uncond=U).float()
 
     maps_sum = None
+    tel, attn = [], []
     for i, t in enumerate(timesteps):
         t, base_i = int(t), int(positions[i])
         latent_in = torch.cat([edit_latents, edit_latents], dim=0)
         control = (AttnControl(ctx, i, U, cached_base=cached.base_tree_at(base_i),
                                cached_source=True) if ctx is not None else None)
         if full_steps is None:
-            eps_all, store = unet_fn(latent_in, t, text, control, store=use_blend)
+            eps_all, store = unet_fn(latent_in, t, text, control, store=use_blend or attn_maps)
             edit_maps = edit_maps_of(store) if use_blend else None
         elif full_steps[i]:
             (eps_all, deep_feature), store = unet_fn(latent_in, t, text, control,
@@ -386,8 +468,19 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
             edit_latents = local_blend(full, maps_sum, ctx.blend, i)[1:]
         if ctx is not None and i < ctx.spatial_replace_until:
             edit_latents = source_after.expand_as(edit_latents).contiguous()
+        if telemetry:
+            tel.append(dict(latent_stats(edit_latents),
+                            **_controller_gates(ctx, i, edit_latents.device)))
+        if attn_maps:
+            rec = attn_step_record(store, num_uncond=U, num_cond=E,
+                                   video_length=video_length, text_len=text_len,
+                                   latent_hw=latent_hw)
+            if use_blend:
+                rec.update(_mask_series_entry(maps_sum, ctx.blend, i, latent_hw))
+            attn.append(rec)
     # stream 0 is the capture's x_0, copied without arithmetic
-    return torch.cat([cached.src_latents[-1], edit_latents], dim=0)
+    return _pack_step_outputs(torch.cat([cached.src_latents[-1], edit_latents], dim=0),
+                              telemetry, tel, attn_maps, attn)
 
 
 def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.Tensor,
@@ -403,7 +496,8 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
                   null_text_generator: Optional[torch.Generator] = None,
                   source_embedding: Optional[torch.Tensor] = None,
                   phase: Optional[Callable[[str], ContextManager]] = None,
-                  null_embeddings: Optional[torch.Tensor] = None):
+                  null_embeddings: Optional[torch.Tensor] = None,
+                  telemetry: bool = False, attn_maps: bool = False):
     """The official mode: null-text optimization of the source stream's
     uncond embedding against ``trajectory`` (N + 1, 1, F, h, w, C), then the
     controlled full-CFG edit from its x_T with those embeddings injected
@@ -425,9 +519,14 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
     CLI's timer). ``null_embeddings`` (N, 1, L, D), e.g. persisted by an
     earlier run, skip the null-text phase.
 
+    ``telemetry`` / ``attn_maps`` go to the edit (:func:`edit_sample`),
+    and ``telemetry`` to the null-text phase too (its record gains
+    ``latent_stats``).
+
     Returns ``(latents (P, F, h, w, C), {"final_loss", "inner_steps"})``,
     the null-text record of each outer step (None when ``null_embeddings``
-    were given)."""
+    were given); with ``telemetry`` or ``attn_maps`` the first element is
+    :func:`edit_sample`'s ``(latents[, tel][, attn])``."""
     if phase is None:
         phase = lambda name: contextlib.nullcontext()  # noqa: E731
     if uncond_embedding.dim() == 3 and uncond_embedding.shape[0] == 1:
@@ -447,25 +546,31 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
             epsilon=epsilon, null_text_precision=null_text_precision,
             null_text_mode=null_text_mode, hybrid_inner_steps=hybrid_inner_steps,
             early_stop=early_stop, dependent_weight=dependent_weight,
-            dependent_sampler=dependent_sampler, generator=null_text_generator)
+            dependent_sampler=dependent_sampler, generator=null_text_generator,
+            telemetry=telemetry)
     with phase("edit_sample"):
         out = edit_sample(unet_fn, scheduler, trajectory[-1], cond_embeddings,
                           uncond_embedding, num_inference_steps=num_inference_steps,
                           guidance_scale=guidance_scale, ctx=ctx, source_uses_cfg=True,
                           eta=eta, generator=generator, null_uncond_embeddings=null_seq,
-                          dependent_sampler=dependent_sampler if eta > 0 else None)
+                          dependent_sampler=dependent_sampler if eta > 0 else None,
+                          telemetry=telemetry, attn_maps=attn_maps)
     return out, stats
 
 
 def official_null_text(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.Tensor,
                      cond: torch.Tensor, uncond_embedding: torch.Tensor, phase, *,
-                     null_text_precision: str, **kw):
+                     null_text_precision: str, telemetry: bool = False, **kw):
     """The official mode's null-text phase, inside ``phase(
     "null_text_optimization")``: ``null_text_optimization`` of
     ``uncond_embedding`` (L, D) under the source embedding ``cond``, on a
     bf16 clone of the UNet under "mixed" precision when the UNet is not
-    bf16. Returns the embeddings (N, 1, L, D) and the record
-    ``{"final_loss", "inner_steps"}``."""
+    bf16, called as the instrumented program "null_text_fused" (the JAX
+    package's label of its one-program null-text run). Returns the
+    embeddings (N, 1, L, D) and the record ``{"final_loss",
+    "inner_steps"}``, with ``telemetry`` also ``"latent_stats"``: each
+    outer step's latent statistics, on the device."""
+    from videop2p_tpu_torch.obs.ledger import instrumented_program
     from videop2p_tpu_torch.pipelines.inversion import null_text_optimization
 
     with phase("null_text_optimization"):
@@ -474,9 +579,15 @@ def official_null_text(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: to
         if (null_text_precision == "mixed"
                 and next(module.parameters()).dtype != torch.bfloat16):
             null_fn = make_unet_fn(copy.deepcopy(module).to(torch.bfloat16))
-        null_seq, losses, inner = null_text_optimization(
+        sync = ((lambda: torch.cuda.synchronize(trajectory.device))
+                if trajectory.device.type == "cuda" else None)
+        out = instrumented_program(null_text_optimization, program="null_text_fused",
+                                   sync=sync)(
             null_fn, scheduler, trajectory, cond, uncond_embedding[None],
             null_text_precision=null_text_precision, return_losses=True,
-            return_inner_steps=True, **kw)
+            return_inner_steps=True, telemetry=telemetry, **kw)
         del null_fn
-    return null_seq, {"final_loss": losses, "inner_steps": inner}
+    stats = {"final_loss": out[1], "inner_steps": out[2]}
+    if telemetry:
+        stats["latent_stats"] = out[3]
+    return out[0], stats

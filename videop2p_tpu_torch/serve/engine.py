@@ -275,7 +275,7 @@ class EditEngine:
         device = programs.device if programs is not None else torch.device(device)
         self.ledger = make_run_ledger(
             ledger_path or os.path.join(out_dir, "serve_ledger.jsonl"),
-            device=device,
+            enable=True, latency=True, set_latency_env=False, device=device,
             meta={"cli": "serve", "spec": dict(spec.resolved().__dict__),
                   "scheduler": self.scheduler.name,
                   "faults": getattr(self.faults, "spec", None), "tracing": bool(tracing)})

@@ -237,13 +237,21 @@ def train_step(unet_fn, tx: ClippedAdamW, state: TrainState, scheduler: DDPMSche
 
 def train_steps(unet_fn, tx: ClippedAdamW, state: TrainState, scheduler: DDPMScheduler,
                 latents: torch.Tensor, text_embeddings: torch.Tensor, seed: int, *,
-                num_steps: int, dependent_sampler: Optional[DependentNoiseSampler] = None):
+                num_steps: int, dependent_sampler: Optional[DependentNoiseSampler] = None,
+                telemetry: bool = False):
     """``num_steps`` tuning steps, step ``s`` drawing from
     ``step_generator(seed, s)``. Returns ``(state, losses (num_steps,))``,
-    the losses still on the device."""
-    losses = []
+    the losses still on the device; with ``telemetry`` ``(state, losses,
+    grad_norms)``, each step's global gradient norm before clipping (the
+    quantity ``max_grad_norm`` gates), also on the device."""
+    losses, norms = [], []
     for _ in range(num_steps):
-        losses.append(train_step(unet_fn, tx, state, scheduler, latents, text_embeddings,
-                                 step_generator(seed, state.step, latents.device),
-                                 dependent_sampler=dependent_sampler)[1])
+        out = train_step(unet_fn, tx, state, scheduler, latents, text_embeddings,
+                         step_generator(seed, state.step, latents.device),
+                         dependent_sampler=dependent_sampler, return_grad_norm=telemetry)
+        losses.append(out[1])
+        if telemetry:
+            norms.append(out[2])
+    if telemetry:
+        return state, torch.stack(losses), torch.stack(norms)
     return state, torch.stack(losses)

@@ -1,18 +1,18 @@
-"""Per-phase wall-clock timing (port of ``phase_timer``, ``phase_records``
-and ``reset`` of ``videop2p_tpu/utils/profiling.py``): each phase also goes
-to the active run ledger (``obs/ledger.py``) as a ``phase`` event, where
-there is one. ``time.perf_counter`` is monotonic. On the
-card a phase's time includes only the work the host waited for: a caller
-that wants device work inside it synchronises before it closes."""
+"""Per-phase wall-clock timing (port of ``phase_timer``, ``phase_records``,
+``last_phase_seconds`` and ``reset`` of ``videop2p_tpu/utils/profiling.py``):
+each phase also goes to the active run ledger (``obs/ledger.py``) as a
+``phase`` event, where there is one. ``time.perf_counter`` is monotonic. On
+the card a phase's time includes only the work the host waited for: a
+caller that wants device work inside it synchronises before it closes."""
 
 from __future__ import annotations
 
 import contextlib
 import threading
 import time
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
-__all__ = ["phase_timer", "phase_records", "reset"]
+__all__ = ["phase_timer", "phase_records", "last_phase_seconds", "reset"]
 
 _RECORDS: List[Tuple[str, float]] = []
 _RECORDS_LOCK = threading.Lock()
@@ -28,6 +28,16 @@ def phase_records() -> Dict[str, float]:
     return out
 
 
+def last_phase_seconds(name: str) -> Optional[float]:
+    """The most recent duration of phase ``name`` (None if it never ran)."""
+    with _RECORDS_LOCK:
+        records = list(_RECORDS)
+    for rec_name, dt in reversed(records):
+        if rec_name == name:
+            return dt
+    return None
+
+
 def reset() -> None:
     """Drop the accumulated records."""
     with _RECORDS_LOCK:
@@ -35,8 +45,11 @@ def reset() -> None:
 
 
 @contextlib.contextmanager
-def phase_timer(name: str) -> Iterator[None]:
-    """Time a region, record it and print it."""
+def phase_timer(name: str, *, verbose: bool = True, count: Optional[int] = None,
+                unit: str = "it") -> Iterator[None]:
+    """Time a region, record it, write it to the active ledger and print
+    it; ``count`` adds the ms per ``unit`` to the printed line and the
+    ``phase`` event (an upper bound when the region stops early)."""
     t0 = time.perf_counter()
     try:
         yield
@@ -44,9 +57,11 @@ def phase_timer(name: str) -> Iterator[None]:
         dt = time.perf_counter() - t0
         with _RECORDS_LOCK:
             _RECORDS.append((name, dt))
-        print(f"[phase] {name}: {dt:.2f}s")
         from videop2p_tpu_torch.obs.ledger import current_ledger
 
         led = current_ledger()
         if led is not None:
-            led.phase(name, dt)
+            led.phase(name, dt, **({"count": count, "unit": unit} if count else {}))
+        if verbose:
+            per = f" ({dt / count * 1e3:.1f} ms/{unit})" if count else ""
+            print(f"[phase] {name}: {dt:.2f}s{per}")
