@@ -329,6 +329,35 @@ runs:
    launches; printed: each run's wall with the flags on against off, the
    bytes of the ledger, the sidecar and the report.
 
+analysis:
+24. program analysis, device traces and the demo layer at SD-1.5 width,
+   512², 8 frames, ``--steps``: (a) ``run_videop2p.main`` ``--fast`` with
+   ``--ledger --trace_analysis`` twice, then with ``--no_program_analysis``:
+   videos, latents and launches the same bits in all three; the
+   ``program_analysis`` of ``cached_invert_edit`` the same in runs 1 and 2
+   (less ``analysis_s``; on the card ``temp_bytes`` and ``peak_hbm_bytes``
+   are reported, not gated), its ``flops`` and ``transcendentals`` equal
+   to a ``frame_attention="dense"`` run's; run 3 a ``disabled`` skip; each
+   ``trace_analysis`` of ``cached_invert_edit`` holds as many frame-attention
+   (less the fp32 prep kernels) and GroupNorm kernels as the wrappers'
+   counters counted over the window, and those are the run's; a skip or a
+   trace with no kernel fails; the kernels' own reports held exactly at
+   the path's shapes (the fused forward, flash_rect forward + backward,
+   GroupNorm + SiLU); (b) official mode under flash_rect with the analysis
+   on: ``ddim_inversion``, ``null_text_fused`` and ``edit_sample``
+   analysed, the flash kernels in their histograms as many times as
+   launched (the backward's in ``null_text_fused`` alone); (c)
+   ``run_tuning.main`` at 3 steps of one step a chunk with
+   ``--trace_analysis``: one ``trace_analysis`` (``train_steps_chunk``, the
+   second chunk) whose GroupNorm kernels equal the counter, one
+   ``program_analysis`` of ``train_steps``; (d) the UI: ``InferencePipeline``
+   (bf16) on a written SD-1.5 checkpoint, ``run`` at 2 steps writes a GIF,
+   a second ``run`` reuses the warm program (one ``sample_decode`` compile),
+   ``ProgramSet.sample`` = ``edit_sample`` + ``decode`` bit for bit;
+   printed: the top families, idle / span, each program's FLOPs and the
+   analysis' seconds. (Phases 20-23 run with the analysis' kill switch,
+   ``VIDEOP2P_OBS_NO_ANALYSIS=1``; phase 19's engines analyse.)
+
 Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
 the card line, then, last, ``{"ok": true, "device": {...}}``.
 
@@ -344,7 +373,7 @@ Run:  python3 chip_smoke.py [--steps 2] [--inner_steps 2]
                             [--paths [fast] [official] [official_flash]
                                      [dependent] [checkpoint] [tune] [surface]
                                      [distill] [sdxl] [serve] [fleet] [stream]
-                                     [observe] [runs]]
+                                     [observe] [runs] [analysis]]
                             [--profile [--frame_attention auto flash_rect flash]]
                             [--gn_only [--gn_kernel_names NAME ...]]
                             [--out PATH.json]
@@ -461,7 +490,8 @@ FLASH_INNER_STEPS = 2
 # router (20), streaming long-video editing (21), the fleet's telemetry,
 # correctness and incident planes (22) and the run CLIs' observability (23)
 PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint", "tune",
-         "surface", "distill", "sdxl", "serve", "fleet", "stream", "observe", "runs")
+         "surface", "distill", "sdxl", "serve", "fleet", "stream", "observe", "runs",
+         "analysis")
 # phase 4b's final losses in "hybrid" null-text mode are compared relative
 # to max(|loss|, this): its last outer step lands on x_0, where both losses
 # sit at float32 rounding noise (~1e-15) and have no relative meaning
@@ -4577,6 +4607,369 @@ def runs_path(args, frames) -> tuple:
     return {"runs": slim(fast["on"][0])}, {"runs": record}
 
 
+# program analysis, device traces and the demo layer (path "analysis",
+# phase 24): the tuning run's cut (3 steps, one a chunk, validation at the
+# end at 2 × 2 steps) and the UI's sampling steps
+ANALYSIS_TUNE = dict(max_train_steps=3, steps_per_call=1, checkpointing_steps=0,
+                     validation_steps=0, log_every=1,
+                     validation_data=dict(TUNE["validation_data"], num_inv_steps=2,
+                                          num_inference_steps=2))
+UI_STEPS = 2
+
+
+@contextlib.contextmanager
+def _analysis_off():
+    """The program analysis' kill switch (``VIDEOP2P_OBS_NO_ANALYSIS=1``)
+    for this process and the children it starts inside the block."""
+    prev = os.environ.get("VIDEOP2P_OBS_NO_ANALYSIS")
+    os.environ["VIDEOP2P_OBS_NO_ANALYSIS"] = "1"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("VIDEOP2P_OBS_NO_ANALYSIS", None)
+        else:
+            os.environ["VIDEOP2P_OBS_NO_ANALYSIS"] = prev
+
+
+def _ledger_events(path: str, kind: str) -> list:
+    from videop2p_tpu_torch.obs.ledger import read_ledger
+
+    return [e for e in read_ledger(path) if e["event"] == kind]
+
+
+def _trace_kernel_counts(trace_dir: str) -> dict:
+    """The hand kernels' device events in a window's chrome trace: frame
+    attention (its fp32 prep kernels left out: the wrapper counts a call),
+    GroupNorm, and every kernel."""
+    from videop2p_tpu_torch.obs.trace import OP_CATEGORIES, load_chrome_traces, trace_events
+
+    names = [n for n, _, _ in trace_events(load_chrome_traces(trace_dir), OP_CATEGORIES)]
+    return {"frame_attention": sum("frame_attention" in n and "prep" not in n for n in names),
+            "group_norm": sum("gn_persistent" in n for n in names), "all": len(names)}
+
+
+def _check_trace(label: str, ev: dict, run_launches: dict, failures: list) -> dict:
+    """A trace_analysis event against the counters: its kernels in the
+    chrome trace equal the launches the wrappers counted over the window."""
+    found = _trace_kernel_counts(ev["trace_dir"])
+    for kernel in ("frame_attention", "group_norm"):
+        if found[kernel] != ev["launches"][kernel]:
+            failures.append(f"{label}: {found[kernel]} {kernel} kernels in the trace, "
+                            f"{ev['launches'][kernel]} counted over the window")
+        if run_launches is not None and ev["launches"][kernel] != run_launches[kernel]:
+            failures.append(f"{label}: {ev['launches'][kernel]} {kernel} launches in the "
+                            f"window, {run_launches[kernel]} in the run")
+    if not ev["num_events"] or not found["group_norm"]:
+        failures.append(f"{label}: the trace holds no kernel ({found})")
+    fams = list(ev["families"].items())[:6]
+    print(f"  {label} trace: {ev['num_events']} device events, {found}; device "
+          f"{ev['device_total_s']:.4f} s, idle {ev['idle_s']:.4f} of span {ev['span_s']:.4f} s "
+          f"({ev['idle_s'] / max(ev['span_s'], 1e-12):.1%}), module span "
+          f"{ev['module_span_s']:.4f} s; "
+          "families " + ", ".join(f"{k} {v:.4f}" for k, v in fams), flush=True)
+    return {"kernels": found, "families": ev["families"], "idle_s": ev["idle_s"],
+            "span_s": ev["span_s"], "device_total_s": ev["device_total_s"],
+            "module_total_s": ev["module_total_s"], "module_span_s": ev["module_span_s"],
+            "num_events": ev["num_events"]}
+
+
+def _analysis_line(rec: dict) -> str:
+    return (f"flops {rec['flops']:.6e}, transcendentals {rec['transcendentals']:.6e}, bytes "
+            f"{rec['bytes_accessed']:.6e}, temp {rec['temp_bytes'] / 2 ** 30:.3f} GiB, "
+            f"{rec['hlo_instructions']} ops, code {rec['generated_code_bytes']} B, "
+            f"analysis {rec['analysis_s']:.3f} s")
+
+
+def kernel_report_checks(dtype) -> dict:
+    """The wrappers' reports into an analysis on the card, exactly: the
+    fused forward at the cached edit's largest site, flash_rect forward +
+    backward at null-text's, GroupNorm + SiLU at the 64² resnet slab."""
+    from videop2p_tpu_torch.obs.introspect import analyze_call
+    from videop2p_tpu_torch.ops import attention as fa
+    from videop2p_tpu_torch.ops import groupnorm as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    out = {}
+
+    def rand(*shape, grad=False):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype).requires_grad_(grad)
+
+    b, f, h, n, d = 2, 8, 8, 4096, 40
+    q, k, v = rand(b, f, h, n, d), rand(b, h, n, d), rand(b, h, n, d)
+    with torch.no_grad():
+        rec = analyze_call(fa.fused_frame_attention, q, k, v)[1]
+    scores = b * f * h * n * n
+    out["fused"] = (rec["flops"], rec["transcendentals"], 4 * scores * d, scores)
+    b = 1
+    q, k, v = rand(b, f, h, n, d, grad=True), rand(b, h, n, d, grad=True), rand(b, h, n, d,
+                                                                                grad=True)
+
+    def fwd_bwd(q, k, v):
+        fa.flash_rect_frame_attention(q, k, v).float().sum().backward()
+        return q.grad
+
+    rec = analyze_call(fwd_bwd, q, k, v)[1]
+    scores = b * f * h * n * n
+    out["flash_rect_fwd_bwd"] = (rec["flops"], rec["transcendentals"], 18 * scores * d,
+                                 3 * scores)
+    x = rand(2, 8 * 4096, 320)
+    scale, bias = rand(320), rand(320)
+    with torch.no_grad():
+        rec = analyze_call(lambda x: gn.fused_group_norm(x, scale, bias, num_groups=32,
+                                                         act="silu"), x)[1]
+    out["group_norm_silu"] = (rec["flops"], rec["transcendentals"], 0, x.numel())
+    torch.cuda.synchronize()
+    del q, k, v, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def analysis_fast_phase(args, frames, tmp: str, failures: list) -> dict:
+    """Phase 24a: the analysed and traced fast edit."""
+    from videop2p_tpu_torch.cli.common import build_models
+    from videop2p_tpu_torch.obs import history
+    from videop2p_tpu_torch.obs.ledger import read_ledger
+
+    ckpt, led, dense_led = (os.path.join(tmp, n) for n in (
+        "rabbit-jump", "fast_ledger.jsonl", "dense_ledger.jsonl"))
+    kw = dict(pretrained_model_path=ckpt, keep_videos=True, ledger=led)
+    fast = [run_main_path(frames, args.steps, args.mixed_precision, trace_analysis=True, **kw)
+            for _ in range(2)]
+    fast.append(run_main_path(frames, args.steps, args.mixed_precision,
+                              program_analysis=False, **kw))
+    for run in fast:
+        expect_launches(run, args.steps, "auto")
+    for i, run in enumerate(fast[1:], 2):
+        _same_bits(f"24a run {i}", fast[0], run, failures)
+    runs = history.split_runs(read_ledger(led))
+    if len(runs) != 3:
+        failures.append(f"24a: the ledger holds {len(runs)} runs, not 3")
+        return {"runs": fast}
+    pa = [[e for e in r if e["event"] == "program_analysis"
+           and e["program"] == "cached_invert_edit"] for r in runs]
+    skips = [[(e["program"], e["reason"]) for e in r
+              if e["event"] == "program_analysis_skipped"] for r in runs]
+    if [len(p) for p in pa] != [1, 1, 0] or skips != [[], [], [("cached_invert_edit",
+                                                               "disabled")]]:
+        failures.append(f"24a: analyses {[len(p) for p in pa]}, skips {skips}")
+        return {"runs": fast}
+    recs = [pa[0][0], pa[1][0]]
+    allocator = ("temp_bytes", "peak_hbm_bytes")
+    varying = sorted(k for k in recs[0] if k not in ("t", "analysis_s")
+                     and recs[0][k] != recs[1][k])
+    if set(varying) - set(allocator):
+        failures.append(f"24a: the analyses of runs 1 and 2 differ in {varying}")
+    # "dense" frame attention: aten products where "auto" launches the kernel
+    bundle = build_models(dtype={"fp32": torch.float32, "bf16": torch.bfloat16}[
+        args.mixed_precision], device="cuda", seed=0, frame_attention="dense")
+    dense = run_main_path(frames, args.steps, args.mixed_precision, bundle=bundle,
+                          ledger=dense_led)
+    del bundle
+    if dense["launches"]["frame_attention"]:
+        failures.append(f"24a: the dense run launched {dense['launches']}")
+    drec = [e for e in _ledger_events(dense_led, "program_analysis")
+            if e["program"] == "cached_invert_edit"]
+    if not drec:
+        failures.append("24a: no analysis of the dense run")
+    else:
+        for key in ("flops", "transcendentals"):
+            if drec[0][key] != recs[0][key]:
+                failures.append(f"24a: {key} {recs[0][key]} (auto) != {drec[0][key]} (dense)")
+    traces = [[e for e in r if e["event"] == "trace_analysis"] for r in runs]
+    skipped = [e for r in runs for e in r if e["event"] == "trace_analysis_skipped"]
+    if skipped or [len(t) for t in traces] != [1, 1, 0]:
+        failures.append(f"24a: traces {[len(t) for t in traces]}, skipped {skipped}")
+        return {"runs": fast}
+    trace_recs = [_check_trace(f"24a run {i + 1}", traces[i][0], fast[i]["launches"], failures)
+                  for i in range(2)]
+    compiles = [[e["seconds"] for e in r if e["event"] == "compile"
+                 and e.get("program") == "cached_invert_edit"] for r in runs]
+    print(f"  24a cached_invert_edit (auto): {_analysis_line(recs[0])}; run 2 analysis "
+          f"{recs[1]['analysis_s']:.3f} s; varying between runs: {varying or 'nothing'}",
+          flush=True)
+    if drec:
+        print(f"  24a cached_invert_edit (dense): {_analysis_line(drec[0])}", flush=True)
+    print(f"  24a first-call (compile) seconds: {compiles}; cached_invert_edit phase "
+          + ", ".join(f"{r['timings']['cached_invert_edit']:.3f}" for r in fast)
+          + f" s (traced, traced, not analysed); dense "
+          f"{dense['timings']['cached_invert_edit']:.3f} s", flush=True)
+    return {"runs": fast, "analysis": recs, "dense_analysis": drec[0] if drec else None,
+            "varying": varying, "traces": trace_recs, "compile_s": compiles,
+            "dense_timings": dense["timings"]}
+
+
+def analysis_official_phase(args, frames, tmp: str, failures: list) -> dict:
+    """Phase 24b: official mode's programs under flash_rect, analysed."""
+    from videop2p_tpu_torch.cli.common import build_models
+
+    led = os.path.join(tmp, "official_ledger.jsonl")
+    bundle = build_models(dtype={"fp32": torch.float32, "bf16": torch.bfloat16}[
+        args.mixed_precision], device="cuda", seed=0, frame_attention="flash_rect")
+    run = run_main_path(frames, args.steps, args.mixed_precision, fast=False, bundle=bundle,
+                        num_inner_steps=args.inner_steps, ledger=led)
+    del bundle
+    expect_launches(run, args.steps, "flash_rect")
+    pa = {e["program"]: e for e in _ledger_events(led, "program_analysis")}
+    if sorted(pa) != ["ddim_inversion", "edit_sample", "null_text_fused"]:
+        failures.append(f"24b: analysed programs {sorted(pa)}")
+        return {"run": run}
+    hist = {p: pa[p]["hlo_histogram"] for p in pa}
+    fwd = sum(h.get("flash_attention_fwd", 0) for h in hist.values())
+    if fwd != run["launches"]["flash_attention"]:
+        failures.append(f"24b: {fwd} flash forwards analysed, {run['launches']} launched")
+    for key in ("dq", "dkv"):
+        got = hist["null_text_fused"].get(f"flash_attention_bwd_{key}", 0)
+        if got != run["launches"][f"flash_bwd_{key}"] or not got:
+            failures.append(f"24b: null_text_fused holds {got} flash_attention_bwd_{key}, "
+                            f"{run['launches'][f'flash_bwd_{key}']} launched")
+        if any(h.get(f"flash_attention_bwd_{key}") for p, h in hist.items()
+               if p != "null_text_fused"):
+            failures.append(f"24b: a backward kernel outside null_text_fused: {hist}")
+    for p in ("ddim_inversion", "null_text_fused", "edit_sample"):
+        print(f"  24b {p}: {_analysis_line(pa[p])}", flush=True)
+    return {"run": run, "analysis": {p: {k: v for k, v in pa[p].items() if k != "hlo_histogram"}
+                                     for p in pa}}
+
+
+def analysis_tune_phase(tmp: str, failures: list) -> dict:
+    """Phase 24c: Stage 1 with --trace_analysis: one traced chunk."""
+    led = os.path.join(tmp, "tune_ledger.jsonl")
+    run = run_tuning_main(**ANALYSIS_TUNE, pretrained_model_path=os.path.join(tmp, "none"),
+                          output_dir=os.path.join(tmp, "tune", "rabbit-jump"), ledger=led,
+                          trace_analysis=True)
+    expect_tune_launches(run, ANALYSIS_TUNE["max_train_steps"], 1,
+                         ANALYSIS_TUNE["validation_data"])
+    traces = _ledger_events(led, "trace_analysis")
+    skipped = _ledger_events(led, "trace_analysis_skipped")
+    pa = [e for e in _ledger_events(led, "program_analysis") if e["program"] == "train_steps"]
+    rec = None
+    if [e["name"] for e in traces] != ["train_steps_chunk"] or skipped:
+        failures.append(f"24c: traces {[e['name'] for e in traces]}, skipped {skipped}")
+    else:
+        rec = _check_trace("24c", traces[0], None, failures)
+        step_gn = GN_LAUNCHES_PER_CALL * (GN_SITES + GN_REMAT_SITES
+                                          * TUNE["gradient_checkpointing"])
+        if traces[0]["launches"]["group_norm"] != step_gn:
+            failures.append(f"24c: {traces[0]['launches']} in the traced chunk, not one "
+                            f"step's {step_gn} GroupNorm launches")
+    if len(pa) != 1:
+        failures.append(f"24c: {len(pa)} analyses of train_steps")
+    else:
+        print(f"  24c train_steps (1 step): {_analysis_line(pa[0])}", flush=True)
+    return {"run": run, "trace": rec, "analysis": pa[0] if pa else None}
+
+
+def analysis_ui_phase(args, frames, tmp: str, failures: list) -> dict:
+    """Phase 24d: the demo layer's inference on a written checkpoint."""
+    from PIL import Image
+
+    from videop2p_tpu_torch.cli.common import build_models
+    from videop2p_tpu_torch.obs.ledger import RunLedger
+    from videop2p_tpu_torch.pipelines.sampling import edit_sample
+    from videop2p_tpu_torch.ui import InferencePipeline
+
+    ckpt = os.path.join(tmp, "experiment")
+    bundle = build_models(device="cuda", seed=0)
+    nbytes = write_checkpoint(ckpt, bundle)
+    del bundle
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipe = InferencePipeline(ckpt)
+    load_s = time.perf_counter() - t0
+    led = RunLedger(os.path.join(tmp, "ui_ledger.jsonl"), device="cuda").activate()
+    gifs, walls, launches = [], [], []
+    try:
+        for i in range(2):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            gifs.append(pipe.run(RABBIT["prompts"][1], num_steps=UI_STEPS, video_length=8,
+                                 out_path=os.path.join(tmp, f"sample_{i}.gif"), seed=3))
+            walls.append(time.perf_counter() - t0)
+            launches.append(launch_counts())
+        ps = pipe.programs
+        gen = torch.Generator("cuda").manual_seed(4)
+        x_t = torch.randn((1, 8, 64, 64, 4), generator=gen, device="cuda")
+        cond, uncond = ps.encode_prompts([RABBIT["prompt"]]), ps.encode_prompts([""])[0]
+        sampled = ps.sample(x_t, cond, uncond, steps=UI_STEPS)
+        with torch.no_grad():
+            latents = edit_sample(ps.unet_fn, ps.scheduler, x_t, cond, uncond,
+                                  num_inference_steps=UI_STEPS,
+                                  guidance_scale=ps.spec.guidance_scale)
+        decoded = ps.decode(latents)
+        same = torch.equal(sampled, decoded)
+    finally:
+        led.close()
+    if not same:
+        failures.append("24d: sample_decode != edit_sample + decode: max|d| "
+                        f"{(sampled - decoded).abs().max().item()}")
+    frames_n = []
+    for path in gifs:
+        with Image.open(path) as im:
+            frames_n.append((im.n_frames, im.size))
+    if frames_n != [(8, (512, 512))] * 2:
+        failures.append(f"24d: GIFs {frames_n}")
+    if launches[0] != launches[1] or not launches[0]["frame_attention"] or not launches[0][
+            "group_norm"]:
+        failures.append(f"24d: launches {launches}")
+    compiles = [e["program"] for e in _ledger_events(led.path, "compile")]
+    if compiles.count("sample_decode") != 1:
+        failures.append(f"24d: compile events {compiles}")
+    pa = {e["program"]: e for e in _ledger_events(led.path, "program_analysis")}
+    if "sample_decode" not in pa:
+        failures.append(f"24d: analyses {sorted(pa)}")
+    print(f"  24d checkpoint {nbytes / 1e9:.3f} GB, loaded bf16 in {load_s:.2f} s; run "
+          f"{walls[0]:.3f} s (first call), {walls[1]:.3f} s (warm); launches {launches[0]}; "
+          f"GIFs {frames_n[0]}; sample_decode = edit_sample + decode: {same}", flush=True)
+    if "sample_decode" in pa:
+        print(f"  24d sample_decode ({UI_STEPS} steps): {_analysis_line(pa['sample_decode'])}",
+              flush=True)
+    del pipe, ps, sampled, decoded, latents
+    torch.cuda.empty_cache()
+    return {"walls": walls, "launches": launches[0], "load_s": load_s, "bytes": nbytes,
+            "analysis": pa.get("sample_decode")}
+
+
+def analysis_path(args, frames) -> tuple:
+    """Phase 24 (path "analysis"): program analysis, device traces and the
+    demo layer. Returns (runs, records); raises on a failed gate."""
+    print(f"program analysis, device traces and the UI (phase 24; {_allocated_line()}):",
+          flush=True)
+    os.makedirs("outputs", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_analysis_", dir="outputs")
+    failures: list = []
+    t0 = time.perf_counter()
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[args.mixed_precision]
+    try:
+        reports = kernel_report_checks(dtype)
+        for name, (flops, trans, want_flops, want_trans) in reports.items():
+            print(f"  24a {name} reported: flops {flops} (formula {want_flops}), "
+                  f"transcendentals {trans} (formula {want_trans})", flush=True)
+            if (flops, trans) != (want_flops, want_trans):
+                failures.append(f"24a: {name} reported ({flops}, {trans}), formulas "
+                                f"({want_flops}, {want_trans})")
+        fast = analysis_fast_phase(args, frames, tmp, failures)
+        official = analysis_official_phase(args, frames, tmp, failures)
+        tune = analysis_tune_phase(tmp, failures)
+        ui = analysis_ui_phase(args, frames, tmp, failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    print(f"  phase 24: {wall:.1f} s", flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    def slim(run):
+        return {k: v for k, v in run.items() if k not in ("latents", "videos", "x_t")}
+
+    record = {"wall_s": wall, "kernel_reports": reports,
+              "fast": {k: v for k, v in fast.items() if k != "runs"},
+              "official": {"analysis": official["analysis"]},
+              "tune": {k: v for k, v in tune.items() if k != "run"}, "ui": ui}
+    return ({"analysis": slim(fast["runs"][0]),
+             "analysis_flash_rect": slim(official["run"])}, {"analysis": record})
+
+
 def group_norm_only(args, card: str, kind: str) -> int:
     """``--gn_only``: GroupNorm's phase-3 checks and timings, its sums over
     the UNet's 61 sites (:func:`gn_site_sums`, at the edit forward's B 2 and
@@ -4760,22 +5153,32 @@ def main() -> int:
         serve_runs, serve_records = serve_path(args, frames)
         runs.update(serve_runs)
         records.update(serve_records)
-    if "fleet" in args.paths:
-        fleet_runs, fleet_records = fleet_path(args)
-        runs.update(fleet_runs)
-        records.update(fleet_records)
-    if "stream" in args.paths:
-        stream_runs, stream_records = stream_path(args)
-        runs.update(stream_runs)
-        records.update(stream_records)
-    if "observe" in args.paths:
-        observe_runs, observe_records = observe_path(args)
-        runs.update(observe_runs)
-        records.update(observe_records)
-    if "runs" in args.paths:
-        obs_runs, obs_records = runs_path(args, frames)
-        runs.update(obs_runs)
-        records.update(obs_records)
+    # the program analysis runs on every engine's and every child's first
+    # calls where a ledger is open; phase 19 keeps it (an engine's cost
+    # model prices from it) and phase 24 holds it, while phases 20-23 run
+    # with its kill switch: their engines and CLI children would add about
+    # a minute to the default run
+    with _analysis_off():
+        if "fleet" in args.paths:
+            fleet_runs, fleet_records = fleet_path(args)
+            runs.update(fleet_runs)
+            records.update(fleet_records)
+        if "stream" in args.paths:
+            stream_runs, stream_records = stream_path(args)
+            runs.update(stream_runs)
+            records.update(stream_records)
+        if "observe" in args.paths:
+            observe_runs, observe_records = observe_path(args)
+            runs.update(observe_runs)
+            records.update(observe_records)
+        if "runs" in args.paths:
+            obs_runs, obs_records = runs_path(args, frames)
+            runs.update(obs_runs)
+            records.update(obs_records)
+    if "analysis" in args.paths:
+        an_runs, an_records = analysis_path(args, frames)
+        runs.update(an_runs)
+        records.update(an_records)
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
@@ -4833,12 +5236,13 @@ def main() -> int:
     # own, at its shapes (head dim 64) in bf16, the dtype it runs in.
     auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint",
                              "surface_multi", "student_edit", "serve", "fleet", "stream",
-                             "observe", "runs")
+                             "observe", "runs", "analysis")
                  if r in runs), None)
     rect = next((r for r in ("flash_rect", "official_flash_rect",
-                             "surface_hybrid_flash_rect") if r in runs), None)
-    rect_bwd = next((r for r in ("official_flash_rect", "surface_hybrid_flash_rect")
-                     if r in runs), None)
+                             "surface_hybrid_flash_rect", "analysis_flash_rect")
+                 if r in runs), None)
+    rect_bwd = next((r for r in ("official_flash_rect", "surface_hybrid_flash_rect",
+                                 "analysis_flash_rect") if r in runs), None)
     full = ("flash" if "flash" in runs else
             "official_flash" if "official_flash" in runs else None)
     kernels = []

@@ -11,9 +11,9 @@ import tests.test_torch_parity  # noqa: F401  (one intra-op thread a test proces
 from tests.test_torch_cli_obs import port_runs  # noqa: F401
 from tests.test_torch_slice import RABBIT
 
-# the JAX CLI's program-analysis events: XLA's analysis has no torch
-# counterpart yet (ROADMAP Queue 1 item 14, step 3c)
-JAX_ONLY_KINDS = {"program_analysis", "program_analysis_skipped"}
+# event kinds only the JAX CLI writes: none (both runs skip the program
+# analysis, --no_program_analysis, and both write its skip events)
+JAX_ONLY_KINDS: set = set()
 # run_start's JAX-specific metadata (the port writes torch's instead)
 JAX_ONLY_START = {"jax_version", "device_kind", "device_count"}
 

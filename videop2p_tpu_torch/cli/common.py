@@ -71,7 +71,8 @@ def add_dependent_args(parser: argparse.ArgumentParser) -> None:
 
 def add_obs_args(parser: argparse.ArgumentParser) -> None:
     """The run CLIs' observability flags (JAX's ``add_obs_args``, with its
-    defaults), but for the three :func:`add_unported_args` refuses."""
+    defaults), but for ``--device_telemetry``, which
+    :func:`add_unported_args` refuses."""
     parser.add_argument(
         "--telemetry", action="store_true",
         help="collect per-step telemetry in the pipelines' loops (loss curves, "
@@ -82,6 +83,20 @@ def add_obs_args(parser: argparse.ArgumentParser) -> None:
         help="write a JSONL run ledger (phases, kernel builds, program calls, "
              "telemetry summaries, memory snapshots) to this path; default when "
              "any observability flag is set: <output dir>/run_ledger.jsonl")
+    parser.add_argument(
+        "--no_program_analysis", action="store_true",
+        help="skip the automatic program analysis (obs/introspect.py: flops, "
+             "transcendentals, bytes, memory, a fingerprint and an op histogram of "
+             "each instrumented program, counted on its first call under a "
+             "counting dispatch mode, which slows that call); the ledger then "
+             "holds program_analysis_skipped events with reason 'disabled'")
+    parser.add_argument(
+        "--trace_analysis", action="store_true",
+        help="capture a torch.profiler device trace around the main program "
+             "(the fast edit's cached_invert_edit or the edit_sample program; one "
+             "tuning chunk after the first) and mine its chrome trace "
+             "(obs/trace.py): per-family device time, top kernels, idle gaps, as a "
+             "trace_analysis ledger event and an .npz sidecar; implies a run ledger")
     parser.add_argument(
         "--latency", action="store_true",
         help="per-program execute-latency distributions (obs/timing.py): every "
@@ -129,11 +144,8 @@ class _NotPorted(argparse.Action):
 
 
 # the JAX run CLIs' observability flags the port refuses, with the ROADMAP
-# item of each: XLA's program analysis and device traces have no torch
-# counterpart yet, and per-device telemetry needs a mesh
+# item of each: per-device telemetry needs a mesh
 UNPORTED_OBS_FLAGS = {
-    "--no_program_analysis": "14, step 3c: program analysis on the GPU",
-    "--trace_analysis": "14, step 3c: device traces on the GPU",
     "--device_telemetry": "13: multi-GPU (it needs --mesh)",
 }
 
@@ -280,7 +292,8 @@ def encode_prompts(bundle: ModelBundle, prompts: Sequence[str], device) -> torch
 def make_run_ledger(default_path: str, *, ledger: Optional[str] = None,
                     meta: Optional[Dict[str, Any]] = None, telemetry: bool = False,
                     attn_maps: bool = False, quality: bool = False, report: bool = False,
-                    latency: bool = False, enable: bool = False,
+                    latency: bool = False, trace_analysis: bool = False,
+                    program_analysis: bool = True, enable: bool = False,
                     set_latency_env: bool = True, incidents: Optional[str] = None,
                     device=None):
     """The observability flags → an activated
@@ -293,31 +306,40 @@ def make_run_ledger(default_path: str, *, ledger: Optional[str] = None,
     (``VIDEOP2P_OBS_LATENCY``) until the ledger closes, which restores the
     variable's previous value; a long-lived engine passes
     ``set_latency_env=False`` to keep it scoped to its ledger.
+    ``trace_analysis`` (the caller's device traces) implies a ledger.
+    ``program_analysis=False`` sets the analysis kill switch
+    (``VIDEOP2P_OBS_NO_ANALYSIS=1``) while the ledger is open, restored at
+    its close as the latency variable is (without a ledger nothing is
+    analysed anyway).
     ``incidents`` arms an :class:`~videop2p_tpu_torch.obs.IncidentManager`
     with crash hooks on the ledger (its flight ring tees the events; an
     unhandled crash or SIGUSR1 writes a bundle under that directory) for the
     rest of the process. ``device`` is the device the run computes on."""
     if not (enable or telemetry or ledger or attn_maps or quality or report or latency
-            or incidents):
+            or trace_analysis or incidents):
         return None
-    set_env = latency and set_latency_env
-    if set_env:
-        prev_env = os.environ.get("VIDEOP2P_OBS_LATENCY")
-        os.environ["VIDEOP2P_OBS_LATENCY"] = "1"
+    scoped = {}
+    if latency and set_latency_env:
+        scoped["VIDEOP2P_OBS_LATENCY"] = "1"
+    if not program_analysis:
+        scoped["VIDEOP2P_OBS_NO_ANALYSIS"] = "1"
+    prev_env = {k: os.environ.get(k) for k in scoped}
+    os.environ.update(scoped)
     from videop2p_tpu_torch.obs import RunLedger
 
     base_meta = {"telemetry": bool(telemetry), "attn_maps": bool(attn_maps),
                  "quality": bool(quality), "device_telemetry": False,
-                 "latency": bool(latency), "trace_analysis": False}
+                 "latency": bool(latency), "trace_analysis": bool(trace_analysis)}
     base_meta.update(meta or {})
     led = RunLedger(ledger or default_path, meta=base_meta, latency=latency,
                     device=device).activate()
-    if set_env:
+    if scoped:
         def restore_env():
-            if prev_env is None:
-                os.environ.pop("VIDEOP2P_OBS_LATENCY", None)
-            else:
-                os.environ["VIDEOP2P_OBS_LATENCY"] = prev_env
+            for k, v in prev_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
 
         led.on_close(restore_env)
     if incidents:

@@ -35,18 +35,23 @@ training and the ``artifacts`` event (``preempted`` on a stop);
 ``--telemetry`` adds each step's pre-clip gradient norm to the logged
 metrics; ``--latency`` times the ``train_steps`` program (each chunk of
 steps) into ``execute_timing`` events; ``--incidents DIR`` writes a crash
-bundle under DIR. ``--attn_maps``, ``--quality`` and ``--report`` are the
-edit's flags: parsed and ignored here, as JAX's CLI does.
+bundle under DIR; ``--trace_analysis`` captures one chunk of steps after
+the first with ``torch.profiler`` and mines it into a ``trace_analysis``
+event (``obs/trace.py``). With a ledger the first ``train_steps`` call (and
+``distill_steps``') is analysed into a ``program_analysis`` event
+(``obs/introspect.py``); ``--no_program_analysis`` skips that.
+``--attn_maps``, ``--quality`` and ``--report`` are the edit's flags: parsed
+and ignored here, as JAX's CLI does.
 
 Not ported: ``mesh`` and ``--device_telemetry`` (multi-GPU, ROADMAP Queue 1
-item 13), ``--no_program_analysis`` and ``--trace_analysis`` (item 14,
-step 3c); they raise.
+item 13); they raise.
 
 Run:  python -m videop2p_tpu_torch.cli.run_tuning --config configs/rabbit-jump-tune.yaml
       [--dependent --decay_rate 0.3 --window_size 4 --ar_sample ...] [--device cpu] [--tiny]
       [--distill_steps N [--distill_grid 50] [--distill_lr 1e-4] [--distill_ema 0.95]
                          [--distill_boundary_weight 1.0]]
-      [--ledger L] [--telemetry] [--latency] [--incidents DIR]
+      [--ledger L] [--telemetry] [--latency] [--incidents DIR] [--trace_analysis]
+      [--no_program_analysis]
 
 then Stage 2 on its output:
       python -m videop2p_tpu_torch.cli.run_videop2p --config configs/rabbit-jump-p2p.yaml
@@ -55,6 +60,7 @@ then Stage 2 on its output:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -201,17 +207,13 @@ def main(
 ) -> str:
     """Tune, validate and export; returns the (suffixed) output directory.
     The arguments are the YAML config's keys, the dependent flags and the
-    observability flags of the module docstring (``device_telemetry``,
-    ``trace_analysis`` and ``program_analysis=False`` raise)."""
+    observability flags of the module docstring (``device_telemetry``
+    raises)."""
     del unused
     if mesh or device_telemetry:
         raise NotImplementedError(
             f"mesh {mesh!r} / device_telemetry: multi-GPU tuning is not ported "
             "(ROADMAP Queue 1 item 13)")
-    if trace_analysis or not program_analysis:
-        raise NotImplementedError(
-            "program analysis and device traces on the GPU are not ported "
-            "(ROADMAP Queue 1 item 14, step 3c)")
     if mixed_precision not in _DTYPES:
         raise ValueError(f"mixed_precision must be one of {sorted(_DTYPES)}")
     device = torch.device(device)
@@ -237,7 +239,8 @@ def main(
     run_ledger = make_run_ledger(
         os.path.join(output_dir, "run_ledger.jsonl"), ledger=ledger,
         meta={"cli": "run_tuning", "max_train_steps": max_train_steps},
-        telemetry=telemetry, latency=latency, incidents=incidents, device=device)
+        telemetry=telemetry, latency=latency, trace_analysis=trace_analysis,
+        program_analysis=program_analysis, incidents=incidents, device=device)
 
     sampler = None
     if dependent:
@@ -323,15 +326,29 @@ def main(
     t0 = time.perf_counter()
     i = first_step
     preempted = False
+    traced_chunk = False
     restore_signals = _install_preempt_handlers()
     try:
         with deterministic_convolutions():
             while i < max_train_steps:
                 nxt = min([max_train_steps, i + steps_per_call]
                           + [(i // p + 1) * p for p in cadences])
-                out = steps_fn(unet_fn, tx, state, noise_sched, latents, text_emb,
-                               run_seed, num_steps=nxt - i, dependent_sampler=sampler,
-                               telemetry=telemetry)
+                # --trace_analysis: ONE chunk after the first (which holds
+                # the first call's kernel builds and analysis), as JAX's CLI
+                do_trace = trace_analysis and not traced_chunk and i > first_step
+                chunk_ctx = contextlib.nullcontext()
+                if do_trace:
+                    from videop2p_tpu_torch.obs.trace import trace_window
+
+                    chunk_ctx = trace_window("train_steps_chunk", device=device)
+                with chunk_ctx:
+                    out = steps_fn(unet_fn, tx, state, noise_sched, latents, text_emb,
+                                   run_seed, num_steps=nxt - i, dependent_sampler=sampler,
+                                   telemetry=telemetry)
+                    if do_trace:
+                        if device.type == "cuda":
+                            torch.cuda.synchronize(device)  # the capture holds the work
+                        traced_chunk = True
                 losses.append(out[1])
                 if telemetry:
                     grad_norms.append(out[2])
@@ -547,7 +564,9 @@ if __name__ == "__main__":
                    decay_rate=args.decay_rate, window_size=args.window_size,
                    ar_sample=args.ar_sample, ar_coeff=args.ar_coeff, eta=args.eta,
                    dependent_weights=args.dependent_weights, telemetry=args.telemetry,
-                   ledger=args.ledger, latency=args.latency, incidents=args.incidents)
+                   ledger=args.ledger, latency=args.latency, incidents=args.incidents,
+                   trace_analysis=args.trace_analysis,
+                   program_analysis=not args.no_program_analysis)
     if args.distill_steps > 0:
         run_distillation(out_dir, cfg["train_data"], distill_steps=args.distill_steps,
                          distill_grid=args.distill_grid, distill_lr=args.distill_lr,

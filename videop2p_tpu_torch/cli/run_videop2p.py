@@ -35,9 +35,8 @@ default (``--no_reuse_inversion``, ``--inv_store``): a repeat run of the
 same clip skips the inversion and, in official mode, null-text
 optimization; ``--quant_mode w8|w8a8`` (int8 UNet weights, ``--fast``
 only); ``--reuse_schedule uniform:K|custom:<p0,...>`` (deep-feature reuse
-in the cached fast edit). ``--mesh`` (item 13), ``--device_telemetry``
-(item 13), ``--no_program_analysis`` and ``--trace_analysis`` (item 14,
-step 3c) raise, naming their ROADMAP item.
+in the cached fast edit). ``--mesh`` and ``--device_telemetry`` (item
+13) raise, naming their ROADMAP item.
 
 Observability (JAX's flags): ``--ledger PATH`` writes the run ledger
 (``obs/ledger.py``; default ``<results>/run_ledger.jsonl`` when any of these
@@ -48,7 +47,12 @@ timing (``cached_invert_edit``, ``ddim_inversion``, ``null_text_fused``,
 ``edit_sample``); ``--attn_maps`` the attention records (``attn_maps``
 events, arrays in ``obs_sidecar_<name>.npz``); ``--quality`` the
 edit-quality record; ``--report`` the HTML report; ``--incidents DIR`` a
-crash bundle under DIR. A repeat run on one ledger gets
+crash bundle under DIR; ``--trace_analysis`` a ``torch.profiler`` capture of
+the main program (``cached_invert_edit`` in the cached fast edit, else
+``edit_sample``) mined into a ``trace_analysis`` event
+(``obs/trace.py``). With a ledger, each program's first call is analysed
+into a ``program_analysis`` event (``obs/introspect.py``);
+``--no_program_analysis`` skips that. A repeat run on one ledger gets
 ``regression_verdicts`` against the previous run (``obs/history.py``).
 None of them changes an output bit.
 
@@ -66,7 +70,7 @@ Run:  python -m videop2p_tpu_torch.cli.run_videop2p \\
           [--null_text_mode hybrid] [--multi] [--no_reuse_inversion] \\
           [--inv_store DIR] [--quant_mode w8] [--reuse_schedule uniform:2] \\
           [--ledger L] [--telemetry] [--attn_maps] [--quality] [--report] \\
-          [--latency] [--incidents DIR]
+          [--latency] [--incidents DIR] [--trace_analysis] [--no_program_analysis]
 
 The run is on CUDA unless ``--device cpu`` is given.
 """
@@ -399,10 +403,10 @@ def main(
     ``mesh`` (multi-GPU) raises: ROADMAP Queue 1 item 13.
 
     Observability (the module docstring's flags): ``ledger``, ``telemetry``,
-    ``attn_maps``, ``quality``, ``report``, ``latency``, ``incidents``; any
-    of them opens the run ledger. ``device_telemetry`` (item 13),
-    ``trace_analysis`` and ``program_analysis=False`` (item 14, step 3c)
-    raise.
+    ``attn_maps``, ``quality``, ``report``, ``latency``, ``incidents``,
+    ``trace_analysis``; any of them opens the run ledger.
+    ``program_analysis=False`` skips the analysis of the programs' first
+    calls. ``device_telemetry`` (item 13) raises.
 
     The dependent noise, as the JAX CLI: a sampler over the clip's
     ``video_len`` frames in windows of ``min(window_size, video_len)``
@@ -434,10 +438,6 @@ def main(
         raise NotImplementedError(
             "device_telemetry probes the replicas of a mesh: multi-GPU is not "
             "ported (ROADMAP Queue 1 item 13)")
-    if trace_analysis or not program_analysis:
-        raise NotImplementedError(
-            "program analysis and device traces on the GPU are not ported "
-            "(ROADMAP Queue 1 item 14, step 3c)")
     if mixed_precision not in _DTYPES:
         raise ValueError(f"mixed_precision must be one of {sorted(_DTYPES)}")
     if not fast:
@@ -479,8 +479,24 @@ def main(
               "prompt": prompt, "prompts": list(prompts),
               "null_text_precision": null_text_precision, "null_text_mode": null_text_mode},
         telemetry=telemetry, attn_maps=attn_maps, quality=quality, report=report,
-        latency=latency, incidents=incidents, device=device)
+        latency=latency, trace_analysis=trace_analysis, program_analysis=program_analysis,
+        incidents=incidents, device=device)
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
+
+    @contextlib.contextmanager
+    def maybe_trace(window: str):
+        """--trace_analysis: a mined torch.profiler capture of the region
+        (obs/trace.py), the card synchronized inside it; nothing otherwise."""
+        if not trace_analysis:
+            yield
+            return
+        from videop2p_tpu_torch.obs.trace import trace_window
+
+        with trace_window(window, device=device):
+            yield
+            if sync is not None:
+                sync()
+
     # {"inversion": record, "edit": record} of what --attn_maps captured
     attn_records: Dict[str, Any] = {}
     sampler = None
@@ -591,7 +607,8 @@ def main(
                   if reuse_inversion and mode != "cached" else None)
         null_embeddings = None
         if mode == "cached":
-            with _phase("cached_invert_edit", timings, device, peaks):
+            with _phase("cached_invert_edit", timings, device, peaks), \
+                    maybe_trace("cached_invert_edit"):
                 res = instrumented_program(cached_fast_edit, program="cached_invert_edit",
                                            sync=sync)(
                     unet_fn, sched, latents, cond_src, cond_all, uncond, ctx,
@@ -674,7 +691,7 @@ def main(
             # phase above is its own program): the full CFG layout with the
             # null-text embeddings in official mode, the fast layout otherwise
             official = mode == "official"
-            with _phase("edit_sample", timings, device, peaks):
+            with _phase("edit_sample", timings, device, peaks), maybe_trace("edit_sample"):
                 edited = instrumented_program(edit_sample, program="edit_sample",
                                               sync=sync)(
                     unet_fn, sched, trajectory[-1], cond_all, uncond,
@@ -842,4 +859,5 @@ if __name__ == "__main__":
          reuse_inversion=not args.no_reuse_inversion, inv_store=args.inv_store,
          telemetry=args.telemetry, ledger=args.ledger, attn_maps=args.attn_maps,
          quality=args.quality, report=args.report, latency=args.latency,
-         incidents=args.incidents)
+         incidents=args.incidents, trace_analysis=args.trace_analysis,
+         program_analysis=not args.no_program_analysis)

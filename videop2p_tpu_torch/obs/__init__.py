@@ -1,6 +1,7 @@
-"""Observability of the port (``videop2p_tpu/obs/`` but for XLA's program
-analysis, device traces and multi-device accounting): the run ledger and
-its flight-recorder tee, execute-latency reservoirs, the pipelines'
+"""Observability of the port (``videop2p_tpu/obs/`` but for multi-device
+accounting): the run ledger and its flight-recorder tee, the analysis of
+each program's first call (``introspect.py``) and the mined device traces
+(``trace.py``), execute-latency reservoirs, the pipelines'
 per-step telemetry and attention records, the edit-quality metrics, run
 history and its rule packs, the HTML edit report, request spans, the cost
 and capacity model, Prometheus rendering, and the fleet's three planes —
@@ -28,8 +29,10 @@ from videop2p_tpu_torch.obs.history import (
     split_runs,
 )
 from videop2p_tpu_torch.obs.incident import INCIDENT_FIELDS, INCIDENT_TRIGGERS, IncidentManager
+from videop2p_tpu_torch.obs.introspect import PROGRAM_METRICS, ProgramAnalysis, analyze_call
 from videop2p_tpu_torch.obs.ledger import (
     RunLedger,
+    analysis_enabled,
     current_ledger,
     instrumented_program,
     program_label,
@@ -62,6 +65,12 @@ from videop2p_tpu_torch.obs.telemetry import (
     summarize_step_stats,
 )
 from videop2p_tpu_torch.obs.timing import LatencyReservoir, measure_overhead_p50
+from videop2p_tpu_torch.obs.trace import (
+    TRACE_ANALYSIS_FIELDS,
+    analyze_events,
+    analyze_trace_dir,
+    trace_window,
+)
 from videop2p_tpu_torch.obs.tsdb import FLEET_SERIES_FIELDS, TimeSeriesStore, load_series_sidecar
 
 __all__ = ["CostModel", "RunLedger", "current_ledger", "instrumented_program",
@@ -78,4 +87,6 @@ __all__ = ["CostModel", "RunLedger", "current_ledger", "instrumented_program",
            "summarize_attn_record", "DEFAULT_RULES", "RunHistory", "evaluate_rules",
            "extract_run", "split_runs", "QUALITY_SUMMARY_FIELDS", "edit_quality_record",
            "decode_null_text_stats", "decode_step_stats", "latent_stats",
-           "summarize_step_stats", "measure_overhead_p50"]
+           "summarize_step_stats", "measure_overhead_p50", "PROGRAM_METRICS",
+           "ProgramAnalysis", "analyze_call", "analysis_enabled", "TRACE_ANALYSIS_FIELDS",
+           "analyze_events", "analyze_trace_dir", "trace_window"]

@@ -23,12 +23,15 @@ share:
     ``cost_attribution`` row per tenant and per program
     (``COST_ATTRIBUTION_FIELDS``); the engine emits them at close.
 
-The JAX package also joins STATIC program costs (flops and HBM bytes per
-compiled program, from XLA's program analysis) into the vector. The port
-has no counterpart to that analysis, so the model keeps no static side:
-the flop and HBM-byte fields read 0.0, while seconds, padding, idle time
-and conservation are whole. Only successful dispatches accrue busy seconds: a failed attempt's
-time is a fault-plane fact (retry and breaker events), not billable work.
+STATIC program costs join the vector as in the JAX package: the model is a
+``RunLedger`` analysis observer (:meth:`CostModel.observe_program`), fed the
+``program_analysis`` record of each program's first call
+(``obs/introspect.py``: executed flops and the peak device bytes), so a
+slot's ``flops`` and ``hbm_byte_seconds`` and a store hit's ``saved_flops``
+are priced from them (0.0 until the program's analysis lands, and when the
+analysis is off). Only successful dispatches accrue busy seconds: a failed
+attempt's time is a fault-plane fact (retry and breaker events), not
+billable work.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 __all__ = [
     "CostModel",
+    "STATIC_COST_KEYS",
     "COST_ATTRIBUTION_FIELDS",
     "REQUEST_COST_FIELDS",
     "CAPACITY_FIELDS",
@@ -93,6 +97,10 @@ CAPACITY_FIELDS = (
     "conservation_residual_s",
 )
 
+# the static program_analysis metrics the model keeps per program label
+STATIC_COST_KEYS = ("flops", "argument_bytes", "temp_bytes",
+                    "peak_hbm_bytes", "bytes_accessed")
+
 _AGG_KEYS = ("requests", "store_hits", "device_seconds", "flops",
              "hbm_byte_seconds", "queue_seconds", "saved_device_seconds",
              "saved_flops")
@@ -106,12 +114,15 @@ def _round(v: float, nd: int = 6) -> float:
 
 
 class CostModel:
-    """Price measured dispatch seconds by fair share and keep the running
-    attribution/capacity books. Thread-safe: the engine's worker prices
-    dispatches while ``/metrics`` reads capacity."""
+    """Join static program costs with measured dispatch seconds and keep
+    the running attribution/capacity books. Thread-safe: the engine's
+    worker prices dispatches while ``/metrics`` reads capacity."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
+        # program label -> static metrics (the last analysis supersedes, as
+        # in obs/history.py's programs section)
+        self._static: Dict[str, Dict[str, float]] = {}
         # measured fresh capture-inversion seconds (the price a store
         # hit avoids): count + sum -> mean
         self._inv_count = 0
@@ -123,9 +134,32 @@ class CostModel:
         self._dispatches = 0
         self._real_slots = 0
         self._padded_slots = 0
+        self._flops_attributed = 0.0
         # per-tenant / per-program aggregates of terminal cost vectors
         self._tenants: Dict[str, Dict[str, float]] = {}
         self._programs: Dict[str, Dict[str, float]] = {}
+
+    # ---- static side (program_analysis observer) -------------------------
+
+    def observe_program(self, program: str, record: Dict[str, Any]) -> None:
+        """One ``program_analysis`` record (a RunLedger analysis observer):
+        keep its numeric static costs under the label; never raises."""
+        try:
+            vals = {}
+            for k in STATIC_COST_KEYS:
+                v = record.get(k)
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    vals[k] = float(v)
+            if vals:
+                with self._lock:
+                    self._static[str(program)] = vals
+        except Exception:  # noqa: BLE001 — observability never takes the run down
+            pass
+
+    def static_cost(self, program: str) -> Optional[Dict[str, float]]:
+        with self._lock:
+            rec = self._static.get(program)
+            return dict(rec) if rec else None
 
     # ---- measured side ---------------------------------------------------
 
@@ -144,14 +178,25 @@ class CostModel:
 
         ``dispatch_s`` splits evenly over the ``padded`` slots: ``real``
         slots are attributed to their requests, the rest is padding waste
-        — so attribution + padding sums back to the dispatch exactly. The
-        vector names the ``singleton`` program (else ``program``); its
-        static fields are 0.0 (module docstring).
+        — so attribution + padding sums back to the dispatch exactly.
+        Static facts scale the same way: the batched program's flops /
+        peak device bytes (looked up under ``program``) are per dispatch, so
+        a slot gets ``1/padded`` of them; when only the ``singleton``
+        program is known its statics already ARE one slot's. The vector
+        names the ``singleton`` program (else ``program``).
         """
         real = max(int(real), 0)
         padded = max(int(padded), 1)
         dt = max(float(dispatch_s), 0.0)
         share_s = dt / padded
+        static = self.static_cost(program)
+        per_slot_div = float(padded)
+        if static is None and singleton and singleton != program:
+            static = self.static_cost(singleton)
+            per_slot_div = 1.0
+        flops_slot = static.get("flops", 0.0) / per_slot_div if static else 0.0
+        hbm_slot_s = (static.get("peak_hbm_bytes", 0.0) * dt / per_slot_div
+                      if static else 0.0)
         with self._lock:
             self._busy_s += dt
             self._attributed_s += share_s * real
@@ -159,21 +204,32 @@ class CostModel:
             self._dispatches += 1
             self._real_slots += real
             self._padded_slots += padded
+            self._flops_attributed += flops_slot * real
         return {
             "program": singleton or program,
             "device_seconds": share_s,
-            "flops": 0.0,
-            "hbm_byte_seconds": 0.0,
+            "flops": flops_slot,
+            "hbm_byte_seconds": hbm_slot_s,
             "padding_share": (padded - real) / padded,
         }
 
     def savings(self) -> Dict[str, float]:
-        """What one store hit avoided: the measured mean seconds of this
-        engine's fresh inversions (0.0 before the first);
-        ``saved_flops`` is 0.0 (no static side)."""
+        """What one store hit avoided, priced from this same model: the
+        measured mean fresh-inversion seconds when any ran in-process;
+        otherwise the static ``serve_invert`` flop count priced at the
+        observed dispatch throughput (flops attributed per busy second).
+        ``saved_flops`` is the static inversion flop count once its
+        analysis landed (0.0 before)."""
+        inv_static = self.static_cost("serve_invert") or {}
+        saved_flops = inv_static.get("flops", 0.0)
         with self._lock:
-            saved_s = self._inv_seconds / self._inv_count if self._inv_count else 0.0
-        return {"saved_device_seconds": saved_s, "saved_flops": 0.0}
+            if self._inv_count:
+                saved_s = self._inv_seconds / self._inv_count
+            elif saved_flops > 0.0 and self._flops_attributed > 0.0:
+                saved_s = saved_flops * (self._busy_s / self._flops_attributed)
+            else:
+                saved_s = 0.0
+        return {"saved_device_seconds": saved_s, "saved_flops": saved_flops}
 
     # ---- terminal accounting ---------------------------------------------
 

@@ -15,10 +15,11 @@ reader).
     rule packs below (``DEFAULT_RULES`` holds them all).
 
 Either package's ledgers read here: the event names and fields are the
-JAX package's. The port writes no ``program_analysis`` event (it has no
-counterpart of XLA's program analysis), so the ``program`` rules find no
-labels in a port ledger; ``COMM_RULES`` is in ``DEFAULT_RULES`` as in JAX,
-and finds nothing until multi-GPU runs write collective records.
+JAX package's. The port's ``program_analysis`` events (``obs/introspect.py``:
+each instrumented program's first call, analysed as it runs) carry JAX's
+fields, so the ``program`` rules key them by ``(label, hlo_fingerprint)``
+as they do XLA's; ``COMM_RULES`` is in ``DEFAULT_RULES`` as in JAX, and
+finds nothing until multi-GPU runs write collective records.
 """
 
 from __future__ import annotations
@@ -55,8 +56,8 @@ __all__ = [
 ]
 
 
-# the numeric metric keys of a program_analysis record (the JAX package's
-# obs/introspect.py; the program rules reference these names)
+# the numeric metric keys of a program_analysis record (obs/introspect.py,
+# the JAX package's names; the program rules reference them)
 PROGRAM_METRICS = (
     "flops",
     "transcendentals",

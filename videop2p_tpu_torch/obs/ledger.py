@@ -14,7 +14,19 @@ after :meth:`RunLedger.close`):
     was a miss (the first call after the program was built into the set's
     cache) and its dispatch wall time;
   * ``compile`` — a kernel build by ``ops/_build.py`` (nvcc) or the first
-    call of a program, the port's counterparts of an XLA compile;
+    call of a program, the port's counterparts of an XLA compile (the first
+    call's seconds include its program analysis, below);
+  * ``program_analysis`` — the first call of each instrumented program,
+    analysed as it runs (``obs/introspect.py``: flops, transcendentals,
+    bytes, memory, a fingerprint and an op histogram, under the JAX
+    package's field names, plus ``analysis_s``); ``analysis_observers``
+    (the serving cost model) see each record. A first call that is not
+    analysed writes ``program_analysis_skipped`` with JAX's reason
+    (``analyze_false``, ``disabled`` by ``VIDEOP2P_OBS_NO_ANALYSIS=1`` —
+    the CLIs' ``--no_program_analysis`` — or ``analysis_error``);
+  * ``trace_analysis`` / ``trace_analysis_skipped`` — a mined device trace
+    (``obs/trace.py:trace_window``), and ``trace`` — a trace directory
+    written by ``utils/profiling.py:trace``;
   * ``execute_timing`` — per program label, the reservoir summary of
     ``dispatch`` (the call's return) and ``blocked`` (after
     ``torch.cuda.synchronize``) seconds (``obs/timing.py``), at close;
@@ -29,9 +41,6 @@ to ``<stem>.1.jsonl`` (older segments shift up) and the fresh file opens
 with a ``ledger_rotated`` marker; :func:`read_ledger` reads the chain back
 oldest first.
 
-The port has no counterpart to XLA's program analysis
-(``videop2p_tpu/obs/introspect.py``): no ``program_analysis`` event is
-written, and the cost model's static flop and HBM-byte fields read 0.0.
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ import torch
 from videop2p_tpu_torch.obs.timing import LatencyReservoir, latency_enabled
 
 __all__ = ["RunLedger", "current_ledger", "program_label", "instrumented_program",
-           "read_ledger"]
+           "read_ledger", "analysis_enabled"]
 
 # the active-ledger stack: a CLI or an engine pushes one ledger for its
 # lifetime; a nested ledger shadows the outer one
@@ -66,6 +75,14 @@ _PROGRAM: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
 
 _BUILD_LISTENER_INSTALLED = False
 
+# kill switch of the automatic program analysis on each instrumented
+# program's first call; the CLIs expose it as --no_program_analysis
+_ANALYSIS_ENV = "VIDEOP2P_OBS_NO_ANALYSIS"
+
+
+def analysis_enabled() -> bool:
+    return os.environ.get(_ANALYSIS_ENV, "0") != "1"
+
 
 def current_ledger() -> Optional["RunLedger"]:
     """The innermost active ledger, or None (everything in this module is a
@@ -76,10 +93,16 @@ def current_ledger() -> Optional["RunLedger"]:
 
 @contextlib.contextmanager
 def program_label(name: str) -> Iterator[None]:
-    """Attribute kernel builds fired inside this block to ``name``."""
+    """Attribute kernel builds fired inside this block to ``name``; while
+    ``torch.profiler`` records, the block is also a ``record_function``
+    range named ``name`` (a trace's module events, ``obs/trace.py``)."""
     token = _PROGRAM.set(name)
     try:
-        yield
+        if torch._C._autograd._profiler_enabled():
+            with torch.profiler.record_function(name):
+                yield
+        else:
+            yield
     finally:
         _PROGRAM.reset(token)
 
@@ -183,6 +206,10 @@ class RunLedger:
         self._timing_lock = threading.Lock()
         # callables run once by close(), after the run_end event
         self._on_close: List[Callable[[], None]] = []
+        # program-analysis observers: callables of (program, record) run on
+        # every program_analysis event (the serving CostModel registers
+        # here); one that raises never blocks the event
+        self.analysis_observers: List[Callable[[str, Dict[str, Any]], None]] = []
         _install_build_listener()
         start: Dict[str, Any] = {
             "run_id": self.run_id,
@@ -263,6 +290,16 @@ class RunLedger:
     def telemetry(self, program: str, record: Dict[str, Any]) -> None:
         """One decoded telemetry record of ``program``."""
         self.event("telemetry", program=program, **record)
+
+    def program_analysis(self, program: str, record: Dict[str, Any]) -> None:
+        """One program's analysis record (``obs/introspect.py``); the
+        ``analysis_observers`` see the same (program, record) pair."""
+        for cb in list(self.analysis_observers):
+            try:
+                cb(program, record)
+            except Exception:  # noqa: BLE001 — observability never raises
+                pass
+        self.event("program_analysis", program=program, **record)
 
     def phase(self, name: str, seconds: float, **fields: Any) -> None:
         self.event("phase", name=name, seconds=round(float(seconds), 4), **fields)
@@ -393,10 +430,12 @@ class RunLedger:
 class _Program:
     """A callable that records its calls in the active ledger."""
 
-    def __init__(self, fn: Callable, program: str, sync: Callable[[], None]):
+    def __init__(self, fn: Callable, program: str, sync: Callable[[], None],
+                 analyze: bool = True):
         self.fn = fn
         self.program = program
         self.sync = sync
+        self.analyze = analyze
         self.calls = 0
         self.__name__ = f"instrumented[{program}]"
 
@@ -406,8 +445,16 @@ class _Program:
         led = current_ledger()
         if led is None:
             return self.fn(*args, **kwargs)
+        skip = analysis = None
+        if first:
+            skip = ("analyze_false" if not self.analyze
+                    else None if analysis_enabled() else "disabled")
+            if skip is None:
+                from videop2p_tpu_torch.obs.introspect import ProgramAnalysis, call_device
+
+                analysis = ProgramAnalysis(call_device((args, kwargs)))
         t0 = time.perf_counter()
-        with program_label(self.program):
+        with program_label(self.program), (analysis or contextlib.nullcontext()):
             out = self.fn(*args, **kwargs)
         dt = time.perf_counter() - t0
         fields: Dict[str, Any] = {"program": self.program, "cache_miss": first,
@@ -423,18 +470,34 @@ class _Program:
         led.event("program_call", **fields)
         if first:
             led._on_compile(dt if blocked is None else blocked, self.program)
+            if skip is not None:
+                led.event("program_analysis_skipped", program=self.program, reason=skip)
+            else:
+                try:
+                    record = analysis.record((args, kwargs), out)
+                except Exception:  # noqa: BLE001 — observability never kills a run
+                    led.event("program_analysis_skipped", program=self.program,
+                              reason="analysis_error")
+                else:
+                    led.program_analysis(self.program, record)
         return out
 
 
 def instrumented_program(fn: Callable, *, program: str,
-                         sync: Optional[Callable[[], None]] = None) -> Callable:
+                         sync: Optional[Callable[[], None]] = None,
+                         analyze: bool = True) -> Callable:
     """``fn`` with ledger instrumentation: each call records a
     ``program_call`` event under ``program``; its first call is also a
-    ``compile`` event (the port's counterpart of a jit cache miss); with
-    execute timing on, ``sync`` (e.g. ``torch.cuda.synchronize``) runs
-    after the call and both latencies go to the program's reservoir. With
-    no active ledger the wrapper only counts the call."""
-    return _Program(fn, program, sync or (lambda: None))
+    ``compile`` event (the port's counterpart of a jit cache miss) and,
+    unless ``analyze`` is False or ``VIDEOP2P_OBS_NO_ANALYSIS=1``, runs
+    under a program analysis (``obs/introspect.py``) written as a
+    ``program_analysis`` event after it (else ``program_analysis_skipped``
+    with the reason); the analysis only observes, so the call's outputs are
+    the same bits either way. With execute timing on, ``sync`` (e.g.
+    ``torch.cuda.synchronize``) runs after the call and both latencies go
+    to the program's reservoir. With no active ledger the wrapper only
+    counts the call."""
+    return _Program(fn, program, sync or (lambda: None), analyze)
 
 
 def read_ledger(path: str) -> List[Dict[str, Any]]:

@@ -21,10 +21,9 @@ the repo's equivalent of Prompt-to-Prompt's ``show_cross_attention``
     skew when host_phase events exist;
   * a "Where time goes" section (``obs/timing.py`` events, and
     ``trace_analysis`` events where a ledger holds them): per-program
-    execute-latency distributions and device-trace breakdowns. The port
-    mines no device trace itself (a torch counterpart of the JAX
-    package's ``obs/trace.py`` is not written yet), so a ``trace`` event
-    is listed, not mined;
+    execute-latency distributions and device-trace breakdowns, a
+    ``trace`` event's directory mined here (``obs/trace.py``'s
+    chrome-trace reader);
   * a request critical-path + SLO section (``obs/spans.py`` /
     ``obs/slo.py`` events): per-segment queue/resolve/
     dispatch/decode percentiles over the run's spans and the
@@ -597,8 +596,8 @@ def _time_section(events) -> str:
                          e.get("num_events")])
         out.append(
             "<h3>Device-trace breakdown</h3>"
-            "<p class=meta>mined from the raw *.xplane.pb protos with the "
-            "stdlib reader (obs/trace.py — no tensorflow); overlap is the "
+            "<p class=meta>mined from torch.profiler's chrome traces with "
+            "the stdlib reader (obs/trace.py); overlap is the "
             "fraction of collective time hidden under compute "
             "(1.0 = fully overlapped, 0.0 = fully exposed).</p>"
             + _table(rows, ["window", "device_s", "compute_s",
@@ -704,11 +703,30 @@ def _find_sidecar(events, ledger_path: str) -> Optional[str]:
 
 
 def _mine_trace_events(events: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
-    """The JAX package mines the device trace behind each ``trace`` event
-    into a ``trace_analysis`` event here; the port has no trace reader yet,
-    so the events pass through unchanged (the "Device traces" section
-    still lists the directories)."""
-    return events
+    """A run that captured device traces through ``utils/profiling.py:
+    trace`` (``VIDEOP2P_TRACE_DIR``) recorded only a ``trace`` event (name
+    and directory): mine each such directory that still exists into a
+    ``trace_analysis`` event (``mined_from: "trace"``) for the "Where time
+    goes" section. Windows that already have a ``trace_analysis``
+    (``obs/trace.py:trace_window``) are left alone; a missing directory or
+    a parse failure skips that trace, never the report."""
+    from videop2p_tpu_torch.obs.trace import analyze_trace_dir
+
+    analyzed = {e.get("name") for e in events if e.get("event") == "trace_analysis"}
+    mined: List[Dict[str, Any]] = []
+    for e in events:
+        if e.get("event") != "trace":
+            continue
+        name, tdir = e.get("name"), e.get("trace_dir")
+        if not tdir or name in analyzed or not os.path.isdir(str(tdir)):
+            continue
+        try:
+            record, _ = analyze_trace_dir(str(tdir), name=str(name))
+        except Exception:  # noqa: BLE001 — mining is best-effort
+            continue
+        mined.append({"event": "trace_analysis", "mined_from": "trace", **record})
+        analyzed.add(name)
+    return events + mined
 
 
 def write_report(ledger_path: str, out_path: Optional[str] = None,

@@ -54,6 +54,7 @@ from typing import Callable, Optional
 
 import torch
 
+from videop2p_tpu_torch.obs.introspect import note_kernel
 from videop2p_tpu_torch.ops._autograd import recompute_grads
 from videop2p_tpu_torch.ops._build import bind
 
@@ -401,6 +402,8 @@ def _fused_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     global _launches
     with _count_lock:
         _launches += 1
+    note_kernel("frame_attention_fwd", _SOURCE, (q, k, v), (out,),
+                flops=4 * b * f * h * n * n * d, transcendentals=b * f * h * n * n)
     return out
 
 
@@ -494,6 +497,12 @@ def _flash(q5: torch.Tensor, k5: torch.Tensor, v5: torch.Tensor,
     global _flash_launches
     with _count_lock:
         _flash_launches += 1
+    # K/V read once however many query batches share them (stride 0)
+    kv = [t[:, :1] if t.stride(1) == 0 else t for t in (k5, v5)]
+    rows = b0 * b1 * h * lq * lk
+    note_kernel("flash_attention_fwd", _FLASH_SOURCE, (q5, *kv),
+                tuple(t for t in (out5, m, l) if t is not None),
+                flops=4 * rows * d, transcendentals=rows)
 
 
 def _flash_bwd(q5, k4, v4, o5, do5, m, l, dq5, dk4, dv4) -> None:
@@ -534,9 +543,16 @@ def _flash_bwd(q5, k4, v4, o5, do5, m, l, dq5, dk4, dv4) -> None:
     _flash_bwd_launcher("dq")(*common, dq5.data_ptr(), *shape, stream)
     with _count_lock:
         _flash_bwd_launches["dq"] += 1
+    # each kernel recomputes the scores: dQ = S, dP, dS·K (6 flops a score
+    # and head-dim element); dK/dV = S, dV, dP, dK (8)
+    inputs, scores = (q5, k4, v4, o5, do5, m, l), b0 * b1 * h * lq * lk
+    note_kernel("flash_attention_bwd_dq", _FLASH_BWD_SOURCE, inputs, (dq5,),
+                flops=6 * scores * d, transcendentals=scores)
     _flash_bwd_launcher("dkv")(*common, dk4.data_ptr(), dv4.data_ptr(), *shape, split, stream)
     with _count_lock:
         _flash_bwd_launches["dkv"] += 1
+    note_kernel("flash_attention_bwd_dkv", _FLASH_BWD_SOURCE, inputs, (dk4, dv4),
+                flops=8 * scores * d, transcendentals=scores)
 
 
 def _rect_view(x: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from videop2p_tpu_torch.obs.introspect import hidden_from_analysis, note_kernel
 from videop2p_tpu_torch.ops._autograd import recompute_grads
 from videop2p_tpu_torch.ops._build import bind
 
@@ -248,8 +249,11 @@ def _scratch_for(device: torch.device, stream: int, nbytes: int) -> torch.Tensor
     key = (device.index, stream)
     buf = _scratch.get(key)
     if buf is None or buf.numel() < nbytes:
-        buf = _scratch[key] = torch.zeros(max(nbytes, 1 << 16), dtype=torch.uint8,
-                                          device=device)
+        # built once and kept: a program analysis must not see it only on
+        # the call that happens to grow it
+        with hidden_from_analysis():
+            buf = _scratch[key] = torch.zeros(max(nbytes, 1 << 16), dtype=torch.uint8,
+                                              device=device)
     return buf
 
 
@@ -274,4 +278,7 @@ def _launch(x, scale, bias, num_groups: int, eps: float, act: str) -> torch.Tens
     global _launches
     with _count_lock:
         _launches += p.launches
+    # no product; the SiLU's sigmoid an element
+    note_kernel("group_norm_fwd", _SOURCE, (x, scale, bias), (y,),
+                transcendentals=x.numel() if act == "silu" else 0)
     return y

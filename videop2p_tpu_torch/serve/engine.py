@@ -283,10 +283,13 @@ class EditEngine:
         self._tracing = self.tracer.enabled
         # `slo` evaluates DEFAULT_SLOS into slo_report events at close
         self._slo = bool(slo)
-        # cost & capacity plane (obs/cost.py): the worker prices every
-        # successful dispatch by fair share, terminal records carry the
-        # per-request cost vector, close() emits the chargeback rows
+        # cost & capacity plane (obs/cost.py): static program costs stream
+        # in through the ledger's analysis observer as each program's first
+        # call is analysed; the worker prices every successful dispatch by
+        # fair share, terminal records carry the per-request cost vector,
+        # close() emits the chargeback rows
         self.cost = CostModel()
+        self.ledger.analysis_observers.append(self.cost.observe_program)
         # per-rid fresh-inversion attribution, folded into the terminal cost
         # vector by _finish
         self._resolve_costs: Dict[str, Dict[str, Any]] = {}
@@ -1096,11 +1099,12 @@ class EditEngine:
             # fair-share cost attribution: the dispatch's seconds split per
             # slot; live members get one slot's share each, the slots of
             # expired members land in the padding line (attribution +
-            # padding = dt)
+            # padding = dt). Each member ran the singleton program, so a
+            # slot's static cost is that program's, whole
             p0 = plan.items[0]
             cost_slot = self.cost.price_dispatch(
                 dt, real=len(live), padded=len(plan.items),
-                program="serve_edit" + self.programs._suffix(p0.steps, p0.reuse, p0.student))
+                singleton="serve_edit" + self.programs._suffix(p0.steps, p0.reuse, p0.student))
             # host copies after the timed window (they synchronize too)
             for p, (videos, src_err) in zip(plan.items, outs):
                 if p.rid in failed:

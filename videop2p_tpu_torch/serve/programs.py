@@ -8,7 +8,8 @@ request after the first reuses it.
 
 A "program" here is a Python callable over the port's pipeline functions,
 kept in the set's bounded cache under the JAX package's labels
-(``vae_encode``, ``serve_invert``, ``serve_edit[_s{n}][_r..][_stu]``; a
+(``vae_encode``, ``vae_decode``, ``sample_decode``, ``serve_invert``,
+``serve_edit[_s{n}][_r..][_stu]``; a
 scan batch calls its members' ``serve_edit`` program in turn, so the JAX
 package's ``serve_edit_b{n}_scan`` has no counterpart) and wrapped by :func:`~videop2p_tpu_torch.obs.ledger.instrumented_program`, so the run
 ledger sees each call, each miss (a program built into the cache) and, with
@@ -256,6 +257,37 @@ class ProgramSet:
         prog = self._program(("vae_encode",), "vae_encode",
                              lambda vid: encode_video(self.bundle.vae, vid).float())
         return prog(video)
+
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """Latents → the [0, 1] video — the ``vae_decode`` program."""
+        from videop2p_tpu_torch.models.vae import decode_video
+
+        prog = self._program(("vae_decode",), "vae_decode",
+                             lambda x: (decode_video(self.bundle.vae, x).float() + 1.0) / 2.0)
+        return prog(latents)
+
+    def sample(self, x_t: torch.Tensor, cond: torch.Tensor, uncond: torch.Tensor, *,
+               steps: Optional[int] = None,
+               guidance_scale: Optional[float] = None) -> torch.Tensor:
+        """Uncontrolled CFG sampling from ``x_t`` then the VAE decode, as one
+        program keyed on ``(steps, guidance)`` (the UI's inference tab) —
+        label ``sample_decode``. Returns the [0, 1] videos; equal bit for bit
+        to :meth:`decode` of the ``edit_sample`` latents (the same calls in
+        the same order)."""
+        from videop2p_tpu_torch.models.vae import decode_video
+        from videop2p_tpu_torch.pipelines.sampling import edit_sample
+
+        steps = int(steps or self.spec.steps)
+        guidance = float(self.spec.guidance_scale if guidance_scale is None
+                         else guidance_scale)
+
+        def fn(x, cond, uncond):
+            out = edit_sample(self.unet_fn, self.scheduler, x, cond, uncond,
+                              num_inference_steps=steps, guidance_scale=guidance)
+            return (decode_video(self.bundle.vae, out).float() + 1.0) / 2.0
+
+        prog = self._program(("sample_decode", steps, guidance), "sample_decode", fn)
+        return prog(x_t, cond, uncond)
 
     def capture_plan(self, ctx, latents: torch.Tensor, cond_src: torch.Tensor):
         """The CLI's cached-mode capture decision for this spec: the gate

@@ -217,10 +217,11 @@ def streaming_plan_record(
     """The static cost model of one streaming plan: window count, the
     overlap redundancy (frames processed / frames delivered − 1), total
     flops scaled from one window's (``flops_per_window``, given by the
-    caller: the port has no program analysis), and the content-addressed
-    store footprint (one fp32 trajectory of ``steps + 1`` latents per
-    window — the disk entry a killed job rehydrates from). Streaming holds
-    device memory flat per window while total work grows linearly."""
+    caller, e.g. the ``flops`` of a window's ``program_analysis`` events),
+    and the content-addressed store footprint (one fp32 trajectory of
+    ``steps + 1`` latents per window — the disk entry a killed job
+    rehydrates from). Streaming holds device memory flat per window while
+    total work grows linearly."""
     plan = plan_windows(total_frames, window, overlap)
     n = len(plan)
     processed = n * int(window)
