@@ -358,6 +358,24 @@ analysis:
    analysis' seconds. (Phases 20-23 run with the analysis' kill switch,
    ``VIDEOP2P_OBS_NO_ANALYSIS=1``; phase 19's engines analyse.)
 
+mesh:
+25. the multi-GPU layer at world size 1 (the card's one GPU), SD-1.5
+   width, 512², 8 frames, ``--steps``: (a) an NCCL process group of one
+   rank in this process (a ``file://`` store: no port) and its first
+   all-reduce, timed; the mesh's sharded frame attention and GroupNorm
+   forced onto the UNet (``set_seams``, sp = tp = 1, as JAX's tests wire
+   them): one cached edit-batch forward equals the plain forward bit for
+   bit with the plain forward's launches, and the wrappers' kernels match
+   their plain versions at the shapes a rank's batch gives them; (b)
+   ``run_videop2p.main(mesh="1,1,1", device_telemetry=True)`` on the
+   rabbit clip in that group equals the plain main path bit for bit with
+   the same launches, its ledger holding ``device_telemetry`` (divergence
+   0.0) and ``comm_analysis``; then ``torchrun --standalone
+   --nproc_per_node 1 -m videop2p_tpu_torch.cli.run_videop2p --fast --mesh
+   1,1,1 --device_telemetry`` (a process with its own NCCL group) writes
+   the plain run's GIFs byte for byte and its per-step telemetry; (c)
+   printed: NCCL's set-up seconds, the runs' wall times, the card.
+
 Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
 the card line, then, last, ``{"ok": true, "device": {...}}``.
 
@@ -373,7 +391,7 @@ Run:  python3 chip_smoke.py [--steps 2] [--inner_steps 2]
                             [--paths [fast] [official] [official_flash]
                                      [dependent] [checkpoint] [tune] [surface]
                                      [distill] [sdxl] [serve] [fleet] [stream]
-                                     [observe] [runs] [analysis]]
+                                     [observe] [runs] [analysis] [mesh]]
                             [--profile [--frame_attention auto flash_rect flash]]
                             [--gn_only [--gn_kernel_names NAME ...]]
                             [--out PATH.json]
@@ -488,10 +506,11 @@ FLASH_INNER_STEPS = 2
 # rest of Stage 2's surface (16), consistency distillation and the few-step
 # student (17), SDXL's width (18), the serving engine (19), replicas behind a
 # router (20), streaming long-video editing (21), the fleet's telemetry,
-# correctness and incident planes (22) and the run CLIs' observability (23)
+# correctness and incident planes (22), the run CLIs' observability (23),
+# program analysis and traces (24) and the mesh at world size 1 (25)
 PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint", "tune",
          "surface", "distill", "sdxl", "serve", "fleet", "stream", "observe", "runs",
-         "analysis")
+         "analysis", "mesh")
 # phase 4b's final losses in "hybrid" null-text mode are compared relative
 # to max(|loss|, this): its last outer step lands on x_0, where both losses
 # sit at float32 rounding noise (~1e-15) and have no relative meaning
@@ -4970,6 +4989,302 @@ def analysis_path(args, frames) -> tuple:
              "analysis_flash_rect": slim(official["run"])}, {"analysis": record})
 
 
+# ------------------------------------------------------------------ mesh --
+# (phase 25, path "mesh"): the multi-GPU layer at world size 1, the card's
+# one GPU: an NCCL group of one rank in this process (a file:// store, no
+# port), the sharded wrappers forced onto the SD-1.5 UNet, the run CLI's
+# mesh in process and under torchrun
+MESH_SPEC = "1,1,1"
+MESH_CLI_TIMEOUT_S = 300
+
+
+def mesh_wrapper_checks(mesh, dtype) -> list:
+    """The frame-attention and GroupNorm kernels under the mesh's wrappers
+    against their plain versions at the shapes a rank's cached-edit batch
+    gives them (2 streams × 8 frames; sp = 1 keeps the whole clip): frame
+    attention at 64² and 32², GroupNorm on a frame-pooled resnet slab and a
+    per-frame transformer slab. These launches are the comparison's, not
+    the main path's."""
+    from videop2p_tpu_torch.ops.attention import dense_frame_attention
+    from videop2p_tpu_torch.ops.groupnorm import group_norm_reference
+    from videop2p_tpu_torch.parallel import make_sharded_frame_attention_fn, make_sharded_group_norm_fn
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    fa, gn = make_sharded_frame_attention_fn(mesh), make_sharded_group_norm_fn(mesh)
+    out = []
+    for b, f, h, n, d in ((2, 8, 8, 4096, 40), (2, 8, 8, 1024, 80)):
+        q = torch.randn(b, f, h, n, d, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(b, h, n, d, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        with torch.no_grad():
+            got = fa(q, k, v).float()
+            ref = dense_frame_attention(q.float(), k.float(), v.float())
+        err, tol = (got - ref).abs().max().item(), limit(dtype, ref, ATTN_TOL_F32)
+        out.append({"wrapper": "sharded_frame_attention", "shape": [b, f, h, n, d],
+                    "max_abs_err": err, "tol": tol})
+    for (n, rows, c), pooled in (((2, 8 * 4096, 320), True), ((16, 4096, 320), False)):
+        x = (torch.randn(n, rows, c, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        w, b_ = (torch.randn(c, generator=gen, device="cuda").to(dtype) for _ in range(2))
+        with torch.no_grad():
+            got = gn(x, w, b_, num_groups=32, eps=1e-5, act="silu", pooled=pooled).float()
+            ref = group_norm_reference(x.float(), w.float(), b_.float(), num_groups=32,
+                                       eps=1e-5, act="silu")
+        err, tol = (got - ref).abs().max().item(), limit(dtype, ref, GN_TOL_F32)
+        out.append({"wrapper": "sharded_group_norm", "pooled": pooled, "shape": [n, rows, c],
+                    "max_abs_err": err, "tol": tol})
+    for rec in out:
+        print(f"  25a {rec['wrapper']} {rec['shape']}: max|d| {rec['max_abs_err']:.3e} "
+              f"(limit {rec['tol']:.3e})", flush=True)
+    return out
+
+
+def mesh_staged_gn_checks(dtype) -> list:
+    """The GroupNorm kernel's two staged launches (statistics, then the
+    apply of reduced statistics), which the mesh runs on a frame-pooled
+    slab when frames are split over GPUs (``parallel/mesh.py:
+    pooled_group_norm``), at a rank's resnet slab of the cached edit
+    (2 streams x 8 frames of 64², C 320 and 640):
+
+      * ``pooled_group_norm`` over a group of one: both launches, no
+        collective; equal to ``fused_group_norm`` bit for bit and within
+        the GroupNorm tolerance of ``group_norm_reference``; its time
+        against the fused launch's;
+      * two shards on one card: the statistics of each half of the frames
+        summed as the all-reduce sums them, each half applied with
+        ``shards=2``, against ``group_norm_reference`` on the whole slab.
+
+    These launches are the comparison's, not the main path's."""
+    from videop2p_tpu_torch.ops.groupnorm import (
+        fused_group_norm,
+        group_norm_apply,
+        group_norm_reference,
+        group_norm_stats,
+        launch_count,
+    )
+    from videop2p_tpu_torch.parallel.mesh import pooled_group_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(251)
+    out = []
+    for n, rows, c in ((2, 8 * 4096, 320), (2, 8 * 1024, 640)):
+        x = (torch.randn(n, rows, c, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        w, b_ = (torch.randn(c, generator=gen, device="cuda").to(dtype) for _ in range(2))
+        kw = dict(num_groups=32, eps=1e-5, act="silu")
+        with torch.no_grad():
+            before = launch_count()
+            staged = pooled_group_norm(x, w, b_, group=None, **kw)
+            torch.cuda.synchronize()
+            launches = launch_count() - before
+            fused = fused_group_norm(x, w, b_, **kw)
+            ref = group_norm_reference(x.float(), w.float(), b_.float(), **kw)
+            # each rank holds its frames as a slab of its own
+            halves = [h.contiguous() for h in x.chunk(2, dim=1)]
+            sums = group_norm_stats(halves[0], num_groups=32) + group_norm_stats(
+                halves[1], num_groups=32)
+            split = torch.cat([group_norm_apply(h, sums, w, b_, shards=2, **kw)
+                               for h in halves], dim=1)
+            torch.cuda.synchronize()
+            staged_ms = time_ms(lambda: pooled_group_norm(x, w, b_, group=None, **kw))
+            fused_ms = time_ms(lambda: fused_group_norm(x, w, b_, **kw))
+        tol = limit(dtype, ref, GN_TOL_F32)
+        rec = {"wrapper": "pooled_group_norm", "shape": [n, rows, c], "launches": launches,
+               "bit_exact_vs_fused": bool(torch.equal(staged, fused)),
+               "max_abs_err": (staged.float() - ref).abs().max().item(),
+               "two_shards_max_abs_err": (split.float() - ref).abs().max().item(),
+               "tol": tol, "ms": staged_ms, "fused_ms": fused_ms}
+        out.append(rec)
+        print(f"  25a pooled_group_norm {rec['shape']} {str(dtype)[6:]}: {launches} launches, "
+              f"= fused bit for bit: {rec['bit_exact_vs_fused']}; max|d| "
+              f"{rec['max_abs_err']:.3e}, two shards {rec['two_shards_max_abs_err']:.3e} "
+              f"(limit {tol:.3e}); {staged_ms:.4f} ms (fused {fused_ms:.4f} ms)", flush=True)
+        del x, staged, fused, ref, split, halves
+    return out
+
+
+def mesh_cli_child(tmp: str, args, name: str, extra: list) -> tuple:
+    """``torchrun --standalone --nproc_per_node 1 -m
+    videop2p_tpu_torch.cli.run_videop2p`` on the clip of ``RABBIT`` at
+    SD-1.5 width (its config written as JSON, which YAML reads); returns
+    (wall seconds, the run's results directory, its ledger)."""
+    ckpt = os.path.join(os.path.abspath(tmp), name, "rabbit-jump")
+    cfg = os.path.join(tmp, f"{name}.json")
+    with open(cfg, "w") as fh:
+        json.dump({**RABBIT, "pretrained_model_path": ckpt, "video_len": 8}, fh)
+    led = os.path.join(os.path.abspath(tmp), f"{name}.jsonl")
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1", "-m", "videop2p_tpu_torch.cli.run_videop2p",
+            "--config", cfg, "--fast", "--steps", str(args.steps), "--mixed_precision",
+            args.mixed_precision, "--telemetry", "--ledger", led, *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=MESH_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"25b torchrun CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    out_dir = next(os.path.join(root, d) for root, dirs, _ in os.walk(os.path.join(tmp, name))
+                   for d in dirs if d.startswith("results_dp"))
+    return wall, out_dir, led
+
+
+def mesh_path(args) -> tuple:
+    """Phase 25 (path "mesh"): (a) an NCCL group of world size 1 in this
+    process; the mesh's sharded frame attention and GroupNorm forced onto
+    the SD-1.5 UNet (sp = tp = 1) give the plain forward bit for bit with
+    the plain forward's launches, and their kernels match the plain
+    versions at the wrappers' shapes; (b) ``main(mesh="1,1,1",
+    device_telemetry=True)`` in that group equals the plain main path bit
+    for bit with the same launches, its ledger holding ``device_telemetry``
+    (divergence 0.0) and ``comm_analysis``; the same edit through the CLI
+    under ``torchrun`` writes the plain run's GIFs byte for byte and its
+    per-step telemetry; (c) NCCL's setup seconds and the runs' wall times.
+    Returns (runs, records); raises on a failed gate."""
+    import torch.distributed as dist
+
+    from videop2p_tpu_torch.cli.run_videop2p import _write_gifs, build_models
+    from videop2p_tpu_torch.data.dataset import load_frame_sequence
+    from videop2p_tpu_torch.obs.ledger import read_ledger
+    from videop2p_tpu_torch.parallel import (
+        make_mesh,
+        make_sharded_frame_attention_fn,
+        make_sharded_group_norm_fn,
+    )
+
+    print(f"the mesh at world size 1 (phase 25; {_allocated_line()}):", flush=True)
+    os.makedirs("outputs", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir="outputs")
+    failures: list = []
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[args.mixed_precision]
+    t_phase = time.perf_counter()
+    try:
+        # 25a: the group, its first collective (NCCL builds its communicator
+        # there), the mesh
+        t0 = time.perf_counter()
+        store = "file://" + os.path.abspath(os.path.join(tmp, "nccl_store"))
+        try:
+            dist.init_process_group("nccl", init_method=store, rank=0, world_size=1,
+                                    device_id=torch.device("cuda", 0))
+        except TypeError:  # a torch without device_id
+            dist.init_process_group("nccl", init_method=store, rank=0, world_size=1)
+        one = torch.ones(1, device="cuda")
+        dist.all_reduce(one)
+        torch.cuda.synchronize()
+        mesh = make_mesh((1, 1, 1))
+        nccl_s = time.perf_counter() - t0
+        print(f"  25a NCCL group of 1 + first all-reduce + mesh {mesh.spec()}: "
+              f"{nccl_s:.3f} s", flush=True)
+        bundle = build_models(device="cuda", seed=0, dtype=dtype)
+        x, text, control = edit_forward_inputs(bundle)
+        with torch.no_grad():
+            reset_launch_counts()
+            plain = bundle.unet(x, 500, text, control, {})
+            torch.cuda.synchronize()
+            plain_launches = launch_counts()
+            bundle.unet.set_seams(frame_attention_fn=make_sharded_frame_attention_fn(mesh),
+                                  group_norm_fn=make_sharded_group_norm_fn(mesh))
+            reset_launch_counts()
+            wired = bundle.unet(x, 500, text, control, {})
+            torch.cuda.synchronize()
+            wired_launches = launch_counts()
+        bundle.unet.set_seams()
+        same = torch.equal(plain, wired)
+        print(f"  25a forward with the wrappers forced on = plain: {same}; launches "
+              f"{wired_launches} (plain {plain_launches})", flush=True)
+        if not same:
+            failures.append("25a: the wrapped forward is not the plain forward bit for bit")
+        if wired_launches != plain_launches or not wired_launches["frame_attention"] \
+                or not wired_launches["group_norm"]:
+            failures.append(f"25a: launches {wired_launches}, plain {plain_launches}")
+        wrappers = mesh_wrapper_checks(mesh, dtype)
+        failures += [f"25a {r['wrapper']} {r['shape']}: {r['max_abs_err']} > {r['tol']}"
+                     for r in wrappers if not r["max_abs_err"] <= r["tol"]]
+        staged = mesh_staged_gn_checks(dtype)
+        for r in staged:
+            if not (r["launches"] == 2 and r["bit_exact_vs_fused"]
+                    and r["max_abs_err"] <= r["tol"] and r["two_shards_max_abs_err"] <= r["tol"]):
+                failures.append(f"25a pooled_group_norm {r['shape']}: {r}")
+        del bundle, x, text, control, plain, wired
+        _release()
+
+        # 25b: main on the mesh (in this group) against the plain main path,
+        # on the clip the CLI loads
+        clip = load_frame_sequence(RABBIT["image_path"], size=512, num_frames=8)
+        kw = dict(pretrained_model_path=os.path.join(tmp, "inproc", "rabbit-jump"))
+        plain_led, mesh_led = (os.path.join(tmp, f"{n}.jsonl") for n in ("plain", "mesh"))
+        plain_run = run_main_path(clip, args.steps, args.mixed_precision, keep_videos=True,
+                                  telemetry=True, ledger=plain_led, **kw)
+        mesh_run = run_main_path(clip, args.steps, args.mixed_precision, mesh=MESH_SPEC,
+                                 device_telemetry=True, ledger=mesh_led, **kw)
+        same = torch.equal(plain_run["latents"], mesh_run["latents"])
+        print(f"  25b main(mesh={MESH_SPEC!r}) latents = plain: {same}; launches "
+              f"{mesh_run['launches']} (plain {plain_run['launches']}); wall "
+              f"{mesh_run['wall_s']:.3f} s (plain {plain_run['wall_s']:.3f} s)", flush=True)
+        if not same:
+            failures.append("25b: the mesh run's latents are not the plain run's")
+        if mesh_run["launches"] != plain_run["launches"]:
+            failures.append(f"25b: launches {mesh_run['launches']}, plain "
+                            f"{plain_run['launches']}")
+        events = read_ledger(mesh_led)
+        dev = [e for e in events if e["event"] == "device_telemetry"]
+        comm = [e for e in events if e["event"] == "comm_analysis"]
+        if not dev or any(e["divergence_max"] != 0.0 for e in dev):
+            failures.append(f"25b: device_telemetry {dev}")
+        if not comm:
+            failures.append("25b: no comm_analysis event")
+        print(f"  25b ledger: device_telemetry "
+              f"{[(e['program'], e['devices'], e['divergence_max']) for e in dev]}; "
+              f"comm_analysis "
+              f"{[(e['program'], e['num_partitions'], e['collective_count']) for e in comm]}",
+              flush=True)
+        # the GIFs the CLI would write from the plain run's videos
+        plain_gifs = _write_gifs(plain_run.pop("videos"), os.path.join(tmp, "plain_gifs"),
+                                 RABBIT["save_name"], True)
+        in_process = {"plain": {k: v for k, v in plain_run.items() if k != "latents"},
+                      "mesh": {k: v for k, v in mesh_run.items() if k != "latents"}}
+        del plain_run["latents"], mesh_run["latents"]
+        _release()
+
+        # 25b: the CLI under torchrun (a process with a group of its own)
+        # against the plain main path
+        dist.destroy_process_group()
+        cli_wall, cli_dir, cli_led = mesh_cli_child(tmp, args, "cli", [
+            "--mesh", MESH_SPEC, "--device_telemetry"])
+        for gif in plain_gifs:
+            other = os.path.join(cli_dir, os.path.basename(gif))
+            with open(gif, "rb") as a, open(other, "rb") as b:
+                if a.read() != b.read():
+                    failures.append(f"25b: the torchrun CLI's {os.path.basename(gif)} "
+                                    "differs from the plain run's")
+        tel = {name: [e["steps"] for e in read_ledger(path) if e["event"] == "telemetry"]
+               for name, path in (("plain", plain_led), ("cli", cli_led))}
+        if tel["plain"] != tel["cli"] or not tel["plain"]:
+            failures.append("25b: the torchrun CLI's per-step telemetry is not the plain run's")
+        cli_events = read_ledger(cli_led)
+        cli_dev = [e for e in cli_events if e["event"] == "device_telemetry"]
+        if not cli_dev or any(e["divergence_max"] != 0.0 for e in cli_dev):
+            failures.append(f"25b: the CLI's device_telemetry {cli_dev}")
+        if not [e for e in cli_events if e["event"] == "comm_analysis"]:
+            failures.append("25b: no comm_analysis in the CLI's ledger")
+        cli_ok = not [f for f in failures if f.startswith("25b: the torchrun")]
+        print(f"  25c wall: the plain main path {in_process['plain']['wall_s']:.3f} s in "
+              f"process, the torchrun CLI {cli_wall:.3f} s (a process: interpreter, "
+              f"imports, NCCL, models, edit, GIFs); its GIFs byte for byte and its "
+              f"telemetry = the plain run's: {cli_ok}", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"  card: {card_line()}", flush=True)
+    print(f"  phase 25: {wall:.1f} s", flush=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    record = {"wall_s": wall, "nccl_setup_s": nccl_s, "forward_bit_exact": True,
+              "forward_launches": wired_launches, "wrapper_checks": wrappers,
+              "staged_group_norm": staged,
+              "in_process": in_process, "cli_wall_s": cli_wall}
+    mesh_rec = dict(in_process["mesh"])
+    return {"mesh": mesh_rec}, {"mesh": record}
+
+
 def group_norm_only(args, card: str, kind: str) -> int:
     """``--gn_only``: GroupNorm's phase-3 checks and timings, its sums over
     the UNet's 61 sites (:func:`gn_site_sums`, at the edit forward's B 2 and
@@ -5179,6 +5494,10 @@ def main() -> int:
         an_runs, an_records = analysis_path(args, frames)
         runs.update(an_runs)
         records.update(an_records)
+    if "mesh" in args.paths:
+        mesh_runs, mesh_records = mesh_path(args)
+        runs.update(mesh_runs)
+        records.update(mesh_records)
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
@@ -5236,7 +5555,7 @@ def main() -> int:
     # own, at its shapes (head dim 64) in bf16, the dtype it runs in.
     auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint",
                              "surface_multi", "student_edit", "serve", "fleet", "stream",
-                             "observe", "runs", "analysis")
+                             "observe", "runs", "analysis", "mesh")
                  if r in runs), None)
     rect = next((r for r in ("flash_rect", "official_flash_rect",
                              "surface_hybrid_flash_rect", "analysis_flash_rect")

@@ -5,7 +5,7 @@ outputs are the same bits either way; the ledger holds one
 ``program_analysis`` per program (or its ``disabled`` skip), the traced
 window's ``trace_analysis`` (exactly one tuning chunk, the second), and the
 kill switch is restored when the ledger closes. ``--device_telemetry``
-stays refused, naming ROADMAP item 13.
+reaches ``main`` and, without a mesh, is noted and ignored.
 """
 
 import json
@@ -183,23 +183,51 @@ def test_cli_parses_the_ported_flags(module, flag, monkeypatch):
 
 
 @pytest.mark.parametrize("module", ["run_videop2p", "run_tuning"])
-def test_device_telemetry_still_refused(module, monkeypatch, capsys):
-    with pytest.raises(SystemExit) as exc:
-        _run_cli(f"videop2p_tpu_torch.cli.{module}",
-                 ["--config", "unused.yaml", "--device_telemetry"], monkeypatch)
-    assert exc.value.code == 2
-    assert ("--device_telemetry is not ported on this CLI (ROADMAP Queue 1 item 13"
-            in capsys.readouterr().err)
+def test_device_telemetry_still_refused(module, monkeypatch):
+    """``--device_telemetry`` is ported (it probes the replicas of a
+    ``--mesh`` run): the flag reaches ``main``, as ``--mesh`` does; the
+    module's ``__main__`` block run with ``load_config`` and ``main``
+    stubbed. (The name dates from when the flag was refused.)"""
+    import importlib
+    import sys
+
+    mod = importlib.import_module(f"videop2p_tpu_torch.cli.{module}")
+    seen = {}
+    monkeypatch.setattr(sys, "argv", [module, "--config", "unused.yaml", "--device_telemetry",
+                                      "--mesh", "1,2,1"])
+    src = open(mod.__file__).read()
+    block = src[src.index('if __name__ == "__main__":'):]
+    exec(compile(block, mod.__file__, "exec"),
+         {**vars(mod), "__name__": "__main__", "load_config": lambda path: {},
+          "main": lambda **kw: seen.update(kw)})
+    assert seen["device_telemetry"] is True and seen["mesh"] == "1,2,1"
 
 
 @pytest.mark.parametrize("module", ["run_videop2p", "run_tuning"])
-def test_main_refuses_device_telemetry(module, tmp_path):
+def test_main_refuses_device_telemetry(module, tmp_path, capsys):
+    """Without a mesh there are no replicas to probe: ``main`` says the
+    flag is ignored (JAX's note) and runs; its ledger, which the flag
+    opens, records the flag and no probe."""
     import importlib
 
+    from videop2p_tpu_torch.obs.ledger import read_ledger
+
     mod = importlib.import_module(f"videop2p_tpu_torch.cli.{module}")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        mod.main(**(_tune_cfg(tmp_path) if module == "run_tuning" else dict(RABBIT)),
-                 device="cpu", device_telemetry=True)
+    if module == "run_tuning":
+        out = mod.main(**_tune_cfg(tmp_path, steps=1), device="cpu", tiny=True,
+                       device_telemetry=True)
+        led = os.path.join(out, "run_ledger.jsonl")
+    else:
+        res = mod.main(**dict(RABBIT, pretrained_model_path=str(tmp_path / "ckpt"), tiny=True,
+                              video_len=2, num_ddim_steps=1, fast=True, device="cpu",
+                              frames=__import__("numpy").zeros((2, 16, 16, 3), "uint8"),
+                              save_gifs=False), device_telemetry=True)
+        led = res["ledger"]
+    assert "--device_telemetry needs --mesh" in capsys.readouterr().out
+    events = read_ledger(led)
+    assert events[0]["device_telemetry"] is True
+    assert not [e for e in events if e["event"] in ("device_telemetry", "divergence",
+                                                   "comm_analysis")]
 
 
 def test_cli_end_to_end_with_both_flags(tmp_path, monkeypatch):

@@ -254,9 +254,10 @@ def test_run_tuning_cli_ledger(tmp_path, monkeypatch, capsys):
     ("--device_telemetry", "item 13"),
 ])
 def test_unported_flags_name_their_item(module, flag, item, monkeypatch, capsys):
-    with pytest.raises(SystemExit) as exc:
+    """Every JAX observability flag of the run CLIs is now parsed (the last,
+    ``--device_telemetry``, came with item 13): a config that cannot be
+    read fails on the config, not on the flag."""
+    with pytest.raises(FileNotFoundError, match="unused.yaml"):
         _run_cli(f"videop2p_tpu_torch.cli.{module}", ["--config", "unused.yaml", flag],
                  monkeypatch)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{flag} is not ported on this CLI (ROADMAP Queue 1 {item}" in err
+    assert "is not ported" not in capsys.readouterr().err

@@ -130,6 +130,27 @@ def test_control_attention_matches_jax(kind, site):
         np.testing.assert_allclose(np32(got), np32(want), atol=1e-6)
 
 
+def test_control_attention_temporal_rows_are_exact():
+    """A temporal map with fewer query rows than frames is refused unless
+    the frames are split over as many shards as make up the difference;
+    a shard's rows of the edit are the whole edit's rows."""
+    from videop2p_tpu_torch.control import control_attention
+
+    _, pctx = _ctx_pair("refine")
+    rng = np.random.default_rng(2)
+    logits = rng.normal(size=(3 * 16, 2, 4, 4))
+    probs = t((np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).astype(np.float32))
+    kw = dict(is_cross=False, step_index=1, video_length=4, num_uncond=1)
+    whole = control_attention(probs, pctx, **kw)
+    rows = probs[:, :, 2:]
+    with pytest.raises(ValueError, match="temporal attention maps must be"):
+        control_attention(rows, pctx, **kw)
+    with pytest.raises(ValueError, match="temporal attention maps must be"):
+        control_attention(probs[:, :, :1], pctx, frame_shards=2, **kw)
+    got = control_attention(rows, pctx, frame_shards=2, **kw)
+    np.testing.assert_array_equal(got.numpy(), whole[:, :, 2:].numpy())
+
+
 def test_local_blend_matches_jax():
     from videop2p_tpu.control import blend_mask as jax_mask
     from videop2p_tpu.control import local_blend as jax_blend

@@ -110,7 +110,9 @@ def test_latest_checkpoint_matches_jax(tmp_path, listing):
 def test_unported_options_raise(tmp_path):
     from videop2p_tpu_torch.cli import run_tuning
 
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh is ported (item 13): in one process a 2-rank mesh raises and
+    # names torchrun, which launches its ranks
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         run_tuning.main(**_cfg(tmp_path, "mesh"), mesh="1,2,1", device="cpu")
     # through the CLI: a config's mesh (consistency distillation, which this
     # test refused before it was ported, is tests/test_torch_distill.py's)
@@ -121,4 +123,4 @@ def test_unported_options_raise(tmp_path):
                            "--config", str(cfg), "--distill_steps", "1", "--device", "cpu"],
                           cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
-    assert "item 13" in proc.stderr
+    assert "torchrun" in proc.stderr

@@ -389,10 +389,19 @@ def test_options_not_ported_raise(programs, tmp_path):
         else:
             assert isinstance(eng.incidents, IncidentManager) and "slo_report" not in kinds
             assert eng.incidents.root == str(tmp_path) and eng.ledger.flight is not None
+    # the engine serves one GPU (its mesh is item 13's rest); a ProgramSet
+    # takes a model-parallel mesh of torchrun ranks, not a data mesh
+    from videop2p_tpu_torch.serve import EditEngine
+
     for kw in (dict(mesh="1,2,1"), dict(ring_variant="bidir"),
                dict(tp_collectives="psum_scatter")):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            ProgramSet(ProgramSpec(**KW, **kw), device="cpu")
+        with pytest.raises(NotImplementedError, match="item 13's rest"):
+            EditEngine(ProgramSpec(**KW, **kw), out_dir=str(tmp_path / "mesh"),
+                       programs=programs)
+    with pytest.raises(NotImplementedError, match="item 13's rest"):
+        ProgramSet(ProgramSpec(**KW, mesh="2,1,1"), device="cpu")
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        ProgramSet(ProgramSpec(**KW, mesh="1,2,1"), device="cpu")
 
 
 def test_a_failed_artifact_write_fails_only_its_request(programs, tmp_path, monkeypatch):

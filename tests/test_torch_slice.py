@@ -135,14 +135,15 @@ def test_port_imports_nothing_of_jax():
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """A device mesh (``--mesh``, multi-GPU) raises; a checkpoint
+    """A device mesh (``--mesh``) that is not the world raises; a checkpoint
     directory that does not load (a ``unet/`` without its config) raises
     too: random weights must not silently replace it."""
     from videop2p_tpu_torch.cli.run_videop2p import main
 
     kw = dict(RABBIT, device="cpu", tiny=True, video_len=2, num_ddim_steps=2,
               frames=np.zeros((2, 16, 16, 3), np.uint8), save_gifs=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    # a mesh is ported: in one process a 2-rank mesh raises, naming torchrun
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         main(**kw, fast=False, mesh="1,2,1")
     (tmp_path / "unet").mkdir()
     kw["pretrained_model_path"] = str(tmp_path)
@@ -201,7 +202,8 @@ def test_cli_reads_the_cached_maps_budget_override(monkeypatch):
     budgets = []
     real = run_videop2p.choose_cached_maps
     monkeypatch.setattr(run_videop2p, "choose_cached_maps",
-                        lambda fn, budget_gb: budgets.append(budget_gb) or real(fn, budget_gb=budget_gb))
+                        lambda fn, budget_gb, **kw: budgets.append(budget_gb)
+                        or real(fn, budget_gb=budget_gb, **kw))
     frames = np.random.default_rng(2).integers(0, 256, (2, 16, 16, 3), dtype=np.uint8)
     kw = dict(RABBIT, fast=True, device="cpu", tiny=True, video_len=2,
               num_ddim_steps=2, frames=frames, save_gifs=False)

@@ -15,7 +15,7 @@ import contextlib
 import os
 import warnings
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -27,8 +27,8 @@ from videop2p_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from videop2p_tpu_torch.utils.tokenizers import WordTokenizer, load_tokenizer
 
 __all__ = ["ModelBundle", "build_models", "encode_prompts", "add_dependent_args",
-           "add_obs_args", "add_unported_args", "dependent_suffix", "resolve_pipeline_dir",
-           "load_config", "deterministic_convolutions", "make_run_ledger"]
+           "add_obs_args", "dependent_suffix", "resolve_pipeline_dir", "parse_mesh",
+           "validate_mesh", "setup_mesh", "load_config", "deterministic_convolutions", "make_run_ledger"]
 
 
 @contextlib.contextmanager
@@ -71,8 +71,7 @@ def add_dependent_args(parser: argparse.ArgumentParser) -> None:
 
 def add_obs_args(parser: argparse.ArgumentParser) -> None:
     """The run CLIs' observability flags (JAX's ``add_obs_args``, with its
-    defaults), but for ``--device_telemetry``, which
-    :func:`add_unported_args` refuses."""
+    defaults)."""
     parser.add_argument(
         "--telemetry", action="store_true",
         help="collect per-step telemetry in the pipelines' loops (loss curves, "
@@ -124,38 +123,17 @@ def add_obs_args(parser: argparse.ArgumentParser) -> None:
              "verdicts) next to the run's outputs; python -m "
              "videop2p_tpu_torch.obs.report re-renders it from the ledger")
     parser.add_argument(
+        "--device_telemetry", action="store_true",
+        help="per-device observability of a --mesh run (obs/comm.py): each rank's "
+             "latent abs-max/mean/NaN statistics and the cross-replica divergence "
+             "after every edit step (device_telemetry events), the tuned "
+             "parameters' divergence after Stage 1 (a divergence event), both "
+             "must be 0.0 — requires --mesh; implies a run ledger")
+    parser.add_argument(
         "--incidents", type=str, default=None, metavar="DIR",
         help="arm the incident plane (obs/incident.py) on the run ledger: a "
              "flight recorder tees its most recent events into a bounded ring, "
              "and an unhandled crash or SIGUSR1 writes a capture bundle under DIR")
-
-
-class _NotPorted(argparse.Action):
-    """A JAX CLI flag the port does not take yet: using it is an error
-    naming the ROADMAP item that ports it."""
-
-    def __init__(self, option_strings, dest, item: str = "", **kwargs):
-        self.item = item
-        super().__init__(option_strings, dest, nargs="?", **kwargs)
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported on this CLI (ROADMAP Queue 1 "
-                     f"item {self.item})")
-
-
-# the JAX run CLIs' observability flags the port refuses, with the ROADMAP
-# item of each: per-device telemetry needs a mesh
-UNPORTED_OBS_FLAGS = {
-    "--device_telemetry": "13: multi-GPU (it needs --mesh)",
-}
-
-
-def add_unported_args(parser: argparse.ArgumentParser) -> None:
-    """The JAX run CLIs' observability flags the port does not take, each
-    refused with the ROADMAP item that ports it."""
-    for flag, item in UNPORTED_OBS_FLAGS.items():
-        parser.add_argument(flag, action=_NotPorted, item=item,
-                            help=f"not ported on this CLI (ROADMAP Queue 1 item {item})")
 
 
 def dependent_suffix(*, dependent: bool, decay_rate: float, window_size: int,
@@ -289,13 +267,119 @@ def encode_prompts(bundle: ModelBundle, prompts: Sequence[str], device) -> torch
     return bundle.text_encoder(ids)
 
 
+def parse_mesh(mesh_spec: Optional[str]) -> Tuple[int, int, int]:
+    """A ``dp,sp,tp`` mesh spec as a shape; None or empty is (1, 1, 1)."""
+    if not mesh_spec:
+        return (1, 1, 1)
+    shape = tuple(int(t) for t in str(mesh_spec).split(","))
+    if len(shape) != 3:
+        raise ValueError(f"--mesh must be dp,sp,tp — got {mesh_spec!r}")
+    return shape
+
+
+def validate_mesh(mesh_spec: Optional[str], video_len: int) -> Tuple[int, int, int]:
+    """The checks a run CLI makes before it builds anything (JAX's
+    ``setup_mesh`` checks): dp = 1 for single-clip flows, sp divides the
+    clip's frames, and the mesh is the world of the ``torchrun`` launch.
+    Returns the shape."""
+    from videop2p_tpu_torch.parallel.mesh import check_world
+
+    dp, sp, tp = shape = parse_mesh(mesh_spec)
+    if dp != 1:
+        raise ValueError(
+            "single-clip flows run batch 1 — use dp=1 and put GPUs on the "
+            f"frame/tensor axes, got dp={dp}")
+    if video_len % sp:
+        raise ValueError(f"sp axis {sp} must divide video_len {video_len}")
+    check_world(shape)
+    return shape
+
+
+def setup_mesh(bundle: ModelBundle, mesh_spec: str, video_len: int,
+               ring_variant: Optional[str] = None, tp_collectives: Optional[str] = None,
+               device=None):
+    """Parse a ``dp,sp,tp`` mesh spec and prepare the bundle's UNet for it
+    (JAX's ``setup_mesh``): the process mesh (its size must be the world
+    size of the ``torchrun`` launch, see
+    ``parallel/distributed.py:initialize_distributed``) with its groups'
+    communicators built (``parallel/mesh.py:warm_collectives``), and on a sharded
+    axis the UNet's seams — the sharded GroupNorm on every norm; with
+    ``sp`` > 1 the ring on the uncontrolled temporal sites, the K/V gather
+    on the controlled ones and the frame-0 K/V broadcast before the
+    frame-attention kernel; with ``tp`` > 1 the parameters split by JAX's
+    rule, the column-parallel entries, the row-parallel outputs and the
+    head-mean of the stored maps. The mesh becomes the active one (the
+    pipelines' global losses and noise draws read it). Returns it. Both
+    CLIs share this; single-clip flows need dp = 1, and sp must divide the
+    clip's frames.
+
+    ``ring_variant`` picks the ring schedule (``overlap``, ``bidir``,
+    ``serial``; None reads ``VIDEOP2P_RING_VARIANT``), ``tp_collectives``
+    the row-parallel reduction (``gspmd`` all-reduces, ``psum_scatter``
+    reduce-scatters over the tokens and all-gathers; None reads
+    ``VIDEOP2P_TP_COLLECTIVES``, default ``gspmd``)."""
+    from videop2p_tpu_torch.parallel import (
+        RING_VARIANTS,
+        TP_COLLECTIVES,
+        default_ring_variant,
+        make_hybrid_mesh,
+        make_megatron_out_dot,
+        make_ring_temporal_fn,
+        make_sharded_frame_attention_fn,
+        make_sharded_group_norm_fn,
+        set_active_mesh,
+        shard_unet,
+    )
+    from videop2p_tpu_torch.parallel.mesh import (
+        make_head_mean_fn,
+        make_kv_gather_fn,
+        make_tensor_copy_fn,
+        warm_collectives,
+    )
+
+    if ring_variant is None:
+        ring_variant = default_ring_variant()
+    if ring_variant not in RING_VARIANTS:
+        raise ValueError(f"ring_variant must be one of {RING_VARIANTS}, got {ring_variant!r}")
+    if tp_collectives is None:
+        tp_collectives = os.environ.get("VIDEOP2P_TP_COLLECTIVES", "gspmd").strip().lower()
+    if tp_collectives not in TP_COLLECTIVES:
+        raise ValueError(f"tp_collectives must be one of {TP_COLLECTIVES}, "
+                         f"got {tp_collectives!r}")
+    dp, sp, tp = shape = validate_mesh(mesh_spec, video_len)
+    mesh = make_hybrid_mesh(dp, sp, tp, device=device)
+    warm_s = warm_collectives(mesh)
+    print(f"[mesh] data={dp} frames={sp} tensor={tp} (rank {mesh.rank}); collectives "
+          f"warmed in {warm_s:.3f} s")
+    unet = bundle.unet
+    seams = {}
+    if sp > 1 or tp > 1:
+        seams["group_norm_fn"] = make_sharded_group_norm_fn(mesh)
+    if sp > 1:
+        seams.update(
+            temporal_attention_fn=make_ring_temporal_fn(mesh, variant=ring_variant),
+            kv_gather_fn=make_kv_gather_fn(mesh),
+            frame_attention_fn=make_sharded_frame_attention_fn(mesh))
+    if tp > 1:
+        shard_unet(unet, mesh)
+        seams.update(
+            tp_copy_fn=make_tensor_copy_fn(mesh),
+            row_parallel_dot=make_megatron_out_dot(mesh, tp_collectives),
+            temporal_row_parallel_dot=make_megatron_out_dot(mesh, "gspmd"),
+            head_mean_fn=make_head_mean_fn(mesh))
+    if seams:
+        unet.set_seams(**seams)
+    set_active_mesh(mesh)
+    return mesh
+
+
 def make_run_ledger(default_path: str, *, ledger: Optional[str] = None,
                     meta: Optional[Dict[str, Any]] = None, telemetry: bool = False,
                     attn_maps: bool = False, quality: bool = False, report: bool = False,
                     latency: bool = False, trace_analysis: bool = False,
                     program_analysis: bool = True, enable: bool = False,
                     set_latency_env: bool = True, incidents: Optional[str] = None,
-                    device=None):
+                    device=None, device_telemetry: bool = False):
     """The observability flags → an activated
     :class:`~videop2p_tpu_torch.obs.RunLedger` (JAX's wiring, shared by both
     run CLIs and the serving engine), or None when nothing asked for one.
@@ -311,12 +395,14 @@ def make_run_ledger(default_path: str, *, ledger: Optional[str] = None,
     (``VIDEOP2P_OBS_NO_ANALYSIS=1``) while the ledger is open, restored at
     its close as the latency variable is (without a ledger nothing is
     analysed anyway).
+    In a multi-process run rank ``r`` > 0 writes ``<stem>.rank<r>.jsonl``.
+    ``device_telemetry`` (a mesh run's per-device probe) implies a ledger.
     ``incidents`` arms an :class:`~videop2p_tpu_torch.obs.IncidentManager`
     with crash hooks on the ledger (its flight ring tees the events; an
     unhandled crash or SIGUSR1 writes a bundle under that directory) for the
     rest of the process. ``device`` is the device the run computes on."""
     if not (enable or telemetry or ledger or attn_maps or quality or report or latency
-            or trace_analysis or incidents):
+            or trace_analysis or incidents or device_telemetry):
         return None
     scoped = {}
     if latency and set_latency_env:
@@ -328,10 +414,20 @@ def make_run_ledger(default_path: str, *, ledger: Optional[str] = None,
     from videop2p_tpu_torch.obs import RunLedger
 
     base_meta = {"telemetry": bool(telemetry), "attn_maps": bool(attn_maps),
-                 "quality": bool(quality), "device_telemetry": False,
+                 "quality": bool(quality), "device_telemetry": bool(device_telemetry),
                  "latency": bool(latency), "trace_analysis": bool(trace_analysis)}
     base_meta.update(meta or {})
-    led = RunLedger(ledger or default_path, meta=base_meta, latency=latency,
+    path = ledger or default_path
+    from videop2p_tpu_torch.parallel.distributed import process_count, process_index
+
+    if process_count() > 1:
+        # one file per process (JAX's one ledger per host); rank 0's is the
+        # run's, and gather_host_phases brings the others' phases into it
+        base_meta.update(process_index=process_index(), process_count=process_count())
+        if process_index() > 0:
+            stem = path[:-len(".jsonl")] if path.endswith(".jsonl") else path
+            path = f"{stem}.rank{process_index()}.jsonl"
+    led = RunLedger(path, meta=base_meta, latency=latency,
                     device=device).activate()
     if scoped:
         def restore_env():

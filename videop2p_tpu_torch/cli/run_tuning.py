@@ -43,8 +43,16 @@ event (``obs/trace.py``). With a ledger the first ``train_steps`` call (and
 ``--attn_maps``, ``--quality`` and ``--report`` are the edit's flags: parsed
 and ignored here, as JAX's CLI does.
 
-Not ported: ``mesh`` and ``--device_telemetry`` (multi-GPU, ROADMAP Queue 1
-item 13); they raise.
+``--mesh dp,sp,tp`` (or the config's ``mesh``) tunes on a mesh of GPUs,
+one process each under ``torchrun`` (``cli/common.py:setup_mesh``; dp must
+be 1): each rank trains on its frames, every rank draws the whole clip's
+noise and the same timesteps, the loss is the global mean and the
+replicated parameters' gradients are summed over ``frames``; the clip
+norm counts a tensor-split parameter once. Rank 0 writes the metrics,
+the checkpoints, the validation samples and the export from the gathered
+weights; a resumed run loads the whole checkpoint and cuts it to each
+rank's shards. ``--device_telemetry`` (with ``--mesh``) records the tuned
+parameters' cross-replica divergence (a ``divergence`` event, 0.0).
 
 Run:  python -m videop2p_tpu_torch.cli.run_tuning --config configs/rabbit-jump-tune.yaml
       [--dependent --decay_rate 0.3 --window_size 4 --ar_sample ...] [--device cpu] [--tiny]
@@ -52,6 +60,8 @@ Run:  python -m videop2p_tpu_torch.cli.run_tuning --config configs/rabbit-jump-t
                          [--distill_boundary_weight 1.0]]
       [--ledger L] [--telemetry] [--latency] [--incidents DIR] [--trace_analysis]
       [--no_program_analysis]
+      torchrun --standalone --nproc_per_node 2 -m videop2p_tpu_torch.cli.run_tuning \
+          --config configs/rabbit-jump-tune.yaml --mesh 1,2,1 [--device_telemetry]
 
 then Stage 2 on its output:
       python -m videop2p_tpu_torch.cli.run_videop2p --config configs/rabbit-jump-p2p.yaml
@@ -67,6 +77,7 @@ import os
 import signal
 import threading
 import time
+from types import SimpleNamespace
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -75,19 +86,21 @@ import torch
 from videop2p_tpu_torch.cli.common import (
     add_dependent_args,
     add_obs_args,
-    add_unported_args,
     build_models,
     dependent_suffix,
     deterministic_convolutions,
     encode_prompts,
     load_config,
     make_run_ledger,
+    setup_mesh,
+    validate_mesh,
 )
 from videop2p_tpu_torch.core import DDIMScheduler, DDPMScheduler, DependentNoiseSampler
 from videop2p_tpu_torch.data import SingleVideoDataset
 from videop2p_tpu_torch.models.pipeline_io import save_pipeline
 from videop2p_tpu_torch.models.vae import decode_video, encode_video
 from videop2p_tpu_torch.obs.ledger import instrumented_program
+from videop2p_tpu_torch.parallel.distributed import process_index
 from videop2p_tpu_torch.pipelines.inversion import ddim_inversion
 from videop2p_tpu_torch.pipelines.sampling import edit_sample, make_unet_fn
 from videop2p_tpu_torch.train import (
@@ -207,13 +220,10 @@ def main(
 ) -> str:
     """Tune, validate and export; returns the (suffixed) output directory.
     The arguments are the YAML config's keys, the dependent flags and the
-    observability flags of the module docstring (``device_telemetry``
-    raises)."""
+    observability flags of the module docstring; ``mesh`` ("dp,sp,tp") the
+    mesh run (the ring schedule and the row-parallel reduction from
+    ``VIDEOP2P_RING_VARIANT`` / ``VIDEOP2P_TP_COLLECTIVES``, as in JAX)."""
     del unused
-    if mesh or device_telemetry:
-        raise NotImplementedError(
-            f"mesh {mesh!r} / device_telemetry: multi-GPU tuning is not ported "
-            "(ROADMAP Queue 1 item 13)")
     if mixed_precision not in _DTYPES:
         raise ValueError(f"mixed_precision must be one of {sorted(_DTYPES)}")
     device = torch.device(device)
@@ -224,23 +234,35 @@ def main(
     # convolutions is TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if mesh:
+        from videop2p_tpu_torch.parallel.distributed import initialize_distributed
+
+        # one process per GPU: this one's is cuda:LOCAL_RANK
+        initialize_distributed(device.type)
+        validate_mesh(mesh, int(train_data.get("n_sample_frames", 8)))
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     n_frames = int(train_data.get("n_sample_frames", 8))
     output_dir = output_dir + dependent_suffix(
         dependent=dependent, decay_rate=decay_rate, window_size=window_size,
         ar_sample=ar_sample, ar_coeff=ar_coeff, eta=eta,
         dependent_weights=dependent_weights)
     os.makedirs(output_dir, exist_ok=True)
-    with open(os.path.join(output_dir, "config.json"), "w") as f:
-        json.dump({k: v for k, v in locals().items()
-                   if isinstance(v, (str, int, float, bool, dict, list, tuple, type(None)))},
-                  f, indent=2, default=str)
+    if process_index() == 0:
+        with open(os.path.join(output_dir, "config.json"), "w") as f:
+            json.dump({k: v for k, v in locals().items()
+                       if isinstance(v, (str, int, float, bool, dict, list, tuple,
+                                         type(None)))},
+                      f, indent=2, default=str)
+    rank0 = process_index() == 0
     run_seed = seed if seed is not None else 0
     # one JSONL record of the run: phases, metrics, execute timing, memory
     run_ledger = make_run_ledger(
         os.path.join(output_dir, "run_ledger.jsonl"), ledger=ledger,
         meta={"cli": "run_tuning", "max_train_steps": max_train_steps},
         telemetry=telemetry, latency=latency, trace_analysis=trace_analysis,
-        program_analysis=program_analysis, incidents=incidents, device=device)
+        program_analysis=program_analysis, incidents=incidents, device=device,
+        device_telemetry=device_telemetry)
 
     sampler = None
     if dependent:
@@ -265,6 +287,19 @@ def main(
         bundle.text_encoder.to(dtype)
 
     latents, text_emb = _clip_latents(bundle, train_data, run_seed, device)
+    device_mesh = None
+    if mesh:
+        # the mesh before the train state, so that it holds the shards
+        with phase_timer("mesh_setup"):
+            device_mesh = setup_mesh(bundle, mesh, n_frames, device=device)
+        # the posterior draw is one draw over the whole clip: every rank
+        # encodes it and keeps its frames
+        from videop2p_tpu_torch.parallel.mesh import frames_slice
+
+        latents = frames_slice(latents)
+    elif device_telemetry:
+        print("[tune] --device_telemetry needs --mesh — single-device runs have no "
+              "replicas to compare; flag ignored")
 
     tune_cfg = TuneConfig(
         learning_rate=learning_rate, scale_lr=scale_lr, lr_scheduler=lr_scheduler,
@@ -280,15 +315,18 @@ def main(
         path = (latest_checkpoint(output_dir) if resume_from_checkpoint == "latest"
                 else resume_from_checkpoint)
         if path:
-            restore_checkpoint(path, state, seed=run_seed)
+            restore_checkpoint(path, state, seed=run_seed,
+                               shard=_tensor_cut(bundle.unet, device_mesh))
             first_step = state.step
             print(f"[tune] resumed from {path} at step {first_step}")
 
     noise_sched = DDPMScheduler.create_sd(prediction_type=prediction_type)
     unet_fn = make_unet_fn(bundle.unet)
     lr_schedule = make_lr_schedule(tune_cfg)
-    # with a run ledger every logged step is also a `metric` event
-    metrics = MetricsLogger(output_dir, ledger=run_ledger)
+    # with a run ledger every logged step is also a `metric` event; on a
+    # mesh rank 0 writes the metrics
+    metrics = (MetricsLogger(output_dir, ledger=run_ledger) if rank0
+               else _NoMetrics())
     losses: List[torch.Tensor] = []
     grad_norms: List[torch.Tensor] = []  # telemetry: each step's pre-clip norm
 
@@ -354,7 +392,7 @@ def main(
                     grad_norms.append(out[2])
                 first_chunk = i == first_step
                 i = nxt
-                if _PREEMPT_EVENT.is_set():
+                if _agreed(_PREEMPT_EVENT.is_set(), device_mesh, device):
                     preempted = True
                     break
                 if (log_every and i % log_every == 0) or i == max_train_steps or first_chunk:
@@ -363,48 +401,157 @@ def main(
                     print(f"[tune] step {i}/{max_train_steps} loss={loss:.4f} "
                           f"({rate:.2f} it/s)")
                 if checkpointing_steps and i % checkpointing_steps == 0:
-                    save_checkpoint(output_dir, state, i, seed=run_seed)
+                    _save_checkpoint(output_dir, state, i, run_seed, bundle.unet, device_mesh)
                 if (validation_steps and i % validation_steps == 0) or i == max_train_steps:
                     _validate(bundle, latents, validation_data, output_dir, i,
                               dependent_weights=dependent_weights, sampler=sampler,
-                              text_emb=text_emb, seed=run_seed, device=device)
+                              text_emb=text_emb, seed=run_seed, device=device,
+                              rank0=rank0)
     finally:
         restore_signals()
     if preempted:
         if losses:
             flush_losses(i)
         metrics.close()
-        ckpt_path = save_checkpoint(output_dir, state, i, seed=run_seed)
+        ckpt_path = _save_checkpoint(output_dir, state, i, run_seed, bundle.unet, device_mesh)
         print(f"[tune] preempted at step {i}: checkpoint saved to {ckpt_path}; "
               "resume with resume_from_checkpoint: latest")
         if run_ledger is not None:
             run_ledger.event("preempted", step=i, checkpoint=ckpt_path)
-            _close_ledger(run_ledger)
+            _close_ledger(run_ledger, device_mesh)
         return output_dir
     if losses:
         flush_losses(max_train_steps)
     metrics.close()
     if run_ledger is not None:
         run_ledger.memory_snapshot(note="after_training")
+    if device_telemetry and device_mesh is not None:
+        _param_divergence(state, device_mesh, run_ledger)
 
     with phase_timer("export"):
-        nbytes = save_pipeline(output_dir, bundle.unet.config, state.params,
-                               source_dir=bundle.source_dir,
-                               scheduler_config=dict(_EXPORT_SCHEDULER_CONFIG))
-    print(f"[tune] saved pipeline to {output_dir} (unet {nbytes} bytes)")
+        params = state.params
+        if device_mesh is not None:
+            # the tensor-split weights gathered; rank 0 writes them
+            from videop2p_tpu_torch.parallel.mesh import gather_state_dict
+
+            params = {k: v for k, v in gather_state_dict(bundle.unet, device_mesh).items()
+                      if k in params}
+        nbytes = (save_pipeline(output_dir, bundle.unet.config, params,
+                                source_dir=bundle.source_dir,
+                                scheduler_config=dict(_EXPORT_SCHEDULER_CONFIG))
+                  if rank0 else 0)
+        _barrier(device_mesh)
+    if rank0:
+        print(f"[tune] saved pipeline to {output_dir} (unet {nbytes} bytes)")
     if run_ledger is not None:
         run_ledger.event("artifacts", pipeline_dir=output_dir)
-        _close_ledger(run_ledger)
+        _close_ledger(run_ledger, device_mesh)
         print(f"[tune] run ledger: {run_ledger.path}")
+    if device_mesh is not None:
+        from videop2p_tpu_torch.parallel.mesh import set_active_mesh
+
+        set_active_mesh(None)
     return output_dir
 
 
-def _close_ledger(run_ledger) -> None:
-    """Close the run ledger and, the run having ended without a crash, the
-    incident plane it armed (its hooks restored)."""
+def _close_ledger(run_ledger, device_mesh=None) -> None:
+    """Close the run ledger (on a mesh, after rank 0 has gathered every
+    rank's ``host_phase`` records) and, the run having ended without a
+    crash, the incident plane it armed (its hooks restored)."""
+    if device_mesh is not None:
+        from videop2p_tpu_torch.parallel.distributed import gather_host_phases
+
+        gather_host_phases(run_ledger)
     run_ledger.close()
     if getattr(run_ledger, "incidents", None) is not None:
         run_ledger.incidents.close()
+
+
+class _NoMetrics:
+    """The metrics log of a rank other than 0 on a mesh: nothing written."""
+
+    def log(self, step: int, scalars) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _barrier(device_mesh) -> None:
+    if device_mesh is not None and device_mesh.size > 1:
+        torch.distributed.barrier()
+
+
+def _agreed(flag: bool, device_mesh, device: torch.device) -> bool:
+    """``flag`` on any rank of the mesh (a stop every rank takes at the same
+    chunk boundary, where a signal may reach the ranks at different
+    times); ``flag`` itself without one."""
+    if device_mesh is None or device_mesh.size == 1:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=device)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def _tensor_dims(unet) -> Dict[str, int]:
+    return getattr(unet, "tp_shard_dims", None) or {}
+
+
+def _tensor_cut(unet, device_mesh):
+    """``shard(name, whole)`` for :func:`restore_checkpoint` on a
+    tensor-parallel mesh, else None."""
+    dims = _tensor_dims(unet)
+    if device_mesh is None or not dims:
+        return None
+    from videop2p_tpu_torch.parallel.mesh import shard_tensor
+
+    return lambda name, t: shard_tensor(name, t, dims.get(name), device_mesh)
+
+
+def _save_checkpoint(output_dir: str, state: TrainState, step: int, seed: int, unet,
+                     device_mesh) -> str:
+    """``save_checkpoint`` of the whole state: on a mesh the tensor-split
+    trainable parameters and their optimizer state are gathered and rank 0
+    writes them (the other ranks wait for it)."""
+    if device_mesh is None:
+        return save_checkpoint(output_dir, state, step, seed=seed)
+    from videop2p_tpu_torch.parallel.mesh import gather_tensor
+
+    dims = _tensor_dims(unet)
+    names = list(state.trainable)
+
+    def whole(name, t):
+        return gather_tensor(name, t, dims.get(name), device_mesh)
+
+    full = SimpleNamespace(
+        step=state.step, trainable={n: whole(n, p) for n, p in state.trainable.items()},
+        opt_state={k: [whole(n, t) for n, t in zip(names, v)] if isinstance(v, list) else v
+                   for k, v in state.opt_state.items()})
+    path = os.path.join(os.path.abspath(output_dir), f"checkpoint-{step}")
+    if device_mesh.rank == 0:
+        path = save_checkpoint(output_dir, full, step, seed=seed)
+    _barrier(device_mesh)
+    return path
+
+
+def _param_divergence(state: TrainState, device_mesh, run_ledger) -> None:
+    """The tuned parameters' cross-replica divergence (JAX's
+    ``tree_replica_divergence`` after training): every parameter over
+    ``frames``, the unsplit ones over ``tensor`` too; a ``divergence``
+    event, which must read 0.0."""
+    from videop2p_tpu_torch.obs.comm import tree_replica_divergence
+    from videop2p_tpu_torch.parallel.mesh import AXIS_FRAMES, AXIS_TENSOR
+
+    params = state.params
+    whole = [p for p in params.values() if getattr(p, "tp_shard_dim", None) is None]
+    div = float(max(tree_replica_divergence(list(params.values()), device_mesh,
+                                            axes=(AXIS_FRAMES,)),
+                    tree_replica_divergence(whole, device_mesh, axes=(AXIS_TENSOR,))))
+    axes = [a for a in (AXIS_FRAMES, AXIS_TENSOR) if device_mesh.shape[a] > 1]
+    if run_ledger is not None:
+        run_ledger.divergence("params_after_training", div, axes=axes)
+    print(f"[tune] param replica divergence over {tuple(axes)}: {div}"
+          + ("  <-- REPLICAS DIVERGED (must be 0.0)" if div else ""))
 
 
 def _clip_latents(bundle, train_data: Dict[str, Any], seed: int,
@@ -484,11 +631,14 @@ def run_distillation(pipeline_dir: str, train_data: Dict[str, Any], *, distill_s
 def _validate(bundle, latents: torch.Tensor, validation_data: Dict[str, Any],
               output_dir: str, step: int, *, dependent_weights: float,
               sampler: Optional[DependentNoiseSampler], text_emb: torch.Tensor,
-              seed: int, device: torch.device) -> None:
+              seed: int, device: torch.device, rank0: bool = True) -> None:
     """DDIM-invert the training latents (blended with the dependent noise at
     ``dependent_weights``), store x_T, sample each validation prompt from it
     at ``guidance_scale`` and write the samples as one GIF grid (skipped
-    with a note without imageio)."""
+    with a note without imageio). On a mesh every rank runs the loops on
+    its frames; rank 0 gathers, decodes and writes."""
+    from videop2p_tpu_torch.parallel.mesh import frames_draw, gather_frames
+
     num_inv = int(validation_data.get("num_inv_steps", 50))
     num_steps = int(validation_data.get("num_inference_steps", 50))
     guidance = float(validation_data.get("guidance_scale", 12.5))
@@ -505,18 +655,23 @@ def _validate(bundle, latents: torch.Tensor, validation_data: Dict[str, Any],
                 dependent_weight=dependent_weights,
                 dependent_sampler=sampler if dependent_weights > 0 else None,
                 generator=gen)[-1]
-            inv_dir = os.path.join(output_dir, "inv_latents")
-            os.makedirs(inv_dir, exist_ok=True)
-            np.save(os.path.join(inv_dir, f"ddim_latent-{step}.npy"), x_t.cpu().numpy())
+            whole = gather_frames(x_t)
+            if rank0:
+                inv_dir = os.path.join(output_dir, "inv_latents")
+                os.makedirs(inv_dir, exist_ok=True)
+                np.save(os.path.join(inv_dir, f"ddim_latent-{step}.npy"), whole.cpu().numpy())
         else:
-            x_t = torch.randn(latents.shape, generator=gen, device=device)
+            x_t = frames_draw(lambda shape: torch.randn(shape, generator=gen, device=device),
+                              latents.shape)
         uncond = encode_prompts(bundle, [""], device)[0]
         for prompt in prompts:
             cond = encode_prompts(bundle, [prompt], device)
-            out = edit_sample(unet_fn, sched, x_t, cond, uncond,
-                              num_inference_steps=num_steps, guidance_scale=guidance)
-            frames = decode_video(bundle.vae, out).float()
-            videos.append(((frames + 1) / 2)[0].cpu().numpy())
+            out = gather_frames(edit_sample(unet_fn, sched, x_t, cond, uncond,
+                                            num_inference_steps=num_steps,
+                                            guidance_scale=guidance))
+            if rank0:
+                frames = decode_video(bundle.vae, out).float()
+                videos.append(((frames + 1) / 2)[0].cpu().numpy())
         _sync(device)
     if videos:
         try:
@@ -551,14 +706,17 @@ if __name__ == "__main__":
                         help="loss weight of the boundary term (final grid point, "
                              "target = the data x0)")
     add_dependent_args(parser)
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="mesh dp,sp,tp of GPUs, one process each under torchrun "
+                             "(frames/tensor sharding); dp must be 1")
     add_obs_args(parser)
-    add_unported_args(parser)
     args = parser.parse_args()
     if args.attn_maps or args.quality or args.report:
         # the edit's flags (run_videop2p), as JAX's CLI says
         print("[tune] --attn_maps/--quality/--report are Stage-2 (editing) "
               "knobs — ignored by the tuning CLI")
     cfg = load_config(args.config)
+    cfg["mesh"] = args.mesh or cfg.get("mesh")
     out_dir = main(**cfg, tiny=args.tiny, device=args.device,
                    dependent=args.dependent, num_frames=args.num_frames,
                    decay_rate=args.decay_rate, window_size=args.window_size,
@@ -566,8 +724,10 @@ if __name__ == "__main__":
                    dependent_weights=args.dependent_weights, telemetry=args.telemetry,
                    ledger=args.ledger, latency=args.latency, incidents=args.incidents,
                    trace_analysis=args.trace_analysis,
-                   program_analysis=not args.no_program_analysis)
-    if args.distill_steps > 0:
+                   program_analysis=not args.no_program_analysis,
+                   device_telemetry=args.device_telemetry)
+    # distillation runs on one GPU: after a mesh run, rank 0's
+    if args.distill_steps > 0 and process_index() == 0:
         run_distillation(out_dir, cfg["train_data"], distill_steps=args.distill_steps,
                          distill_grid=args.distill_grid, distill_lr=args.distill_lr,
                          distill_ema=args.distill_ema,

@@ -35,8 +35,20 @@ default (``--no_reuse_inversion``, ``--inv_store``): a repeat run of the
 same clip skips the inversion and, in official mode, null-text
 optimization; ``--quant_mode w8|w8a8`` (int8 UNet weights, ``--fast``
 only); ``--reuse_schedule uniform:K|custom:<p0,...>`` (deep-feature reuse
-in the cached fast edit). ``--mesh`` and ``--device_telemetry`` (item
-13) raise, naming their ROADMAP item.
+in the cached fast edit).
+
+``--mesh dp,sp,tp`` runs the edit on a mesh of GPUs, one process each,
+launched by ``torchrun --nproc_per_node N`` (NCCL; gloo with ``--device
+cpu``): frames over ``sp`` (each rank encodes, inverts and edits its own
+frames; the ring on the temporal sites, the frame-0 K/V broadcast, the
+frame-pooled GroupNorm statistics all-reduced, null-text's loss and
+gradient global), heads over ``tp`` (``cli/common.py:setup_mesh``); dp
+must be 1. Rank 0 gathers the latents, decodes them and writes the GIFs,
+the report and the run's ledger (each other rank writes
+``<ledger stem>.rank<r>.jsonl``); persisted inversion reuse is off, and
+``--attn_maps`` needs sp = 1 (its records are per rank, not gathered).
+``VIDEOP2P_RING_VARIANT`` / ``VIDEOP2P_TP_COLLECTIVES`` pick the ring
+schedule and the row-parallel reduction, as in JAX.
 
 Observability (JAX's flags): ``--ledger PATH`` writes the run ledger
 (``obs/ledger.py``; default ``<results>/run_ledger.jsonl`` when any of these
@@ -50,8 +62,11 @@ edit-quality record; ``--report`` the HTML report; ``--incidents DIR`` a
 crash bundle under DIR; ``--trace_analysis`` a ``torch.profiler`` capture of
 the main program (``cached_invert_edit`` in the cached fast edit, else
 ``edit_sample``) mined into a ``trace_analysis`` event
-(``obs/trace.py``). With a ledger, each program's first call is analysed
-into a ``program_analysis`` event (``obs/introspect.py``);
+(``obs/trace.py``); ``--device_telemetry`` (with ``--mesh``) the edit's
+per-device statistics and cross-replica divergence (``device_telemetry``
+events, ``obs/comm.py``). With a ledger, each program's first call is
+analysed into a ``program_analysis`` event (``obs/introspect.py``), and
+on a mesh its collectives into a ``comm_analysis`` event;
 ``--no_program_analysis`` skips that. A repeat run on one ledger gets
 ``regression_verdicts`` against the previous run (``obs/history.py``).
 None of them changes an output bit.
@@ -71,6 +86,8 @@ Run:  python -m videop2p_tpu_torch.cli.run_videop2p \\
           [--inv_store DIR] [--quant_mode w8] [--reuse_schedule uniform:2] \\
           [--ledger L] [--telemetry] [--attn_maps] [--quality] [--report] \\
           [--latency] [--incidents DIR] [--trace_analysis] [--no_program_analysis]
+      torchrun --standalone --nproc_per_node 2 -m videop2p_tpu_torch.cli.run_videop2p \
+          --config configs/rabbit-jump-p2p.yaml --fast --mesh 1,2,1 [--device_telemetry]
 
 The run is on CUDA unless ``--device cpu`` is given.
 """
@@ -92,13 +109,15 @@ from videop2p_tpu_torch.cli.common import (
     ModelBundle,
     add_dependent_args,
     add_obs_args,
-    add_unported_args,
     build_models,
     deterministic_convolutions,
     encode_prompts,
     load_config,
     make_run_ledger,
+    parse_mesh,
     resolve_pipeline_dir,
+    setup_mesh,
+    validate_mesh,
 )
 from videop2p_tpu_torch.control.controllers import make_controller
 from videop2p_tpu_torch.models.convert import quantize_unet_params
@@ -182,6 +201,21 @@ def _word_token_records(prompts: Sequence[str], tokenizer) -> list:
             if len(toks):
                 recs.append({"prompt": pi, "word": word, "tokens": [int(t) for t in toks]})
     return recs
+
+
+def _ledger_device_stats(run_ledger, program: str, dev_stats, probe) -> None:
+    """One loop's device-probe channels → a ``device_telemetry`` event (and
+    a console warning when the replicas diverged; the divergence joins the
+    zero-noise-floor COMM_RULES gate, ``obs/history.py``)."""
+    from videop2p_tpu_torch.obs.comm import summarize_device_stats
+
+    rec = summarize_device_stats(dev_stats, probe.device_ids)
+    rec["divergence_axes"] = list(probe.divergence_axes)
+    if run_ledger is not None:
+        run_ledger.device_telemetry(program, rec)
+    div = rec.get("divergence_max", 0.0)
+    print(f"[p2p] device telemetry ({program}): {rec.get('devices')} devices, "
+          f"divergence_max={div}" + ("  <-- REPLICAS DIVERGED (must be 0.0)" if div else ""))
 
 
 def _telemetry_record(tel) -> Dict[str, Any]:
@@ -400,13 +434,20 @@ def main(
     store is consulted only once the cached-maps decision is final and
     never on the cached fast path, which still saves its trajectory. It is
     off when ``bundle`` is given: a path no longer names the weights.
-    ``mesh`` (multi-GPU) raises: ROADMAP Queue 1 item 13.
+    ``mesh`` ("dp,sp,tp"): the run on a mesh of processes (the module
+    docstring), the process group joined from ``torchrun``'s environment
+    (``parallel/distributed.py``); ``VIDEOP2P_RING_VARIANT`` /
+    ``VIDEOP2P_TP_COLLECTIVES`` set the ring schedule and the row-parallel
+    reduction (``cli/common.py:setup_mesh``). A given ``bundle``'s UNet is
+    copied before it is sharded.
 
     Observability (the module docstring's flags): ``ledger``, ``telemetry``,
     ``attn_maps``, ``quality``, ``report``, ``latency``, ``incidents``,
     ``trace_analysis``; any of them opens the run ledger.
     ``program_analysis=False`` skips the analysis of the programs' first
-    calls. ``device_telemetry`` (item 13) raises.
+    calls. ``device_telemetry`` probes each rank's latents and the replicas'
+    divergence after every edit step (needs ``mesh``; without one a note
+    says it is ignored, as in JAX).
 
     The dependent noise, as the JAX CLI: a sampler over the clip's
     ``video_len`` frames in windows of ``min(window_size, video_len)``
@@ -429,15 +470,20 @@ def main(
     seconds, each phase's peak memory on the card, the UNet's weight bytes,
     the checkpoint directory, the results directory and the GIF paths
     written, and the run ledger's, the sidecar's and the report's paths
-    (None when not written)."""
+    (None when not written). On a mesh every rank returns the gathered
+    latents, ``x_0`` and ``x_t``; the videos and GIFs are rank 0's (None and
+    () on the others)."""
     del unused, num_frames
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh {mesh!r}: multi-GPU editing is not ported (ROADMAP Queue 1 item 13)")
-    if device_telemetry:
-        raise NotImplementedError(
-            "device_telemetry probes the replicas of a mesh: multi-GPU is not "
-            "ported (ROADMAP Queue 1 item 13)")
+    dp, sp, tp = parse_mesh(mesh)
+    if quant_mode != "off" and (sp > 1 or tp > 1):
+        raise ValueError(
+            f"quant_mode={quant_mode!r} is not supported on a model-parallel mesh: "
+            "the quantized weights would need their own sharding rules")
+    if attn_maps and sp > 1:
+        raise ValueError(
+            f"attn_maps on mesh {mesh!r}: with the frames split (sp={sp}) each rank "
+            "records only its frames' attention (the ring's temporal sites none), and "
+            "the records are not gathered yet; run --attn_maps with sp = 1")
     if mixed_precision not in _DTYPES:
         raise ValueError(f"mixed_precision must be one of {sorted(_DTYPES)}")
     if not fast:
@@ -458,6 +504,17 @@ def main(
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
                            "available; pass --device cpu to run on the CPU")
+    if mesh is not None:
+        from videop2p_tpu_torch.parallel.distributed import initialize_distributed
+
+        # one process per GPU: this one's is cuda:LOCAL_RANK
+        initialize_distributed(device.type)
+        validate_mesh(mesh, video_len)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    from videop2p_tpu_torch.parallel.distributed import process_index
+
+    rank0 = process_index() == 0
     # full float32 products and convolutions (cuDNN's default for float32
     # convolutions is TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -480,7 +537,7 @@ def main(
               "null_text_precision": null_text_precision, "null_text_mode": null_text_mode},
         telemetry=telemetry, attn_maps=attn_maps, quality=quality, report=report,
         latency=latency, trace_analysis=trace_analysis, program_analysis=program_analysis,
-        incidents=incidents, device=device)
+        incidents=incidents, device=device, device_telemetry=device_telemetry)
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
 
     @contextlib.contextmanager
@@ -513,8 +570,9 @@ def main(
     timings: Dict[str, float] = {}
     peaks: Dict[str, float] = {}
 
-    # a given bundle is not named by any path: nothing is persisted for it
-    reuse_inversion = reuse_inversion and bundle is None
+    # a given bundle is not named by any path: nothing is persisted for it;
+    # nor on a mesh, whose ranks would race on one entry (JAX's rule)
+    reuse_inversion = reuse_inversion and bundle is None and mesh is None
     if reuse_inversion:
         # before the key, as the JAX CLI: the checkpoint's fingerprint then
         # reads the same on the first run as on a repeat
@@ -528,6 +586,22 @@ def main(
     elif quant_mode != "off":
         bundle = dataclasses.replace(
             bundle, unet=quantize_unet_params(copy.deepcopy(bundle.unet), quant_mode))
+    elif mesh is not None:
+        bundle = dataclasses.replace(bundle, unet=copy.deepcopy(bundle.unet))
+    device_mesh = device_probe = None
+    if mesh is not None:
+        with _phase("mesh_setup", timings, device, peaks):
+            device_mesh = setup_mesh(bundle, mesh, video_len, device=device)
+    if device_telemetry:
+        if device_mesh is not None:
+            from videop2p_tpu_torch.obs.comm import make_device_probe
+
+            device_probe = make_device_probe(device_mesh)
+            print(f"[p2p] device telemetry: probing {device_mesh.size} devices, "
+                  f"divergence over {device_probe.divergence_axes}")
+        else:
+            print("[p2p] --device_telemetry needs --mesh — single-device runs have "
+                  "no replicas to probe; flag ignored")
     unet_fn = make_unet_fn(bundle.unet)
     sched = bundle.make_scheduler()
     inv_key = inversion_cache_key(**inversion_determinants(
@@ -540,6 +614,7 @@ def main(
         frames = load_frame_sequence(image_path, size=width, num_frames=video_len)
     video = torch.as_tensor(np.asarray(frames), dtype=torch.float32,
                             device=device)[None] / 127.5 - 1.0
+    from videop2p_tpu_torch.parallel.mesh import frames_slice, gather_frames
     # the disk layer's root: a shared --inv_store amortizes one inversion
     # across output directories (the keys are content-addressed)
     store_root = inv_store or output_dir
@@ -548,14 +623,15 @@ def main(
 
     with torch.no_grad():
         with _phase("vae_encode", timings, device, peaks):
-            latents = encode_video(bundle.vae, video).float()
+            # on a frame-sharded mesh each rank encodes its own frames
+            latents = encode_video(bundle.vae, frames_slice(video)).float()
         with _phase("text_encode", timings, device, peaks):
             cond_src = encode_prompts(bundle, [prompt], device)
             cond_all = encode_prompts(bundle, list(prompts), device)
             uncond = encode_prompts(bundle, [""], device)[0]
         if multi:
             # per-frame conditioning: each prompt's embedding over the frames
-            cond_all = cond_all[:, None].repeat(1, video_len, 1, 1)
+            cond_all = frames_slice(cond_all[:, None].repeat(1, video_len, 1, 1))
         blend_words = ((blend_word[0],), (blend_word[1],)) if blend_word else None
         ctx = make_controller(
             list(prompts), bundle.tokenizer, num_ddim_steps,
@@ -576,10 +652,11 @@ def main(
                                              CACHED_MAPS_BUDGET_GB))
             fits, tm_dtype, map_gb = choose_cached_maps(
                 lambda dt: capture_bytes(
-                    bundle.unet, latents.shape, cond_src.shape[-2],
-                    cross_len=cross_len, self_window=self_window,
+                    bundle.unet, (latents.shape[0], video_len, *latents.shape[2:]),
+                    cond_src.shape[-2], cross_len=cross_len, self_window=self_window,
                     temporal_maps_dtype=dt),
-                budget_gb=budget_gb)
+                # the budget is per GPU: each holds its frames' share
+                sp=sp, budget_gb=budget_gb)
             stored = "bfloat16" if tm_dtype is None else str(tm_dtype).replace("torch.", "")
             decision = {"fits": fits, "gib": map_gb, "budget_gib": budget_gb,
                         "temporal_maps_dtype": stored, "cross_len": cross_len,
@@ -617,12 +694,15 @@ def main(
                     self_window=self_window, temporal_maps_dtype=tm_dtype,
                     dependent_weight=dep_w, dependent_sampler=p2p_sampler,
                     generator=gens["inversion"], reuse_schedule=reuse_schedule,
-                    telemetry=telemetry, attn_maps=attn_maps)
+                    telemetry=telemetry, attn_maps=attn_maps, device_probe=device_probe)
             trajectory, edited, extras = res[0], res[1], list(res[2:])
             if telemetry:
                 tel = extras.pop(0)
                 if run_ledger is not None:
                     run_ledger.telemetry("cached_invert_edit", _telemetry_record(tel))
+            if device_probe is not None:
+                _ledger_device_stats(run_ledger, "cached_invert_edit", extras.pop(0),
+                                     device_probe)
             if attn_maps:
                 attn_records = to_host(extras.pop(0))
             if run_ledger is not None:
@@ -699,25 +779,33 @@ def main(
                     ctx=ctx, source_uses_cfg=official, eta=eta, generator=gens["edit"],
                     null_uncond_embeddings=null_embeddings if official else None,
                     dependent_sampler=p2p_sampler, telemetry=telemetry,
-                    attn_maps=attn_maps)
-            if telemetry or attn_maps:
+                    attn_maps=attn_maps, device_probe=device_probe)
+            if telemetry or attn_maps or device_probe is not None:
                 edited, *extras = edited
                 if telemetry:
                     edit_tel = extras.pop(0)
+                if device_probe is not None:
+                    _ledger_device_stats(run_ledger, "edit_sample", extras.pop(0),
+                                         device_probe)
                 if attn_maps:
                     attn_records["edit"] = to_host(extras.pop(0))
             if telemetry and run_ledger is not None:
                 run_ledger.telemetry("edit_sample", _telemetry_record(edit_tel))
             if run_ledger is not None:
                 run_ledger.memory_snapshot(note="after_edit")
-        with _phase("vae_decode", timings, device, peaks):
-            videos = (decode_video(bundle.vae, edited).float() + 1.0) / 2.0
+        # rank 0 decodes the whole clip
+        edited = gather_frames(edited)
+        trajectory = gather_frames(trajectory, dim=2)
+        videos = None
+        if rank0:
+            with _phase("vae_decode", timings, device, peaks):
+                videos = (decode_video(bundle.vae, edited).float() + 1.0) / 2.0
 
-    gifs = _write_gifs(videos, output_dir, save_name, fast) if save_gifs else ()
+    gifs = _write_gifs(videos, output_dir, save_name, fast) if save_gifs and rank0 else ()
     print("[p2p] phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
     report_path = sidecar_path = None
     if run_ledger is not None:
-        if attn_records or quality or report:
+        if rank0 and (attn_records or quality or report):
             videos_np = videos.cpu().numpy()
             report_path, sidecar_path = _semantic_obs(
                 run_ledger, output_dir=output_dir, save_name=save_name, suffix=suffix,
@@ -734,11 +822,19 @@ def main(
         run_ledger.event("artifacts", inversion_gif=gifs[0] if gifs else None,
                          edit_gif=gifs[1] if gifs else None, report=report_path)
         run_ledger.memory_snapshot(note="run_end")
+        if device_mesh is not None:
+            from videop2p_tpu_torch.parallel.distributed import gather_host_phases
+
+            gather_host_phases(run_ledger)
         run_ledger.close()
         print(f"[p2p] run ledger: {run_ledger.path}")
         if getattr(run_ledger, "incidents", None) is not None:
             # the run ended without a crash: restore the hooks it armed
             run_ledger.incidents.close()
+    if device_mesh is not None:
+        from videop2p_tpu_torch.parallel.mesh import set_active_mesh
+
+        set_active_mesh(None)
     return {"latents": edited, "x_0": trajectory[0], "x_t": trajectory[-1],
             "videos": videos, "mode": mode, "cached_maps": decision,
             "null_text": null_stats, "timings": timings, "peak_gib": peaks,
@@ -747,7 +843,8 @@ def main(
             "inv_key": inv_key, "unet_bytes": _module_bytes(bundle.unet),
             "checkpoint_dir": pretrained_model_path, "output_dir": output_dir,
             "gifs": gifs, "ledger": None if run_ledger is None else run_ledger.path,
-            "sidecar": sidecar_path, "report": report_path}
+            "sidecar": sidecar_path, "report": report_path,
+            "mesh": None if device_mesh is None else device_mesh.spec()}
 
 
 def _module_bytes(module: torch.nn.Module) -> int:
@@ -832,13 +929,13 @@ if __name__ == "__main__":
                              "run the full UNet, the rest the shallow path on the "
                              "cached deep feature")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="device mesh dp,sp,tp: not ported (ROADMAP Queue 1 item 13)")
+                        help="mesh dp,sp,tp of GPUs, one process each under torchrun "
+                             "(e.g. 1,2,1: frames over 2 GPUs); dp must be 1")
     # --dependent, --ar_sample, --decay_rate, --window_size, --ar_coeff,
     # --loss_sig, --num_frames, --eta (the edit's DDIM η, default 0; > 0
     # draws its noise from --seed) and --dependent_weights
     add_dependent_args(parser)
     add_obs_args(parser)
-    add_unported_args(parser)
     args = parser.parse_args()
     cfg = load_config(args.config)
     for key in ("mixed_precision", "num_inner_steps", "null_text_precision",
@@ -860,4 +957,5 @@ if __name__ == "__main__":
          telemetry=args.telemetry, ledger=args.ledger, attn_maps=args.attn_maps,
          quality=args.quality, report=args.report, latency=args.latency,
          incidents=args.incidents, trace_analysis=args.trace_analysis,
-         program_analysis=not args.no_program_analysis)
+         program_analysis=not args.no_program_analysis,
+         device_telemetry=args.device_telemetry)

@@ -19,7 +19,7 @@ Then ``POST /v1/edits`` a JSON request (``serve/engine.py:EditRequest``),
 ``--incidents DIR`` arms the incident plane (breaker-open, deadline, crash
 and ``kill -USR1 <pid>`` bundles under DIR). Not ported: ``--mesh``,
 non-default ``--ring_variant`` / ``--tp_collectives`` and ``--batch_dispatch
-vmap`` (multi-GPU, ROADMAP Queue 1 item 13); the engine raises for each,
+vmap`` (multi-GPU, ROADMAP Queue 1 item 13's rest); the engine raises for each,
 naming the item.
 """
 
@@ -47,15 +47,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", type=str, default="cuda",
                     help="the device the engine serves on (cuda, or cpu for a smoke run)")
     ap.add_argument("--mesh", type=str, default=None,
-                    help="dp,sp,tp device mesh: not ported (ROADMAP Queue 1 item 13)")
+                    help="dp,sp,tp device mesh: not ported (ROADMAP Queue 1 item 13's rest)")
     ap.add_argument("--ring_variant", type=str, default="overlap",
                     choices=["overlap", "bidir", "serial"],
                     help="ring-attention schedule on sp>1 meshes: only the default "
-                         "(ROADMAP Queue 1 item 13)")
+                         "(ROADMAP Queue 1 item 13's rest)")
     ap.add_argument("--tp_collectives", type=str, default="gspmd",
                     choices=["gspmd", "psum_scatter"],
                     help="row-parallel reduction on tp>1 meshes: only the default "
-                         "(ROADMAP Queue 1 item 13)")
+                         "(ROADMAP Queue 1 item 13's rest)")
     ap.add_argument("--host", type=str, default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--out_dir", type=str, default="serve_out",
@@ -72,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch_dispatch", type=str, default="scan", choices=["scan", "vmap"],
                     help="scan: one dispatch, per-request results bit-identical to "
                          "singletons; vmap: data-mesh sharded, not ported (ROADMAP "
-                         "Queue 1 item 13)")
+                         "Queue 1 item 13's rest)")
     # scheduling policy + per-tenant QoS (serve/sched.py)
     ap.add_argument("--scheduler", type=str, default="drain",
                     choices=["drain", "continuous", "fair"],

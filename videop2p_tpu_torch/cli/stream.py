@@ -22,7 +22,7 @@ Run:  python -m videop2p_tpu_torch.cli.stream --checkpoint <dir> \
 ``--incidents DIR`` arms the incident plane: breaker-open, deadline,
 poisoned-window and crash bundles under DIR. Not ported: ``--mesh``,
 non-default ``--ring_variant`` / ``--tp_collectives`` (multi-GPU, ROADMAP
-Queue 1 item 13); the engine raises for each, naming the item.
+Queue 1 item 13's rest); the engine raises for each, naming the item.
 """
 
 from __future__ import annotations
@@ -86,15 +86,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", type=str, default="cuda",
                     help="the device the engine serves on (cuda, or cpu for a smoke run)")
     ap.add_argument("--mesh", type=str, default=None,
-                    help="dp,sp,tp device mesh: not ported (ROADMAP Queue 1 item 13)")
+                    help="dp,sp,tp device mesh: not ported (ROADMAP Queue 1 item 13's rest)")
     ap.add_argument("--ring_variant", type=str, default="overlap",
                     choices=["overlap", "bidir", "serial"],
                     help="ring-attention schedule on sp>1 meshes: only the default "
-                         "(ROADMAP Queue 1 item 13)")
+                         "(ROADMAP Queue 1 item 13's rest)")
     ap.add_argument("--tp_collectives", type=str, default="gspmd",
                     choices=["gspmd", "psum_scatter"],
                     help="row-parallel reduction on tp>1 meshes: only the default "
-                         "(ROADMAP Queue 1 item 13)")
+                         "(ROADMAP Queue 1 item 13's rest)")
     # engine knobs
     ap.add_argument("--store_budget_gb", type=float, default=4.0)
     ap.add_argument("--max_batch", type=int, default=4)

@@ -182,10 +182,13 @@ def _edit_temporal(base: torch.Tensor, repl: torch.Tensor, ctx: ControlContext,
 def control_attention(probs: torch.Tensor, ctx: Optional[ControlContext], *,
                       is_cross: bool, step_index: int, video_length: int,
                       num_uncond: int = -1,
-                      base_map: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      base_map: Optional[torch.Tensor] = None,
+                      frame_shards: int = 1) -> torch.Tensor:
     """Apply the edit to full-batch probabilities, U uncond streams first:
     cross ((U+P)·F, H, Q, W) with frames folded into the batch; temporal
-    ((U+P)·D, H, F, F) with spatial positions folded into the batch.
+    ((U+P)·D, H, F, F) with spatial positions folded into the batch, or,
+    with the frames split over ``frame_shards`` ranks, this rank's
+    ((U+P)·D, H, F/frame_shards, F) query rows of them.
 
     ``base_map``: the cached-source mode — the source stream is not in the
     batch (its cond streams are the P − 1 edits only) and its maps for this
@@ -205,10 +208,11 @@ def control_attention(probs: torch.Tensor, ctx: Optional[ControlContext], *,
         raise ValueError(
             f"cross-attention batch {B} does not factor as ({U}+{ncond})·{video_length} "
             "(uncond+cond streams × frames) — batch layout mismatch")
-    if not is_cross and (Q != video_length or K != video_length):
+    # a frame-sharded mesh keeps a rank's query rows: (F/sp × F) maps
+    if not is_cross and (K != video_length or Q * frame_shards != video_length):
         raise ValueError(
-            f"temporal attention maps must be ({video_length}×{video_length}), "
-            f"got ({Q}×{K})")
+            f"temporal attention maps must be ({video_length // frame_shards}×"
+            f"{video_length}) over {frame_shards} frame shard(s), got ({Q}×{K})")
     split = probs.reshape(U + ncond, inner, H, Q, K)
     if base_map is None:
         base, repl = split[U], split[U + 1:]

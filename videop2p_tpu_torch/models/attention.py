@@ -23,6 +23,18 @@ Each attention, feed-forward and transformer module has an
 quant mode's activation fake-quant at every Dense input, where JAX's
 ``_aq`` applies it.
 
+The mesh seams (None: the single-device code, bit for bit; set by
+``UNet3DConditionModel.set_seams`` from ``parallel/mesh.py``), JAX's flax
+fields of the same names: ``FrameAttention.frame_attention_fn`` (the
+frame-0 K/V broadcast over ``frames``), ``ControlledAttention.attention_fn``
+(the ring on the uncontrolled temporal sites), ``kv_gather_fn`` (the
+controlled temporal sites' K/V over every frame), ``head_mean_fn`` (the
+store's head-mean over the heads of every tensor rank), and under tensor
+parallelism ``tp_copy_fn`` (the column-parallel entry) and
+``row_parallel_dot`` (the row-parallel ``to_out`` / ``proj_out`` and its
+reduction). Under tensor parallelism ``heads`` counts this rank's heads and
+``tp_size`` the ranks they are split over.
+
 Batch layout matches the JAX package so the control layer can factor the
 batch: frames fold batch-major ``(B, F, …) → (B·F, …)`` at the cross site,
 spatial positions fold batch-major ``(B·N, F, C)`` at the temporal site.
@@ -95,6 +107,15 @@ def _aq(fn, x: torch.Tensor) -> torch.Tensor:
     return x if fn is None else fn(x)
 
 
+def _out_proj(module: nn.Module, linear: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The output projection ``linear`` of ``module``, or its row-parallel
+    form through the module's ``row_parallel_dot`` seam."""
+    x = _aq(module.act_quant_fn, x)
+    if module.row_parallel_dot is None:
+        return linear(x)
+    return module.row_parallel_dot(x, linear.weight, linear.bias)
+
+
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     """(B, N, H·D) → (B, H, N, D) view."""
     b, n, _ = x.shape
@@ -122,18 +143,25 @@ class FrameAttention(nn.Module):
         self.to_v = Linear(dim, inner, bias=False)
         self.to_out = nn.ModuleList([Linear(inner, dim)])
         self.act_quant_fn = None
+        self.frame_attention_fn = None
+        self.tp_copy_fn = None
+        self.row_parallel_dot = None
+        self.tp_size = 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, f, n, _ = x.shape
         inner = self.heads * self.dim_head
         x = _aq(self.act_quant_fn, x)
+        if self.tp_copy_fn is not None:
+            x = self.tp_copy_fn(x)
         q = self.to_q(x).reshape(b, f, n, self.heads, self.dim_head).transpose(2, 3)
         kv_src = x[:, 0]
         k = _split_heads(self.to_k(kv_src), self.heads)
         v = _split_heads(self.to_v(kv_src), self.heads)
-        out = self.attention_fn(q, k, v)  # (B, F, H, N, D)
+        attention = self.frame_attention_fn or self.attention_fn
+        out = attention(q, k, v)  # (B, F, H, N, D)
         out = out.transpose(2, 3).reshape(b, f, n, inner)
-        return self.to_out[0](_aq(self.act_quant_fn, out))
+        return _out_proj(self, self.to_out[0], out)
 
 
 class ControlledAttention(nn.Module):
@@ -155,6 +183,12 @@ class ControlledAttention(nn.Module):
         self.to_v = Linear(ctx_dim, inner, bias=False)
         self.to_out = nn.ModuleList([Linear(inner, dim)])
         self.act_quant_fn = None
+        self.attention_fn = None
+        self.kv_gather_fn = None
+        self.head_mean_fn = None
+        self.tp_copy_fn = None
+        self.row_parallel_dot = None
+        self.tp_size = 1
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 control: Optional[AttnControl] = None,
@@ -162,13 +196,28 @@ class ControlledAttention(nn.Module):
                 store: Optional[dict] = None) -> torch.Tensor:
         x = _aq(self.act_quant_fn, x)
         ctx_in = x if context is None else _aq(self.act_quant_fn, context)
+        if self.tp_copy_fn is not None:
+            x = self.tp_copy_fn(x)
+            ctx_in = x if context is None else self.tp_copy_fn(ctx_in)
         q = _split_heads(self.to_q(x), self.heads)
         k = _split_heads(self.to_k(ctx_in), self.heads)
         v = _split_heads(self.to_v(ctx_in), self.heads)
+        if self.attention_fn is not None and control is None:
+            # the sequence-parallel kernel (the ring) of an uncontrolled pass
+            return _out_proj(self, self.to_out[0], _merge_heads(self.attention_fn(q, k, v)))
+        frame_shards = 1
+        if self.kv_gather_fn is not None:
+            # a controlled temporal site over split frames: this rank's
+            # query rows against the K/V of every frame
+            local = k.shape[-2]
+            k, v = self.kv_gather_fn(k, v)
+            video_length = k.shape[-2]
+            frame_shards = video_length // local
         sim = torch.matmul(q, k.transpose(-1, -2)) * (self.dim_head ** -0.5)
         probs = torch.softmax(sim.float(), dim=-1).to(q.dtype)
         if store is not None and probs.shape[-2] <= STORE_MAX_QUERIES:
-            store[self.path] = probs.mean(dim=1)
+            store[self.path] = (probs.mean(dim=1) if self.head_mean_fn is None
+                                else self.head_mean_fn(probs))
         if control is not None and control.capture:
             if store is None:
                 raise ValueError("capture mode needs a store")
@@ -189,9 +238,10 @@ class ControlledAttention(nn.Module):
                 probs = control_attention(
                     probs, control.ctx, is_cross=self.site == "cross",
                     step_index=control.step_index, video_length=video_length,
-                    num_uncond=control.num_uncond, base_map=base_map)
+                    num_uncond=control.num_uncond, base_map=base_map,
+                    frame_shards=frame_shards)
         out = torch.matmul(probs, v)
-        return self.to_out[0](_aq(self.act_quant_fn, _merge_heads(out)))
+        return _out_proj(self, self.to_out[0], _merge_heads(out))
 
 
 class GEGLU(nn.Module):
@@ -213,10 +263,15 @@ class FeedForward(nn.Module):
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
                                   Linear(dim * mult, dim)])
         self.act_quant_fn = None
+        self.tp_copy_fn = None
+        self.row_parallel_dot = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.net[0](_aq(self.act_quant_fn, x))
-        return self.net[2](_aq(self.act_quant_fn, self.net[1](h)))
+        x = _aq(self.act_quant_fn, x)
+        if self.tp_copy_fn is not None:
+            x = self.tp_copy_fn(x)
+        h = self.net[0](x)
+        return _out_proj(self, self.net[2], self.net[1](h))
 
 
 class BasicTransformerBlock(nn.Module):

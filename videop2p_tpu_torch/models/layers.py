@@ -72,7 +72,10 @@ class TpuGroupNorm(nn.Module):
     first (sample) and the last (channel) axis: frame-pooled on
     (B, F, H, W, C), per frame when the caller folds frames into the batch.
     Every call goes through :func:`fused_group_norm` — the CUDA kernel on a
-    CUDA tensor, the plain version on a CPU tensor."""
+    CUDA tensor, the plain version on a CPU tensor — unless the mesh seam
+    ``group_norm_fn`` is set (``parallel/mesh.py:make_sharded_group_norm_fn``,
+    JAX's field of the name): it then owns the call, told whether the site
+    is frame-pooled (a 5-D input) or per frame."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
                  act: str = "none"):
@@ -82,13 +85,17 @@ class TpuGroupNorm(nn.Module):
         self.act = act
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.group_norm_fn = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c = x.shape[0], x.shape[-1]
-        y = fused_group_norm(
-            x.reshape(n, -1, c).contiguous(), as_input_dtype(self.weight, x),
-            as_input_dtype(self.bias, x),
-            num_groups=self.num_groups, eps=self.eps, act=self.act)
+        args = (x.reshape(n, -1, c).contiguous(), as_input_dtype(self.weight, x),
+                as_input_dtype(self.bias, x))
+        kwargs = dict(num_groups=self.num_groups, eps=self.eps, act=self.act)
+        if self.group_norm_fn is not None:
+            y = self.group_norm_fn(*args, pooled=x.dim() == 5, **kwargs)
+        else:
+            y = fused_group_norm(*args, **kwargs)
         return y.reshape(x.shape)
 
 

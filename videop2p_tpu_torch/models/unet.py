@@ -233,6 +233,43 @@ class UNet3DConditionModel(nn.Module):
             if isinstance(module, ControlledAttention):
                 module.path = name
 
+    def set_seams(self, *, frame_attention_fn=None, temporal_attention_fn=None,
+                  kv_gather_fn=None, group_norm_fn=None, row_parallel_dot=None,
+                  temporal_row_parallel_dot=None, tp_copy_fn=None,
+                  head_mean_fn=None) -> "UNet3DConditionModel":
+        """Thread the mesh seams into every site (JAX's ``unet.clone(...)``
+        of its flax fields; ``parallel/mesh.py`` builds them): the frame
+        attention of every ``attn1``, the ring of the temporal sites'
+        uncontrolled passes and their controlled K/V gather, the GroupNorm
+        of every norm, and under tensor parallelism the column-parallel
+        entry, the head-mean of the stored maps and the row-parallel output
+        of the spatial sites (``row_parallel_dot``: ``attn1``, ``attn2``, the
+        feed-forward) and of the temporal ones
+        (``temporal_row_parallel_dot``: the frames are its tokens, so it
+        all-reduces whatever ``tp_collectives`` says, as JAX leaves that site
+        declarative). None everywhere is the single-device model."""
+        from videop2p_tpu_torch.models.attention import FeedForward, FrameAttention
+
+        for module in self.modules():
+            if isinstance(module, FrameAttention):
+                module.frame_attention_fn = frame_attention_fn
+                module.tp_copy_fn = tp_copy_fn
+                module.row_parallel_dot = row_parallel_dot
+            elif isinstance(module, ControlledAttention):
+                temporal = module.site == "temporal"
+                module.attention_fn = temporal_attention_fn if temporal else None
+                module.kv_gather_fn = kv_gather_fn if temporal else None
+                module.head_mean_fn = head_mean_fn
+                module.tp_copy_fn = tp_copy_fn
+                module.row_parallel_dot = (temporal_row_parallel_dot if temporal
+                                           else row_parallel_dot)
+            elif isinstance(module, FeedForward):
+                module.tp_copy_fn = tp_copy_fn
+                module.row_parallel_dot = row_parallel_dot
+            elif isinstance(module, TpuGroupNorm):
+                module.group_norm_fn = group_norm_fn
+        return self
+
     @property
     def dtype(self) -> torch.dtype:
         """The compute dtype: ``compute_dtype``, else the weights'."""

@@ -34,6 +34,14 @@ after :meth:`RunLedger.close`):
     ``supported: false`` on the CPU;
   * ``telemetry`` — a pipeline loop's decoded per-step statistics
     (``obs/telemetry.py``), under its program's label;
+  * ``comm_analysis`` — on a mesh, the collectives a program's first call
+    issued on this rank, by kind and bytes (``obs/comm.py``), beside its
+    ``program_analysis``; ``device_telemetry`` — a loop's per-device probe
+    summary; ``divergence`` — one cross-replica divergence (must be 0.0);
+  * ``host_phase`` — with more than one process (``torchrun``), every
+    ``phase`` again with the process's identity
+    (``parallel/distributed.py:host_phase_record``), where JAX emits it
+    with more than one host process;
   * ``fault`` / ``breaker`` — the serving resilience layer's events.
 
 With ``max_bytes`` a write that would cross the bound first shifts the file
@@ -199,6 +207,8 @@ class RunLedger:
         self._closed = False
         self._activated = False
         self.compile_seconds: List[float] = []
+        # this process's host_phase records (a multi-process run)
+        self.host_phases: List[Dict[str, Any]] = []
         # per-program execute-timing reservoirs (obs/timing.py): on with
         # ``latency`` or VIDEOP2P_OBS_LATENCY=1; summaries flush at close
         self.latency = bool(latency)
@@ -303,6 +313,31 @@ class RunLedger:
 
     def phase(self, name: str, seconds: float, **fields: Any) -> None:
         self.event("phase", name=name, seconds=round(float(seconds), 4), **fields)
+        # a multi-process run tags the measurement with the process's
+        # identity too, so merged records show the straggler skew
+        # (parallel/distributed.py:phase_skew); the records are kept for
+        # gather_host_phases, which brings every rank's to rank 0
+        try:
+            from videop2p_tpu_torch.parallel.distributed import emit_host_phase, process_count
+
+            if process_count() > 1:
+                emit_host_phase(name, seconds, self)
+        except Exception:  # noqa: BLE001 — observability never breaks timing
+            pass
+
+    def comm_analysis(self, program: str, record: Dict[str, Any]) -> None:
+        """One program's collective accounting (``obs/comm.py``)."""
+        self.event("comm_analysis", program=program, **record)
+
+    def device_telemetry(self, program: str, record: Dict[str, Any]) -> None:
+        """A decoded per-device telemetry summary
+        (``obs/comm.py:summarize_device_stats``) of ``program``."""
+        self.event("device_telemetry", program=program, **record)
+
+    def divergence(self, label: str, value: float, **fields: Any) -> None:
+        """One cross-replica divergence (``obs/comm.py:replica_divergence``):
+        must be 0.0."""
+        self.event("divergence", label=label, value=float(value), **fields)
 
     def fault(self, kind: str, **fields: Any) -> None:
         """One fault observation: an injected fault firing, a retry, a
@@ -445,16 +480,21 @@ class _Program:
         led = current_ledger()
         if led is None:
             return self.fn(*args, **kwargs)
-        skip = analysis = None
+        skip = analysis = comm = mesh = None
         if first:
             skip = ("analyze_false" if not self.analyze
                     else None if analysis_enabled() else "disabled")
             if skip is None:
                 from videop2p_tpu_torch.obs.introspect import ProgramAnalysis, call_device
+                from videop2p_tpu_torch.parallel.mesh import CommRecorder, active_mesh
 
                 analysis = ProgramAnalysis(call_device((args, kwargs)))
+                mesh = active_mesh()
+                # on a mesh: the collectives of the call (comm_analysis)
+                comm = CommRecorder() if mesh is not None else None
         t0 = time.perf_counter()
-        with program_label(self.program), (analysis or contextlib.nullcontext()):
+        with program_label(self.program), (analysis or contextlib.nullcontext()), \
+                (comm or contextlib.nullcontext()):
             out = self.fn(*args, **kwargs)
         dt = time.perf_counter() - t0
         fields: Dict[str, Any] = {"program": self.program, "cache_miss": first,
@@ -480,6 +520,11 @@ class _Program:
                               reason="analysis_error")
                 else:
                     led.program_analysis(self.program, record)
+                if comm is not None:
+                    from videop2p_tpu_torch.obs.comm import comm_analysis_record
+
+                    led.comm_analysis(self.program, comm_analysis_record(
+                        comm, mesh=mesh, args=(args, kwargs), out=out))
         return out
 
 

@@ -709,6 +709,7 @@ def make_frame_attention_fn(impl: str = "auto", *,
             return flash_frame_attention(q, k, v)
         return chunked_frame_attention(q, k, v, q_chunk=q_chunk)
 
+    fn.impl = impl
     return fn
 
 

@@ -49,6 +49,19 @@
 //     of the L2.
 // Where a call's x fits in the grid's shared memory, x crosses HBM once.
 // No float atomics: repeats are bit-identical.
+//
+// Staged entry (group_norm_staged), for a slab whose rows are split over
+// several GPUs (the frame-pooled resnet norms when frames are sharded):
+//   - kStats runs phase 1, the barrier and phase 2a with the fused launch's
+//     geometry, so its per-(sample, group) sums are the fused launch's bits,
+//     and writes them as (sum, sum of squares) to sums[N][G] (the first
+//     block of each sample writes them) instead of applying;
+//   - the caller all-reduces sums over the shards;
+//   - kApply reads the reduced sums, takes mean and variance over
+//     rows x C/G x shards elements (the same E[x^2] - E[x]^2) and runs
+//     phase 2b over the whole range from global memory (no slab, no
+//     barrier).
+// With one shard the two launches give the fused launch's bits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -141,6 +154,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 
+// what one launch does: the whole norm, the statistics alone, or the apply
+// of statistics summed elsewhere
+constexpr int kFused = 0;
+constexpr int kStats = 1;
+constexpr int kApply = 2;
+
 struct GnArgs {
   const void* x;
   void* y;
@@ -148,10 +167,12 @@ struct GnArgs {
   const void* bias;
   unsigned long long* ticket;  // grid barrier counter (scratch[0:8])
   float2* partial;             // [N][S][G] (sum, sum of squares) (scratch[16:])
+  float2* sums;                // [N][G] (sum, sum of squares): kStats out, kApply in
   int total;                   // N * rows
   int rows, C, G, K, S;
   int lanes, colsets, smem_rows;
   int param_bf16, silu;
+  int mode, shards;            // kFused / kStats / kApply; slabs the sums span
   float eps;
 };
 
@@ -294,122 +315,141 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gn_persistent_kernel(const GnA
   const int n_first = r0 / rows;
   const int n_last = r1 > r0 ? (r1 - 1) / rows : n_first - 1;
 
-  // ---- phase 1: per-channel sums, then this block's per-group partials
-  for (int n = n_first; n <= n_last; ++n) {
-    const int s0 = max(r0, n * rows), s1 = min(r1, (n + 1) * rows);
-    const int on_lo = s0, on_hi = min(s1, on_end);   // on chip
-    const int off_lo = max(s0, on_end), off_hi = s1;  // streamed
-    for (int j = 0; j < args.colsets; ++j) {
-      const int col = col0 + j * blockDim.x;
-      if (!active || col >= CV) continue;
-      float s[VEC], q[VEC];
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) s[i] = q[i] = 0.f;
-      if constexpr (VEC * sizeof(T) == 16) {
-        // every on-chip row of this thread in flight at once, then the rest
-        // through registers while they land
-        const uint64_t policy = evict_first_policy();
-        for (int r = on_lo + rl; r < on_hi; r += L)
-          cp_async16(slab + (r - r0) * CV + col, xv + static_cast<long long>(r) * CV + col,
-                     policy);
-        stats_rows<T, VEC, false>(xv, slab, off_lo, off_hi, r0, L, rl, col, CV, s, q);
-        cp_async_wait_all();
-        for (int r = on_lo + rl; r < on_hi; r += L)
-          accumulate<T, VEC>(slab[(r - r0) * CV + col], s, q);
-      } else {
-        stats_rows<T, VEC, false>(xv, slab, off_lo, off_hi, r0, L, rl, col, CV, s, q);
-        stats_rows<T, VEC, true>(xv, slab, on_lo, on_hi, r0, L, rl, col, CV, s, q);
-      }
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        red_s[rl * C + col * VEC + i] = s[i];
-        red_q[rl * C + col * VEC + i] = q[i];
-      }
+  const float cnt = static_cast<float>(rows) * static_cast<float>(cpg) *
+                    static_cast<float>(args.shards);
+  if (args.mode == kApply) {
+    // ---- the sums of every shard, reduced by the caller
+    for (int i = t; i < (n_last - n_first + 1) * G; i += blockDim.x) {
+      const float2 v = args.sums[static_cast<long long>(n_first) * G + i];
+      const float mean = v.x / cnt;
+      const float var = __fsub_rn(v.y / cnt, __fmul_rn(mean, mean));
+      stats[2 * i] = mean;
+      stats[2 * i + 1] = rsqrtf(var + args.eps);
     }
     __syncthreads();
-    const int slot = blockIdx.x - block_of(n * rows, P, R);
-    for (int g = warp; g < G; g += warps) {
-      float ss = 0.f, qq = 0.f;
-      for (int cc = lane; cc < cpg; cc += 32) {
-        for (int l = 0; l < L; ++l) {
-          ss += red_s[l * C + g * cpg + cc];
-          qq += red_q[l * C + g * cpg + cc];
+  } else {
+    // ---- phase 1: per-channel sums, then this block's per-group partials
+    for (int n = n_first; n <= n_last; ++n) {
+      const int s0 = max(r0, n * rows), s1 = min(r1, (n + 1) * rows);
+      const int on_lo = s0, on_hi = min(s1, on_end);   // on chip
+      const int off_lo = max(s0, on_end), off_hi = s1;  // streamed
+      for (int j = 0; j < args.colsets; ++j) {
+        const int col = col0 + j * blockDim.x;
+        if (!active || col >= CV) continue;
+        float s[VEC], q[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) s[i] = q[i] = 0.f;
+        if constexpr (VEC * sizeof(T) == 16) {
+          // every on-chip row of this thread in flight at once, then the rest
+          // through registers while they land
+          const uint64_t policy = evict_first_policy();
+          for (int r = on_lo + rl; r < on_hi; r += L)
+            cp_async16(slab + (r - r0) * CV + col, xv + static_cast<long long>(r) * CV + col,
+                       policy);
+          stats_rows<T, VEC, false>(xv, slab, off_lo, off_hi, r0, L, rl, col, CV, s, q);
+          cp_async_wait_all();
+          for (int r = on_lo + rl; r < on_hi; r += L)
+            accumulate<T, VEC>(slab[(r - r0) * CV + col], s, q);
+        } else {
+          stats_rows<T, VEC, false>(xv, slab, off_lo, off_hi, r0, L, rl, col, CV, s, q);
+          stats_rows<T, VEC, true>(xv, slab, on_lo, on_hi, r0, L, rl, col, CV, s, q);
+        }
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          red_s[rl * C + col * VEC + i] = s[i];
+          red_q[rl * C + col * VEC + i] = q[i];
         }
       }
-      warp_sum2(ss, qq);
-      if (lane == 0)
-        args.partial[(static_cast<long long>(n) * S + slot) * G + g] = make_float2(ss, qq);
-    }
-    __syncthreads();
-  }
-  // an empty range that starts inside a sample holds a slot of it: zeros
-  if (r1 == r0 && r0 < R && r0 % rows != 0) {
-    const int n = r0 / rows;
-    const int slot = blockIdx.x - block_of(n * rows, P, R);
-    for (int g = t; g < G; g += blockDim.x)
-      args.partial[(static_cast<long long>(n) * S + slot) * G + g] = make_float2(0.f, 0.f);
-  }
-
-  // ---- grid barrier (the one atomic: a ticket; nothing summed depends on it)
-  __threadfence();
-  __syncthreads();
-  if (t == 0) {
-    const unsigned long long ticket = atomicAdd(args.ticket, 1ULL);
-    const unsigned long long target = (ticket / P + 1) * P;
-    unsigned long long seen;
-    long long polls = 0;
-    for (;;) {
-      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(seen) : "l"(args.ticket) : "memory");
-      if (seen >= target) break;
-      if (++polls > kMaxPolls) __trap();
-      __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-  if (r1 == r0) return;
-
-  // ---- phase 2a: statistics of the samples this block touches: warp w sums
-  // slots w, w + warps, ... (lane = group), then each group its warps, in
-  // order; the same bits in every block that holds the sample
-  const float cnt = static_cast<float>(rows) * static_cast<float>(cpg);
-  for (int n = n_first; n <= n_last; ++n) {
-    const int nb = block_of((n + 1) * rows - 1, P, R) - block_of(n * rows, P, R) + 1;
-    const float2* ps = args.partial + static_cast<long long>(n) * S * G;
-    for (int g = lane; g < G; g += 32) {
-      float ss = 0.f, qq = 0.f;
-      for (int base = warp; base < nb; base += kUnroll * warps) {
-        float2 v[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int slot = base + u * warps;
-          v[u] = slot < nb ? __ldcg(ps + static_cast<long long>(slot) * G + g)
-                           : make_float2(0.f, 0.f);
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if (base + u * warps < nb) {
-            ss += v[u].x;
-            qq += v[u].y;
+      __syncthreads();
+      const int slot = blockIdx.x - block_of(n * rows, P, R);
+      for (int g = warp; g < G; g += warps) {
+        float ss = 0.f, qq = 0.f;
+        for (int cc = lane; cc < cpg; cc += 32) {
+          for (int l = 0; l < L; ++l) {
+            ss += red_s[l * C + g * cpg + cc];
+            qq += red_q[l * C + g * cpg + cc];
           }
         }
+        warp_sum2(ss, qq);
+        if (lane == 0)
+          args.partial[(static_cast<long long>(n) * S + slot) * G + g] = make_float2(ss, qq);
       }
-      xsum[warp * G + g] = make_float2(ss, qq);
+      __syncthreads();
+    }
+    // an empty range that starts inside a sample holds a slot of it: zeros
+    if (r1 == r0 && r0 < R && r0 % rows != 0) {
+      const int n = r0 / rows;
+      const int slot = blockIdx.x - block_of(n * rows, P, R);
+      for (int g = t; g < G; g += blockDim.x)
+        args.partial[(static_cast<long long>(n) * S + slot) * G + g] = make_float2(0.f, 0.f);
+    }
+
+    // ---- grid barrier (the one atomic: a ticket; nothing summed depends on it)
+    __threadfence();
+    __syncthreads();
+    if (t == 0) {
+      const unsigned long long ticket = atomicAdd(args.ticket, 1ULL);
+      const unsigned long long target = (ticket / P + 1) * P;
+      unsigned long long seen;
+      long long polls = 0;
+      for (;;) {
+        asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(seen) : "l"(args.ticket) : "memory");
+        if (seen >= target) break;
+        if (++polls > kMaxPolls) __trap();
+        __nanosleep(32);
+      }
+      __threadfence();
     }
     __syncthreads();
-    for (int g = t; g < G; g += blockDim.x) {
-      float ss = 0.f, qq = 0.f;
-      for (int w = 0; w < warps; ++w) {
-        ss += xsum[w * G + g].x;
-        qq += xsum[w * G + g].y;
+    if (r1 == r0) return;
+
+    // ---- phase 2a: statistics of the samples this block touches: warp w sums
+    // slots w, w + warps, ... (lane = group), then each group its warps, in
+    // order; the same bits in every block that holds the sample
+    for (int n = n_first; n <= n_last; ++n) {
+      const int nb = block_of((n + 1) * rows - 1, P, R) - block_of(n * rows, P, R) + 1;
+      const float2* ps = args.partial + static_cast<long long>(n) * S * G;
+      for (int g = lane; g < G; g += 32) {
+        float ss = 0.f, qq = 0.f;
+        for (int base = warp; base < nb; base += kUnroll * warps) {
+          float2 v[kUnroll];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const int slot = base + u * warps;
+            v[u] = slot < nb ? __ldcg(ps + static_cast<long long>(slot) * G + g)
+                             : make_float2(0.f, 0.f);
+          }
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            if (base + u * warps < nb) {
+              ss += v[u].x;
+              qq += v[u].y;
+            }
+          }
+        }
+        xsum[warp * G + g] = make_float2(ss, qq);
       }
-      const float mean = ss / cnt;
-      const float var = __fsub_rn(qq / cnt, __fmul_rn(mean, mean));
-      stats[((n - n_first) * G + g) * 2] = mean;
-      stats[((n - n_first) * G + g) * 2 + 1] = rsqrtf(var + args.eps);
+      __syncthreads();
+      const bool first = blockIdx.x == block_of(n * rows, P, R);
+      for (int g = t; g < G; g += blockDim.x) {
+        float ss = 0.f, qq = 0.f;
+        for (int w = 0; w < warps; ++w) {
+          ss += xsum[w * G + g].x;
+          qq += xsum[w * G + g].y;
+        }
+        if (args.mode == kStats) {
+          if (first) args.sums[static_cast<long long>(n) * G + g] = make_float2(ss, qq);
+          continue;
+        }
+        const float mean = ss / cnt;
+        const float var = __fsub_rn(qq / cnt, __fmul_rn(mean, mean));
+        stats[((n - n_first) * G + g) * 2] = mean;
+        stats[((n - n_first) * G + g) * 2 + 1] = rsqrtf(var + args.eps);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
+  if (args.mode == kStats || r1 == r0) return;
 
   // ---- phase 2b: apply, in the reverse order of phase 1
   for (int n = n_last; n >= n_first; --n) {
@@ -448,27 +488,18 @@ cudaError_t launch(const GnArgs& args, int grid, int threads, int smem_bytes,
                                      stream);
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16 (x and y); param_bf16: scale and bias
-// are bfloat16 (else float32). scratch: 16 bytes (the barrier's 64-bit
-// counter, zero when first allocated, never reset) then N*S*G (sum, sum of
-// squares) float pairs. The launch geometry (vec, threads, lanes, colsets,
-// grid, K samples a block at most, S blocks a sample at most, smem_rows,
-// smem_bytes) is ops/groupnorm.py:plan's. Returns the first cudaError_t
-// raised; a refused cooperative launch (grid not co-resident) is returned,
-// never run.
-extern "C" int group_norm_fwd(const void* x, const void* scale, const void* bias, void* y,
-                              void* scratch, int dtype, int param_bf16, int N, int rows, int C,
-                              int G, int vec, int threads, int lanes, int colsets, int grid,
-                              int K, int S, int smem_rows, int smem_bytes, float eps, int silu,
-                              void* stream) {
+int run(const void* x, const void* scale, const void* bias, void* y, void* scratch,
+        void* sums, int mode, int dtype, int param_bf16, int N, int rows, int C, int G,
+        int vec, int threads, int lanes, int colsets, int grid, int K, int S, int smem_rows,
+        int smem_bytes, float eps, int silu, int shards, void* stream) {
   const int itemsize = dtype == 0 ? 4 : 2;
   const long long total = static_cast<long long>(N) * rows;
   if (dtype < 0 || dtype > 1 || N < 1 || rows < 1 || C < 1 || G < 1 || C % G != 0 ||
       total > 0x7fffffffLL || grid < 1 || K < 1 || S < 1 || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0 || lanes < 1 || colsets < 1 ||
-      smem_rows < 0 || smem_bytes < 0 || smem_bytes > kSmemLimit)
+      smem_rows < 0 || smem_bytes < 0 || smem_bytes > kSmemLimit || mode < kFused ||
+      mode > kApply || shards < 1 || (mode != kFused && sums == nullptr) ||
+      (mode == kApply && smem_rows != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec != 1 && vec * itemsize != 16) return static_cast<int>(cudaErrorInvalidValue);
   if (C % vec != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -500,6 +531,7 @@ extern "C" int group_norm_fwd(const void* x, const void* scale, const void* bias
   args.bias = bias;
   args.ticket = static_cast<unsigned long long*>(scratch);
   args.partial = reinterpret_cast<float2*>(static_cast<unsigned char*>(scratch) + 16);
+  args.sums = static_cast<float2*>(sums);
   args.total = static_cast<int>(total);
   args.rows = rows;
   args.C = C;
@@ -511,6 +543,8 @@ extern "C" int group_norm_fwd(const void* x, const void* scale, const void* bias
   args.smem_rows = smem_rows;
   args.param_bf16 = param_bf16;
   args.silu = silu;
+  args.mode = mode;
+  args.shards = shards;
   args.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -522,6 +556,42 @@ extern "C" int group_norm_fwd(const void* x, const void* scale, const void* bias
                    : launch<__nv_bfloat16, 8>(args, grid, threads, smem_bytes, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (x and y); param_bf16: scale and bias
+// are bfloat16 (else float32). scratch: 16 bytes (the barrier's 64-bit
+// counter, zero when first allocated, never reset) then N*S*G (sum, sum of
+// squares) float pairs. The launch geometry (vec, threads, lanes, colsets,
+// grid, K samples a block at most, S blocks a sample at most, smem_rows,
+// smem_bytes) is ops/groupnorm.py:plan's. Returns the first cudaError_t
+// raised; a refused cooperative launch (grid not co-resident) is returned,
+// never run.
+extern "C" int group_norm_fwd(const void* x, const void* scale, const void* bias, void* y,
+                              void* scratch, int dtype, int param_bf16, int N, int rows, int C,
+                              int G, int vec, int threads, int lanes, int colsets, int grid,
+                              int K, int S, int smem_rows, int smem_bytes, float eps, int silu,
+                              void* stream) {
+  return run(x, scale, bias, y, scratch, nullptr, kFused, dtype, param_bf16, N, rows, C, G,
+             vec, threads, lanes, colsets, grid, K, S, smem_rows, smem_bytes, eps, silu, 1,
+             stream);
+}
+
+// One launch of the staged norm (the header's "Staged entry"): mode 1
+// writes sums[N][G] = (sum, sum of squares) of x in f32 and touches neither
+// y, scale nor bias; mode 2 reads sums (every shard's, reduced) and writes
+// y, over rows x C/G x shards elements a (sample, group), with smem_rows 0.
+// The other arguments are group_norm_fwd's.
+extern "C" int group_norm_staged(const void* x, const void* scale, const void* bias, void* y,
+                                 void* scratch, void* sums, int mode, int dtype, int param_bf16,
+                                 int N, int rows, int C, int G, int vec, int threads, int lanes,
+                                 int colsets, int grid, int K, int S, int smem_rows,
+                                 int smem_bytes, float eps, int silu, int shards, void* stream) {
+  if (mode != kStats && mode != kApply) return static_cast<int>(cudaErrorInvalidValue);
+  return run(x, scale, bias, y, scratch, sums, mode, dtype, param_bf16, N, rows, C, G, vec,
+             threads, lanes, colsets, grid, K, S, smem_rows, smem_bytes, eps, silu, shards,
+             stream);
 }
 
 extern "C" const char* groupnorm_error_string(int code) {

@@ -20,6 +20,13 @@ shared memory between the two. :func:`plan` decides its geometry in plain
 Python (the CPU tests reach it); the wrapper keeps one scratch buffer per
 device and stream (the barrier's counter and the per-block partial sums),
 grown when a call needs more and never allocated per call.
+
+A slab whose rows are split over several processes (the frame-pooled resnet
+norms when frames are sharded, ``parallel/mesh.py``) runs the same kernel in
+two launches: :func:`group_norm_stats` (the per-(sample, group) Σx, Σx² in
+f32, the fused launch's bits) and, after the caller all-reduces them,
+:func:`group_norm_apply`. With one shard the pair gives the fused launch's
+bits.
 """
 
 from __future__ import annotations
@@ -35,8 +42,9 @@ from videop2p_tpu_torch.obs.introspect import hidden_from_analysis, note_kernel
 from videop2p_tpu_torch.ops._autograd import recompute_grads
 from videop2p_tpu_torch.ops._build import bind
 
-__all__ = ["fused_group_norm", "group_norm_reference", "launch_count",
-           "reset_launch_count", "plan", "GnPlan", "LAUNCHES_PER_CALL"]
+__all__ = ["fused_group_norm", "group_norm_reference", "group_norm_stats",
+           "group_norm_apply", "launch_count", "reset_launch_count", "plan", "GnPlan",
+           "LAUNCHES_PER_CALL"]
 
 _SOURCE = "groupnorm.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -49,6 +57,8 @@ _MAX_THREADS = 512
 _SCRATCH_HEAD = 16
 # kernel launches per call on a CUDA tensor: one persistent launch
 LAUNCHES_PER_CALL = 1
+# group_norm_staged's modes (csrc/groupnorm.cu)
+_STATS, _APPLY = 1, 2
 
 _launches = 0
 # two engines may launch from two threads at once (see ops/attention.py)
@@ -82,6 +92,12 @@ class GnPlan(NamedTuple):
 def _launcher():
     return bind(_SOURCE, "group_norm_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 15
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _staged_launcher():
+    return bind(_SOURCE, "group_norm_staged", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -257,16 +273,26 @@ def _scratch_for(device: torch.device, stream: int, nbytes: int) -> torch.Tensor
     return buf
 
 
-def _launch(x, scale, bias, num_groups: int, eps: float, act: str) -> torch.Tensor:
-    n, rows, c = x.shape
-    p = _plan_for(x, num_groups)
-    # scale and bias as they are when both are float32 or both bfloat16 (the
-    # kernel reads either: no cast a call); any other pair is cast to float32
+def _params(x, scale, bias):
+    """scale and bias as the kernel reads them: as they are when both are
+    float32 or both bfloat16 (no cast a call), else cast to float32; on x's
+    device. Returns (scale, bias, param_bf16)."""
     param_bf16 = scale.dtype == bias.dtype == torch.bfloat16
     if not (param_bf16 or scale.dtype == bias.dtype == torch.float32):
         scale, bias = scale.float(), bias.float()
-    scale = scale.to(x.device).contiguous()
-    bias = bias.to(x.device).contiguous()
+    return scale.to(x.device).contiguous(), bias.to(x.device).contiguous(), param_bf16
+
+
+def _count(launches: int) -> None:
+    global _launches
+    with _count_lock:
+        _launches += launches
+
+
+def _launch(x, scale, bias, num_groups: int, eps: float, act: str) -> torch.Tensor:
+    n, rows, c = x.shape
+    p = _plan_for(x, num_groups)
+    scale, bias, param_bf16 = _params(x, scale, bias)
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     scratch = _scratch_for(x.device, stream, p.scratch_bytes)
@@ -275,10 +301,99 @@ def _launch(x, scale, bias, num_groups: int, eps: float, act: str) -> torch.Tens
                 num_groups, p.vec, p.threads, p.lanes, p.colsets, p.grid,
                 p.samples_per_block, p.blocks_per_sample, p.smem_rows, p.smem_bytes,
                 float(eps), int(act == "silu"), stream)
-    global _launches
-    with _count_lock:
-        _launches += p.launches
+    _count(p.launches)
     # no product; the SiLU's sigmoid an element
     note_kernel("group_norm_fwd", _SOURCE, (x, scale, bias), (y,),
+                transcendentals=x.numel() if act == "silu" else 0)
+    return y
+
+
+def _check_staged(x: torch.Tensor, num_groups: int) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"x must be (N, rows, C), got shape {tuple(x.shape)}")
+    if x.shape[2] % num_groups:
+        raise ValueError(f"channels {x.shape[2]} not divisible by groups {num_groups}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the GroupNorm kernel runs on cuda or cpu, got {x.device}")
+    if x.device.type == "cuda":
+        if x.dtype not in _DTYPES:
+            raise TypeError(f"the GroupNorm kernel takes float32 or bfloat16, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError("the GroupNorm kernel needs a contiguous x")
+
+
+def _staged(mode: int, x, scale, bias, y, sums, num_groups: int, eps: float, silu: bool,
+            shards: int) -> None:
+    n, rows, c = x.shape
+    p = _plan_for(x, num_groups)
+    if mode == _APPLY:
+        # no slab: the apply re-reads x (the slab of the statistics launch
+        # is gone with it)
+        slab = -(-p.smem_rows * c * _ITEMSIZE[x.dtype] // 16) * 16
+        p = p._replace(smem_rows=0, smem_bytes=p.smem_bytes - slab)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    scratch = _scratch_for(x.device, stream, p.scratch_bytes)
+    _staged_launcher()(x.data_ptr(), scale.data_ptr() if scale is not None else None,
+                       bias.data_ptr() if bias is not None else None,
+                       y.data_ptr() if y is not None else None, scratch.data_ptr(),
+                       sums.data_ptr(), mode, _DTYPES[x.dtype],
+                       int(scale is not None and scale.dtype == torch.bfloat16), n, rows, c,
+                       num_groups, p.vec, p.threads, p.lanes, p.colsets, p.grid,
+                       p.samples_per_block, p.blocks_per_sample, p.smem_rows, p.smem_bytes,
+                       float(eps), int(silu), int(shards), stream)
+    _count(1)
+
+
+def group_norm_stats(x: torch.Tensor, *, num_groups: int) -> torch.Tensor:
+    """The per-(sample, group) Σx and Σx² of a (N, rows, C) slab in f32, as
+    (N, G, 2): the kernel's statistics launch on a CUDA tensor (the fused
+    launch's sums, bit for bit), the plain sums on a CPU tensor. Not
+    differentiable (``parallel/mesh.py`` recomputes its backward)."""
+    _check_staged(x, num_groups)
+    n, rows, c = x.shape
+    if x.device.type == "cpu":
+        xf = x.detach().float().reshape(n, rows, num_groups, c // num_groups)
+        return torch.stack([xf.sum(dim=(1, 3)), (xf * xf).sum(dim=(1, 3))], dim=-1)
+    sums = torch.empty(n, num_groups, 2, dtype=torch.float32, device=x.device)
+    _staged(_STATS, x, None, None, None, sums, num_groups, 0.0, False, 1)
+    note_kernel("group_norm_stats", _SOURCE, (x,), (sums,))
+    return sums
+
+
+def group_norm_apply(x: torch.Tensor, sums: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, *, num_groups: int, eps: float = 1e-5,
+                     act: str = "none", shards: int = 1) -> torch.Tensor:
+    """GroupNorm(+SiLU) of a (N, rows, C) slab with statistics from ``sums``
+    ((N, G, 2) Σx, Σx² in f32 over ``shards`` slabs of ``rows`` rows each,
+    the reduced :func:`group_norm_stats` of every shard): mean and the
+    biased E[x²]−E[x]² over rows·C/G·shards elements. The kernel's apply
+    launch on a CUDA tensor, the plain version on a CPU tensor. Not
+    differentiable."""
+    if act not in ("none", "silu"):
+        raise ValueError(f"act must be 'none' or 'silu', got {act!r}")
+    _check_staged(x, num_groups)
+    n, rows, c = x.shape
+    if tuple(sums.shape) != (n, num_groups, 2) or sums.dtype != torch.float32:
+        raise ValueError(f"sums must be float32 ({n}, {num_groups}, 2), got "
+                         f"{sums.dtype} {tuple(sums.shape)}")
+    if scale.shape != (c,) or bias.shape != (c,):
+        raise ValueError(
+            f"scale/bias must be ({c},), got {tuple(scale.shape)}/{tuple(bias.shape)}")
+    count = rows * (c // num_groups) * shards
+    if x.device.type == "cpu":
+        xf = x.detach().float().reshape(n, rows, num_groups, c // num_groups)
+        mean = (sums[..., 0] / count)[:, None, :, None]
+        var = (sums[..., 1] / count)[:, None, :, None] - mean * mean
+        y = (xf - mean) * torch.rsqrt(var + eps)
+        y = y.reshape(n, rows, c) * scale.detach().float() + bias.detach().float()
+        if act == "silu":
+            y = y * torch.sigmoid(y)
+        return y.to(x.dtype)
+    if sums.device != x.device or not sums.is_contiguous():
+        raise ValueError("sums must be contiguous on x's device")
+    scale, bias, _ = _params(x, scale, bias)
+    y = torch.empty_like(x)
+    _staged(_APPLY, x, scale, bias, y, sums, num_groups, eps, act == "silu", shards)
+    note_kernel("group_norm_apply", _SOURCE, (x, sums, scale, bias), (y,),
                 transcendentals=x.numel() if act == "silu" else 0)
     return y

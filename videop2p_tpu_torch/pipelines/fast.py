@@ -51,7 +51,7 @@ def _controlled_sites(unet, latent_hw: Tuple[int, int]) -> Dict[str, Tuple[str, 
     for path, module in unet.named_modules():
         if isinstance(module, ControlledAttention):
             prefix = next(p for p in level if path.startswith(p))
-            sites[path] = (module.site, module.heads, level[prefix])
+            sites[path] = (module.site, module.heads * module.tp_size, level[prefix])
     return sites
 
 
@@ -76,28 +76,31 @@ def capture_bytes(unet, latents_shape: Sequence[int], text_len: int, *,
     return total
 
 
-def maps_budget_decision(map_bytes: int, *,
+def maps_budget_decision(map_bytes: int, *, sp: int = 1,
                          budget_gb: float = CACHED_MAPS_BUDGET_GB) -> Tuple[bool, float]:
-    """Whether ``map_bytes`` of captured maps fit the budget: ``(fits,
-    map_gib)``."""
+    """Whether ``map_bytes`` of captured maps fit the budget per GPU: on a
+    mesh of ``sp`` frame shards each GPU holds 1/sp of them (its frames'
+    cross maps, its query rows' temporal maps). ``(fits, map_gib)``, the
+    GiB of the whole capture."""
     map_gb = map_bytes / 2 ** 30
-    return map_gb <= budget_gb, map_gb
+    return map_gb / max(int(sp), 1) <= budget_gb, map_gb
 
 
 def choose_cached_maps(bytes_for: Callable[[Optional[torch.dtype]], int], *,
-                       budget_gb: float = CACHED_MAPS_BUDGET_GB):
+                       sp: int = 1, budget_gb: float = CACHED_MAPS_BUDGET_GB):
     """The cached-mode decision: full-precision (bf16) maps first, then the
     temporal maps at one byte per probability, ``float8_e4m3fn`` (about 6 %
     relative step on [0, 1]) and then ``int8`` as round(p·127) (a uniform
     1/254 step). ``bytes_for(temporal_maps_dtype)`` is
-    :func:`capture_bytes` for that storage dtype. Returns ``(use_cached,
+    :func:`capture_bytes` for that storage dtype; the budget is per GPU of
+    ``sp`` frame shards (JAX's per-chip ``sp``). Returns ``(use_cached,
     temporal_maps_dtype, map_gib)``; dtype None means full precision."""
     candidates = [None]
     if hasattr(torch, "float8_e4m3fn"):
         candidates.append(torch.float8_e4m3fn)
     candidates.append(torch.int8)
     for dtype in candidates:
-        fits, map_gb = maps_budget_decision(bytes_for(dtype), budget_gb=budget_gb)
+        fits, map_gb = maps_budget_decision(bytes_for(dtype), sp=sp, budget_gb=budget_gb)
         if fits:
             return True, dtype, map_gb
     return False, None, map_gb
@@ -115,7 +118,7 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
                      generator: Optional[torch.Generator] = None,
                      reuse_schedule: Optional[str] = None,
                      student_head: Optional[dict] = None, telemetry: bool = False,
-                     attn_maps: bool = False):
+                     attn_maps: bool = False, device_probe: Optional[Callable] = None):
     """Capture-inversion of ``latents`` under ``cond_src``, then the
     cached-source controlled edit under ``cond_all`` / ``uncond``. Returns
     ``(trajectory, edited)``: the trajectory (N + 1, 1, F, h, w, C) and the
@@ -132,8 +135,9 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
     ``telemetry`` adds the edit's per-step statistics, ``attn_maps`` the
     attention records ``{"inversion": the source stream's, from the
     capture walk; "edit": the edit streams' with the blend-mask series}``
-    (``edit_sample``'s records); the return is then ``(trajectory, edited[,
-    tel][, attn])``, the outputs the same bits as without them."""
+    (``edit_sample``'s records), ``device_probe`` the edit's per-device
+    channels; the return is then ``(trajectory, edited[, tel][, dev][,
+    attn])``, the outputs the same bits as without them."""
     if attn_maps and reuse_schedule not in (None, "off"):
         # edit_sample refuses it too; refuse before the capture runs
         raise ValueError(
@@ -153,12 +157,15 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
                          guidance_scale=guidance_scale, ctx=ctx,
                          source_uses_cfg=False, cached_source=cached,
                          reuse_schedule=reuse_schedule, student_head=student_head,
-                         telemetry=telemetry, attn_maps=attn_maps)
-    if not (telemetry or attn_maps):
+                         telemetry=telemetry, attn_maps=attn_maps,
+                         device_probe=device_probe)
+    if not (telemetry or attn_maps or device_probe is not None):
         return trajectory, edited
     edited, *extras = edited
     out = (trajectory, edited)
     if telemetry:
+        out += (extras.pop(0),)
+    if device_probe is not None:
         out += (extras.pop(0),)
     if attn_maps:
         out += ({"inversion": inv[2], "edit": extras.pop(0)},)

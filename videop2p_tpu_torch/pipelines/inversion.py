@@ -34,6 +34,7 @@ from videop2p_tpu_torch.models.attention import BASE_STORE, AttnControl
 from videop2p_tpu_torch.obs.attention import attn_step_record
 from videop2p_tpu_torch.obs.ledger import instrumented_program
 from videop2p_tpu_torch.obs.telemetry import latent_stats, stack_step_stats
+from videop2p_tpu_torch.parallel.mesh import frames_draw, global_mean, reduce_frame_grads
 from videop2p_tpu_torch.pipelines.cached import CachedSource, filter_site_tree
 from videop2p_tpu_torch.pipelines.sampling import UNetFn, unet_module
 from videop2p_tpu_torch.pipelines.stores import blend_maps_from_store
@@ -64,10 +65,13 @@ def _dependent_blend(eps: torch.Tensor, weight: float,
                      sampler: Optional[DependentNoiseSampler],
                      generator: Optional[torch.Generator]) -> torch.Tensor:
     """(1 − w)·ε + w·n with n one draw of ``sampler`` shaped and typed like ε
-    (the blend runs in ε's dtype); ε itself when w ≤ 0."""
+    (the blend runs in ε's dtype); ε itself when w ≤ 0. On a frame-sharded
+    mesh the draw is the whole clip's, this rank's frames kept."""
     if weight <= 0.0:
         return eps
-    return (1.0 - weight) * eps + weight * sampler.sample_like(eps, generator)
+    noise = frames_draw(lambda shape: sampler.sample_like(eps.new_empty(shape), generator),
+                        eps.shape)
+    return (1.0 - weight) * eps + weight * noise
 
 
 @torch.no_grad()
@@ -329,8 +333,8 @@ def _hybrid(fwd, scheduler: DDIMScheduler, trajectory: torch.Tensor,
                     eps_u = blend(fwd(latent, t, leaf))
                     eps = eps_u + guidance_scale * (eps_cond - eps_u)
                     prev_rec = scheduler.prev_step(eps, t, latent, N)
-                    loss = torch.mean((prev_rec - latent_prev) ** 2)
-                    (grad,) = torch.autograd.grad(loss, leaf)
+                    loss = global_mean((prev_rec - latent_prev) ** 2)
+                    (grad,) = reduce_frame_grads(torch.autograd.grad(loss, leaf))
                 uncond, state = adam_update(uncond, grad, state, lr)
             losses.append(loss.detach())
             embeddings.append(uncond)
@@ -481,7 +485,7 @@ def null_text_optimization(
                 uncond = cond.float()
                 eps_fu = blend(eps_cond_raw)
                 latent_cur = cfg_step(eps_fu, blend(eps_cond_raw), t, latent_cur)
-                losses.append(torch.mean((latent_cur - latent_prev) ** 2))
+                losses.append(global_mean((latent_cur - latent_prev) ** 2))
                 inner_steps.append(0)
                 embeddings.append(uncond)
             else:
@@ -493,8 +497,11 @@ def null_text_optimization(
                         leaf = uncond.detach().requires_grad_(True)
                         prev_rec = cfg_step(blend(fwd(latent_cur, t, leaf)), eps_cond, t,
                                             latent_cur)
-                        loss = torch.mean((prev_rec - latent_prev) ** 2)
-                        (grad,) = torch.autograd.grad(loss, leaf)
+                        # on a frame-sharded mesh: the global loss on every
+                        # rank (so every rank stops at the same inner step)
+                        # and the gradient summed over the frames group
+                        loss = global_mean((prev_rec - latent_prev) ** 2)
+                        (grad,) = reduce_frame_grads(torch.autograd.grad(loss, leaf))
                     loss = loss.detach()
                     uncond, state = adam_update(uncond, grad, state, lr)
                     j += 1

@@ -47,6 +47,7 @@ from videop2p_tpu_torch.core.noise import DependentNoiseSampler
 from videop2p_tpu_torch.models.attention import AttnControl
 from videop2p_tpu_torch.obs.attention import ATTN_HEAT_RES, attn_step_record, resize_linear
 from videop2p_tpu_torch.obs.telemetry import latent_stats, stack_step_stats
+from videop2p_tpu_torch.parallel.mesh import frames_draw
 from videop2p_tpu_torch.pipelines.cached import (
     CachedSource,
     check_subset_windows,
@@ -89,12 +90,16 @@ def _mask_series_entry(maps_sum: torch.Tensor, blend_cfg, step_index: int,
 
 
 def _pack_step_outputs(latents: torch.Tensor, telemetry: bool, tel: list,
-                       attn_maps: bool, attn: list):
+                       attn_maps: bool, attn: list, dev: Optional[list] = None):
     """``latents``, then the stacked records asked for, in JAX's order:
-    ``(latents[, tel][, attn])``; the latents alone when neither is."""
+    ``(latents[, tel][, dev][, attn])`` (``dev``: the device probe's
+    per-step channels, None without a probe); the latents alone when none
+    is."""
     out = (latents,)
     if telemetry:
         out += (stack_step_stats(tel),)
+    if dev is not None:
+        out += (stack_step_stats(dev),)
     if attn_maps:
         out += (stack_step_stats(attn),)
     return out if len(out) > 1 else latents
@@ -145,7 +150,7 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
                 dependent_sampler: Optional[DependentNoiseSampler] = None,
                 step_positions=None, reuse_schedule: Optional[str] = None,
                 student_head: Optional[dict] = None, telemetry: bool = False,
-                attn_maps: bool = False):
+                attn_maps: bool = False, device_probe: Optional[Callable] = None):
     """Run the controlled denoise; returns final latents (P, F, h, w, C).
 
     ``latents``: x_T, (1, F, h, w, C) (shared by all streams) or (P, …);
@@ -200,8 +205,12 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
         for its store at every step; storing reads the probabilities and
         changes no output. It refuses a ``reuse_schedule`` (a shallow step
         stores nothing).
+      * ``device_probe`` (``obs/comm.py:make_device_probe``, on a mesh):
+        also return its per-step channels of the latents after each step
+        (the edit streams in cached mode) — each rank's local statistics
+        and the cross-replica divergence.
 
-    With either, the return is ``(latents[, tel][, attn])``."""
+    With any, the return is ``(latents[, tel][, dev][, attn])``."""
     if cond_embeddings.dim() not in (3, 4):
         raise ValueError(f"cond_embeddings must be (P, L, D) or (P, F, L, D), got "
                          f"{tuple(cond_embeddings.shape)}")
@@ -277,7 +286,7 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
             cached_source, num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, ctx=ctx, step_positions=step_positions,
             reuse_schedule=reuse_schedule, student_head=student_head,
-            telemetry=telemetry, attn_maps=attn_maps)
+            telemetry=telemetry, attn_maps=attn_maps, device_probe=device_probe)
 
     # the source stream's uncond at each step: the null-text sequence when
     # given, else the raw uncond
@@ -310,7 +319,7 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
     raw = uncond_embeddings.expand(U, *uncond_embeddings.shape)
     use_blend = ctx is not None and ctx.blend is not None
     maps_sum = None
-    tel, attn = [], []
+    tel, attn, dev = [], [], []
     for i, t in enumerate(scheduler.timesteps(num_inference_steps)):
         t = int(t)
         uncond = raw
@@ -332,9 +341,11 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
             if variance_noise is not None:
                 noise = variance_noise[i]
             elif dependent_sampler is not None:
-                noise = dependent_sampler.sample_like(eps, generator)
+                noise = frames_draw(lambda shape: dependent_sampler.sample_like(
+                    eps.new_empty(shape), generator), eps.shape)
             else:
-                noise = torch.randn(eps.shape, generator=generator, device=eps.device)
+                noise = frames_draw(lambda shape: torch.randn(
+                    shape, generator=generator, device=eps.device), eps.shape)
         latents, _ = scheduler.step(eps, t, latents, num_inference_steps, eta=eta,
                                     variance_noise=noise)
         if use_blend:
@@ -348,6 +359,8 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
             latents = latents[:1].expand_as(latents).contiguous()
         if telemetry:
             tel.append(dict(latent_stats(latents), **_controller_gates(ctx, i, latents.device)))
+        if device_probe is not None:
+            dev.append(device_probe(latents))
         if attn_maps:
             rec = attn_step_record(store, num_uncond=U, num_cond=P,
                                    video_length=video_length, text_len=text_len,
@@ -355,7 +368,8 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
             if use_blend:
                 rec.update(_mask_series_entry(maps_sum, ctx.blend, i, latent_hw))
             attn.append(rec)
-    return _pack_step_outputs(latents, telemetry, tel, attn_maps, attn)
+    return _pack_step_outputs(latents, telemetry, tel, attn_maps, attn,
+                              dev if device_probe is not None else None)
 
 
 def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
@@ -365,7 +379,7 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
                         ctx: Optional[ControlContext], step_positions=None,
                         reuse_schedule: Optional[str] = None,
                         student_head: Optional[dict] = None, telemetry: bool = False,
-                        attn_maps: bool = False):
+                        attn_maps: bool = False, device_probe: Optional[Callable] = None):
     """The cached-source loop: the batch is E uncond + E edit streams, the
     controllers read the captured base maps of each step, and LocalBlend
     sums the source's captured blend maps with the edit streams' live ones,
@@ -431,7 +445,7 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
             num_prompts=E, text_len=text_len, num_uncond=U).float()
 
     maps_sum = None
-    tel, attn = [], []
+    tel, attn, dev = [], [], []
     for i, t in enumerate(timesteps):
         t, base_i = int(t), int(positions[i])
         latent_in = torch.cat([edit_latents, edit_latents], dim=0)
@@ -471,6 +485,8 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
         if telemetry:
             tel.append(dict(latent_stats(edit_latents),
                             **_controller_gates(ctx, i, edit_latents.device)))
+        if device_probe is not None:
+            dev.append(device_probe(edit_latents))
         if attn_maps:
             rec = attn_step_record(store, num_uncond=U, num_cond=E,
                                    video_length=video_length, text_len=text_len,
@@ -480,7 +496,8 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
             attn.append(rec)
     # stream 0 is the capture's x_0, copied without arithmetic
     return _pack_step_outputs(torch.cat([cached.src_latents[-1], edit_latents], dim=0),
-                              telemetry, tel, attn_maps, attn)
+                              telemetry, tel, attn_maps, attn,
+                              dev if device_probe is not None else None)
 
 
 def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.Tensor,

@@ -39,7 +39,7 @@
     (``obs/probe.py``) in the ``probe`` tenant lane, audits canary answers
     across replicas and serves quarantine verdicts to the router.
 
-``vmap`` dispatch over a data mesh waits for ROADMAP Queue 1 item 13.
+``vmap`` dispatch over a data mesh waits for ROADMAP Queue 1 item 13's rest.
 """
 
 from videop2p_tpu_torch.serve.batching import (

@@ -27,7 +27,8 @@ Dispatch modes:
     copy every capture (gigabytes at SD-1.5 width and 50 steps) for a loop
     that indexes it straight back out.
   * ``"vmap"`` — the JAX package's vectorized, data-mesh-sharded dispatch;
-    it waits for the multi-GPU port (ROADMAP Queue 1 item 13) and raises.
+    it waits for the multi-GPU serving port (ROADMAP Queue 1 item 13's rest)
+    and raises.
 """
 
 from __future__ import annotations

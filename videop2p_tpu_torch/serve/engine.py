@@ -245,7 +245,7 @@ class EditEngine:
         if batch_dispatch == "vmap":
             raise NotImplementedError(
                 "batch_dispatch 'vmap' shards a batch over a data mesh: multi-GPU "
-                "serving is not ported (ROADMAP Queue 1 item 13)")
+                "serving is not ported (ROADMAP Queue 1 item 13's rest)")
         if batch_dispatch != "scan":
             raise ValueError(f"batch_dispatch must be 'scan', got {batch_dispatch!r}")
         check_single_device(spec)

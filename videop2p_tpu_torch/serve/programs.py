@@ -25,6 +25,17 @@ forward of the inversion and the edit runs the fused frame-attention kernel
 at its N ≥ 1024 sites and the GroupNorm kernel at all 61. Every program
 runs under ``torch.no_grad`` whatever thread calls it (grad mode is
 thread-local), on the set's device.
+
+A spec whose ``mesh`` shards the model (sp or tp > 1) builds the set over
+the process mesh of a ``torchrun`` launch, one set per rank (JAX's
+model-parallel branch): the UNet is built "auto" as on one GPU (at sp > 1
+the mesh's sharded frame attention takes its place and resolves "auto"
+too; at sp = 1 the fused kernel runs on the local heads), the programs
+take and keep each rank's frames (``encode`` keeps this rank's
+latents; the decodes gather the clip first). JAX's refusals hold: no
+``quant_mode`` and no student on such a mesh. A data-only mesh (dp > 1,
+JAX's ``batch_dispatch="vmap"`` serving) and the serving engine over a
+mesh wait for ROADMAP Queue 1 item 13's rest.
 """
 
 from __future__ import annotations
@@ -61,8 +72,9 @@ class ProgramSpec:
     The engine and the store key on :meth:`fingerprint`, which uses the
     checkpoint's CONTENT identity: re-tuning a checkpoint in place gives a
     new fingerprint, never a warm program over stale weights. ``mesh``,
-    ``ring_variant`` and ``tp_collectives`` are the multi-GPU knobs; only
-    their defaults are served (ROADMAP Queue 1 item 13)."""
+    ``ring_variant`` and ``tp_collectives`` are the multi-GPU knobs: a
+    :class:`ProgramSet` takes a model-parallel mesh; the serving engine
+    serves their defaults only (ROADMAP Queue 1 item 13's rest)."""
 
     checkpoint: Optional[str] = None
     width: int = 512
@@ -118,32 +130,49 @@ class ProgramSpec:
 
 
 def check_single_device(spec: ProgramSpec) -> None:
-    """Raise for a spec that asks for a multi-GPU layout (ROADMAP Queue 1
-    item 13)."""
+    """Raise for a spec the serving engine would serve over several GPUs
+    (ROADMAP Queue 1 item 13's rest: the engine's mesh, its sharded
+    schedules and the data-mesh dispatch)."""
     if spec.mesh not in (None, "", "1,1,1"):
         raise NotImplementedError(
-            f"mesh {spec.mesh!r}: multi-GPU serving is not ported (ROADMAP Queue 1 item 13)")
+            f"mesh {spec.mesh!r}: multi-GPU serving is not ported (ROADMAP Queue 1 "
+            "item 13's rest)")
     if spec.ring_variant != "overlap" or spec.tp_collectives != "gspmd":
         raise NotImplementedError(
             f"ring_variant={spec.ring_variant!r} / tp_collectives={spec.tp_collectives!r}: "
-            "sharded schedules are not ported (ROADMAP Queue 1 item 13)")
+            "sharded serving schedules are not ported (ROADMAP Queue 1 item 13's rest)")
 
 
 class ProgramSet:
     """Warm, instrumented programs for one :class:`ProgramSpec` on one
-    device (CUDA unless a CPU device is given). ``bundle`` replaces the
+    device (CUDA unless a CPU device is given), or on each rank of a
+    model-parallel mesh (the module docstring). ``bundle`` replaces the
     models ``build_models`` would make (its modules on ``device``)."""
 
     def __init__(self, spec: ProgramSpec, *, bundle: Any = None, device="cuda"):
-        from videop2p_tpu_torch.cli.common import build_models
+        from videop2p_tpu_torch.cli.common import build_models, parse_mesh, setup_mesh
         from videop2p_tpu_torch.models.convert import quantize_unet_params
         from videop2p_tpu_torch.models.quant import validate_quant_mode
         from videop2p_tpu_torch.pipelines.reuse import validate_reuse_schedule
         from videop2p_tpu_torch.pipelines.sampling import make_unet_fn
 
         self.spec = spec = spec.resolved()
-        check_single_device(spec)
         quant_mode = validate_quant_mode(spec.quant_mode)
+        dp, sp, tp = parse_mesh(spec.mesh)
+        model_parallel = sp > 1 or tp > 1
+        if dp > 1:
+            raise NotImplementedError(
+                f"mesh {spec.mesh!r}: a data mesh (batched dispatch over dp GPUs) is not "
+                "ported (ROADMAP Queue 1 item 13's rest)")
+        if quant_mode != "off" and model_parallel:
+            raise ValueError(
+                f"quant_mode={quant_mode!r} is not supported on a model-parallel mesh: "
+                "the quantized weights would need their own sharding rules; serve "
+                "quantized sets on one GPU")
+        if spec.student_ckpt and model_parallel:
+            raise ValueError(
+                "student_ckpt is not supported on a model-parallel mesh: the mesh "
+                "shards the teacher's UNet only; serve student sets on one GPU")
         validate_reuse_schedule(spec.reuse_schedule, spec.steps)
         if spec.mixed_precision not in _DTYPES:
             raise ValueError(f"mixed_precision must be one of {sorted(_DTYPES)}")
@@ -152,6 +181,12 @@ class ProgramSet:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device is available; "
                                "pass device='cpu' (--device cpu) to serve on the CPU")
+        if model_parallel:
+            from videop2p_tpu_torch.parallel.distributed import initialize_distributed
+
+            initialize_distributed(self.device.type)
+            if self.device.type == "cuda":
+                self.device = torch.device("cuda", torch.cuda.current_device())
         # full float32 products and convolutions, as the CLI runs them
         # (cuDNN's default for float32 convolutions is TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -161,6 +196,10 @@ class ProgramSet:
                                   device=self.device, seed=spec.seed, frame_attention="auto",
                                   gradient_checkpointing=spec.gradient_checkpointing)
         self.bundle = bundle
+        self.mesh = None
+        if model_parallel:
+            self.mesh = setup_mesh(bundle, spec.mesh, spec.video_len, spec.ring_variant,
+                                   spec.tp_collectives, device=self.device)
         self.student_unet = None
         self.student_head = None
         if spec.student_ckpt:
@@ -251,19 +290,28 @@ class ProgramSet:
 
     def encode(self, video: torch.Tensor) -> torch.Tensor:
         """VAE encode at the posterior mean (inversion fidelity; no random
-        draw) — the ``vae_encode`` program."""
+        draw) — the ``vae_encode`` program; on a mesh, of this rank's
+        frames of the whole ``video``."""
         from videop2p_tpu_torch.models.vae import encode_video
+        from videop2p_tpu_torch.parallel.mesh import frames_slice
 
         prog = self._program(("vae_encode",), "vae_encode",
-                             lambda vid: encode_video(self.bundle.vae, vid).float())
+                             lambda vid: encode_video(self.bundle.vae,
+                                                      frames_slice(vid, self.mesh)).float())
         return prog(video)
+
+    def _decode01(self, latents: torch.Tensor) -> torch.Tensor:
+        """The [0, 1] video of the whole clip (on a mesh every rank gathers
+        the frames first)."""
+        from videop2p_tpu_torch.models.vae import decode_video
+        from videop2p_tpu_torch.parallel.mesh import gather_frames
+
+        return (decode_video(self.bundle.vae, gather_frames(latents, self.mesh)).float()
+                + 1.0) / 2.0
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Latents → the [0, 1] video — the ``vae_decode`` program."""
-        from videop2p_tpu_torch.models.vae import decode_video
-
-        prog = self._program(("vae_decode",), "vae_decode",
-                             lambda x: (decode_video(self.bundle.vae, x).float() + 1.0) / 2.0)
+        prog = self._program(("vae_decode",), "vae_decode", self._decode01)
         return prog(latents)
 
     def sample(self, x_t: torch.Tensor, cond: torch.Tensor, uncond: torch.Tensor, *,
@@ -274,7 +322,6 @@ class ProgramSet:
         label ``sample_decode``. Returns the [0, 1] videos; equal bit for bit
         to :meth:`decode` of the ``edit_sample`` latents (the same calls in
         the same order)."""
-        from videop2p_tpu_torch.models.vae import decode_video
         from videop2p_tpu_torch.pipelines.sampling import edit_sample
 
         steps = int(steps or self.spec.steps)
@@ -284,7 +331,7 @@ class ProgramSet:
         def fn(x, cond, uncond):
             out = edit_sample(self.unet_fn, self.scheduler, x, cond, uncond,
                               num_inference_steps=steps, guidance_scale=guidance)
-            return (decode_video(self.bundle.vae, out).float() + 1.0) / 2.0
+            return self._decode01(out)
 
         prog = self._program(("sample_decode", steps, guidance), "sample_decode", fn)
         return prog(x_t, cond, uncond)
@@ -306,10 +353,11 @@ class ProgramSet:
         budget_gb = float(os.environ.get("VIDEOP2P_CACHED_MAPS_BUDGET_GB",
                                          CACHED_MAPS_BUDGET_GB))
         fits, tm_dtype, map_gb = choose_cached_maps(
-            lambda dt: capture_bytes(self.bundle.unet, latents.shape, cond_src.shape[-2],
-                                     cross_len=cross_len, self_window=self_window,
-                                     temporal_maps_dtype=dt),
-            budget_gb=budget_gb)
+            lambda dt: capture_bytes(self.bundle.unet,
+                                     (latents.shape[0], self.spec.video_len, *latents.shape[2:]),
+                                     cond_src.shape[-2], cross_len=cross_len,
+                                     self_window=self_window, temporal_maps_dtype=dt),
+            sp=1 if self.mesh is None else self.mesh.shape["frames"], budget_gb=budget_gb)
         if not fits:
             raise RuntimeError(
                 f"cached-source capture needs {map_gb:.1f} GiB even with 1-byte "
@@ -358,7 +406,6 @@ class ProgramSet:
         bit-identical to its singletons. ``student`` runs the edit with the
         distilled UNet and its time head over the same capture replay, so
         ``src_err`` keeps its 0.0 contract."""
-        from videop2p_tpu_torch.models.vae import decode_video
         from videop2p_tpu_torch.pipelines.sampling import edit_sample
 
         guidance = self.spec.guidance_scale
@@ -375,11 +422,12 @@ class ProgramSet:
                               source_uses_cfg=False, cached_source=cached,
                               step_positions=positions, reuse_schedule=reuse,
                               student_head=head)
-            videos01 = (decode_video(self.bundle.vae, out).float() + 1.0) / 2.0
             # stream 0 must be the exact inversion reconstruction: compare
             # it with the ANCHOR stored with the products (the encoded
-            # source latents) — 0.0 exactly when the replay is intact
+            # source latents) — 0.0 exactly when the replay is intact (on a
+            # mesh this rank's frames against its own anchor)
             src_err = (out[:1] - anchor).abs().max().float()
+            videos01 = self._decode01(out)
             return videos01, src_err
 
         return fn
@@ -434,7 +482,7 @@ class ProgramSet:
         if dispatch == "vmap":
             raise NotImplementedError(
                 "batch_dispatch 'vmap' shards a batch over a data mesh: multi-GPU "
-                "serving is not ported (ROADMAP Queue 1 item 13)")
+                "serving is not ported (ROADMAP Queue 1 item 13's rest)")
         if dispatch != "scan":
             raise ValueError(f"dispatch must be 'scan' or 'vmap', got {dispatch!r}")
         outs = [self.edit_decode(*member, steps=steps, reuse=reuse, student=student)

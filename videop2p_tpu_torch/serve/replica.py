@@ -31,7 +31,7 @@ Two run modes:
 
 Every child gets the same argv: on a host with several cards they all
 serve on the default device (pinning replica *i* to ``cuda:i`` waits for
-ROADMAP Queue 1 item 13).
+ROADMAP Queue 1 item 13's rest).
 """
 
 from __future__ import annotations

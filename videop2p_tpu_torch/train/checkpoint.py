@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -52,11 +52,17 @@ def save_checkpoint(output_dir: str, state: TrainState, step: int, *, seed: int)
 
 
 @torch.no_grad()
-def restore_checkpoint(path: str, state: TrainState, *, seed: int) -> TrainState:
+def restore_checkpoint(path: str, state: TrainState, *, seed: int,
+                       shard: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                       ) -> TrainState:
     """Copy the checkpoint at ``path`` into ``state`` (its trainable
     tensors in place, on their device). Raises when the checkpoint's
     trainable set or run seed differs from this run's: either would change
-    the trajectory it continues."""
+    the trajectory it continues. ``shard(name, whole)`` (a tensor-parallel
+    mesh) cuts each whole tensor of the checkpoint — a trainable parameter
+    or its optimizer state — to this rank's slice first."""
+    names = list(state.trainable)
+    cut = shard or (lambda name, t: t)
     payload = torch.load(os.path.join(path, _FILE), map_location="cpu", weights_only=True)
     if payload["names"] != list(state.trainable):
         raise ValueError(f"checkpoint {path!r} trains another parameter set")
@@ -64,9 +70,11 @@ def restore_checkpoint(path: str, state: TrainState, *, seed: int) -> TrainState
         raise ValueError(f"checkpoint {path!r} was written by a run seeded "
                          f"{payload['seed']}, this run is seeded {seed}")
     for name, p in state.trainable.items():
-        p.copy_(payload["trainable"][name])
+        p.copy_(cut(name, payload["trainable"][name]))
     device = next(iter(state.trainable.values())).device
-    state.opt_state = {k: _to(v, device) for k, v in payload["opt_state"].items()}
+    state.opt_state = {
+        k: _to([cut(n, t) for n, t in zip(names, v)] if isinstance(v, list) else v, device)
+        for k, v in payload["opt_state"].items()}
     state.step = payload["step"]
     return state
 

@@ -28,6 +28,7 @@ from torch import nn
 
 from videop2p_tpu_torch.core.ddpm import DDPMScheduler
 from videop2p_tpu_torch.core.noise import DependentNoiseSampler, step_generator
+from videop2p_tpu_torch.parallel.mesh import frames_draw, global_mean, reduce_frame_grads
 from videop2p_tpu_torch.train.masking import DEFAULT_TRAINABLE, merge_params, partition_params
 
 __all__ = ["TuneConfig", "make_lr_schedule", "ClippedAdamW", "make_optimizer",
@@ -95,10 +96,23 @@ def make_lr_schedule(cfg: TuneConfig) -> Callable[[int], float]:
     return schedule
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """√(Σ x²) over every element of ``tensors``, in float32 (optax's)."""
-    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors)
-                      if tensors else torch.zeros(()))
+def global_norm(tensors: Sequence[torch.Tensor],
+                params: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """√(Σ x²) over every element of ``tensors``, in float32 (optax's). With
+    ``params`` (the tensors' parameters, in order) on a tensor-parallel
+    mesh, a tensor whose parameter is split over ``tensor``
+    (``parallel/mesh.py:shard_unet``) counts once across the group: its
+    squares are summed over it."""
+    if not tensors:
+        return torch.zeros(())
+    sharded = [getattr(p, "tp_shard_dim", None) is not None for p in params or ()]
+    if not any(sharded):
+        return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+    from videop2p_tpu_torch.parallel.mesh import sharded_square_sum
+
+    whole = sum((t.float() ** 2).sum() for t, s in zip(tensors, sharded) if not s)
+    split = sum((t.float() ** 2).sum() for t, s in zip(tensors, sharded) if s)
+    return torch.sqrt(whole + sharded_square_sum(split))
 
 
 class ClippedAdamW:
@@ -145,7 +159,7 @@ class ClippedAdamW:
             # an empty trainable set: the update counts and nothing moves
             state["count"] += 1
             return False
-        norm = global_norm(grads)
+        norm = global_norm(grads, params)
         grads = [torch.where(norm < self.max_grad_norm, g, g / norm * self.max_grad_norm)
                  for g in grads]
         lr = self.lr_schedule(state["count"])
@@ -210,11 +224,16 @@ def train_step(unet_fn, tx: ClippedAdamW, state: TrainState, scheduler: DDPMSche
     norm of the step's gradients before clipping. ``state`` is updated in
     place; the loss stays on the device."""
     if noise is None:
+        # on a frame-sharded mesh every rank draws the whole clip's noise
+        # and keeps its frames: the timestep draw after it is the same
+        # everywhere
         if dependent_sampler is not None:
-            noise = dependent_sampler.sample_like(latents, generator)
+            noise = frames_draw(lambda shape: dependent_sampler.sample_like(
+                latents.new_empty(shape), generator), latents.shape)
         else:
-            noise = torch.randn(latents.shape, generator=generator, device=latents.device,
-                                dtype=latents.dtype)
+            noise = frames_draw(lambda shape: torch.randn(
+                shape, generator=generator, device=latents.device,
+                dtype=latents.dtype), latents.shape)
     if timesteps is None:
         timesteps = torch.randint(0, scheduler.num_train_timesteps, (latents.shape[0],),
                                   generator=generator, device=latents.device)
@@ -224,10 +243,12 @@ def train_step(unet_fn, tx: ClippedAdamW, state: TrainState, scheduler: DDPMSche
     params: List[torch.Tensor] = list(state.trainable.values())
     with torch.enable_grad():
         pred, _ = unet_fn(noisy, timesteps, text_embeddings, None, store=False)
-        loss = torch.mean((pred.float() - target.float()) ** 2)
-        # an empty trainable set still takes the step (JAX's train_step)
-        grads = torch.autograd.grad(loss, params) if params else []
-    grad_norm = global_norm(grads) if return_grad_norm else None
+        loss = global_mean((pred.float() - target.float()) ** 2)
+        # an empty trainable set still takes the step (JAX's train_step);
+        # on a frame-sharded mesh the gradients are summed over the frames
+        # group (JAX's implicit psum)
+        grads = reduce_frame_grads(torch.autograd.grad(loss, params)) if params else []
+    grad_norm = global_norm(grads, params) if return_grad_norm else None
     tx.update_(params, grads, state.opt_state)
     state.step += 1
     if return_grad_norm:
