@@ -507,10 +507,11 @@ FLASH_INNER_STEPS = 2
 # student (17), SDXL's width (18), the serving engine (19), replicas behind a
 # router (20), streaming long-video editing (21), the fleet's telemetry,
 # correctness and incident planes (22), the run CLIs' observability (23),
-# program analysis and traces (24) and the mesh at world size 1 (25)
+# program analysis and traces (24), the mesh at world size 1 (25) and
+# serving over several devices (26)
 PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint", "tune",
          "surface", "distill", "sdxl", "serve", "fleet", "stream", "observe", "runs",
-         "analysis", "mesh")
+         "analysis", "mesh", "serve_mesh")
 # phase 4b's final losses in "hybrid" null-text mode are compared relative
 # to max(|loss|, this): its last outer step lands on x_0, where both losses
 # sit at float32 rounding noise (~1e-15) and have no relative meaning
@@ -620,17 +621,18 @@ def time_ms(fn) -> float:
     return statistics.median(_window_ms(fn, n) for _ in range(3))
 
 
-def time_in_turns(kernel, library) -> tuple:
-    """``time_ms`` of a kernel and of the library call that computes the
-    same function, their windows taken in turns (kernel, library, library,
-    kernel, kernel, library), so that a drift of the card's clocks falls on
-    both."""
-    fns = (kernel, library)
+def time_in_turns(*fns) -> tuple:
+    """``time_ms`` of each of ``fns`` (a kernel, the library call that
+    computes the same function, its plain version), their windows taken in
+    turns (forward, backward, forward: kernel, library, library, kernel,
+    kernel, library for two), so that a drift of the card's clocks falls on
+    each."""
     counts = [_launches_per_window(fn) for fn in fns]
-    times = ([], [])
-    for i in (0, 1, 1, 0, 0, 1):
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for i in order + order[::-1] + order:
         times[i].append(_window_ms(fns[i], counts[i]))
-    return statistics.median(times[0]), statistics.median(times[1])
+    return tuple(statistics.median(t) for t in times)
 
 
 def limit(dtype, ref: torch.Tensor, f32_tol: float) -> float:
@@ -3232,10 +3234,32 @@ def serve_engine_phase(args, tmp: str) -> tuple:
     return run, record, failures
 
 
+# what phase 19b's plain fp32 ``cli.serve`` child answered (a fresh request
+# and a hit: their records and GIF bytes), which phase 26b's child under
+# torchrun must answer with the same bits
+PLAIN_SERVE_CLI: dict = {}
+
+
+def _hit_request() -> dict:
+    """Another edit of request 1's clip: a store hit."""
+    return _serve_request(prompts=[RABBIT["prompt"], "a lego rabbit is jumping on the grass"],
+                          eq_params=None, save_name="lego")
+
+
+def _gif_bytes(rec: dict) -> dict:
+    out = {}
+    for k in ("inversion_gif", "edit_gif"):
+        with open(rec[k], "rb") as fh:
+            out[k] = fh.read()
+    return out
+
+
 def serve_cli_phase(args, tmp: str, mp: str) -> tuple:
     """Phase 19b: ``python -m videop2p_tpu_torch.cli.serve`` as a subprocess
     on an ephemeral port, in ``mp`` (fp32 by the CLI's default, bf16 by its
-    flag): one request, then SIGTERM. Returns (record, failures)."""
+    flag): one request (in fp32 also a store hit, whose records and GIFs
+    phase 26b holds its torchrun child to: ``PLAIN_SERVE_CLI``), then
+    SIGTERM. Returns (record, failures)."""
     import signal
 
     from videop2p_tpu_torch.obs import read_ledger
@@ -3270,6 +3294,12 @@ def serve_cli_phase(args, tmp: str, mp: str) -> tuple:
             t1 = time.perf_counter()
             done = client.wait(client.submit(_serve_request()), timeout_s=600.0)
             request_s = time.perf_counter() - t1
+            if mp == "fp32":
+                hit = client.wait(client.submit(_hit_request()), timeout_s=600.0)
+                PLAIN_SERVE_CLI.update(records={"fresh": done, "hit": hit},
+                                       gifs={n: _gif_bytes(r) for n, r in
+                                             (("fresh", done), ("hit", hit))
+                                             if r["status"] == "done"})
             metrics = client.metrics()
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=300)
@@ -3298,6 +3328,10 @@ def serve_cli_phase(args, tmp: str, mp: str) -> tuple:
                         f"{done.get('src_err')!r}")
     elif not os.path.isfile(done["edit_gif"]):
         failures.append("cli request: no GIF written")
+    hit = PLAIN_SERVE_CLI.get("records", {}).get("hit") if mp == "fp32" else None
+    if mp == "fp32" and (hit is None or hit["status"] != "done" or hit.get("src_err") != 0.0
+                         or hit.get("store_source") != "memory"):
+        failures.append(f"cli hit: {hit and (hit['status'], hit.get('error'), hit.get('src_err'), hit.get('store_source'))}")
     if rc != 0:
         failures.append(f"cli exit code {rc} after SIGTERM:\n{log_tail}")
     if "serve_health" not in kinds or kinds.index("serve_health") < max(
@@ -3366,6 +3400,9 @@ STREAM_WINDOWS = 2
 STREAM_PROMPTS = ["a rabbit is jumping", "a origami rabbit is jumping"]
 STREAM_REQUEST = dict(is_word_swap=False, blend_word=None, cross_replace_steps=0.2,
                       self_replace_steps=0.5)
+# phase 21's window 0 (a direct request for frames 0-7 of the clip, its
+# edit stream), which phase 26c's one-window stream job must equal
+STREAM_WINDOW0: dict = {}
 
 
 def _release() -> None:
@@ -3638,100 +3675,36 @@ def fleet_chaos_phase(args, tmp: str, programs) -> tuple:
             "router_health": health[-1] if health else None}, failures
 
 
-def fleet_cli_phase(args, tmp: str) -> tuple:
-    """Phase 20b: ``python -m videop2p_tpu_torch.cli.router --spawn 2`` as a
-    subprocess (two ``cli.serve`` children on this card, fp32): the fleet's
-    /healthz, one request through the router, SIGTERM → exit 0. Returns
-    (record, failures)."""
-    import signal
-
-    from videop2p_tpu_torch.obs import read_ledger
-    from videop2p_tpu_torch.serve import EngineClient
-
-    port = _free_port()
-    out_dir = os.path.join(tmp, "router_cli")
-    log_path = os.path.join(tmp, "router_cli.log")
-    cmd = [sys.executable, "-m", "videop2p_tpu_torch.cli.router", "--spawn", "2",
-           "--port", str(port), "--out_dir", out_dir, "--steps", str(args.steps),
-           "--serve_arg=--store_budget_gb", f"--serve_arg={SERVE_STORE_BUDGET_GB}"]
-    failures = []
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log:
-        # its own session: a failure below kills the router and both children
-        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
-                                start_new_session=True)
-        try:
-            client = EngineClient(f"http://127.0.0.1:{port}", timeout_s=60.0, retries=0)
-            while True:
-                if proc.poll() is not None:
-                    raise AssertionError(f"the router exited {proc.returncode} before "
-                                         "/healthz answered")
-                if time.perf_counter() - t0 > 600:
-                    raise AssertionError("the fleet's /healthz did not answer in 600 s")
-                try:
-                    health = client.healthz()
-                    break
-                except Exception:  # noqa: BLE001 — not listening yet
-                    time.sleep(1.0)
-            up_s = time.perf_counter() - t0
-            t1 = time.perf_counter()
-            done = client.result(client.submit(_serve_request()), wait_s=600.0)
-            request_s = time.perf_counter() - t1
-            proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=300)
-        except Exception as e:
-            with open(log_path) as fh:
-                raise AssertionError(f"cli router: {e}\n{fh.read()[-4000:]}") from e
-        finally:
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
-    with open(log_path) as fh:
-        log_tail = fh.read()[-4000:]
-    kinds = {name: [e["event"] for e in read_ledger(
-        os.path.join(out_dir, name, "serve_ledger.jsonl"))] for name in ("replica0", "replica1")}
-    router_kinds = [e["event"] for e in read_ledger(os.path.join(out_dir, "router_ledger.jsonl"))]
-    print(f"  cli router --spawn 2: /healthz after {up_s:.1f} s ({health['healthy']} of "
-          f"{health['total']} healthy), request {done['status']} on {done.get('replica')} in "
-          f"{request_s:.2f} s (replica total {done.get('total_s')} s), src_err "
-          f"{done.get('src_err')!r}; SIGTERM → exit {rc}; the children's ledgers end "
-          f"{ {n: k[-2:] for n, k in kinds.items()} }", flush=True)
-    if health.get("healthy") != 2:
-        failures.append(f"cli router: /healthz {health}")
-    if done["status"] != "done" or done.get("src_err") != 0.0:
-        failures.append(f"cli router request: {done['status']} ({done.get('error')}), src_err "
-                        f"{done.get('src_err')!r}")
-    if rc != 0:
-        failures.append(f"cli router exit code {rc} after SIGTERM:\n{log_tail}")
-    for name, k in kinds.items():
-        if "serve_health" not in k:
-            failures.append(f"cli router: {name}'s ledger lacks serve_health: {k[-6:]}")
-    if "router_health" not in router_kinds:
-        failures.append("cli router: its ledger lacks router_health")
-    return {"up_s": up_s, "request_s": request_s, "replica_total_s": done.get("total_s"),
-            "status": done["status"], "src_err": done.get("src_err"), "rc": rc}, failures
+def _sub_seconds(record: dict, name: str, t0: float) -> float:
+    """Keep and print a sub-phase's seconds since ``t0``; returns now."""
+    now = time.perf_counter()
+    record.setdefault("sub_s", {})[name] = now - t0
+    print(f"  [{name}: {now - t0:.1f} s]", flush=True)
+    return now
 
 
 def fleet_path(args) -> tuple:
-    """Phase 20 (path "fleet"): replicas behind a router. 20a in process
+    """Phase 20 (path "fleet"): replicas behind a router, in process
     (request 1 against ``run_main_path``'s cached fast edit, then the chaos
-    run), 20b the router CLI with two spawned children. Returns (runs,
+    run). The router CLI with two spawned children is phase 22d's, whose
+    child also carries the gates this phase held on it. Returns (runs,
     records)."""
     from videop2p_tpu_torch.data.dataset import load_frame_sequence
 
     os.makedirs("outputs", exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_", dir="outputs")
-    t0 = time.perf_counter()
+    t0 = t = time.perf_counter()
     try:
         print(f"fleet (2 replicas, SD-1.5 width, 512², 8 frames; {_allocated_line()}):",
               flush=True)
         run, record, failures = fleet_inproc_phase(args, tmp)
+        t = _sub_seconds(record, "20a in process", t)
         programs = run.pop("programs")
         record["chaos"], chaos_failures = fleet_chaos_phase(args, tmp, programs)
         failures += chaos_failures
         del programs
         _release()
+        t = _sub_seconds(record, "20a chaos", t)
         rabbit = load_frame_sequence(RABBIT["image_path"], size=512, num_frames=8)
         main = run_main_path(rabbit, args.steps, args.mixed_precision, keep_videos=True)
         routed = run.pop("videos_router")
@@ -3743,8 +3716,7 @@ def fleet_path(args) -> tuple:
         if not np.array_equal(routed, ref):
             failures.append(f"the routed edit differs from the main path's by {diff}")
         del main, ref
-        record["cli"], cli_failures = fleet_cli_phase(args, tmp)
-        failures += cli_failures
+        t = _sub_seconds(record, "20a main path", t)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _release()
@@ -3755,41 +3727,80 @@ def fleet_path(args) -> tuple:
     return {"fleet": run}, {"fleet": record}
 
 
-def stream_cli_phase(args, tmp: str, reference: np.ndarray) -> tuple:
-    """Phase 21's CLI part: ``python -m videop2p_tpu_torch.cli.stream`` as a
-    subprocess, SIGKILLed once its first window's sidecar appears, then run
-    again to the end: its final.npy against ``reference``, bit for bit.
-    Returns (record, failures)."""
+def _stream_cli_cmd(args, job: str) -> list:
+    return [sys.executable, "-m", "videop2p_tpu_torch.cli.stream", "--synthetic",
+            str(STREAM_FRAMES), "--width", "512", "--video_len", "8", "--overlap",
+            str(STREAM_OVERLAP), "--steps", str(args.steps), "--job_dir", job,
+            *(() if args.mixed_precision == "fp32" else
+              ("--mixed_precision", args.mixed_precision))]
+
+
+def _window0_persisted(job: str) -> bool:
+    """Window 0's sidecar written and the manifest (replaced atomically)
+    listing it done."""
+    if not os.path.exists(os.path.join(job, "windows", "w0000.npz")):
+        return False
+    try:
+        with open(os.path.join(job, "manifest.json")) as fh:
+            return any(w["index"] == 0 and w["status"] == "done"
+                       for w in json.load(fh)["windows"])
+    except (OSError, ValueError, KeyError):
+        return False
+
+
+def start_stream_cli_kill(args, tmp: str) -> dict:
+    """Phase 21's CLI part, its first run: ``python -m
+    videop2p_tpu_torch.cli.stream`` as a subprocess, SIGKILLed by a watcher
+    thread once its first window is persisted (its sidecar, and the
+    manifest listing it). Started before the in-process job, so that the
+    child's start-up overlaps it; the handle goes to
+    :func:`stream_cli_phase`."""
     import signal
 
     job = os.path.join(tmp, "cli_job")
-    cmd = [sys.executable, "-m", "videop2p_tpu_torch.cli.stream", "--synthetic",
-           str(STREAM_FRAMES), "--width", "512", "--video_len", "8", "--overlap",
-           str(STREAM_OVERLAP), "--steps", str(args.steps), "--job_dir", job,
-           *(() if args.mixed_precision == "fp32" else
-             ("--mixed_precision", args.mixed_precision))]
-    sidecar = os.path.join(job, "windows", "w0000.npz")
-    failures = []
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     log_path = os.path.join(tmp, "cli_stream_1.log")
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    log = open(log_path, "w")
+    handle = {"job": job, "log_path": log_path, "t0": time.perf_counter(),
+              "proc": subprocess.Popen(_stream_cli_cmd(args, job), stdout=log,
+                                       stderr=subprocess.STDOUT)}
+
+    def watch():
+        proc = handle["proc"]
         try:
-            while not os.path.exists(sidecar):
+            while not _window0_persisted(job):
                 if proc.poll() is not None:
-                    with open(log_path) as fh:
-                        raise AssertionError(f"cli stream exited {proc.returncode} before "
-                                             f"its first window:\n{fh.read()[-4000:]}")
-                if time.perf_counter() - t0 > 600:
-                    raise AssertionError("cli stream: no window in 600 s")
+                    handle["error"] = f"cli stream exited {proc.returncode} before its first window"
+                    return
+                if time.perf_counter() - handle["t0"] > 600:
+                    handle["error"] = "cli stream: no window in 600 s"
+                    return
                 time.sleep(0.05)
             proc.send_signal(signal.SIGKILL)
         finally:
             if proc.poll() is None:
                 proc.kill()
             proc.wait()
-    killed_s = time.perf_counter() - t0
+            handle["killed_s"] = time.perf_counter() - handle["t0"]
+            log.close()
+
+    handle["watcher"] = threading.Thread(target=watch, daemon=True)
+    handle["watcher"].start()
+    return handle
+
+
+def stream_cli_phase(args, handle: dict, reference: np.ndarray) -> tuple:
+    """Phase 21's CLI part: the first run's SIGKILL (:func:`start_stream_cli_kill`),
+    then the same command again to the end: its final.npy against
+    ``reference``, bit for bit. Returns (record, failures)."""
+    job = handle["job"]
+    cmd = _stream_cli_cmd(args, job)
+    failures = []
+    handle["watcher"].join(timeout=900)
+    if "error" in handle or "killed_s" not in handle:
+        with open(handle["log_path"]) as fh:
+            raise AssertionError(f"{handle.get('error', 'cli stream: the watcher did not end')}"
+                                 f":\n{fh.read()[-4000:]}")
+    killed_s = handle["killed_s"]
     with open(os.path.join(job, "manifest.json")) as fh:
         persisted = sorted(w["index"] for w in json.load(fh)["windows"]
                            if w["status"] == "done")
@@ -3826,9 +3837,11 @@ def stream_path(args) -> tuple:
     steps, mp = args.steps, args.mixed_precision
     os.makedirs("outputs", exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_", dir="outputs")
-    failures = []
-    t0 = time.perf_counter()
+    failures, subs, cli = [], {}, None
+    t0 = t = time.perf_counter()
     try:
+        # the CLI's first (killed) run overlaps the in-process job
+        cli = start_stream_cli_kill(args, tmp)
         print(f"stream ({STREAM_FRAMES} synthetic frames, windows of 8 overlapping by "
               f"{STREAM_OVERLAP}, SD-1.5 width, 512²; {_allocated_line()}):", flush=True)
         spec = ProgramSpec(width=512, video_len=8, steps=steps, mixed_precision=mp, seed=0)
@@ -3906,6 +3919,7 @@ def stream_path(args) -> tuple:
                             f"B (store growth {growth} B)")
             if engine._videos:
                 failures.append(f"{len(engine._videos)} windows' videos left in the engine")
+            t = _sub_seconds(subs, "21 job", t)
             # window 0 against a direct request for frames 0-7
             direct = engine.result(engine.submit(EditRequest(
                 frames=clip[:8], prompt=STREAM_PROMPTS[0], prompts=list(STREAM_PROMPTS),
@@ -3918,6 +3932,10 @@ def stream_path(args) -> tuple:
                   f"{'bit for bit' if w0_ok else 'DIFFERS'}", flush=True)
             if not w0_ok:
                 failures.append("window 0 differs from a direct request for frames 0-7")
+            else:
+                # phase 26c's one-window job under torchrun must give these bits
+                STREAM_WINDOW0.update(video=direct_vid[-1])
+            t = _sub_seconds(subs, "21 direct request", t)
             # checkpoint-then-exit once the first window is harvested, then resume
             stop = threading.Event()
 
@@ -3945,15 +3963,21 @@ def stream_path(args) -> tuple:
             if resumed.health["windows_skipped"] != 1 or requests != STREAM_WINDOWS - 1 or \
                     not resumed.complete or not np.array_equal(resumed.video, res.video):
                 failures.append(f"the resumed job: {resumed.health}, {requests} requests")
+            t = _sub_seconds(subs, "21 stop and resume", t)
         finally:
             engine.close()
         record = {"job_s": job_s, "peak_gib": peak / 2 ** 30, "health": res.health,
                   "seams": res.seams, "windows": per_window, "warm": warm}
         reference = res.video
         del res, part, resumed
-        record["cli"], cli_failures = stream_cli_phase(args, tmp, reference)
+        record["cli"], cli_failures = stream_cli_phase(args, cli, reference)
         failures += cli_failures
+        _sub_seconds(subs, "21 cli", t)
+        record.update(subs)
     finally:
+        if cli is not None and cli["proc"].poll() is None:
+            cli["proc"].kill()
+            cli["proc"].wait()
         shutil.rmtree(tmp, ignore_errors=True)
     _release()
     record["path_s"] = time.perf_counter() - t0
@@ -3966,7 +3990,7 @@ def stream_path(args) -> tuple:
 # the observability path (phase 22): the loadgen's --router 2 with every
 # plane on and replica 1 wrong-but-healthy (OBSERVE_WRONG); its load, and
 # the breaker run's (OBSERVE_BREAKER) on replica 0
-OBSERVE_REQUESTS = 8
+OBSERVE_REQUESTS = 4
 OBSERVE_CONCURRENCY = 2
 OBSERVE_WINDOW_SCALE = 0.02
 OBSERVE_WRONG = "1:wrong:*"
@@ -4071,12 +4095,15 @@ def observe_children(args, tmp: str) -> dict:
     }
 
 
-def observe_router_cli(child, canary: dict, fp: str) -> tuple:
+def observe_router_cli(child, canary: dict, fp: str, out_dir: str) -> tuple:
     """Phase 22d: the answer audit across processes — the canary through
     ``cli.router --spawn 2 --incidents`` once on each ``cli.serve`` child
     (two CUDA contexts): both answers must be the same bits (and, checked
-    after phase 22a, the in-process replica 0's). Returns (record,
-    failures)."""
+    after phase 22a, the in-process replica 0's). Also the router CLI's
+    gates (phase 20b's before its cut): both children healthy, SIGTERM →
+    exit 0, each child's ledger closing with ``serve_health`` and the
+    router's with ``router_health``. Returns (record, failures)."""
+    from videop2p_tpu_torch.obs import read_ledger
     from videop2p_tpu_torch.obs.probe import AnswerAudit
     from videop2p_tpu_torch.serve import EngineClient
 
@@ -4114,6 +4141,17 @@ def observe_router_cli(child, canary: dict, fp: str) -> tuple:
         failures.append(f"cli router: fingerprints {fps} against {fp}, audit {audit.summary()}")
     if rc != 0:
         failures.append(f"cli router exit code {rc} after SIGTERM:\n{child.tail()}")
+    kinds = {name: [e["event"] for e in read_ledger(
+        os.path.join(out_dir, name, "serve_ledger.jsonl"))] for name in ("replica0", "replica1")}
+    router_kinds = [e["event"] for e in read_ledger(os.path.join(out_dir, "router_ledger.jsonl"))]
+    print(f"  cli.router: the children's ledgers end "
+          f"{ {n: k[-2:] for n, k in kinds.items()} }, the router's holds router_health: "
+          f"{'router_health' in router_kinds}", flush=True)
+    for name, k in kinds.items():
+        if "serve_health" not in k:
+            failures.append(f"cli router: {name}'s ledger lacks serve_health: {k[-6:]}")
+    if "router_health" not in router_kinds:
+        failures.append("cli router: its ledger lacks router_health")
     return {"up_s": child.up_s, "pair_s": pair_s, "rc": rc,
             "replicas": [r.get("replica") for r in recs],
             "totals_s": [r.get("total_s") for r in recs],
@@ -4380,23 +4418,29 @@ def observe_path(args) -> tuple:
         torch.cuda.reset_peak_memory_stats()
         # the loadgen's request and the canary its prober derives from it
         canary = ProbeSuite(request_from_args(build_parser().parse_args(["--inproc"]))).canary
-        t1 = time.perf_counter()
+        t1 = t = time.perf_counter()
         programs = ProgramSet(ProgramSpec(width=512, video_len=8, steps=args.steps),
                               device="cuda")
         warm = programs.warm(tuple(canary["prompts"]))
         print(f"  the set built and warm in {time.perf_counter() - t1:.2f} s "
               f"(warm {warm['seconds']} s)", flush=True)
+        t = _sub_seconds(record, "22 set", t)
         # (b) while the children start, then (d) and (c), so that (a) has
         # the card and the host to itself
         record["breaker"], f = observe_breaker_phase(args, tmp, programs)
         failures += f
+        t = _sub_seconds(record, "22b breaker", t)
         record["router_cli"], f = observe_router_cli(children["router"], canary,
-                                                     programs.spec.fingerprint())
+                                                     programs.spec.fingerprint(),
+                                                     os.path.join(tmp, "router_cli"))
         failures += f
+        t = _sub_seconds(record, "22d router cli", t)
         record["serve_cli"], f = observe_serve_cli(children["serve"], tmp)
         failures += f
+        t = _sub_seconds(record, "22c serve cli", t)
         run, record["loadgen"], f = observe_loadgen_phase(args, tmp, programs)
         failures += f
+        t = _sub_seconds(record, "22a loadgen", t)
         answer = record["loadgen"]["answer"]
         print(f"  the canary's answer: in process (replica 0) {str(answer)[:16]}…, the "
               f"cli.serve children {[str(h)[:16] for h in record['router_cli']['hashes']]}",
@@ -5051,7 +5095,11 @@ def mesh_staged_gn_checks(dtype) -> list:
         against the fused launch's;
       * two shards on one card: the statistics of each half of the frames
         summed as the all-reduce sums them, each half applied with
-        ``shards=2``, against ``group_norm_reference`` on the whole slab.
+        ``shards=2``, against ``group_norm_reference`` on the whole slab;
+      * its time in turns with the library call that computes the same
+        function at one shard (``F.group_norm`` + ``F.silu`` on the
+        channels-first layout) and with the plain version, and the byte
+        bound (x read once, y written once).
 
     These launches are the comparison's, not the main path's."""
     from videop2p_tpu_torch.ops.groupnorm import (
@@ -5061,6 +5109,8 @@ def mesh_staged_gn_checks(dtype) -> list:
         group_norm_stats,
         launch_count,
     )
+    import torch.nn.functional as F
+
     from videop2p_tpu_torch.parallel.mesh import pooled_group_norm
 
     gen = torch.Generator(device="cuda").manual_seed(251)
@@ -5083,20 +5133,30 @@ def mesh_staged_gn_checks(dtype) -> list:
             split = torch.cat([group_norm_apply(h, sums, w, b_, shards=2, **kw)
                                for h in halves], dim=1)
             torch.cuda.synchronize()
-            staged_ms = time_ms(lambda: pooled_group_norm(x, w, b_, group=None, **kw))
+            x_nc = x.transpose(1, 2).contiguous()  # the library's channels-first layout
+            staged_ms, library_ms, plain_ms = time_in_turns(
+                lambda: pooled_group_norm(x, w, b_, group=None, **kw),
+                lambda: F.silu(F.group_norm(x_nc, 32, w, b_, 1e-5)),
+                lambda: group_norm_reference(x, w, b_, **kw))
             fused_ms = time_ms(lambda: fused_group_norm(x, w, b_, **kw))
         tol = limit(dtype, ref, GN_TOL_F32)
-        rec = {"wrapper": "pooled_group_norm", "shape": [n, rows, c], "launches": launches,
+        x_bytes = x.numel() * x.element_size()
+        bound, bound_by = bound_ms(2 * x_bytes, 8.0 * x.numel(), dtype)
+        rec = {"wrapper": "pooled_group_norm", "shape": [n, rows, c],
+               "dtype": str(dtype).replace("torch.", ""), "launches": launches,
                "bit_exact_vs_fused": bool(torch.equal(staged, fused)),
                "max_abs_err": (staged.float() - ref).abs().max().item(),
                "two_shards_max_abs_err": (split.float() - ref).abs().max().item(),
-               "tol": tol, "ms": staged_ms, "fused_ms": fused_ms}
+               "tol": tol, "ms": staged_ms, "fused_ms": fused_ms, "library_ms": library_ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
         out.append(rec)
-        print(f"  25a pooled_group_norm {rec['shape']} {str(dtype)[6:]}: {launches} launches, "
+        print(f"  25a pooled_group_norm {rec['shape']} {rec['dtype']}: {launches} launches, "
               f"= fused bit for bit: {rec['bit_exact_vs_fused']}; max|d| "
               f"{rec['max_abs_err']:.3e}, two shards {rec['two_shards_max_abs_err']:.3e} "
-              f"(limit {tol:.3e}); {staged_ms:.4f} ms (fused {fused_ms:.4f} ms)", flush=True)
-        del x, staged, fused, ref, split, halves
+              f"(limit {tol:.3e}); {staged_ms:.4f} ms (fused {fused_ms:.4f} ms, "
+              f"F.group_norm+silu {library_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms, {bound_by})", flush=True)
+        del x, x_nc, staged, fused, ref, split, halves
     return out
 
 
@@ -5196,7 +5256,8 @@ def mesh_path(args) -> tuple:
         wrappers = mesh_wrapper_checks(mesh, dtype)
         failures += [f"25a {r['wrapper']} {r['shape']}: {r['max_abs_err']} > {r['tol']}"
                      for r in wrappers if not r["max_abs_err"] <= r["tol"]]
-        staged = mesh_staged_gn_checks(dtype)
+        staged = [r for dt in (torch.float32, torch.bfloat16)
+                  for r in mesh_staged_gn_checks(dt)]
         for r in staged:
             if not (r["launches"] == 2 and r["bit_exact_vs_fused"]
                     and r["max_abs_err"] <= r["tol"] and r["two_shards_max_abs_err"] <= r["tol"]):
@@ -5285,6 +5346,272 @@ def mesh_path(args) -> tuple:
     return {"mesh": mesh_rec}, {"mesh": record}
 
 
+# phase 26 (path "serve_mesh"): the mesh every served child joins at world
+# size 1, and how long a child may take from launch to its last answer
+SERVE_MESH_SPEC = "1,1,1"
+SERVE_MESH_CHILD_TIMEOUT_S = 600
+
+
+def serve_mesh_vmap_phase(args, failures: list) -> dict:
+    """Phase 26a: the data mesh's ``vmap`` dispatch at dp = 1 (one card):
+    two compatible requests (the rabbit-jump edit of the rabbit clip and of
+    the car clip) through ``ProgramSet.edit_decode_batch(dispatch="vmap")``
+    give their singletons' bits, with twice a singleton edit's launches and
+    no program built after warm; a ``ProgramSet`` of mesh 2,1,1 on this
+    one card raises, naming the count. Returns the run (its launches are
+    the vmap dispatch's)."""
+    import dataclasses
+
+    from videop2p_tpu_torch.data.dataset import load_frame_sequence
+    from videop2p_tpu_torch.serve import ProgramSet, ProgramSpec
+    from videop2p_tpu_torch.serve.batching import stack_items
+
+    spec = ProgramSpec(width=512, video_len=8, steps=args.steps,
+                       mixed_precision=args.mixed_precision, seed=0)
+    ps = ProgramSet(spec, device="cuda")
+    ctrl = {"blend_word": RABBIT["blend_word"], "eq_params": RABBIT["eq_params"]}
+    ps.warm(tuple(RABBIT["prompts"]), controller_kwargs=ctrl)
+    members = []
+    for path in (RABBIT["image_path"], CAR["image_path"]):
+        frames = load_frame_sequence(path, size=512, num_frames=8)
+        ctx = ps.controller(RABBIT["prompts"], **ctrl)
+        latents = ps.encode(ps.frames_to_video(frames))
+        _, cached = ps.invert_capture(latents, ps.encode_prompts(RABBIT["prompts"][:1]), ctx)
+        members.append((cached, ps.encode_prompts(RABBIT["prompts"]), ps.encode_uncond(), ctx,
+                        latents))
+    misses = ps.cache_misses
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    videos, errs = ps.edit_decode_batch(stack_items(members), dispatch="vmap")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    same = []
+    for i, member in enumerate(members):
+        single, err = ps.edit_decode(*member)
+        same.append(bool(torch.equal(videos[i], single)) and float(errs[i]) == float(err) == 0.0)
+    want = {k: 2 * v for k, v in _hit_launches(args.steps).items()}
+    print(f"  26a vmap at dp = 1: 2 members in {wall:.3f} s, launches {launches} (want "
+          f"{want}); each its singleton's bits and src_err 0.0: {same}; programs built after "
+          f"warm {ps.cache_misses - misses}", flush=True)
+    if not all(same):
+        failures.append(f"26a: the vmap members against their singletons: {same}")
+    if launches != want:
+        failures.append(f"26a: launches {launches}, expected {want}")
+    if ps.cache_misses != misses:
+        failures.append("26a: the vmap dispatch built a program")
+    del members, videos, errs, ps
+    _release()
+    cards = torch.cuda.device_count()
+    try:
+        ProgramSet(dataclasses.replace(spec, mesh="2,1,1"), device="cuda")
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    print(f"  26a ProgramSet(mesh='2,1,1') on {cards} card(s): {refusal}", flush=True)
+    if cards == 1 and (refusal is None or "needs 2 devices, this process sees 1" not in refusal):
+        failures.append(f"26a: a data mesh of 2 on one card: {refusal}")
+    return {"launches": launches, "wall_s": wall, "bit_exact": same, "refusal": refusal}
+
+
+def _torchrun(module: str) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+            "1", "-m", module]
+
+
+def serve_mesh_path(args) -> tuple:
+    """Phase 26 (path "serve_mesh"): serving over several devices, on one
+    card. The three children of (b)-(d) start first, so that their start-up
+    overlaps (a) and each other:
+
+      (a) ``serve_mesh_vmap_phase``;
+      (b) ``torchrun --nproc_per_node 1 -m videop2p_tpu_torch.cli.serve
+          --mesh 1,1,1``: the rank-synchronous path forced on (rank 0 drives
+          a world of one through the control channel) answers a fresh
+          request and a hit with phase 19b's plain child's GIF bytes and
+          src_err; SIGTERM to rank 0 → torchrun exits 0;
+      (c) ``torchrun ... cli.stream --mesh 1,1,1`` over the clip's first 8
+          frames: one window, whose final.npy is phase 21's direct request
+          for those frames bit for bit;
+      (d) ``torchrun ... cli.run_videop2p --fast --attn_maps --mesh 1,1,1``
+          writes the plain run's attention records (every sidecar array bit
+          for bit).
+
+    Returns (runs, records); raises on a failed gate."""
+    import signal
+
+    from videop2p_tpu_torch.obs.attention import load_obs_sidecar
+    from videop2p_tpu_torch.obs.ledger import read_ledger
+    from videop2p_tpu_torch.serve import EngineClient, listening_pid
+    from videop2p_tpu_torch.stream import synthetic_clip
+
+    print(f"serving over several devices (phase 26; {_allocated_line()}):", flush=True)
+    os.makedirs("outputs", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_mesh_", dir="outputs")
+    failures: list = []
+    record: dict = {}
+    children: dict = {}
+    t_phase = t = time.perf_counter()
+    try:
+        if not PLAIN_SERVE_CLI.get("gifs"):
+            # phase 19 did not run: the plain child's answers first
+            _, f = serve_cli_phase(args, tmp, "fp32")
+            failures += f
+        port = _free_port()
+        children["serve"] = _Child("torchrun cli.serve", [
+            *_torchrun("videop2p_tpu_torch.cli.serve"), "--mesh", SERVE_MESH_SPEC,
+            "--port", str(port), "--out_dir", os.path.join(tmp, "serve"),
+            "--steps", str(args.steps), "--store_budget_gb", str(SERVE_STORE_BUDGET_GB),
+            "--warm_prompts", *RABBIT["prompts"]],
+            os.path.join(tmp, "serve.log"), f"http://127.0.0.1:{port}")
+        job = os.path.join(tmp, "job")
+        children["stream"] = _Child("torchrun cli.stream", [
+            *_torchrun("videop2p_tpu_torch.cli.stream"), "--mesh", SERVE_MESH_SPEC,
+            "--synthetic", "8", "--width", "512", "--video_len", "8", "--overlap",
+            str(STREAM_OVERLAP), "--steps", str(args.steps), "--job_dir", job,
+            *(() if args.mixed_precision == "fp32" else
+              ("--mixed_precision", args.mixed_precision))],
+            os.path.join(tmp, "stream.log"), "http://127.0.0.1:1")
+        ckpt = os.path.join(os.path.abspath(tmp), "attn", "rabbit-jump")
+        cfg = os.path.join(tmp, "attn.json")
+        with open(cfg, "w") as fh:
+            json.dump({**RABBIT, "pretrained_model_path": ckpt, "video_len": 8}, fh)
+        attn_led = os.path.join(os.path.abspath(tmp), "attn.jsonl")
+        children["attn"] = _Child("torchrun cli.run_videop2p", [
+            *_torchrun("videop2p_tpu_torch.cli.run_videop2p"), "--config", cfg, "--fast",
+            "--steps", str(args.steps), "--mixed_precision", args.mixed_precision,
+            "--attn_maps", "--ledger", attn_led, "--mesh", SERVE_MESH_SPEC],
+            os.path.join(tmp, "attn.log"), "http://127.0.0.1:1")
+
+        # (a) in this process while the children start
+        run = serve_mesh_vmap_phase(args, failures)
+        t = _sub_seconds(record, "26a vmap", t)
+
+        # (d)'s plain reference: the same edit in process, its records
+        from videop2p_tpu_torch.data.dataset import load_frame_sequence
+
+        clip = load_frame_sequence(RABBIT["image_path"], size=512, num_frames=8)
+        plain = run_main_path(clip, args.steps, args.mixed_precision, attn_maps=True,
+                              ledger=os.path.join(tmp, "plain.jsonl"),
+                              pretrained_model_path=os.path.join(tmp, "plain", "rabbit-jump"))
+        plain_arrays = load_obs_sidecar(plain["sidecar"])
+        del plain["latents"]
+        _release()
+        t = _sub_seconds(record, "26d plain reference", t)
+
+        # (b) the served mesh of one
+        child = children["serve"]
+        child.wait_up(SERVE_MESH_CHILD_TIMEOUT_S)
+        client = EngineClient(child.client.base_url, timeout_s=60.0)
+        answers = {"fresh": client.wait(client.submit(_serve_request()), timeout_s=600.0),
+                   "hit": client.wait(client.submit(_hit_request()), timeout_s=600.0)}
+        gifs = {n: _gif_bytes(r) for n, r in answers.items() if r["status"] == "done"}
+        os.kill(listening_pid(child.log_path), signal.SIGTERM)
+        try:
+            rc = child.proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            rc = None
+        log = child.tail()
+        child.kill()
+        plain_recs = PLAIN_SERVE_CLI.get("records", {})
+        for name, rec in answers.items():
+            ref = plain_recs.get(name, {})
+            same_gifs = gifs.get(name) is not None and gifs[name] == PLAIN_SERVE_CLI[
+                "gifs"].get(name)
+            print(f"  26b {name}: {rec['status']}, store {rec.get('store_source')}, src_err "
+                  f"{rec.get('src_err')!r} (plain {ref.get('src_err')!r}), dispatch "
+                  f"{rec.get('dispatch_s')} s, total {rec.get('total_s')} s; GIFs = the plain "
+                  f"child's byte for byte: {same_gifs}", flush=True)
+            if rec["status"] != "done" or rec.get("src_err") != ref.get("src_err") or \
+                    rec.get("store_source") != ref.get("store_source") or not same_gifs:
+                failures.append(f"26b {name}: {rec['status']} ({rec.get('error')}), src_err "
+                                f"{rec.get('src_err')!r}, store {rec.get('store_source')}, "
+                                f"GIFs equal {same_gifs}")
+        drove = "drives the mesh 1,1,1 through the control channel" in log
+        print(f"  26b torchrun cli.serve: up in {child.up_s:.1f} s, rank 0 drove the channel: "
+              f"{drove}; SIGTERM to rank 0 → torchrun exit {rc}", flush=True)
+        if rc != 0 or not drove:
+            failures.append(f"26b: exit {rc}, channel {drove}:\n{log}")
+        record["serve"] = {"up_s": child.up_s, "rc": rc, "records": {
+            n: {k: r.get(k) for k in ("status", "store_source", "resolve_s", "dispatch_s",
+                                      "total_s", "src_err")} for n, r in answers.items()}}
+        t = _sub_seconds(record, "26b torchrun cli.serve", t)
+
+        # (c) the one-window stream job
+        child = children["stream"]
+        try:
+            rc = child.proc.wait(timeout=SERVE_MESH_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        log = child.tail()
+        child.kill()
+        ref = STREAM_WINDOW0.get("video")
+        final_path = os.path.join(job, "final.npy")
+        final = np.load(final_path) if os.path.isfile(final_path) else None
+        if ref is None:
+            ref = _stream_window0_reference(args, synthetic_clip(8, 512, seed=0), tmp)
+        same = final is not None and np.array_equal(final, ref)
+        print(f"  26c torchrun cli.stream: exit {rc}, final.npy "
+              f"{None if final is None else final.shape} = phase 21's window 0: {same}",
+              flush=True)
+        if rc != 0 or not same:
+            failures.append(f"26c: exit {rc}, final.npy equal {same}:\n{log}")
+        t = _sub_seconds(record, "26c torchrun cli.stream", t)
+
+        # (d) the attention records of the mesh of one
+        child = children["attn"]
+        try:
+            rc = child.proc.wait(timeout=SERVE_MESH_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        log = child.tail()
+        child.kill()
+        events = ([e for e in read_ledger(attn_led) if e["event"] == "attn_maps"]
+                  if os.path.isfile(attn_led) else [])
+        arrays = load_obs_sidecar(events[0]["sidecar"]) if events else {}
+        keys = sorted(k for k in plain_arrays if k.startswith("attn_"))
+        same = bool(keys) and sorted(k for k in arrays if k.startswith("attn_")) == keys and \
+            all(np.array_equal(arrays[k], plain_arrays[k]) for k in keys)
+        print(f"  26d torchrun cli.run_videop2p --attn_maps: exit {rc}, {len(keys)} record "
+              f"arrays (scopes {sorted(e['scope'] for e in events)}) = the plain run's bit "
+              f"for bit: {same}", flush=True)
+        if rc != 0 or not same:
+            failures.append(f"26d: exit {rc}, records equal {same}:\n{log}")
+        t = _sub_seconds(record, "26d torchrun cli.run_videop2p", t)
+    finally:
+        for child in children.values():
+            child.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    _release()
+    record["path_s"] = time.perf_counter() - t_phase
+    print(f"  card: {card_line()}", flush=True)
+    print(f"  phase 26: {record['path_s']:.1f} s", flush=True)
+    if failures:
+        raise AssertionError("serve_mesh path: " + "; ".join(failures))
+    record["vmap"] = {k: v for k, v in run.items() if k != "launches"}
+    return {"serve_mesh": run}, {"serve_mesh": record}
+
+
+def _stream_window0_reference(args, frames: np.ndarray, tmp: str) -> np.ndarray:
+    """Phase 21's window 0 when phase 21 did not run: a direct request for
+    ``frames`` through an engine, its edit stream."""
+    from videop2p_tpu_torch.serve import EditEngine, EditRequest, ProgramSpec
+
+    spec = ProgramSpec(width=512, video_len=8, steps=args.steps,
+                       mixed_precision=args.mixed_precision, seed=0)
+    engine = EditEngine(spec, out_dir=os.path.join(tmp, "window0"), keep_videos=True,
+                        device="cuda")
+    try:
+        rec = engine.result(engine.submit(EditRequest(
+            frames=frames, prompt=STREAM_PROMPTS[0], prompts=list(STREAM_PROMPTS), seed=0,
+            **STREAM_REQUEST)), wait_s=600.0)
+        return engine.videos(rec["id"])[-1]
+    finally:
+        engine.close()
+        _release()
+
+
 def group_norm_only(args, card: str, kind: str) -> int:
     """``--gn_only``: GroupNorm's phase-3 checks and timings, its sums over
     the UNet's 61 sites (:func:`gn_site_sums`, at the edit forward's B 2 and
@@ -5368,9 +5695,11 @@ def main() -> int:
     from videop2p_tpu_torch.ops import _build
 
     # 2. build
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
+    # each stage's seconds, printed on one line before the contract's lines
+    seconds = {"build": build_s}
     print(f"build: {build_s:.1f} s ({', '.join(_build.KERNEL_SOURCES)})", flush=True)
     if args.gn_kernel_names:
         KERNEL_NAMES["group_norm"] = tuple(args.gn_kernel_names)
@@ -5420,54 +5749,47 @@ def main() -> int:
         checks["kernel_grads"][str(dtype).replace("torch.", "")] = \
             check_kernel_grads(gen, dtype)
 
+    seconds["kernel_checks"] = time.perf_counter() - t0 - build_s
+
     frames = np.random.default_rng(0).integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)
     dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[args.mixed_precision]
     runs, failures, records = {}, [], {}
+
+    def drive(name, fn, *fn_args):
+        """One path: its runs and records merged, its seconds kept."""
+        t = time.perf_counter()
+        out = fn(*fn_args)
+        seconds[name] = time.perf_counter() - t
+        runs.update(out[0])
+        records.update(out[-1])
+        return out
+
     if "fast" in args.paths:
-        fast_runs, failures, fast_records = fast_paths(args, frames, dtype, checks)
-        runs.update(fast_runs)
-        records.update(fast_records)
+        failures += drive("fast", fast_paths, args, frames, dtype, checks)[1]
     if {"official", "official_flash"} & set(args.paths):
-        off_runs, off_failures, off_records = official_paths(args, frames, dtype)
-        runs.update(off_runs)
-        failures += off_failures
-        records.update(off_records)
+        failures += drive("official", official_paths, args, frames, dtype)[1]
     if "dependent" in args.paths:
-        dep_runs, dep_records = dependent_paths(args, frames)
-        runs.update(dep_runs)
-        records.update(dep_records)
+        drive("dependent", dependent_paths, args, frames)
     if "checkpoint" in args.paths:
-        ckpt_runs, ckpt_records = checkpoint_path(args, frames, dtype)
-        runs.update(ckpt_runs)
-        records.update(ckpt_records)
+        drive("checkpoint", checkpoint_path, args, frames, dtype)
     # the tune path's export stays on disk until the distill path has
     # started from it
     os.makedirs("outputs", exist_ok=True)
     tune_tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_", dir="outputs")
     try:
         if "tune" in args.paths:
-            tune_runs, tune_records = tune_path(args, frames, tune_tmp)
-            runs.update(tune_runs)
-            records.update(tune_records)
+            drive("tune", tune_path, args, frames, tune_tmp)
         if "surface" in args.paths:
-            surface_runs, surface_records = surface_path(args, frames)
-            runs.update(surface_runs)
-            records.update(surface_records)
+            drive("surface", surface_path, args, frames)
         if "distill" in args.paths:
-            distill_runs, distill_records = distill_path(
-                args, frames, runs["tune"]["dir"] if "tune" in runs else None)
-            runs.update(distill_runs)
-            records.update(distill_records)
+            drive("distill", distill_path, args, frames,
+                  runs["tune"]["dir"] if "tune" in runs else None)
     finally:
         shutil.rmtree(tune_tmp, ignore_errors=True)
     if "sdxl" in args.paths:
-        sdxl_runs, sdxl_records = sdxl_path(args)
-        runs.update(sdxl_runs)
-        records.update(sdxl_records)
+        drive("sdxl", sdxl_path, args)
     if "serve" in args.paths:
-        serve_runs, serve_records = serve_path(args, frames)
-        runs.update(serve_runs)
-        records.update(serve_records)
+        drive("serve", serve_path, args, frames)
     # the program analysis runs on every engine's and every child's first
     # calls where a ledger is open; phase 19 keeps it (an engine's cost
     # model prices from it) and phase 24 holds it, while phases 20-23 run
@@ -5475,29 +5797,20 @@ def main() -> int:
     # a minute to the default run
     with _analysis_off():
         if "fleet" in args.paths:
-            fleet_runs, fleet_records = fleet_path(args)
-            runs.update(fleet_runs)
-            records.update(fleet_records)
+            drive("fleet", fleet_path, args)
         if "stream" in args.paths:
-            stream_runs, stream_records = stream_path(args)
-            runs.update(stream_runs)
-            records.update(stream_records)
+            drive("stream", stream_path, args)
         if "observe" in args.paths:
-            observe_runs, observe_records = observe_path(args)
-            runs.update(observe_runs)
-            records.update(observe_records)
+            drive("observe", observe_path, args)
         if "runs" in args.paths:
-            obs_runs, obs_records = runs_path(args, frames)
-            runs.update(obs_runs)
-            records.update(obs_records)
+            drive("runs", runs_path, args, frames)
     if "analysis" in args.paths:
-        an_runs, an_records = analysis_path(args, frames)
-        runs.update(an_runs)
-        records.update(an_records)
+        drive("analysis", analysis_path, args, frames)
     if "mesh" in args.paths:
-        mesh_runs, mesh_records = mesh_path(args)
-        runs.update(mesh_runs)
-        records.update(mesh_records)
+        drive("mesh", mesh_path, args)
+    if "serve_mesh" in args.paths:
+        with _analysis_off():
+            drive("serve_mesh", serve_mesh_path, args)
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
@@ -5555,7 +5868,7 @@ def main() -> int:
     # own, at its shapes (head dim 64) in bf16, the dtype it runs in.
     auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint",
                              "surface_multi", "student_edit", "serve", "fleet", "stream",
-                             "observe", "runs", "analysis", "mesh")
+                             "observe", "runs", "analysis", "mesh", "serve_mesh")
                  if r in runs), None)
     rect = next((r for r in ("flash_rect", "official_flash_rect",
                              "surface_hybrid_flash_rect", "analysis_flash_rect")
@@ -5611,6 +5924,10 @@ def main() -> int:
     if failures:
         print("chip_smoke failed: " + "; ".join(failures), file=sys.stderr)
         return 1
+    seconds["total"] = time.perf_counter() - t_run
+    serving = sum(seconds.get(k, 0.0) for k in ("fleet", "stream", "observe"))
+    print("seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; fleet + stream + observe {serving:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

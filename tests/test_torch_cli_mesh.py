@@ -185,9 +185,9 @@ def test_run_tuning_on_two_ranks_matches_one(tmp_path):
 
 
 def test_mesh_failures_are_loud(tmp_path):
-    """A mesh that is not the world raises and names torchrun; dp ≠ 1, an
-    sp that does not divide the frames and ``--attn_maps`` over split
-    frames (records per rank, not gathered) raise before anything runs."""
+    """A mesh that is not the world raises and names torchrun (with
+    ``--attn_maps`` too: it is taken over split frames); dp ≠ 1 and an sp
+    that does not divide the frames raise before anything runs."""
     import numpy as np
 
     from videop2p_tpu_torch.cli.run_videop2p import main
@@ -205,10 +205,78 @@ def test_mesh_failures_are_loud(tmp_path):
         main(**kw, mesh="1,3,1")
     with pytest.raises(ValueError, match="quant_mode"):
         main(**kw, mesh="1,2,1", quant_mode="w8")
-    with pytest.raises(ValueError, match="attn_maps on mesh '1,2,1'"):
+    # --attn_maps is taken at sp > 1 (its records are gathered): the mesh
+    # check is what fails here
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         main(**kw, mesh="1,2,1", attn_maps=True)
     proc = _run(["-m", "videop2p_tpu_torch.cli.run_videop2p", "--config",
                  _edit_config(tmp_path, "mismatch"), "--tiny", "--device", "cpu", "--fast",
                  "--steps", "1", "--mesh", "1,1,1"], nproc=2)
     assert proc.returncode != 0
     assert "needs 1 processes, have 2" in proc.stderr
+
+
+def _attn_worker(rank, world, mesh, root):
+    """Rank ``rank``'s cached and live fast edits and its official edit
+    with ``--attn_maps``; rank 0 returns each mode's sidecar arrays and
+    ``attn_maps`` events."""
+    import numpy as np
+
+    from videop2p_tpu_torch.cli.run_videop2p import main
+    from videop2p_tpu_torch.obs.attention import load_obs_sidecar
+    from videop2p_tpu_torch.obs.ledger import read_ledger
+
+    out = {}
+    for mode, kw in (("cached", dict(fast=True)), ("live", dict(fast=True, live_source=True)),
+                     ("official", dict(fast=False, num_inner_steps=2))):
+        led = os.path.join(root, f"{mesh}_{mode}.jsonl")
+        frames = np.random.default_rng(0).integers(0, 256, (4, 16, 16, 3), dtype=np.uint8)
+        main(pretrained_model_path=os.path.join(root, f"ck_{mesh}_{mode}"), image_path="unused",
+             prompt="a rabbit is jumping on the grass",
+             prompts=["a rabbit is jumping on the grass",
+                      "a origami rabbit is jumping on the grass"],
+             save_name="origami", is_word_swap=False, blend_word=["rabbit", "rabbit"],
+             eq_params={"words": ["origami"], "values": [2]}, video_len=4, device="cpu",
+             tiny=True, num_ddim_steps=2, frames=frames, save_gifs=False, attn_maps=True,
+             ledger=led, reuse_inversion=False, mesh=mesh, **kw)
+        if rank == 0:
+            events = [e for e in read_ledger(led) if e["event"] == "attn_maps"]
+            out[mode] = (load_obs_sidecar(events[0]["sidecar"]),
+                         {e["scope"]: e for e in events})
+    return out
+
+
+def test_attn_maps_on_two_ranks_gather_the_whole_clip(tmp_path):
+    """``--attn_maps`` on (1,2,1) in the cached, live and official edits:
+    rank 0 writes the whole clip's records, every array within 1e-5 of the
+    one-process run's (the mask series gathered along their frames), the
+    same heat shapes and steps. A temporal site's curve is kept where every
+    step recorded it: with the frames split a temporal site fills the store
+    only on the steps whose controller gathers its K/V. So the inversions
+    (uncontrolled: the ring) hold the cross sites only, and these 2-step
+    edits every site — the structure the JAX CLI writes in official mode
+    on (1,2,1); in the fast modes its per-step site trees differ there and
+    it fails."""
+    import numpy as np
+
+    from tests.torch_dist import run_ranks
+
+    r0, _ = run_ranks(_attn_worker, 2, "1,2,1", str(tmp_path), timeout=TIMEOUT)
+    one = _attn_worker(0, 1, None, str(tmp_path))
+    for mode in ("cached", "live", "official"):
+        (mesh_arrays, mesh_events), (arrays, events) = r0[mode], one[mode]
+        inversion_temporal = {k for k in arrays if k.startswith("attn_inversion/entropy/")
+                              and k.endswith("attn_temp")}
+        assert inversion_temporal, sorted(arrays)
+        want = {k for k in arrays if k.startswith("attn_")} - inversion_temporal
+        assert {k for k in mesh_arrays if k.startswith("attn_")} == want, mode
+        assert any(k.endswith("mask_heat") for k in want)
+        for k in sorted(want):
+            np.testing.assert_allclose(mesh_arrays[k], arrays[k], atol=1e-5, rtol=0,
+                                       err_msg=f"{mode} {k}")
+        assert set(mesh_events) == set(events) == {"inversion", "edit"}
+        for scope, e in events.items():
+            got = mesh_events[scope]
+            assert (got["steps"], got["heat_shape"]) == (e["steps"], e["heat_shape"])
+            assert got["sites"] == ([s for s in e["sites"] if s.endswith("attn2")]
+                                    if scope == "inversion" else e["sites"]), (mode, scope)

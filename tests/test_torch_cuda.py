@@ -92,6 +92,31 @@ def test_cuda_group_norm_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
+def test_cuda_group_norm_on_every_device(cuda):
+    """One process launching the GroupNorm kernel on each visible card in
+    turn, as a data mesh's replicas do: each launch's plan takes more
+    shared memory than a block gets by default, which the launcher allows
+    on each device it launches on, and each output is the plain
+    version's. One card checks device 0."""
+    from videop2p_tpu_torch.ops import groupnorm as gn
+
+    for index in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", index)
+        with torch.cuda.device(dev):
+            gen = torch.Generator(device=dev).manual_seed(index)
+            x = torch.randn(2, 8 * 1024, 640, generator=gen, device=dev) * 2 + 0.5
+            scale = torch.randn(640, generator=gen, device=dev)
+            bias = torch.randn(640, generator=gen, device=dev)
+            plan = gn.plan(2, 8 * 1024, 640, x.dtype,
+                           torch.cuda.get_device_properties(dev).multi_processor_count, 32, True)
+            assert plan.smem_bytes > 48 * 1024
+            out = gn.fused_group_norm(x, scale, bias, num_groups=32, act="silu")
+            ref = gn.group_norm_reference(x, scale, bias, num_groups=32, act="silu")
+            assert out.device == dev
+            assert (out - ref).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("wrapper", ["flash_frame_attention", "flash_rect_frame_attention"])
 def test_cuda_flash_attention_kernel_matches_plain(cuda, dtype, wrapper):

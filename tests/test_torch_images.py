@@ -157,3 +157,19 @@ def test_sweep_dry_run(capsys):
     assert out.count("videop2p_tpu_torch.cli.run_tuning") == 2
     assert out.count("videop2p_tpu_torch.cli.run_videop2p") == 2
     assert "--inv_store inv_store" in out and "--device cpu" in out
+
+
+@pytest.mark.parametrize("frames, size", [(8, 64), (2, 16), (3, 33)])
+def test_gif_bytes_are_pils_rgb_gif(tmp_path, frames, size):
+    """``save_video_gif`` makes each frame's palette in a thread pool: its
+    file is the one PIL writes from the RGB frames, byte for byte."""
+    from PIL import Image
+
+    from videop2p_tpu_torch.utils.video_io import save_video_gif, to_uint8
+
+    video = np.random.default_rng(size).random((frames, size, size, 3)).astype(np.float32)
+    ours = save_video_gif(video, str(tmp_path / "ours.gif"))
+    rgb = [Image.fromarray(f) for f in to_uint8(video)]
+    rgb[0].save(tmp_path / "pil.gif", format="GIF", save_all=True, append_images=rgb[1:],
+                duration=250, loop=0)
+    assert open(ours, "rb").read() == (tmp_path / "pil.gif").read_bytes()

@@ -124,8 +124,9 @@ def test_scan_batch_is_bit_identical_to_singletons(programs):
         single, err = ps.edit_decode(*args)
         assert torch.equal(videos[i], single) and float(err) == float(errs[i]) == 0.0
     assert not torch.equal(videos[0], videos[1])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ps.edit_decode_batch(stack_items(members), dispatch="vmap")
+    # "vmap" without a data mesh runs every member on this set: the scan
+    vmapped, vmap_errs = ps.edit_decode_batch(stack_items(members), dispatch="vmap")
+    assert torch.equal(vmapped, videos) and torch.equal(vmap_errs, errs)
 
 
 def test_blend_structure_gets_its_own_compat_key(programs):
@@ -370,17 +371,17 @@ def test_close_writes_health_and_fails_nothing_in_flight(programs, tmp_path):
 
 
 def test_options_not_ported_raise(programs, tmp_path):
-    """The multi-GPU options raise naming item 13; ``slo=`` and
-    ``incidents=`` (item 14's rest) are ported: the engine takes them."""
+    """Every option is ported. ``slo=`` and ``incidents=`` (item 14's
+    rest): the engine takes them. The multi-GPU options (item 13): a
+    ``batch_dispatch="vmap"`` engine serves a request as the scan engine
+    does (no data mesh: the same bits); the engine's own set takes the
+    ring and tensor knobs into its spec; a model-parallel mesh in a plain
+    process raises naming torchrun; a data mesh builds its replicas; an
+    unknown dispatch raises."""
     from videop2p_tpu_torch.obs import IncidentManager, read_ledger
-    from videop2p_tpu_torch.serve import ProgramSet, ProgramSpec
+    from videop2p_tpu_torch.serve import EditEngine, ProgramSet, ProgramSpec
 
-    for kw, item in ((dict(slo=True), "item 14"), (dict(incidents=str(tmp_path)), "item 14"),
-                     (dict(batch_dispatch="vmap"), "item 13")):
-        if item == "item 13":
-            with pytest.raises(NotImplementedError, match=item):
-                _engine(programs, tmp_path, **kw)
-            continue
+    for kw in (dict(slo=True), dict(incidents=str(tmp_path))):
         eng = _engine(programs, tmp_path / next(iter(kw)), **kw)
         eng.close()
         kinds = [e["event"] for e in read_ledger(eng.ledger.path)]
@@ -389,17 +390,26 @@ def test_options_not_ported_raise(programs, tmp_path):
         else:
             assert isinstance(eng.incidents, IncidentManager) and "slo_report" not in kinds
             assert eng.incidents.root == str(tmp_path) and eng.ledger.flight is not None
-    # the engine serves one GPU (its mesh is item 13's rest); a ProgramSet
-    # takes a model-parallel mesh of torchrun ranks, not a data mesh
-    from videop2p_tpu_torch.serve import EditEngine
-
-    for kw in (dict(mesh="1,2,1"), dict(ring_variant="bidir"),
-               dict(tp_collectives="psum_scatter")):
-        with pytest.raises(NotImplementedError, match="item 13's rest"):
-            EditEngine(ProgramSpec(**KW, **kw), out_dir=str(tmp_path / "mesh"),
-                       programs=programs)
-    with pytest.raises(NotImplementedError, match="item 13's rest"):
-        ProgramSet(ProgramSpec(**KW, mesh="2,1,1"), device="cpu")
+    recs = []
+    for dispatch in ("vmap", "scan"):
+        eng = _engine(programs, tmp_path / dispatch, batch_dispatch=dispatch)
+        try:
+            recs.append(eng.result(eng.submit(_request()), wait_s=120.0))
+        finally:
+            eng.close()
+    assert [r["status"] for r in recs] == ["done", "done"]
+    assert recs[0]["content_sha256"] == recs[1]["content_sha256"]
+    with pytest.raises(ValueError, match="batch_dispatch must be"):
+        _engine(programs, tmp_path / "bad", batch_dispatch="pmap")
+    for kw in (dict(ring_variant="bidir"), dict(tp_collectives="psum_scatter")):
+        eng = EditEngine(ProgramSpec(**KW, **kw), out_dir=str(tmp_path / "knobs"),
+                         device="cpu")
+        eng.close()
+        assert getattr(eng.spec, next(iter(kw))) == next(iter(kw.values()))
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        EditEngine(ProgramSpec(**KW, mesh="1,2,1"), out_dir=str(tmp_path / "mesh"),
+                   device="cpu")
+    assert len(ProgramSet(ProgramSpec(**KW, mesh="2,1,1"), device="cpu").replicas) == 2
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         ProgramSet(ProgramSpec(**KW, mesh="1,2,1"), device="cpu")
 

@@ -387,8 +387,10 @@ def test_stream_driver_validation(engine, clip, stream_root):
 
 
 def test_stream_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """The multi-GPU flags (item 13) raise; ``--incidents`` (item 14's rest)
-    is ported: it reaches the engine as its option."""
+    """Every flag is ported. The multi-GPU flags (item 13): a
+    model-parallel ``--mesh`` in a plain process raises naming torchrun,
+    the ring and tensor knobs reach the engine's spec; ``--incidents``
+    (item 14's rest) reaches the engine as its option."""
     from videop2p_tpu_torch.cli.stream import main
 
     for argv, item in ((["--mesh", "1,2,1"], "item 13"), (["--ring_variant", "bidir"], "item 13"),
@@ -396,8 +398,8 @@ def test_stream_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
                        (["--incidents", "dir"], "item 14")):
         cmd = ["--device", "cpu", "--tiny", "--synthetic", "5", "--video_len", "2",
                "--job_dir", str(tmp_path / "job"), *argv]
-        if item == "item 13":
-            with pytest.raises(NotImplementedError, match=item):
+        if argv[0] == "--mesh":
+            with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
                 main(cmd)
             continue
         import videop2p_tpu_torch.serve as serve
@@ -405,14 +407,19 @@ def test_stream_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
         seen = {}
 
         def engine(spec, **kw):
-            seen.update(kw)
+            seen.update(kw, spec=spec)
             raise KeyboardInterrupt  # stop before warming
 
         with monkeypatch.context() as m:
             m.setattr(serve, "EditEngine", engine)
             with pytest.raises(KeyboardInterrupt):
                 main(cmd)
-        assert seen["incidents"] == "dir" and seen["device"] == "cpu"
+        assert seen["device"] == "cpu" and seen["programs"] is None
+        assert seen["incidents"] == ("dir" if item == "item 14" else None)
+        assert seen["spec"].ring_variant == (argv[1] if argv[0] == "--ring_variant"
+                                             else "overlap")
+        assert seen["spec"].tp_collectives == (argv[1] if argv[0] == "--tp_collectives"
+                                               else "gspmd")
 
 
 # ------------------------------------------------ kill-and-resume e2e ----

@@ -45,8 +45,10 @@ frame-pooled GroupNorm statistics all-reduced, null-text's loss and
 gradient global), heads over ``tp`` (``cli/common.py:setup_mesh``); dp
 must be 1. Rank 0 gathers the latents, decodes them and writes the GIFs,
 the report and the run's ledger (each other rank writes
-``<ledger stem>.rank<r>.jsonl``); persisted inversion reuse is off, and
-``--attn_maps`` needs sp = 1 (its records are per rank, not gathered).
+``<ledger stem>.rank<r>.jsonl``); persisted inversion reuse is off.
+``--attn_maps`` at sp > 1 gathers each rank's records into the whole
+clip's before rank 0 writes them (a temporal site's curve where every step
+recorded it: ``obs/attention.py``).
 ``VIDEOP2P_RING_VARIANT`` / ``VIDEOP2P_TP_COLLECTIVES`` pick the ring
 schedule and the row-parallel reduction, as in JAX.
 
@@ -479,11 +481,6 @@ def main(
         raise ValueError(
             f"quant_mode={quant_mode!r} is not supported on a model-parallel mesh: "
             "the quantized weights would need their own sharding rules")
-    if attn_maps and sp > 1:
-        raise ValueError(
-            f"attn_maps on mesh {mesh!r}: with the frames split (sp={sp}) each rank "
-            "records only its frames' attention (the ring's temporal sites none), and "
-            "the records are not gathered yet; run --attn_maps with sp = 1")
     if mixed_precision not in _DTYPES:
         raise ValueError(f"mixed_precision must be one of {sorted(_DTYPES)}")
     if not fast:
@@ -793,6 +790,12 @@ def main(
                 run_ledger.telemetry("edit_sample", _telemetry_record(edit_tel))
             if run_ledger is not None:
                 run_ledger.memory_snapshot(note="after_edit")
+        if device_mesh is not None and attn_records:
+            # every rank: the whole clip's records (rank 0 writes them)
+            from videop2p_tpu_torch.obs.attention import gather_attn_record
+
+            attn_records = {scope: gather_attn_record(rec, device_mesh)
+                            for scope, rec in sorted(attn_records.items())}
         # rank 0 decodes the whole clip
         edited = gather_frames(edited)
         trajectory = gather_frames(trajectory, dim=2)

@@ -17,15 +17,28 @@ Then ``POST /v1/edits`` a JSON request (``serve/engine.py:EditRequest``),
 ``GET /metrics[?format=prometheus]``. SIGTERM drains (``--drain_s``) and exits
 0. ``--slo`` writes the SLO reports into the ledger at shutdown;
 ``--incidents DIR`` arms the incident plane (breaker-open, deadline, crash
-and ``kill -USR1 <pid>`` bundles under DIR). Not ported: ``--mesh``,
-non-default ``--ring_variant`` / ``--tp_collectives`` and ``--batch_dispatch
-vmap`` (multi-GPU, ROADMAP Queue 1 item 13's rest); the engine raises for each,
-naming the item.
+and ``kill -USR1 <pid>`` bundles under DIR).
+
+Several GPUs (``--mesh dp,sp,tp``, with ``--ring_variant`` and
+``--tp_collectives`` as the run CLIs take them):
+
+  * a model-parallel mesh (sp or tp > 1) runs one process per GPU:
+    ``torchrun --standalone --nproc_per_node sp·tp -m
+    videop2p_tpu_torch.cli.serve --mesh 1,sp,tp ...``. Every rank builds
+    its shard of the set; rank 0 binds the port, runs the engine and writes
+    the GIFs, the other ranks follow its calls. SIGTERM to rank 0 (its pid
+    is in the ``listening`` line) drains it and then releases the others,
+    which ignore SIGTERM and exit when released. A mesh that is not the
+    world raises, naming torchrun. Any ``--mesh`` given under torchrun serves this way, 1,1,1
+    included (one rank driving itself through the channel).
+  * a data mesh (dp > 1, sp = tp = 1) is this one process over the first dp
+    GPUs; ``--batch_dispatch vmap`` splits each batch over them.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import threading
 
@@ -47,15 +60,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", type=str, default="cuda",
                     help="the device the engine serves on (cuda, or cpu for a smoke run)")
     ap.add_argument("--mesh", type=str, default=None,
-                    help="dp,sp,tp device mesh: not ported (ROADMAP Queue 1 item 13's rest)")
+                    help="dp,sp,tp — sp/tp shard the model (one torchrun process per "
+                         "GPU); dp>1 is the serving data axis batched dispatches shard "
+                         "over (one process over the first dp GPUs)")
     ap.add_argument("--ring_variant", type=str, default="overlap",
                     choices=["overlap", "bidir", "serial"],
-                    help="ring-attention schedule on sp>1 meshes: only the default "
-                         "(ROADMAP Queue 1 item 13's rest)")
+                    help="ring-attention rotation schedule on sp>1 meshes "
+                         "(parallel/ring.py); enters the spec fingerprint")
     ap.add_argument("--tp_collectives", type=str, default="gspmd",
                     choices=["gspmd", "psum_scatter"],
-                    help="row-parallel reduction on tp>1 meshes: only the default "
-                         "(ROADMAP Queue 1 item 13's rest)")
+                    help="row-parallel output reduction on tp>1 meshes: all-reduce, or "
+                         "reduce-scatter + all-gather; enters the spec fingerprint")
     ap.add_argument("--host", type=str, default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--out_dir", type=str, default="serve_out",
@@ -71,8 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="admit-window deadline before dispatching a partial batch")
     ap.add_argument("--batch_dispatch", type=str, default="scan", choices=["scan", "vmap"],
                     help="scan: one dispatch, per-request results bit-identical to "
-                         "singletons; vmap: data-mesh sharded, not ported (ROADMAP "
-                         "Queue 1 item 13's rest)")
+                         "singletons; vmap: split over the data mesh's replicas, each "
+                         "result its singleton's bits on its device")
     # scheduling policy + per-tenant QoS (serve/sched.py)
     ap.add_argument("--scheduler", type=str, default="drain",
                     choices=["drain", "continuous", "fair"],
@@ -174,6 +189,41 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def ranked_programs(spec, device: str):
+    """The set of a ``--mesh`` launched under ``torchrun`` (every rank
+    calls it): the process group joined, the mesh checked against the
+    world (it raises naming torchrun), the control channel's group made,
+    and this rank's set. Returns ``(rank, set)``; None for a plain process
+    or a data mesh (one process)."""
+    from videop2p_tpu_torch.cli.common import parse_mesh, validate_mesh
+    from videop2p_tpu_torch.parallel.distributed import control_group, initialize_distributed
+    from videop2p_tpu_torch.serve import ProgramSet
+
+    if spec.mesh is None:
+        return None
+    dp, sp, tp = parse_mesh(spec.mesh)
+    if dp > 1 and sp == tp == 1:
+        return None
+    if "WORLD_SIZE" not in os.environ and sp * tp == 1:
+        return None
+    rank = initialize_distributed(device)
+    validate_mesh(spec.mesh, spec.resolved().video_len)
+    control_group()
+    return rank, ProgramSet(spec, device=device)
+
+
+def follow(programs) -> int:
+    """A follower rank: run rank 0's calls until its engine closes. SIGTERM
+    is ignored (rank 0 drains, then releases this rank)."""
+    try:
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    except ValueError:  # not the main thread (embedded use)
+        pass
+    stats = programs.follow()
+    print(f"[serve] rank released after {stats['calls']} calls", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from videop2p_tpu_torch.serve import EditEngine, FaultPlan, ProgramSpec
@@ -186,6 +236,16 @@ def main(argv=None) -> int:
         ring_variant=args.ring_variant, tp_collectives=args.tp_collectives,
         quant_mode=args.quant_mode, reuse_schedule=args.reuse_schedule,
         student_ckpt=args.student_ckpt)
+    ranked = ranked_programs(spec, args.device)
+    programs = None
+    if ranked is not None:
+        from videop2p_tpu_torch.parallel.distributed import process_count
+
+        rank, programs = ranked
+        if rank != 0:
+            return follow(programs)
+        print(f"[serve] rank 0 of {process_count()} drives the mesh {spec.mesh} "
+              "through the control channel", flush=True)
     faults = FaultPlan.parse(args.faults) if args.faults else None
     if faults is not None:
         print(f"[serve] CHAOS MODE: injecting fault plan {args.faults!r}", flush=True)
@@ -201,7 +261,7 @@ def main(argv=None) -> int:
         default_deadline_s=args.deadline_s, dispatch_timeout_s=args.dispatch_timeout_s,
         max_retries=args.max_retries, breaker_threshold=args.breaker_threshold,
         breaker_open_s=args.breaker_open_s, faults=faults, tracing=args.tracing,
-        slo=args.slo, incidents=args.incidents, device=args.device)
+        slo=args.slo, incidents=args.incidents, device=args.device, programs=programs)
     if not args.no_warm:
         print(f"[serve] warming programs (spec {engine.spec.fingerprint()})...", flush=True)
         info = engine.warm(tuple(args.warm_prompts), step_buckets=tuple(args.step_buckets),
@@ -210,7 +270,8 @@ def main(argv=None) -> int:
         print(f"[serve] warm in {info['seconds']}s (step buckets {info['steps']}, reuse {info['reuse']}, quant "
               f"{info['quant']}, student {info['student']})", flush=True)
     server = EditServer(engine, host=args.host, port=args.port)
-    print(f"[serve] listening on {server.url}  (ledger: {engine.ledger.path})", flush=True)
+    print(f"[serve] listening on {server.url}  (pid {os.getpid()}, ledger: "
+          f"{engine.ledger.path})", flush=True)
 
     # drain, then exit, on SIGTERM: stop the HTTP loop from a helper thread
     # (shutdown() from the handler itself would deadlock: it runs on the
@@ -229,7 +290,7 @@ def main(argv=None) -> int:
         print("[serve] shutting down", flush=True)
     finally:
         server.httpd.server_close()
-        engine.close(drain_s=args.drain_s)
+        engine.close(drain_s=args.drain_s)  # on a mesh the other ranks exit
     return 0
 
 

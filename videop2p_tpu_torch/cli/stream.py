@@ -20,9 +20,11 @@ Run:  python -m videop2p_tpu_torch.cli.stream --checkpoint <dir> \
           --video_len 4 --steps 2 --overlap 1 --job_dir /tmp/job   # a CPU smoke run
 
 ``--incidents DIR`` arms the incident plane: breaker-open, deadline,
-poisoned-window and crash bundles under DIR. Not ported: ``--mesh``,
-non-default ``--ring_variant`` / ``--tp_collectives`` (multi-GPU, ROADMAP
-Queue 1 item 13's rest); the engine raises for each, naming the item.
+poisoned-window and crash bundles under DIR. ``--mesh`` (with
+``--ring_variant`` / ``--tp_collectives``) serves the windows as
+``cli/serve.py`` does: a model-parallel mesh under ``torchrun``, rank 0
+running the job and the engine, the other ranks following its calls; a
+data mesh in this one process.
 """
 
 from __future__ import annotations
@@ -86,15 +88,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", type=str, default="cuda",
                     help="the device the engine serves on (cuda, or cpu for a smoke run)")
     ap.add_argument("--mesh", type=str, default=None,
-                    help="dp,sp,tp device mesh: not ported (ROADMAP Queue 1 item 13's rest)")
+                    help="dp,sp,tp device mesh (cli/serve.py's): sp/tp under torchrun")
     ap.add_argument("--ring_variant", type=str, default="overlap",
                     choices=["overlap", "bidir", "serial"],
-                    help="ring-attention schedule on sp>1 meshes: only the default "
-                         "(ROADMAP Queue 1 item 13's rest)")
+                    help="ring-attention rotation schedule on sp>1 meshes")
     ap.add_argument("--tp_collectives", type=str, default="gspmd",
                     choices=["gspmd", "psum_scatter"],
-                    help="row-parallel reduction on tp>1 meshes: only the default "
-                         "(ROADMAP Queue 1 item 13's rest)")
+                    help="row-parallel output reduction on tp>1 meshes")
     # engine knobs
     ap.add_argument("--store_budget_gb", type=float, default=4.0)
     ap.add_argument("--max_batch", type=int, default=4)
@@ -138,6 +138,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
+    from videop2p_tpu_torch.cli.serve import follow, ranked_programs
     from videop2p_tpu_torch.serve import EditEngine, FaultPlan, ProgramSpec
     from videop2p_tpu_torch.stream import run_stream_job, synthetic_clip
 
@@ -149,6 +150,12 @@ def main(argv=None) -> int:
         ring_variant=args.ring_variant, tp_collectives=args.tp_collectives,
     )
     resolved = spec.resolved()
+    programs = None
+    ranked = ranked_programs(spec, args.device)
+    if ranked is not None:
+        rank, programs = ranked
+        if rank != 0:
+            return follow(programs)
     if args.synthetic is not None:
         frames = synthetic_clip(args.synthetic, resolved.width, seed=args.seed)
     else:
@@ -175,6 +182,7 @@ def main(argv=None) -> int:
         tracing=args.tracing,
         incidents=args.incidents,
         device=args.device,
+        programs=programs,
     )
     prompts = [args.prompt, args.edit_prompt]
     request_kwargs = dict(
@@ -221,7 +229,7 @@ def main(argv=None) -> int:
     finally:
         for sig, old in installed:
             signal.signal(sig, old)
-        engine.close()
+        engine.close()  # on a mesh the other ranks exit
     print(json.dumps({"stream_health": result.health}, default=str), flush=True)
     if result.complete:
         print(f"[stream] done: {result.health['windows_done']} edited + "

@@ -23,6 +23,15 @@ read the same in either package's ledger. The pooling reproduces
 scale when it downsamples (antialiasing), as an explicit separable matrix.
 Capture is opt-in (``attn_maps=False`` everywhere); the outputs are the
 same bits with it on or off.
+
+A loop stacks its steps with :func:`stack_attn_steps`, which keeps the
+entropy of the sites every step recorded. On one device that is every
+site. With the frames split (a mesh's sp > 1) a temporal site fills the
+store only on the steps whose controller gathers its K/V (the ring's fill
+none): its curve is kept where every step has it, as the JAX package's
+official mode records it, and dropped where steps miss it, where the JAX
+package's CLI fails (its per-step site trees differ). Each rank records
+its own frames; :func:`gather_attn_record` makes the whole clip's record.
 """
 
 from __future__ import annotations
@@ -42,6 +51,8 @@ __all__ = [
     "site_entropies",
     "attn_step_record",
     "summarize_attn_record",
+    "stack_attn_steps",
+    "gather_attn_record",
     "save_obs_sidecar",
     "load_obs_sidecar",
 ]
@@ -172,6 +183,19 @@ def attn_step_record(store, *, num_uncond: int, num_cond: int, video_length: int
             "entropy": site_entropies(store)}
 
 
+def stack_attn_steps(records: List[Dict]) -> Dict:
+    """A loop's per-step records stacked (``obs/telemetry.py:
+    stack_step_stats``), with the entropy of the sites every step recorded
+    (the module docstring)."""
+    from videop2p_tpu_torch.obs.telemetry import stack_step_stats
+
+    if records:
+        common = set.intersection(*(set(r["entropy"]) for r in records))
+        records = [dict(r, entropy={k: v for k, v in r["entropy"].items() if k in common})
+                   for r in records]
+    return stack_step_stats(records)
+
+
 def summarize_attn_record(rec: Dict) -> Dict:
     """A stacked (num_steps, ...) capture record → the ledger ``attn_maps``
     event's payload: the step count, the heat's shape, the sites with their
@@ -195,6 +219,42 @@ def summarize_attn_record(rec: Dict) -> Dict:
         out["mask_cov_mean"] = round(float(cov.mean()), 4)
     if "blend_active" in rec:
         out["blend_active_steps"] = int(rec["blend_active"].sum())
+    return out
+
+
+# the frame axis of each per-frame series of a stacked record
+_FRAME_AXES = {"mask_cov": 2, "mask_heat": 2}
+
+
+def gather_attn_record(rec: Dict, mesh) -> Dict:
+    """One rank's host record (stacked, frames split over ``mesh``) → the
+    whole clip's, on every rank (a collective: every rank calls it, scope
+    by scope in one order). ``cross_heat`` and each site's entropy are
+    means over frames, so the whole clip's is the mean of the ranks' (each
+    holds as many frames); the mask series are gathered along their frame
+    axis; ``blend_active`` is the same on every rank."""
+    from videop2p_tpu_torch.parallel.mesh import AXIS_FRAMES, all_reduce, gather_frames
+
+    sp = mesh.shape[AXIS_FRAMES]
+    if sp == 1:
+        return rec
+    group = mesh.group(AXIS_FRAMES)
+
+    def mean(a):
+        return (all_reduce(torch.as_tensor(np.asarray(a), device=mesh.device), group)
+                / sp).cpu().numpy()
+
+    out: Dict = {}
+    for k, v in rec.items():
+        if k == "entropy":
+            out[k] = {site: mean(curve) for site, curve in sorted(v.items())}
+        elif k == "cross_heat":
+            out[k] = mean(v)
+        elif k in _FRAME_AXES:
+            out[k] = gather_frames(torch.as_tensor(np.asarray(v), device=mesh.device), mesh,
+                                   dim=_FRAME_AXES[k]).cpu().numpy()
+        else:
+            out[k] = v
     return out
 
 

@@ -63,6 +63,7 @@
 //     barrier).
 // With one shard the two launches give the fused launch's bits.
 
+#include <atomic>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -479,9 +480,18 @@ template <typename T, int VEC>
 cudaError_t launch(const GnArgs& args, int grid, int threads, int smem_bytes,
                    cudaStream_t stream) {
   auto kernel = gn_persistent_kernel<T, VEC>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-  if (attr != cudaSuccess) return attr;
+  // the shared-memory attribute belongs to a device: set it once on each
+  // device this process launches on (a data mesh launches on several)
+  static std::atomic<unsigned long long> attr_set{0};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (device & 63);
+  if (device > 63 || !(attr_set.load() & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    attr_set.fetch_or(bit);
+  }
   void* params[] = {const_cast<GnArgs*>(&args)};
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
                                      dim3(threads), params, static_cast<size_t>(smem_bytes),

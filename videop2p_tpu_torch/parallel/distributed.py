@@ -13,6 +13,18 @@ on ``cuda:LOCAL_RANK``), gloo for ``--device cpu``; a single plain process
 ``host_phase`` events: with one process per GPU, ``world_size > 1`` plays
 the part of JAX's ``process_count() > 1``, so a multi-GPU run records them
 where JAX's single process on a multi-chip host records none.
+
+The host control channel (:class:`ControlChannel`): JAX serves a mesh from
+one controller, so its engine's calls reach every chip by themselves. Here
+each GPU has its own process, so rank 0 drives the others: it broadcasts
+one call's descriptor (a picklable object of CPU values) over a gloo group
+beside NCCL (:func:`control_group`) and every rank runs the call on its own
+inputs, in the same order. A call runs in two steps, each closed by an
+exchange of every rank's outcome: ``prepare`` (host work only: a failure
+there reaches rank 0 at once and no rank enters a collective) and the
+device work it returns (a failure there reaches rank 0 once the collectives
+of the other ranks fail, within :data:`TIMEOUT`). No rank waits longer
+than that for another.
 """
 
 from __future__ import annotations
@@ -20,7 +32,8 @@ from __future__ import annotations
 import datetime
 import os
 import socket
-from typing import Any, Dict, Iterable
+import threading
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -36,6 +49,10 @@ __all__ = [
     "emit_host_phase",
     "gather_host_phases",
     "phase_skew",
+    "control_group",
+    "ControlChannel",
+    "RankCallError",
+    "STOP",
 ]
 
 # the timeout of every collective of a run: a rank that died or took
@@ -170,3 +187,132 @@ def phase_skew(events: Iterable[Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
             "slowest_process": slowest,
         }
     return out
+
+
+# ------------------------------------------------ host control channel --
+
+_CONTROL: List[Any] = []
+_CONTROL_LOCK = threading.Lock()
+
+# the first item of the descriptor that ends a follower's loop (a call's
+# descriptor is a tuple whose first item names its program)
+STOP = "__stop__"
+
+
+def control_group():
+    """The gloo group of the host control channel over the whole world
+    (collective: every rank creates it, in the same order as its other
+    groups; ``parallel/mesh.py:warm_collectives`` does so at set-up). None
+    without a process group."""
+    if not dist.is_initialized():
+        return None
+    with _CONTROL_LOCK:
+        if not _CONTROL:
+            _CONTROL.append(dist.new_group(backend="gloo", timeout=TIMEOUT))
+        return _CONTROL[0]
+
+
+class RankCallError(RuntimeError):
+    """A rank-synchronous call failed on one or more ranks (named in the
+    message). ``step`` is ``"prepare"`` (no rank entered a collective: the
+    ranks are still in step) or ``"run"``."""
+
+    def __init__(self, message: str, *, step: str, ranks: List[int]):
+        super().__init__(message)
+        self.step = step
+        self.ranks = ranks
+
+
+def _describe(e: BaseException) -> str:
+    return f"{type(e).__name__}: {e}"
+
+
+class ControlChannel:
+    """Rank-synchronous calls over :func:`control_group`: rank 0
+    :meth:`lead`\\ s, every other rank :meth:`follow`\\ s until rank 0 sends
+    :data:`STOP`. ``prepare(descriptor)`` runs on every rank (rank 0's
+    included) and returns the call's device work as a callable; its value
+    on rank 0 is :meth:`lead`'s, or with ``gather`` every rank's value in
+    rank order (each must pickle). Without a process group every call runs
+    locally."""
+
+    def __init__(self, group=None):
+        self.group = group if group is not None else control_group()
+        self.rank = process_index()
+        self.world = process_count()
+        self.calls = 0
+
+    def _exchange(self, outcome: Any) -> List[Any]:
+        """Every rank's outcome of one step, in rank order."""
+        if self.group is None:
+            return [outcome]
+        out: List[Any] = [None] * self.world
+        dist.all_gather_object(out, outcome, group=self.group)
+        return out
+
+    def _broadcast(self, desc: Any) -> Any:
+        if self.group is None:
+            return desc
+        box = [desc]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+    def _run(self, desc: Any, prepare: Callable[[Any], Callable[[], Any]],
+             gather: bool) -> Any:
+        """Both steps of one call on this rank; raises :class:`RankCallError`
+        on every rank when any rank failed (a follower's loop reports and
+        goes on)."""
+        self.calls += 1
+        result, local = None, None
+        try:
+            work = prepare(desc)
+        except BaseException as e:  # noqa: BLE001 — reported to every rank
+            work, local = None, e
+        errs = self._exchange(None if local is None else _describe(local))
+        self._raise_any(errs, "prepare", local)
+        try:
+            result = work()
+        except BaseException as e:  # noqa: BLE001
+            local = e
+        outcomes = self._exchange((None if local is None else _describe(local),
+                                   result if gather and local is None else None))
+        self._raise_any([err for err, _ in outcomes], "run", local)
+        return [value for _, value in outcomes] if gather else result
+
+    def _raise_any(self, errs: List[Optional[str]], step: str,
+                   local: Optional[BaseException]) -> None:
+        failed = [r for r, e in enumerate(errs) if e is not None]
+        if not failed:
+            return
+        message = f"rank-synchronous call failed in {step} on rank(s) {failed}: " + "; ".join(
+            f"rank {r}: {errs[r]}" for r in failed)
+        raise RankCallError(message, step=step, ranks=failed) from local
+
+    def lead(self, desc: Any, prepare: Callable[[Any], Callable[[], Any]], *,
+             gather: bool = False) -> Any:
+        """Rank 0: send ``desc`` and run it here and on every rank."""
+        if self.rank != 0:
+            raise RuntimeError(f"rank {self.rank} cannot lead: rank 0 drives the mesh")
+        gather, desc = self._broadcast((gather, desc))
+        return self._run(desc, prepare, gather)
+
+    def stop(self, *extra: Any) -> None:
+        """Rank 0: release every follower; ``extra`` reaches their
+        ``on_stop``."""
+        self._broadcast((False, (STOP, *extra)))
+
+    def follow(self, prepare: Callable[[Any], Callable[[], Any]],
+               on_stop: Optional[Callable[[Any], None]] = None) -> int:
+        """Ranks > 0: run rank 0's calls until it sends :data:`STOP`;
+        returns the number of calls run. A failed call is printed and the
+        loop goes on (rank 0 raised it)."""
+        while True:
+            gather, desc = self._broadcast(None)
+            if desc[0] == STOP:
+                if on_stop is not None:
+                    on_stop(desc)
+                return self.calls
+            try:
+                self._run(desc, prepare, gather)
+            except RankCallError as e:
+                print(f"[rank {self.rank}] {e}", flush=True)

@@ -178,9 +178,12 @@ def warm_collectives(mesh: Mesh) -> float:
     """One small all-reduce on the group of each sharded axis, and one
     exchange each way around the frames ring: NCCL builds a group's
     communicator, and a pair's point-to-point channels, at their first
-    use, so a program's first call no longer pays for them. Not counted
-    by a :class:`CommRecorder` (no program's traffic). Returns the
-    seconds it took (0.0 without a process group)."""
+    use, so a program's first call no longer pays for them. Also creates
+    the host control channel's gloo group
+    (``parallel/distributed.py:control_group``), which a served mesh's
+    rank 0 drives the other ranks through. Not counted by a
+    :class:`CommRecorder` (no program's traffic). Returns the seconds it
+    took (0.0 without a process group)."""
     if not dist.is_initialized():
         return 0.0
     t0 = time.perf_counter()
@@ -199,6 +202,9 @@ def warm_collectives(mesh: Mesh) -> float:
                         dist.P2POp(dist.isend, t, ranks[(i + step) % n], group),
                         dist.P2POp(dist.irecv, buf, ranks[(i - step) % n], group)]):
                     req.wait()
+    from videop2p_tpu_torch.parallel.distributed import control_group
+
+    control_group()
     if mesh.device.type == "cuda":
         torch.cuda.synchronize(mesh.device)
     return time.perf_counter() - t0

@@ -31,7 +31,7 @@ import torch
 from videop2p_tpu_torch.core.ddim import DDIMScheduler
 from videop2p_tpu_torch.core.noise import DependentNoiseSampler, step_generator
 from videop2p_tpu_torch.models.attention import BASE_STORE, AttnControl
-from videop2p_tpu_torch.obs.attention import attn_step_record
+from videop2p_tpu_torch.obs.attention import attn_step_record, stack_attn_steps
 from videop2p_tpu_torch.obs.ledger import instrumented_program
 from videop2p_tpu_torch.obs.telemetry import latent_stats, stack_step_stats
 from videop2p_tpu_torch.parallel.mesh import frames_draw, global_mean, reduce_frame_grads
@@ -101,7 +101,7 @@ def ddim_inversion(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Ten
         if attn_maps:
             attn_steps.append(_inversion_attn_record(store, latent, cond_embedding))
     if attn_maps:
-        return torch.stack(trajectory), stack_step_stats(attn_steps)
+        return torch.stack(trajectory), stack_attn_steps(attn_steps)
     return torch.stack(trajectory)
 
 
@@ -221,7 +221,7 @@ def ddim_inversion_captured(
         cross_maps=cross or None, temporal_maps=temporal or None,
         blend_seq=blend_seq, cross_len=cross_len, self_window=(lo, hi))
     if attn_maps:
-        return trajectory, cached, stack_step_stats(attn_steps)
+        return trajectory, cached, stack_attn_steps(attn_steps)
     return trajectory, cached
 
 

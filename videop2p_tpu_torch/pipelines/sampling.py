@@ -45,7 +45,12 @@ from videop2p_tpu_torch.control.local_blend import blend_mask, local_blend
 from videop2p_tpu_torch.core.ddim import DDIMScheduler
 from videop2p_tpu_torch.core.noise import DependentNoiseSampler
 from videop2p_tpu_torch.models.attention import AttnControl
-from videop2p_tpu_torch.obs.attention import ATTN_HEAT_RES, attn_step_record, resize_linear
+from videop2p_tpu_torch.obs.attention import (
+    ATTN_HEAT_RES,
+    attn_step_record,
+    resize_linear,
+    stack_attn_steps,
+)
 from videop2p_tpu_torch.obs.telemetry import latent_stats, stack_step_stats
 from videop2p_tpu_torch.parallel.mesh import frames_draw
 from videop2p_tpu_torch.pipelines.cached import (
@@ -101,7 +106,7 @@ def _pack_step_outputs(latents: torch.Tensor, telemetry: bool, tel: list,
     if dev is not None:
         out += (stack_step_stats(dev),)
     if attn_maps:
-        out += (stack_step_stats(attn),)
+        out += (stack_attn_steps(attn),)
     return out if len(out) > 1 else latents
 
 

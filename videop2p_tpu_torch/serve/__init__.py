@@ -39,7 +39,9 @@
     (``obs/probe.py``) in the ``probe`` tenant lane, audits canary answers
     across replicas and serves quarantine verdicts to the router.
 
-``vmap`` dispatch over a data mesh waits for ROADMAP Queue 1 item 13's rest.
+Several GPUs: a data mesh's ``vmap`` dispatch in one process, a
+model-parallel mesh served from rank 0 of a ``torchrun`` world
+(:class:`LeaderProgramSet`, ``ProgramSet.follow``).
 """
 
 from videop2p_tpu_torch.serve.batching import (
@@ -62,8 +64,18 @@ from videop2p_tpu_torch.serve.faults import (
     is_transient,
 )
 from videop2p_tpu_torch.serve.prober import FleetProber
-from videop2p_tpu_torch.serve.programs import ProgramCache, ProgramSet, ProgramSpec
-from videop2p_tpu_torch.serve.replica import Replica, ReplicaSupervisor, free_port
+from videop2p_tpu_torch.serve.programs import (
+    LeaderProgramSet,
+    ProgramCache,
+    ProgramSet,
+    ProgramSpec,
+)
+from videop2p_tpu_torch.serve.replica import (
+    Replica,
+    ReplicaSupervisor,
+    free_port,
+    listening_pid,
+)
 from videop2p_tpu_torch.serve.router import (
     ROUTER_HEALTH_FIELDS,
     Router,
@@ -91,10 +103,10 @@ __all__ = [
     "unstack_outputs", "EngineClient", "engine_available", "TERMINAL_STATUSES",
     "EditEngine", "EditRequest", "CircuitBreaker", "DeadlineExceeded",
     "EngineUnavailable", "FaultPlan", "QueueFull", "RetryPolicy", "is_transient",
-    "ProgramCache", "ProgramSet", "ProgramSpec", "SCHEDULER_POLICIES",
+    "LeaderProgramSet", "ProgramCache", "ProgramSet", "ProgramSpec", "SCHEDULER_POLICIES",
     "ContinuousScheduler", "DrainScheduler", "FairScheduler", "Scheduler",
     "TenantConfig", "make_scheduler", "parse_tenants", "InversionStore",
     "load_persisted_inversion", "save_persisted_inversion", "Replica",
-    "ReplicaSupervisor", "free_port", "Router", "RouterServer", "make_router_server",
-    "ROUTER_HEALTH_FIELDS", "FleetCollector", "FleetProber",
+    "ReplicaSupervisor", "free_port", "listening_pid", "Router", "RouterServer",
+    "make_router_server", "ROUTER_HEALTH_FIELDS", "FleetCollector", "FleetProber",
 ]

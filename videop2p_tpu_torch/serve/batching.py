@@ -16,19 +16,23 @@ the port's programs are eager Python, so it has nothing to compile and
 dispatches exactly the real members (a padded slot would be a whole edit
 thrown away).
 
-Dispatch modes:
+Dispatch modes (``ProgramSet.edit_decode_batch``):
 
-  * ``"scan"`` (the one the port serves) — one dispatch whose members run
-    one after another through the SAME edit function a singleton runs, so
-    a batch's results are bit-identical to its members' singletons (the
-    counterpart of JAX's ``lax.map``). The batch saves no device time over
-    its singletons. :func:`stack_items` therefore keeps the members' trees
-    as they are: stacking them on a new leading axis, as JAX does, would
-    copy every capture (gigabytes at SD-1.5 width and 50 steps) for a loop
-    that indexes it straight back out.
-  * ``"vmap"`` — the JAX package's vectorized, data-mesh-sharded dispatch;
-    it waits for the multi-GPU serving port (ROADMAP Queue 1 item 13's rest)
-    and raises.
+  * ``"scan"`` — one dispatch whose members run one after another through
+    the SAME edit function a singleton runs, so a batch's results are
+    bit-identical to its members' singletons (the counterpart of JAX's
+    ``lax.map``). The batch saves no device time over its singletons.
+  * ``"vmap"`` — the counterpart of JAX's data-mesh dispatch: the members
+    split over a data mesh's replicas (one device each) as JAX shards the
+    batch axis, the replicas run at once, and each member runs through its
+    replica's singleton program, so its result is its singleton's bits on
+    that device. Without a data mesh it is ``"scan"``. The members are not
+    vectorized into one UNet batch.
+
+:func:`stack_items` therefore keeps the members' trees as they are in both
+modes: stacking them on a new leading axis, as JAX does, would copy every
+capture (gigabytes at SD-1.5 width and 50 steps) for a loop that indexes it
+straight back out.
 """
 
 from __future__ import annotations

@@ -52,6 +52,25 @@ IncidentManager`) tees the ledger into a flight ring and captures a bundle
 when the breaker opens or the dispatch watchdog fires. Every device
 computation runs under ``torch.no_grad`` in the thread that launches it
 (grad mode is thread-local in PyTorch), on the engine's device.
+
+Several GPUs: a data mesh (``mesh`` dp,1,1) is this one process over dp
+replicas of the models, ``batch_dispatch="vmap"`` splitting each batch
+over them (``ProgramSet.edit_decode_batch``). A model-parallel mesh (sp or
+tp > 1, one ``torchrun`` process per GPU) is served by rank 0: the engine
+(HTTP, scheduler, store, ledger, writer) runs there over
+:class:`~videop2p_tpu_torch.serve.programs.LeaderProgramSet`, so every
+program call it makes runs on every rank in issue order, while the other
+ranks run ``ProgramSet.follow`` until :meth:`EditEngine.close` releases
+them: the engine makes the leader of any set built under a process group
+(``ProgramSet.needs_leader``, a ``torchrun`` launch whatever its mesh) and
+closes it. Faults are injected and retries decided on rank 0 before a call
+is sent or after every rank returned; a failure in any rank's device work,
+and a dispatch the watchdog abandons, break the channel, and every later
+dispatch fails loudly. The store keeps rank
+0's shard of each capture (each rank its own, freed with rank 0's) and
+persists the trajectory gathered over the frames: the one-GPU entry. At
+close every rank's seconds in the programs it ran land in the ledger as
+``host_phase`` events.
 """
 
 from __future__ import annotations
@@ -83,7 +102,7 @@ from videop2p_tpu_torch.serve.faults import (
     RetryPolicy,
     is_transient,
 )
-from videop2p_tpu_torch.serve.programs import ProgramSet, ProgramSpec, check_single_device
+from videop2p_tpu_torch.serve.programs import ProgramSet, ProgramSpec
 from videop2p_tpu_torch.serve.sched import Scheduler, TenantConfig, make_scheduler, parse_tenants
 from videop2p_tpu_torch.serve.store import InversionStore
 
@@ -242,13 +261,8 @@ class EditEngine:
     ):
         from videop2p_tpu_torch.cli.common import make_run_ledger
 
-        if batch_dispatch == "vmap":
-            raise NotImplementedError(
-                "batch_dispatch 'vmap' shards a batch over a data mesh: multi-GPU "
-                "serving is not ported (ROADMAP Queue 1 item 13's rest)")
-        if batch_dispatch != "scan":
-            raise ValueError(f"batch_dispatch must be 'scan', got {batch_dispatch!r}")
-        check_single_device(spec)
+        if batch_dispatch not in ("scan", "vmap"):
+            raise ValueError(f"batch_dispatch must be 'scan' or 'vmap', got {batch_dispatch!r}")
         self.out_dir = out_dir
         os.makedirs(out_dir, exist_ok=True)
         self.max_batch = int(max_batch)
@@ -305,8 +319,12 @@ class EditEngine:
         self._qw_count = 0
         if self.faults is not None:
             self.faults.on_inject = self._fault_event
-        self.programs = (programs if programs is not None
-                         else ProgramSet(spec, device=device))
+        programs = programs if programs is not None else ProgramSet(spec, device=device)
+        # a set on the ranks of a process group: rank 0 serves it through
+        # every rank, and close() releases the others
+        if programs.needs_leader:
+            programs = programs.leader()
+        self.programs = programs
         self.spec = self.programs.spec
         # per-request steps, reuse schedules and student buckets are admitted
         # only against what was warmed: never a cold build mid-serve
@@ -639,6 +657,18 @@ class EditEngine:
             thread.join(timeout=_ABANDONED_JOIN_S)
         self._results.put(None)
         self._writer.join(timeout=60.0)
+        # on a served mesh every rank's seconds in the programs it ran for
+        # this engine's set, as the run CLIs' host_phase records
+        try:
+            for rec in self.programs.host_phases():
+                self.ledger.event("host_phase", **rec)
+        except Exception as e:  # noqa: BLE001 — a broken channel fails below
+            self.ledger.fault("host_phases_unread", detail=str(e))
+        mesh_error = None
+        try:
+            self.programs.close()  # a leader releases the other ranks
+        except RuntimeError as e:  # raised once the ledger is closed
+            mesh_error = e
         try:
             while True:
                 self._queue.get_nowait()
@@ -670,7 +700,11 @@ class EditEngine:
                 self.incidents.close()  # restores the crash hooks
             except Exception:  # noqa: BLE001 — obs never blocks shutdown
                 pass
+        if mesh_error is not None:
+            self.ledger.fault("mesh_not_released", detail=str(mesh_error))
         self.ledger.close()
+        if mesh_error is not None:
+            raise mesh_error
 
     def __enter__(self) -> "EditEngine":
         return self
@@ -897,7 +931,7 @@ class EditEngine:
             # also builds its own subset-space controller below
             ctx = ps.controller(list(request.prompts), **controller_kwargs)
             cond_all = ps.encode_prompts(list(request.prompts))
-            uncond = ps.encode_prompts([""])[0]
+            uncond = ps.encode_uncond()
             key = self._store_key(request, ctx)
             products = self.store.get(key)
             source = "memory" if products is not None else None
@@ -907,7 +941,7 @@ class EditEngine:
                 # rebuilds the capture from it — no frame IO, no VAE encode
                 traj_np = self.store.load_disk(key)
                 if traj_np is not None and traj_np.shape[0] == self.spec.steps + 1:
-                    anchor = torch.as_tensor(traj_np[0], device=ps.device)
+                    anchor = ps.latents_from_host(traj_np[0])
                     _, cached = ps.invert_capture(
                         anchor, ps.encode_prompts([request.prompt]), ctx)
                     products = (cached, anchor)
@@ -930,7 +964,8 @@ class EditEngine:
                 self._count("fresh_inversions")
                 self.store.put(
                     key, products,
-                    trajectory=traj.cpu().numpy() if self.store.persist_dir else None,
+                    trajectory=(ps.trajectory_to_host(traj) if self.store.persist_dir
+                                else None),
                     meta={"image_path": request.image_path, "prompt": request.prompt,
                           "steps": self.spec.steps, "width": self.spec.width,
                           "video_len": self.spec.video_len})
@@ -1029,6 +1064,8 @@ class EditEngine:
         if not done.wait(timeout=budget_s):
             self._abandoned.append(thread)
             self._fault_event("watchdog_timeout", budget_s=round(budget_s, 3))
+            # on a mesh the ranks' collectives can no longer be matched
+            self.programs.abandon(f"the watchdog abandoned a dispatch after {budget_s:.3f}s")
             raise DeadlineExceeded(f"dispatch exceeded its {budget_s:.3f}s budget "
                                    "(watchdog abandoned the stuck dispatch)")
         if "exc" in result:

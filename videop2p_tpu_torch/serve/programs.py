@@ -32,27 +32,40 @@ model-parallel branch): the UNet is built "auto" as on one GPU (at sp > 1
 the mesh's sharded frame attention takes its place and resolves "auto"
 too; at sp = 1 the fused kernel runs on the local heads), the programs
 take and keep each rank's frames (``encode`` keeps this rank's
-latents; the decodes gather the clip first). JAX's refusals hold: no
-``quant_mode`` and no student on such a mesh. A data-only mesh (dp > 1,
-JAX's ``batch_dispatch="vmap"`` serving) and the serving engine over a
-mesh wait for ROADMAP Queue 1 item 13's rest.
+latents; the decodes gather the clip first, and ``src_err`` is the whole
+clip's). JAX's refusals hold: no ``quant_mode`` and no student on such a
+mesh. JAX serves such a set from one controller; here rank 0 drives the
+others: a set built under a process group (``needs_leader``) is served
+through :meth:`ProgramSet.leader`, which the engine makes on rank 0 and
+closes with itself, every call of which runs on every rank in the same
+order (``parallel/distributed.py:ControlChannel``), the objects it returns
+staying on their ranks (rank 0 holds its own and a key to the others');
+the other ranks run :meth:`ProgramSet.follow` until rank 0 closes.
+
+A data mesh (dp > 1, sp = tp = 1) is one process, as JAX's: the set keeps
+a replica of the models on each of the first dp devices (``cuda:0`` ..
+``cuda:dp-1``; on the CPU, dp CPU replicas), copied from replica 0, and
+``edit_decode_batch(dispatch="vmap")`` splits a batch over them as JAX's
+``_shard_batch`` does.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import os
 import threading
 import time
+import weakref
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from videop2p_tpu_torch.obs.ledger import instrumented_program
 
-__all__ = ["ProgramSpec", "ProgramSet", "ProgramCache", "MASK_TH"]
+__all__ = ["ProgramSpec", "ProgramSet", "ProgramCache", "LeaderProgramSet", "MASK_TH"]
 
 # the Stage-2 working-point constant (cli/run_videop2p.py uses the same)
 MASK_TH = (0.3, 0.3)
@@ -72,9 +85,8 @@ class ProgramSpec:
     The engine and the store key on :meth:`fingerprint`, which uses the
     checkpoint's CONTENT identity: re-tuning a checkpoint in place gives a
     new fingerprint, never a warm program over stale weights. ``mesh``,
-    ``ring_variant`` and ``tp_collectives`` are the multi-GPU knobs: a
-    :class:`ProgramSet` takes a model-parallel mesh; the serving engine
-    serves their defaults only (ROADMAP Queue 1 item 13's rest)."""
+    ``ring_variant`` and ``tp_collectives`` are the multi-GPU knobs (the
+    module docstring)."""
 
     checkpoint: Optional[str] = None
     width: int = 512
@@ -129,25 +141,29 @@ class ProgramSpec:
         )
 
 
-def check_single_device(spec: ProgramSpec) -> None:
-    """Raise for a spec the serving engine would serve over several GPUs
-    (ROADMAP Queue 1 item 13's rest: the engine's mesh, its sharded
-    schedules and the data-mesh dispatch)."""
-    if spec.mesh not in (None, "", "1,1,1"):
-        raise NotImplementedError(
-            f"mesh {spec.mesh!r}: multi-GPU serving is not ported (ROADMAP Queue 1 "
-            "item 13's rest)")
-    if spec.ring_variant != "overlap" or spec.tp_collectives != "gspmd":
-        raise NotImplementedError(
-            f"ring_variant={spec.ring_variant!r} / tp_collectives={spec.tp_collectives!r}: "
-            "sharded serving schedules are not ported (ROADMAP Queue 1 item 13's rest)")
+def _to_device(tree: Any, device) -> Any:
+    """A copy of an argument tree (tensors, dataclasses, dicts, lists,
+    tuples) with every tensor on ``device``; modules are deep-copied there."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, torch.nn.Module):
+        return copy.deepcopy(tree).to(device)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return replace(tree, **{f.name: _to_device(getattr(tree, f.name), device)
+                                for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree
 
 
 class ProgramSet:
     """Warm, instrumented programs for one :class:`ProgramSpec` on one
-    device (CUDA unless a CPU device is given), or on each rank of a
-    model-parallel mesh (the module docstring). ``bundle`` replaces the
-    models ``build_models`` would make (its modules on ``device``)."""
+    device (CUDA unless a CPU device is given), on each rank of a
+    model-parallel mesh, or over the replicas of a data mesh (the module
+    docstring). ``bundle`` replaces the models ``build_models`` would make
+    (its modules on ``device``)."""
 
     def __init__(self, spec: ProgramSpec, *, bundle: Any = None, device="cuda"):
         from videop2p_tpu_torch.cli.common import build_models, parse_mesh, setup_mesh
@@ -160,10 +176,6 @@ class ProgramSet:
         quant_mode = validate_quant_mode(spec.quant_mode)
         dp, sp, tp = parse_mesh(spec.mesh)
         model_parallel = sp > 1 or tp > 1
-        if dp > 1:
-            raise NotImplementedError(
-                f"mesh {spec.mesh!r}: a data mesh (batched dispatch over dp GPUs) is not "
-                "ported (ROADMAP Queue 1 item 13's rest)")
         if quant_mode != "off" and model_parallel:
             raise ValueError(
                 f"quant_mode={quant_mode!r} is not supported on a model-parallel mesh: "
@@ -181,6 +193,15 @@ class ProgramSet:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device is available; "
                                "pass device='cpu' (--device cpu) to serve on the CPU")
+        if dp > 1 and not model_parallel:
+            # a data mesh: the first dp devices of this process
+            have = torch.cuda.device_count() if self.device.type == "cuda" else dp
+            if dp > have:
+                raise ValueError(
+                    f"mesh {spec.mesh!r}: a data mesh of dp={dp} replicas needs {dp} "
+                    f"devices, this process sees {have}")
+            if self.device.type == "cuda":
+                self.device = torch.device("cuda", 0)
         if model_parallel:
             from videop2p_tpu_torch.parallel.distributed import initialize_distributed
 
@@ -196,6 +217,9 @@ class ProgramSet:
                                   device=self.device, seed=spec.seed, frame_attention="auto",
                                   gradient_checkpointing=spec.gradient_checkpointing)
         self.bundle = bundle
+        # built on the ranks of a process group (a torchrun launch, whatever
+        # its mesh): an engine serves it through leader() on rank 0
+        self.needs_leader = torch.distributed.is_available() and torch.distributed.is_initialized()
         self.mesh = None
         if model_parallel:
             self.mesh = setup_mesh(bundle, spec.mesh, spec.video_len, spec.ring_variant,
@@ -223,23 +247,56 @@ class ProgramSet:
         self.scheduler = bundle.make_scheduler()
         self._programs: Dict[Tuple, Callable] = {}
         self._lock = threading.Lock()
-        # programs built into the cache (a miss); chip_smoke and the tests
-        # read it to show a warm set serves without building anything
-        self.cache_misses = 0
+        self._misses = 0
+        # a served mesh's rank-synchronous calls: seconds per program
+        self.call_seconds: Dict[str, float] = {}
         self.warmed: Optional[Dict[str, Any]] = None
+        # the data mesh's replicas, this set first (one entry without one)
+        self.replicas: List["ProgramSet"] = [self]
+        if dp > 1 and not model_parallel:
+            for r in range(1, dp):
+                dev = torch.device("cuda", r) if self.device.type == "cuda" else self.device
+                self.replicas.append(self._replica(dev))
+
+    def _replica(self, device: torch.device) -> "ProgramSet":
+        """A copy of this set's models and student on ``device``, with an
+        empty program cache (a data mesh's replica)."""
+        from videop2p_tpu_torch.pipelines.sampling import make_unet_fn
+
+        rep = copy.copy(self)
+        rep.device = device
+        rep.bundle = replace(self.bundle, **{name: _to_device(getattr(self.bundle, name), device)
+                                             for name in ("unet", "vae", "text_encoder")})
+        rep.unet_fn = make_unet_fn(rep.bundle.unet)
+        rep.student_unet = (_to_device(self.student_unet, device)
+                            if self.student_unet is not None else None)
+        rep.student_head = _to_device(self.student_head, device)
+        rep.student_fn = make_unet_fn(rep.student_unet) if rep.student_unet is not None else None
+        rep.scheduler = rep.bundle.make_scheduler()
+        rep._programs, rep._lock, rep._misses = {}, threading.Lock(), 0
+        rep.replicas = [rep]
+        return rep
 
     # ---- program cache ---------------------------------------------------
 
+    @property
+    def cache_misses(self) -> int:
+        """Programs built into the caches (a miss), every replica's; the
+        engine, chip_smoke and the tests read it to show that a warm set
+        serves without building anything."""
+        return sum(r._misses for r in self.replicas)
+
     def sync(self) -> None:
-        """Wait for the card (nothing on the CPU)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for the card(s) (nothing on the CPU)."""
+        for r in self.replicas:
+            if r.device.type == "cuda":
+                torch.cuda.synchronize(r.device)
 
     def _program(self, key: Tuple, label: str, fn: Callable) -> Callable:
         with self._lock:
             prog = self._programs.get(key)
             if prog is None:
-                self.cache_misses += 1
+                self._misses += 1
                 while len(self._programs) >= _PROGRAMS_MAX:
                     self._programs.pop(next(iter(self._programs)))
 
@@ -248,8 +305,12 @@ class ProgramSet:
                         return fn(*args, **kwargs)
 
                 prog = self._programs[key] = instrumented_program(
-                    no_grad_fn, program=label, sync=self.sync)
+                    no_grad_fn, program=label, sync=self._sync_own)
         return prog
+
+    def _sync_own(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ---- host-side helpers ----------------------------------------------
 
@@ -280,11 +341,31 @@ class ProgramSet:
             equalizer_params=dict(eq_params) if eq_params else None,
             mask_th=mask_th, device=self.device)
 
+    def encode_uncond(self) -> torch.Tensor:
+        """The empty prompt's (L, D) embedding (the unconditional stream)."""
+        return self.encode_prompts([""])[0]
+
     def frames_to_video(self, frames: np.ndarray) -> torch.Tensor:
         """(F, H, W, 3) uint8 frames → the (1, F, H, W, 3) [-1, 1] float32
         tensor the encode program takes."""
         return torch.as_tensor(np.asarray(frames), dtype=torch.float32,
                                device=self.device)[None] / 127.5 - 1.0
+
+    def latents_from_host(self, latents: np.ndarray) -> torch.Tensor:
+        """Host latents of the whole clip (a persisted trajectory's entry)
+        → this set's device; on a mesh, this rank's frames."""
+        from videop2p_tpu_torch.parallel.mesh import frames_slice
+
+        return frames_slice(torch.as_tensor(np.asarray(latents), device=self.device),
+                            self.mesh).contiguous()
+
+    def trajectory_to_host(self, trajectory: torch.Tensor) -> np.ndarray:
+        """A capture-inversion's trajectory as the one-GPU host array (on a
+        mesh gathered over the frames first: the store's disk entry is the
+        one-GPU entry)."""
+        from videop2p_tpu_torch.parallel.mesh import gather_frames
+
+        return gather_frames(trajectory, self.mesh, dim=2).cpu().numpy()
 
     # ---- programs --------------------------------------------------------
 
@@ -425,8 +506,13 @@ class ProgramSet:
             # stream 0 must be the exact inversion reconstruction: compare
             # it with the ANCHOR stored with the products (the encoded
             # source latents) — 0.0 exactly when the replay is intact (on a
-            # mesh this rank's frames against its own anchor)
+            # mesh each rank's frames against its own anchor, then the
+            # whole clip's maximum)
             src_err = (out[:1] - anchor).abs().max().float()
+            if self.mesh is not None:
+                from videop2p_tpu_torch.parallel.mesh import gather_frames
+
+                src_err = gather_frames(src_err.reshape(1), self.mesh, dim=0).max()
             videos01 = self._decode01(out)
             return videos01, src_err
 
@@ -474,20 +560,63 @@ class ProgramSet:
                           steps: Optional[int] = None, reuse: Optional[str] = None,
                           student: bool = False):
         """Compatible requests (``serve/batching.py:stack_items``) → one
-        dispatch: each member runs through the singleton's program in turn,
-        so each result is bit-identical to its singleton's and a batch needs
-        no program of its own to warm. Returns the videos and src_err
-        stacked on a leading batch axis. ``"vmap"`` (JAX's data-mesh
-        dispatch) raises."""
-        if dispatch == "vmap":
-            raise NotImplementedError(
-                "batch_dispatch 'vmap' shards a batch over a data mesh: multi-GPU "
-                "serving is not ported (ROADMAP Queue 1 item 13's rest)")
-        if dispatch != "scan":
+        dispatch. Returns the videos and src_err stacked on a leading batch
+        axis, on this set's device.
+
+        ``"scan"``: each member runs through the singleton's program in
+        turn, so each result is bit-identical to its singleton's and a
+        batch needs no program of its own to warm. ``"vmap"`` (JAX's
+        data-mesh dispatch): the members split over the data mesh's
+        replicas as JAX's ``_shard_batch`` splits the batch axis —
+        contiguous chunks when dp divides the batch, else every member on
+        replica 0 — and the chunks run at once, one thread per replica
+        (under its device), each member through that replica's singleton
+        program: each result is its singleton's bits on the same device.
+        Without a data mesh "vmap" is "scan"."""
+        if dispatch not in ("scan", "vmap"):
             raise ValueError(f"dispatch must be 'scan' or 'vmap', got {dispatch!r}")
-        outs = [self.edit_decode(*member, steps=steps, reuse=reuse, student=student)
-                for member in members]
+        members = list(members)
+        kw = dict(steps=steps, reuse=reuse, student=student)
+        chunks = self._shard_members(len(members)) if dispatch == "vmap" else [
+            list(range(len(members)))]
+        outs: List[Any] = [None] * len(members)
+        errors: List[BaseException] = []
+
+        def run(replica: "ProgramSet", idx: List[int]) -> None:
+            import contextlib
+
+            try:
+                with (torch.cuda.device(replica.device) if replica.device.type == "cuda"
+                      else contextlib.nullcontext()):
+                    for i in idx:
+                        args = (members[i] if replica is self
+                                else _to_device(members[i], replica.device))
+                        videos, err = replica.edit_decode(*args, **kw)
+                        outs[i] = (videos.to(self.device), err.to(self.device))
+            except BaseException as e:  # noqa: BLE001 — raised after the join
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(self.replicas[r], idx),
+                                    name=f"vmap-replica{r}", daemon=True)
+                   for r, idx in enumerate(chunks) if idx and r > 0]
+        for t in threads:
+            t.start()
+        run(self, chunks[0])
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
         return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+    def _shard_members(self, n: int) -> List[List[int]]:
+        """Member indices per replica: ``n / dp`` contiguous members each
+        when dp divides ``n``, else all of them on replica 0 (JAX's
+        ``_shard_batch`` replicates such a batch)."""
+        dp = len(self.replicas)
+        if dp == 1 or n % dp:
+            return [list(range(n))] + [[] for _ in range(dp - 1)]
+        per = n // dp
+        return [list(range(r * per, (r + 1) * per)) for r in range(dp)]
 
     # ---- warmup ----------------------------------------------------------
 
@@ -545,7 +674,331 @@ class ProgramSet:
             "student": sorted(warmed_student),
             "src_err": float(src_err),
         }
+        if len(self.replicas) > 1:
+            # the data mesh's other replicas build the same programs, at once
+            self._warm_replicas(prompts, controller_kwargs=controller_kwargs,
+                                step_buckets=step_buckets, reuse_schedules=reuse_schedules,
+                                student_steps=student_steps)
+            self.warmed["seconds"] = round(time.perf_counter() - t0, 3)
+            self.warmed["replicas"] = len(self.replicas)
         return self.warmed
+
+    def _warm_replicas(self, prompts, **kw) -> None:
+        errors: List[BaseException] = []
+
+        def run(replica: "ProgramSet") -> None:
+            import contextlib
+
+            try:
+                with (torch.cuda.device(replica.device) if replica.device.type == "cuda"
+                      else contextlib.nullcontext()):
+                    replica.warm(prompts, **kw)
+            except BaseException as e:  # noqa: BLE001 — raised after the join
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(r,), daemon=True)
+                   for r in self.replicas[1:]]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+
+    # ---- a model-parallel mesh served from rank 0 ------------------------
+
+    def leader(self) -> "LeaderProgramSet":
+        """Rank 0's view of a set built on every rank of a ``torchrun``
+        world (the module docstring): the set the engine calls."""
+        return LeaderProgramSet(self)
+
+    def _prepare_call(self, objects: "_Objects", desc: Tuple) -> Callable[[], Any]:
+        """One rank-synchronous call's host step on this rank: apply rank
+        0's frees, resolve the arguments to this rank's objects; returns
+        the call's device work, which keeps what it returns under the
+        call's keys."""
+        op, args, kwargs, base, frees = desc
+        objects.free(frees)
+        if op == _PING:
+            return lambda: None
+        if op not in _MIRRORED:
+            raise ValueError(f"{op!r} is not a rank-synchronous program of the set")
+        fn = getattr(self, op)
+        args, kwargs = objects.resolve(args), objects.resolve(kwargs)
+
+        def work():
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.sync()
+            self.call_seconds[op] = self.call_seconds.get(op, 0.0) + time.perf_counter() - t0
+            objects.register(base, out)
+            return out
+
+        return work
+
+    def host_phases(self) -> List[Dict[str, Any]]:
+        """This rank's ``host_phase`` records of the rank-synchronous calls
+        it ran: each program's seconds in all, after its device work
+        (``serve_<program>``); none outside a served mesh."""
+        from videop2p_tpu_torch.parallel.distributed import host_phase_record
+
+        return [host_phase_record(f"serve_{op}", s) for op, s in sorted(self.call_seconds.items())]
+
+    def abandon(self, reason: str) -> None:
+        """Nothing to mark in one process (a leader's channel breaks)."""
+
+    def close(self) -> None:
+        """Nothing to release in one process (a leader releases its
+        followers)."""
+
+    def follow(self) -> Dict[str, int]:
+        """Ranks > 0 of a served mesh: run rank 0's calls until it closes;
+        returns the calls run and the objects still held at the end (rank
+        0 sends how many it holds: the two agree when every free reached
+        this rank)."""
+        from videop2p_tpu_torch.parallel.distributed import ControlChannel
+
+        objects = _Objects(weak=False)
+        stats: Dict[str, int] = {}
+
+        def on_stop(desc) -> None:
+            _, frees, leader_live = desc
+            objects.free(frees)
+            stats.update(live=len(objects.table), leader_live=int(leader_live))
+
+        stats["calls"] = ControlChannel().follow(
+            lambda desc: self._prepare_call(objects, desc), on_stop)
+        return stats
+
+
+# the programs and host helpers rank 0 runs on every rank of a served mesh
+_MIRRORED = frozenset((
+    "controller", "encode_prompts", "encode_uncond", "frames_to_video", "latents_from_host",
+    "trajectory_to_host", "encode", "decode", "sample", "invert_capture", "edit_decode",
+    "edit_decode_batch", "warm", "host_phases"))
+_PING = "__ping__"
+# an idle leader pings its followers this often: a follower waits for the
+# next call inside a collective, which times out after TIMEOUT
+_HEARTBEAT_S = 60.0
+
+
+@dataclass(frozen=True)
+class _Ref:
+    """An object of an earlier rank-synchronous call, by its key."""
+
+    key: Tuple[int, int]
+
+
+def _keyable(x: Any) -> bool:
+    return isinstance(x, torch.Tensor) or (dataclasses.is_dataclass(x)
+                                           and not isinstance(x, type))
+
+
+class _Objects:
+    """The objects rank-synchronous calls returned on this rank, by key:
+    held by a follower until rank 0 frees them, weakly by rank 0 (its
+    caller holds them)."""
+
+    def __init__(self, weak: bool):
+        self.table: Any = weakref.WeakValueDictionary() if weak else {}
+
+    def resolve(self, tree: Any) -> Any:
+        if isinstance(tree, _Ref):
+            try:
+                return self.table[tree.key]
+            except KeyError:
+                raise KeyError(f"object {tree.key} of an earlier call is not on this rank "
+                               "(freed, or never made)") from None
+        if isinstance(tree, dict):
+            return {k: self.resolve(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.resolve(v) for v in tree)
+        return tree
+
+    def register(self, base: int, out: Any) -> None:
+        for i, item in enumerate(out if isinstance(out, tuple) else (out,)):
+            if _keyable(item):
+                self.keep((base, i), item)
+
+    def keep(self, key: Tuple[int, int], item: Any) -> None:
+        self.table[key] = item
+
+    def free(self, keys) -> None:
+        for k in keys:
+            self.table.pop(tuple(k), None)
+
+
+class _LeaderObjects(_Objects):
+    """Rank 0's table: besides the weak one, each object's key by identity,
+    and the keys of the objects its caller dropped, to free on every rank
+    with the next call."""
+
+    def __init__(self):
+        super().__init__(weak=True)
+        self.keys: Dict[int, Tuple[int, int]] = {}
+        self._dropped: List[Tuple[int, int]] = []
+        self._lock = threading.Lock()
+
+    def keep(self, key, item) -> None:
+        super().keep(key, item)
+        with self._lock:
+            self.keys[id(item)] = key
+        weakref.finalize(item, self._drop, id(item), key)
+
+    def _drop(self, ident: int, key) -> None:
+        with self._lock:
+            if self.keys.get(ident) == key:
+                del self.keys[ident]
+            self._dropped.append(key)
+
+    def take_dropped(self) -> List[Tuple[int, int]]:
+        with self._lock:
+            out, self._dropped = self._dropped, []
+        return out
+
+    def refs(self, tree: Any) -> Any:
+        """``tree`` with each object of an earlier call replaced by its key;
+        any other tensor or dataclass cannot cross to the other ranks."""
+        if _keyable(tree):
+            with self._lock:
+                key = self.keys.get(id(tree))
+            if key is None or self.table.get(key) is not tree:
+                raise TypeError(
+                    f"a {type(tree).__name__} argument that no rank-synchronous call of "
+                    "the set made: on a mesh every tensor a program takes comes from the "
+                    "set's own calls (e.g. latents_from_host for host latents)")
+            return _Ref(key)
+        if isinstance(tree, dict):
+            return {k: self.refs(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.refs(v) for v in tree)
+        return tree
+
+
+class LeaderProgramSet:
+    """Rank 0's :class:`ProgramSet` on a served mesh: each program and host
+    helper the engine calls (:data:`_MIRRORED`) runs on every rank through
+    the host control channel, one call at a time in issue order (behind
+    one lock); everything else is rank 0's set's. What a call returns on
+    rank 0 is what the one-GPU set returns (the decodes gather the clip);
+    the other ranks keep their own under the call's keys until rank 0's
+    objects are dropped. A failure in a call's host step (no rank entered
+    a collective) leaves the ranks in step. Anything else breaks the
+    channel: a failure in any rank's device work (a rank may have left
+    the others' collectives unmatched), a failed exchange (a timeout, a
+    dead peer), a call abandoned mid-way (the engine's watchdog). Every
+    later call then raises at once, and :meth:`close` stops the followers
+    once no call runs."""
+
+    # the engine serves this set as it is
+    needs_leader = False
+
+    def __init__(self, programs: ProgramSet):
+        from videop2p_tpu_torch.parallel.distributed import ControlChannel, process_index
+
+        if process_index() != 0:
+            raise RuntimeError(f"rank {process_index()} cannot lead the mesh: rank 0 "
+                               "drives it, the other ranks run ProgramSet.follow()")
+        self.local = programs
+        self.channel = ControlChannel()
+        self.objects = _LeaderObjects()
+        self._call_lock = threading.Lock()
+        self._next = 0
+        self._broken: Optional[str] = None
+        self._closed = False
+        self._last = time.monotonic()
+        self._beat = threading.Thread(target=self._heartbeat, name="mesh-heartbeat",
+                                      daemon=True)
+        self._beat.start()
+
+    def __getattr__(self, name: str) -> Any:
+        local = self.__dict__.get("local")
+        if local is None:
+            raise AttributeError(name)
+        if name in _MIRRORED:
+            return lambda *args, **kwargs: self.call(name, *args, **kwargs)
+        return getattr(local, name)
+
+    def live(self) -> int:
+        """Objects of earlier calls rank 0 still holds (each rank holds its
+        counterpart)."""
+        return len(self.objects.table)
+
+    def host_phases(self) -> List[Dict[str, Any]]:
+        """Every rank's ``host_phase`` records of the calls so far (one
+        more rank-synchronous call, whose values all reach rank 0)."""
+        return [rec for recs in self.call("host_phases", gather=True) for rec in recs]
+
+    def abandon(self, reason: str) -> None:
+        """Mark the channel broken (a call was abandoned mid-way: the ranks'
+        collectives can no longer be matched)."""
+        self._broken = reason
+
+    def call(self, op: str, *args, gather: bool = False, **kwargs) -> Any:
+        """Run ``op`` of the set on every rank; rank 0's result (with
+        ``gather``, every rank's in rank order)."""
+        if self._closed:
+            raise RuntimeError("the mesh's rank-synchronous channel is closed")
+        if self._broken is not None:
+            raise RuntimeError(f"the mesh's rank-synchronous channel is broken ({self._broken}); "
+                               "restart the mesh")
+        with self._call_lock:
+            if self._broken is not None:
+                raise RuntimeError(f"the mesh's rank-synchronous channel is broken "
+                                   f"({self._broken}); restart the mesh")
+            return self._lead(op, args, kwargs, gather)
+
+    def _lead(self, op: str, args: Tuple, kwargs: Dict, gather: bool = False) -> Any:
+        from videop2p_tpu_torch.parallel.distributed import RankCallError
+
+        desc = (op, self.objects.refs(args), self.objects.refs(kwargs), self._next,
+                self.objects.take_dropped())
+        self._next += 1
+        try:
+            return self.channel.lead(desc, lambda d: self.local._prepare_call(self.objects, d),
+                                     gather=gather)
+        except RankCallError as e:
+            if e.step != "prepare":
+                self._broken = f"{op} failed in its device work: {e}"
+            raise
+        except BaseException as e:
+            self._broken = f"{op}'s exchange failed: {type(e).__name__}: {e}"
+            raise
+        finally:
+            self._last = time.monotonic()
+
+    def _heartbeat(self) -> None:
+        while not self._closed:
+            time.sleep(_HEARTBEAT_S / 4)
+            if (self._closed or self._broken is not None
+                    or time.monotonic() - self._last < _HEARTBEAT_S):
+                continue
+            if self._call_lock.acquire(blocking=False):
+                try:
+                    if not self._closed:
+                        self._lead(_PING, (), {})
+                except Exception as e:  # noqa: BLE001 — the next call raises it
+                    self._broken = f"heartbeat failed: {e}"
+                finally:
+                    self._call_lock.release()
+
+    def close(self, timeout_s: float = 60.0) -> None:
+        """Release the followers (with rank 0's last frees and how many
+        objects it still holds). Raises when a call still runs after
+        ``timeout_s`` (the followers then stop at their collective
+        timeout)."""
+        if self._closed:
+            return
+        if not self._call_lock.acquire(timeout=timeout_s):
+            self._closed = True
+            raise RuntimeError(
+                f"a rank-synchronous call still runs after {timeout_s} s: the followers "
+                "were not released and stop at their collective timeout")
+        try:
+            self._closed = True
+            self.channel.stop(self.objects.take_dropped(), self.live())
+        finally:
+            self._call_lock.release()
 
 
 class ProgramCache:

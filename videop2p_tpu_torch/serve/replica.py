@@ -27,16 +27,23 @@ Two run modes:
     programs, all with the same ``--inv_store``; ``serve_argv`` (e.g.
     ``--device``, ``--mixed_precision``) goes to every child. The
     supervisor waits for every ``/healthz`` before it reports the fleet up,
-    and stops the children with SIGTERM so they drain.
+    and stops each child with SIGTERM to the process that serves (the pid
+    of its ``listening`` line) so it drains. A ``serve_argv`` whose
+    ``--mesh`` shards the model (sp or tp > 1) starts each child under
+    ``python -m torch.distributed.run --standalone --nproc_per_node
+    sp·tp``: never as one process, which would serve a single rank. There
+    the SIGTERM goes to rank 0, not to the launcher (which would stop
+    every rank and cut the drain short); rank 0 drains, then releases the
+    other ranks, and the launcher exits with them.
 
-Every child gets the same argv: on a host with several cards they all
-serve on the default device (pinning replica *i* to ``cuda:i`` waits for
-ROADMAP Queue 1 item 13's rest).
+Every child gets the same argv, as the JAX package's: on a host with
+several cards they all serve on the same devices.
 """
 
 from __future__ import annotations
 
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -44,7 +51,10 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
-__all__ = ["Replica", "ReplicaSupervisor", "free_port"]
+__all__ = ["Replica", "ReplicaSupervisor", "free_port", "listening_pid"]
+
+# how long stop() waits for a child to drain and exit after its SIGTERM
+_STOP_WAIT_S = 60.0
 
 
 def free_port(host: str = "127.0.0.1") -> int:
@@ -53,6 +63,18 @@ def free_port(host: str = "127.0.0.1") -> int:
     with socket.socket() as s:
         s.bind((host, 0))
         return s.getsockname()[1]
+
+
+def listening_pid(log_path: str) -> int:
+    """The pid of the process that serves, from the last ``listening``
+    line ``cli/serve.py`` wrote to ``log_path`` (under ``torchrun``, rank
+    0's)."""
+    with open(log_path, errors="replace") as fh:
+        pids = [int(line.split("(pid ")[1].split(",")[0]) for line in fh
+                if "listening on" in line and "(pid " in line]
+    if not pids:
+        raise RuntimeError(f"no listening line in {log_path}")
+    return pids[-1]
 
 
 @dataclass
@@ -142,18 +164,24 @@ class ReplicaSupervisor:
                     r.engine.close()
                 except Exception:  # noqa: BLE001
                     pass
-            if r.proc is not None:
+            if r.proc is not None and r.proc.poll() is None:
                 try:
-                    r.proc.terminate()  # SIGTERM → the CLI's graceful drain
+                    # SIGTERM → the CLI's graceful drain, in the process
+                    # that serves (rank 0 under torchrun)
+                    os.kill(r.meta.get("pid", r.proc.pid), signal.SIGTERM)
                 except Exception:  # noqa: BLE001
                     pass
         for r in self.replicas:
             if r.proc is not None:
                 try:
-                    r.proc.wait(timeout=30.0)
-                except Exception:  # noqa: BLE001
-                    r.proc.kill()
-                    r.proc.wait()
+                    r.proc.wait(timeout=_STOP_WAIT_S)
+                except subprocess.TimeoutExpired:
+                    r.proc.terminate()  # a launcher stops every rank
+                    try:
+                        r.proc.wait(timeout=_STOP_WAIT_S)
+                    except subprocess.TimeoutExpired:
+                        r.proc.kill()
+                        r.proc.wait()
         self.replicas = []
 
     def __enter__(self) -> "ReplicaSupervisor":
@@ -218,6 +246,25 @@ class ReplicaSupervisor:
             argv += ["--tiny"]
         return argv
 
+    def launcher(self) -> List[str]:
+        """A child's command up to its module: ``torch.distributed.run``
+        with one process per GPU for a model-parallel ``--mesh``."""
+        mesh = None
+        for i, a in enumerate(self.serve_argv):
+            if a == "--mesh" and i + 1 < len(self.serve_argv):
+                mesh = self.serve_argv[i + 1]
+            elif a.startswith("--mesh="):
+                mesh = a.split("=", 1)[1]
+        launcher = [sys.executable]
+        if mesh:
+            from videop2p_tpu_torch.cli.common import parse_mesh
+
+            _, sp, tp = parse_mesh(mesh)
+            if sp * tp > 1:
+                launcher += ["-m", "torch.distributed.run", "--standalone",
+                             "--nproc_per_node", str(sp * tp)]
+        return launcher
+
     def _start_subprocess(self) -> None:
         from videop2p_tpu_torch.serve.client import engine_available
 
@@ -227,16 +274,18 @@ class ReplicaSupervisor:
             port = free_port(self.host)
             out = os.path.join(self.out_dir, name)
             os.makedirs(out, exist_ok=True)
-            argv = [sys.executable, "-m", "videop2p_tpu_torch.cli.serve",
+            argv = [*self.launcher(), "-m", "videop2p_tpu_torch.cli.serve",
                     "--host", self.host, "--port", str(port),
                     "--out_dir", out, "--inv_store", self.persist_dir]
             argv += self._spec_argv() + self.serve_argv
             plan = self.faults.get(i)
             if plan is not None:
                 argv += ["--faults", plan if isinstance(plan, str) else plan.spec]
-            with open(os.path.join(out, "serve.log"), "ab") as log:
+            log_path = os.path.join(out, "serve.log")
+            with open(log_path, "ab") as log:
                 proc = subprocess.Popen(argv, stdout=log, stderr=log)
-            procs.append(Replica(name=name, url=f"http://{self.host}:{port}", proc=proc))
+            procs.append(Replica(name=name, url=f"http://{self.host}:{port}", proc=proc,
+                                 meta={"log": log_path}))
         deadline = time.perf_counter() + self.startup_timeout_s
         for r in procs:
             while not engine_available(r.url, timeout_s=2.0):
@@ -253,4 +302,6 @@ class ReplicaSupervisor:
                         f"{r.name} did not answer /healthz within "
                         f"{self.startup_timeout_s:.0f}s")
                 time.sleep(0.5)
+            # printed before the server answers /healthz
+            r.meta["pid"] = listening_pid(r.meta["log"])
         self.replicas = procs

@@ -21,13 +21,25 @@ process and once per mesh spec under ``torchrun --standalone
     the mesh runs' ``mesh_setup`` (the process group's communicators,
     built there before any program runs), and each process's wall.
 
+With ``--serve`` it serves instead: ``cli.serve`` on one GPU, then on
+each spec (a model-parallel one under ``torchrun``, a data mesh dp,1,1 as
+one process with ``--batch_dispatch vmap``), each answering one fresh
+request, one store hit (another edit of the clip) and a batch of 2 sent at
+once, over HTTP; it reports each request's ``resolve_s``, ``dispatch_s``
+and ``total_s``, the served GIFs' difference from one GPU's in levels of
+255 (largest and mean, over the decoded frames), and from rank 0's ledger
+every rank's ``host_phase`` seconds in the served programs.
+
 Every number is a process's first call. Exits 1 when a gate fails (frames
 more than ``--max_levels`` apart, a divergence other than 0.0, a rank's
-phases missing, the weights further than ``--max_weight_diff``), else
-prints one JSON summary as its last line and writes it to ``--out``.
+phases missing, the weights further than ``--max_weight_diff``, a served
+request not done or its GIFs more than :data:`SERVE_MAX_MEAN_LEVELS`
+apart on average, a model-parallel mesh's ranks missing from the host phases),
+else prints one JSON summary as its last line and writes it to ``--out``.
 
     python -m videop2p_tpu_torch.tools.mesh_compare --specs 1,2,1 1,4,1 1,2,2 \\
         --official --tune --out mesh_compare.json    # 4 GPUs
+    python -m videop2p_tpu_torch.tools.mesh_compare --serve --specs 1,2,1 1,1,2 2,1,1
     python -m videop2p_tpu_torch.tools.mesh_compare --device cpu --tiny \\
         --specs 1,2,1 1,1,2                                        # gloo
 """
@@ -242,6 +254,125 @@ def tune_compare(specs: List[str], args, tmp: str, env, failures) -> dict:
     return out
 
 
+def _gif_frames(path: str) -> np.ndarray:
+    """A served GIF's frames as (F, H, W, 3) uint8."""
+    from PIL import Image, ImageSequence
+
+    with Image.open(path) as im:
+        return np.stack([np.asarray(f.convert("RGB")) for f in ImageSequence.Iterator(im)])
+
+
+SERVE_FIELDS = ("status", "store_source", "batch_size", "resolve_s", "dispatch_s", "total_s",
+                "src_err")
+# the --serve gate: the largest mean difference, in levels of 255, of a
+# mesh's served GIFs from one GPU's (an adaptive palette moves a few
+# pixels far for a 1-level change in the frames)
+SERVE_MAX_MEAN_LEVELS = 1.0
+
+
+def serve_once(spec: Optional[str], args, tmp: str, env) -> dict:
+    """``cli.serve`` on ``spec`` (None: one GPU): up, a fresh request, a
+    hit, a batch of 2, SIGTERM. Returns its records and GIF frames."""
+    import signal
+
+    from videop2p_tpu_torch.serve.client import EngineClient
+    from videop2p_tpu_torch.serve.replica import free_port, listening_pid
+
+    name = f"serve_{spec or 'one'}".replace(",", "")
+    port = free_port()
+    cmd = [sys.executable]
+    dp = int(spec.split(",")[0]) if spec else 1
+    if spec and dp == 1:
+        cmd += ["-m", "torch.distributed.run", "--standalone",
+                f"--nproc_per_node={_nproc(spec)}"]
+    cmd += ["-m", "videop2p_tpu_torch.cli.serve", "--port", str(port),
+            "--out_dir", os.path.join(tmp, name), "--steps", str(args.steps),
+            "--device", args.device, "--mixed_precision", args.mixed_precision,
+            "--warm_prompts", *EDIT["prompts"], "--max_wait_ms", "1000",
+            "--max_batch", "2", "--video_len", str(EDIT["video_len"])]
+    if args.tiny:
+        cmd.append("--tiny")
+    if spec:
+        cmd += ["--mesh", spec] + (["--batch_dispatch", "vmap"] if dp > 1 else [])
+    log_path = os.path.join(tmp, f"{name}.log")
+    body = {k: EDIT[k] for k in ("image_path", "prompt", "prompts", "blend_word", "eq_params",
+                                 "save_name", "is_word_swap")}
+    hit = dict(body, prompts=[EDIT["prompt"], "a lego rabbit is jumping on the grass"],
+               eq_params=None, save_name="lego")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env,
+                                start_new_session=True)
+        try:
+            client = EngineClient(f"http://127.0.0.1:{port}", timeout_s=60.0, retries=0)
+            while True:
+                if proc.poll() is not None:
+                    raise RuntimeError(f"{name} exited {proc.returncode} before /healthz")
+                if time.perf_counter() - t0 > 900:
+                    raise RuntimeError(f"{name}: /healthz did not answer in 900 s")
+                try:
+                    client.healthz()
+                    break
+                except Exception:  # noqa: BLE001 — not listening yet
+                    time.sleep(1.0)
+            up_s = time.perf_counter() - t0
+            recs = {"fresh": client.wait(client.submit(body), timeout_s=900.0),
+                    "hit": client.wait(client.submit(hit), timeout_s=900.0)}
+            rids = [client.submit(body), client.submit(dict(body, save_name="again"))]
+            for i, rid in enumerate(rids):
+                recs[f"batch_{i}"] = client.wait(rid, timeout_s=900.0)
+            # rank 0 drains, then releases the others
+            os.kill(listening_pid(log_path), signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+        except BaseException:
+            with open(log_path) as fh:
+                print(fh.read()[-4000:], file=sys.stderr)
+            raise
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    gifs = {n: {k: _gif_frames(r[k]) for k in ("inversion_gif", "edit_gif")}
+            for n, r in recs.items() if r.get("status") == "done"}
+    from videop2p_tpu_torch.parallel.distributed import phase_skew
+
+    phases = [e for e in _events(os.path.join(tmp, name, "serve_ledger.jsonl"))
+              if e.get("event") == "host_phase"]
+    return {"up_s": up_s, "rc": rc,
+            "records": {n: {k: r.get(k) for k in SERVE_FIELDS} for n, r in recs.items()},
+            "gifs": gifs, "host_phase": phase_skew(phases),
+            "host_phase_ranks": sorted({e["process_index"] for e in phases})}
+
+
+def serve_compare(specs: List[str], args, tmp: str, env, failures) -> dict:
+    runs = {spec or "one": serve_once(spec, args, tmp, env) for spec in [None] + specs}
+    base = runs["one"]
+    out = {}
+    for spec, run in runs.items():
+        row = {"up_s": run["up_s"], "rc": run["rc"], "requests": run["records"],
+               "host_phase": run["host_phase"], "host_phase_ranks": run["host_phase_ranks"]}
+        if run["rc"] != 0:
+            failures.append(f"serve {spec}: exit {run['rc']} after SIGTERM")
+        if spec != "one" and spec.split(",")[0] == "1" and \
+                run["host_phase_ranks"] != list(range(_nproc(spec))):
+            failures.append(f"serve {spec}: host_phase ranks {run['host_phase_ranks']}")
+        for n, rec in run["records"].items():
+            if rec["status"] != "done" or rec["src_err"] != 0.0:
+                failures.append(f"serve {spec} {n}: {rec}")
+        if spec != "one":
+            diffs = [np.abs(run["gifs"][n][k].astype(np.int16)
+                            - base["gifs"][n][k].astype(np.int16))
+                     for n in base["gifs"] if n in run["gifs"] for k in base["gifs"][n]]
+            row["max_levels"] = int(max(int(d.max()) for d in diffs))
+            row["mean_levels"] = float(np.mean([d.mean() for d in diffs]))
+            if row["mean_levels"] > SERVE_MAX_MEAN_LEVELS:
+                failures.append(f"serve {spec}: GIFs {row['mean_levels']:.3f} levels from one "
+                                "GPU's on average")
+        out[spec] = row
+        print(f"[mesh_compare] serve {spec}: " + json.dumps(row), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--specs", nargs="+", required=True, help="mesh specs dp,sp,tp")
@@ -253,6 +384,8 @@ def main(argv=None) -> int:
     ap.add_argument("--official", action="store_true", help="also official mode")
     ap.add_argument("--tune", action="store_true", help="also Stage 1")
     ap.add_argument("--tune_steps", type=int, default=2)
+    ap.add_argument("--serve", action="store_true",
+                    help="serve instead: cli.serve on one GPU and on each spec")
     ap.add_argument("--max_levels", type=int, default=2,
                     help="largest difference of a mesh run's uint8 frames from one GPU's")
     ap.add_argument("--max_weight_diff", type=float, default=1e-5,
@@ -272,7 +405,10 @@ def main(argv=None) -> int:
     failures: List[str] = []
     summary = {"specs": args.specs, "device": args.device, "steps": args.steps}
     try:
-        summary["fast"] = edit_compare("fast", args.specs, args, tmp, env, failures)
+        if args.serve:
+            summary["serve"] = serve_compare(args.specs, args, tmp, env, failures)
+        else:
+            summary["fast"] = edit_compare("fast", args.specs, args, tmp, env, failures)
         if args.official:
             summary["official"] = edit_compare("official", args.specs, args, tmp, env, failures)
         if args.tune:
