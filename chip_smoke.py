@@ -376,6 +376,30 @@ mesh:
    the plain run's GIFs byte for byte and its per-step telemetry; (c)
    printed: NCCL's set-up seconds, the runs' wall times, the card.
 
+tools:
+27. the operator tools, each a ``python -X importtime -m
+   videop2p_tpu_torch.tools.<name>`` process (all at once), on ledgers
+   written on the card at SD-1.5 width, 512², 8 frames, ``--steps``: the
+   runs path's fast-edit ledger and the observe path's loadgen fleet where
+   those paths ran, else two cached fast edits with the flags on one
+   ledger and a ``--router 2`` loadgen fleet (every plane, tracing,
+   replica 1 wrong) written here. ``ledger_summary`` exits 0 naming
+   ``cached_invert_edit``; ``obs_diff`` exits 0 on the two runs, 1 (a
+   ``timing:`` verdict) on a copy of the second with
+   ``cached_invert_edit``'s execute seconds doubled, 0 on the fleet ledger
+   against itself; ``edit_report``, ``cost_report``, ``fleet_dash``,
+   ``probe_report`` and ``incident_report`` (the fleet's bundle) write
+   pages holding their section headings; ``trace_view --json`` joins the
+   loadgen's, the router's and the replicas' spans into at least one trace
+   with all four segments; ``stream_drive`` on the card (JAX's defaults:
+   14 frames, windows of 4, overlap 1, the tiny models) edits every window
+   ``done`` with ``src_err_max == 0.0`` in two processes of its own (one
+   after the other, after the others), and
+   ``obs_diff`` of the two drives exits 0 (at ``TOOLS_NOISE_SCALE`` × its
+   thresholds; 1× printed), then once more in this process for its
+   launches (the counters; GroupNorm's at least one); no tool process
+   imports ``jax`` or ``videop2p_tpu``; printed: each tool's seconds.
+
 Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
 the card line, then, last, ``{"ok": true, "device": {...}}``.
 
@@ -391,7 +415,8 @@ Run:  python3 chip_smoke.py [--steps 2] [--inner_steps 2]
                             [--paths [fast] [official] [official_flash]
                                      [dependent] [checkpoint] [tune] [surface]
                                      [distill] [sdxl] [serve] [fleet] [stream]
-                                     [observe] [runs] [analysis] [mesh]]
+                                     [observe] [runs] [analysis] [mesh]
+                                     [serve_mesh] [tools]]
                             [--profile [--frame_attention auto flash_rect flash]]
                             [--gn_only [--gn_kernel_names NAME ...]]
                             [--out PATH.json]
@@ -507,11 +532,11 @@ FLASH_INNER_STEPS = 2
 # student (17), SDXL's width (18), the serving engine (19), replicas behind a
 # router (20), streaming long-video editing (21), the fleet's telemetry,
 # correctness and incident planes (22), the run CLIs' observability (23),
-# program analysis and traces (24), the mesh at world size 1 (25) and
-# serving over several devices (26)
+# program analysis and traces (24), the mesh at world size 1 (25),
+# serving over several devices (26) and the operator tools (27)
 PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint", "tune",
          "surface", "distill", "sdxl", "serve", "fleet", "stream", "observe", "runs",
-         "analysis", "mesh", "serve_mesh")
+         "analysis", "mesh", "serve_mesh", "tools")
 # phase 4b's final losses in "hybrid" null-text mode are compared relative
 # to max(|loss|, this): its last outer step lands on x_0, where both losses
 # sit at float32 rounding noise (~1e-15) and have no relative meaning
@@ -4450,10 +4475,16 @@ def observe_path(args) -> tuple:
                             f"{record['router_cli']['hashes']} against the in-process {answer}")
         record["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         del programs
+        if "tools" in args.paths and not failures:
+            # phase 27 reads the loadgen's fleet ledger, its span ledgers
+            # and its bundle, and then deletes the directory
+            TOOLS_HANDOFF["observe"] = {"dir": tmp, "fleet": os.path.join(tmp, "fleet.jsonl"),
+                                        "out_dir": os.path.join(tmp, "loadgen")}
     finally:
         for child in children.values():
             child.kill()
-        shutil.rmtree(tmp, ignore_errors=True)
+        if "observe" not in TOOLS_HANDOFF:
+            shutil.rmtree(tmp, ignore_errors=True)
     _release()
     record["path_s"] = time.perf_counter() - t0
     print(f"  observe path: {record['path_s']:.1f} s, peak {record['peak_gib']:.2f} GiB "
@@ -4648,12 +4679,20 @@ def runs_path(args, frames) -> tuple:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_runs_", dir="outputs")
     failures: list = []
     t0 = time.perf_counter()
+    handed = False
     try:
         fast = runs_fast_phase(args, frames, tmp, failures)
         official = runs_official_phase(args, frames, tmp, failures)
         tune = runs_tune_phase(tmp, failures)
+        if "tools" in args.paths and not failures:
+            # phase 27 reads the fast edits' ledger (and the sidecars and
+            # reports it names) and then deletes the directory
+            TOOLS_HANDOFF["runs"] = {"dir": tmp,
+                                     "ledger": os.path.join(tmp, "fast_ledger.jsonl")}
+            handed = True
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not handed:
+            shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t0
     print(f"  phase 23: {wall:.1f} s", flush=True)
     if failures:
@@ -5593,6 +5632,321 @@ def serve_mesh_path(args) -> tuple:
     return {"serve_mesh": run}, {"serve_mesh": record}
 
 
+# the operator tools (path "tools", phase 27): the ledgers and the bundle
+# the runs and observe paths wrote in this invocation (their directories
+# are kept until the phase has read them), the section headings each HTML
+# page must hold, the critical-path segments a joined trace splits into,
+# and the importers a tool process must not reach (the card has no JAX)
+TOOLS_HANDOFF: dict = {}
+TOOL_PAGES = {
+    "edit_report": ("Per-word cross-attention heatmaps", "Edit quality"),
+    "cost_report": ("Capacity", "Per-tenant chargeback"),
+    "fleet_dash": ("Burn gauges", "Scale advice", "Correctness probes"),
+    "probe_report": ("Scoreboard", "Answer-audit divergences"),
+    "incident_report": ("Trigger", "Timeline", "Targets"),
+}
+TRACE_SEGMENTS = {"queue", "resolve", "dispatch", "decode"}
+FORBIDDEN_IMPORTS = ("jax", "jaxlib", "videop2p_tpu")
+# obs_diff between two runs of the same work (the two fast edits, the two
+# drives) gates at this multiple of its thresholds: their latencies differ
+# by noise alone (a tiny drive's windows are host-bound, tens of percent
+# apart run to run), while the count and exactness rules (failed windows,
+# passthroughs, breaker trips, incidents, src_err) have threshold 0 at any
+# scale. The same pairs at 1× are printed beside, and the slowed copy
+# (execute seconds doubled) gates at 1×
+TOOLS_NOISE_SCALE = 4.0
+# the device stream_drive runs on (a CPU rehearsal of the phase sets "cpu")
+TOOLS_DEVICE = "cuda"
+
+
+def _tool_cmd(name: str, *argv) -> list:
+    """``python -m videop2p_tpu_torch.tools.<name>`` with ``-X importtime``,
+    whose report (on stderr) lists every module the process imported."""
+    return [sys.executable, "-X", "importtime", "-m", f"videop2p_tpu_torch.tools.{name}",
+            *map(str, argv)]
+
+
+def _forbidden_imports(stderr: str) -> list:
+    """The modules of JAX or of the JAX package in an ``-X importtime``
+    report."""
+    found = []
+    for line in stderr.splitlines():
+        if line.startswith("import time:") and "|" in line:
+            module = line.rsplit("|", 1)[1].strip()
+            if module.split(".")[0] in FORBIDDEN_IMPORTS:
+                found.append(module)
+    return found
+
+
+def _run_tools(jobs: dict) -> dict:
+    """Each job's command in a process of its own, all at once: {name:
+    (exit code, stdout, stderr, seconds)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(cmd):
+        t = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        return res.returncode, res.stdout, res.stderr, time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        futures = {name: pool.submit(one, cmd) for name, cmd in jobs.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def tools_inputs(args, frames, tmp: str, record: dict) -> dict:
+    """The tools' inputs: the runs path's fast ledger and the observe path's
+    fleet where they ran in this invocation, else written here — two
+    cached fast edits with the observability flags on one ledger, and a
+    ``--router 2`` loadgen fleet with every plane, tracing and replica 1
+    wrong (its answer audit writes a ``probe_failed`` bundle)."""
+    from videop2p_tpu_torch.obs import read_ledger
+
+    out = {}
+    if "runs" in TOOLS_HANDOFF:
+        out["runs"] = TOOLS_HANDOFF["runs"]["ledger"]
+        record["runs_from"] = "the runs path (phase 23a)"
+    else:
+        t = time.perf_counter()
+        out["runs"] = os.path.join(tmp, "runs.jsonl")
+        ckpt = os.path.join(tmp, "rabbit-jump")
+        for _ in range(2):
+            run = run_main_path(frames, args.steps, args.mixed_precision, ledger=out["runs"],
+                                pretrained_model_path=ckpt, **RUN_OBS_FLAGS)
+            expect_launches(run, args.steps, "auto")
+        record["runs_from"] = f"two fast edits here ({time.perf_counter() - t:.1f} s)"
+    if "observe" in TOOLS_HANDOFF:
+        h = TOOLS_HANDOFF["observe"]
+        out.update(fleet=h["fleet"], out_dir=h["out_dir"])
+        record["fleet_from"] = "the observe path (phase 22a)"
+    else:
+        from videop2p_tpu_torch.serve import ProgramSet, ProgramSpec
+
+        t = time.perf_counter()
+        out.update(fleet=os.path.join(tmp, "fleet.jsonl"), out_dir=os.path.join(tmp, "fleet"))
+        programs = ProgramSet(ProgramSpec(width=512, video_len=8, steps=args.steps),
+                              device="cuda")
+        rc, rec, _ = _loadgen(
+            ["--router", "2", "--requests", str(OBSERVE_REQUESTS), "--concurrency",
+             str(OBSERVE_CONCURRENCY), "--collector", "--probes", "--slo", "--incidents",
+             os.path.join(tmp, "incidents"), "--replica_faults", OBSERVE_WRONG,
+             "--window_scale", str(OBSERVE_WINDOW_SCALE), "--tracing", "--probe_interval_s",
+             "3600", "--ledger", out["fleet"], "--out_dir", out["out_dir"], "--steps",
+             str(args.steps), "--device", "cuda"], programs=programs)
+        del programs
+        _release()
+        if rc != 0 or rec["errors"]:
+            raise AssertionError(f"tools: the loadgen fleet: rc {rc}, errors {rec['errors']}")
+        record["fleet_from"] = f"a loadgen fleet here ({time.perf_counter() - t:.1f} s)"
+    bundles = [e["bundle"] for e in read_ledger(out["fleet"])
+               if e["event"] == "incident" and e.get("bundle")]
+    if not bundles:
+        raise AssertionError("tools: the fleet ledger names no incident bundle")
+    out["bundle"] = bundles[0]
+    out["span_ledgers"] = [out["fleet"]] + sorted(
+        os.path.join(root, f) for root, _, files in os.walk(out["out_dir"])
+        for f in files if f.endswith(".jsonl"))
+    print(f"  inputs: the run ledger from {record['runs_from']}, the fleet from "
+          f"{record['fleet_from']}; {len(out['span_ledgers'])} span ledgers", flush=True)
+    return out
+
+
+def _split_runs(ledger: str, tmp: str) -> tuple:
+    """The ledger's last two runs as a file each, and a copy of the last
+    with ``cached_invert_edit``'s execute seconds doubled."""
+    from videop2p_tpu_torch.obs import history
+    from videop2p_tpu_torch.obs.ledger import read_ledger
+
+    runs = history.split_runs(read_ledger(ledger))
+    if len(runs) < 2:
+        raise AssertionError(f"tools: the run ledger holds {len(runs)} runs, not 2")
+    paths = []
+    for name, events in (("run_a", runs[-2]), ("run_b", runs[-1]), ("run_b_slow", runs[-1])):
+        path = os.path.join(tmp, f"{name}.jsonl")
+        with open(path, "w") as fh:
+            for e in events:
+                if name == "run_b_slow" and e.get("event") == "execute_timing" and \
+                        e.get("program") == "cached_invert_edit":
+                    e = {k: (v * 2 if k.endswith("_s") and isinstance(v, (int, float))
+                             and not isinstance(v, bool) else v) for k, v in e.items()}
+                fh.write(json.dumps(e) + "\n")
+        paths.append(path)
+    return tuple(paths)
+
+
+def _diff_regressions(stdout: str, failures: list, name: str) -> list:
+    """The rules an ``obs_diff --json`` run names as regressed, printed."""
+    try:
+        rules = [r["rule"] + f" ({r['program']})"
+                 for r in json.loads(stdout.strip().splitlines()[-1])["regressions"]]
+    except (IndexError, ValueError, KeyError) as e:
+        failures.append(f"tools: {name}'s --json output: {e}")
+        return []
+    print(f"    {name} regressions: {rules}", flush=True)
+    return rules
+
+
+def _drive_record(stdout: str, failures: list, name: str) -> dict:
+    """A drive's summary record (its last stdout line), held to every
+    window done and ``src_err_max == 0.0``."""
+    try:
+        rec = json.loads(stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        failures.append(f"{name}: no summary record")
+        return {}
+    health = rec["stream_health"]
+    statuses = [w["status"] for w in rec["windows"]]
+    print(f"  {name}: {health['windows_done']}/{health['windows_total']} windows done, "
+          f"src_err_max {health['src_err_max']!r}, seam min/mean PSNR "
+          f"{health['seam_min_psnr']}/{health['seam_mean_psnr']} dB, window seconds "
+          f"{[w.get('window_s') for w in rec['windows']]}", flush=True)
+    if set(statuses) != {"done"} or health["windows_done"] != health["windows_total"] or \
+            health["src_err_max"] != 0.0 or not rec.get("final"):
+        failures.append(f"{name}: statuses {statuses}, health {health}")
+    return rec
+
+
+def tools_path(args, frames) -> tuple:
+    """Phase 27 (path "tools"): the operator tools, each a ``python -m
+    videop2p_tpu_torch.tools.<name>`` process, on ledgers written on the
+    card at SD-1.5 width, and two streaming drives on the card. Returns
+    (runs, records); raises on a failed gate."""
+    import contextlib
+    import io
+
+    from videop2p_tpu_torch.tools import stream_drive
+
+    print(f"operator tools (phase 27; {_allocated_line()}):", flush=True)
+    os.makedirs("outputs", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_", dir="outputs")
+    t0 = time.perf_counter()
+    failures, record = [], {"tool_s": {}}
+    reset_launch_counts()
+    try:
+        inputs = tools_inputs(args, frames, tmp, record)
+        run_a, run_b, run_b_slow = _split_runs(inputs["runs"], tmp)
+        pages = {name: os.path.join(tmp, f"{name}.html") for name in TOOL_PAGES}
+        jobs = {
+            "ledger_summary": _tool_cmd("ledger_summary", inputs["runs"]),
+            "obs_diff runs": _tool_cmd("obs_diff", "--json", "--threshold-scale",
+                                       TOOLS_NOISE_SCALE, run_a, run_b),
+            "obs_diff runs 1x": _tool_cmd("obs_diff", "--json", run_a, run_b),
+            "obs_diff slowed": _tool_cmd("obs_diff", "--json", run_b, run_b_slow),
+            "obs_diff fleet": _tool_cmd("obs_diff", "--json", inputs["fleet"], inputs["fleet"]),
+            "edit_report": _tool_cmd("edit_report", inputs["runs"], "-o", pages["edit_report"]),
+            "cost_report": _tool_cmd("cost_report", inputs["fleet"], "--out",
+                                     pages["cost_report"]),
+            "fleet_dash": _tool_cmd("fleet_dash", inputs["fleet"], "--out", pages["fleet_dash"]),
+            "probe_report": _tool_cmd("probe_report", inputs["fleet"], "--out",
+                                      pages["probe_report"]),
+            "incident_report": _tool_cmd("incident_report", inputs["bundle"], "--out",
+                                         pages["incident_report"]),
+            "trace_view": _tool_cmd("trace_view", "--json", *inputs["span_ledgers"]),
+        }
+        t = time.perf_counter()
+        results = _run_tools(jobs)
+        record["tools_wall_s"] = time.perf_counter() - t
+        # two drives on the card, each a process of its own and alone on
+        # the host: their latencies are host-bound, and obs_diff compares them
+        for i in (1, 2):
+            results.update(_run_tools({f"stream_drive {i}": _tool_cmd(
+                "stream_drive", "--device", TOOLS_DEVICE, "--job_dir",
+                os.path.join(tmp, f"drive{i}"), "--ledger", os.path.join(tmp, f"drive{i}.jsonl"))}))
+        # the 1× pair is printed, not gated
+        want_rc = {"obs_diff slowed": 1, "obs_diff runs 1x": None}
+        record["regressions"] = {}
+        for name, (rc, out, err, secs) in results.items():
+            record["tool_s"][name] = secs
+            bad = _forbidden_imports(err)
+            print(f"  {name}: exit {rc} in {secs:.2f} s" + (f"; imported {bad}" if bad else ""),
+                  flush=True)
+            if bad:
+                failures.append(f"tools: {name} imported {bad[:5]}")
+            if name.startswith("obs_diff"):
+                record["regressions"][name] = _diff_regressions(out, failures, name)
+            want = want_rc.get(name, 0)
+            if want is not None and rc != want:
+                tail = "\n".join(line for line in err.splitlines()
+                                 if not line.startswith("import time:"))[-1500:]
+                failures.append(f"tools: {name} exited {rc}, not {want}: {tail}")
+        print(f"  the {len(jobs)} renderers' and gates' processes together: "
+              f"{record['tools_wall_s']:.1f} s", flush=True)
+        if "cached_invert_edit" not in results["ledger_summary"][1]:
+            failures.append("tools: ledger_summary does not name cached_invert_edit")
+        if not any(r.startswith("timing:") for r in record["regressions"]["obs_diff slowed"]):
+            failures.append(f"tools: obs_diff's verdicts on the slowed copy "
+                            f"{record['regressions']['obs_diff slowed']}")
+        for name, headings in TOOL_PAGES.items():
+            text = open(pages[name]).read() if os.path.isfile(pages[name]) else ""
+            missing = [h for h in headings if f"<h2>{h}" not in text]
+            record.setdefault("page_bytes", {})[name] = len(text.encode())
+            if not text or missing:
+                failures.append(f"tools: {name}'s page ({len(text)} chars) lacks {missing}")
+        try:
+            doc = json.loads(results["trace_view"][1])
+            full = [tr for tr in doc["traces"] if set(tr["segments"]) >= TRACE_SEGMENTS]
+            record["traces"] = {"all": len(doc["traces"]), "four_segments": len(full)}
+            print(f"  trace_view: {len(doc['traces'])} traces, {len(full)} with "
+                  f"{sorted(TRACE_SEGMENTS)}; segment p50/p99 (s) "
+                  + ", ".join(f"{k} {v['p50_s']:.3f}/{v['p99_s']:.3f}"
+                              for k, v in doc["segment_percentiles"].items()), flush=True)
+            if not full:
+                failures.append("tools: trace_view joined no trace with all four segments")
+        except (ValueError, KeyError) as e:
+            failures.append(f"tools: trace_view --json output: {e}")
+        drive1, drive2 = (_drive_record(results[f"stream_drive {i}"][1], failures,
+                                        f"stream_drive {i}") for i in (1, 2))
+        if drive1.get("final") and drive2.get("final"):
+            a, b = np.load(drive1["final"]), np.load(drive2["final"])
+            record["drive_final_max_abs_diff"] = float(np.abs(a - b).max())
+            print(f"  the drives' final.npy: {a.shape}, max |1 - 2| "
+                  f"{record['drive_final_max_abs_diff']!r}", flush=True)
+        drives = (os.path.join(tmp, "drive1.jsonl"), os.path.join(tmp, "drive2.jsonl"))
+        diffs = _run_tools({
+            "obs_diff drives": _tool_cmd("obs_diff", "--json", "--threshold-scale",
+                                         TOOLS_NOISE_SCALE, *drives),
+            "obs_diff drives 1x": _tool_cmd("obs_diff", "--json", *drives)})
+        for name, (rc, out, err, secs) in diffs.items():
+            record["tool_s"][name] = secs
+            record["regressions"][name] = _diff_regressions(out, failures, name)
+            bad = _forbidden_imports(err)
+            print(f"  {name}: exit {rc} in {secs:.2f} s" + (f"; imported {bad}" if bad else ""),
+                  flush=True)
+            if bad or (name == "obs_diff drives" and rc != 0):
+                failures.append(f"tools: {name} exited {rc} (imports {bad})")
+        # the same drive once more in this process, for its launches
+        before = launch_counts()
+        reset_launch_counts()
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = stream_drive.main(["--device", TOOLS_DEVICE, "--job_dir",
+                                    os.path.join(tmp, "drive3"), "--ledger",
+                                    os.path.join(tmp, "drive3.jsonl")])
+        record["tool_s"]["stream_drive 3 (in process)"] = time.perf_counter() - t
+        drive_launches = launch_counts()
+        record["drive_launches"] = drive_launches
+        print(f"  stream_drive 3 (this process): exit {rc} in "
+              f"{record['tool_s']['stream_drive 3 (in process)']:.2f} s; launches "
+              f"{drive_launches}", flush=True)
+        _drive_record(out.getvalue(), failures, "stream_drive 3")
+        if rc != 0:
+            failures.append(f"tools: stream_drive 3 exited {rc}")
+        if TOOLS_DEVICE == "cuda" and not drive_launches["group_norm"]:
+            failures.append(f"tools: the drive launched no GroupNorm kernel: {drive_launches}")
+        launches = {k: before[k] + drive_launches[k] for k in before}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for h in TOOLS_HANDOFF.values():
+            shutil.rmtree(h["dir"], ignore_errors=True)
+        TOOLS_HANDOFF.clear()
+        _release()
+    record["path_s"] = time.perf_counter() - t0
+    print(f"  tools path: {record['path_s']:.1f} s", flush=True)
+    if failures:
+        raise AssertionError("tools path: " + "; ".join(failures))
+    return {"tools": {"launches": launches}}, {"tools": record}
+
+
 def _stream_window0_reference(args, frames: np.ndarray, tmp: str) -> np.ndarray:
     """Phase 21's window 0 when phase 21 did not run: a direct request for
     ``frames`` through an engine, its edit stream."""
@@ -5811,6 +6165,9 @@ def main() -> int:
     if "serve_mesh" in args.paths:
         with _analysis_off():
             drive("serve_mesh", serve_mesh_path, args)
+    if "tools" in args.paths:
+        with _analysis_off():
+            drive("tools", tools_path, args, frames)
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
@@ -5868,7 +6225,7 @@ def main() -> int:
     # own, at its shapes (head dim 64) in bf16, the dtype it runs in.
     auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint",
                              "surface_multi", "student_edit", "serve", "fleet", "stream",
-                             "observe", "runs", "analysis", "mesh", "serve_mesh")
+                             "observe", "runs", "analysis", "mesh", "serve_mesh", "tools")
                  if r in runs), None)
     rect = next((r for r in ("flash_rect", "official_flash_rect",
                              "surface_hybrid_flash_rect", "analysis_flash_rect")

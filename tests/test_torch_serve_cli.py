@@ -6,8 +6,8 @@ over HTTP in a subprocess and drains on SIGTERM, exiting 0 with
 """
 
 import os
+import re
 import signal
-import socket
 import subprocess
 import sys
 import time
@@ -84,27 +84,36 @@ def test_cli_refuses_what_is_not_ported(argv, item, monkeypatch):
     assert seen["programs"] is None
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _listening_url(proc, log_path, deadline_s: float) -> str:
+    """The URL of the ``listening on`` line a server started with ``--port
+    0`` writes to its log: the port is the one it bound, so no other
+    process can take it between a choice and the bind."""
+    deadline = time.perf_counter() + deadline_s
+    while True:
+        text = log_path.read_text()
+        found = re.search(r"listening on (http://\S+)", text)
+        if found:
+            return found.group(1)
+        assert proc.poll() is None, text
+        assert time.perf_counter() < deadline, text
+        time.sleep(0.2)
 
 
 def test_cli_serves_on_the_cpu_and_drains_on_sigterm(tmp_path):
     from videop2p_tpu_torch.obs import read_ledger
     from videop2p_tpu_torch.serve import EngineClient
 
-    port = _free_port()
     out_dir = tmp_path / "serve_out"
     cmd = [sys.executable, "-m", "videop2p_tpu_torch.cli.serve", "--device", "cpu", "--tiny",
-           "--steps", "2", "--video_len", "2", "--port", str(port), "--out_dir", str(out_dir),
+           "--steps", "2", "--video_len", "2", "--port", "0", "--out_dir", str(out_dir),
            "--warm_prompts", "a rabbit is jumping", "a origami rabbit is jumping",
            "--drain_s", "30"]
     env = dict(os.environ, PYTHONPATH=REPO)
     log = open(tmp_path / "serve.log", "w")
     proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
     try:
-        client = EngineClient(f"http://127.0.0.1:{port}", timeout_s=30.0, retries=0)
+        client = EngineClient(_listening_url(proc, tmp_path / "serve.log", 120), timeout_s=30.0,
+                              retries=0)
         deadline = time.perf_counter() + 120
         while True:
             assert proc.poll() is None, (tmp_path / "serve.log").read_text()
@@ -148,9 +157,8 @@ def _serve_one_request(tmp_path, name, launcher, extra):
 
     from videop2p_tpu_torch.serve import EngineClient
 
-    port = _free_port()
     cmd = [*launcher, "-m", "videop2p_tpu_torch.cli.serve", "--device", "cpu", "--tiny",
-           "--steps", "2", "--video_len", "2", "--port", str(port),
+           "--steps", "2", "--video_len", "2", "--port", "0",
            "--out_dir", str(tmp_path / name), "--warm_prompts", "a rabbit is jumping",
            "a origami rabbit is jumping", "--drain_s", "30", *extra]
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -159,7 +167,7 @@ def _serve_one_request(tmp_path, name, launcher, extra):
     proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
                             start_new_session=True)
     try:
-        client = EngineClient(f"http://127.0.0.1:{port}", timeout_s=30.0, retries=0)
+        client = EngineClient(_listening_url(proc, log_path, 180), timeout_s=30.0, retries=0)
         deadline = time.perf_counter() + 180
         while True:
             assert proc.poll() is None, log_path.read_text()
@@ -215,22 +223,22 @@ def test_router_spawns_a_mesh_child_under_torchrun(tmp_path):
     from videop2p_tpu_torch.obs import read_ledger
     from videop2p_tpu_torch.serve import EngineClient
 
-    port = _free_port()
     out = tmp_path / "fleet"
     env = dict(os.environ, PYTHONPATH=REPO)
+    router_log = tmp_path / "router.log"
+    router_out = open(router_log, "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "videop2p_tpu_torch.cli.router", "--spawn", "1", "--device",
-         "cpu", "--tiny", "--steps", "2", "--video_len", "2", "--port", str(port),
+         "cpu", "--tiny", "--steps", "2", "--video_len", "2", "--port", "0",
          "--out_dir", str(out), "--serve_arg=--mesh", "--serve_arg=1,2,1",
          "--serve_arg=--warm_prompts", "--serve_arg=a rabbit is jumping",
          "--serve_arg=a origami rabbit is jumping"],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        start_new_session=True)
+        cwd=REPO, env=env, stdout=router_out, stderr=subprocess.STDOUT, start_new_session=True)
     try:
-        client = EngineClient(f"http://127.0.0.1:{port}", timeout_s=30.0, retries=0)
+        client = EngineClient(_listening_url(proc, router_log, 180), timeout_s=30.0, retries=0)
         deadline = time.perf_counter() + 180.0
         while True:
-            assert proc.poll() is None, proc.stdout.read()
+            assert proc.poll() is None, router_log.read_text()
             assert time.perf_counter() < deadline, "the fleet did not come up in 180 s"
             try:
                 health = client.healthz()
@@ -250,10 +258,30 @@ def test_router_spawns_a_mesh_child_under_torchrun(tmp_path):
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
+        router_out.close()
     log = (out / "replica0" / "serve.log").read_text()
-    assert rc == 0, proc.stdout.read() + log
+    assert rc == 0, router_log.read_text() + log
     assert "drives the mesh 1,2,1" in log and "SIGTERM — draining" in log, log
     assert "rank released after" in log, log
     assert "death signal" not in log, log
     kinds = [e["event"] for e in read_ledger(str(out / "replica0" / "serve_ledger.jsonl"))]
     assert "serve_health" in kinds, kinds[-5:]
+
+
+def test_ranks_leave_their_group_with_exit_code_zero():
+    """``parallel/distributed.py:leave_process_group`` on 2 gloo ranks under
+    ``torch.distributed.run`` (``tests/torch_exit_ranks.py``), three
+    launches at once: every rank prints its last line and leaves after the
+    barrier, and every launch exits 0 — no rank is left to the
+    interpreter's finalization, where a gloo worker freeing a broadcast's
+    tensors aborts it now and then."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", os.path.join(REPO, "tests", "torch_exit_ranks.py"), "leave"]
+    procs = [subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for _ in range(3)]
+    for proc in procs:
+        out, _ = proc.communicate(timeout=180)
+        assert proc.returncode == 0, out
+        assert "rank 0 done" in out and "rank 1 done" in out, out
+        assert "terminate called" not in out, out

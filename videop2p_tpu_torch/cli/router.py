@@ -90,7 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="arm the incident plane (obs/incident.py): the router ledger "
                          "tees into a flight ring, replicas become bundle probe targets, "
                          "and crash/SIGUSR1 triggers write debounced capture bundles under "
-                         "DIR — render with tools/incident_report.py")
+                         "DIR — render with python -m "
+                         "videop2p_tpu_torch.tools.incident_report")
     return ap
 
 

@@ -184,8 +184,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="arm the incident plane (obs/incident.py): the flight recorder "
                          "tees ledger events into a bounded ring, and breaker-open / "
                          "dispatch-deadline / crash / SIGUSR1 triggers write debounced "
-                         "atomic capture bundles under DIR — render with "
-                         "tools/incident_report.py")
+                         "atomic capture bundles under DIR — render with python -m "
+                         "videop2p_tpu_torch.tools.incident_report")
     return ap
 
 
@@ -295,4 +295,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    from videop2p_tpu_torch.parallel.distributed import leave_process_group
+
+    rc = main()
+    leave_process_group(rc)  # a rank of a torchrun world leaves in step
+    raise SystemExit(rc)

@@ -124,7 +124,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="arm the incident plane (obs/incident.py): the job ledger tees "
                          "into a flight ring, and breaker-open / deadline / poisoned-window "
                          "/ crash triggers write debounced capture bundles under DIR "
-                         "(default off) — render with tools/incident_report.py")
+                         "(default off) — render with python -m "
+                         "videop2p_tpu_torch.tools.incident_report")
     return ap
 
 
@@ -244,4 +245,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    from videop2p_tpu_torch.parallel.distributed import leave_process_group
+
+    rc = main()
+    leave_process_group(rc)  # a rank of a torchrun world leaves in step
+    raise SystemExit(rc)

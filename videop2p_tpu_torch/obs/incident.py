@@ -39,7 +39,8 @@ serve/collector.py, stream/driver.py):
 Every capture also lands as an ``incident`` ledger event
 (:data:`INCIDENT_FIELDS`) so obs/history.py extracts an ``incidents``
 section and obs_diff's INCIDENT_RULES gate any increase with exit-1
-teeth. Render a bundle with ``tools/incident_report.py``.
+teeth. Render a bundle with
+``python -m videop2p_tpu_torch.tools.incident_report``.
 
 Stdlib (+numpy via the sidecar path) only. Like every obs layer: capture
 must never take the serving path down, so the manager catches everything

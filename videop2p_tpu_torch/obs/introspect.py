@@ -9,10 +9,9 @@ CALL instead: :class:`ProgramAnalysis` runs that call under a counting
 kernel's wrapper reports its own launch (:func:`note_kernel`), since a
 launch through ``ctypes`` is invisible to a dispatch mode. The record has
 the JAX package's flat fields (``PROGRAM_METRICS`` plus ``hlo_fingerprint``
-and ``hlo_histogram``; ``obs/history.py`` and the JAX package's
-``tools/ledger_summary.py``, ``tools/obs_diff.py`` and
-``tools/cost_report.py`` read them), plus ``analysis_s``. In the port they
-mean:
+and ``hlo_histogram``; ``obs/history.py`` and the tools ``ledger_summary``,
+``obs_diff`` and ``cost_report`` of both packages read them), plus
+``analysis_s``. In the port they mean:
 
   * ``flops`` — what ``torch.utils.flop_counter``'s formulas count over the
     aten ops (matmuls, convolutions and their backwards, PyTorch's own

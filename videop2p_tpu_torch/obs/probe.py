@@ -55,7 +55,8 @@ __all__ = [
 
 # ledger-event schema pins: every `probe`
 # event carries exactly these fields — obs/history.py's probe section and
-# tools/probe_report.py key on them. `content_sha256` is "" for probes
+# the probe_report tools (videop2p_tpu_torch.tools.probe_report, JAX's
+# tools/probe_report.py) key on them. `content_sha256` is "" for probes
 # with no answer to hash (e.g. the 400-contract probe).
 PROBE_EVENT_FIELDS = ("probe", "target", "ok", "latency_s",
                       "content_sha256", "detail")

@@ -30,8 +30,10 @@ the repo's equivalent of Prompt-to-Prompt's ``show_cross_attention``
     per-objective error-budget-burn table.
 
 ``python -m videop2p_tpu_torch.obs.report <ledger.jsonl> [-o report.html]
-[--sidecar X.npz]`` renders one (JAX's ``tools/edit_report.py`` renders the
-same ledger). The ledger is parsed with a local JSONL reader (not
+[--sidecar X.npz]`` renders one, as does ``python -m
+videop2p_tpu_torch.tools.edit_report`` (JAX's ``tools/edit_report.py`` renders
+the same page from the same ledger; the page's own text names the JAX
+tools, as JAX's does). The ledger is parsed with a local JSONL reader (not
 ``obs.ledger``), so this module needs numpy and the stdlib only.
 """
 

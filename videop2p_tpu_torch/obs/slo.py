@@ -9,7 +9,8 @@ burn**: the fraction of the objective's error budget the run consumed —
 ``burn <= 1.0`` is compliant, ``burn == 2.0`` means the budget was blown
 twice over. One ``slo_report`` ledger event per objective
 (:func:`emit_slo_reports`) is what ``obs/history.py`` extracts into the
-``slo`` section and ``SLO_RULES`` gate in ``tools/obs_diff.py``.
+``slo`` section and ``SLO_RULES`` gate in
+``python -m videop2p_tpu_torch.tools.obs_diff``.
 
 Burn math by mode:
 

@@ -30,7 +30,7 @@ Model:
     ``fleet_series`` ledger event + ``.npz`` sidecar
     (:func:`~videop2p_tpu_torch.obs.attention.save_obs_sidecar`), so a
     collector run is replayable offline
-    (``tools/fleet_dash.py`` renders it).
+    (``python -m videop2p_tpu_torch.tools.fleet_dash`` renders it).
 
 Stdlib and numpy only.
 """

@@ -32,6 +32,7 @@ from __future__ import annotations
 import datetime
 import os
 import socket
+import sys
 import threading
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
@@ -50,6 +51,7 @@ __all__ = [
     "gather_host_phases",
     "phase_skew",
     "control_group",
+    "leave_process_group",
     "ControlChannel",
     "RankCallError",
     "STOP",
@@ -210,6 +212,29 @@ def control_group():
         if not _CONTROL:
             _CONTROL.append(dist.new_group(backend="gloo", timeout=TIMEOUT))
         return _CONTROL[0]
+
+
+def leave_process_group(rc: int) -> None:
+    """End this process with exit code ``rc`` in step with the other ranks
+    of its process group; without one, return at once.
+
+    After a barrier on :func:`control_group` (every rank is done with its
+    collectives) the streams are flushed and the process leaves through
+    ``os._exit``, without the interpreter's finalization. A gloo worker
+    thread may still be dropping its last work's tensors when the main
+    thread is done: a tensor whose Python object the C++ side keeps alive
+    takes the GIL to free it, and a thread that takes the GIL while the
+    interpreter finalizes is ended by ``pthread_exit``, whose unwinding
+    through the worker's C++ frames calls ``std::terminate`` (SIGABRT,
+    "terminate called without an active exception"). A served mesh's
+    ranks aborted that way now and then under load. Call it last, when
+    everything the process writes is closed."""
+    if not dist.is_initialized():
+        return
+    dist.barrier(group=control_group())
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)
 
 
 class RankCallError(RuntimeError):

@@ -12,12 +12,13 @@ client-side latency reservoirs (``loadgen_request`` end-to-end,
 ``loadgen_submit``, plus one reservoir per tenant) flushed through the
 same :class:`~videop2p_tpu_torch.obs.timing.LatencyReservoir` machinery
 every other run record uses. The ledger's events are the JAX loadgen's, so
-``tools/obs_diff.py``, ``tools/fleet_dash.py``, ``tools/probe_report.py``
-and ``tools/incident_report.py`` read it:
+the port's ``obs_diff``, ``fleet_dash``, ``probe_report``,
+``incident_report`` and ``trace_view`` (``python -m
+videop2p_tpu_torch.tools.<name>``) read it, as JAX's tools do:
 
     python -m videop2p_tpu_torch.tools.serve_loadgen --url http://host:8000 \
         --requests 64 --concurrency 8 --image data/rabbit --ledger loadgen_a.jsonl
-    python tools/obs_diff.py loadgen_a.jsonl loadgen_b.jsonl
+    python -m videop2p_tpu_torch.tools.obs_diff loadgen_a.jsonl loadgen_b.jsonl
 
 Closed loop = each worker submits its next request only after the previous
 one finished — the concurrency IS the offered load, so latency percentiles
@@ -478,7 +479,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "the target, and record loadgen.request spans in "
                          "the ledger; --inproc/--router engines (and the "
                          "router itself) trace server-side with the SAME "
-                         "trace ids — join with tools/trace_view.py")
+                         "trace ids — join with python -m "
+                         "videop2p_tpu_torch.tools.trace_view")
     ap.add_argument("--slo", action="store_true",
                     help="evaluate the default SLOs over this run's "
                          "summaries into slo_report ledger events "
@@ -491,7 +493,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "evaluations and the fleet_series tsdb snapshot "
                          "(+ .npz sidecar in --out_dir) land in THIS "
                          "ledger — gate with obs_diff SIGNAL_RULES, "
-                         "render with tools/fleet_dash.py")
+                         "render with python -m "
+                         "videop2p_tpu_torch.tools.fleet_dash")
     ap.add_argument("--incidents", type=str, default=None, metavar="DIR",
                     help="incident plane: ONE shared "
                          "IncidentManager across the whole in-process "
@@ -501,7 +504,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "bundles under DIR, and the incident events "
                          "land in THIS ledger (obs_diff INCIDENT_RULES "
                          "gate any increase) — render bundles with "
-                         "tools/incident_report.py")
+                         "python -m videop2p_tpu_torch.tools."
+                         "incident_report")
     ap.add_argument("--probes", action="store_true",
                     help="correctness plane: run a FleetProber "
                          "known-answer loop against the target (every "
@@ -509,7 +513,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "duration of the run — probe verdicts and "
                          "cross-replica answer-audit divergences land in "
                          "THIS ledger (gate with obs_diff PROBE_RULES, "
-                         "render with tools/probe_report.py); in --router "
+                         "render with python -m videop2p_tpu_torch."
+                         "tools.probe_report); in --router "
                          "mode the router quarantines divergent replicas")
     ap.add_argument("--probe_interval_s", type=float, default=5.0,
                     help="prober round cadence (each round runs the full "
