@@ -400,6 +400,33 @@ tools:
    launches (the counters; GroupNorm's at least one); no tool process
    imports ``jax`` or ``videop2p_tpu``; printed: each tool's seconds.
 
+graphs:
+28. CUDA graphs (``utils/cuda_graphs.py``) at SD-1.5 width, 512², 8 frames,
+   bf16, each program graphed (the default on the card) against its eager
+   loop (``cuda_graphs=False``), run in turns: (a) the cached fast edit
+   with LocalBlend and ``uniform:2`` reuse at ``GRAPH_EDIT_STEPS`` (every
+   variant of both loops occurs twice or more: a variant's first step runs
+   eagerly, its second is captured and replayed), trajectory, captured maps
+   and edit bit for bit; (b) ``official_null_text`` under "flash_rect" at
+   ``GRAPH_NULL_STEPS`` outer × ``GRAPH_INNER_STEPS`` inner steps, early stop
+   at an epsilon from an eager run's median final loss (reached at one
+   outer step or more), embeddings, losses and inner steps bit for bit;
+   (c) ``GRAPH_TUNE_STEPS`` Stage-1 steps (fp32 weights, bf16 compute,
+   checkpointed blocks), losses, parameters and Adam moments bit for bit;
+   each with the same kernel launches, and the graphs captured and
+   replayed (each run's wall printed); (d) the 50-step cached fast edit
+   (the CLI's windows) eager then graphed: wall, peak memory, each graph's
+   capture seconds and each runner's pool bytes. With ``--graph_timings``
+   (out of the default run, for its time limit): that edit eager / graphed
+   / graphed / eager and one traced run each for the card's busy share, a
+   null-text inner step (flash_rect; the wall of 8 inner steps less 2's,
+   over 6) and a Stage-1 step (5 steps less 2, over 3) in the same turns,
+   each after an untimed warm run. One
+   seeded build serves all three: Stage 1 on its float32 weights, then the
+   edit and null-text on its bf16 cast.
+
+Every other path runs graphed by default (its loops on one card).
+
 Prints the ``{"kernels": [...]}`` line (each kernel whose path ran), then
 the card line, then, last, ``{"ok": true, "device": {...}}``.
 
@@ -416,8 +443,9 @@ Run:  python3 chip_smoke.py [--steps 2] [--inner_steps 2]
                                      [dependent] [checkpoint] [tune] [surface]
                                      [distill] [sdxl] [serve] [fleet] [stream]
                                      [observe] [runs] [analysis] [mesh]
-                                     [serve_mesh] [tools]]
+                                     [serve_mesh] [tools] [graphs]]
                             [--profile [--frame_attention auto flash_rect flash]]
+                            [--graph_timings]
                             [--gn_only [--gn_kernel_names NAME ...]]
                             [--out PATH.json]
 """
@@ -427,6 +455,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import json
 import math
@@ -533,10 +562,19 @@ FLASH_INNER_STEPS = 2
 # router (20), streaming long-video editing (21), the fleet's telemetry,
 # correctness and incident planes (22), the run CLIs' observability (23),
 # program analysis and traces (24), the mesh at world size 1 (25),
-# serving over several devices (26) and the operator tools (27)
+# serving over several devices (26), the operator tools (27) and CUDA
+# graphs (28)
 PATHS = ("fast", "official", "official_flash", "dependent", "checkpoint", "tune",
          "surface", "distill", "sdxl", "serve", "fleet", "stream", "observe", "runs",
-         "analysis", "mesh", "serve_mesh", "tools")
+         "analysis", "mesh", "serve_mesh", "tools", "graphs")
+# phase 28: the graphed-against-eager runs' depths (every variant of each
+# program occurs twice or more, so each is captured and replayed), and the
+# timed fast edit's
+GRAPH_EDIT_STEPS = 12
+GRAPH_NULL_STEPS = 4
+GRAPH_INNER_STEPS = 2
+GRAPH_TUNE_STEPS = 3
+GRAPH_TIMED_STEPS = 50
 # phase 4b's final losses in "hybrid" null-text mode are compared relative
 # to max(|loss|, this): its last outer step lands on x_0, where both losses
 # sit at float32 rounding noise (~1e-15) and have no relative meaning
@@ -6001,6 +6039,273 @@ def group_norm_only(args, card: str, kind: str) -> int:
     return 0
 
 
+def _graph_runs(label: str, run) -> dict:
+    """``run(cuda_graphs)`` graphed, then eager: each one's outputs, launches
+    (counts set to 0 just before), wall seconds and runners' stats."""
+    from videop2p_tpu_torch.utils.cuda_graphs import collect_graph_stats
+
+    out = {}
+    for flag in (True, False):
+        _release()
+        reset_launch_counts()
+        with collect_graph_stats() as stats:
+            t0 = time.perf_counter()
+            res = run(flag)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[flag] = {"out": res, "launches": launch_counts(), "wall_s": wall, "stats": stats}
+    g = out[True]["stats"]
+    print(f"  28 {label}: graphed {out[True]['wall_s']:.2f} s, eager {out[False]['wall_s']:.2f} s; "
+          "graphs " + ", ".join(
+              f"{r['program']} {r['graphs']} captured in {sum(r['capture_s'].values()):.3f} s "
+              f"(pool {r['pool_bytes']} B), {r['replays']} replays, {r['eager_steps']} eager"
+              for r in g) + f"; launches {out[True]['launches']}", flush=True)
+    return out
+
+
+def _bit_diffs(a, b, name="") -> list:
+    """The names of the tensors that differ in bits between two trees."""
+    if isinstance(a, torch.Tensor):
+        same = a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.view(torch.uint8) if a.element_size() == 1 else a,
+            b.view(torch.uint8) if b.element_size() == 1 else b)
+        return [] if same else [name]
+    if isinstance(a, dict):
+        return [d for k in a for d in _bit_diffs(a[k], b[k], f"{name}/{k}")]
+    if isinstance(a, (list, tuple)):
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in _bit_diffs(x, y, f"{name}/{i}")]
+    return [] if a == b else [name]
+
+
+def _check_graphed(label: str, runs: dict, failures: list) -> dict:
+    diffs = _bit_diffs(runs[True]["out"], runs[False]["out"])
+    if diffs:
+        failures.append(f"28 {label}: graphed != eager at {diffs[:4]}")
+    if runs[True]["launches"] != runs[False]["launches"]:
+        failures.append(f"28 {label}: launches graphed {runs[True]['launches']} != eager "
+                        f"{runs[False]['launches']}")
+    graphed = runs[True]["stats"]
+    if not graphed or any(r["graphs"] == 0 or r["replays"] == 0 for r in graphed):
+        failures.append(f"28 {label}: a runner captured or replayed nothing: {graphed}")
+    print(f"  28 {label}: bits equal {not diffs}, launches equal "
+          f"{runs[True]['launches'] == runs[False]['launches']}", flush=True)
+    return {"bits_equal": not diffs, "launches": runs[True]["launches"],
+            "wall_graphed_s": runs[True]["wall_s"], "wall_eager_s": runs[False]["wall_s"],
+            "graphs": graphed}
+
+
+def _turns(label: str, fn, turns=(False, True, True, False)) -> dict:
+    """``fn(cuda_graphs)`` for each flag of ``turns`` (eager, graphed,
+    graphed, eager: one card, one call): each side's values."""
+    vals = {"eager": [], "graphed": []}
+    for flag in turns:
+        vals["graphed" if flag else "eager"].append(fn(flag))
+    print(f"  28 {label}: eager {vals['eager']}, graphed {vals['graphed']}", flush=True)
+    return vals
+
+
+def _set_frame_attention(unet, impl: str) -> None:
+    """Every frame-attention site of ``unet`` on ``impl``."""
+    from videop2p_tpu_torch.models.attention import FrameAttention
+    from videop2p_tpu_torch.ops.attention import make_frame_attention_fn
+
+    for module in unet.modules():
+        if isinstance(module, FrameAttention):
+            module.attention_fn = make_frame_attention_fn(impl)
+
+
+def graphs_path(args) -> tuple:
+    """Phase 28 (the module docstring): the three graphed programs against
+    their eager loops bit for bit, then their times (in turns with
+    ``--graph_timings``). One seeded SD-1.5 build serves all three: Stage 1
+    on its float32 weights (bf16 compute), then the edit and null-text on
+    its bf16 cast."""
+    import contextlib as ctx_mod
+
+    from videop2p_tpu_torch.cli.common import build_models, deterministic_convolutions, \
+        encode_prompts
+    from videop2p_tpu_torch.control import make_controller
+    from videop2p_tpu_torch.core import DDIMScheduler, DDPMScheduler
+    from videop2p_tpu_torch.pipelines import (
+        cached_fast_edit,
+        ddim_inversion,
+        make_unet_fn,
+        null_text_optimization,
+    )
+    from videop2p_tpu_torch.pipelines.cached import capture_windows
+    from videop2p_tpu_torch.pipelines.sampling import official_null_text
+    from videop2p_tpu_torch.train import TrainState, TuneConfig, make_optimizer, train_steps
+    from videop2p_tpu_torch.utils.cuda_graphs import collect_graph_stats
+    from videop2p_tpu_torch.utils.tokenizers import WordTokenizer
+
+    print(f"28. CUDA graphs against the eager loops (SD-1.5 width, 512², 8 frames, bf16; "
+          f"{_allocated_line()}):", flush=True)
+    failures, rec = [], {"card": card_line()}
+    turns = (False, True, True, False) if args.graph_timings else (False, True)
+    gen = torch.Generator("cuda").manual_seed(28)
+    x0 = 0.8 * torch.randn((1, 8, 64, 64, 4), generator=gen, device="cuda")
+    bundle = build_models(dtype=torch.float32, device="cuda", seed=0, frame_attention="chunked",
+                          gradient_checkpointing=True)
+    unet = bundle.unet
+    with torch.no_grad():
+        text = encode_prompts(bundle, [TUNE["train_data"]["prompt"]], "cuda")
+        cond_all = encode_prompts(bundle, RABBIT["prompts"], "cuda")
+        uncond = encode_prompts(bundle, [""], "cuda")[0]
+    del bundle
+
+    # (c) Stage 1: float32 weights, bf16 compute, checkpointed blocks
+    unet.compute_dtype = torch.bfloat16
+    latents = 0.18215 * torch.randn((1, 8, 64, 64, 4), generator=gen, device="cuda")
+    start = {k: v.detach().to("cpu", copy=True) for k, v in unet.state_dict().items()}
+    cfg = TuneConfig(learning_rate=TUNE["learning_rate"],
+                     trainable_modules=tuple(TUNE["trainable_modules"]))
+
+    def tune(flag, steps=GRAPH_TUNE_STEPS):
+        with torch.no_grad():
+            for k, v in unet.state_dict().items():
+                v.copy_(start[k])
+        tx = make_optimizer(cfg)
+        state = TrainState.create(unet, tx, cfg.trainable_modules)
+        with deterministic_convolutions():
+            _, losses = train_steps(make_unet_fn(unet), tx, state, DDPMScheduler.create_sd(),
+                                    latents, text, 33, num_steps=steps, cuda_graphs=flag)
+        return {"losses": losses, "params": {k: v.detach().clone()
+                                             for k, v in state.trainable.items()},
+                "mu": state.opt_state["mu"], "nu": state.opt_state["nu"]}
+
+    runs = _graph_runs(f"Stage 1 ({GRAPH_TUNE_STEPS} steps, bf16 compute, checkpointed "
+                       "blocks)", tune)
+    rec["tune"] = _check_graphed("Stage 1", runs, failures)
+    del runs
+
+    def timed(run, k0, k1):
+        """Steady-state ms a step: the wall of ``k1`` steps less ``k0``'s,
+        each call warming up and capturing its own graphs, after an untimed
+        ``k0`` (a process's first capture at new shapes takes longer)."""
+        run(k0)
+        walls = {}
+        for k in (k0, k1):
+            _release()
+            t0 = time.perf_counter()
+            run(k)
+            torch.cuda.synchronize()
+            walls[k] = time.perf_counter() - t0
+        return round((walls[k1] - walls[k0]) / (k1 - k0) * 1e3, 2)
+
+    if args.graph_timings:
+        rec["tune_step_ms"] = _turns(
+            "Stage-1 step ms (bf16 compute, checkpointed blocks)",
+            lambda flag: timed(lambda k: tune(flag, k), 2, 5))
+    with torch.no_grad():
+        for k, v in unet.state_dict().items():
+            v.copy_(start[k])
+    del start, latents
+    unet.config = dataclasses.replace(unet.config, gradient_checkpointing=False)
+    unet.compute_dtype = None
+    unet.to(torch.bfloat16)
+    _release()
+
+    # (a) the cached fast edit, "auto"
+    sched = DDIMScheduler.create_sd()
+    fn = make_unet_fn(unet)
+
+    def controller(steps):
+        return make_controller(RABBIT["prompts"], WordTokenizer(), steps,
+                               is_replace_controller=False, cross_replace_steps=0.2,
+                               self_replace_steps=0.5,
+                               blend_words=tuple((w,) for w in RABBIT["blend_word"]),
+                               equalizer_params=RABBIT["eq_params"], device="cuda")
+
+    def fast_edit(steps, flag, reuse=None):
+        ctx = controller(steps)
+        cross_len, window = capture_windows(ctx, steps)
+        traj, edited = cached_fast_edit(fn, sched, x0, cond_all[:1], cond_all, uncond, ctx,
+                                        num_inference_steps=steps, cross_len=cross_len,
+                                        self_window=window, reuse_schedule=reuse,
+                                        cuda_graphs=flag)
+        return {"trajectory": traj, "edited": edited}
+
+    _set_frame_attention(unet, "auto")
+    runs = _graph_runs(f"cached fast edit ({GRAPH_EDIT_STEPS} steps, LocalBlend, uniform:2)",
+                       lambda flag: fast_edit(GRAPH_EDIT_STEPS, flag, "uniform:2"))
+    rec["fast_edit"] = _check_graphed("cached fast edit", runs, failures)
+    del runs
+
+    def timed_edit(flag):
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        with collect_graph_stats() as stats:
+            t0 = time.perf_counter()
+            fast_edit(GRAPH_TIMED_STEPS, flag)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return {"wall_s": round(wall, 3),
+                "peak_gib": round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
+                "graphs": [{k: r[k] for k in ("program", "graphs", "capture_s", "pool_bytes")}
+                           for r in stats]}
+
+    rec["fast_edit_50"] = _turns(f"{GRAPH_TIMED_STEPS}-step cached fast edit", timed_edit,
+                                 turns)
+    if args.graph_timings:
+        busy = {}
+        for flag in (False, True):
+            _release()
+            _, wall, busy_s = _busy_traced(lambda: fast_edit(GRAPH_TIMED_STEPS, flag))
+            busy["graphed" if flag else "eager"] = {
+                "wall_s": round(wall, 3), "busy_s": busy_s and round(busy_s, 3),
+                "busy_share": busy_s and round(busy_s / wall, 4)}
+        print(f"  28 {GRAPH_TIMED_STEPS}-step cached fast edit traced: {busy}", flush=True)
+        rec["fast_edit_50_busy"] = busy
+
+    # (b) official null-text under flash_rect, early stop reached
+    _set_frame_attention(unet, "flash_rect")
+    src = cond_all[:1]
+    traj = ddim_inversion(fn, sched, x0, src, num_inference_steps=GRAPH_NULL_STEPS)
+
+    def null_text(flag, epsilon, early_stop=True):
+        emb, stats = official_null_text(
+            fn, sched, traj, src, uncond, lambda name: ctx_mod.nullcontext(),
+            null_text_precision="fp32", num_inference_steps=GRAPH_NULL_STEPS,
+            num_inner_steps=GRAPH_INNER_STEPS, epsilon=epsilon, early_stop=early_stop,
+            cuda_graphs=flag)
+        return {"embeddings": emb, **stats}
+
+    calib = null_text(False, 1e-5, early_stop=False)["final_loss"]
+    epsilon = float(calib.median())
+    runs = _graph_runs(f"official_null_text (flash_rect, {GRAPH_NULL_STEPS} x "
+                       f"{GRAPH_INNER_STEPS}, epsilon {epsilon:.4e})",
+                       lambda flag: null_text(flag, epsilon))
+    rec["null_text"] = _check_graphed("null-text", runs, failures)
+    inner = runs[True]["out"]["inner_steps"].tolist()
+    rec["null_text"]["inner_steps"] = inner
+    print(f"  28 null-text inner steps {inner} (calibration final losses {calib.tolist()})",
+          flush=True)
+    if min(inner) >= GRAPH_INNER_STEPS:
+        failures.append(f"28 null-text: early stop not reached, inner steps {inner}")
+    del runs
+
+    def inner_steps(flag, k):
+        return null_text_optimization(fn, sched, traj[:2], src, uncond[None],
+                                      num_inference_steps=1, num_inner_steps=k,
+                                      early_stop=False, cuda_graphs=flag)
+
+    if args.graph_timings:
+        rec["null_text_inner_ms"] = _turns(
+            "null-text inner step ms (bf16, flash_rect)",
+            lambda flag: timed(lambda k: inner_steps(flag, k), 2, 8))
+        busy = {}
+        for flag in (False, True):
+            _release()
+            _, wall, busy_s = _busy_traced(lambda: inner_steps(flag, 8))
+            busy["graphed" if flag else "eager"] = busy_s and round(busy_s / wall, 4)
+        print(f"  28 null-text (1 outer x 8 inner) busy share: {busy}", flush=True)
+        rec["null_text_busy_share"] = busy
+    del unet, fn, traj
+    _release()
+    print(f"  28 card: {rec['card']}", flush=True)
+    return {"graphs": {"launches": rec["fast_edit"]["launches"]}}, failures, {"graphs": rec}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=2,
@@ -6022,6 +6327,10 @@ def main() -> int:
     parser.add_argument("--frame_attention", nargs="+", default=["auto"],
                         choices=("auto", "flash_rect", "flash"),
                         help="the frame-attention implementations to profile")
+    parser.add_argument("--graph_timings", action="store_true",
+                        help="phase 28: time each program in turns (eager, graphed, "
+                             "graphed, eager) and trace the card's busy share (the default "
+                             "run times each side once)")
     parser.add_argument("--out", type=str, default=None,
                         help="also write the measurements to this JSON file")
     parser.add_argument("--gn_only", action="store_true",
@@ -6114,6 +6423,8 @@ def main() -> int:
         t = time.perf_counter()
         out = fn(*fn_args)
         seconds[name] = time.perf_counter() - t
+        print(f"path {name}: {seconds[name]:.1f} s (run {time.perf_counter() - t_run:.1f} s)",
+              flush=True)
         runs.update(out[0])
         records.update(out[-1])
         return out
@@ -6168,6 +6479,8 @@ def main() -> int:
     if "tools" in args.paths:
         with _analysis_off():
             drive("tools", tools_path, args, frames)
+    if "graphs" in args.paths:
+        failures += drive("graphs", graphs_path, args)[1]
 
     dname = str(dtype).replace("torch.", "")
     big_attn = [3, 8, 8, 4096, 40]
@@ -6225,7 +6538,8 @@ def main() -> int:
     # own, at its shapes (head dim 64) in bf16, the dtype it runs in.
     auto = next((r for r in ("auto", "official", "dependent_cached", "checkpoint",
                              "surface_multi", "student_edit", "serve", "fleet", "stream",
-                             "observe", "runs", "analysis", "mesh", "serve_mesh", "tools")
+                             "observe", "runs", "analysis", "mesh", "serve_mesh", "tools",
+                             "graphs")
                  if r in runs), None)
     rect = next((r for r in ("flash_rect", "official_flash_rect",
                              "surface_hybrid_flash_rect", "analysis_flash_rect")

@@ -280,3 +280,30 @@ def test_attn_maps_on_two_ranks_gather_the_whole_clip(tmp_path):
             assert (got["steps"], got["heat_shape"]) == (e["steps"], e["heat_shape"])
             assert got["sites"] == ([s for s in e["sites"] if s.endswith("attn2")]
                                     if scope == "inversion" else e["sites"]), (mode, scope)
+
+
+@pytest.mark.parametrize("cli", ["run_videop2p", "run_tuning"])
+def test_run_cli_ranks_leave_their_group_with_exit_code_zero(tmp_path, cli):
+    """Both run CLIs end every torchrun rank through
+    ``parallel/distributed.py:leave_process_group`` once the run's ledger
+    is closed: 2 gloo ranks under ``torch.distributed.run``, three launches
+    at once (the load of ``tests/torch_exit_ranks.py``), each exits 0 on
+    every rank — none is left to the interpreter's finalization, where a
+    gloo worker freeing its last work's tensors aborts a rank now and then."""
+    procs = []
+    for k in range(3):
+        if cli == "run_videop2p":
+            argv = ["--config", _edit_config(tmp_path, f"edit{k}"), "--tiny", "--device", "cpu",
+                    "--fast", "--steps", "1", "--mesh", "1,2,1",
+                    "--ledger", str(tmp_path / f"edit{k}.jsonl")]
+        else:
+            argv = ["--config", _tune_config(tmp_path, f"tune{k}"), "--tiny", "--device", "cpu",
+                    "--mesh", "1,2,1", "--ledger", str(tmp_path / f"tune{k}.jsonl")]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+             "-m", f"videop2p_tpu_torch.cli.{cli}", *argv],
+            cwd=REPO, env=ENV, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for proc in procs:
+        out, _ = proc.communicate(timeout=TIMEOUT)
+        assert proc.returncode == 0, out[-3000:]
+        assert "terminate called" not in out, out[-3000:]

@@ -685,6 +685,8 @@ def _validate(bundle, latents: torch.Tensor, validation_data: Dict[str, Any],
 
 
 if __name__ == "__main__":
+    from videop2p_tpu_torch.parallel.distributed import leave_process_group
+
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--tiny", action="store_true",
@@ -726,10 +728,15 @@ if __name__ == "__main__":
                    trace_analysis=args.trace_analysis,
                    program_analysis=not args.no_program_analysis,
                    device_telemetry=args.device_telemetry)
+    distill = None
     # distillation runs on one GPU: after a mesh run, rank 0's
     if args.distill_steps > 0 and process_index() == 0:
-        run_distillation(out_dir, cfg["train_data"], distill_steps=args.distill_steps,
-                         distill_grid=args.distill_grid, distill_lr=args.distill_lr,
-                         distill_ema=args.distill_ema,
-                         distill_boundary_weight=args.distill_boundary_weight,
-                         tiny=args.tiny, seed=cfg.get("seed"), device=args.device)
+        def distill():
+            run_distillation(out_dir, cfg["train_data"], distill_steps=args.distill_steps,
+                             distill_grid=args.distill_grid, distill_lr=args.distill_lr,
+                             distill_ema=args.distill_ema,
+                             distill_boundary_weight=args.distill_boundary_weight,
+                             tiny=args.tiny, seed=cfg.get("seed"), device=args.device)
+    # the run's ledger is closed: a rank of a torchrun world leaves in step
+    # (rank 0 after its distillation, which enters no collective)
+    leave_process_group(0, then=distill)

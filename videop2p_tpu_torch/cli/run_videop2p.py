@@ -871,6 +871,8 @@ def _write_gifs(videos: torch.Tensor, output_dir: str, save_name: str, fast: boo
 
 
 if __name__ == "__main__":
+    from videop2p_tpu_torch.parallel.distributed import leave_process_group
+
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, default="./configs/rabbit-jump-p2p.yaml")
     parser.add_argument("--fast", action="store_true",
@@ -962,3 +964,5 @@ if __name__ == "__main__":
          incidents=args.incidents, trace_analysis=args.trace_analysis,
          program_analysis=not args.no_program_analysis,
          device_telemetry=args.device_telemetry)
+    # the run's ledger is closed: a rank of a torchrun world leaves in step
+    leave_process_group(0)

@@ -28,6 +28,7 @@ from videop2p_tpu_torch.control.schedules import (
     get_time_words_attention_alpha,
     get_word_inds,
 )
+from videop2p_tpu_torch.utils.cuda_graphs import index_step
 from videop2p_tpu_torch.utils.tokenizers import MAX_NUM_WORDS, Tokenizer
 
 __all__ = ["ControlContext", "make_controller", "make_spatial_replace_controller",
@@ -150,9 +151,10 @@ def make_spatial_replace_controller(stop_inject: float, num_steps: int, *,
 
 
 def _edit_cross(base: torch.Tensor, repl: torch.Tensor, ctx: ControlContext,
-                step_index: int) -> torch.Tensor:
+                step_index) -> torch.Tensor:
     """base (F, H, Q, W) source-stream cross maps; repl (E, F, H, Q, W) edit
-    streams → the edited edit streams."""
+    streams → the edited edit streams. ``step_index`` (an int, or a 0-d
+    int64 tensor on the device) picks the step's gate."""
     if ctx.kind == "replace":
         new = torch.einsum("fhqw,ewn->efhqn", base, ctx.replace_mapper.to(base.dtype))
     elif ctx.kind == "refine":
@@ -166,7 +168,7 @@ def _edit_cross(base: torch.Tensor, repl: torch.Tensor, ctx: ControlContext,
         raise ValueError(f"unknown cross edit kind: {ctx.kind!r}")
     if ctx.equalizer is not None:
         new = new * ctx.equalizer[:, None, None, None, :].to(new.dtype)
-    alpha_words = ctx.cross_replace_alpha[step_index][:, :, :, None, :].to(new.dtype)
+    alpha_words = index_step(ctx.cross_replace_alpha, step_index)[:, :, :, None, :].to(new.dtype)
     return new * alpha_words + (1.0 - alpha_words) * repl
 
 
@@ -183,7 +185,8 @@ def control_attention(probs: torch.Tensor, ctx: Optional[ControlContext], *,
                       is_cross: bool, step_index: int, video_length: int,
                       num_uncond: int = -1,
                       base_map: Optional[torch.Tensor] = None,
-                      frame_shards: int = 1) -> torch.Tensor:
+                      frame_shards: int = 1,
+                      step: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Apply the edit to full-batch probabilities, U uncond streams first:
     cross ((U+P)·F, H, Q, W) with frames folded into the batch; temporal
     ((U+P)·D, H, F, F) with spatial positions folded into the batch, or,
@@ -193,7 +196,11 @@ def control_attention(probs: torch.Tensor, ctx: Optional[ControlContext], *,
     ``base_map``: the cached-source mode — the source stream is not in the
     batch (its cond streams are the P − 1 edits only) and its maps for this
     site and step come from this capture: (F, H, Q, W) at cross sites,
-    (D, H, F, F) at temporal sites."""
+    (D, H, F, F) at temporal sites.
+
+    ``step``: ``step_index`` as a 0-d int64 tensor on the device, which
+    then indexes the cross gate (a CUDA graph's step body reads it from a
+    buffer); ``step_index`` still decides the temporal window."""
     if ctx is None or ctx.kind == "empty":
         return probs
     P = ctx.num_prompts
@@ -222,8 +229,10 @@ def control_attention(probs: torch.Tensor, ctx: Optional[ControlContext], *,
                 f"cached base map shape {tuple(base_map.shape)} does not match the "
                 f"site's per-stream probability shape {(inner, H, Q, K)}")
         base, repl = base_map.to(probs.dtype), split[U:]
-    edit = _edit_cross if is_cross else _edit_temporal
-    edited = edit(base, repl, ctx, step_index)
+    if is_cross:
+        edited = _edit_cross(base, repl, ctx, step_index if step is None else step)
+    else:
+        edited = _edit_temporal(base, repl, ctx, step_index)
     keep = split[:U] if base_map is not None else split[:U + 1]
     out = torch.cat([keep, edited], dim=0)
     return out.reshape(B, H, Q, K)

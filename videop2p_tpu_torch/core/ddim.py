@@ -7,8 +7,10 @@ consistency distillation noises its latents with).
 Every step is an fp32 island: ``model_output`` and ``sample`` are cast to
 float32 on entry and the ᾱ-coefficient math runs in float32, whatever the
 model's compute dtype, so trajectory fidelity does not depend on it. Step
-outputs are float32. Timesteps are Python ints (the sampling loops are
-Python loops).
+outputs are float32. A timestep is a Python int or a 0-d int64 tensor on the
+sample's device (a step body that CUDA graphs replay reads it from a
+buffer): ᾱ comes from a table on the device either way, indexed on the
+device for a tensor, so a step makes no copy from the host.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from videop2p_tpu_torch.utils.cuda_graphs import index_step
 
 __all__ = ["DDIMScheduler", "ForwardProcess", "make_beta_schedule", "PREDICTION_TYPES"]
 
@@ -54,10 +58,28 @@ class ForwardProcess:
     """The forward process over the scheduler's ``alphas_cumprod``, at a ()
     or (B,) timestep per sample (both schedulers' ``add_noise``)."""
 
+    def _device_table(self, name: str, values: np.ndarray, device) -> torch.Tensor:
+        """``values`` on ``device``, copied there once and kept (a step
+        body indexes it on the device)."""
+        tables = self.__dict__.get("_tables")
+        if tables is None:
+            tables = {}
+            object.__setattr__(self, "_tables", tables)
+        key = (name, str(torch.device(device)))
+        table = tables.get(key)
+        if table is None:
+            table = tables[key] = torch.as_tensor(values, device=device)
+        return table
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop("_tables", None)
+        return state
+
     def alpha_coefficients(self, timesteps, ref: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(√ᾱ_t, √(1 − ᾱ_t)) per sample, shaped to broadcast over ``ref``."""
-        table = torch.as_tensor(self.alphas_cumprod, device=ref.device)
+        table = self._device_table("alphas_cumprod", self.alphas_cumprod, ref.device)
         alpha_prod = table[torch.as_tensor(timesteps, device=ref.device)]
         shape = alpha_prod.shape + (1,) * (ref.dim() - alpha_prod.dim())
         return (torch.sqrt(alpha_prod).reshape(shape),
@@ -153,23 +175,34 @@ class DDIMScheduler(ForwardProcess):
         prev = np.concatenate([ts[1:], [base_ts[-1] - ratio]])
         return positions, ts, prev
 
-    def _alpha_prod(self, timestep: int, device) -> torch.Tensor:
-        """ᾱ_t as a float32 scalar tensor; t < 0 → ``final_alpha_cumprod``."""
-        t = int(timestep)
-        if t >= 0:
-            value = self.alphas_cumprod[min(t, self.num_train_timesteps - 1)]
-        else:
-            value = self.final_alpha_cumprod
-        return torch.tensor(value, dtype=torch.float32, device=device)
+    def _alpha_prod(self, timestep, device) -> torch.Tensor:
+        """ᾱ_t as a float32 scalar tensor; t < 0 → ``final_alpha_cumprod``,
+        t past the schedule → its last ᾱ. From the device table
+        ``[final, ᾱ_0, …, ᾱ_{T−1}]`` at t + 1 clamped to [0, T]: a Python
+        int indexes it on the host, a tensor on the device."""
+        T = self.num_train_timesteps
+        table = self._device_table(
+            "alpha_prod", np.concatenate([np.asarray([self.final_alpha_cumprod], np.float32),
+                                          np.asarray(self.alphas_cumprod, np.float32)]),
+            device)
+        if isinstance(timestep, torch.Tensor):
+            return index_step(table, (timestep + 1).clamp(0, T))
+        return table[min(max(int(timestep) + 1, 0), T)]
 
-    def variance(self, timestep: int, prev_timestep: int, device) -> torch.Tensor:
+    def _prev(self, timestep, num_inference_steps: int, prev_timestep):
+        """The step's target timestep: ``prev_timestep``, else t − T/N."""
+        if prev_timestep is None:
+            return timestep - self.num_train_timesteps // num_inference_steps
+        return prev_timestep
+
+    def variance(self, timestep, prev_timestep, device) -> torch.Tensor:
         """σ_t² before η (JAX: ``variance``)."""
         alpha_prod_t = self._alpha_prod(timestep, device)
         alpha_prod_t_prev = self._alpha_prod(prev_timestep, device)
         return ((1.0 - alpha_prod_t_prev) / (1.0 - alpha_prod_t)
                 * (1.0 - alpha_prod_t / alpha_prod_t_prev))
 
-    def predict_x0_eps(self, model_output: torch.Tensor, timestep: int,
+    def predict_x0_eps(self, model_output: torch.Tensor, timestep,
                        sample: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(pred_x0, pred_eps) under the configured prediction type, in
         float32."""
@@ -182,18 +215,17 @@ class DDIMScheduler(ForwardProcess):
             return model_output, (sample - a * model_output) / b
         return a * sample - b * model_output, a * model_output + b * sample
 
-    def step(self, model_output: torch.Tensor, timestep: int, sample: torch.Tensor,
+    def step(self, model_output: torch.Tensor, timestep, sample: torch.Tensor,
              num_inference_steps: int, *, eta: float = 0.0,
              variance_noise: Optional[torch.Tensor] = None,
-             prev_timestep: Optional[int] = None
+             prev_timestep=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One reverse DDIM step x_t → x_{t−Δ}; returns
         ``(prev_sample, pred_original_sample)``. With ``eta`` > 0 the caller
         supplies ``variance_noise`` (standard normal, the sample's shape),
         added with std η·σ_t (JAX: core/ddim.py:248)."""
         model_output, sample = _f32(model_output, sample)
-        if prev_timestep is None:
-            prev_timestep = timestep - self.num_train_timesteps // num_inference_steps
+        prev_timestep = self._prev(timestep, num_inference_steps, prev_timestep)
         dev = sample.device
         alpha_prod_t_prev = self._alpha_prod(prev_timestep, dev)
         pred_x0, pred_eps = self.predict_x0_eps(model_output, timestep, sample)
@@ -208,15 +240,14 @@ class DDIMScheduler(ForwardProcess):
             prev_sample = prev_sample + std_dev_t * variance_noise.float()
         return prev_sample, pred_x0
 
-    def prev_step(self, model_output: torch.Tensor, timestep: int,
+    def prev_step(self, model_output: torch.Tensor, timestep,
                   sample: torch.Tensor, num_inference_steps: int, *,
-                  prev_timestep: Optional[int] = None) -> torch.Tensor:
+                  prev_timestep=None) -> torch.Tensor:
         """Deterministic (η=0, no clipping) x_t → x_{t−Δ}, reading
         ``model_output`` as ε whatever ``prediction_type`` (as JAX's
         ``prev_step`` does)."""
         model_output, sample = _f32(model_output, sample)
-        if prev_timestep is None:
-            prev_timestep = timestep - self.num_train_timesteps // num_inference_steps
+        prev_timestep = self._prev(timestep, num_inference_steps, prev_timestep)
         dev = sample.device
         alpha_prod_t = self._alpha_prod(timestep, dev)
         alpha_prod_t_prev = self._alpha_prod(prev_timestep, dev)
@@ -225,13 +256,13 @@ class DDIMScheduler(ForwardProcess):
         direction = torch.sqrt(1.0 - alpha_prod_t_prev) * model_output
         return torch.sqrt(alpha_prod_t_prev) * pred_x0 + direction
 
-    def next_step(self, model_output: torch.Tensor, timestep: int,
+    def next_step(self, model_output: torch.Tensor, timestep,
                   sample: torch.Tensor, num_inference_steps: int) -> torch.Tensor:
         """Forward DDIM (inversion) x_{t−Δ} → x_t, reading ``model_output``
         as ε (as JAX's ``next_step`` does)."""
         model_output, sample = _f32(model_output, sample)
-        cur_timestep = min(timestep - self.num_train_timesteps // num_inference_steps,
-                           self.num_train_timesteps - 1)
+        # past the schedule's end ᾱ clamps to its last entry either way
+        cur_timestep = timestep - self.num_train_timesteps // num_inference_steps
         dev = sample.device
         alpha_prod_t = self._alpha_prod(cur_timestep, dev)
         alpha_prod_t_next = self._alpha_prod(timestep, dev)

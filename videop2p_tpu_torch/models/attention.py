@@ -85,7 +85,9 @@ class AttnControl:
     edit streams, and a site absent from it (an empty capture window, whose
     gate is closed at every step) passes through unedited. ``cached_source``
     marks that layout even when both windows are empty and ``cached_base``
-    is None."""
+    is None. ``step``: the step index as a 0-d int64 tensor on the device
+    (the loops' step bodies pass it, read from a buffer), which indexes the
+    cross gates; ``step_index`` still decides the Python-level windows."""
 
     ctx: Optional[ControlContext]
     step_index: int
@@ -93,6 +95,7 @@ class AttnControl:
     capture: bool = False
     cached_base: Optional[Dict[str, torch.Tensor]] = None
     cached_source: bool = False
+    step: Optional[torch.Tensor] = None
 
     def base_map_for(self, path: str) -> Optional[torch.Tensor]:
         """This site's cached source map, by module path."""
@@ -239,7 +242,7 @@ class ControlledAttention(nn.Module):
                     probs, control.ctx, is_cross=self.site == "cross",
                     step_index=control.step_index, video_length=video_length,
                     num_uncond=control.num_uncond, base_map=base_map,
-                    frame_shards=frame_shards)
+                    frame_shards=frame_shards, step=control.step)
         out = torch.matmul(probs, v)
         return _out_proj(self, self.to_out[0], _merge_heads(out))
 

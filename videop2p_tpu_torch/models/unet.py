@@ -283,10 +283,12 @@ class UNet3DConditionModel(nn.Module):
         if saved is None or not (self.config.gradient_checkpointing
                                  and torch.is_grad_enabled()):
             return block(*args)
+        # the blocks draw no random numbers: no RNG state is stashed for the
+        # recompute (a CUDA graph's capture cannot read the generator's)
         if not saved:
-            return checkpoint(block, *args, use_reentrant=False)
+            return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
         ops = [getattr(torch.ops.aten, name).default for name in saved]
-        return checkpoint(block, *args, use_reentrant=False,
+        return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False,
                           context_fn=functools.partial(create_selective_checkpoint_contexts,
                                                        ops))
 

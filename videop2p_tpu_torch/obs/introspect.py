@@ -86,6 +86,7 @@ __all__ = [
     "analyze_call",
     "call_device",
     "note_kernel",
+    "analysis_active",
     "hidden_from_analysis",
     "instruction_histogram",
 ]
@@ -404,6 +405,11 @@ def _active() -> List[ProgramAnalysis]:
     except Exception:  # noqa: BLE001 — a torch without the helper
         return []
     return [m.analysis for m in stack if isinstance(m, _CountingMode)]
+
+
+def analysis_active() -> bool:
+    """Whether a program analysis observes this thread's ops."""
+    return bool(_active())
 
 
 def note_kernel(name: str, source: str, inputs: Sequence[torch.Tensor],

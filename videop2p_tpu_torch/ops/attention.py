@@ -57,6 +57,7 @@ import torch
 from videop2p_tpu_torch.obs.introspect import note_kernel
 from videop2p_tpu_torch.ops._autograd import recompute_grads
 from videop2p_tpu_torch.ops._build import bind
+from videop2p_tpu_torch.utils.cuda_graphs import count_launch
 
 __all__ = [
     "dense_frame_attention",
@@ -164,6 +165,28 @@ def _flash_bwd_scratch_bytes(b0: int, b1: int, h: int, lq: int, lk: int, d: int)
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _add_fused(n: int) -> None:
+    global _launches
+    with _count_lock:
+        _launches += n
+
+
+def _add_flash(n: int) -> None:
+    global _flash_launches
+    with _count_lock:
+        _flash_launches += n
+
+
+def _add_flash_bwd_dq(n: int) -> None:
+    with _count_lock:
+        _flash_bwd_launches["dq"] += n
+
+
+def _add_flash_bwd_dkv(n: int) -> None:
+    with _count_lock:
+        _flash_bwd_launches["dkv"] += n
 
 
 def launch_count() -> int:
@@ -399,9 +422,7 @@ def _fused_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
                 _DTYPES[q.dtype], b, f, h, n, d,
                 ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5),
                 None if scratch is None else scratch.data_ptr(), stream)
-    global _launches
-    with _count_lock:
-        _launches += 1
+    count_launch(_add_fused)
     note_kernel("frame_attention_fwd", _SOURCE, (q, k, v), (out,),
                 flops=4 * b * f * h * n * n * d, transcendentals=b * f * h * n * n)
     return out
@@ -494,9 +515,7 @@ def _flash(q5: torch.Tensor, k5: torch.Tensor, v5: torch.Tensor,
                       _DTYPES[q5.dtype], b0, b1, h, lq, lk, d,
                       ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5),
                       None if scratch is None else scratch.data_ptr(), stream)
-    global _flash_launches
-    with _count_lock:
-        _flash_launches += 1
+    count_launch(_add_flash)
     # K/V read once however many query batches share them (stride 0)
     kv = [t[:, :1] if t.stride(1) == 0 else t for t in (k5, v5)]
     rows = b0 * b1 * h * lq * lk
@@ -541,16 +560,14 @@ def _flash_bwd(q5, k4, v4, o5, do5, m, l, dq5, dk4, dv4) -> None:
     shape = (_DTYPES[q5.dtype], b0, b1, h, lq, lk, d,
              ctypes.cast(strides, ctypes.c_void_p), float(d ** -0.5))
     _flash_bwd_launcher("dq")(*common, dq5.data_ptr(), *shape, stream)
-    with _count_lock:
-        _flash_bwd_launches["dq"] += 1
+    count_launch(_add_flash_bwd_dq)
     # each kernel recomputes the scores: dQ = S, dP, dS·K (6 flops a score
     # and head-dim element); dK/dV = S, dV, dP, dK (8)
     inputs, scores = (q5, k4, v4, o5, do5, m, l), b0 * b1 * h * lq * lk
     note_kernel("flash_attention_bwd_dq", _FLASH_BWD_SOURCE, inputs, (dq5,),
                 flops=6 * scores * d, transcendentals=scores)
     _flash_bwd_launcher("dkv")(*common, dk4.data_ptr(), dv4.data_ptr(), *shape, split, stream)
-    with _count_lock:
-        _flash_bwd_launches["dkv"] += 1
+    count_launch(_add_flash_bwd_dkv)
     note_kernel("flash_attention_bwd_dkv", _FLASH_BWD_SOURCE, inputs, (dk4, dv4),
                 flops=8 * scores * d, transcendentals=scores)
 

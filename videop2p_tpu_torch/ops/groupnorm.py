@@ -41,6 +41,7 @@ import torch
 from videop2p_tpu_torch.obs.introspect import hidden_from_analysis, note_kernel
 from videop2p_tpu_torch.ops._autograd import recompute_grads
 from videop2p_tpu_torch.ops._build import bind
+from videop2p_tpu_torch.utils.cuda_graphs import count_launch
 
 __all__ = ["fused_group_norm", "group_norm_reference", "group_norm_stats",
            "group_norm_apply", "launch_count", "reset_launch_count", "plan", "GnPlan",
@@ -65,6 +66,8 @@ _launches = 0
 _count_lock = threading.Lock()
 # (device index, stream) → the scratch buffer, grown on demand
 _scratch: dict = {}
+# the buffers a growth replaced: a captured CUDA graph may still launch on one
+_retired: list = []
 
 
 class GnPlan(NamedTuple):
@@ -261,10 +264,14 @@ def _plan_for(x: torch.Tensor, num_groups: int) -> GnPlan:
 def _scratch_for(device: torch.device, stream: int, nbytes: int) -> torch.Tensor:
     """The scratch of (device, stream), grown to ``nbytes``: allocated
     zeroed (the barrier's counter starts at 0 and is never reset), and
-    reused by every later call on that stream, which runs after it."""
+    reused by every later call on that stream, which runs after it. A
+    grown scratch keeps the one it replaces alive (a graph captured on the
+    stream holds its address)."""
     key = (device.index, stream)
     buf = _scratch.get(key)
     if buf is None or buf.numel() < nbytes:
+        if buf is not None:
+            _retired.append(buf)
         # built once and kept: a program analysis must not see it only on
         # the call that happens to grow it
         with hidden_from_analysis():
@@ -301,7 +308,7 @@ def _launch(x, scale, bias, num_groups: int, eps: float, act: str) -> torch.Tens
                 num_groups, p.vec, p.threads, p.lanes, p.colsets, p.grid,
                 p.samples_per_block, p.blocks_per_sample, p.smem_rows, p.smem_bytes,
                 float(eps), int(act == "silu"), stream)
-    _count(p.launches)
+    count_launch(_count, p.launches)
     # no product; the SiLU's sigmoid an element
     note_kernel("group_norm_fwd", _SOURCE, (x, scale, bias), (y,),
                 transcendentals=x.numel() if act == "silu" else 0)
@@ -341,7 +348,7 @@ def _staged(mode: int, x, scale, bias, y, sums, num_groups: int, eps: float, sil
                        num_groups, p.vec, p.threads, p.lanes, p.colsets, p.grid,
                        p.samples_per_block, p.blocks_per_sample, p.smem_rows, p.smem_bytes,
                        float(eps), int(silu), int(shards), stream)
-    _count(1)
+    count_launch(_count, 1)
 
 
 def group_norm_stats(x: torch.Tensor, *, num_groups: int) -> torch.Tensor:

@@ -34,6 +34,7 @@ import os
 import socket
 import sys
 import threading
+import traceback
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
@@ -214,9 +215,9 @@ def control_group():
         return _CONTROL[0]
 
 
-def leave_process_group(rc: int) -> None:
+def leave_process_group(rc: int, then: Optional[Callable[[], None]] = None) -> None:
     """End this process with exit code ``rc`` in step with the other ranks
-    of its process group; without one, return at once.
+    of its process group; without one, run ``then`` and return.
 
     After a barrier on :func:`control_group` (every rank is done with its
     collectives) the streams are flushed and the process leaves through
@@ -228,10 +229,21 @@ def leave_process_group(rc: int) -> None:
     through the worker's C++ frames calls ``std::terminate`` (SIGABRT,
     "terminate called without an active exception"). A served mesh's
     ranks aborted that way now and then under load. Call it last, when
-    everything the process writes is closed."""
+    everything the process writes is closed. ``then``: this rank's own
+    work after the barrier, which enters no collective (Stage 1's
+    distillation on rank 0): the other ranks leave without waiting for it,
+    and a failure in it makes the exit code 1."""
     if not dist.is_initialized():
+        if then is not None:
+            then()
         return
     dist.barrier(group=control_group())
+    if then is not None:
+        try:
+            then()
+        except Exception:  # noqa: BLE001 — reported, then the rank leaves with 1
+            traceback.print_exc()
+            rc = 1
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(rc)

@@ -33,6 +33,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from videop2p_tpu_torch.utils.cuda_graphs import index_step
+
 __all__ = [
     "CachedSource",
     "capture_windows",
@@ -113,11 +115,12 @@ def merge_site_trees(a: Optional[SiteTree], b: Optional[SiteTree]) -> SiteTree:
     return {**(a or {}), **(b or {})}
 
 
-def slice_site_tree(tree: Optional[SiteTree], index: int) -> Optional[SiteTree]:
-    """Every leaf indexed at ``index`` along its leading (step) axis."""
+def slice_site_tree(tree: Optional[SiteTree], index) -> Optional[SiteTree]:
+    """Every leaf indexed at ``index`` (an int, or a 0-d int64 tensor on the
+    leaves' device) along its leading (step) axis."""
     if not tree:
         return None
-    return {path: leaf[index] for path, leaf in tree.items()}
+    return {path: index_step(leaf, index) for path, leaf in tree.items()}
 
 
 def tree_bytes(*trees: Optional[SiteTree]) -> int:
@@ -156,21 +159,32 @@ class CachedSource:
                 return leaf.dtype
         return torch.float32
 
-    def base_tree_at(self, step_index: int) -> Optional[SiteTree]:
+    def base_indices(self, step_index: int) -> Tuple[int, int]:
+        """The capture indices edit step ``step_index`` reads: ``(cross,
+        temporal)``, each clamped into its window (0 for an empty one)."""
+        lo, hi = self.self_window
+        return (min(max(step_index, 0), max(self.cross_len - 1, 0)),
+                min(max(step_index - lo, 0), max(hi - lo - 1, 0)))
+
+    def base_tree_at(self, step_index, temporal_index=None) -> Optional[SiteTree]:
         """The base maps of edit step ``step_index`` for
         :attr:`AttnControl.cached_base`. Outside a window the index clamps to
         the window's edge: that stale map is multiplied out by its closed
         gate. 1-byte temporal maps decode on read: float8 upcasts, int8
-        divides by 127."""
+        divides by 127. With ``temporal_index`` both indices are 0-d int64
+        tensors on the device (:meth:`base_indices`' pair, read from a step
+        body's buffer), and the maps are gathered there."""
+        if temporal_index is None:
+            cross_index, temporal_index = self.base_indices(step_index)
+        else:
+            cross_index = step_index
         cross = None
         if self.cross_maps and self.cross_len > 0:
-            cross = slice_site_tree(self.cross_maps,
-                                    min(max(step_index, 0), self.cross_len - 1))
+            cross = slice_site_tree(self.cross_maps, cross_index)
         temporal = None
         lo, hi = self.self_window
         if self.temporal_maps and hi > lo:
-            temporal = slice_site_tree(self.temporal_maps,
-                                       min(max(step_index - lo, 0), hi - lo - 1))
+            temporal = slice_site_tree(self.temporal_maps, temporal_index)
             target = self._capture_compute_dtype()
             for path, leaf in temporal.items():
                 if leaf.element_size() == 1:

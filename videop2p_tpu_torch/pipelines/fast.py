@@ -118,7 +118,8 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
                      generator: Optional[torch.Generator] = None,
                      reuse_schedule: Optional[str] = None,
                      student_head: Optional[dict] = None, telemetry: bool = False,
-                     attn_maps: bool = False, device_probe: Optional[Callable] = None):
+                     attn_maps: bool = False, device_probe: Optional[Callable] = None,
+                     cuda_graphs: Optional[bool] = None):
     """Capture-inversion of ``latents`` under ``cond_src``, then the
     cached-source controlled edit under ``cond_all`` / ``uncond``. Returns
     ``(trajectory, edited)``: the trajectory (N + 1, 1, F, h, w, C) and the
@@ -137,7 +138,11 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
     capture walk; "edit": the edit streams' with the blend-mask series}``
     (``edit_sample``'s records), ``device_probe`` the edit's per-device
     channels; the return is then ``(trajectory, edited[, tel][, dev][,
-    attn])``, the outputs the same bits as without them."""
+    attn])``, the outputs the same bits as without them.
+
+    ``cuda_graphs``: both loops' steps replay as CUDA graphs when None (the
+    default) on a CUDA device outside a mesh (``utils/cuda_graphs.py``);
+    False runs the eager loops, the same bits."""
     if attn_maps and reuse_schedule not in (None, "off"):
         # edit_sample refuses it too; refuse before the capture runs
         raise ValueError(
@@ -150,7 +155,8 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
         self_window=self_window,
         capture_blend=ctx is not None and ctx.blend is not None,
         temporal_maps_dtype=temporal_maps_dtype, dependent_weight=dependent_weight,
-        dependent_sampler=dependent_sampler, generator=generator, attn_maps=attn_maps)
+        dependent_sampler=dependent_sampler, generator=generator, attn_maps=attn_maps,
+        cuda_graphs=cuda_graphs)
     trajectory, cached = inv[0], inv[1]
     edited = edit_sample(unet_fn, scheduler, trajectory[-1], cond_all, uncond,
                          num_inference_steps=num_inference_steps,
@@ -158,7 +164,7 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
                          source_uses_cfg=False, cached_source=cached,
                          reuse_schedule=reuse_schedule, student_head=student_head,
                          telemetry=telemetry, attn_maps=attn_maps,
-                         device_probe=device_probe)
+                         device_probe=device_probe, cuda_graphs=cuda_graphs)
     if not (telemetry or attn_maps or device_probe is not None):
         return trajectory, edited
     edited, *extras = edited

@@ -18,6 +18,16 @@ every UNet prediction ε̂ becomes (1 − w)·ε̂ + w·n, n a fresh draw of
 ``dependent_sampler`` from ``generator`` (one seeded with 0 on the latents'
 device when None, as JAX's default key), in the draw order of the JAX
 package's key splits.
+
+The captured inversion and null-text optimization ("optimize",
+"amortized") run their steps as step bodies over device buffers
+(``utils/cuda_graphs.py``): each step writes its inputs (timestep, indices,
+Adam's lr and bias corrections, the step's noise, drawn outside the body in
+the same order) into buffers and runs the body, which CUDA graphs replay on
+a CUDA device outside a mesh (``cuda_graphs`` None, the default; False
+keeps the eager loop, the same bits). Null-text's early stop reads the loss
+after each inner step, as JAX's ``while_loop`` carries it on the device.
+"Hybrid" null-text stays an eager loop.
 """
 
 from __future__ import annotations
@@ -38,9 +48,11 @@ from videop2p_tpu_torch.parallel.mesh import frames_draw, global_mean, reduce_fr
 from videop2p_tpu_torch.pipelines.cached import CachedSource, filter_site_tree
 from videop2p_tpu_torch.pipelines.sampling import UNetFn, unet_module
 from videop2p_tpu_torch.pipelines.stores import blend_maps_from_store
+from videop2p_tpu_torch.utils import cuda_graphs as graphs_mod
+from videop2p_tpu_torch.utils.cuda_graphs import StepInputs, write_step
 
 __all__ = ["ddim_inversion", "ddim_inversion_captured", "null_text_optimization",
-           "adam_update", "check_null_text_options", "NULL_TEXT_PRECISIONS",
+           "adam_update", "adam_corrections", "check_null_text_options", "NULL_TEXT_PRECISIONS",
            "NULL_TEXT_MODES"]
 
 NULL_TEXT_PRECISIONS = ("fp32", "mixed")
@@ -72,6 +84,24 @@ def _dependent_blend(eps: torch.Tensor, weight: float,
     noise = frames_draw(lambda shape: sampler.sample_like(eps.new_empty(shape), generator),
                         eps.shape)
     return (1.0 - weight) * eps + weight * noise
+
+
+def _blend_drawn(eps: torch.Tensor, weight: float, noise: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`_dependent_blend` with the draw made already (float32, in
+    ``noise``), cast to ε's dtype as a draw in that dtype would be."""
+    if noise is None:
+        return eps
+    return (1.0 - weight) * eps + weight * noise.to(eps.dtype)
+
+
+def _draw_into(noise: Optional[torch.Tensor], sampler: Optional[DependentNoiseSampler],
+               generator: Optional[torch.Generator]) -> None:
+    """One float32 draw of ``sampler`` shaped like ``noise``, written into it
+    (a step's noise buffer; nothing without one). On a frame-sharded mesh
+    the whole clip's draw, this rank's frames kept."""
+    if noise is not None:
+        noise.copy_(frames_draw(lambda shape: sampler.sample_like(
+            noise.new_empty(shape), generator), noise.shape))
 
 
 @torch.no_grad()
@@ -140,6 +170,7 @@ def ddim_inversion_captured(
     dependent_sampler: Optional[DependentNoiseSampler] = None,
     generator: Optional[torch.Generator] = None,
     attn_maps: bool = False,
+    cuda_graphs: Optional[bool] = None,
 ):
     """:func:`ddim_inversion` that also captures what a cached-source edit
     reads (see :mod:`videop2p_tpu_torch.pipelines.cached`):
@@ -160,86 +191,112 @@ def ddim_inversion_captured(
     with ``attn_maps`` a third element: the source stream's stacked
     per-step attention record, in walk order (in the cached fast edit the
     only place the source's maps show, its stream having left the edit
-    batch)."""
+    batch).
+
+    Each step is a step body over device buffers, keyed by which windows
+    it captures; ``cuda_graphs`` (None: CUDA graphs on a CUDA device
+    outside a mesh; False: the eager loop, the same bits) decides whether
+    they are replayed as CUDA graphs (``utils/cuda_graphs.py``)."""
     N = num_inference_steps
     lo, hi = self_window
     if not 0 <= lo <= hi <= N:
         raise ValueError(f"self_window {self_window} outside [0, {N}]")
     if not 0 <= cross_len <= N:
         raise ValueError(f"cross_len {cross_len} outside [0, {N}]")
-    latent = latents.float()
-    generator = _dependent_generator(dependent_weight, dependent_sampler, generator,
-                                     latent.device)
-    video_length = latent.shape[1]
-    latent_hw = tuple(latent.shape[2:4])
+    latent0 = latents.float()
+    device = latent0.device
+    generator = _dependent_generator(dependent_weight, dependent_sampler, generator, device)
+    video_length = latent0.shape[1]
+    latent_hw = tuple(latent0.shape[2:4])
     text_len = cond_embedding.shape[-2]
     timesteps = scheduler.timesteps(N)[::-1]
+    # step j's inputs: its timestep, the trajectory position it writes, the
+    # edit step that reads its capture and that step's temporal slot
+    inputs = StepInputs({"t": timesteps, "pos": range(1, N + 1),
+                         "edit": [N - 1 - j for j in range(N)],
+                         "slot": [N - 1 - j - lo for j in range(N)]}, device)
+    trajectory = latent0.new_empty((N + 1, *latent0.shape))
+    trajectory[0] = latent0
+    latent = latent0.clone()
+    noise = torch.empty_like(latent0) if generator is not None else None
     cross: Dict[str, torch.Tensor] = {}
     temporal: Dict[str, torch.Tensor] = {}
-    blend_seq = None
+    blend: Dict[str, torch.Tensor] = {}
 
     def put(buffers, store, site, index, length, encode):
         for path, leaf in filter_site_tree(store[BASE_STORE], site).items():
             leaf = encode(leaf)
             if path not in buffers:
                 buffers[path] = leaf.new_empty((length, *leaf.shape))
-            buffers[path][index] = leaf
+            write_step(buffers[path], index, leaf)
 
-    trajectory = [latent]
-    attn_steps = []
-    bounds = sorted({0, N - hi, N - lo, N - cross_len, N})
-    for s, e in zip(bounds[:-1], bounds[1:]):
-        want_cross = s >= N - cross_len
-        want_temporal = s >= N - hi and e <= N - lo
+    def body(want_cross: bool, want_temporal: bool):
         capture = want_cross or want_temporal
         control = AttnControl(None, 0, capture=True) if capture else None
-        for j in range(s, e):
-            t = int(timesteps[j])
-            eps, store = unet_fn(latent, t, cond_embedding, control,
-                                 store=capture or capture_blend or attn_maps)
-            eps = _dependent_blend(eps, dependent_weight, dependent_sampler, generator)
-            latent = scheduler.next_step(eps, t, latent, N)
-            trajectory.append(latent)
-            if attn_maps:
-                attn_steps.append(_inversion_attn_record(store, latent, cond_embedding))
-            i = N - 1 - j  # the edit step that reads this capture
-            if capture_blend:
-                maps = blend_maps_from_store(
-                    store, latent_hw=latent_hw, video_length=video_length,
-                    num_prompts=1, text_len=text_len, num_uncond=0).float()
-                if blend_seq is None:
-                    blend_seq = maps.new_empty((N, *maps.shape))
-                blend_seq[i] = maps
-            if want_cross:
-                put(cross, store, "attn2", i, cross_len, lambda a: a)
-            if want_temporal:
-                put(temporal, store, "attn_temp", i - lo, hi - lo,
-                    lambda a: _encode_temporal(a, temporal_maps_dtype))
-    trajectory = torch.stack(trajectory)
+        eps, store = unet_fn(latent, inputs.t, cond_embedding, control,
+                             store=capture or capture_blend or attn_maps)
+        eps = _blend_drawn(eps, dependent_weight, noise)
+        new = scheduler.next_step(eps, inputs.t, latent, N)
+        latent.copy_(new)
+        write_step(trajectory, inputs.pos, new)
+        if capture_blend:
+            maps = blend_maps_from_store(
+                store, latent_hw=latent_hw, video_length=video_length,
+                num_prompts=1, text_len=text_len, num_uncond=0).float()
+            if "seq" not in blend:
+                blend["seq"] = maps.new_empty((N, *maps.shape))
+            write_step(blend["seq"], inputs.edit, maps)
+        if want_cross:
+            put(cross, store, "attn2", inputs.edit, cross_len, lambda a: a)
+        if want_temporal:
+            put(temporal, store, "attn_temp", inputs.slot, hi - lo,
+                lambda a: _encode_temporal(a, temporal_maps_dtype))
+        return _inversion_attn_record(store, new, cond_embedding) if attn_maps else None
+
+    attn_steps = []
+    bounds = sorted({0, N - hi, N - lo, N - cross_len, N})
+    with graphs_mod.step_graphs(cuda_graphs, device, "capture_inversion") as graphs:
+        for s, e in zip(bounds[:-1], bounds[1:]):
+            want_cross = s >= N - cross_len
+            want_temporal = s >= N - hi and e <= N - lo
+            for j in range(s, e):
+                inputs.load(j)
+                _draw_into(noise, dependent_sampler, generator)
+                rec = graphs.run((want_cross, want_temporal), body, want_cross, want_temporal)
+                if attn_maps:
+                    attn_steps.append(graphs.kept(rec))
     cached = CachedSource(
         src_latents=torch.flip(trajectory, dims=(0,)),
         cross_maps=cross or None, temporal_maps=temporal or None,
-        blend_seq=blend_seq, cross_len=cross_len, self_window=(lo, hi))
+        blend_seq=blend.get("seq"), cross_len=cross_len, self_window=(lo, hi))
     if attn_maps:
         return trajectory, cached, stack_attn_steps(attn_steps)
     return trajectory, cached
 
 
+def adam_corrections(count: int) -> Tuple[float, float]:
+    """optax's bias corrections 1 − b1^count and 1 − b2^count, in float32."""
+    c1 = float(np.float32(1) - np.float32(_ADAM_B1) ** np.float32(count))
+    c2 = float(np.float32(1) - np.float32(_ADAM_B2) ** np.float32(count))
+    return c1, c2
+
+
 def adam_update(param: torch.Tensor, grad: torch.Tensor, state: Optional[tuple],
-                lr: float) -> Tuple[torch.Tensor, tuple]:
+                lr, *, corrections=None) -> Tuple[torch.Tensor, tuple]:
     """One step of ``optax.adam(1.0)`` (b1 0.9, b2 0.999, eps 1e-8, no
     eps_root), its update scaled by ``lr`` and applied: returns the new
     parameter and the state ``(mu, nu, count)``; ``state`` None is a fresh
-    one. In the parameter's dtype, as optax computes it."""
+    one. In the parameter's dtype, as optax computes it. ``lr`` and the
+    bias ``corrections`` ``(c1, c2)`` may be 0-d float32 tensors on the
+    device (a step body's buffers); ``corrections`` None computes them
+    from the count (:func:`adam_corrections`)."""
     if state is None:
         state = (torch.zeros_like(param), torch.zeros_like(param), 0)
     mu, nu, count = state
     mu = (1 - _ADAM_B1) * grad + _ADAM_B1 * mu
     nu = (1 - _ADAM_B2) * grad ** 2 + _ADAM_B2 * nu
     count += 1
-    # 1 − decay**count in float32, as optax's bias correction
-    c1 = float(np.float32(1) - np.float32(_ADAM_B1) ** np.float32(count))
-    c2 = float(np.float32(1) - np.float32(_ADAM_B2) ** np.float32(count))
+    c1, c2 = adam_corrections(count) if corrections is None else corrections
     update = -((mu / c1) / (torch.sqrt(nu / c2) + _ADAM_EPS))
     return param + lr * update, (mu, nu, count)
 
@@ -372,6 +429,7 @@ def null_text_optimization(
     generator: Optional[torch.Generator] = None,
     outer_chunk: Optional[int] = None,
     telemetry: bool = False,
+    cuda_graphs: Optional[bool] = None,
 ):
     """Optimize a per-step unconditional embedding under which CFG denoising
     replays the recorded inversion trajectory (the reference's
@@ -429,6 +487,14 @@ def null_text_optimization(
     of its last inner reconstruction), stacked on the device, as the last
     element.
 
+    "optimize" and "amortized" run as step bodies over device buffers: an
+    outer step's conditional forward, each inner step (forward,
+    ``autograd.grad`` through the UNet, Adam) and the advance ("amortized":
+    one body an outer step), replayed as CUDA graphs as ``cuda_graphs``
+    decides (None: on a CUDA device outside a mesh; False: the eager loop,
+    the same bits). Early stop reads the loss once an inner step, as the
+    eager loop does. "hybrid" stays an eager loop.
+
     Returns the embeddings (N, B, L, D) float32, plus, with
     ``return_losses``, the final inner loss of each outer step (N,) (the
     last pre-update loss; the amortized replay's loss) and, with
@@ -449,9 +515,6 @@ def null_text_optimization(
         eps, _ = unet_fn(latent, t, text, None, store=False)
         return eps.float()
 
-    def blend(eps):
-        return _dependent_blend(eps, dependent_weight, dependent_sampler, generator)
-
     def cfg_step(eps_uncond, eps_cond, t, latent):
         eps = eps_uncond + guidance_scale * (eps_cond - eps_uncond)
         return scheduler.prev_step(eps, t, latent, N)
@@ -468,56 +531,101 @@ def null_text_optimization(
                        return_inner_steps=return_inner_steps, telemetry=telemetry,
                        program=program)
 
-    timesteps = scheduler.timesteps(N)
+    device = trajectory.device
+    w = dependent_weight
     embeddings: List[torch.Tensor] = []
     losses: List[torch.Tensor] = []
     inner_steps: List[int] = []
     tel: List[dict] = []
-    carry = {"latent": trajectory[-1], "uncond": uncond}
+    inputs = StepInputs({"t": scheduler.timesteps(N)}, device)
+    latent = trajectory[-1].clone()
+    latent_prev = torch.empty_like(latent)
+    uncond = uncond.clone()
+    eps_raw, eps_cond = torch.empty_like(latent), torch.empty_like(latent)
+    # Adam's moments, and its lr and bias corrections as device scalars
+    mu, nu = torch.zeros_like(uncond), torch.zeros_like(uncond)
+    lr, c1, c2 = (torch.zeros((), dtype=torch.float32, device=device) for _ in range(3))
+    # the noise each body blends, drawn before it in JAX's order: the cond
+    # prediction's, each inner evaluation's, the advance's uncond and cond
+    n_cond, n_inner, n_fu, n_fc = (
+        (torch.empty_like(latent) if generator is not None else None) for _ in range(4))
 
-    def run_chunk(start: int, stop: int) -> None:
-        latent_cur, uncond = carry["latent"], carry["uncond"]
+    def cond_body():
+        raw = fwd(latent, inputs.t, cond)
+        eps_raw.copy_(raw)
+        eps_cond.copy_(_blend_drawn(raw, w, n_cond))
+
+    def inner_body():
+        with torch.enable_grad():
+            leaf = uncond.detach().requires_grad_(True)
+            prev_rec = cfg_step(_blend_drawn(fwd(latent, inputs.t, leaf), w, n_inner),
+                                eps_cond, inputs.t, latent)
+            # on a frame-sharded mesh: the global loss on every rank (so
+            # every rank stops at the same inner step) and the gradient
+            # summed over the frames group
+            loss = global_mean((prev_rec - latent_prev) ** 2)
+            (grad,) = reduce_frame_grads(torch.autograd.grad(loss, leaf))
+        new, (mu_new, nu_new, _) = adam_update(uncond, grad, (mu, nu, 0), lr,
+                                               corrections=(c1, c2))
+        mu.copy_(mu_new)
+        nu.copy_(nu_new)
+        uncond.copy_(new)
+        return loss.detach()
+
+    def advance_body():
+        eps_fu = _blend_drawn(fwd(latent, inputs.t, uncond), w, n_fu)
+        new = cfg_step(eps_fu, _blend_drawn(eps_raw, w, n_fc), inputs.t, latent)
+        latent.copy_(new)
+        return latent_stats(new) if telemetry else None
+
+    def amortized_body():
+        raw = fwd(latent, inputs.t, cond)
+        eps_fu = _blend_drawn(raw, w, n_fu)
+        new = cfg_step(eps_fu, _blend_drawn(raw, w, n_fc), inputs.t, latent)
+        latent.copy_(new)
+        return global_mean((new - latent_prev) ** 2), (latent_stats(new) if telemetry else None)
+
+    def draw(*buffers):
+        for buf in buffers:
+            _draw_into(buf, dependent_sampler, generator)
+
+    def run_chunk(graphs, start: int, stop: int) -> None:
         for i in range(start, stop):
-            t = int(timesteps[i])
-            latent_prev = trajectory[N - i - 1]
-            eps_cond_raw = fwd(latent_cur, t, cond)
+            inputs.load(i)
+            latent_prev.copy_(trajectory[N - i - 1])
             if null_text_mode == "amortized":
-                uncond = cond.float()
-                eps_fu = blend(eps_cond_raw)
-                latent_cur = cfg_step(eps_fu, blend(eps_cond_raw), t, latent_cur)
-                losses.append(global_mean((latent_cur - latent_prev) ** 2))
+                draw(n_fu, n_fc)
+                loss, stats = graphs.run("amortized", amortized_body)
+                losses.append(graphs.kept(loss))
                 inner_steps.append(0)
-                embeddings.append(uncond)
+                embeddings.append(cond.float())
             else:
-                lr, thresh = _lr_and_threshold(i, epsilon)
-                eps_cond = blend(eps_cond_raw)
-                state, loss, j = None, torch.tensor(float("inf")), 0
+                lr_i, thresh = _lr_and_threshold(i, epsilon)
+                lr.fill_(lr_i)
+                draw(n_cond)
+                graphs.run("cond", cond_body)
+                mu.zero_()
+                nu.zero_()
+                loss, j = torch.tensor(float("inf")), 0
                 while j < num_inner_steps and (not early_stop or loss.item() >= thresh):
-                    with torch.enable_grad():
-                        leaf = uncond.detach().requires_grad_(True)
-                        prev_rec = cfg_step(blend(fwd(latent_cur, t, leaf)), eps_cond, t,
-                                            latent_cur)
-                        # on a frame-sharded mesh: the global loss on every
-                        # rank (so every rank stops at the same inner step)
-                        # and the gradient summed over the frames group
-                        loss = global_mean((prev_rec - latent_prev) ** 2)
-                        (grad,) = reduce_frame_grads(torch.autograd.grad(loss, leaf))
-                    loss = loss.detach()
-                    uncond, state = adam_update(uncond, grad, state, lr)
+                    c1_j, c2_j = adam_corrections(j + 1)
+                    c1.fill_(c1_j)
+                    c2.fill_(c2_j)
+                    draw(n_inner)
+                    loss = graphs.run("inner", inner_body)
                     j += 1
-                losses.append(loss.to(latent_cur.device))
+                losses.append(graphs.kept(loss).to(device))
                 inner_steps.append(j)
-                embeddings.append(uncond)
-                # the advance's uncond draw, then its cond draw (JAX's k_fu, k_fc)
-                eps_fu = blend(fwd(latent_cur, t, uncond))
-                latent_cur = cfg_step(eps_fu, blend(eps_cond_raw), t, latent_cur)
+                embeddings.append(uncond.clone())
+                draw(n_fu, n_fc)
+                stats = graphs.run("advance", advance_body)
             if telemetry:
-                tel.append(latent_stats(latent_cur))
-        carry["latent"], carry["uncond"] = latent_cur, uncond
+                tel.append(graphs.kept(stats))
 
     step = run_chunk if program is None else instrumented_program(run_chunk, program=program)
-    with _frozen(unet_fn), torch.no_grad():
+    with _frozen(unet_fn), torch.no_grad(), \
+            graphs_mod.step_graphs(cuda_graphs, device, "null_text") as graphs:
         for start in range(0, N, chunk):
-            step(start, min(start + chunk, N))
+            step(graphs, start, min(start + chunk, N))
     return _pack(embeddings, losses, inner_steps, return_losses, return_inner_steps,
                  tel if telemetry else None)

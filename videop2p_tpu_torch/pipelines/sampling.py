@@ -60,6 +60,8 @@ from videop2p_tpu_torch.pipelines.cached import (
 )
 from videop2p_tpu_torch.pipelines.reuse import parse_reuse_schedule
 from videop2p_tpu_torch.pipelines.stores import blend_maps_from_store
+from videop2p_tpu_torch.utils import cuda_graphs as graphs_mod
+from videop2p_tpu_torch.utils.cuda_graphs import StepInputs, index_step
 
 __all__ = ["edit_sample", "make_unet_fn", "official_edit", "official_null_text",
            "unet_module", "UNetFn"]
@@ -68,16 +70,18 @@ __all__ = ["edit_sample", "make_unet_fn", "official_edit", "official_null_text",
 UNetFn = Callable[..., Tuple[torch.Tensor, Optional[dict]]]
 
 
-def _controller_gates(ctx: Optional[ControlContext], i: int, device) -> dict:
+def _controller_gates(ctx: Optional[ControlContext], i: int, device, step=None) -> dict:
     """The controller's edit activity at step ``i``, as 0-d tensors on
     ``device``: the mean cross-replace gate and whether the self/temporal
     replacement window covers the step (made on the device: no copy from
-    the host inside the loop)."""
+    the host inside the loop). ``step``: ``i`` as a 0-d int64 tensor on the
+    device, which then picks the gate."""
     if ctx is None:
         return {"cross_gate_mean": torch.zeros((), device=device),
                 "self_edit_active": torch.zeros((), dtype=torch.int32, device=device)}
     lo, hi = ctx.self_replace_range
-    return {"cross_gate_mean": ctx.cross_replace_alpha[i].float().mean(),
+    gate = index_step(ctx.cross_replace_alpha, i if step is None else step)
+    return {"cross_gate_mean": gate.float().mean(),
             "self_edit_active": torch.full((), int(lo <= i < hi), dtype=torch.int32,
                                            device=device)}
 
@@ -155,7 +159,8 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
                 dependent_sampler: Optional[DependentNoiseSampler] = None,
                 step_positions=None, reuse_schedule: Optional[str] = None,
                 student_head: Optional[dict] = None, telemetry: bool = False,
-                attn_maps: bool = False, device_probe: Optional[Callable] = None):
+                attn_maps: bool = False, device_probe: Optional[Callable] = None,
+                cuda_graphs: Optional[bool] = None):
     """Run the controlled denoise; returns final latents (P, F, h, w, C).
 
     ``latents``: x_T, (1, F, h, w, C) (shared by all streams) or (P, …);
@@ -214,6 +219,11 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
         also return its per-step channels of the latents after each step
         (the edit streams in cached mode) — each rank's local statistics
         and the cross-replica divergence.
+      * ``cuda_graphs`` (cached mode): its steps are step bodies over
+        device buffers, keyed by their branch pattern and replayed as CUDA
+        graphs (``utils/cuda_graphs.py``) when None (the default) on a CUDA
+        device outside a mesh; False keeps the eager loop (the same bits).
+        The live loop is eager.
 
     With any, the return is ``(latents[, tel][, dev][, attn])``."""
     if cond_embeddings.dim() not in (3, 4):
@@ -291,7 +301,8 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
             cached_source, num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, ctx=ctx, step_positions=step_positions,
             reuse_schedule=reuse_schedule, student_head=student_head,
-            telemetry=telemetry, attn_maps=attn_maps, device_probe=device_probe)
+            telemetry=telemetry, attn_maps=attn_maps, device_probe=device_probe,
+            cuda_graphs=cuda_graphs)
 
     # the source stream's uncond at each step: the null-text sequence when
     # given, else the raw uncond
@@ -384,7 +395,8 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
                         ctx: Optional[ControlContext], step_positions=None,
                         reuse_schedule: Optional[str] = None,
                         student_head: Optional[dict] = None, telemetry: bool = False,
-                        attn_maps: bool = False, device_probe: Optional[Callable] = None):
+                        attn_maps: bool = False, device_probe: Optional[Callable] = None,
+                        cuda_graphs: Optional[bool] = None):
     """The cached-source loop: the batch is E uncond + E edit streams, the
     controllers read the captured base maps of each step, and LocalBlend
     sums the source's captured blend maps with the edit streams' live ones,
@@ -398,7 +410,13 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
     (``train/distill.py``) modulates the edit streams' ε before CFG.
     ``telemetry`` / ``attn_maps``: :func:`edit_sample`'s records, over the
     edit streams (the source stream is the capture's replay; its maps show
-    in the capture's own record); the mask series keeps all streams."""
+    in the capture's own record); the mask series keeps all streams.
+
+    Each step is a step body over device buffers (the step's timesteps,
+    its indices into the capture, the edit latents, LocalBlend's running
+    sum, the reuse schedule's deep feature), keyed by its branch pattern:
+    the first step, full or shallow, the blend gate, SpatialReplace and the
+    temporal window."""
     P = cond_embeddings.shape[0]
     E = U = P - 1
     if E < 1:
@@ -407,20 +425,21 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
     latent_hw = tuple(latents.shape[2:4])
     text_len = cond_embeddings.shape[-2]
     base_steps = cached.num_steps
+    N = num_inference_steps
+    ratio = scheduler.num_train_timesteps // N
     if step_positions is None:
-        positions = np.arange(num_inference_steps)
-        timesteps = scheduler.timesteps(num_inference_steps)
-        prev_timesteps = [None] * num_inference_steps
+        positions = np.arange(N)
+        timesteps = scheduler.timesteps(N)
+        prev_timesteps = timesteps - ratio
     else:
         positions = np.asarray(step_positions, dtype=np.int64)
         base_ts = scheduler.timesteps(base_steps)
         timesteps = base_ts[positions]
         ratio = scheduler.num_train_timesteps // base_steps
-        prev_timesteps = [int(p) for p in np.append(timesteps[1:], base_ts[-1] - ratio)]
-        check_subset_windows(ctx, cached, positions, num_inference_steps)
+        prev_timesteps = np.append(timesteps[1:], base_ts[-1] - ratio)
+        check_subset_windows(ctx, cached, positions, N)
     # the source latent after step i: the next visited grid point, x_0 last
     src_after = np.append(positions[1:], base_steps)
-    edit_latents = latents[1:]
     text = torch.cat([uncond_embeddings.expand(E, *uncond_embeddings.shape),
                       cond_embeddings[1:]], dim=0)
     if ctx is not None and ctx.kind != "empty":
@@ -441,64 +460,113 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
             "LocalBlend is configured but the capture has no blend_seq: run "
             "ddim_inversion_captured(capture_blend=True)")
     full_steps = (None if reuse_schedule in (None, "off")
-                  else parse_reuse_schedule(reuse_schedule, num_inference_steps))
-    deep_feature = last_maps = None
+                  else parse_reuse_schedule(reuse_schedule, N))
+    device = latents.device
+    base = [cached.base_indices(int(p)) for p in positions]
+    inputs = StepInputs({"t": timesteps, "prev": prev_timesteps, "step": range(N),
+                         "base": positions, "src": src_after,
+                         "cross": [c for c, _ in base], "temporal": [t for _, t in base]},
+                        device)
+    edit_latents = latents[1:].clone(memory_format=torch.contiguous_format)
+    # LocalBlend's running sum, and the reuse schedule's deep feature and
+    # edit maps of the last full step: made by the first step, then
+    # updated in place
+    state = {}
 
     def edit_maps_of(store):
         return blend_maps_from_store(
             store, latent_hw=latent_hw, video_length=video_length,
             num_prompts=E, text_len=text_len, num_uncond=U).float()
 
-    maps_sum = None
-    tel, attn, dev = [], [], []
-    for i, t in enumerate(timesteps):
-        t, base_i = int(t), int(positions[i])
+    def keep(name, value):
+        if name in state:
+            state[name].copy_(value)
+        else:
+            state[name] = value
+
+    def body(i: int, full: Optional[bool]):
+        """Step ``i``'s work: ``i`` only decides the branches its variant
+        key fixes; every per-step value comes from ``inputs``."""
         latent_in = torch.cat([edit_latents, edit_latents], dim=0)
-        control = (AttnControl(ctx, i, U, cached_base=cached.base_tree_at(base_i),
-                               cached_source=True) if ctx is not None else None)
-        if full_steps is None:
-            eps_all, store = unet_fn(latent_in, t, text, control, store=use_blend or attn_maps)
+        control = None
+        if ctx is not None:
+            control = AttnControl(ctx, i, U, step=inputs.step, cached_source=True,
+                                  cached_base=cached.base_tree_at(inputs.cross, inputs.temporal))
+        store = None
+        if full is None:
+            eps_all, store = unet_fn(latent_in, inputs.t, text, control,
+                                     store=use_blend or attn_maps)
             edit_maps = edit_maps_of(store) if use_blend else None
-        elif full_steps[i]:
-            (eps_all, deep_feature), store = unet_fn(latent_in, t, text, control,
-                                                     store=use_blend, deep_mode="capture")
-            edit_maps = last_maps = edit_maps_of(store) if use_blend else None
+        elif full:
+            (eps_all, deep), store = unet_fn(latent_in, inputs.t, text, control,
+                                             store=use_blend, deep_mode="capture")
+            keep("deep", deep)
+            edit_maps = None
+            if use_blend:
+                keep("last_maps", edit_maps_of(store))
+                edit_maps = state["last_maps"]
         else:
             # the shallow path re-adds the last full step's edit maps
-            eps_all, _ = unet_fn(latent_in, t, text, control, store=False,
-                                 deep_mode="shallow", deep_feature=deep_feature)
-            edit_maps = last_maps
+            eps_all, _ = unet_fn(latent_in, inputs.t, text, control, store=False,
+                                 deep_mode="shallow", deep_feature=state["deep"])
+            edit_maps = state.get("last_maps")
         if student_head is not None:
             # only the edit streams run the UNet; the source stream is the
             # capture's replay below, so src_err == 0.0 is untouched
             from videop2p_tpu_torch.train.distill import apply_time_head
 
-            eps_all = apply_time_head(student_head, eps_all, t)
+            eps_all = apply_time_head(student_head, eps_all, inputs.t)
         eps_all = eps_all.float()
         eps_uncond, eps_text = eps_all[:E], eps_all[E:]
         eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
-        edit_latents, _ = scheduler.step(eps, t, edit_latents, num_inference_steps,
-                                         prev_timestep=prev_timesteps[i])
-        source_after = cached.src_latents[int(src_after[i])]
+        new, _ = scheduler.step(eps, inputs.t, edit_latents, N, prev_timestep=inputs.prev)
+        source_after = index_step(cached.src_latents, inputs.src)
+        out = {}
         if use_blend:
-            maps = torch.cat([cached.blend_seq[base_i], edit_maps], dim=0)
-            maps_sum = maps if maps_sum is None else maps_sum + maps
-            full = torch.cat([source_after, edit_latents], dim=0)
-            edit_latents = local_blend(full, maps_sum, ctx.blend, i)[1:]
+            maps = torch.cat([index_step(cached.blend_seq, inputs.base), edit_maps], dim=0)
+            if i == 0:
+                state["maps_sum"] = maps
+            else:
+                state["maps_sum"].add_(maps)
+            full_latents = torch.cat([source_after, new], dim=0)
+            new = local_blend(full_latents, state["maps_sum"], ctx.blend, i)[1:]
         if ctx is not None and i < ctx.spatial_replace_until:
-            edit_latents = source_after.expand_as(edit_latents).contiguous()
+            new = source_after.expand_as(new)
+        edit_latents.copy_(new)
         if telemetry:
-            tel.append(dict(latent_stats(edit_latents),
-                            **_controller_gates(ctx, i, edit_latents.device)))
+            out["tel"] = dict(latent_stats(edit_latents),
+                              **_controller_gates(ctx, i, device, step=inputs.step))
         if device_probe is not None:
-            dev.append(device_probe(edit_latents))
+            out["dev"] = device_probe(edit_latents)
         if attn_maps:
             rec = attn_step_record(store, num_uncond=U, num_cond=E,
                                    video_length=video_length, text_len=text_len,
                                    latent_hw=latent_hw)
             if use_blend:
-                rec.update(_mask_series_entry(maps_sum, ctx.blend, i, latent_hw))
-            attn.append(rec)
+                rec.update(_mask_series_entry(state["maps_sum"], ctx.blend, i, latent_hw))
+            out["attn"] = rec
+        return out
+
+    def variant(i: int) -> tuple:
+        """Every Python-level branch of step ``i``'s body."""
+        full = None if full_steps is None else bool(full_steps[i])
+        if ctx is None:
+            return (i == 0, full)
+        lo, hi = ctx.self_replace_range
+        return (i == 0, full, use_blend and i >= ctx.blend.start_blend,
+                i < ctx.spatial_replace_until, lo <= i < hi)
+
+    tel, attn, dev = [], [], []
+    with graphs_mod.step_graphs(cuda_graphs, device, "cached_edit") as graphs:
+        for i in range(N):
+            inputs.load(i)
+            out = graphs.kept(graphs.run(variant(i), body, i, variant(i)[1]))
+            if telemetry:
+                tel.append(out["tel"])
+            if device_probe is not None:
+                dev.append(out["dev"])
+            if attn_maps:
+                attn.append(out["attn"])
     # stream 0 is the capture's x_0, copied without arithmetic
     return _pack_step_outputs(torch.cat([cached.src_latents[-1], edit_latents], dim=0),
                               telemetry, tel, attn_maps, attn,
@@ -519,7 +587,8 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
                   source_embedding: Optional[torch.Tensor] = None,
                   phase: Optional[Callable[[str], ContextManager]] = None,
                   null_embeddings: Optional[torch.Tensor] = None,
-                  telemetry: bool = False, attn_maps: bool = False):
+                  telemetry: bool = False, attn_maps: bool = False,
+                  cuda_graphs: Optional[bool] = None):
     """The official mode: null-text optimization of the source stream's
     uncond embedding against ``trajectory`` (N + 1, 1, F, h, w, C), then the
     controlled full-CFG edit from its x_T with those embeddings injected
@@ -543,7 +612,8 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
 
     ``telemetry`` / ``attn_maps`` go to the edit (:func:`edit_sample`),
     and ``telemetry`` to the null-text phase too (its record gains
-    ``latent_stats``).
+    ``latent_stats``). ``cuda_graphs`` goes to the null-text phase
+    (``null_text_optimization``); the full-CFG edit is an eager loop.
 
     Returns ``(latents (P, F, h, w, C), {"final_loss", "inner_steps"})``,
     the null-text record of each outer step (None when ``null_embeddings``
@@ -569,7 +639,7 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
             null_text_mode=null_text_mode, hybrid_inner_steps=hybrid_inner_steps,
             early_stop=early_stop, dependent_weight=dependent_weight,
             dependent_sampler=dependent_sampler, generator=null_text_generator,
-            telemetry=telemetry)
+            telemetry=telemetry, cuda_graphs=cuda_graphs)
     with phase("edit_sample"):
         out = edit_sample(unet_fn, scheduler, trajectory[-1], cond_embeddings,
                           uncond_embedding, num_inference_steps=num_inference_steps,

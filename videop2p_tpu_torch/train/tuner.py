@@ -11,10 +11,11 @@ step (port of ``videop2p_tpu/train/tuner.py``).
   * A step draws i.i.d. or frame-dependent noise (``core/noise.py``) and
     one timestep per video from a ``torch.Generator``; ε or v target; MSE
     in float32.
-  * :func:`train_steps` is an eager loop whose step ``s`` draws from a
-    generator seeded from (run seed, s) (:func:`step_generator`, JAX's
+  * :func:`train_steps` is a loop whose step ``s`` draws from a generator
+    seeded from (run seed, s) (:func:`step_generator`, JAX's
     ``fold_in(key, step)``): how the steps are chunked, and where a run is
-    resumed, cannot change the trajectory.
+    resumed, cannot change the trajectory. Its step body replays as a CUDA
+    graph on a CUDA device outside a mesh (``utils/cuda_graphs.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from videop2p_tpu_torch.core.ddpm import DDPMScheduler
 from videop2p_tpu_torch.core.noise import DependentNoiseSampler, step_generator
 from videop2p_tpu_torch.parallel.mesh import frames_draw, global_mean, reduce_frame_grads
 from videop2p_tpu_torch.train.masking import DEFAULT_TRAINABLE, merge_params, partition_params
+from videop2p_tpu_torch.utils import cuda_graphs as graphs_mod
 
 __all__ = ["TuneConfig", "make_lr_schedule", "ClippedAdamW", "make_optimizer",
            "TrainState", "global_norm", "step_generator", "train_step", "train_steps"]
@@ -120,7 +122,13 @@ class ClippedAdamW:
     wrapped in ``MultiSteps(every_k=accumulate)`` when ``accumulate`` > 1,
     applied in place. The state holds float32 moments ``mu``/``nu`` in the
     order of the parameters, the inner-update ``count``, and with
-    accumulation the gradients' running mean ``acc`` and ``mini_step``."""
+    accumulation the gradients' running mean ``acc`` and ``mini_step``.
+
+    An update is a host part, :meth:`plan_` (the counters, and the step's
+    lr, bias corrections and running-mean divisor written into device
+    scalars, :meth:`scalars`), and a device part, :meth:`apply_`, which
+    reads only those scalars: a CUDA graph of a train step replays it.
+    :meth:`update_` is the two in turn."""
 
     def __init__(self, lr_schedule: Callable[[int], float], *, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-2,
@@ -139,42 +147,74 @@ class ClippedAdamW:
             state["acc"] = [torch.zeros_like(p) for p in params]
         return state
 
+    @staticmethod
+    def scalars(device) -> Dict[str, torch.Tensor]:
+        """The device scalars :meth:`plan_` writes and :meth:`apply_` reads:
+        ``lr``, ``bc1``, ``bc2`` (the bias corrections) and ``acc_div`` (the
+        running mean's divisor), 0-d float32."""
+        return {name: torch.zeros((), dtype=torch.float32, device=device)
+                for name in ("lr", "bc1", "bc2", "acc_div")}
+
     @torch.no_grad()
-    def update_(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-                state: dict) -> bool:
-        """One optimizer step on ``params`` in place; with accumulation only
-        every k-th call updates. Returns whether the parameters moved."""
+    def plan_(self, state: dict, scalars: Dict[str, torch.Tensor], has_grads: bool) -> str:
+        """The host part of one update: advances ``state``'s counters,
+        writes this update's scalars, and returns its phase: "accumulate"
+        (the running mean only), "apply" (an optimizer step) or "skip" (an
+        empty trainable set: the update counts and nothing moves)."""
         if self.accumulate > 1:
             n = state["mini_step"]
-            for acc, g in zip(state["acc"], grads):
-                acc.add_((g - acc) / (n + 1))
+            scalars["acc_div"].fill_(n + 1)
             if n + 1 < self.accumulate:
                 state["mini_step"] = n + 1
-                return False
+                return "accumulate"
+            state["mini_step"] = 0
+        if not has_grads:
+            state["count"] += 1
+            return "skip"
+        scalars["lr"].fill_(self.lr_schedule(state["count"]))
+        state["count"] += 1
+        count = state["count"]
+        for name, b in (("bc1", self.b1), ("bc2", self.b2)):
+            scalars[name].copy_(1.0 - torch.full((), b, dtype=torch.float32,
+                                                 device=scalars[name].device) ** count)
+        return "apply"
+
+    @torch.no_grad()
+    def apply_(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+               state: dict, scalars: Dict[str, torch.Tensor], phase: str) -> None:
+        """The device part of the update :meth:`plan_` planned as ``phase``,
+        on ``params`` in place: no value from the host."""
+        if self.accumulate > 1:
+            for acc, g in zip(state["acc"], grads):
+                acc.add_((g - acc) / scalars["acc_div"])
+            if phase == "accumulate":
+                return
             grads = [acc.clone() for acc in state["acc"]]
             for acc in state["acc"]:
                 acc.zero_()
-            state["mini_step"] = 0
-        if not grads:
-            # an empty trainable set: the update counts and nothing moves
-            state["count"] += 1
-            return False
+        if phase == "skip":
+            return
         norm = global_norm(grads, params)
         grads = [torch.where(norm < self.max_grad_norm, g, g / norm * self.max_grad_norm)
                  for g in grads]
-        lr = self.lr_schedule(state["count"])
-        state["count"] += 1
-        count = state["count"]
-        dev = grads[0].device
-        bc1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32, device=dev) ** count
-        bc2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32, device=dev) ** count
+        bc1, bc2, neg_lr = scalars["bc1"], scalars["bc2"], -scalars["lr"]
         for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
             mu.mul_(self.b1).add_((1 - self.b1) * g)
             nu.mul_(self.b2).add_((1 - self.b2) * g ** 2)
             update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             update = update + self.weight_decay * p
-            p.add_(update * -lr)
-        return True
+            p.add_(update * neg_lr)
+
+    def update_(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+                state: dict) -> bool:
+        """One optimizer step on ``params`` in place; with accumulation only
+        every k-th call updates. Returns whether the parameters moved."""
+        grads = list(grads)
+        device = grads[0].device if grads else torch.device("cpu")
+        scalars = self.scalars(device)
+        phase = self.plan_(state, scalars, bool(grads))
+        self.apply_(params, grads, state, scalars, phase)
+        return phase == "apply"
 
 
 def make_optimizer(cfg: TuneConfig) -> ClippedAdamW:
@@ -209,6 +249,42 @@ class TrainState:
         return merge_params(self.trainable, self.frozen)
 
 
+def _draw(generator: Optional[torch.Generator], latents: torch.Tensor,
+          scheduler: DDPMScheduler, dependent_sampler: Optional[DependentNoiseSampler]
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A step's noise (through ``dependent_sampler`` when given), then one
+    timestep per video, drawn from ``generator``. On a frame-sharded mesh
+    every rank draws the whole clip's noise and keeps its frames: the
+    timestep draw after it is the same everywhere."""
+    if dependent_sampler is not None:
+        noise = frames_draw(lambda shape: dependent_sampler.sample_like(
+            latents.new_empty(shape), generator), latents.shape)
+    else:
+        noise = frames_draw(lambda shape: torch.randn(
+            shape, generator=generator, device=latents.device,
+            dtype=latents.dtype), latents.shape)
+    timesteps = torch.randint(0, scheduler.num_train_timesteps, (latents.shape[0],),
+                              generator=generator, device=latents.device)
+    return noise, timesteps
+
+
+def _loss_and_grads(unet_fn, scheduler: DDPMScheduler, latents: torch.Tensor,
+                    text_embeddings: torch.Tensor, noise: torch.Tensor,
+                    timesteps: torch.Tensor, params: List[torch.Tensor]):
+    """The step's MSE in float32 and its gradients on ``params`` (none for
+    an empty trainable set)."""
+    noisy = scheduler.add_noise(latents, noise, timesteps)
+    target = scheduler.training_target(latents, noise, timesteps)
+    with torch.enable_grad():
+        pred, _ = unet_fn(noisy, timesteps, text_embeddings, None, store=False)
+        loss = global_mean((pred.float() - target.float()) ** 2)
+        # an empty trainable set still takes the step (JAX's train_step);
+        # on a frame-sharded mesh the gradients are summed over the frames
+        # group (JAX's implicit psum)
+        grads = reduce_frame_grads(torch.autograd.grad(loss, params)) if params else []
+    return loss.detach(), grads
+
+
 def train_step(unet_fn, tx: ClippedAdamW, state: TrainState, scheduler: DDPMScheduler,
                latents: torch.Tensor, text_embeddings: torch.Tensor,
                generator: Optional[torch.Generator] = None, *,
@@ -223,56 +299,64 @@ def train_step(unet_fn, tx: ClippedAdamW, state: TrainState, scheduler: DDPMSche
     or ``(state, loss, grad_norm)`` with ``return_grad_norm``: the global
     norm of the step's gradients before clipping. ``state`` is updated in
     place; the loss stays on the device."""
-    if noise is None:
-        # on a frame-sharded mesh every rank draws the whole clip's noise
-        # and keeps its frames: the timestep draw after it is the same
-        # everywhere
-        if dependent_sampler is not None:
-            noise = frames_draw(lambda shape: dependent_sampler.sample_like(
-                latents.new_empty(shape), generator), latents.shape)
-        else:
-            noise = frames_draw(lambda shape: torch.randn(
-                shape, generator=generator, device=latents.device,
-                dtype=latents.dtype), latents.shape)
-    if timesteps is None:
-        timesteps = torch.randint(0, scheduler.num_train_timesteps, (latents.shape[0],),
-                                  generator=generator, device=latents.device)
+    if noise is None or timesteps is None:
+        drawn_noise, drawn_t = _draw(generator, latents, scheduler, dependent_sampler)
+        noise = drawn_noise if noise is None else noise
+        timesteps = drawn_t if timesteps is None else timesteps
     timesteps = torch.as_tensor(timesteps, device=latents.device)
-    noisy = scheduler.add_noise(latents, noise, timesteps)
-    target = scheduler.training_target(latents, noise, timesteps)
     params: List[torch.Tensor] = list(state.trainable.values())
-    with torch.enable_grad():
-        pred, _ = unet_fn(noisy, timesteps, text_embeddings, None, store=False)
-        loss = global_mean((pred.float() - target.float()) ** 2)
-        # an empty trainable set still takes the step (JAX's train_step);
-        # on a frame-sharded mesh the gradients are summed over the frames
-        # group (JAX's implicit psum)
-        grads = reduce_frame_grads(torch.autograd.grad(loss, params)) if params else []
+    loss, grads = _loss_and_grads(unet_fn, scheduler, latents, text_embeddings, noise,
+                                  timesteps, params)
     grad_norm = global_norm(grads, params) if return_grad_norm else None
     tx.update_(params, grads, state.opt_state)
     state.step += 1
     if return_grad_norm:
-        return state, loss.detach(), grad_norm
-    return state, loss.detach()
+        return state, loss, grad_norm
+    return state, loss
 
 
 def train_steps(unet_fn, tx: ClippedAdamW, state: TrainState, scheduler: DDPMScheduler,
                 latents: torch.Tensor, text_embeddings: torch.Tensor, seed: int, *,
                 num_steps: int, dependent_sampler: Optional[DependentNoiseSampler] = None,
-                telemetry: bool = False):
+                telemetry: bool = False, cuda_graphs: Optional[bool] = None):
     """``num_steps`` tuning steps, step ``s`` drawing from
     ``step_generator(seed, s)``. Returns ``(state, losses (num_steps,))``,
     the losses still on the device; with ``telemetry`` ``(state, losses,
     grad_norms)``, each step's global gradient norm before clipping (the
-    quantity ``max_grad_norm`` gates), also on the device."""
+    quantity ``max_grad_norm`` gates), also on the device.
+
+    Each step draws its noise and timesteps into buffers and plans the
+    optimizer's update on the host (:meth:`ClippedAdamW.plan_`), then runs
+    the step body (forward, backward, gradient norm, the update), keyed by
+    the update's phase and replayed as a CUDA graph as ``cuda_graphs``
+    decides (None: on a CUDA device outside a mesh; False: the eager loop,
+    the same bits; ``utils/cuda_graphs.py``)."""
+    device = latents.device
+    params: List[torch.Tensor] = list(state.trainable.values())
+    noise = torch.empty_like(latents)
+    timesteps = torch.empty((latents.shape[0],), dtype=torch.int64, device=device)
+    scalars = tx.scalars(device)
+
+    def body(phase: str):
+        loss, grads = _loss_and_grads(unet_fn, scheduler, latents, text_embeddings, noise,
+                                      timesteps, params)
+        grad_norm = global_norm(grads, params) if telemetry else None
+        tx.apply_(params, grads, state.opt_state, scalars, phase)
+        return loss, grad_norm
+
     losses, norms = [], []
-    for _ in range(num_steps):
-        out = train_step(unet_fn, tx, state, scheduler, latents, text_embeddings,
-                         step_generator(seed, state.step, latents.device),
-                         dependent_sampler=dependent_sampler, return_grad_norm=telemetry)
-        losses.append(out[1])
-        if telemetry:
-            norms.append(out[2])
+    with graphs_mod.step_graphs(cuda_graphs, device, "train_steps") as graphs:
+        for _ in range(num_steps):
+            drawn_noise, drawn_t = _draw(step_generator(seed, state.step, device), latents,
+                                         scheduler, dependent_sampler)
+            noise.copy_(drawn_noise)
+            timesteps.copy_(drawn_t)
+            phase = tx.plan_(state.opt_state, scalars, bool(params))
+            loss, grad_norm = graphs.kept(graphs.run(phase, body, phase))
+            state.step += 1
+            losses.append(loss)
+            if telemetry:
+                norms.append(grad_norm)
     if telemetry:
         return state, torch.stack(losses), torch.stack(norms)
     return state, torch.stack(losses)
