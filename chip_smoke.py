@@ -413,17 +413,33 @@ graphs:
    outer step or more), embeddings, losses and inner steps bit for bit;
    (c) ``GRAPH_TUNE_STEPS`` Stage-1 steps (fp32 weights, bf16 compute,
    checkpointed blocks), losses, parameters and Adam moments bit for bit;
+   (h) ``GRAPH_DISTILL_STEPS`` distillation steps on the same weights
+   (bf16 compute, checkpointed blocks), losses, student, head, EMA target
+   and Adam moments; (f) the plain ``ddim_inversion`` at ``GRAPH_INV_STEPS``
+   with dependent noise; (g) the live edit at ``GRAPH_LIVE_STEPS`` (the
+   official full-CFG layout, LocalBlend, null-text embeddings, η 0.1 on
+   dependent noise); (e) "hybrid" null-text under "flash_rect" at
+   ``GRAPH_NULL_STEPS`` × ``GRAPH_INNER_STEPS``;
    each with the same kernel launches, and the graphs captured and
-   replayed (each run's wall printed); (d) the 50-step cached fast edit
-   (the CLI's windows) eager then graphed: wall, peak memory, each graph's
-   capture seconds and each runner's pool bytes. With ``--graph_timings``
-   (out of the default run, for its time limit): that edit eager / graphed
-   / graphed / eager and one traced run each for the card's busy share, a
+   replayed (each run's wall printed); (i) a served session at
+   ``--steps``: two bf16 SD-1.5 program sets on one bundle, one on kept
+   runners and one with graphs off, each warmed, then ``GRAPH_SERVED`` (a
+   fresh request, a hit, a second fresh request with another clip and
+   prompts) on each: the kept set captures nothing and runs no step
+   eagerly after warm, its videos and src_err (0.0) are the graphs-off
+   set's bit for bit; its runners' pool bytes and the copy-in of a capture
+   printed. With ``--graph_timings``
+   (out of the default run, for its time limit): (d) the 50-step cached
+   fast edit (the CLI's windows) eager / graphed / graphed / eager (wall,
+   peak memory, each graph's capture seconds and each runner's pool
+   bytes) and one traced run each for the card's busy share, a
    null-text inner step (flash_rect; the wall of 8 inner steps less 2's,
    over 6) and a Stage-1 step (5 steps less 2, over 3) in the same turns,
-   each after an untimed warm run. One
-   seeded build serves all three: Stage 1 on its float32 weights, then the
-   edit and null-text on its bf16 cast.
+   each after an untimed warm run, and the served session at 50 steps on
+   sets "off", "per_call" (graphs captured anew every request) and "kept",
+   in the turns off, per_call, kept, kept, per_call. One
+   seeded build serves (a)-(h): Stage 1 and distillation on its float32
+   weights, then the edit and null-text on its bf16 cast.
 
 Every other path runs graphed by default (its loops on one card).
 
@@ -575,6 +591,18 @@ GRAPH_NULL_STEPS = 4
 GRAPH_INNER_STEPS = 2
 GRAPH_TUNE_STEPS = 3
 GRAPH_TIMED_STEPS = 50
+GRAPH_LIVE_STEPS = 8
+GRAPH_INV_STEPS = 6
+GRAPH_DISTILL_STEPS = 3
+# phase 28's served session: a fresh request, a hit (the fresh clip, other
+# prompts and equalizer) and a second fresh request (another clip and
+# prompts), each compatible with the warmed controller structure
+GRAPH_SERVED = (
+    ("fresh", 0, RABBIT["prompts"], 2),
+    ("hit", None, [RABBIT["prompt"], "a origami rabbit is jumping on the snow"], 3),
+    ("fresh2", 1, ["a rabbit is sitting in the garden",
+                   "a origami rabbit is sitting in the garden"], 4),
+)
 # phase 4b's final losses in "hybrid" null-text mode are compared relative
 # to max(|loss|, this): its last outer step lands on x_0, where both losses
 # sit at float32 rounding noise (~1e-15) and have no relative meaning
@@ -3476,6 +3504,12 @@ def _release() -> None:
     torch.cuda.empty_cache()
 
 
+def _card_used_line() -> str:
+    """The card's memory in use by every process (``cudaMemGetInfo``)."""
+    free, total = torch.cuda.mem_get_info()
+    return f"{(total - free) / 2 ** 30:.2f} GiB of {total / 2 ** 30:.2f} in use on the card"
+
+
 def _allocated_line() -> str:
     _release()
     return f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated before it"
@@ -4094,16 +4128,26 @@ class _Child:
         self.up_s = None
 
     def tail(self) -> str:
+        """The log's end, and the end of each log it names (a router's
+        replicas' ``serve.log``)."""
+        import re
+
         if not self.log.closed:
             self.log.flush()
         with open(self.log_path) as fh:
-            return fh.read()[-4000:]
+            text = fh.read()[-4000:]
+        for path in sorted(set(re.findall(r"\(see (\S+\.log)\)", text))):
+            if os.path.isfile(path):
+                with open(path) as fh:
+                    text += f"\n--- {path} ---\n" + fh.read()[-3000:]
+        return text
 
     def wait_up(self, timeout_s: float = 600.0) -> dict:
         while True:
             if self.proc.poll() is not None:
                 raise AssertionError(f"{self.name} exited {self.proc.returncode} before "
-                                     f"/healthz answered:\n{self.tail()}")
+                                     f"/healthz answered ({_card_used_line()}):\n"
+                                     f"{self.tail()}")
             if time.perf_counter() - self.t0 > timeout_s:
                 raise AssertionError(f"{self.name}: /healthz did not answer in {timeout_s} s")
             try:
@@ -4341,11 +4385,13 @@ def observe_loadgen_phase(args, tmp: str, programs) -> tuple:
     for s in router_spans:
         if s["trace_id"] in load_traces:
             per_replica_load[s["replica"]] = per_replica_load.get(s["replica"], 0) + 1
-    # launches: one warm-up and every fresh or rehydrated request a fresh
-    # request's, every memory hit a hit's
+    # launches: the warm-up's (a fresh request's, twice on a set that keeps
+    # runners: its second pass runs the loops again to capture), every fresh
+    # or rehydrated request a fresh request's, every memory hit a hit's
     health = {e["label"]: e for e in by.get("serve_health", [])}
-    full = 1 + sum(h["fresh_inversions"] + h["rehydrations"] for h in health.values())
-    hits = sum(h["done"] for h in health.values()) - (full - 1)
+    warm = 2 if programs.keeps_graphs() else 1
+    full = warm + sum(h["fresh_inversions"] + h["rehydrations"] for h in health.values())
+    hits = sum(h["done"] for h in health.values()) - (full - warm)
     fresh, hit = _fresh_launches(steps), _hit_launches(steps)
     want = {k: full * fresh[k] + hits * hit[k] for k in fresh}
     bundles = {e["bundle"]: _bundle_bytes(e["bundle"]) for e in inc_events
@@ -4486,13 +4532,14 @@ def observe_path(args) -> tuple:
                               device="cuda")
         warm = programs.warm(tuple(canary["prompts"]))
         print(f"  the set built and warm in {time.perf_counter() - t1:.2f} s "
-              f"(warm {warm['seconds']} s)", flush=True)
+              f"(warm {warm['seconds']} s; {_card_used_line()})", flush=True)
         t = _sub_seconds(record, "22 set", t)
         # (b) while the children start, then (d) and (c), so that (a) has
         # the card and the host to itself
         record["breaker"], f = observe_breaker_phase(args, tmp, programs)
         failures += f
         t = _sub_seconds(record, "22b breaker", t)
+        print(f"  after 22b: {_card_used_line()}", flush=True)
         record["router_cli"], f = observe_router_cli(children["router"], canary,
                                                      programs.spec.fingerprint(),
                                                      os.path.join(tmp, "router_cli"))
@@ -6114,6 +6161,127 @@ def _set_frame_attention(unet, impl: str) -> None:
             module.attention_fn = make_frame_attention_fn(impl)
 
 
+def _served_request(ps, frames, prompts, eq_value, cached=None):
+    """One served request on ``ps``: the capture inversion of ``frames``
+    (unless ``cached``, a hit), then the edit + decode. Returns its videos,
+    src_err, the capture, the edit's argument tree and its walls."""
+    ctrl = {"blend_word": RABBIT["blend_word"],
+            "eq_params": {"words": RABBIT["eq_params"]["words"], "values": [eq_value]}}
+    ctx = ps.controller(prompts, **ctrl)
+    latents = ps.encode(ps.frames_to_video(frames))
+    cond_all, uncond = ps.encode_prompts(prompts), ps.encode_prompts([""])[0]
+    walls = {}
+    torch.cuda.synchronize()
+    if cached is None:
+        t0 = time.perf_counter()
+        _, cached = ps.invert_capture(latents, ps.encode_prompts(prompts[:1]), ctx)
+        torch.cuda.synchronize()
+        walls["invert_s"] = round(time.perf_counter() - t0, 4)
+    args = (cached, cond_all, uncond, ctx, latents)
+    t0 = time.perf_counter()
+    videos, src_err = ps.edit_decode(*args)
+    torch.cuda.synchronize()
+    walls["edit_s"] = round(time.perf_counter() - t0, 4)
+    return {"videos": videos, "src_err": float(src_err), "cached": cached, "args": args,
+            "walls": walls}
+
+
+def _served_frames(seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)
+
+
+def _copy_in_ms(ps, tree) -> dict:
+    """The ms and bytes of copying a served edit's capture into the set's
+    kept edit runner (what each request's edit does first), after a
+    synchronize on each side."""
+    runner = next(r for r in ps._runners.runners() if r.name == "cached_edit")
+    before = runner.copy_in_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.inputs("cached", tree)
+    torch.cuda.synchronize()
+    return {"ms": round((time.perf_counter() - t0) * 1e3, 3),
+            "bytes": runner.copy_in_bytes - before}
+
+
+def graphs_served_session(args, steps: int, failures: list, modes=("kept", "off"),
+                          turns=None) -> dict:
+    """Phase 28 (i): SD-1.5 bf16 program sets of ``steps`` steps on one
+    bundle, one per graphs mode of ``modes`` ("kept": kept runners,
+    "per_call": graphs captured anew each request, "off": eager), each
+    warmed with rabbit-jump's controller structure, then ``GRAPH_SERVED``
+    on each in ``turns`` (a list of modes; default each once): after warm a
+    kept set captures nothing and runs no step eagerly, and every set's
+    videos and src_err (0.0) are the "off" set's bit for bit. Records each
+    request's walls, captures and eager steps, the kept set's pool bytes
+    after warm and the copy-in of a capture."""
+    from videop2p_tpu_torch.serve import ProgramSet, ProgramSpec
+    from videop2p_tpu_torch.utils.cuda_graphs import collect_graph_stats
+
+    spec = ProgramSpec(width=512, video_len=8, steps=steps, mixed_precision="bf16", seed=0)
+    sets, rec = {}, {"steps": steps, "warm": {}, "requests": {}}
+    ctrl = {"blend_word": RABBIT["blend_word"], "eq_params": RABBIT["eq_params"]}
+    for mode in modes:
+        bundle = next(iter(sets.values())).bundle if sets else None
+        sets[mode] = ProgramSet(spec, bundle=bundle, device="cuda", graphs=mode)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = sets[mode].warm(tuple(RABBIT["prompts"]), controller_kwargs=ctrl)
+        torch.cuda.synchronize()
+        rec["warm"][mode] = {"wall_s": round(time.perf_counter() - t0, 3),
+                             "runners": warm.get("runners"),
+                             "allocated_gib": round(torch.cuda.memory_allocated() / 2 ** 30, 3)}
+    frames = {0: _served_frames(280), 1: _served_frames(281)}
+    results: dict = {}
+    for mode in (turns or modes):
+        ps, fresh_cached = sets[mode], None
+        for name, clip, prompts, eq in GRAPH_SERVED:
+            before = ps.runner_stats() if ps.keeps_graphs() else None
+            with collect_graph_stats() as stats:
+                out = _served_request(ps, frames[0 if clip is None else clip], prompts, eq,
+                                      cached=fresh_cached if clip is None else None)
+            if name == "fresh":
+                fresh_cached = out["cached"]
+            entry = {"walls": out["walls"], "src_err": out["src_err"],
+                     "captures": sum(r["graphs"] for r in stats),
+                     "capture_s": round(sum(sum(r["capture_s"].values()) for r in stats), 4),
+                     "eager_steps": sum(r["eager_steps"] for r in stats),
+                     "replays": sum(r["replays"] for r in stats)}
+            if before is not None:
+                after = ps.runner_stats()
+                entry["runners_made"] = after["made"] - before["made"]
+                entry["copy_in_bytes"] = after["copy_in_bytes"] - before["copy_in_bytes"]
+                if entry["captures"] or entry["eager_steps"] or entry["runners_made"]:
+                    failures.append(f"28 served {mode} {name}: after warm {entry['captures']} "
+                                    f"captures, {entry['eager_steps']} eager steps, "
+                                    f"{entry['runners_made']} runners made")
+            if out["src_err"] != 0.0:
+                failures.append(f"28 served {mode} {name}: src_err {out['src_err']!r}")
+            rec["requests"].setdefault(mode, {}).setdefault(name, []).append(entry)
+            results.setdefault(mode, {}).setdefault(name, out["videos"])
+            if name == "hit" and mode == "kept" and "copy_in" not in rec:
+                rec["copy_in"] = _copy_in_ms(ps, out["cached"])
+            print(f"  28 served {mode} {name}: {entry}", flush=True)
+    for mode, by_name in results.items():
+        for name, videos in by_name.items():
+            if mode != "off" and not torch.equal(videos, results["off"][name]):
+                failures.append(f"28 served {mode} {name}: videos differ from the graphs-off "
+                                "set's")
+    rec["bits_equal_off"] = all(torch.equal(v, results["off"][n])
+                                for m, by in results.items() for n, v in by.items())
+    if "kept" in sets:
+        rec["kept_runners"] = sets["kept"].runner_stats()
+        print(f"  28 served kept runners: {rec['kept_runners']}; copy-in "
+              f"{rec.get('copy_in')}; bits equal the graphs-off set's "
+              f"{rec['bits_equal_off']}", flush=True)
+    for ps in sets.values():
+        ps.close()
+    del sets, results
+    _release()
+    return rec
+
+
 def graphs_path(args) -> tuple:
     """Phase 28 (the module docstring): the three graphed programs against
     their eager loops bit for bit, then their times (in turns with
@@ -6132,16 +6300,27 @@ def graphs_path(args) -> tuple:
         make_unet_fn,
         null_text_optimization,
     )
+    from videop2p_tpu_torch.core.noise import DependentNoiseSampler
+    from videop2p_tpu_torch.pipelines import edit_sample
     from videop2p_tpu_torch.pipelines.cached import capture_windows
     from videop2p_tpu_torch.pipelines.sampling import official_null_text
-    from videop2p_tpu_torch.train import TrainState, TuneConfig, make_optimizer, train_steps
+    from videop2p_tpu_torch.train import (
+        DistillConfig,
+        DistillState,
+        TrainState,
+        TuneConfig,
+        distill_steps,
+        init_time_head,
+        make_distill_optimizer,
+        make_optimizer,
+        train_steps,
+    )
     from videop2p_tpu_torch.utils.cuda_graphs import collect_graph_stats
     from videop2p_tpu_torch.utils.tokenizers import WordTokenizer
 
     print(f"28. CUDA graphs against the eager loops (SD-1.5 width, 512², 8 frames, bf16; "
           f"{_allocated_line()}):", flush=True)
     failures, rec = [], {"card": card_line()}
-    turns = (False, True, True, False) if args.graph_timings else (False, True)
     gen = torch.Generator("cuda").manual_seed(28)
     x0 = 0.8 * torch.randn((1, 8, 64, 64, 4), generator=gen, device="cuda")
     bundle = build_models(dtype=torch.float32, device="cuda", seed=0, frame_attention="chunked",
@@ -6196,6 +6375,32 @@ def graphs_path(args) -> tuple:
         rec["tune_step_ms"] = _turns(
             "Stage-1 step ms (bf16 compute, checkpointed blocks)",
             lambda flag: timed(lambda k: tune(flag, k), 2, 5))
+
+    # (h) distillation on the same weights (the teacher's), bf16 compute,
+    # checkpointed blocks
+    dcfg = DistillConfig(learning_rate=1e-4, distill_grid=50,
+                         trainable_modules=tuple(TUNE["trainable_modules"]))
+
+    def distill(flag):
+        with torch.no_grad():
+            for k, v in unet.state_dict().items():
+                v.copy_(start[k])
+        tx = make_distill_optimizer(dcfg)
+        head = init_time_head(torch.Generator("cuda").manual_seed(17), unet.config)
+        state = DistillState.create(unet, head, tx, dcfg.trainable_modules)
+        with deterministic_convolutions():
+            _, losses = distill_steps(make_unet_fn(unet), tx, state, DDIMScheduler.create_sd(),
+                                      latents, text, 29, num_steps=GRAPH_DISTILL_STEPS, cfg=dcfg,
+                                      cuda_graphs=flag)
+        return {"losses": losses,
+                **{tree: {k: v.detach().clone() for k, v in getattr(state, tree).items()}
+                   for tree in ("trainable", "head", "ema_trainable", "ema_head")},
+                "mu": state.opt_state["mu"], "nu": state.opt_state["nu"]}
+
+    runs = _graph_runs(f"distillation ({GRAPH_DISTILL_STEPS} steps, bf16 compute, "
+                       "checkpointed blocks)", distill)
+    rec["distill"] = _check_graphed("distillation", runs, failures)
+    del runs
     with torch.no_grad():
         for k, v in unet.state_dict().items():
             v.copy_(start[k])
@@ -6231,6 +6436,33 @@ def graphs_path(args) -> tuple:
     rec["fast_edit"] = _check_graphed("cached fast edit", runs, failures)
     del runs
 
+    # (f) the plain DDIM inversion with dependent noise, "auto"
+    sampler = DependentNoiseSampler.create(num_frames=8, decay_rate=0.3, window_size=4,
+                                           ar_sample=True, ar_coeff=0.1, device="cuda")
+    runs = _graph_runs(f"ddim_inversion ({GRAPH_INV_STEPS} steps, dependent noise)",
+                       lambda flag: ddim_inversion(
+                           fn, sched, x0, cond_all[:1], num_inference_steps=GRAPH_INV_STEPS,
+                           dependent_weight=0.2, dependent_sampler=sampler,
+                           generator=torch.Generator("cuda").manual_seed(36),
+                           cuda_graphs=flag))
+    rec["ddim_inversion"] = _check_graphed("ddim_inversion", runs, failures)
+    del runs
+
+    # (g) the live edit: official mode's full-CFG layout with LocalBlend,
+    # null-text embeddings and η 0.1 on dependent noise, "auto"
+    null_seq = (uncond[None] + 0.05 * torch.randn(
+        (GRAPH_LIVE_STEPS, *uncond.shape), generator=gen, device="cuda")).to(uncond.dtype)
+    runs = _graph_runs(f"live edit ({GRAPH_LIVE_STEPS} steps, full CFG, LocalBlend, null-text "
+                       "embeddings, eta 0.1 dependent)",
+                       lambda flag: edit_sample(
+                           fn, sched, x0, cond_all, uncond,
+                           num_inference_steps=GRAPH_LIVE_STEPS,
+                           ctx=controller(GRAPH_LIVE_STEPS), null_uncond_embeddings=null_seq,
+                           eta=0.1, dependent_sampler=sampler,
+                           generator=torch.Generator("cuda").manual_seed(37), cuda_graphs=flag))
+    rec["live_edit"] = _check_graphed("live edit", runs, failures)
+    del runs
+
     def timed_edit(flag):
         _release()
         torch.cuda.reset_peak_memory_stats()
@@ -6244,9 +6476,8 @@ def graphs_path(args) -> tuple:
                 "graphs": [{k: r[k] for k in ("program", "graphs", "capture_s", "pool_bytes")}
                            for r in stats]}
 
-    rec["fast_edit_50"] = _turns(f"{GRAPH_TIMED_STEPS}-step cached fast edit", timed_edit,
-                                 turns)
     if args.graph_timings:
+        rec["fast_edit_50"] = _turns(f"{GRAPH_TIMED_STEPS}-step cached fast edit", timed_edit)
         busy = {}
         for flag in (False, True):
             _release()
@@ -6284,6 +6515,20 @@ def graphs_path(args) -> tuple:
         failures.append(f"28 null-text: early stop not reached, inner steps {inner}")
     del runs
 
+    # (e) "hybrid" null-text under flash_rect, dependent noise
+    def hybrid(flag):
+        emb, losses = null_text_optimization(
+            fn, sched, traj, src, uncond[None], num_inference_steps=GRAPH_NULL_STEPS,
+            null_text_mode="hybrid", hybrid_inner_steps=GRAPH_INNER_STEPS, return_losses=True,
+            dependent_weight=0.2, dependent_sampler=sampler,
+            generator=torch.Generator("cuda").manual_seed(38), cuda_graphs=flag)
+        return {"embeddings": emb, "losses": losses}
+
+    runs = _graph_runs(f"hybrid null-text (flash_rect, {GRAPH_NULL_STEPS} x "
+                       f"{GRAPH_INNER_STEPS}, dependent noise)", hybrid)
+    rec["hybrid"] = _check_graphed("hybrid null-text", runs, failures)
+    del runs
+
     def inner_steps(flag, k):
         return null_text_optimization(fn, sched, traj[:2], src, uncond[None],
                                       num_inference_steps=1, num_inner_steps=k,
@@ -6302,6 +6547,13 @@ def graphs_path(args) -> tuple:
         rec["null_text_busy_share"] = busy
     del unet, fn, traj
     _release()
+
+    # (i) a served session on kept runners against a graphs-off set
+    rec["served"] = graphs_served_session(args, args.steps, failures)
+    if args.graph_timings:
+        rec["served_50"] = graphs_served_session(
+            args, GRAPH_TIMED_STEPS, failures, modes=("off", "per_call", "kept"),
+            turns=("off", "per_call", "kept", "kept", "per_call"))
     print(f"  28 card: {rec['card']}", flush=True)
     return {"graphs": {"launches": rec["fast_edit"]["launches"]}}, failures, {"graphs": rec}
 

@@ -237,3 +237,178 @@ def test_cuda_graphed_train_steps_are_the_eager_ones(tiny, accumulate):
     runs = _both(run)
     _assert_same(runs[True][0], runs[False][0])
     assert runs[True][1] == runs[False][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["blend_null_text_dependent_eta", "uncontrolled"])
+def test_cuda_graphed_live_edit_is_the_eager_one(tiny, kind):
+    """The live edit at 8 steps: the official full-CFG layout with
+    LocalBlend, null-text embeddings and η 0.3 on dependent noise (drawn
+    outside the bodies), and ``ProgramSet.sample``'s uncontrolled CFG:
+    latents and records equal bit for bit, the same launches."""
+    from videop2p_tpu_torch.core.noise import DependentNoiseSampler
+    from videop2p_tpu_torch.pipelines import edit_sample
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    null = torch.randn(8, 77, 16, generator=gen, device="cuda")
+    sampler = DependentNoiseSampler.create(num_frames=2, decay_rate=0.3, window_size=1,
+                                           device=null.device)
+    blend = kind != "uncontrolled"
+    runs = _both(lambda flag: edit_sample(
+        tiny["fn"], tiny["sched"], tiny["x0"], tiny["cond"], tiny["uncond"],
+        num_inference_steps=8, ctx=tiny["ctx"] if blend else None,
+        null_uncond_embeddings=null if blend else None, eta=0.3 if blend else 0.0,
+        dependent_sampler=sampler if blend else None,
+        generator=torch.Generator(device="cuda").manual_seed(4), telemetry=True,
+        attn_maps=True, cuda_graphs=flag))
+    _assert_same(runs[True][0], runs[False][0])
+    assert runs[True][1] == runs[False][1]
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_ddim_inversion_is_the_eager_one(tiny):
+    """The plain DDIM inversion at 6 steps with dependent noise: the
+    trajectory equal bit for bit, the same launches."""
+    from videop2p_tpu_torch.core.noise import DependentNoiseSampler
+    from videop2p_tpu_torch.pipelines import ddim_inversion
+
+    sampler = DependentNoiseSampler.create(num_frames=2, decay_rate=0.3, window_size=1,
+                                           device=tiny["x0"].device)
+    runs = _both(lambda flag: ddim_inversion(
+        tiny["fn"], tiny["sched"], tiny["x0"], tiny["cond"][:1], num_inference_steps=6,
+        dependent_weight=0.2, dependent_sampler=sampler,
+        generator=torch.Generator(device="cuda").manual_seed(2), cuda_graphs=flag))
+    _assert_same(runs[True][0], runs[False][0])
+    assert runs[True][1] == runs[False][1]
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_hybrid_null_text_is_the_eager_one(tiny):
+    """"hybrid" null-text at 3 outer × 3 inner steps with dependent noise:
+    embeddings and losses equal bit for bit, the same launches."""
+    from videop2p_tpu_torch.core.noise import DependentNoiseSampler
+    from videop2p_tpu_torch.pipelines import ddim_inversion, null_text_optimization
+
+    traj = ddim_inversion(tiny["fn"], tiny["sched"], tiny["x0"], tiny["cond"][:1],
+                          num_inference_steps=3, cuda_graphs=False)
+    sampler = DependentNoiseSampler.create(num_frames=2, decay_rate=0.3, window_size=1,
+                                           device=traj.device)
+    runs = _both(lambda flag: null_text_optimization(
+        tiny["fn"], tiny["sched"], traj, tiny["cond"][:1], tiny["uncond"][None],
+        num_inference_steps=3, null_text_mode="hybrid", hybrid_inner_steps=3,
+        return_losses=True, dependent_weight=0.2, dependent_sampler=sampler,
+        generator=torch.Generator(device=traj.device).manual_seed(1), cuda_graphs=flag))
+    _assert_same(runs[True][0], runs[False][0])
+    assert runs[True][1] == runs[False][1]
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_distill_steps_are_the_eager_ones(tiny):
+    """Distillation at 4 steps: losses, the student, the head, the EMA
+    target and Adam moments equal bit for bit."""
+    from videop2p_tpu_torch.pipelines import make_unet_fn
+    from videop2p_tpu_torch.train import (
+        DistillConfig,
+        DistillState,
+        distill_steps,
+        init_time_head,
+        make_distill_optimizer,
+    )
+
+    def run(flag):
+        model = copy.deepcopy(tiny["model"])
+        cfg = DistillConfig(learning_rate=1e-3, distill_grid=4, boundary_weight=1.5)
+        tx = make_distill_optimizer(cfg)
+        head = init_time_head(torch.Generator(device="cuda").manual_seed(2), model.config)
+        state = DistillState.create(model, head, tx)
+        _, losses = distill_steps(make_unet_fn(model), tx, state, tiny["sched"],
+                                  0.5 * tiny["x0"], tiny["cond"][:1], 13, num_steps=4, cfg=cfg,
+                                  cuda_graphs=flag)
+        return (losses, dict(state.trainable), dict(state.head), dict(state.ema_trainable),
+                dict(state.ema_head), state.opt_state["mu"], state.opt_state["nu"])
+
+    runs = _both(run)
+    _assert_same(runs[True][0], runs[False][0])
+    assert runs[True][1] == runs[False][1]
+
+
+@pytest.fixture
+def tiny_sets(cuda):
+    """A tiny program set on kept runners and one with graphs off, on the
+    same models."""
+    from videop2p_tpu_torch.serve import ProgramSet, ProgramSpec
+
+    spec = ProgramSpec(tiny=True, width=16, video_len=2, steps=4)
+    kept = ProgramSet(spec, device="cuda")
+    off = ProgramSet(spec, bundle=kept.bundle, device="cuda", graphs="off")
+    yield kept, off
+    kept.close()
+
+
+def _serve_request(ps, prompts, eq_value, seed):
+    import numpy as np
+
+    frames = np.random.default_rng(seed).integers(0, 256, (2, 16, 16, 3), dtype=np.uint8)
+    ctx = ps.controller(prompts, blend_word=["rabbit", "rabbit"],
+                        eq_params={"words": ["origami"], "values": [eq_value]})
+    latents = ps.encode(ps.frames_to_video(frames))
+    _, cached = ps.invert_capture(latents, ps.encode_prompts(prompts[:1]), ctx)
+    args = (cached, ps.encode_prompts(prompts), ps.encode_prompts([""])[0], ctx, latents)
+    videos, src_err = ps.edit_decode(*args)
+    torch.cuda.synchronize()
+    return videos, float(src_err), args
+
+
+@pytest.mark.cuda
+def test_cuda_a_warm_program_set_serves_without_capturing(tiny_sets):
+    """After ``warm()`` two compatible requests (other prompts, equalizer
+    and clip) capture no graph and run no step eagerly; their videos and
+    src_err (0.0) are a graphs-off set's bit for bit."""
+    kept, off = tiny_sets
+    prompts = ("a rabbit is jumping", "a origami rabbit is jumping")
+    ctrl = {"blend_word": ["rabbit", "rabbit"], "eq_params": {"words": ["origami"],
+                                                              "values": [2]}}
+    warm = kept.warm(prompts, controller_kwargs=ctrl)
+    assert warm["runners"]["runners"] == 2 and warm["runners"]["graphs"] > 0
+    assert warm["runners"]["pool_bytes"] > 0
+    for req in ((prompts, 3, 1), (("a rabbit is sitting", "a origami rabbit is sitting"), 5, 2)):
+        before = kept.runner_stats()
+        got = _serve_request(kept, *req)
+        after = kept.runner_stats()
+        assert (after["eager_steps"], after["graphs"], after["made"]) == (
+            before["eager_steps"], before["graphs"], before["made"]), (before, after)
+        assert after["replays"] > before["replays"]
+        want = _serve_request(off, *req)
+        assert got[1] == want[1] == 0.0
+        assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+def test_cuda_two_threads_on_one_set_get_two_runners(tiny_sets):
+    """While one thread holds the warm edit runner, another thread's
+    compatible request gets a runner of its own (captured for itself), and
+    both threads' results are the graphs-off set's bits."""
+    import threading
+
+    kept, off = tiny_sets
+    prompts = ("a rabbit is jumping", "a origami rabbit is jumping")
+    kept.warm(prompts, controller_kwargs={"blend_word": ["rabbit", "rabbit"],
+                                          "eq_params": {"words": ["origami"], "values": [2]}})
+    edit = next(r for r in kept._runners.runners() if r.name == "cached_edit")
+    want = _serve_request(off, prompts, 4, 3)
+    made = kept.runner_stats()["made"]
+    out = {}
+
+    def other():
+        out["videos"], out["err"], _ = _serve_request(kept, prompts, 4, 3)
+
+    with kept._runners.checkout(edit.key, edit.name) as held:
+        assert held is edit
+        thread = threading.Thread(target=other)
+        thread.start()
+        thread.join(timeout=300)
+        # this thread's call takes the other thread's runner, returned by now
+        mine = kept.edit_decode(*want[2])
+    assert kept.runner_stats()["made"] == made + 1
+    assert out["err"] == 0.0 and torch.equal(out["videos"], want[0])
+    assert torch.equal(mine[0], want[0])

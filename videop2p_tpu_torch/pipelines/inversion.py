@@ -19,15 +19,14 @@ every UNet prediction ε̂ becomes (1 − w)·ε̂ + w·n, n a fresh draw of
 device when None, as JAX's default key), in the draw order of the JAX
 package's key splits.
 
-The captured inversion and null-text optimization ("optimize",
-"amortized") run their steps as step bodies over device buffers
-(``utils/cuda_graphs.py``): each step writes its inputs (timestep, indices,
-Adam's lr and bias corrections, the step's noise, drawn outside the body in
-the same order) into buffers and runs the body, which CUDA graphs replay on
-a CUDA device outside a mesh (``cuda_graphs`` None, the default; False
-keeps the eager loop, the same bits). Null-text's early stop reads the loss
-after each inner step, as JAX's ``while_loop`` carries it on the device.
-"Hybrid" null-text stays an eager loop.
+Both inversions and null-text optimization (every mode) run their steps
+as step bodies over device buffers (``utils/cuda_graphs.py``): each step
+writes its inputs (timestep, indices, Adam's lr and bias corrections, the
+step's noise, drawn outside the body in the same order) into buffers and
+runs the body, which CUDA graphs replay on a CUDA device outside a mesh
+(``cuda_graphs`` None, the default; False keeps the eager loop, the same
+bits). Null-text's early stop reads the loss after each inner step, as
+JAX's ``while_loop`` carries it on the device.
 """
 
 from __future__ import annotations
@@ -49,7 +48,7 @@ from videop2p_tpu_torch.pipelines.cached import CachedSource, filter_site_tree
 from videop2p_tpu_torch.pipelines.sampling import UNetFn, unet_module
 from videop2p_tpu_torch.pipelines.stores import blend_maps_from_store
 from videop2p_tpu_torch.utils import cuda_graphs as graphs_mod
-from videop2p_tpu_torch.utils.cuda_graphs import StepInputs, write_step
+from videop2p_tpu_torch.utils.cuda_graphs import StepInputs, index_step, write_step
 
 __all__ = ["ddim_inversion", "ddim_inversion_captured", "null_text_optimization",
            "adam_update", "adam_corrections", "check_null_text_options", "NULL_TEXT_PRECISIONS",
@@ -109,7 +108,8 @@ def ddim_inversion(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Ten
                    cond_embedding: torch.Tensor, *,
                    num_inference_steps: int = 50, dependent_weight: float = 0.0,
                    dependent_sampler: Optional[DependentNoiseSampler] = None,
-                   generator: Optional[torch.Generator] = None, attn_maps: bool = False):
+                   generator: Optional[torch.Generator] = None, attn_maps: bool = False,
+                   cuda_graphs=None):
     """``latents`` (B, F, h, w, C) clean scaled latents, ``cond_embedding``
     (B, L, D) source-prompt embedding → the trajectory
     (num_steps + 1, B, F, h, w, C) in float32, ``[0] = x_0``, ``[-1] = x_T``.
@@ -117,22 +117,49 @@ def ddim_inversion(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Ten
     ``dependent_weight`` > 0 each step's prediction is blended with one draw
     of ``dependent_sampler``. ``attn_maps``: return ``(trajectory, attn)``,
     ``attn`` the stacked per-step attention record of the walk
-    (:func:`_inversion_attn_record`), step axis x_0 → x_T."""
-    latent = latents.float()
-    generator = _dependent_generator(dependent_weight, dependent_sampler, generator,
-                                     latent.device)
-    trajectory = [latent]
+    (:func:`_inversion_attn_record`), step axis x_0 → x_T.
+
+    Each step is one step body over device buffers (its timestep and
+    trajectory slot, the latent, the step's noise, drawn before it in the
+    same order), replayed as a CUDA graph as ``cuda_graphs`` decides (None:
+    on a CUDA device outside a mesh; False: the eager loop, the same bits;
+    a ``StepGraphs`` runner: through it)."""
+    N = num_inference_steps
+    latent0 = latents.float()
+    device = latent0.device
+    generator = _dependent_generator(dependent_weight, dependent_sampler, generator, device)
     attn_steps = []
-    for t in scheduler.timesteps(num_inference_steps)[::-1]:
-        eps, store = unet_fn(latent, int(t), cond_embedding, None, store=attn_maps)
-        eps = _dependent_blend(eps, dependent_weight, dependent_sampler, generator)
-        latent = scheduler.next_step(eps, int(t), latent, num_inference_steps)
-        trajectory.append(latent)
-        if attn_maps:
-            attn_steps.append(_inversion_attn_record(store, latent, cond_embedding))
+    with graphs_mod.step_graphs(cuda_graphs, device, "ddim_inversion") as graphs:
+        cond = graphs.inputs("cond", cond_embedding)
+        inputs = graphs.inputs("steps", StepInputs(
+            {"t": scheduler.timesteps(N)[::-1], "pos": range(1, N + 1)}, device))
+        trajectory = graphs.scratch("trajectory",
+                                    lambda: latent0.new_empty((N + 1, *latent0.shape)))
+        trajectory[0] = latent0
+        latent = graphs.scratch("latent", lambda: torch.empty_like(latent0))
+        latent.copy_(latent0)
+        noise = (graphs.scratch("noise", lambda: torch.empty_like(latent0))
+                 if generator is not None else None)
+
+        def body():
+            eps, store = unet_fn(latent, inputs.t, cond, None, store=attn_maps)
+            eps = _blend_drawn(eps, dependent_weight, noise)
+            new = scheduler.next_step(eps, inputs.t, latent, N)
+            latent.copy_(new)
+            write_step(trajectory, inputs.pos, new)
+            return _inversion_attn_record(store, new, cond) if attn_maps else None
+
+        for j in range(N):
+            inputs.load(j)
+            _draw_into(noise, dependent_sampler, generator)
+            rec = graphs.run("step", body)
+            if attn_maps:
+                attn_steps.append(graphs.kept(rec))
+        # (a new name: the body's cells must keep the runner's buffers)
+        out = graphs.own(trajectory)
     if attn_maps:
-        return torch.stack(trajectory), stack_attn_steps(attn_steps)
-    return torch.stack(trajectory)
+        return out, stack_attn_steps(attn_steps)
+    return out
 
 
 def _inversion_attn_record(store, latent: torch.Tensor, cond_embedding: torch.Tensor):
@@ -195,7 +222,8 @@ def ddim_inversion_captured(
 
     Each step is a step body over device buffers, keyed by which windows
     it captures; ``cuda_graphs`` (None: CUDA graphs on a CUDA device
-    outside a mesh; False: the eager loop, the same bits) decides whether
+    outside a mesh; False: the eager loop, the same bits; a ``StepGraphs``
+    runner, e.g. a program set's ``KeptRunner``: through it) decides whether
     they are replayed as CUDA graphs (``utils/cuda_graphs.py``)."""
     N = num_inference_steps
     lo, hi = self_window
@@ -210,52 +238,56 @@ def ddim_inversion_captured(
     latent_hw = tuple(latent0.shape[2:4])
     text_len = cond_embedding.shape[-2]
     timesteps = scheduler.timesteps(N)[::-1]
-    # step j's inputs: its timestep, the trajectory position it writes, the
-    # edit step that reads its capture and that step's temporal slot
-    inputs = StepInputs({"t": timesteps, "pos": range(1, N + 1),
-                         "edit": [N - 1 - j for j in range(N)],
-                         "slot": [N - 1 - j - lo for j in range(N)]}, device)
-    trajectory = latent0.new_empty((N + 1, *latent0.shape))
-    trajectory[0] = latent0
-    latent = latent0.clone()
-    noise = torch.empty_like(latent0) if generator is not None else None
-    cross: Dict[str, torch.Tensor] = {}
-    temporal: Dict[str, torch.Tensor] = {}
-    blend: Dict[str, torch.Tensor] = {}
-
-    def put(buffers, store, site, index, length, encode):
-        for path, leaf in filter_site_tree(store[BASE_STORE], site).items():
-            leaf = encode(leaf)
-            if path not in buffers:
-                buffers[path] = leaf.new_empty((length, *leaf.shape))
-            write_step(buffers[path], index, leaf)
-
-    def body(want_cross: bool, want_temporal: bool):
-        capture = want_cross or want_temporal
-        control = AttnControl(None, 0, capture=True) if capture else None
-        eps, store = unet_fn(latent, inputs.t, cond_embedding, control,
-                             store=capture or capture_blend or attn_maps)
-        eps = _blend_drawn(eps, dependent_weight, noise)
-        new = scheduler.next_step(eps, inputs.t, latent, N)
-        latent.copy_(new)
-        write_step(trajectory, inputs.pos, new)
-        if capture_blend:
-            maps = blend_maps_from_store(
-                store, latent_hw=latent_hw, video_length=video_length,
-                num_prompts=1, text_len=text_len, num_uncond=0).float()
-            if "seq" not in blend:
-                blend["seq"] = maps.new_empty((N, *maps.shape))
-            write_step(blend["seq"], inputs.edit, maps)
-        if want_cross:
-            put(cross, store, "attn2", inputs.edit, cross_len, lambda a: a)
-        if want_temporal:
-            put(temporal, store, "attn_temp", inputs.slot, hi - lo,
-                lambda a: _encode_temporal(a, temporal_maps_dtype))
-        return _inversion_attn_record(store, new, cond_embedding) if attn_maps else None
-
     attn_steps = []
     bounds = sorted({0, N - hi, N - lo, N - cross_len, N})
     with graphs_mod.step_graphs(cuda_graphs, device, "capture_inversion") as graphs:
+        cond_embedding = graphs.inputs("cond", cond_embedding)
+        # step j's inputs: its timestep, the trajectory position it writes,
+        # the edit step that reads its capture and that step's temporal slot
+        inputs = graphs.inputs("steps", StepInputs(
+            {"t": timesteps, "pos": range(1, N + 1), "edit": [N - 1 - j for j in range(N)],
+             "slot": [N - 1 - j - lo for j in range(N)]}, device))
+        trajectory = graphs.scratch("trajectory",
+                                    lambda: latent0.new_empty((N + 1, *latent0.shape)))
+        trajectory[0] = latent0
+        latent = graphs.scratch("latent", lambda: torch.empty_like(latent0))
+        latent.copy_(latent0)
+        noise = (graphs.scratch("noise", lambda: torch.empty_like(latent0))
+                 if generator is not None else None)
+        cross: Dict[str, torch.Tensor] = graphs.scratch("cross", dict)
+        temporal: Dict[str, torch.Tensor] = graphs.scratch("temporal", dict)
+        blend: Dict[str, torch.Tensor] = graphs.scratch("blend", dict)
+
+        def put(buffers, store, site, index, length, encode):
+            for path, leaf in filter_site_tree(store[BASE_STORE], site).items():
+                leaf = encode(leaf)
+                if path not in buffers:
+                    buffers[path] = leaf.new_empty((length, *leaf.shape))
+                write_step(buffers[path], index, leaf)
+
+        def body(want_cross: bool, want_temporal: bool):
+            capture = want_cross or want_temporal
+            control = AttnControl(None, 0, capture=True) if capture else None
+            eps, store = unet_fn(latent, inputs.t, cond_embedding, control,
+                                 store=capture or capture_blend or attn_maps)
+            eps = _blend_drawn(eps, dependent_weight, noise)
+            new = scheduler.next_step(eps, inputs.t, latent, N)
+            latent.copy_(new)
+            write_step(trajectory, inputs.pos, new)
+            if capture_blend:
+                maps = blend_maps_from_store(
+                    store, latent_hw=latent_hw, video_length=video_length,
+                    num_prompts=1, text_len=text_len, num_uncond=0).float()
+                if "seq" not in blend:
+                    blend["seq"] = maps.new_empty((N, *maps.shape))
+                write_step(blend["seq"], inputs.edit, maps)
+            if want_cross:
+                put(cross, store, "attn2", inputs.edit, cross_len, lambda a: a)
+            if want_temporal:
+                put(temporal, store, "attn_temp", inputs.slot, hi - lo,
+                    lambda a: _encode_temporal(a, temporal_maps_dtype))
+            return _inversion_attn_record(store, new, cond_embedding) if attn_maps else None
+
         for s, e in zip(bounds[:-1], bounds[1:]):
             want_cross = s >= N - cross_len
             want_temporal = s >= N - hi and e <= N - lo
@@ -265,13 +297,17 @@ def ddim_inversion_captured(
                 rec = graphs.run((want_cross, want_temporal), body, want_cross, want_temporal)
                 if attn_maps:
                     attn_steps.append(graphs.kept(rec))
+        # the call's products, out of a kept runner's buffers (new names:
+        # the body's cells must keep the buffers)
+        out_traj, out_cross, out_temporal, out_blend = graphs.own(
+            (trajectory, dict(cross), dict(temporal), blend.get("seq")))
     cached = CachedSource(
-        src_latents=torch.flip(trajectory, dims=(0,)),
-        cross_maps=cross or None, temporal_maps=temporal or None,
-        blend_seq=blend.get("seq"), cross_len=cross_len, self_window=(lo, hi))
+        src_latents=torch.flip(out_traj, dims=(0,)),
+        cross_maps=out_cross or None, temporal_maps=out_temporal or None,
+        blend_seq=out_blend, cross_len=cross_len, self_window=(lo, hi))
     if attn_maps:
-        return trajectory, cached, stack_attn_steps(attn_steps)
-    return trajectory, cached
+        return out_traj, cached, stack_attn_steps(attn_steps)
+    return out_traj, cached
 
 
 def adam_corrections(count: int) -> Tuple[float, float]:
@@ -357,10 +393,17 @@ def _hybrid(fwd, scheduler: DDIMScheduler, trajectory: torch.Tensor,
             outer_chunk: Optional[int], dependent_weight: float,
             dependent_sampler: Optional[DependentNoiseSampler], seed: int,
             unet_fn: UNetFn, return_losses: bool, return_inner_steps: bool,
-            telemetry: bool = False, program: Optional[str] = None):
+            telemetry: bool = False, program: Optional[str] = None, cuda_graphs=None):
     """The "hybrid" null-text mode (JAX: ``inversion.py:613-710``): K Adam
     steps per outer step from the cond embedding, against the recorded
-    trajectory, each outer step on its own."""
+    trajectory, each outer step on its own.
+
+    Step bodies over device buffers: an outer step's conditional forward,
+    its first inner step (which starts Adam and the embedding afresh) and
+    its later ones; the lr is gathered from a device table at the step's
+    index, the bias corrections are device scalars, and each outer step's
+    1 + K draws of ``step_generator(seed, i)`` are made before the bodies,
+    in the eager order."""
     K = num_inner_steps
     if K < 1:
         raise ValueError(f"hybrid_inner_steps must be >= 1, got {K}")
@@ -368,41 +411,70 @@ def _hybrid(fwd, scheduler: DDIMScheduler, trajectory: torch.Tensor,
     timesteps = scheduler.timesteps(N)
     chunk = outer_chunk if outer_chunk and outer_chunk < N else N
     device = trajectory.device
+    w = dependent_weight
     embeddings: List[torch.Tensor] = []
     losses: List[torch.Tensor] = []
     tel: List[dict] = []
+    inputs = StepInputs({"t": timesteps, "step": range(N)}, device)
+    lr_table = torch.tensor([_lr_and_threshold(i, 0.0)[0] for i in range(N)],
+                            dtype=torch.float32, device=device)
+    latent = torch.empty_like(trajectory[0])
+    latent_prev = torch.empty_like(latent)
+    eps_cond = torch.empty_like(latent)
+    uncond = torch.empty(cond.shape, dtype=torch.float32, device=device)
+    mu, nu = torch.zeros_like(uncond), torch.zeros_like(uncond)
+    c1, c2 = (torch.zeros((), dtype=torch.float32, device=device) for _ in range(2))
+    n_cond, n_inner = ((torch.empty_like(latent) if w > 0.0 else None) for _ in range(2))
 
-    def run_chunk(start: int, stop: int) -> None:
+    def cond_body():
+        eps_cond.copy_(_blend_drawn(fwd(latent, inputs.t, cond), w, n_cond))
+
+    def inner_body(first: bool):
+        if first:
+            # a fresh Adam state and the cond embedding, each outer step
+            mu.zero_()
+            nu.zero_()
+            uncond.copy_(cond)
+        with torch.enable_grad():
+            leaf = uncond.detach().requires_grad_(True)
+            eps_u = _blend_drawn(fwd(latent, inputs.t, leaf), w, n_inner)
+            eps = eps_u + guidance_scale * (eps_cond - eps_u)
+            prev_rec = scheduler.prev_step(eps, inputs.t, latent, N)
+            loss = global_mean((prev_rec - latent_prev) ** 2)
+            (grad,) = reduce_frame_grads(torch.autograd.grad(loss, leaf))
+        new, (mu_new, nu_new, _) = adam_update(uncond, grad, (mu, nu, 0),
+                                               index_step(lr_table, inputs.step),
+                                               corrections=(c1, c2))
+        mu.copy_(mu_new)
+        nu.copy_(nu_new)
+        uncond.copy_(new)
+        # the last inner iteration's reconstruction, as JAX's
+        return loss.detach(), (latent_stats(prev_rec.detach()) if telemetry else None)
+
+    def run_chunk(graphs, start: int, stop: int) -> None:
         for i in range(start, stop):
-            t = int(timesteps[i])
-            latent, latent_prev = trajectory[N - i], trajectory[N - i - 1]
-            gen = (step_generator(seed, i, device) if dependent_weight > 0.0 else None)
-
-            def blend(eps):
-                return _dependent_blend(eps, dependent_weight, dependent_sampler, gen)
-
-            lr, _ = _lr_and_threshold(i, 0.0)
-            eps_cond = blend(fwd(latent, t, cond))
-            uncond, state = cond.float(), None
-            for _ in range(K):
-                with torch.enable_grad():
-                    leaf = uncond.detach().requires_grad_(True)
-                    eps_u = blend(fwd(latent, t, leaf))
-                    eps = eps_u + guidance_scale * (eps_cond - eps_u)
-                    prev_rec = scheduler.prev_step(eps, t, latent, N)
-                    loss = global_mean((prev_rec - latent_prev) ** 2)
-                    (grad,) = reduce_frame_grads(torch.autograd.grad(loss, leaf))
-                uncond, state = adam_update(uncond, grad, state, lr)
-            losses.append(loss.detach())
-            embeddings.append(uncond)
+            inputs.load(i)
+            latent.copy_(trajectory[N - i])
+            latent_prev.copy_(trajectory[N - i - 1])
+            gen = step_generator(seed, i, device) if w > 0.0 else None
+            _draw_into(n_cond, dependent_sampler, gen)
+            graphs.run("cond", cond_body)
+            for j in range(K):
+                c1_j, c2_j = adam_corrections(j + 1)
+                c1.fill_(c1_j)
+                c2.fill_(c2_j)
+                _draw_into(n_inner, dependent_sampler, gen)
+                loss, stats = graphs.run(("inner", j == 0), inner_body, j == 0)
+            losses.append(graphs.kept(loss))
+            embeddings.append(uncond.clone())
             if telemetry:
-                # the last inner iteration's reconstruction, as JAX's
-                tel.append(latent_stats(prev_rec.detach()))
+                tel.append(graphs.kept(stats))
 
     step = run_chunk if program is None else instrumented_program(run_chunk, program=program)
-    with _frozen(unet_fn), torch.no_grad():
+    with _frozen(unet_fn), torch.no_grad(), \
+            graphs_mod.step_graphs(cuda_graphs, device, "null_text_hybrid") as graphs:
         for start in range(0, N, chunk):
-            step(start, min(start + chunk, N))
+            step(graphs, start, min(start + chunk, N))
     return _pack(embeddings, losses, [K] * N, return_losses, return_inner_steps,
                  tel if telemetry else None)
 
@@ -487,13 +559,13 @@ def null_text_optimization(
     of its last inner reconstruction), stacked on the device, as the last
     element.
 
-    "optimize" and "amortized" run as step bodies over device buffers: an
-    outer step's conditional forward, each inner step (forward,
-    ``autograd.grad`` through the UNet, Adam) and the advance ("amortized":
-    one body an outer step), replayed as CUDA graphs as ``cuda_graphs``
-    decides (None: on a CUDA device outside a mesh; False: the eager loop,
-    the same bits). Early stop reads the loss once an inner step, as the
-    eager loop does. "hybrid" stays an eager loop.
+    Every mode runs as step bodies over device buffers: an outer step's
+    conditional forward, each inner step (forward, ``autograd.grad``
+    through the UNet, Adam) and the advance ("amortized": one body an outer
+    step; "hybrid": no advance, its first inner step a variant of its
+    own), replayed as CUDA graphs as ``cuda_graphs`` decides (None: on a
+    CUDA device outside a mesh; False: the eager loop, the same bits).
+    Early stop reads the loss once an inner step, as the eager loop does.
 
     Returns the embeddings (N, B, L, D) float32, plus, with
     ``return_losses``, the final inner loss of each outer step (N,) (the
@@ -529,7 +601,7 @@ def null_text_optimization(
                        seed=generator.initial_seed() if generator is not None else 0,
                        unet_fn=unet_fn, return_losses=return_losses,
                        return_inner_steps=return_inner_steps, telemetry=telemetry,
-                       program=program)
+                       program=program, cuda_graphs=cuda_graphs)
 
     device = trajectory.device
     w = dependent_weight

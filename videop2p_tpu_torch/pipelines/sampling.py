@@ -219,11 +219,12 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
         also return its per-step channels of the latents after each step
         (the edit streams in cached mode) — each rank's local statistics
         and the cross-replica divergence.
-      * ``cuda_graphs`` (cached mode): its steps are step bodies over
-        device buffers, keyed by their branch pattern and replayed as CUDA
-        graphs (``utils/cuda_graphs.py``) when None (the default) on a CUDA
-        device outside a mesh; False keeps the eager loop (the same bits).
-        The live loop is eager.
+      * ``cuda_graphs``: the steps (of the live loop and of the cached
+        one) are step bodies over device buffers, keyed by their branch
+        pattern and replayed as CUDA graphs (``utils/cuda_graphs.py``) when
+        None (the default) on a CUDA device outside a mesh; False keeps the
+        eager loop (the same bits); a runner (``StepGraphs``, e.g. a
+        program set's ``KeptRunner``) runs them through it.
 
     With any, the return is ``(latents[, tel][, dev][, attn])``."""
     if cond_embeddings.dim() not in (3, 4):
@@ -331,61 +332,153 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
     if eta > 0 and variance_noise is None and generator is None:
         raise ValueError("eta > 0 needs a generator or variance_noise")
 
+    return _edit_sample_live(
+        unet_fn, scheduler, latents, cond_embeddings, uncond_embeddings,
+        num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, ctx=ctx,
+        source_uses_cfg=source_uses_cfg, eta=eta, generator=generator,
+        variance_noise=variance_noise,
+        null_uncond_embeddings=null_uncond_embeddings if source_uses_cfg else None,
+        dependent_sampler=dependent_sampler, telemetry=telemetry, attn_maps=attn_maps,
+        device_probe=device_probe, cuda_graphs=cuda_graphs)
+
+
+def _edit_sample_live(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor,
+                      cond_embeddings: torch.Tensor, uncond_embeddings: torch.Tensor, *,
+                      num_inference_steps: int, guidance_scale: float,
+                      ctx: Optional[ControlContext], source_uses_cfg: bool, eta: float,
+                      generator: Optional[torch.Generator],
+                      variance_noise: Optional[torch.Tensor],
+                      null_uncond_embeddings: Optional[torch.Tensor],
+                      dependent_sampler: Optional[DependentNoiseSampler], telemetry: bool,
+                      attn_maps: bool, device_probe: Optional[Callable],
+                      cuda_graphs=None):
+    """The live loop (every stream in the batch; arguments checked by
+    :func:`edit_sample`). Each step is a step body over device buffers: the
+    step's timesteps and index, the latents, LocalBlend's running sum, the
+    η noise (drawn before the body in the eager order: the body draws
+    nothing) and the source stream's null-text embedding (gathered from the
+    table at the step's index); keyed by its branch pattern: LocalBlend's
+    first step, its gate, SpatialReplace and the temporal window."""
+    P = cond_embeddings.shape[0]
     U = P if source_uses_cfg else P - 1
-    raw = uncond_embeddings.expand(U, *uncond_embeddings.shape)
+    N = num_inference_steps
+    video_length = latents.shape[1]
+    latent_hw = tuple(latents.shape[2:4])
+    text_len = cond_embeddings.shape[-2]
+    device = latents.device
     use_blend = ctx is not None and ctx.blend is not None
-    maps_sum = None
-    tel, attn, dev = [], [], []
-    for i, t in enumerate(scheduler.timesteps(num_inference_steps)):
-        t = int(t)
-        uncond = raw
-        if source_uses_cfg and null_uncond_embeddings is not None:
-            uncond = torch.cat([null_uncond_embeddings[i][None].to(raw.dtype), raw[1:]])
-        text = torch.cat([uncond, cond_embeddings], dim=0)
-        latent_in = torch.cat([latents[P - U:], latents], dim=0)
-        control = AttnControl(ctx, i, U) if ctx is not None else None
-        eps_all, store = unet_fn(latent_in, t, text, control, store=use_blend or attn_maps)
-        eps_all = eps_all.float()
-        eps_uncond, eps_text = eps_all[:U], eps_all[U:]
-        if source_uses_cfg:
-            eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
+    timesteps = scheduler.timesteps(N)
+    ratio = scheduler.num_train_timesteps // N
+
+    def draw(noise: torch.Tensor, i: int) -> None:
+        """Step ``i``'s η noise into its buffer, as the eager loop drew it."""
+        if variance_noise is not None:
+            noise.copy_(variance_noise[i])
+        elif dependent_sampler is not None:
+            noise.copy_(frames_draw(lambda shape: dependent_sampler.sample_like(
+                noise.new_empty(shape), generator), noise.shape))
         else:
-            eps_edit = eps_uncond + guidance_scale * (eps_text[1:] - eps_uncond)
-            eps = torch.cat([eps_text[:1], eps_edit], dim=0)
-        noise = None
-        if eta > 0:
-            if variance_noise is not None:
-                noise = variance_noise[i]
-            elif dependent_sampler is not None:
-                noise = frames_draw(lambda shape: dependent_sampler.sample_like(
-                    eps.new_empty(shape), generator), eps.shape)
+            noise.copy_(frames_draw(lambda shape: torch.randn(
+                shape, generator=generator, device=noise.device), noise.shape))
+
+    tel, attn, dev = [], [], []
+    with graphs_mod.step_graphs(cuda_graphs, device, "live_edit") as graphs:
+        ctx = graphs.inputs("ctx", ctx)
+        cond = graphs.inputs("cond", cond_embeddings)
+        raw = graphs.inputs("uncond", uncond_embeddings)
+        null = graphs.inputs("null", null_uncond_embeddings)
+        inputs = graphs.inputs("steps", StepInputs(
+            {"t": timesteps, "prev": timesteps - ratio, "step": range(N)}, device))
+        x = graphs.scratch("latents", lambda: torch.empty(latents.shape, device=device))
+        x.copy_(latents)
+        noise = (graphs.scratch("noise", lambda: torch.empty(latents.shape, device=device))
+                 if eta > 0 else None)
+        state = graphs.scratch("state", dict)
+
+        def body(i: int):
+            """Step ``i``'s work: ``i`` only decides the branches its
+            variant key fixes; every per-step value comes from ``inputs``."""
+            uncond = raw.expand(U, *raw.shape)
+            if null is not None:
+                uncond = torch.cat([index_step(null, inputs.step)[None].to(raw.dtype),
+                                    uncond[1:]])
+            text = torch.cat([uncond, cond], dim=0)
+            latent_in = torch.cat([x[P - U:], x], dim=0)
+            control = AttnControl(ctx, i, U, step=inputs.step) if ctx is not None else None
+            eps_all, store = unet_fn(latent_in, inputs.t, text, control,
+                                     store=use_blend or attn_maps)
+            eps_all = eps_all.float()
+            eps_uncond, eps_text = eps_all[:U], eps_all[U:]
+            if source_uses_cfg:
+                eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
             else:
-                noise = frames_draw(lambda shape: torch.randn(
-                    shape, generator=generator, device=eps.device), eps.shape)
-        latents, _ = scheduler.step(eps, t, latents, num_inference_steps, eta=eta,
-                                    variance_noise=noise)
-        if use_blend:
-            maps = blend_maps_from_store(
-                store, latent_hw=latent_hw, video_length=video_length,
-                num_prompts=P, text_len=text_len, num_uncond=U).float()
-            maps_sum = maps if maps_sum is None else maps_sum + maps
-            latents = local_blend(latents, maps_sum, ctx.blend, i)
-        if ctx is not None and i < ctx.spatial_replace_until:
-            # SpatialReplace: every edit stream takes the source's latent
-            latents = latents[:1].expand_as(latents).contiguous()
-        if telemetry:
-            tel.append(dict(latent_stats(latents), **_controller_gates(ctx, i, latents.device)))
-        if device_probe is not None:
-            dev.append(device_probe(latents))
-        if attn_maps:
-            rec = attn_step_record(store, num_uncond=U, num_cond=P,
-                                   video_length=video_length, text_len=text_len,
-                                   latent_hw=latent_hw)
+                eps_edit = eps_uncond + guidance_scale * (eps_text[1:] - eps_uncond)
+                eps = torch.cat([eps_text[:1], eps_edit], dim=0)
+            new, _ = scheduler.step(eps, inputs.t, x, N, eta=eta, variance_noise=noise,
+                                    prev_timestep=inputs.prev)
             if use_blend:
-                rec.update(_mask_series_entry(maps_sum, ctx.blend, i, latent_hw))
-            attn.append(rec)
-    return _pack_step_outputs(latents, telemetry, tel, attn_maps, attn,
+                maps = blend_maps_from_store(
+                    store, latent_hw=latent_hw, video_length=video_length,
+                    num_prompts=P, text_len=text_len, num_uncond=U).float()
+                if i == 0:
+                    _keep(state, "maps_sum", maps)
+                else:
+                    state["maps_sum"].add_(maps)
+                new = local_blend(new, state["maps_sum"], ctx.blend, i)
+            if ctx is not None and i < ctx.spatial_replace_until:
+                # SpatialReplace: every edit stream takes the source's latent
+                new = new[:1].expand_as(new)
+            x.copy_(new)
+            out = {}
+            if telemetry:
+                out["tel"] = dict(latent_stats(x),
+                                  **_controller_gates(ctx, i, device, step=inputs.step))
+            if device_probe is not None:
+                out["dev"] = device_probe(x)
+            if attn_maps:
+                rec = attn_step_record(store, num_uncond=U, num_cond=P,
+                                       video_length=video_length, text_len=text_len,
+                                       latent_hw=latent_hw)
+                if use_blend:
+                    rec.update(_mask_series_entry(state["maps_sum"], ctx.blend, i, latent_hw))
+                out["attn"] = rec
+            return out
+
+        for i in range(N):
+            inputs.load(i)
+            if noise is not None:
+                draw(noise, i)
+            out = graphs.kept(graphs.run(_variant(ctx, i, use_blend), body, i))
+            if telemetry:
+                tel.append(out["tel"])
+            if device_probe is not None:
+                dev.append(out["dev"])
+            if attn_maps:
+                attn.append(out["attn"])
+        result = graphs.own(x)
+    return _pack_step_outputs(result, telemetry, tel, attn_maps, attn,
                               dev if device_probe is not None else None)
+
+
+def _keep(state: dict, name: str, value: torch.Tensor) -> None:
+    """``state[name] = value``, into the buffer when there is one (a step
+    body's graph holds its address)."""
+    if name in state:
+        state[name].copy_(value)
+    else:
+        state[name] = value
+
+
+def _variant(ctx: Optional[ControlContext], i: int, use_blend: bool, full=None) -> tuple:
+    """Every Python-level branch of a controlled loop's step ``i``: the
+    first step (LocalBlend's running sum starts there), a reuse schedule's
+    full or shallow step, the blend gate, SpatialReplace and the temporal
+    window."""
+    if ctx is None:
+        return (i == 0, full)
+    lo, hi = ctx.self_replace_range
+    return (i == 0, full, use_blend and i >= ctx.blend.start_blend,
+            i < ctx.spatial_replace_until, lo <= i < hi)
 
 
 def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
@@ -463,113 +556,106 @@ def _edit_sample_cached(unet_fn: UNetFn, scheduler: DDIMScheduler,
                   else parse_reuse_schedule(reuse_schedule, N))
     device = latents.device
     base = [cached.base_indices(int(p)) for p in positions]
-    inputs = StepInputs({"t": timesteps, "prev": prev_timesteps, "step": range(N),
-                         "base": positions, "src": src_after,
-                         "cross": [c for c, _ in base], "temporal": [t for _, t in base]},
-                        device)
-    edit_latents = latents[1:].clone(memory_format=torch.contiguous_format)
-    # LocalBlend's running sum, and the reuse schedule's deep feature and
-    # edit maps of the last full step: made by the first step, then
-    # updated in place
-    state = {}
-
-    def edit_maps_of(store):
-        return blend_maps_from_store(
-            store, latent_hw=latent_hw, video_length=video_length,
-            num_prompts=E, text_len=text_len, num_uncond=U).float()
-
-    def keep(name, value):
-        if name in state:
-            state[name].copy_(value)
-        else:
-            state[name] = value
-
-    def body(i: int, full: Optional[bool]):
-        """Step ``i``'s work: ``i`` only decides the branches its variant
-        key fixes; every per-step value comes from ``inputs``."""
-        latent_in = torch.cat([edit_latents, edit_latents], dim=0)
-        control = None
-        if ctx is not None:
-            control = AttnControl(ctx, i, U, step=inputs.step, cached_source=True,
-                                  cached_base=cached.base_tree_at(inputs.cross, inputs.temporal))
-        store = None
-        if full is None:
-            eps_all, store = unet_fn(latent_in, inputs.t, text, control,
-                                     store=use_blend or attn_maps)
-            edit_maps = edit_maps_of(store) if use_blend else None
-        elif full:
-            (eps_all, deep), store = unet_fn(latent_in, inputs.t, text, control,
-                                             store=use_blend, deep_mode="capture")
-            keep("deep", deep)
-            edit_maps = None
-            if use_blend:
-                keep("last_maps", edit_maps_of(store))
-                edit_maps = state["last_maps"]
-        else:
-            # the shallow path re-adds the last full step's edit maps
-            eps_all, _ = unet_fn(latent_in, inputs.t, text, control, store=False,
-                                 deep_mode="shallow", deep_feature=state["deep"])
-            edit_maps = state.get("last_maps")
-        if student_head is not None:
-            # only the edit streams run the UNet; the source stream is the
-            # capture's replay below, so src_err == 0.0 is untouched
-            from videop2p_tpu_torch.train.distill import apply_time_head
-
-            eps_all = apply_time_head(student_head, eps_all, inputs.t)
-        eps_all = eps_all.float()
-        eps_uncond, eps_text = eps_all[:E], eps_all[E:]
-        eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
-        new, _ = scheduler.step(eps, inputs.t, edit_latents, N, prev_timestep=inputs.prev)
-        source_after = index_step(cached.src_latents, inputs.src)
-        out = {}
-        if use_blend:
-            maps = torch.cat([index_step(cached.blend_seq, inputs.base), edit_maps], dim=0)
-            if i == 0:
-                state["maps_sum"] = maps
-            else:
-                state["maps_sum"].add_(maps)
-            full_latents = torch.cat([source_after, new], dim=0)
-            new = local_blend(full_latents, state["maps_sum"], ctx.blend, i)[1:]
-        if ctx is not None and i < ctx.spatial_replace_until:
-            new = source_after.expand_as(new)
-        edit_latents.copy_(new)
-        if telemetry:
-            out["tel"] = dict(latent_stats(edit_latents),
-                              **_controller_gates(ctx, i, device, step=inputs.step))
-        if device_probe is not None:
-            out["dev"] = device_probe(edit_latents)
-        if attn_maps:
-            rec = attn_step_record(store, num_uncond=U, num_cond=E,
-                                   video_length=video_length, text_len=text_len,
-                                   latent_hw=latent_hw)
-            if use_blend:
-                rec.update(_mask_series_entry(state["maps_sum"], ctx.blend, i, latent_hw))
-            out["attn"] = rec
-        return out
-
-    def variant(i: int) -> tuple:
-        """Every Python-level branch of step ``i``'s body."""
-        full = None if full_steps is None else bool(full_steps[i])
-        if ctx is None:
-            return (i == 0, full)
-        lo, hi = ctx.self_replace_range
-        return (i == 0, full, use_blend and i >= ctx.blend.start_blend,
-                i < ctx.spatial_replace_until, lo <= i < hi)
-
     tel, attn, dev = [], [], []
     with graphs_mod.step_graphs(cuda_graphs, device, "cached_edit") as graphs:
+        ctx = graphs.inputs("ctx", ctx)
+        cached = graphs.inputs("cached", cached)
+        text = graphs.inputs("text", text)
+        student_head = graphs.inputs("student_head", student_head)
+        inputs = graphs.inputs("steps", StepInputs(
+            {"t": timesteps, "prev": prev_timesteps, "step": range(N), "base": positions,
+             "src": src_after, "cross": [c for c, _ in base],
+             "temporal": [t for _, t in base]}, device))
+        edit_latents = graphs.scratch("edit_latents", lambda: torch.empty(
+            latents[1:].shape, dtype=latents.dtype, device=device))
+        edit_latents.copy_(latents[1:])
+        # LocalBlend's running sum, and the reuse schedule's deep feature and
+        # edit maps of the last full step: made by the first step, then
+        # updated in place
+        state = graphs.scratch("state", dict)
+
+        def edit_maps_of(store):
+            return blend_maps_from_store(
+                store, latent_hw=latent_hw, video_length=video_length,
+                num_prompts=E, text_len=text_len, num_uncond=U).float()
+
+        def body(i: int, full: Optional[bool]):
+            """Step ``i``'s work: ``i`` only decides the branches its variant
+            key fixes; every per-step value comes from ``inputs``."""
+            latent_in = torch.cat([edit_latents, edit_latents], dim=0)
+            control = None
+            if ctx is not None:
+                control = AttnControl(ctx, i, U, step=inputs.step, cached_source=True,
+                                      cached_base=cached.base_tree_at(inputs.cross,
+                                                                      inputs.temporal))
+            store = None
+            if full is None:
+                eps_all, store = unet_fn(latent_in, inputs.t, text, control,
+                                         store=use_blend or attn_maps)
+                edit_maps = edit_maps_of(store) if use_blend else None
+            elif full:
+                (eps_all, deep), store = unet_fn(latent_in, inputs.t, text, control,
+                                                 store=use_blend, deep_mode="capture")
+                _keep(state, "deep", deep)
+                edit_maps = None
+                if use_blend:
+                    _keep(state, "last_maps", edit_maps_of(store))
+                    edit_maps = state["last_maps"]
+            else:
+                # the shallow path re-adds the last full step's edit maps
+                eps_all, _ = unet_fn(latent_in, inputs.t, text, control, store=False,
+                                     deep_mode="shallow", deep_feature=state["deep"])
+                edit_maps = state.get("last_maps")
+            if student_head is not None:
+                # only the edit streams run the UNet; the source stream is the
+                # capture's replay below, so src_err == 0.0 is untouched
+                from videop2p_tpu_torch.train.distill import apply_time_head
+
+                eps_all = apply_time_head(student_head, eps_all, inputs.t)
+            eps_all = eps_all.float()
+            eps_uncond, eps_text = eps_all[:E], eps_all[E:]
+            eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
+            new, _ = scheduler.step(eps, inputs.t, edit_latents, N, prev_timestep=inputs.prev)
+            source_after = index_step(cached.src_latents, inputs.src)
+            out = {}
+            if use_blend:
+                maps = torch.cat([index_step(cached.blend_seq, inputs.base), edit_maps], dim=0)
+                if i == 0:
+                    _keep(state, "maps_sum", maps)
+                else:
+                    state["maps_sum"].add_(maps)
+                full_latents = torch.cat([source_after, new], dim=0)
+                new = local_blend(full_latents, state["maps_sum"], ctx.blend, i)[1:]
+            if ctx is not None and i < ctx.spatial_replace_until:
+                new = source_after.expand_as(new)
+            edit_latents.copy_(new)
+            if telemetry:
+                out["tel"] = dict(latent_stats(edit_latents),
+                                  **_controller_gates(ctx, i, device, step=inputs.step))
+            if device_probe is not None:
+                out["dev"] = device_probe(edit_latents)
+            if attn_maps:
+                rec = attn_step_record(store, num_uncond=U, num_cond=E,
+                                       video_length=video_length, text_len=text_len,
+                                       latent_hw=latent_hw)
+                if use_blend:
+                    rec.update(_mask_series_entry(state["maps_sum"], ctx.blend, i, latent_hw))
+                out["attn"] = rec
+            return out
+
         for i in range(N):
             inputs.load(i)
-            out = graphs.kept(graphs.run(variant(i), body, i, variant(i)[1]))
+            full = None if full_steps is None else bool(full_steps[i])
+            out = graphs.kept(graphs.run(_variant(ctx, i, use_blend, full), body, i, full))
             if telemetry:
                 tel.append(out["tel"])
             if device_probe is not None:
                 dev.append(out["dev"])
             if attn_maps:
                 attn.append(out["attn"])
-    # stream 0 is the capture's x_0, copied without arithmetic
-    return _pack_step_outputs(torch.cat([cached.src_latents[-1], edit_latents], dim=0),
-                              telemetry, tel, attn_maps, attn,
+        # stream 0 is the capture's x_0, copied without arithmetic
+        result = torch.cat([cached.src_latents[-1], edit_latents], dim=0)
+    return _pack_step_outputs(result, telemetry, tel, attn_maps, attn,
                               dev if device_probe is not None else None)
 
 
@@ -612,8 +698,7 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
 
     ``telemetry`` / ``attn_maps`` go to the edit (:func:`edit_sample`),
     and ``telemetry`` to the null-text phase too (its record gains
-    ``latent_stats``). ``cuda_graphs`` goes to the null-text phase
-    (``null_text_optimization``); the full-CFG edit is an eager loop.
+    ``latent_stats``). ``cuda_graphs`` goes to both phases.
 
     Returns ``(latents (P, F, h, w, C), {"final_loss", "inner_steps"})``,
     the null-text record of each outer step (None when ``null_embeddings``
@@ -646,7 +731,7 @@ def official_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, trajectory: torch.T
                           guidance_scale=guidance_scale, ctx=ctx, source_uses_cfg=True,
                           eta=eta, generator=generator, null_uncond_embeddings=null_seq,
                           dependent_sampler=dependent_sampler if eta > 0 else None,
-                          telemetry=telemetry, attn_maps=attn_maps)
+                          telemetry=telemetry, attn_maps=attn_maps, cuda_graphs=cuda_graphs)
     return out, stats
 
 

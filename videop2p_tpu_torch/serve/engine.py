@@ -319,7 +319,13 @@ class EditEngine:
         self._qw_count = 0
         if self.faults is not None:
             self.faults.on_inject = self._fault_event
-        programs = programs if programs is not None else ProgramSet(spec, device=device)
+        if programs is None:
+            try:
+                programs = ProgramSet(spec, device=device)
+            except BaseException:
+                # a set that cannot be built leaves no ledger active
+                self.ledger.close()
+                raise
         # a set on the ranks of a process group: rank 0 serves it through
         # every rank, and close() releases the others
         if programs.needs_leader:

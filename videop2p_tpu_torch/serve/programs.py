@@ -20,6 +20,18 @@ cached.CachedSource`) are arguments of the programs, never baked into them,
 so two requests with the same controller structure but other prompts,
 equalizers or clips run the same program.
 
+On one card outside a mesh (``utils/cuda_graphs.py:graphs_default``) and
+not served through a leader, the programs' step loops (the capture walk,
+the cached edit, the live loop of :meth:`ProgramSet.sample`) run on kept
+runners (``utils/cuda_graphs.py:KeptRunner``): CUDA graphs that stay warm
+across requests, as JAX's compiled programs do. The set keeps them in a
+bounded :class:`~videop2p_tpu_torch.utils.cuda_graphs.RunnerCache` keyed
+by the program's statics (its cache key) and the argument tree's
+``serve/batching.py:compat_key``, the JAX jit cache's key; each request's
+tensors are copied into the runner's buffers before its steps replay.
+:meth:`ProgramSet.warm` runs the request path's step loops twice there,
+so that every step variant of it is captured before the first request.
+
 The UNet is built with ``frame_attention="auto"``: on the card every
 forward of the inversion and the edit runs the fused frame-attention kernel
 at its N ≥ 1024 sites and the GroupNorm kernel at all 61. Every program
@@ -51,6 +63,7 @@ a replica of the models on each of the first dp devices (``cuda:0`` ..
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -72,6 +85,9 @@ MASK_TH = (0.3, 0.3)
 
 # bounded per-set program cache: (name, statics) -> instrumented callable
 _PROGRAMS_MAX = 32
+# bounded per-set kept runners (each holds its buffers and graphs; one pool)
+_RUNNERS_MAX = 8
+_GRAPH_MODES = ("kept", "per_call", "off")
 
 _DTYPES = {"fp16": torch.bfloat16, "bf16": torch.bfloat16,
            "fp32": torch.float32, "no": torch.float32}
@@ -158,14 +174,24 @@ def _to_device(tree: Any, device) -> Any:
     return tree
 
 
+def _runner_cache(device):
+    from videop2p_tpu_torch.utils.cuda_graphs import RunnerCache
+
+    return RunnerCache(device, max_runners=_RUNNERS_MAX)
+
+
 class ProgramSet:
     """Warm, instrumented programs for one :class:`ProgramSpec` on one
     device (CUDA unless a CPU device is given), on each rank of a
     model-parallel mesh, or over the replicas of a data mesh (the module
     docstring). ``bundle`` replaces the models ``build_models`` would make
-    (its modules on ``device``)."""
+    (its modules on ``device``). ``graphs``: "kept" (the default) runs the
+    step loops on kept runners where :meth:`keeps_graphs` allows, "per_call"
+    on the loops' own runners of one call (graphs captured anew every
+    request), "off" eagerly."""
 
-    def __init__(self, spec: ProgramSpec, *, bundle: Any = None, device="cuda"):
+    def __init__(self, spec: ProgramSpec, *, bundle: Any = None, device="cuda",
+                 graphs: str = "kept"):
         from videop2p_tpu_torch.cli.common import build_models, parse_mesh, setup_mesh
         from videop2p_tpu_torch.models.convert import quantize_unet_params
         from videop2p_tpu_torch.models.quant import validate_quant_mode
@@ -173,6 +199,9 @@ class ProgramSet:
         from videop2p_tpu_torch.pipelines.sampling import make_unet_fn
 
         self.spec = spec = spec.resolved()
+        if graphs not in _GRAPH_MODES:
+            raise ValueError(f"graphs must be one of {_GRAPH_MODES}, got {graphs!r}")
+        self.graphs = graphs
         quant_mode = validate_quant_mode(spec.quant_mode)
         dp, sp, tp = parse_mesh(spec.mesh)
         model_parallel = sp > 1 or tp > 1
@@ -248,6 +277,7 @@ class ProgramSet:
         self._programs: Dict[Tuple, Callable] = {}
         self._lock = threading.Lock()
         self._misses = 0
+        self._runners = _runner_cache(self.device)
         # a served mesh's rank-synchronous calls: seconds per program
         self.call_seconds: Dict[str, float] = {}
         self.warmed: Optional[Dict[str, Any]] = None
@@ -274,6 +304,7 @@ class ProgramSet:
         rep.student_fn = make_unet_fn(rep.student_unet) if rep.student_unet is not None else None
         rep.scheduler = rep.bundle.make_scheduler()
         rep._programs, rep._lock, rep._misses = {}, threading.Lock(), 0
+        rep._runners = _runner_cache(device)
         rep.replicas = [rep]
         return rep
 
@@ -311,6 +342,38 @@ class ProgramSet:
     def _sync_own(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def keeps_graphs(self) -> bool:
+        """Whether the programs' step loops run on kept runners: ``graphs``
+        "kept", CUDA graphs by default on the set's device (one card, no
+        mesh) and the set not served through a leader."""
+        from videop2p_tpu_torch.utils.cuda_graphs import graphs_default
+
+        return self.graphs == "kept" and not self.needs_leader and graphs_default(self.device)
+
+    @contextlib.contextmanager
+    def _runner(self, statics: Tuple, args: Any, name: str):
+        """The runner of one call of the program of ``statics`` on
+        ``args``: a kept runner lent for the call (keyed by the statics and
+        the tree's compat key); else None (the loop's own default) or, with
+        ``graphs`` "off", False (the eager loop)."""
+        if not self.keeps_graphs():
+            yield False if self.graphs == "off" else None
+            return
+        from videop2p_tpu_torch.serve.batching import compat_key
+
+        with self._runners.checkout((statics, compat_key(args)), name) as runner:
+            yield runner
+
+    def runner_stats(self) -> Dict[str, Any]:
+        """The kept runners of every replica: how many, the runners made so
+        far, their calls, graphs captured, eager steps, replays, bytes
+        copied in and their pools' bytes, summed."""
+        out: Dict[str, Any] = {}
+        for r in self.replicas:
+            for k, v in r._runners.totals().items():
+                out[k] = out.get(k, 0) + v
+        return out
 
     # ---- host-side helpers ----------------------------------------------
 
@@ -409,12 +472,16 @@ class ProgramSet:
         guidance = float(self.spec.guidance_scale if guidance_scale is None
                          else guidance_scale)
 
+        statics = ("sample_decode", steps, guidance)
+
         def fn(x, cond, uncond):
-            out = edit_sample(self.unet_fn, self.scheduler, x, cond, uncond,
-                              num_inference_steps=steps, guidance_scale=guidance)
+            with self._runner(statics, (x, cond, uncond), "live_edit") as runner:
+                out = edit_sample(self.unet_fn, self.scheduler, x, cond, uncond,
+                                  num_inference_steps=steps, guidance_scale=guidance,
+                                  cuda_graphs=runner)
             return self._decode01(out)
 
-        prog = self._program(("sample_decode", steps, guidance), "sample_decode", fn)
+        prog = self._program(statics, "sample_decode", fn)
         return prog(x_t, cond, uncond)
 
     def capture_plan(self, ctx, latents: torch.Tensor, cond_src: torch.Tensor):
@@ -452,17 +519,27 @@ class ProgramSet:
         blend, storage dtype); the controller's tensors never enter it, so
         every clip with the same capture plan runs it. The inversion is
         always the teacher's."""
+        statics, loop = self._invert_loop(latents, cond_src, ctx)
+        return self._program(statics, "serve_invert", loop)(latents, cond_src)
+
+    def _invert_loop(self, latents: torch.Tensor, cond_src: torch.Tensor, ctx):
+        """``(statics, loop)``: the capture inversion of this request's
+        capture plan, ``loop(x, c)`` on the set's runner of those statics."""
         from videop2p_tpu_torch.pipelines.inversion import ddim_inversion_captured
 
         cross_len, self_window, tm_dtype = self.capture_plan(ctx, latents, cond_src)
         capture_blend = ctx is not None and ctx.blend is not None
         statics = ("serve_invert", cross_len, self_window, capture_blend,
                    None if tm_dtype is None else str(tm_dtype))
-        prog = self._program(statics, "serve_invert", lambda x, c: ddim_inversion_captured(
-            self.unet_fn, self.scheduler, x, c, num_inference_steps=self.spec.steps,
-            cross_len=cross_len, self_window=self_window, capture_blend=capture_blend,
-            temporal_maps_dtype=tm_dtype))
-        return prog(latents, cond_src)
+
+        def loop(x, c):
+            with self._runner(statics, (x, c), "capture_inversion") as runner:
+                return ddim_inversion_captured(
+                    self.unet_fn, self.scheduler, x, c, num_inference_steps=self.spec.steps,
+                    cross_len=cross_len, self_window=self_window, capture_blend=capture_blend,
+                    temporal_maps_dtype=tm_dtype, cuda_graphs=runner)
+
+        return statics, loop
 
     def step_plan(self, steps: Optional[int] = None):
         """``(steps, positions)`` of a per-request step count: positions
@@ -487,22 +564,10 @@ class ProgramSet:
         bit-identical to its singletons. ``student`` runs the edit with the
         distilled UNet and its time head over the same capture replay, so
         ``src_err`` keeps its 0.0 contract."""
-        from videop2p_tpu_torch.pipelines.sampling import edit_sample
-
-        guidance = self.spec.guidance_scale
-        steps = int(steps) if steps else self.spec.steps
-        head = self.student_head if student else None
-        if student and head is None:
-            raise ValueError("student edit requested but the spec has no student_ckpt — "
-                             "build the ProgramSet with ProgramSpec.student_ckpt set")
-        unet_fn = self.student_fn if student else self.unet_fn
+        loop = self._edit_loop(steps, positions, reuse, student)
 
         def fn(cached, cond_all, uncond, ctx, anchor):
-            out = edit_sample(unet_fn, self.scheduler, cached.src_latents[0], cond_all, uncond,
-                              num_inference_steps=steps, guidance_scale=guidance, ctx=ctx,
-                              source_uses_cfg=False, cached_source=cached,
-                              step_positions=positions, reuse_schedule=reuse,
-                              student_head=head)
+            out = loop(cached, cond_all, uncond, ctx)
             # stream 0 must be the exact inversion reconstruction: compare
             # it with the ANCHOR stored with the products (the encoded
             # source latents) — 0.0 exactly when the replay is intact (on a
@@ -517,6 +582,35 @@ class ProgramSet:
             return videos01, src_err
 
         return fn
+
+    def _edit_loop(self, steps: Optional[int] = None,
+                   positions: Optional[Tuple[int, ...]] = None,
+                   reuse: Optional[str] = None, student: bool = False):
+        """The edit program's loop: ``loop(cached, cond_all, uncond, ctx)``
+        → the edited latents, on the set's runner of its statics."""
+        from videop2p_tpu_torch.pipelines.sampling import edit_sample
+
+        guidance = self.spec.guidance_scale
+        steps = int(steps) if steps else self.spec.steps
+        head = self.student_head if student else None
+        if student and head is None:
+            raise ValueError("student edit requested but the spec has no student_ckpt — "
+                             "build the ProgramSet with ProgramSpec.student_ckpt set")
+        unet_fn = self.student_fn if student else self.unet_fn
+        statics = self._edit_statics(steps, reuse, student)
+
+        def loop(cached, cond_all, uncond, ctx):
+            with self._runner(statics, (cached, cond_all, uncond, ctx), "cached_edit") as runner:
+                return edit_sample(unet_fn, self.scheduler, cached.src_latents[0], cond_all,
+                                   uncond, num_inference_steps=steps, guidance_scale=guidance,
+                                   ctx=ctx, source_uses_cfg=False, cached_source=cached,
+                                   step_positions=positions, reuse_schedule=reuse,
+                                   student_head=head, cuda_graphs=runner)
+
+        return loop
+
+    def _edit_statics(self, steps: int, reuse: Optional[str], student: bool) -> Tuple:
+        return ("serve_edit", steps, self.spec.guidance_scale, reuse, student)
 
     def _resolve_reuse(self, reuse: Optional[str], steps: int) -> str:
         """Per-call reuse schedule: None defers to the spec's default;
@@ -551,7 +645,7 @@ class ProgramSet:
 
             check_subset_windows(ctx, cached, positions, steps)
         prog = self._program(
-            ("serve_edit", steps, self.spec.guidance_scale, reuse, student),
+            self._edit_statics(steps, reuse, student),
             "serve_edit" + self._suffix(steps, reuse, student),
             self._edit_fn(steps, positions, reuse, student))
         return prog(cached, cond_all, uncond, ctx, anchor)
@@ -627,44 +721,66 @@ class ProgramSet:
         """Run every request-path program once, on zeros: encode →
         invert-capture → edit + decode, plus the few-step
         (``step_buckets``), reuse and student variants asked for; the
-        kernels build on the first call. Returns the summary ``/healthz``
-        reports (``steps``, ``reuse`` and ``student`` are the warmed lists
-        the engine admits per-request values against; ``quant`` the set's
-        one quant mode)."""
+        kernels build on the first call. Where the set keeps runners
+        (:meth:`keeps_graphs`) their step loops run a second time (without
+        the decode): a step variant seen once in a call is captured at its
+        second call, so a compatible request then captures nothing and runs
+        no step eagerly. Returns the summary ``/healthz`` reports
+        (``steps``, ``reuse`` and ``student`` are the warmed lists the
+        engine admits per-request values against; ``quant`` the set's one
+        quant mode; ``runners`` the kept runners' totals, where kept)."""
         t0 = time.perf_counter()
         spec = self.spec
         kw = dict(controller_kwargs or {})
         ctx = self.controller(prompts, **kw)
         frames = np.zeros((spec.video_len, spec.width, spec.width, 3), np.uint8)
         latents = self.encode(self.frames_to_video(frames))
-        _, cached = self.invert_capture(latents, self.encode_prompts(prompts[:1]), ctx)
+        cond_src = self.encode_prompts(prompts[:1])
         cond_all = self.encode_prompts(prompts)
         uncond = self.encode_prompts([""])[0]
-        args = (cached, cond_all, uncond, ctx, latents)
-        _, src_err = self.edit_decode(*args)
+        if student_steps and self.student_head is None:
+            raise ValueError("student_steps given but the spec has no student_ckpt — "
+                             "nothing to warm the student buckets with")
+        # the edits of the request path: (controller, edit_decode keywords)
+        edits = [(ctx, {})]
         warmed_steps = {spec.steps}
         for s in map(int, step_buckets):
             if s not in warmed_steps:
-                ctx_s = self.controller(prompts, steps=s, **kw)
-                self.edit_decode(cached, cond_all, uncond, ctx_s, latents, steps=s)
+                edits.append((self.controller(prompts, steps=s, **kw), {"steps": s}))
                 warmed_steps.add(s)
         warmed_reuse = {self._resolve_reuse(None, spec.steps)}
         for r in reuse_schedules:
             r = self._resolve_reuse(str(r), spec.steps)
             if r not in warmed_reuse:
-                self.edit_decode(*args, reuse=r)
+                edits.append((ctx, {"reuse": r}))
                 warmed_reuse.add(r)
-        if student_steps and self.student_head is None:
-            raise ValueError("student_steps given but the spec has no student_ckpt — "
-                             "nothing to warm the student buckets with")
         warmed_student: set = set()
         for s in map(int, student_steps):
             if s not in warmed_student:
                 ctx_s = self.controller(prompts, steps=s, **kw) if s != spec.steps else ctx
-                self.edit_decode(cached, cond_all, uncond, ctx_s, latents, steps=s,
-                                 student=True)
+                edits.append((ctx_s, {"steps": s, "student": True}))
                 warmed_student.add(s)
+        _, cached = self.invert_capture(latents, cond_src, ctx)
+        src_err = None
+        for c, ekw in edits:
+            _, err = self.edit_decode(cached, cond_all, uncond, c, latents, **ekw)
+            src_err = err if src_err is None else src_err
+        if self.keeps_graphs():
+            # the step loops once more (no decode): a step variant seen once
+            # above is captured now
+            with torch.no_grad():
+                _, cached = self._invert_loop(latents, cond_src, ctx)[1](latents, cond_src)
+                for c, ekw in edits:
+                    steps, positions = self.step_plan(ekw.get("steps"))
+                    self._edit_loop(steps, positions, self._resolve_reuse(ekw.get("reuse"), steps),
+                                    ekw.get("student", False))(cached, cond_all, uncond, c)
         self.sync()
+        if self.device.type == "cuda":
+            # the warm-up's activations (the decode's above all) go back to
+            # the card: processes that share it serve from what they keep
+            from videop2p_tpu_torch.utils.cuda_graphs import release_cached_memory
+
+            release_cached_memory()
         self.warmed = {
             "seconds": round(time.perf_counter() - t0, 3),
             "prompts": list(prompts),
@@ -674,6 +790,8 @@ class ProgramSet:
             "student": sorted(warmed_student),
             "src_err": float(src_err),
         }
+        if self.keeps_graphs():
+            self.warmed["runners"] = self.runner_stats()
         if len(self.replicas) > 1:
             # the data mesh's other replicas build the same programs, at once
             self._warm_replicas(prompts, controller_kwargs=controller_kwargs,
@@ -748,8 +866,11 @@ class ProgramSet:
         """Nothing to mark in one process (a leader's channel breaks)."""
 
     def close(self) -> None:
-        """Nothing to release in one process (a leader releases its
-        followers)."""
+        """Frees the kept runners' graphs, pools and buffers (every
+        replica's; a later call keeps new ones). A leader releases its
+        followers."""
+        for r in self.replicas:
+            r._runners.close()
 
     def follow(self) -> Dict[str, int]:
         """Ranks > 0 of a served mesh: run rank 0's calls until it closes;
@@ -1015,7 +1136,7 @@ class ProgramCache:
         ps = self._sets.get(key)
         if ps is None:
             while len(self._sets) >= self.max_sets:
-                self._sets.pop(next(iter(self._sets)))
+                self._sets.pop(next(iter(self._sets))).close()
             ps = self._sets[key] = ProgramSet(spec, device=self.device)
         return ps
 

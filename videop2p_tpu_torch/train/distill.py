@@ -161,18 +161,89 @@ def _pred_x0(scheduler: DDIMScheduler, eps: torch.Tensor, t: torch.Tensor,
 
 
 def _ddim_solve(scheduler: DDIMScheduler, eps: torch.Tensor, t: torch.Tensor,
-                t_prev: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+                t_prev: torch.Tensor, x: torch.Tensor, final: torch.Tensor) -> torch.Tensor:
     """One deterministic DDIM solve x_t → x_{t_prev} at (B,) timesteps, in
-    float32; ``t_prev < 0`` lands on ``final_alpha_cumprod``, as the
+    float32; ``t_prev < 0`` lands on ``final`` (the scheduler's
+    ``final_alpha_cumprod`` as a float32 tensor on x's device), as the
     sampler's last step does."""
     x0 = _pred_x0(scheduler, eps, t, x)
     a_p, b_p = scheduler.alpha_coefficients(t_prev.clamp(min=0), x)
-    final = torch.tensor(scheduler.final_alpha_cumprod, dtype=torch.float32,
-                         device=x.device)
     landed = (t_prev >= 0).reshape(a_p.shape)
     a_p = torch.where(landed, a_p, torch.sqrt(final))
     b_p = torch.where(landed, b_p, torch.sqrt(1.0 - final))
     return a_p * x0 + b_p * eps.float()
+
+
+class _StepConstants:
+    """What every distillation step reads besides its draws, made on the
+    device once: the grid's timesteps and landing points, the final ᾱ, the
+    boundary and plain loss weights and the EMA decay."""
+
+    def __init__(self, scheduler: DDIMScheduler, cfg: DistillConfig, device):
+        grid = int(cfg.distill_grid)
+        ts_np = scheduler.timesteps(grid)
+        ratio = scheduler.num_train_timesteps // grid
+        self.grid = grid
+        self.t_hi = torch.as_tensor(ts_np, device=device)
+        # where step n lands: the next grid timestep; the last lands below 0
+        self.t_lo = torch.as_tensor(np.append(ts_np[1:], ts_np[-1] - ratio), device=device)
+        self.final = torch.tensor(scheduler.final_alpha_cumprod, dtype=torch.float32,
+                                  device=device)
+        self.boundary_weight = torch.tensor(float(cfg.boundary_weight), device=device)
+        self.one = torch.tensor(1.0, device=device)
+        self.decay = torch.tensor(cfg.ema_decay, dtype=torch.float32, device=device)
+
+
+def _loss_and_grads(unet_fn: UNetFn, state: DistillState, scheduler: DDIMScheduler,
+                    latents: torch.Tensor, text_embeddings: torch.Tensor,
+                    noise: torch.Tensor, n: torch.Tensor, k: _StepConstants):
+    """A step's self-consistency loss and its gradients on the subset and
+    the head (``params``), from the step's noise and grid indices ``n``
+    (device tensors): no value from the host."""
+    module = unet_module(unet_fn)
+    t_hi = k.t_hi.index_select(0, n)
+    t_lo = k.t_lo.index_select(0, n)
+    t_lo_in = t_lo.clamp(min=0)  # the EMA net never sees a negative t
+    boundary = (t_lo < 0).reshape((-1,) + (1,) * (latents.dim() - 1))
+    x_hi = scheduler.add_noise(latents, noise, t_hi)
+
+    def forward(subset: Dict[str, torch.Tensor], x, t):
+        return torch.func.functional_call(module, subset, (x, t, text_embeddings))
+
+    with torch.no_grad():
+        # the frozen teacher's skip-step and the EMA target's x₀ at the
+        # landing point: none of it depends on what is differentiated
+        x_lo = _ddim_solve(scheduler, forward(state.teacher_trainable, x_hi, t_hi),
+                           t_hi, t_lo, x_hi, k.final)
+        eps_e = apply_time_head(state.ema_head, forward(state.ema_trainable, x_lo, t_lo_in),
+                                t_lo_in)
+        target = torch.where(boundary, latents.float(),
+                             _pred_x0(scheduler, eps_e, t_lo_in, x_lo))
+        weight = torch.where(boundary, k.boundary_weight, k.one)
+
+    params = list(state.trainable.values()) + list(state.head.values())
+    with torch.enable_grad():
+        eps_s, _ = unet_fn(x_hi, t_hi, text_embeddings, None, store=False)
+        eps_s = apply_time_head(state.head, eps_s, t_hi)
+        x0_s = _pred_x0(scheduler, eps_s, t_hi, x_hi)
+        loss = torch.mean(weight * (x0_s - target) ** 2)
+        grads = torch.autograd.grad(loss, params)
+    return loss.detach(), params, grads
+
+
+@torch.no_grad()
+def _ema_update(state: DistillState, decay: torch.Tensor) -> None:
+    for ema, src in ((state.ema_trainable, state.trainable), (state.ema_head, state.head)):
+        for name, e in ema.items():
+            e.copy_((decay * e.float() + (1.0 - decay) * src[name].float()).to(e.dtype))
+
+
+def _draws(generator: torch.Generator, latents: torch.Tensor, grid: int):
+    """A step's noise, then one grid index per video, from ``generator``."""
+    noise = torch.randn(latents.shape, generator=generator, device=latents.device,
+                        dtype=latents.dtype)
+    n = torch.randint(0, grid, (latents.shape[0],), generator=generator, device=latents.device)
+    return noise, n
 
 
 def distill_step(unet_fn: UNetFn, tx: ClippedAdamW, state: DistillState,
@@ -191,72 +262,64 @@ def distill_step(unet_fn: UNetFn, tx: ClippedAdamW, state: DistillState,
     student's tensors are the UNet's own) and returns ``(state, loss)``, or
     ``(state, loss, grad_norm)``: the pre-clip global norm of the subset's
     and the head's gradients. The loss stays on the device."""
-    module = unet_module(unet_fn)
     dev = latents.device
-    grid = int(cfg.distill_grid)
-    ts_np = scheduler.timesteps(grid)
-    ratio = scheduler.num_train_timesteps // grid
-    # where step n lands: the next grid timestep; the last lands below 0
-    prev_np = np.append(ts_np[1:], ts_np[-1] - ratio)
-    if noise is None:
-        noise = torch.randn(latents.shape, generator=generator, device=dev,
-                            dtype=latents.dtype)
-    if n is None:
-        n = torch.randint(0, grid, (latents.shape[0],), generator=generator, device=dev)
+    k = _StepConstants(scheduler, cfg, dev)
+    if noise is None or n is None:
+        drawn_noise, drawn_n = _draws(generator, latents, k.grid)
+        noise = drawn_noise if noise is None else noise
+        n = drawn_n if n is None else n
     n = torch.as_tensor(n, device=dev)
-    t_hi = torch.as_tensor(ts_np, device=dev)[n]
-    t_lo = torch.as_tensor(prev_np, device=dev)[n]
-    t_lo_in = t_lo.clamp(min=0)  # the EMA net never sees a negative t
-    boundary = (t_lo < 0).reshape((-1,) + (1,) * (latents.dim() - 1))
-    x_hi = scheduler.add_noise(latents, noise, t_hi)
-
-    def forward(subset: Dict[str, torch.Tensor], x, t):
-        return torch.func.functional_call(module, subset, (x, t, text_embeddings))
-
-    with torch.no_grad():
-        # the frozen teacher's skip-step and the EMA target's x₀ at the
-        # landing point: none of it depends on what is differentiated
-        x_lo = _ddim_solve(scheduler, forward(state.teacher_trainable, x_hi, t_hi),
-                           t_hi, t_lo, x_hi)
-        eps_e = apply_time_head(state.ema_head, forward(state.ema_trainable, x_lo, t_lo_in),
-                                t_lo_in)
-        target = torch.where(boundary, latents.float(),
-                             _pred_x0(scheduler, eps_e, t_lo_in, x_lo))
-        weight = torch.where(boundary, torch.tensor(float(cfg.boundary_weight), device=dev),
-                             torch.tensor(1.0, device=dev))
-
-    params = list(state.trainable.values()) + list(state.head.values())
-    with torch.enable_grad():
-        eps_s, _ = unet_fn(x_hi, t_hi, text_embeddings, None, store=False)
-        eps_s = apply_time_head(state.head, eps_s, t_hi)
-        x0_s = _pred_x0(scheduler, eps_s, t_hi, x_hi)
-        loss = torch.mean(weight * (x0_s - target) ** 2)
-        grads = torch.autograd.grad(loss, params)
+    loss, params, grads = _loss_and_grads(unet_fn, state, scheduler, latents, text_embeddings,
+                                          noise, n, k)
     grad_norm = global_norm(grads) if return_grad_norm else None
     tx.update_(params, grads, state.opt_state)
-    with torch.no_grad():
-        d = torch.tensor(cfg.ema_decay, dtype=torch.float32, device=dev)
-        for ema, src in ((state.ema_trainable, state.trainable), (state.ema_head, state.head)):
-            for name, e in ema.items():
-                e.copy_((d * e.float() + (1.0 - d) * src[name].float()).to(e.dtype))
+    _ema_update(state, k.decay)
     state.step += 1
     if return_grad_norm:
-        return state, loss.detach(), grad_norm
-    return state, loss.detach()
+        return state, loss, grad_norm
+    return state, loss
 
 
 def distill_steps(unet_fn: UNetFn, tx: ClippedAdamW, state: DistillState,
                   scheduler: DDIMScheduler, latents: torch.Tensor,
                   text_embeddings: torch.Tensor, seed: int, *, num_steps: int,
-                  cfg: DistillConfig):
+                  cfg: DistillConfig, cuda_graphs=None):
     """``num_steps`` distillation steps, step ``s`` drawing from
     ``step_generator(seed, s)``: chunking and resume points cannot change
-    the student. Returns ``(state, losses)``, the losses on the device."""
+    the student. Returns ``(state, losses)``, the losses on the device.
+
+    Each step draws its noise and grid indices into buffers and plans the
+    optimizer's update on the host (:meth:`ClippedAdamW.plan_`), then runs
+    the step body (the teacher's and the EMA target's forwards, the
+    student's forward and backward, the update, the EMA), keyed by the
+    update's phase and replayed as a CUDA graph as ``cuda_graphs`` decides
+    (None: on a CUDA device outside a mesh; False: the eager loop, the same
+    bits; ``utils/cuda_graphs.py``)."""
+    from videop2p_tpu_torch.utils import cuda_graphs as graphs_mod
+
+    device = latents.device
+    k = _StepConstants(scheduler, cfg, device)
+    noise = torch.empty_like(latents)
+    n = torch.empty((latents.shape[0],), dtype=torch.int64, device=device)
+    scalars = tx.scalars(device)
+
+    def body(phase: str):
+        loss, params, grads = _loss_and_grads(unet_fn, state, scheduler, latents,
+                                              text_embeddings, noise, n, k)
+        tx.apply_(params, grads, state.opt_state, scalars, phase)
+        _ema_update(state, k.decay)
+        return loss
+
     losses = []
-    for _ in range(num_steps):
-        state, loss = distill_step(unet_fn, tx, state, scheduler, latents, text_embeddings,
-                                   step_generator(seed, state.step, latents.device), cfg=cfg)
-        losses.append(loss)
+    with graphs_mod.step_graphs(cuda_graphs, device, "distill_steps") as graphs:
+        for _ in range(num_steps):
+            drawn_noise, drawn_n = _draws(step_generator(seed, state.step, device), latents,
+                                          k.grid)
+            noise.copy_(drawn_noise)
+            n.copy_(drawn_n)
+            phase = tx.plan_(state.opt_state, scalars, True)
+            losses.append(graphs.kept(graphs.run(phase, body, phase)))
+            state.step += 1
     return state, torch.stack(losses)
 
 
