@@ -366,15 +366,28 @@ mesh:
    forced onto the UNet (``set_seams``, sp = tp = 1, as JAX's tests wire
    them): one cached edit-batch forward equals the plain forward bit for
    bit with the plain forward's launches, and the wrappers' kernels match
-   their plain versions at the shapes a rank's batch gives them; (b)
-   ``run_videop2p.main(mesh="1,1,1", device_telemetry=True)`` on the
-   rabbit clip in that group equals the plain main path bit for bit with
-   the same launches, its ledger holding ``device_telemetry`` (divergence
-   0.0) and ``comm_analysis``; then ``torchrun --standalone
-   --nproc_per_node 1 -m videop2p_tpu_torch.cli.run_videop2p --fast --mesh
-   1,1,1 --device_telemetry`` (a process with its own NCCL group) writes
-   the plain run's GIFs byte for byte and its per-step telemetry; (c)
-   printed: NCCL's set-up seconds, the runs' wall times, the card.
+   their plain versions at the shapes a rank's batch gives them; (b), at
+   ``--steps`` or 3 if more (``MESH_GRAPH_STEPS``: at 2 no variant of the
+   rabbit edit's loops repeats, so none would replay),
+   ``run_videop2p.main(mesh="1,1,1", device_telemetry=True,
+   program_analysis=False)`` on the rabbit clip in that group, its loops
+   replayed as CUDA graphs (the default on a mesh; printed: its graph
+   stats; no replay fails), equals the plain main path's eager (analysed)
+   loops bit for bit with the same launches, its ledger holding
+   ``device_telemetry`` (divergence 0.0); the same mesh run analysed (its
+   loops eager) gives the same latents and launches and writes
+   ``comm_analysis``; then
+   ``torchrun --standalone --nproc_per_node 1 -m
+   videop2p_tpu_torch.cli.run_videop2p --fast --mesh 1,1,1
+   --device_telemetry --no_program_analysis`` (a process with its own NCCL
+   group) writes the plain run's GIFs byte for byte and its per-step
+   telemetry, the graph stats it prints showing replays; (c)
+   printed: NCCL's set-up seconds, the runs' wall times, the card; (d)
+   where this process sees two cards or more, ``torchrun
+   --nproc_per_node 2 ... --mesh 1,2,1`` graphed (the NCCL collectives
+   captured in the step bodies) and eager (``VIDEOP2P_CUDA_GRAPHS=0``):
+   the GIFs byte for byte, the graphed run's replays; on one card it
+   prints that it was not run.
 
 tools:
 27. the operator tools, each a ``python -X importtime -m
@@ -451,7 +464,9 @@ UNet's 61 sites (the kernel, its byte bound, the plain-recompute backward)
 and its summed device time in one edit-batch forward and one null-text
 inner step, in both dtypes (``--gn_kernel_names`` names an older tree's
 kernels, so that a copy of this script in that tree's checkout times it
-the same way).
+the same way). ``--graph_bits`` runs the official main path alone, eager,
+graphed, graphed, eager in one process, and compares each stage's bits
+across the four runs (``graph_bits``).
 
 Run:  python3 chip_smoke.py [--steps 2] [--inner_steps 2]
                             [--mixed_precision fp32|bf16]
@@ -462,7 +477,7 @@ Run:  python3 chip_smoke.py [--steps 2] [--inner_steps 2]
                                      [serve_mesh] [tools] [graphs]]
                             [--profile [--frame_attention auto flash_rect flash]]
                             [--graph_timings]
-                            [--gn_only [--gn_kernel_names NAME ...]]
+                            [--gn_only [--gn_kernel_names NAME ...]] [--graph_bits]
                             [--out PATH.json]
 """
 
@@ -473,6 +488,7 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
+import glob
 import json
 import math
 import os
@@ -1837,6 +1853,7 @@ def run_main_path(frames, steps: int, mixed_precision: str, *, fast: bool = True
             "reused": res["reused"], "unet_bytes": res["unet_bytes"],
             "checkpoint_dir": res["checkpoint_dir"], "latents": res["latents"],
             "ledger": res["ledger"], "sidecar": res["sidecar"], "report": res["report"],
+            "graphs": res["graphs"],
             **({"x_t": res["x_t"],
                 "frames_u8": (videos.clamp(0, 1) * 255).to(torch.uint8).cpu()}
                if keep_outputs else {}),
@@ -3331,10 +3348,17 @@ def serve_engine_phase(args, tmp: str) -> tuple:
 PLAIN_SERVE_CLI: dict = {}
 
 
-def _hit_request() -> dict:
+# phase 26b's request compatible with cli.serve's warm-up (its controller
+# structure: the warm prompts' shapes, no LocalBlend, no equalizer) on the
+# rabbit clip under another caption
+COMPATIBLE_PROMPTS = ("a rabbit is sitting on the grass",
+                      "a origami rabbit is sitting on the grass")
+
+
+def _hit_request(save_name: str = "lego") -> dict:
     """Another edit of request 1's clip: a store hit."""
     return _serve_request(prompts=[RABBIT["prompt"], "a lego rabbit is jumping on the grass"],
-                          eq_params=None, save_name="lego")
+                          eq_params=None, save_name=save_name)
 
 
 def _gif_bytes(rec: dict) -> dict:
@@ -5164,6 +5188,11 @@ def analysis_path(args, frames) -> tuple:
 # mesh in process and under torchrun
 MESH_SPEC = "1,1,1"
 MESH_CLI_TIMEOUT_S = 300
+# the fewest steps at which the rabbit edit's capture walk and cached edit
+# each meet a variant a second time (at 2 every step is its variant's
+# first, eager): phases 25 and 26d run at least these, so that their
+# graphed loops replay
+MESH_GRAPH_STEPS = 3
 
 
 def mesh_wrapper_checks(mesh, dtype) -> list:
@@ -5284,29 +5313,78 @@ def mesh_staged_gn_checks(dtype) -> list:
     return out
 
 
-def mesh_cli_child(tmp: str, args, name: str, extra: list) -> tuple:
-    """``torchrun --standalone --nproc_per_node 1 -m
+def mesh_cli_child(tmp: str, args, steps: int, name: str, extra: list, nproc: int = 1,
+                   eager: bool = False) -> tuple:
+    """``torchrun --standalone --nproc_per_node <nproc> -m
     videop2p_tpu_torch.cli.run_videop2p`` on the clip of ``RABBIT`` at
-    SD-1.5 width (its config written as JSON, which YAML reads); returns
-    (wall seconds, the run's results directory, its ledger)."""
+    SD-1.5 width (its config written as JSON, which YAML reads), its loops
+    replayed as CUDA graphs (``--no_program_analysis``: the one call is not
+    an analysed, eager one) or, with ``eager``, under
+    ``VIDEOP2P_CUDA_GRAPHS=0``; returns (wall seconds, the run's results
+    directory, its ledger, the graph stats it printed)."""
     ckpt = os.path.join(os.path.abspath(tmp), name, "rabbit-jump")
     cfg = os.path.join(tmp, f"{name}.json")
     with open(cfg, "w") as fh:
         json.dump({**RABBIT, "pretrained_model_path": ckpt, "video_len": 8}, fh)
+    from videop2p_tpu_torch.utils.cuda_graphs import parse_graph_stats
+
     led = os.path.join(os.path.abspath(tmp), f"{name}.jsonl")
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-            "--nproc_per_node", "1", "-m", "videop2p_tpu_torch.cli.run_videop2p",
-            "--config", cfg, "--fast", "--steps", str(args.steps), "--mixed_precision",
-            args.mixed_precision, "--telemetry", "--ledger", led, *extra]
+            "--nproc_per_node", str(nproc), "-m", "videop2p_tpu_torch.cli.run_videop2p",
+            "--config", cfg, "--fast", "--steps", str(steps), "--mixed_precision",
+            args.mixed_precision, "--telemetry", "--ledger", led, "--no_program_analysis",
+            *extra]
+    env = {**os.environ, **({"VIDEOP2P_CUDA_GRAPHS": "0"} if eager else {})}
     t0 = time.perf_counter()
-    proc = subprocess.run(argv, capture_output=True, text=True, timeout=MESH_CLI_TIMEOUT_S)
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=MESH_CLI_TIMEOUT_S,
+                          env=env)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise AssertionError(f"25b torchrun CLI exited {proc.returncode}: "
+        raise AssertionError(f"25 torchrun CLI {name} exited {proc.returncode}: "
                              f"{proc.stderr[-2000:]}")
     out_dir = next(os.path.join(root, d) for root, dirs, _ in os.walk(os.path.join(tmp, name))
                    for d in dirs if d.startswith("results_dp"))
-    return wall, out_dir, led
+    return wall, out_dir, led, parse_graph_stats(proc.stdout)
+
+
+def graph_stats_line(stats: list) -> str:
+    """One line of a run's graph stats: each program's graphs, replays and
+    eager steps."""
+    return "; ".join(f"{s['program']} graphs {s['graphs']} replays {s['replays']} eager "
+                     f"{s['eager_steps']}" for s in stats) or "no graphed loop"
+
+
+def mesh_two_card_check(tmp: str, args, steps: int, failures: list):
+    """Phase 25d, with two cards or more in this process's view: ``torchrun
+    --nproc_per_node 2 ... --mesh 1,2,1`` graphed (its NCCL collectives
+    captured in the step bodies), then eager: the GIFs byte for byte, the
+    graphed run's replays. On one card: not run (printed). Returns the
+    record, or None."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"  25d torchrun --nproc_per_node 2 --mesh 1,2,1 graphed against eager: not run "
+              f"({cards} card)", flush=True)
+        return None
+    runs = {}
+    for name, eager in (("two_graphed", False), ("two_eager", True)):
+        wall, out_dir, _, graphs = mesh_cli_child(tmp, args, steps, name, ["--mesh", "1,2,1"],
+                                                  nproc=2, eager=eager)
+        gifs = {}
+        for gif in sorted(glob.glob(os.path.join(out_dir, "*.gif"))):
+            with open(gif, "rb") as fh:
+                gifs[os.path.basename(gif)] = fh.read()
+        runs[name] = {"wall_s": wall, "gifs": gifs, "graphs": graphs}
+    graphed, eager = runs["two_graphed"], runs["two_eager"]
+    same = bool(graphed["gifs"]) and graphed["gifs"] == eager["gifs"]
+    replays = sum(r["replays"] for r in graphed["graphs"])
+    print(f"  25d torchrun --nproc_per_node 2 --mesh 1,2,1 graphed against eager: ran; GIFs "
+          f"byte for byte: {same}; graphed {graphed['wall_s']:.1f} s "
+          f"({graph_stats_line(graphed['graphs'])}), eager {eager['wall_s']:.1f} s", flush=True)
+    if not same or not replays or eager["graphs"]:
+        failures.append(f"25d: GIFs equal {same}, graphed {graphed['graphs']}, eager "
+                        f"{eager['graphs']}")
+    return {k: {"wall_s": v["wall_s"], "graphs": v["graphs"]} for k, v in runs.items()} | {
+        "gifs_equal": same}
 
 
 def mesh_path(args) -> tuple:
@@ -5394,22 +5472,42 @@ def mesh_path(args) -> tuple:
         clip = load_frame_sequence(RABBIT["image_path"], size=512, num_frames=8)
         kw = dict(pretrained_model_path=os.path.join(tmp, "inproc", "rabbit-jump"))
         plain_led, mesh_led = (os.path.join(tmp, f"{n}.jsonl") for n in ("plain", "mesh"))
-        plain_run = run_main_path(clip, args.steps, args.mixed_precision, keep_videos=True,
+        steps = max(args.steps, MESH_GRAPH_STEPS)
+        plain_run = run_main_path(clip, steps, args.mixed_precision, keep_videos=True,
                                   telemetry=True, ledger=plain_led, **kw)
-        mesh_run = run_main_path(clip, args.steps, args.mixed_precision, mesh=MESH_SPEC,
-                                 device_telemetry=True, ledger=mesh_led, **kw)
+        # the mesh run's program not analysed: its one call replays graphs
+        # (an analysed call runs eagerly), against the analysed plain run's
+        # eager loops
+        mesh_run = run_main_path(clip, steps, args.mixed_precision, mesh=MESH_SPEC,
+                                 device_telemetry=True, ledger=mesh_led,
+                                 program_analysis=False, **kw)
+        # the same mesh run analysed: its one call runs the eager loops, and
+        # an analysed call alone writes comm_analysis (the JAX package's rule)
+        eager_led = os.path.join(tmp, "mesh_eager.jsonl")
+        eager_run = run_main_path(clip, steps, args.mixed_precision, mesh=MESH_SPEC,
+                                  device_telemetry=True, ledger=eager_led, **kw)
+        eager_same = torch.equal(eager_run.pop("latents"), mesh_run["latents"])
+        print(f"  25b the analysed (eager) mesh run's latents = the graphed run's: "
+              f"{eager_same}; graphs {graph_stats_line(eager_run['graphs'])}", flush=True)
+        if not eager_same or eager_run["launches"] != mesh_run["launches"]:
+            failures.append(f"25b: the analysed mesh run's latents equal {eager_same}, "
+                            f"launches {eager_run['launches']}")
         same = torch.equal(plain_run["latents"], mesh_run["latents"])
-        print(f"  25b main(mesh={MESH_SPEC!r}) latents = plain: {same}; launches "
-              f"{mesh_run['launches']} (plain {plain_run['launches']}); wall "
-              f"{mesh_run['wall_s']:.3f} s (plain {plain_run['wall_s']:.3f} s)", flush=True)
+        replays = sum(r["replays"] for r in mesh_run["graphs"])
+        print(f"  25b main(mesh={MESH_SPEC!r}) graphed latents = the plain run's eager ones: "
+              f"{same}; launches {mesh_run['launches']} (plain {plain_run['launches']}); wall "
+              f"{mesh_run['wall_s']:.3f} s (plain {plain_run['wall_s']:.3f} s); graphs "
+              f"{graph_stats_line(mesh_run['graphs'])}", flush=True)
         if not same:
             failures.append("25b: the mesh run's latents are not the plain run's")
+        if not replays:
+            failures.append(f"25b: the mesh run replayed no graph: {mesh_run['graphs']}")
         if mesh_run["launches"] != plain_run["launches"]:
             failures.append(f"25b: launches {mesh_run['launches']}, plain "
                             f"{plain_run['launches']}")
         events = read_ledger(mesh_led)
         dev = [e for e in events if e["event"] == "device_telemetry"]
-        comm = [e for e in events if e["event"] == "comm_analysis"]
+        comm = [e for e in read_ledger(eager_led) if e["event"] == "comm_analysis"]
         if not dev or any(e["divergence_max"] != 0.0 for e in dev):
             failures.append(f"25b: device_telemetry {dev}")
         if not comm:
@@ -5430,7 +5528,7 @@ def mesh_path(args) -> tuple:
         # 25b: the CLI under torchrun (a process with a group of its own)
         # against the plain main path
         dist.destroy_process_group()
-        cli_wall, cli_dir, cli_led = mesh_cli_child(tmp, args, "cli", [
+        cli_wall, cli_dir, cli_led, cli_graphs = mesh_cli_child(tmp, args, steps, "cli", [
             "--mesh", MESH_SPEC, "--device_telemetry"])
         for gif in plain_gifs:
             other = os.path.join(cli_dir, os.path.basename(gif))
@@ -5446,13 +5544,15 @@ def mesh_path(args) -> tuple:
         cli_dev = [e for e in cli_events if e["event"] == "device_telemetry"]
         if not cli_dev or any(e["divergence_max"] != 0.0 for e in cli_dev):
             failures.append(f"25b: the CLI's device_telemetry {cli_dev}")
-        if not [e for e in cli_events if e["event"] == "comm_analysis"]:
-            failures.append("25b: no comm_analysis in the CLI's ledger")
+        print(f"  25b torchrun CLI graphs: {graph_stats_line(cli_graphs)}", flush=True)
+        if not sum(r["replays"] for r in cli_graphs):
+            failures.append(f"25b: the torchrun CLI replayed no graph: {cli_graphs}")
         cli_ok = not [f for f in failures if f.startswith("25b: the torchrun")]
         print(f"  25c wall: the plain main path {in_process['plain']['wall_s']:.3f} s in "
               f"process, the torchrun CLI {cli_wall:.3f} s (a process: interpreter, "
               f"imports, NCCL, models, edit, GIFs); its GIFs byte for byte and its "
               f"telemetry = the plain run's: {cli_ok}", flush=True)
+        two_cards = mesh_two_card_check(tmp, args, steps, failures)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -5465,7 +5565,8 @@ def mesh_path(args) -> tuple:
     record = {"wall_s": wall, "nccl_setup_s": nccl_s, "forward_bit_exact": True,
               "forward_launches": wired_launches, "wrapper_checks": wrappers,
               "staged_group_norm": staged,
-              "in_process": in_process, "cli_wall_s": cli_wall}
+              "in_process": in_process, "cli_wall_s": cli_wall, "cli_graphs": cli_graphs,
+              "two_cards": two_cards}
     mesh_rec = dict(in_process["mesh"])
     return {"mesh": mesh_rec}, {"mesh": record}
 
@@ -5554,13 +5655,18 @@ def serve_mesh_path(args) -> tuple:
           --mesh 1,1,1``: the rank-synchronous path forced on (rank 0 drives
           a world of one through the control channel) answers a fresh
           request and a hit with phase 19b's plain child's GIF bytes and
-          src_err; SIGTERM to rank 0 → torchrun exits 0;
+          src_err, on kept runners: the warm-up captured and replayed, and
+          a request compatible with it sent first (the warm-up's
+          controller structure, ``COMPATIBLE_PROMPTS``) captures nothing
+          and runs no step eagerly (``/metrics``' runners); SIGTERM to
+          rank 0 → torchrun exits 0;
       (c) ``torchrun ... cli.stream --mesh 1,1,1`` over the clip's first 8
           frames: one window, whose final.npy is phase 21's direct request
-          for those frames bit for bit;
-      (d) ``torchrun ... cli.run_videop2p --fast --attn_maps --mesh 1,1,1``
-          writes the plain run's attention records (every sidecar array bit
-          for bit).
+          for those frames bit for bit, its kept runners replaying;
+      (d) ``torchrun ... cli.run_videop2p --fast --attn_maps --mesh 1,1,1
+          --no_program_analysis`` writes the plain run's attention records
+          (every sidecar array bit for bit), its loops replayed as graphs
+          (both at ``MESH_GRAPH_STEPS`` steps where ``--steps`` is fewer).
 
     Returns (runs, records); raises on a failed gate."""
     import signal
@@ -5602,10 +5708,12 @@ def serve_mesh_path(args) -> tuple:
         with open(cfg, "w") as fh:
             json.dump({**RABBIT, "pretrained_model_path": ckpt, "video_len": 8}, fh)
         attn_led = os.path.join(os.path.abspath(tmp), "attn.jsonl")
+        attn_steps = max(args.steps, MESH_GRAPH_STEPS)
         children["attn"] = _Child("torchrun cli.run_videop2p", [
             *_torchrun("videop2p_tpu_torch.cli.run_videop2p"), "--config", cfg, "--fast",
-            "--steps", str(args.steps), "--mixed_precision", args.mixed_precision,
-            "--attn_maps", "--ledger", attn_led, "--mesh", SERVE_MESH_SPEC],
+            "--steps", str(attn_steps), "--mixed_precision", args.mixed_precision,
+            "--attn_maps", "--ledger", attn_led, "--mesh", SERVE_MESH_SPEC,
+            "--no_program_analysis"],
             os.path.join(tmp, "attn.log"), "http://127.0.0.1:1")
 
         # (a) in this process while the children start
@@ -5616,7 +5724,7 @@ def serve_mesh_path(args) -> tuple:
         from videop2p_tpu_torch.data.dataset import load_frame_sequence
 
         clip = load_frame_sequence(RABBIT["image_path"], size=512, num_frames=8)
-        plain = run_main_path(clip, args.steps, args.mixed_precision, attn_maps=True,
+        plain = run_main_path(clip, attn_steps, args.mixed_precision, attn_maps=True,
                               ledger=os.path.join(tmp, "plain.jsonl"),
                               pretrained_model_path=os.path.join(tmp, "plain", "rabbit-jump"))
         plain_arrays = load_obs_sidecar(plain["sidecar"])
@@ -5628,9 +5736,32 @@ def serve_mesh_path(args) -> tuple:
         child = children["serve"]
         child.wait_up(SERVE_MESH_CHILD_TIMEOUT_S)
         client = EngineClient(child.client.base_url, timeout_s=60.0)
+        warm_runners = (client.healthz().get("warm") or {}).get("runners")
+        # first a request compatible with the warm-up (its controller
+        # structure: no LocalBlend, no equalizer; another clip caption, so
+        # the rabbit requests below stay a fresh request and its hit):
+        # after warm it captures nothing and runs no step eagerly
+        before = client.metrics().get("runners")
+        compatible = client.wait(client.submit(_serve_request(
+            prompt=COMPATIBLE_PROMPTS[0], prompts=list(COMPATIBLE_PROMPTS), blend_word=None,
+            eq_params=None, save_name="compatible")), timeout_s=600.0)
+        after = client.metrics().get("runners")
         answers = {"fresh": client.wait(client.submit(_serve_request()), timeout_s=600.0),
                    "hit": client.wait(client.submit(_hit_request()), timeout_s=600.0)}
         gifs = {n: _gif_bytes(r) for n, r in answers.items() if r["status"] == "done"}
+        kept_ok = bool(warm_runners and before and after) and compatible["status"] == "done" \
+            and warm_runners["graphs"] > 0 and warm_runners["replays"] > 0 and all(
+                after[k] == before[k] for k in ("graphs", "eager_steps", "made")) \
+            and after["replays"] > before["replays"]
+        print(f"  26b kept runners: after warm {warm_runners}; the compatible request "
+              f"{compatible['status']} (dispatch {compatible.get('dispatch_s')} s), runners "
+              f"before it {before}, after it {after}; the warm-up captured and replayed, the "
+              f"request after it captured nothing and ran no step eagerly: {kept_ok}",
+              flush=True)
+        if not kept_ok:
+            failures.append(f"26b: runners after warm {warm_runners}, before the compatible "
+                            f"request {before}, after {after}, its status "
+                            f"{compatible['status']} ({compatible.get('error')})")
         os.kill(listening_pid(child.log_path), signal.SIGTERM)
         try:
             rc = child.proc.wait(timeout=300)
@@ -5657,7 +5788,7 @@ def serve_mesh_path(args) -> tuple:
               f"{drove}; SIGTERM to rank 0 → torchrun exit {rc}", flush=True)
         if rc != 0 or not drove:
             failures.append(f"26b: exit {rc}, channel {drove}:\n{log}")
-        record["serve"] = {"up_s": child.up_s, "rc": rc, "records": {
+        record["serve"] = {"up_s": child.up_s, "rc": rc, "runners": after, "records": {
             n: {k: r.get(k) for k in ("status", "store_source", "resolve_s", "dispatch_s",
                                       "total_s", "src_err")} for n, r in answers.items()}}
         t = _sub_seconds(record, "26b torchrun cli.serve", t)
@@ -5676,11 +5807,14 @@ def serve_mesh_path(args) -> tuple:
         if ref is None:
             ref = _stream_window0_reference(args, synthetic_clip(8, 512, seed=0), tmp)
         same = final is not None and np.array_equal(final, ref)
+        stream_runners = next((json.loads(line[line.index("{"):])["stream_runners"]
+                               for line in log.splitlines() if '{"stream_runners"' in line), None)
         print(f"  26c torchrun cli.stream: exit {rc}, final.npy "
-              f"{None if final is None else final.shape} = phase 21's window 0: {same}",
-              flush=True)
-        if rc != 0 or not same:
-            failures.append(f"26c: exit {rc}, final.npy equal {same}:\n{log}")
+              f"{None if final is None else final.shape} = phase 21's window 0: {same}; "
+              f"kept runners {stream_runners}", flush=True)
+        if rc != 0 or not same or not (stream_runners or {}).get("replays"):
+            failures.append(f"26c: exit {rc}, final.npy equal {same}, runners "
+                            f"{stream_runners}:\n{log}")
         t = _sub_seconds(record, "26c torchrun cli.stream", t)
 
         # (d) the attention records of the mesh of one
@@ -5691,17 +5825,22 @@ def serve_mesh_path(args) -> tuple:
             rc = None
         log = child.tail()
         child.kill()
-        events = ([e for e in read_ledger(attn_led) if e["event"] == "attn_maps"]
-                  if os.path.isfile(attn_led) else [])
+        all_events = read_ledger(attn_led) if os.path.isfile(attn_led) else []
+        events = [e for e in all_events if e["event"] == "attn_maps"]
         arrays = load_obs_sidecar(events[0]["sidecar"]) if events else {}
         keys = sorted(k for k in plain_arrays if k.startswith("attn_"))
         same = bool(keys) and sorted(k for k in arrays if k.startswith("attn_")) == keys and \
             all(np.array_equal(arrays[k], plain_arrays[k]) for k in keys)
+        from videop2p_tpu_torch.utils.cuda_graphs import parse_graph_stats
+
+        with open(child.log_path) as fh:
+            attn_graphs = parse_graph_stats(fh.read())
         print(f"  26d torchrun cli.run_videop2p --attn_maps: exit {rc}, {len(keys)} record "
               f"arrays (scopes {sorted(e['scope'] for e in events)}) = the plain run's bit "
-              f"for bit: {same}", flush=True)
-        if rc != 0 or not same:
-            failures.append(f"26d: exit {rc}, records equal {same}:\n{log}")
+              f"for bit: {same}; graphs {graph_stats_line(attn_graphs)}", flush=True)
+        if rc != 0 or not same or not sum(r["replays"] for r in attn_graphs):
+            failures.append(f"26d: exit {rc}, records equal {same}, graphs {attn_graphs}:"
+                            f"\n{log}")
         t = _sub_seconds(record, "26d torchrun cli.run_videop2p", t)
     finally:
         for child in children.values():
@@ -6049,6 +6188,76 @@ def _stream_window0_reference(args, frames: np.ndarray, tmp: str) -> np.ndarray:
     finally:
         engine.close()
         _release()
+
+
+# --graph_bits: the most levels of 255 a graphed run's frames may lie from
+# the eager run's (tools/mesh_compare.py's --max_levels against one GPU)
+GRAPH_BITS_MAX_LEVELS = 2
+
+
+def graph_bits(args, card: str, kind: str) -> int:
+    """``--graph_bits``: the official main path (``--mixed_precision``,
+    "auto", ``--steps`` DDIM steps × ``--inner_steps``) four times in this
+    process on the rabbit clip, eager, graphed, graphed, eager (the loops'
+    default under ``VIDEOP2P_CUDA_GRAPHS`` 0 and 1), no run before them:
+    each run's x_T (the end of the DDIM inversion), null-text's inner steps
+    and final loss per outer step (as float hex), the edited latents and
+    the uint8 frames, compared bit for bit with every other run's, and the
+    frames' largest difference from the last eager run in levels of 255.
+    Prints a JSON summary; exits 1 when a graphed run's frames lie more
+    than ``GRAPH_BITS_MAX_LEVELS`` levels from it."""
+    from videop2p_tpu_torch.data.dataset import load_frame_sequence
+
+    clip = load_frame_sequence(RABBIT["image_path"], size=512, num_frames=8)
+    saved = os.environ.get("VIDEOP2P_CUDA_GRAPHS")
+    runs = []
+    try:
+        for label in ("eager1", "graphed1", "graphed2", "eager2"):
+            os.environ["VIDEOP2P_CUDA_GRAPHS"] = "1" if label.startswith("graphed") else "0"
+            print(f"{label}:", flush=True)
+            res = run_main_path(clip, args.steps, args.mixed_precision, fast=False,
+                                num_inner_steps=args.inner_steps, keep_outputs=True)
+            runs.append({
+                "label": label, "wall_s": res["wall_s"], "x_t": res["x_t"].cpu(),
+                "latents": res["latents"].cpu(), "frames": res["frames_u8"].numpy(),
+                "inner_steps": res["null_text"]["inner_steps"],
+                "final_loss": [float(v).hex() for v in res["null_text"]["final_loss"]],
+                "graphs": res["graphs"]})
+            print(f"  {label}: null-text final losses {runs[-1]['final_loss']}, inner steps "
+                  f"{runs[-1]['inner_steps']}; graphs {graph_stats_line(res['graphs'])}",
+                  flush=True)
+            del res
+            _release()
+    finally:
+        if saved is None:
+            os.environ.pop("VIDEOP2P_CUDA_GRAPHS", None)
+        else:
+            os.environ["VIDEOP2P_CUDA_GRAPHS"] = saved
+    ref = runs[-1]
+    pairs = {}
+    for i, a in enumerate(runs):
+        for b in runs[i + 1:]:
+            pairs[f"{a['label']}/{b['label']}"] = {
+                "x_t": torch.equal(a["x_t"], b["x_t"]),
+                "null_text_losses": a["final_loss"] == b["final_loss"],
+                "latents": torch.equal(a["latents"], b["latents"]),
+                "frames": bool(np.array_equal(a["frames"], b["frames"]))}
+    levels = {r["label"]: int(np.abs(r["frames"].astype(np.int16)
+                                     - ref["frames"].astype(np.int16)).max()) for r in runs}
+    graphed_levels = max(v for k, v in levels.items() if k.startswith("graphed"))
+    summary = {"graph_bits": {
+        "card": card, "kind": kind, "dtype": args.mixed_precision, "steps": args.steps,
+        "inner_steps": args.inner_steps,
+        "runs": [{k: r[k] for k in ("label", "wall_s", "inner_steps", "final_loss", "graphs")}
+                 for r in runs],
+        "equal": pairs, "levels_from_eager2": levels,
+        "graphed_levels_from_eager": graphed_levels, "max_levels": GRAPH_BITS_MAX_LEVELS}}
+    for pair, eq in pairs.items():
+        print(f"  {pair}: {eq}", flush=True)
+    print(f"  frames' levels from eager2: {levels}", flush=True)
+    print(json.dumps(summary, default=str), flush=True)
+    print(f"card: {card}", flush=True)
+    return 0 if graphed_levels <= GRAPH_BITS_MAX_LEVELS else 1
 
 
 def group_norm_only(args, card: str, kind: str) -> int:
@@ -6592,6 +6801,10 @@ def main() -> int:
                              "torch.profiler in float32 and bfloat16, GroupNorm's summed "
                              "device time printed; runs on any tree's package (a copy of "
                              "this script in an older checkout times that checkout's kernel)")
+    parser.add_argument("--graph_bits", action="store_true",
+                        help="the official main path alone, eager, graphed, graphed, eager "
+                             "in this process: each stage's bits compared across the four "
+                             "runs, the frames' levels apart (graph_bits)")
     parser.add_argument("--gn_kernel_names", nargs="+", default=None,
                         help="the device kernels the profiles sum as GroupNorm (default: "
                              "this tree's, KERNEL_NAMES['group_norm'])")
@@ -6620,6 +6833,8 @@ def main() -> int:
         KERNEL_NAMES["group_norm"] = tuple(args.gn_kernel_names)
     if args.gn_only:
         return group_norm_only(args, card, kind)
+    if args.graph_bits:
+        return graph_bits(args, card, kind)
     ptxas = print_ptxas_reports()
 
     # 3. kernels against their plain versions

@@ -37,8 +37,8 @@ import os
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
+from tests.graphs_emulation import emulated_runner_class
 from tests.test_torch_parity import t, tiny_unet_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,9 +54,6 @@ EDIT_STEPS = 8
 NULL_STEPS = 4
 TRAIN_STEPS = 5
 DEPENDENT = dict(num_frames=2, decay_rate=0.3, window_size=1, ar_sample=True, ar_coeff=0.1)
-# ops that read a device value to the host or make a tensor from a host value
-FORBIDDEN = {"_local_scalar_dense", "item", "scalar_tensor", "lift_fresh",
-             "lift_fresh_copy", "_copy_from"}
 
 
 # ---- today's loops, the reference -----------------------------------------
@@ -280,61 +277,7 @@ def _ref_train_steps(unet_fn, tx, state, scheduler, latents, text, seed, *, num_
     return torch.stack(losses)
 
 
-# ---- the emulated runner ---------------------------------------------------
-
-class _NoHostValues(TorchDispatchMode):
-    """Records every op that reads a value to the host or makes a tensor
-    from a host value (by op: on the CPU every tensor is on the host)."""
-
-    @classmethod
-    def _should_skip_dynamo(cls) -> bool:
-        return False
-
-    def __init__(self, seen: list):
-        super().__init__()
-        self.seen = seen
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        name = func._overloadpacket.__name__
-        if name in FORBIDDEN or (name == "_to_copy" and kwargs.get("device") is not None):
-            self.seen.append(str(func))
-        return func(*args, **kwargs)
-
-
-def _emulated_runner_class():
-    from videop2p_tpu_torch.utils.cuda_graphs import StepGraphs, _Graph
-
-    class Emulated(StepGraphs):
-        """StepGraphs' policy on the CPU: a capture keeps the body with its
-        step's Python values, a replay runs it again under
-        :class:`_NoHostValues`."""
-
-        log: list = []
-
-        def __init__(self, device, name=""):
-            super().__init__(device, enabled=False, name=name)
-            self.enabled = True
-            self.forbidden: list = []
-            self.keys: list = []
-            Emulated.log.append(self)
-
-        def run(self, key, body, *args):
-            self.keys.append(key)
-            return super().run(key, body, *args)
-
-        def _warm(self, body, args):
-            return body(*args)
-
-        def _capture(self, body, args):
-            return _Graph(lambda: body(*args), None, [])
-
-        def _replay(self, entry):
-            with _NoHostValues(self.forbidden):
-                return entry.graph()
-
-    return Emulated
-
+# ---- the emulated runner (tests/graphs_emulation.py) ----------------------
 
 @pytest.fixture
 def emulate(monkeypatch):
@@ -342,7 +285,7 @@ def emulate(monkeypatch):
     whose ``log`` lists the runners made."""
     from videop2p_tpu_torch.utils import cuda_graphs
 
-    cls = _emulated_runner_class()
+    cls = emulated_runner_class()
     cls.log = []
     monkeypatch.setattr(cuda_graphs, "step_graphs", lambda flag, device, name: cls(device, name))
     return cls

@@ -1,8 +1,12 @@
 """CUDA graphs on an NVIDIA card (``utils/cuda_graphs.py``): every
 hand-written kernel launched under stream capture and replayed, and the
 graphed step loops against their eager loops at tiny width — the same bits
-and the same kernel launches. Every test carries the ``cuda`` marker and
-skips where ``torch.cuda.is_available()`` is false.
+and the same kernel launches; on 2 or 4 cards (one NCCL rank each) the
+loops of ``tests/graphs_mesh.py`` on a mesh and a served mesh, their NCCL
+collectives captured with them, against the same mesh's eager loops.
+Every test carries the ``cuda`` marker and skips where
+``torch.cuda.is_available()`` is false (a mesh case, where the cards are
+fewer than its ranks).
 
 This file imports neither JAX nor the JAX package: ``python -m pytest
 --noconftest tests/test_torch_graphs_cuda.py -m cuda -q`` on the machine
@@ -12,8 +16,21 @@ with the card.
 import copy
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
+
+# the helpers by their own names (pytest puts tests/ on the path): on the
+# card's machine another installed package may be called "tests"
+from graphs_mesh import (
+    CASES,
+    _check_served,
+    _inputs,
+    _nccl_worker,
+    _served_worker,
+    _weights,
+)
+from torch_dist import run_ranks
 
 # one intra-op thread a test process, as tests/test_torch_parity.py sets it
 torch.set_num_threads(1)
@@ -412,3 +429,35 @@ def test_cuda_two_threads_on_one_set_get_two_runners(tiny_sets):
     assert kept.runner_stats()["made"] == made + 1
     assert out["err"] == 0.0 and torch.equal(out["videos"], want[0])
     assert torch.equal(mine[0], want[0])
+
+
+# ---- a mesh: CUDA graphs over NCCL, one card a rank --------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ("1,2,1", "1,1,2"))
+def test_a_served_nccl_mesh_keeps_its_runners_on_every_rank(spec):
+    """The served mesh's check on 2 cards with real kept runners: CUDA
+    graphs whose NCCL collectives were captured on every rank."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 NVIDIA cards (CUDA graphs over NCCL run only there)")
+    r0, r1 = run_ranks(_served_worker, 2, spec, "cuda", timeout=600.0, backend="nccl")
+    print(r0["runners"])
+    _check_served(r0, r1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ("1,2,1", "1,1,2", "1,4,1"))
+def test_nccl_graphs_on_a_mesh_give_the_eager_bits(spec):
+    """On the cards, one rank each: every loop replayed as CUDA graphs with
+    its NCCL collectives captured gives the eager loop's bits on the same
+    mesh, with the same kernel launches."""
+    n = int(np.prod([int(s) for s in spec.split(",")]))
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} NVIDIA cards (CUDA graphs over NCCL run only there)")
+    ranks = run_ranks(_nccl_worker, n, _weights(), _inputs(), spec, list(CASES),
+                      timeout=900.0, backend="nccl")
+    for rank, r in enumerate(ranks):
+        for case, got in r.items():
+            print(rank, case, got["stats"])
+            assert got["mismatches"] == [], (rank, case, got["mismatches"][:5])
+            assert got["replays"] > 0 and got["same_launches"], (rank, case, got)

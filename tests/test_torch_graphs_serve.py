@@ -28,15 +28,14 @@ import numpy as np
 import pytest
 import torch
 
+from tests.graphs_emulation import emulated_kept_class
 from tests.test_torch_graphs import (  # noqa: F401 — fixtures
     CTRL,
     DEPENDENT,
     EDIT_STEPS,
     PROMPTS,
     SHAPE,
-    _emulated_runner_class,
     _flat,
-    _NoHostValues,
     _patched_off,
     emulate,
     models,
@@ -422,30 +421,6 @@ def test_emulated_replays_keep_the_step_records(program, models, emulate):
 
 # ---- runners kept across calls ---------------------------------------------
 
-def _emulated_kept_class():
-    """KeptRunner's policy on the CPU, as ``_emulated_runner_class``: a
-    capture keeps the body of the call that captured it, a replay (in any
-    later call) runs that body again, under :class:`_NoHostValues`."""
-    from videop2p_tpu_torch.utils.cuda_graphs import KeptRunner, _Graph
-
-    class EmulatedKept(KeptRunner):
-        def __init__(self, device="cpu", name="", key=None):
-            super().__init__(device, name=name, key=key)
-            self.forbidden: list = []
-
-        def _warm(self, body, args):
-            return body(*args)
-
-        def _capture(self, body, args):
-            return _Graph(lambda: body(*args), None, [])
-
-        def _replay(self, entry):
-            with _NoHostValues(self.forbidden):
-                return entry.graph()
-
-    return EmulatedKept
-
-
 def _request(m, which):
     """Request A (the module's prompts, equalizer and clip) or B (others
     under the same controller structure)."""
@@ -484,7 +459,7 @@ def test_a_kept_runner_serves_a_then_b_then_a(models):
     the fresh eager call's bit for bit (B's replays read B's values, not
     the bodies' captures' A), the second call of each key replays, and
     the third runs no step eagerly and captures nothing."""
-    cls = _emulated_kept_class()
+    cls = emulated_kept_class()
     invert, edit = cls(name="capture_inversion"), cls(name="cached_edit")
     got = []
     for which in ("A", "B", "A"):
@@ -514,7 +489,7 @@ def test_a_kept_live_runner_serves_a_then_b_then_a(models):
     fresh eager call."""
     from videop2p_tpu_torch.pipelines import edit_sample
 
-    runner = _emulated_kept_class()(name="live_edit")
+    runner = emulated_kept_class()(name="live_edit")
     rng = np.random.default_rng(5)
     nulls = {w: t(rng.normal(size=(EDIT_STEPS, 77, 16))) for w in "AB"}
 
@@ -563,7 +538,7 @@ def test_runner_cache_lends_one_call_at_a_time_and_bounds_its_runners():
     closed; ``close`` frees the idle ones and each lent one on its return."""
     from videop2p_tpu_torch.utils.cuda_graphs import RunnerCache
 
-    cls = _emulated_kept_class()
+    cls = emulated_kept_class()
     closed = []
 
     class Counted(cls):
@@ -607,7 +582,7 @@ def test_an_analysed_call_warms_a_kept_runner_eagerly(models):
     from videop2p_tpu_torch.obs.introspect import ProgramAnalysis
     from videop2p_tpu_torch.pipelines import ddim_inversion
 
-    runner = _emulated_kept_class()(name="ddim_inversion")
+    runner = emulated_kept_class()(name="ddim_inversion")
     outs = []
     for analysed in (True, False, False):
         runner.begin_call()
@@ -646,7 +621,7 @@ def kept_sets():
     from videop2p_tpu_torch.serve import programs as programs_mod
     from videop2p_tpu_torch.utils.cuda_graphs import RunnerCache
 
-    cls = _emulated_kept_class()
+    cls = emulated_kept_class()
     kept = ProgramSet(ProgramSpec(**SET_KW), device="cpu")
     kept._runners = RunnerCache("cpu", max_runners=programs_mod._RUNNERS_MAX,
                                 make=lambda key, name: cls(key=key, name=name))
@@ -689,6 +664,37 @@ def test_a_warm_set_serves_compatible_requests_without_capturing(kept_sets):
     assert all(r.forbidden == [] for r in kept._runners.runners())
     kept.close()
     assert kept.runner_stats()["runners"] == 0
+
+
+def test_a_set_warmed_without_blend_or_equalizer_serves_such_requests_warm(kept_sets):
+    """A set warmed as ``cli.serve`` warms it (its prompts alone: no
+    LocalBlend, no equalizer) serves a request of that structure with
+    other prompts and another clip without capturing or an eager step,
+    with the bits of a graphs-off set."""
+    kept, plain = kept_sets
+    kept.close()
+    kept.warm(SET_PROMPTS)
+    plain.warm(SET_PROMPTS)
+    prompts = ("a cat rabbit is sitting", "a origami rabbit is sitting")
+    frames = np.random.default_rng(5).integers(0, 256, (2, 16, 16, 3), dtype=np.uint8)
+
+    def request(ps):
+        ctx = ps.controller(prompts)
+        latents = ps.encode(ps.frames_to_video(frames))
+        _, cached = ps.invert_capture(latents, ps.encode_prompts(prompts[:1]), ctx)
+        return ps.edit_decode(cached, ps.encode_prompts(prompts), ps.encode_prompts([""])[0],
+                              ctx, latents)
+
+    before = kept.runner_stats()
+    got = request(kept)
+    after = kept.runner_stats()
+    assert after["eager_steps"] == before["eager_steps"], (before, after)
+    assert after["graphs"] == before["graphs"] and after["made"] == before["made"]
+    assert after["replays"] > before["replays"]
+    want = request(plain)
+    assert float(got[1]) == float(want[1]) == 0.0
+    assert torch.equal(got[0], want[0])
+    kept.close()
 
 
 def test_a_set_without_kept_runners_warms_once(kept_sets, monkeypatch):

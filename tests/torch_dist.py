@@ -26,16 +26,22 @@ import traceback
 GROUP_TIMEOUT_S = 60
 
 
-def _child(fn, rank: int, world: int, store: str, args: tuple, results) -> None:
+def _child(fn, rank: int, world: int, store: str, args: tuple, results,
+           backend: str = "gloo") -> None:
     os.environ["OMP_NUM_THREADS"] = "1"
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     try:
+        kwargs = {}
+        if backend == "nccl":
+            # one card a rank, its communicators built at once
+            torch.cuda.set_device(rank)
+            kwargs["device_id"] = torch.device("cuda", rank)
         dist.init_process_group(
-            "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
-            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+            backend, init_method=f"file://{store}", rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S), **kwargs)
         out = fn(rank, world, *args)
         results.put((rank, "ok", out))
     except BaseException:  # noqa: BLE001 — reported to the parent
@@ -45,16 +51,18 @@ def _child(fn, rank: int, world: int, store: str, args: tuple, results) -> None:
             dist.destroy_process_group()
 
 
-def run_ranks(fn, world: int, *args, timeout: float = 240.0) -> list:
-    """``fn(rank, world, *args)`` on ``world`` spawned gloo ranks; returns
-    their results in rank order (each must pickle). Raises with the
-    children's tracebacks if any rank fails, or if the ranks have not all
-    answered by ``timeout`` seconds (the stragglers are killed)."""
+def run_ranks(fn, world: int, *args, timeout: float = 240.0, backend: str = "gloo") -> list:
+    """``fn(rank, world, *args)`` on ``world`` spawned ranks of a gloo
+    process group (``backend`` "nccl": one card a rank, rank r on
+    ``cuda:r``); returns their results in rank order (each must pickle).
+    Raises with the children's tracebacks if any rank fails, or if the
+    ranks have not all answered by ``timeout`` seconds (the stragglers are
+    killed)."""
     ctx = multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="torch_dist_")
     results = ctx.Queue()
     procs = [ctx.Process(target=_child, args=(fn, r, world, os.path.join(tmp, "store"),
-                                                   args, results), daemon=True)
+                                                   args, results, backend), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()

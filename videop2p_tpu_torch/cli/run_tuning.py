@@ -121,6 +121,11 @@ from videop2p_tpu_torch.train import (
 )
 # the loop under another name: run_distillation's argument is distill_steps
 from videop2p_tpu_torch.train import distill_steps as distill_loop
+from videop2p_tpu_torch.utils.cuda_graphs import (
+    GRAPH_STATS_MARK,
+    collect_graph_stats,
+    graph_stats_json,
+)
 from videop2p_tpu_torch.utils.metrics import MetricsLogger
 from videop2p_tpu_torch.utils.profiling import phase_timer
 from videop2p_tpu_torch.utils.video_io import save_videos_grid
@@ -367,7 +372,9 @@ def main(
     traced_chunk = False
     restore_signals = _install_preempt_handlers()
     try:
-        with deterministic_convolutions():
+        # graph_stats: the train steps' and validations' runners, as each
+        # call ends
+        with deterministic_convolutions(), collect_graph_stats() as graph_stats:
             while i < max_train_steps:
                 nxt = min([max_train_steps, i + steps_per_call]
                           + [(i // p + 1) * p for p in cadences])
@@ -409,6 +416,7 @@ def main(
                               rank0=rank0)
     finally:
         restore_signals()
+    print("[tune] " + GRAPH_STATS_MARK + graph_stats_json(graph_stats))
     if preempted:
         if losses:
             flush_losses(i)

@@ -69,7 +69,12 @@ per-device statistics and cross-replica divergence (``device_telemetry``
 events, ``obs/comm.py``). With a ledger, each program's first call is
 analysed into a ``program_analysis`` event (``obs/introspect.py``), and
 on a mesh its collectives into a ``comm_analysis`` event;
-``--no_program_analysis`` skips that. A repeat run on one ledger gets
+``--no_program_analysis`` skips both (an analysed first call runs its
+loops eagerly: the analysis counts dispatched ops), so that the run's
+loops replay CUDA graphs. The run prints each graphed loop's captures, replays and
+eager steps as JSON on its ``[p2p] cuda graphs:`` line
+(``utils/cuda_graphs.py:parse_graph_stats`` reads it back) and returns
+them. A repeat run on one ledger gets
 ``regression_verdicts`` against the previous run (``obs/history.py``).
 None of them changes an output bit.
 
@@ -154,6 +159,11 @@ from videop2p_tpu_torch.pipelines.sampling import (
     official_null_text,
 )
 from videop2p_tpu_torch.serve.store import load_persisted_inversion, save_persisted_inversion
+from videop2p_tpu_torch.utils.cuda_graphs import (
+    GRAPH_STATS_MARK,
+    collect_graph_stats,
+    graph_stats_json,
+)
 from videop2p_tpu_torch.utils.inv_cache import content_fingerprint, inversion_cache_key
 from videop2p_tpu_torch.utils.profiling import last_phase_seconds, phase_timer
 from videop2p_tpu_torch.utils.video_io import save_video_gif
@@ -618,7 +628,9 @@ def main(
     meta = {"image_path": image_path, "prompt": prompt, "steps": num_ddim_steps,
             "width": width, "video_len": video_len, "fast": fast}
 
-    with torch.no_grad():
+    # the graphed loops' runners report their captures, replays and eager
+    # steps into graph_stats as each call ends
+    with torch.no_grad(), collect_graph_stats() as graph_stats:
         with _phase("vae_encode", timings, device, peaks):
             # on a frame-sharded mesh each rank encodes its own frames
             latents = encode_video(bundle.vae, frames_slice(video)).float()
@@ -806,6 +818,7 @@ def main(
 
     gifs = _write_gifs(videos, output_dir, save_name, fast) if save_gifs and rank0 else ()
     print("[p2p] phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
+    print("[p2p] " + GRAPH_STATS_MARK + graph_stats_json(graph_stats))
     report_path = sidecar_path = None
     if run_ledger is not None:
         if rank0 and (attn_records or quality or report):
@@ -847,7 +860,8 @@ def main(
             "checkpoint_dir": pretrained_model_path, "output_dir": output_dir,
             "gifs": gifs, "ledger": None if run_ledger is None else run_ledger.path,
             "sidecar": sidecar_path, "report": report_path,
-            "mesh": None if device_mesh is None else device_mesh.spec()}
+            "mesh": None if device_mesh is None else device_mesh.spec(),
+            "graphs": graph_stats}
 
 
 def _module_bytes(module: torch.nn.Module) -> int:

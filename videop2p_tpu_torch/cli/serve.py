@@ -220,7 +220,8 @@ def follow(programs) -> int:
     except ValueError:  # not the main thread (embedded use)
         pass
     stats = programs.follow()
-    print(f"[serve] rank released after {stats['calls']} calls", flush=True)
+    print(f"[serve] rank released after {stats['calls']} calls; kept runners "
+          f"{stats.get('runners')}", flush=True)
     return 0
 
 

@@ -227,10 +227,14 @@ def main(argv=None) -> int:
             stop_event=stop_event,
             faults=faults,
         )
+        # the kept runners' totals (captures, eager steps, replays), before
+        # close frees them
+        runners = engine.metrics().get("runners")
     finally:
         for sig, old in installed:
             signal.signal(sig, old)
         engine.close()  # on a mesh the other ranks exit
+    print(json.dumps({"stream_runners": runners}), flush=True)
     print(json.dumps({"stream_health": result.health}, default=str), flush=True)
     if result.complete:
         print(f"[stream] done: {result.health['windows_done']} edited + "

@@ -168,7 +168,7 @@ def _group_divergence(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]) -> torch
         if group is None or mesh.shape[axis] == 1:
             continue
         ref = xf.clone()
-        note_collective("collective-broadcast", ref.numel() * ref.element_size())
+        note_collective("collective-broadcast", ref.numel() * ref.element_size(), group)
         dist.broadcast(ref, src=mesh.ranks[axis][0], group=group)
         div = torch.maximum(div, (xf - ref).abs().amax() if xf.numel() else div)
     return div

@@ -264,6 +264,37 @@ def _describe(e: BaseException) -> str:
     return f"{type(e).__name__}: {e}"
 
 
+def _between_calls() -> None:
+    """Raise inside a CUDA graph capture: the control channel's gloo
+    collectives run on the host between the calls' step bodies."""
+    from videop2p_tpu_torch.utils.cuda_graphs import capturing
+
+    if capturing():
+        raise RuntimeError("a CUDA graph capture reached the control channel (gloo): it "
+                           "runs between rank-synchronous calls, never inside a step body")
+
+
+def agree_on_capture(label: str, error: Optional[BaseException]) -> None:
+    """Every rank's outcome of one CUDA graph capture, exchanged over
+    :func:`control_group` after the capture ends and before its graph
+    first replays (a served mesh's kept runners: every rank captures the
+    same variants in the same order). Raises on every rank when any rank's
+    capture failed; a rank whose own capture raised re-raises that after
+    the exchange. Without it, the ranks whose capture succeeded would
+    replay a graph whose NCCL collectives wait on the device for a peer
+    that never joins, and NCCL's watchdog does not see a replay's
+    collectives."""
+    if process_count() == 1:
+        return
+    errs: List[Optional[str]] = [None] * process_count()
+    dist.all_gather_object(errs, None if error is None else _describe(error),
+                           group=control_group())
+    failed = [r for r, e in enumerate(errs) if e is not None]
+    if failed and error is None:
+        raise RuntimeError(f"the capture of {label} failed on rank(s) {failed}: " + "; ".join(
+            f"rank {r}: {errs[r]}" for r in failed))
+
+
 class ControlChannel:
     """Rank-synchronous calls over :func:`control_group`: rank 0
     :meth:`lead`\\ s, every other rank :meth:`follow`\\ s until rank 0 sends
@@ -281,6 +312,7 @@ class ControlChannel:
 
     def _exchange(self, outcome: Any) -> List[Any]:
         """Every rank's outcome of one step, in rank order."""
+        _between_calls()
         if self.group is None:
             return [outcome]
         out: List[Any] = [None] * self.world
@@ -288,6 +320,7 @@ class ControlChannel:
         return out
 
     def _broadcast(self, desc: Any) -> Any:
+        _between_calls()
         if self.group is None:
             return desc
         box = [desc]

@@ -38,6 +38,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from videop2p_tpu_torch.utils import cuda_graphs as _graphs
+
 __all__ = [
     "AXIS_DATA",
     "AXIS_FRAMES",
@@ -174,12 +176,24 @@ def make_mesh(shape: Tuple[int, ...] = (1, 1, 1),
                 device=device, device_mesh=dm, axis_names=tuple(axis_names))
 
 
+# the element counts (float32) warm_collectives sends each collective at:
+# NCCL picks its protocol by size and builds a protocol's connections at
+# its first use, so one small and one large message each
+_WARM_NUMELS = (1, 1 << 20)
+
+
 def warm_collectives(mesh: Mesh) -> float:
-    """One small all-reduce on the group of each sharded axis, and one
-    exchange each way around the frames ring: NCCL builds a group's
-    communicator, and a pair's point-to-point channels, at their first
-    use, so a program's first call no longer pays for them. Also creates
-    the host control channel's gloo group
+    """Every kind of collective a step body issues, on the group of each
+    sharded axis, before any program runs: an all-reduce, a broadcast, an
+    all-gather and a reduce-scatter (the tensor axis' row-parallel seams,
+    the frames axis' gathers), and on the frames axis one exchange each way
+    around the ring; then the world group's all-gather and all-reduce (the
+    device probe's), each at :data:`_WARM_NUMELS`. NCCL builds a group's
+    communicator and a pair's point-to-point connections at their first
+    use, so no program's first call pays for them and no CUDA graph capture
+    is the first to use them (each step variant's first step, eager, then
+    issues each of its collectives at its own size before the variant is
+    captured). Also creates the host control channel's gloo group
     (``parallel/distributed.py:control_group``), which a served mesh's
     rank 0 drives the other ranks through. Not counted by a
     :class:`CommRecorder` (no program's traffic). Returns the seconds it
@@ -187,21 +201,31 @@ def warm_collectives(mesh: Mesh) -> float:
     if not dist.is_initialized():
         return 0.0
     t0 = time.perf_counter()
-    for axis in mesh.axis_names:
-        group = mesh.group(axis)
-        n = _size(group)
-        if n == 1:
-            continue
-        t = torch.zeros(1, device=mesh.device)
-        dist.all_reduce(t, group=group)
-        if axis == AXIS_FRAMES:
-            ranks, i = mesh.ranks[axis], mesh.coords[axis]
-            for step in (1, -1):
-                buf = torch.empty_like(t)
-                for req in dist.batch_isend_irecv([
-                        dist.P2POp(dist.isend, t, ranks[(i + step) % n], group),
-                        dist.P2POp(dist.irecv, buf, ranks[(i - step) % n], group)]):
-                    req.wait()
+    for numel in _WARM_NUMELS:
+        for axis in mesh.axis_names:
+            group = mesh.group(axis)
+            n = _size(group)
+            if n == 1:
+                continue
+            whole = torch.zeros(numel * n, device=mesh.device)
+            part = torch.zeros(numel, device=mesh.device)
+            dist.all_reduce(whole, group=group)
+            dist.broadcast(whole, src=mesh.ranks[axis][0], group=group)
+            dist.all_gather(list(whole.chunk(n)), part, group=group)
+            dist.reduce_scatter(part, list(whole.chunk(n)), group=group)
+            if axis == AXIS_FRAMES:
+                ranks, i = mesh.ranks[axis], mesh.coords[axis]
+                for step in (1, -1):
+                    buf = torch.empty_like(part)
+                    for req in dist.batch_isend_irecv([
+                            dist.P2POp(dist.isend, part, ranks[(i + step) % n], group),
+                            dist.P2POp(dist.irecv, buf, ranks[(i - step) % n], group)]):
+                        req.wait()
+        world = dist.get_world_size()
+        if world > 1:
+            part = torch.zeros(numel, device=mesh.device)
+            dist.all_gather([torch.empty_like(part) for _ in range(world)], part)
+            dist.all_reduce(part, op=dist.ReduceOp.MAX)
     from videop2p_tpu_torch.parallel.distributed import control_group
 
     control_group()
@@ -278,10 +302,26 @@ class CommRecorder:
                 _RECORDERS.remove(self)
 
 
-def note_collective(kind: str, nbytes: int) -> None:
-    """One collective issued by this process (every wrapper calls it)."""
+def _note(kind: str, nbytes: int) -> None:
     for rec in list(_RECORDERS):
         rec.add(kind, nbytes)
+
+
+def note_collective(kind: str, nbytes: int, group=None) -> None:
+    """One collective this process issues on ``group`` (None: the world's
+    group); every wrapper calls it where it issues one. Inside a CUDA graph
+    capture (``utils/cuda_graphs.py``) the group must be NCCL's — a gloo
+    collective cannot be captured, and raises here — and the count is
+    recorded for the graph: each replay adds it, so a recorder counts a
+    replayed step's collectives as it counts an eager step's."""
+    if _graphs.capturing():
+        backend = dist.get_backend(group)
+        if backend != "nccl":
+            raise RuntimeError(
+                f"a CUDA graph capture reached a {kind} on a {backend} group: only NCCL "
+                "collectives are captured in a step body (the gloo control channel runs "
+                "between calls); run this loop with cuda_graphs=False")
+    _graphs.count_launch(lambda n: _note(kind, nbytes), 1)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -293,7 +333,7 @@ def _size(group) -> int:
 
 
 def _all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    note_collective("all-reduce", _nbytes(t))
+    note_collective("all-reduce", _nbytes(t), group)
     dist.all_reduce(t, group=group)
     return t
 
@@ -302,7 +342,7 @@ def _all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(_size(group))]
     out_bytes = _nbytes(t) * len(parts)
-    note_collective("all-gather", out_bytes)
+    note_collective("all-gather", out_bytes, group)
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
 
@@ -311,7 +351,7 @@ def _reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = _size(group)
     chunks = [c.contiguous() for c in t.chunk(n, dim=dim)]
     out = torch.empty_like(chunks[0])
-    note_collective("reduce-scatter", _nbytes(out))
+    note_collective("reduce-scatter", _nbytes(out), group)
     dist.reduce_scatter(out, chunks, group=group)
     return out
 
@@ -346,7 +386,7 @@ class _BroadcastFirst(torch.autograd.Function):
     def forward(ctx, x, group, src: int, is_src: bool):
         ctx.group, ctx.is_src = group, is_src
         y = x.clone().contiguous()
-        note_collective("collective-broadcast", _nbytes(y))
+        note_collective("collective-broadcast", _nbytes(y), group)
         dist.broadcast(y, src=src, group=group)
         return y
 
@@ -410,7 +450,12 @@ def frames_draw(draw: Callable[[Tuple[int, ...]], torch.Tensor],
     """A random draw of a frame-sharded tensor: ``draw(shape)`` of the
     GLOBAL shape on every rank (one generator, the same state everywhere),
     then this rank's frames, so the sharded run draws what the unsharded
-    one does and the generators stay in step."""
+    one does and the generators stay in step. A loop draws outside its step
+    bodies, into the buffer a body reads (a graph would replay one draw):
+    inside a capture it raises."""
+    if _graphs.capturing():
+        raise RuntimeError("frames_draw inside a CUDA graph capture: draw before the step "
+                           "body, into the buffer it reads")
     mesh = active_mesh()
     sp = _frames(mesh)
     if sp == 1:
@@ -662,7 +707,7 @@ def gather_tensor(name: str, t: torch.Tensor, dim: Optional[int],
         return t
     tp = mesh.shape[AXIS_TENSOR]
     parts = [torch.empty_like(t) for _ in range(tp)]
-    note_collective("all-gather", _nbytes(t) * tp)
+    note_collective("all-gather", _nbytes(t) * tp, mesh.group(AXIS_TENSOR))
     dist.all_gather(parts, t.contiguous(), group=mesh.group(AXIS_TENSOR))
     if _is_geglu(name) and dim == 0:
         halves = [p.chunk(2, dim=0) for p in parts]

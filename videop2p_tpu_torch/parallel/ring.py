@@ -78,7 +78,7 @@ class _Ring:
         for t in tensors:
             t = t.contiguous()
             buf = torch.empty_like(t)
-            note_collective("collective-permute", t.numel() * t.element_size())
+            note_collective("collective-permute", t.numel() * t.element_size(), self.group)
             ops.append(dist.P2POp(dist.isend, t, self.peer(step), self.group))
             ops.append(dist.P2POp(dist.irecv, buf, self.peer(-step), self.group))
             bufs.append(buf)

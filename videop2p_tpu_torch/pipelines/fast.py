@@ -141,7 +141,7 @@ def cached_fast_edit(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.T
     attn])``, the outputs the same bits as without them.
 
     ``cuda_graphs``: both loops' steps replay as CUDA graphs when None (the
-    default) on a CUDA device outside a mesh (``utils/cuda_graphs.py``);
+    default) on a CUDA device, on one card or a mesh (``utils/cuda_graphs.py``);
     False runs the eager loops, the same bits."""
     if attn_maps and reuse_schedule not in (None, "off"):
         # edit_sample refuses it too; refuse before the capture runs

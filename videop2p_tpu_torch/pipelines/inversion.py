@@ -23,10 +23,15 @@ Both inversions and null-text optimization (every mode) run their steps
 as step bodies over device buffers (``utils/cuda_graphs.py``): each step
 writes its inputs (timestep, indices, Adam's lr and bias corrections, the
 step's noise, drawn outside the body in the same order) into buffers and
-runs the body, which CUDA graphs replay on a CUDA device outside a mesh
-(``cuda_graphs`` None, the default; False keeps the eager loop, the same
-bits). Null-text's early stop reads the loss after each inner step, as
-JAX's ``while_loop`` carries it on the device.
+runs the body, which CUDA graphs replay on a CUDA device, on one card or
+a mesh (``cuda_graphs`` None, the default; False keeps the eager loop, the
+same bits). On a frame-sharded mesh the draws are the whole clip's on
+every rank, made outside the bodies (``parallel/mesh.py:frames_draw``),
+and the bodies' losses and gradient reductions are NCCL collectives
+captured with them. Null-text's early stop reads the loss after each
+inner step, as JAX's ``while_loop`` carries it on the device; on a mesh
+that loss is the global mean, the same on every rank, so every rank stops
+at the same inner step.
 """
 
 from __future__ import annotations
@@ -122,7 +127,7 @@ def ddim_inversion(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Ten
     Each step is one step body over device buffers (its timestep and
     trajectory slot, the latent, the step's noise, drawn before it in the
     same order), replayed as a CUDA graph as ``cuda_graphs`` decides (None:
-    on a CUDA device outside a mesh; False: the eager loop, the same bits;
+    on a CUDA device, on one card or a mesh; False: the eager loop, the same bits;
     a ``StepGraphs`` runner: through it)."""
     N = num_inference_steps
     latent0 = latents.float()
@@ -221,8 +226,8 @@ def ddim_inversion_captured(
     batch).
 
     Each step is a step body over device buffers, keyed by which windows
-    it captures; ``cuda_graphs`` (None: CUDA graphs on a CUDA device
-    outside a mesh; False: the eager loop, the same bits; a ``StepGraphs``
+    it captures; ``cuda_graphs`` (None: CUDA graphs on a CUDA device, on
+    one card or a mesh; False: the eager loop, the same bits; a ``StepGraphs``
     runner, e.g. a program set's ``KeptRunner``: through it) decides whether
     they are replayed as CUDA graphs (``utils/cuda_graphs.py``)."""
     N = num_inference_steps

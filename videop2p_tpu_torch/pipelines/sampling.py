@@ -222,7 +222,7 @@ def edit_sample(unet_fn: UNetFn, scheduler: DDIMScheduler, latents: torch.Tensor
       * ``cuda_graphs``: the steps (of the live loop and of the cached
         one) are step bodies over device buffers, keyed by their branch
         pattern and replayed as CUDA graphs (``utils/cuda_graphs.py``) when
-        None (the default) on a CUDA device outside a mesh; False keeps the
+        None (the default) on a CUDA device, on one card or a mesh; False keeps the
         eager loop (the same bits); a runner (``StepGraphs``, e.g. a
         program set's ``KeptRunner``) runs them through it.
 

@@ -568,6 +568,9 @@ class EditEngine:
             "programs": timing,
             "capacity": self.cost.capacity(uptime_s),
             "devices": self._device_memory(),
+            # the kept runners' totals (rank 0's on a served mesh; every
+            # rank's capture alike): captures, eager steps and replays
+            "runners": self.programs.runner_stats() if self.programs.keeps_graphs() else None,
         }
 
     def _tenant_records(self) -> Dict[str, Dict[str, Any]]:

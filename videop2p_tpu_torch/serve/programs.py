@@ -20,11 +20,13 @@ cached.CachedSource`) are arguments of the programs, never baked into them,
 so two requests with the same controller structure but other prompts,
 equalizers or clips run the same program.
 
-On one card outside a mesh (``utils/cuda_graphs.py:graphs_default``) and
-not served through a leader, the programs' step loops (the capture walk,
-the cached edit, the live loop of :meth:`ProgramSet.sample`) run on kept
-runners (``utils/cuda_graphs.py:KeptRunner``): CUDA graphs that stay warm
-across requests, as JAX's compiled programs do. The set keeps them in a
+On a card (``utils/cuda_graphs.py:graphs_default``: one card, a served
+mesh's every rank, each data-mesh replica) the programs' step loops (the
+capture walk, the cached edit, the live loop of :meth:`ProgramSet.sample`)
+run on kept runners (``utils/cuda_graphs.py:KeptRunner``): CUDA graphs
+that stay warm across requests, as JAX's compiled programs do; on a served
+mesh their NCCL collectives are captured with them, and every rank's
+runners capture the same variants at the same steps of the same calls. The set keeps them in a
 bounded :class:`~videop2p_tpu_torch.utils.cuda_graphs.RunnerCache` keyed
 by the program's statics (its cache key) and the argument tree's
 ``serve/batching.py:compat_key``, the JAX jit cache's key; each request's
@@ -174,10 +176,15 @@ def _to_device(tree: Any, device) -> Any:
     return tree
 
 
-def _runner_cache(device):
+def _runner_cache(device, served_mesh: bool = False):
+    """A set's kept runners; on a served mesh each capture's outcome is
+    agreed by every rank before its graph replays (a capture that failed
+    on one rank fails the call on all of them)."""
+    from videop2p_tpu_torch.parallel.distributed import agree_on_capture
     from videop2p_tpu_torch.utils.cuda_graphs import RunnerCache
 
-    return RunnerCache(device, max_runners=_RUNNERS_MAX)
+    return RunnerCache(device, max_runners=_RUNNERS_MAX,
+                       agree=agree_on_capture if served_mesh else None)
 
 
 class ProgramSet:
@@ -277,7 +284,7 @@ class ProgramSet:
         self._programs: Dict[Tuple, Callable] = {}
         self._lock = threading.Lock()
         self._misses = 0
-        self._runners = _runner_cache(self.device)
+        self._runners = _runner_cache(self.device, served_mesh=self.needs_leader)
         # a served mesh's rank-synchronous calls: seconds per program
         self.call_seconds: Dict[str, float] = {}
         self.warmed: Optional[Dict[str, Any]] = None
@@ -345,11 +352,14 @@ class ProgramSet:
 
     def keeps_graphs(self) -> bool:
         """Whether the programs' step loops run on kept runners: ``graphs``
-        "kept", CUDA graphs by default on the set's device (one card, no
-        mesh) and the set not served through a leader."""
+        "kept" and CUDA graphs by default on the set's device
+        (``utils/cuda_graphs.py:graphs_default``: a card, on one card or on
+        a mesh of NCCL groups). On a served mesh every rank's set keeps
+        them: rank 0's calls and its followers' run in the same order, so
+        every rank's cache lends, captures and replays alike."""
         from videop2p_tpu_torch.utils.cuda_graphs import graphs_default
 
-        return self.graphs == "kept" and not self.needs_leader and graphs_default(self.device)
+        return self.graphs == "kept" and graphs_default(self.device)
 
     @contextlib.contextmanager
     def _runner(self, statics: Tuple, args: Any, name: str):
@@ -872,11 +882,12 @@ class ProgramSet:
         for r in self.replicas:
             r._runners.close()
 
-    def follow(self) -> Dict[str, int]:
+    def follow(self) -> Dict[str, Any]:
         """Ranks > 0 of a served mesh: run rank 0's calls until it closes;
-        returns the calls run and the objects still held at the end (rank
-        0 sends how many it holds: the two agree when every free reached
-        this rank)."""
+        returns the calls run, the objects still held at the end (rank 0
+        sends how many it holds: the two agree when every free reached
+        this rank) and, where the set keeps runners, their totals; then
+        frees the runners, as rank 0 does when it closes."""
         from videop2p_tpu_torch.parallel.distributed import ControlChannel
 
         objects = _Objects(weak=False)
@@ -887,8 +898,15 @@ class ProgramSet:
             objects.free(frees)
             stats.update(live=len(objects.table), leader_live=int(leader_live))
 
-        stats["calls"] = ControlChannel().follow(
-            lambda desc: self._prepare_call(objects, desc), on_stop)
+        try:
+            stats["calls"] = ControlChannel().follow(
+                lambda desc: self._prepare_call(objects, desc), on_stop)
+            if self.keeps_graphs():
+                stats["runners"] = self.runner_stats()
+        finally:
+            # rank 0 closed its set's runners with the channel: so does
+            # this rank
+            self.close()
         return stats
 
 
@@ -1006,7 +1024,9 @@ class LeaderProgramSet:
     objects are dropped. A failure in a call's host step (no rank entered
     a collective) leaves the ranks in step. Anything else breaks the
     channel: a failure in any rank's device work (a rank may have left
-    the others' collectives unmatched), a failed exchange (a timeout, a
+    the others' collectives unmatched; a failed CUDA graph capture fails
+    the call on every rank before any rank replays the graph:
+    ``parallel/distributed.py:agree_on_capture``), a failed exchange (a timeout, a
     dead peer), a call abandoned mid-way (the engine's watchdog). Every
     later call then raises at once, and :meth:`close` stops the followers
     once no call runs."""
@@ -1120,6 +1140,9 @@ class LeaderProgramSet:
             self.channel.stop(self.objects.take_dropped(), self.live())
         finally:
             self._call_lock.release()
+            # every rank frees its kept runners' graphs and pools: the
+            # followers when stop() releases them
+            self.local.close()
 
 
 class ProgramCache:

@@ -1,14 +1,26 @@
-"""The run CLIs on a mesh of GPUs against their one-GPU runs.
+"""The run CLIs on a mesh of GPUs against their one-GPU runs, each run
+with its loops replayed as CUDA graphs and eagerly.
 
 Runs ``cli.run_videop2p`` (the cached fast edit, and official mode with
-``--official``) and, with ``--tune``, ``cli.run_tuning``, once as a plain
-process and once per mesh spec under ``torchrun --standalone
---nproc_per_node <dp·sp·tp>``, on the rabbit-jump clip at SD-1.5 width
-(seeded random weights), and compares what each run wrote:
+``--official``) and, with ``--tune``, ``cli.run_tuning``, as a plain
+process and per mesh spec under ``torchrun --standalone --nproc_per_node
+<dp·sp·tp>``, on the rabbit-jump clip at SD-1.5 width (seeded random
+weights). Every spec (one GPU included) runs twice, in turns: with its
+step loops replayed as CUDA graphs (the default on a card, their NCCL
+collectives captured in the step bodies; ``--no_program_analysis``, so
+that the one call is not an analysed, eager one) and with
+``VIDEOP2P_CUDA_GRAPHS=0`` (the eager loops, the oracle). It compares what
+each run wrote:
 
   * the edit: the report sidecar's uint8 frames of the reconstruction and
-    the edit (``--quality``), their largest difference in levels of 255;
-  * Stage 1: the exported UNet's weights;
+    the edit (``--quality``): graphed against eager on the same spec bit
+    for bit, and each against one GPU's, their largest difference in
+    levels of 255;
+  * Stage 1: the exported UNet's weights, graphed against eager bit for
+    bit, and against one GPU's;
+  * each run's graph stats (every graphed loop's captures, replays and
+    eager steps, the CLI's ``cuda graphs:`` line; a graphed run on a card
+    must replay);
   * each mesh run's ledger (:func:`mesh_ledger`): its ``comm_analysis``
     (collectives by kind), its ``device_telemetry`` or Stage 1's
     ``divergence`` event (0.0 over the replicated axes; the edit's probe
@@ -17,31 +29,38 @@ process and once per mesh spec under ``torchrun --standalone
     rank's ``host_phase`` records;
   * the seconds of the main phases (``cached_invert_edit``,
     ``null_text_optimization`` + ``edit_sample``) from the ledgers' phase
-    events, Stage 1's ``train_steps`` calls (synchronised: ``--latency``),
+    events, Stage 1's ``train_steps`` call (synchronised: ``--latency``),
     the mesh runs' ``mesh_setup`` (the process group's communicators,
-    built there before any program runs), and each process's wall.
+    built there before any program runs), and each process's wall; with
+    ``--trace`` the edits also trace their main program
+    (``--trace_analysis``) and report rank 0's card busy share over it
+    (1 − idle / span; the profiler's cost is then in every seconds figure).
 
 With ``--serve`` it serves instead: ``cli.serve`` on one GPU, then on
 each spec (a model-parallel one under ``torchrun``, a data mesh dp,1,1 as
-one process with ``--batch_dispatch vmap``), each answering one fresh
-request, one store hit (another edit of the clip) and a batch of 2 sent at
-once, over HTTP; it reports each request's ``resolve_s``, ``dispatch_s``
-and ``total_s``, the served GIFs' difference from one GPU's in levels of
-255 (largest and mean, over the decoded frames), and from rank 0's ledger
-every rank's ``host_phase`` seconds in the served programs.
+one process with ``--batch_dispatch vmap``), each graphed and eager,
+each answering one fresh request, one store hit (another edit of the
+clip) and a batch of 2 sent at once, over HTTP; it reports each request's
+``resolve_s``, ``dispatch_s`` and ``total_s``, the kept runners' totals
+(``/metrics``), the served GIFs' difference from one GPU's in levels of
+255 (largest and mean, over the decoded frames; graphed against eager on
+the same spec must be 0), and from rank 0's ledger every rank's
+``host_phase`` seconds in the served programs.
 
 Every number is a process's first call. Exits 1 when a gate fails (frames
-more than ``--max_levels`` apart, a divergence other than 0.0, a rank's
-phases missing, the weights further than ``--max_weight_diff``, a served
-request not done or its GIFs more than :data:`SERVE_MAX_MEAN_LEVELS`
-apart on average, a model-parallel mesh's ranks missing from the host phases),
-else prints one JSON summary as its last line and writes it to ``--out``.
+more than ``--max_levels`` apart, graphed and eager frames or weights not
+equal, a graphed run on a card without a replay, a divergence other than
+0.0, a rank's phases missing, the weights further than
+``--max_weight_diff``, a served request not done or its GIFs more than
+:data:`SERVE_MAX_MEAN_LEVELS` apart on average, a model-parallel mesh's
+ranks missing from the host phases), else prints one JSON summary as its
+last line and writes it to ``--out``.
 
-    python -m videop2p_tpu_torch.tools.mesh_compare --specs 1,2,1 1,4,1 1,2,2 \\
+    python -m videop2p_tpu_torch.tools.mesh_compare --specs 1,2,1 1,4,1 1,1,2 \\
         --official --tune --out mesh_compare.json    # 4 GPUs
     python -m videop2p_tpu_torch.tools.mesh_compare --serve --specs 1,2,1 1,1,2 2,1,1
     python -m videop2p_tpu_torch.tools.mesh_compare --device cpu --tiny \\
-        --specs 1,2,1 1,1,2                                        # gloo
+        --specs 1,2,1 1,1,2          # gloo: the loops stay eager both ways
 """
 
 from __future__ import annotations
@@ -55,9 +74,11 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
+
+from videop2p_tpu_torch.utils.cuda_graphs import parse_graph_stats
 
 # the clip and the edit of configs/rabbit-jump-p2p.yaml, 8 frames
 EDIT = dict(
@@ -82,6 +103,38 @@ FRAME_KEYS = ("frames/recon", "frames/edit")
 
 def _nproc(spec: Optional[str]) -> int:
     return int(np.prod([int(t) for t in spec.split(",")])) if spec else 1
+
+
+# the two ways every spec runs: its loops replayed as CUDA graphs (the
+# default on a card) and eagerly (the oracle)
+MODES = ("graphed", "eager")
+
+
+def _modes(i: int) -> Tuple[str, ...]:
+    """The order of the two runs of the ``i``-th spec: in turns."""
+    return MODES if i % 2 == 0 else MODES[::-1]
+
+
+def _mode_env(env, mode: str) -> dict:
+    return env if mode == "graphed" else {**env, "VIDEOP2P_CUDA_GRAPHS": "0"}
+
+
+def _busy(events: List[dict]) -> Optional[float]:
+    """Rank 0's card busy share over its traced program (1 − idle/span)."""
+    for e in events:
+        if e.get("event") == "trace_analysis" and e.get("span_s"):
+            return 1.0 - float(e["idle_s"]) / float(e["span_s"])
+    return None
+
+
+def _check_graphed(name: str, mode: str, stats: List[dict], args, failures) -> None:
+    """A graphed run on a card must have replayed a step; an eager one
+    must have none."""
+    replays = sum(int(s["replays"] or 0) for s in stats)
+    if mode == "graphed" and args.device == "cuda" and not replays:
+        failures.append(f"{name}: the graphed run replayed nothing: {stats}")
+    if mode == "eager" and stats:
+        failures.append(f"{name}: the eager run graphed {stats}")
 
 
 def _launch(module: str, argv: List[str], spec: Optional[str], env) -> tuple:
@@ -159,45 +212,66 @@ def _checked_ledger(events: List[dict], spec: str, failures: List[str], label: s
 
 def edit_compare(mode: str, specs: List[str], args, tmp: str, env, failures) -> dict:
     common = ["--steps", str(args.steps), "--device", args.device, "--quality",
-              "--mixed_precision", args.mixed_precision]
+              "--mixed_precision", args.mixed_precision, "--no_program_analysis"]
     if mode == "fast":
         common.append("--fast")
     else:
         common += ["--num_inner_steps", str(args.inner_steps)]
     if args.tiny:
         common.append("--tiny")
-    runs = {}
-    for spec in [None] + specs:
-        name = f"{mode}_{spec or 'one'}".replace(",", "")
-        cfg = _config(os.path.join(tmp, f"{name}.yaml"),
-                      {**EDIT, "pretrained_model_path": os.path.join(tmp, name, "ckpt")})
-        led = os.path.join(tmp, f"{name}.jsonl")
-        wall, proc = _launch("videop2p_tpu_torch.cli.run_videop2p",
-                             ["--config", cfg, "--ledger", led, *common], spec, env)
-        if proc.returncode != 0:
-            failures.append(f"{name}: exit {proc.returncode}: {proc.stderr[-1500:]}")
-            continue
-        events = _events(led)
-        (sidecar,) = glob.glob(os.path.join(tmp, name, "**", "obs_sidecar_*.npz"),
-                               recursive=True)
-        frames = np.load(sidecar)
-        rec = {"wall_s": wall,
-               "phases": _phase_seconds(events, MAIN_PHASES[mode] + ("mesh_setup",)),
-               "frames": {k: frames[k] for k in FRAME_KEYS}}
-        if spec:
-            rec.update(_checked_ledger(events, spec, failures, name))
-        runs[spec or "one"] = rec
+    if args.trace:
+        common.append("--trace_analysis")
+    runs: Dict[str, Dict[str, dict]] = {}
+    for i, spec in enumerate([None] + specs):
+        for how in _modes(i):
+            name = f"{mode}_{spec or 'one'}_{how}".replace(",", "")
+            cfg = _config(os.path.join(tmp, f"{name}.yaml"),
+                          {**EDIT, "pretrained_model_path": os.path.join(tmp, name, "ckpt")})
+            led = os.path.join(tmp, f"{name}.jsonl")
+            wall, proc = _launch("videop2p_tpu_torch.cli.run_videop2p",
+                                 ["--config", cfg, "--ledger", led, *common], spec,
+                                 _mode_env(env, how))
+            if proc.returncode != 0:
+                failures.append(f"{name}: exit {proc.returncode}: {proc.stderr[-1500:]}")
+                continue
+            events = _events(led)
+            (sidecar,) = glob.glob(os.path.join(tmp, name, "**", "obs_sidecar_*.npz"),
+                                   recursive=True)
+            frames = np.load(sidecar)
+            rec = {"wall_s": wall,
+                   "phases": _phase_seconds(events, MAIN_PHASES[mode] + ("mesh_setup",)),
+                   "graphs": parse_graph_stats(proc.stdout), "busy": _busy(events),
+                   "frames": {k: frames[k] for k in FRAME_KEYS}}
+            _check_graphed(name, how, rec["graphs"], args, failures)
+            if spec:
+                rec.update(_checked_ledger(events, spec, failures, name))
+            runs.setdefault(spec or "one", {})[how] = rec
     out = {}
-    base = runs.get("one")
-    for spec, rec in runs.items():
-        row = {k: rec[k] for k in ("wall_s", "phases") if k in rec}
-        if spec != "one" and base is not None:
-            levels = frame_levels(rec["frames"], base["frames"])
-            row.update(max_levels=levels, comm=rec["comm"], divergence=rec["divergence"],
-                       divergence_axes=rec["divergence_axes"],
-                       host_phase_ranks=rec["host_phase_ranks"])
-            if levels > args.max_levels:
-                failures.append(f"{mode} {spec}: frames {levels} levels from one GPU's")
+    base = runs.get("one", {})
+    for spec, pair in runs.items():
+        row: Dict[str, dict] = {}
+        for how, rec in pair.items():
+            row[how] = {k: rec[k] for k in ("wall_s", "phases", "graphs", "busy")}
+            if how in base and spec != "one":
+                levels = frame_levels(rec["frames"], base[how]["frames"])
+                row[how].update(max_levels=levels, comm=rec["comm"],
+                                divergence=rec["divergence"],
+                                divergence_axes=rec["divergence_axes"],
+                                host_phase_ranks=rec["host_phase_ranks"])
+                if levels > args.max_levels:
+                    failures.append(f"{mode} {spec} {how}: frames {levels} levels from one "
+                                    "GPU's")
+        if len(pair) == 2:
+            # printed with the row: a run cut before its summary still says
+            # how far apart the two were
+            levels = frame_levels(pair["graphed"]["frames"], pair["eager"]["frames"])
+            row["graphed_levels_from_eager"] = levels
+            row["graphed_equals_eager"] = all(
+                np.array_equal(pair["graphed"]["frames"][k], pair["eager"]["frames"][k])
+                for k in FRAME_KEYS)
+            if not row["graphed_equals_eager"]:
+                failures.append(f"{mode} {spec}: graphed frames differ from eager, {levels} "
+                                "levels")
         out[spec] = row
         print(f"[mesh_compare] {mode} {spec}: " + json.dumps(row), flush=True)
     return out
@@ -206,49 +280,69 @@ def edit_compare(mode: str, specs: List[str], args, tmp: str, env, failures) -> 
 def tune_compare(specs: List[str], args, tmp: str, env, failures) -> dict:
     from safetensors.numpy import load_file
 
-    # --latency: each train_steps call synchronised and timed (program_call)
-    common = ["--device", args.device, "--latency"] + (["--tiny"] if args.tiny else [])
-    runs = {}
-    for spec in [None] + specs:
-        name = f"tune_{spec or 'one'}".replace(",", "")
-        # the tiny VAE downsamples 2×: 16² frames keep the tiny UNet's 8²
-        size = 16 if args.tiny else 512
-        cfg = _config(os.path.join(tmp, f"{name}.yaml"), {
-            **TUNE, "train_data": dict(TUNE["train_data"], width=size, height=size),
-            "pretrained_model_path": os.path.join(tmp, "no_checkpoint"),
-            "output_dir": os.path.join(tmp, name, "out"),
-            "max_train_steps": args.tune_steps, "validation_steps": args.tune_steps})
-        led = os.path.join(tmp, f"{name}.jsonl")
-        wall, proc = _launch("videop2p_tpu_torch.cli.run_tuning",
-                             ["--config", cfg, "--ledger", led, *common], spec, env)
-        if proc.returncode != 0:
-            failures.append(f"{name}: exit {proc.returncode}: {proc.stderr[-1500:]}")
-            continue
-        events = _events(led)
-        (weights,) = glob.glob(os.path.join(tmp, name, "**",
-                                            "diffusion_pytorch_model.safetensors"),
-                               recursive=True)
-        steps_s = sum(e["blocked_s"] for e in events
-                      if e.get("event") == "program_call" and e["program"] == "train_steps")
-        rec = {"wall_s": wall,
-               "phases": {"train_steps": round(steps_s, 4),
-                          **_phase_seconds(events, ("mesh_setup",))},
-               "weights": load_file(weights)}
-        if spec:
-            rec.update(_checked_ledger(events, spec, failures, name))
-        runs[spec or "one"] = rec
+    # --latency: the train_steps call synchronised and timed (program_call);
+    # one call of every step, so that a graphed run captures its step
+    common = ["--device", args.device, "--latency", "--no_program_analysis"] + (
+        ["--tiny"] if args.tiny else [])
+    runs: Dict[str, Dict[str, dict]] = {}
+    for i, spec in enumerate([None] + specs):
+        for how in _modes(i):
+            name = f"tune_{spec or 'one'}_{how}".replace(",", "")
+            # the tiny VAE downsamples 2×: 16² frames keep the tiny UNet's 8²
+            size = 16 if args.tiny else 512
+            cfg = _config(os.path.join(tmp, f"{name}.yaml"), {
+                **TUNE, "train_data": dict(TUNE["train_data"], width=size, height=size),
+                "pretrained_model_path": os.path.join(tmp, "no_checkpoint"),
+                "output_dir": os.path.join(tmp, name, "out"),
+                "max_train_steps": args.tune_steps, "validation_steps": args.tune_steps,
+                "steps_per_call": args.tune_steps})
+            led = os.path.join(tmp, f"{name}.jsonl")
+            wall, proc = _launch("videop2p_tpu_torch.cli.run_tuning",
+                                 ["--config", cfg, "--ledger", led, *common], spec,
+                                 _mode_env(env, how))
+            if proc.returncode != 0:
+                failures.append(f"{name}: exit {proc.returncode}: {proc.stderr[-1500:]}")
+                continue
+            events = _events(led)
+            (weights,) = glob.glob(os.path.join(tmp, name, "**",
+                                                "diffusion_pytorch_model.safetensors"),
+                                   recursive=True)
+            steps_s = sum(e["blocked_s"] for e in events
+                          if e.get("event") == "program_call" and e["program"] == "train_steps")
+            rec = {"wall_s": wall,
+                   "phases": {"train_steps": round(steps_s, 4),
+                              **_phase_seconds(events, ("mesh_setup",))},
+                   "graphs": [g for g in parse_graph_stats(proc.stdout)
+                              if g["program"] == "train_steps"],
+                   "weights": load_file(weights)}
+            _check_graphed(name, how, rec["graphs"], args, failures)
+            if spec:
+                rec.update(_checked_ledger(events, spec, failures, name))
+            runs.setdefault(spec or "one", {})[how] = rec
     out = {}
-    base = runs.get("one")
-    for spec, rec in runs.items():
-        row = {k: rec[k] for k in ("wall_s", "phases")}
-        if spec != "one" and base is not None:
-            diff = max(float(np.abs(rec["weights"][k] - base["weights"][k]).max())
-                       for k in base["weights"])
-            row.update(max_weight_diff=diff, comm=rec["comm"], divergence=rec["divergence"],
-                       divergence_axes=rec["divergence_axes"],
-                       host_phase_ranks=rec["host_phase_ranks"])
-            if not diff <= args.max_weight_diff:
-                failures.append(f"tune {spec}: weights {diff} from one GPU's")
+    base = runs.get("one", {})
+    for spec, pair in runs.items():
+        row: Dict[str, dict] = {}
+        for how, rec in pair.items():
+            row[how] = {k: rec[k] for k in ("wall_s", "phases", "graphs")}
+            if how in base and spec != "one":
+                diff = max(float(np.abs(rec["weights"][k] - base[how]["weights"][k]).max())
+                           for k in base[how]["weights"])
+                row[how].update(max_weight_diff=diff, comm=rec["comm"],
+                                divergence=rec["divergence"],
+                                divergence_axes=rec["divergence_axes"],
+                                host_phase_ranks=rec["host_phase_ranks"])
+                if not diff <= args.max_weight_diff:
+                    failures.append(f"tune {spec} {how}: weights {diff} from one GPU's")
+        if len(pair) == 2:
+            graphed, eager = pair["graphed"]["weights"], pair["eager"]["weights"]
+            row["graphed_weight_diff"] = max(float(np.abs(graphed[k] - eager[k]).max())
+                                             for k in eager)
+            row["graphed_equals_eager"] = all(np.array_equal(graphed[k], eager[k])
+                                              for k in eager)
+            if not row["graphed_equals_eager"]:
+                failures.append(f"tune {spec}: graphed weights {row['graphed_weight_diff']} "
+                                "from eager")
         out[spec] = row
         print(f"[mesh_compare] tune {spec}: " + json.dumps(row), flush=True)
     return out
@@ -270,15 +364,17 @@ SERVE_FIELDS = ("status", "store_source", "batch_size", "resolve_s", "dispatch_s
 SERVE_MAX_MEAN_LEVELS = 1.0
 
 
-def serve_once(spec: Optional[str], args, tmp: str, env) -> dict:
-    """``cli.serve`` on ``spec`` (None: one GPU): up, a fresh request, a
-    hit, a batch of 2, SIGTERM. Returns its records and GIF frames."""
+def serve_once(spec: Optional[str], args, tmp: str, env, how: str = "graphed") -> dict:
+    """``cli.serve`` on ``spec`` (None: one GPU), its loops ``how``: up, a
+    fresh request, a hit, a batch of 2, its kept runners' totals, SIGTERM.
+    Returns its records, runners and GIF frames."""
     import signal
 
     from videop2p_tpu_torch.serve.client import EngineClient
     from videop2p_tpu_torch.serve.replica import free_port, listening_pid
 
-    name = f"serve_{spec or 'one'}".replace(",", "")
+    env = _mode_env(env, how)
+    name = f"serve_{spec or 'one'}_{how}".replace(",", "")
     port = free_port()
     cmd = [sys.executable]
     dp = int(spec.split(",")[0]) if spec else 1
@@ -321,6 +417,7 @@ def serve_once(spec: Optional[str], args, tmp: str, env) -> dict:
             rids = [client.submit(body), client.submit(dict(body, save_name="again"))]
             for i, rid in enumerate(rids):
                 recs[f"batch_{i}"] = client.wait(rid, timeout_s=900.0)
+            runners = client.metrics().get("runners")
             # rank 0 drains, then releases the others
             os.kill(listening_pid(log_path), signal.SIGTERM)
             rc = proc.wait(timeout=300)
@@ -338,36 +435,58 @@ def serve_once(spec: Optional[str], args, tmp: str, env) -> dict:
 
     phases = [e for e in _events(os.path.join(tmp, name, "serve_ledger.jsonl"))
               if e.get("event") == "host_phase"]
-    return {"up_s": up_s, "rc": rc,
+    return {"up_s": up_s, "rc": rc, "runners": runners,
             "records": {n: {k: r.get(k) for k in SERVE_FIELDS} for n, r in recs.items()},
             "gifs": gifs, "host_phase": phase_skew(phases),
             "host_phase_ranks": sorted({e["process_index"] for e in phases})}
 
 
+def _gif_levels(a: dict, b: dict) -> Tuple[int, float]:
+    """The largest and the mean difference, in levels of 255, of two
+    served runs' GIF frames (the requests both answered)."""
+    diffs = [np.abs(a[n][k].astype(np.int16) - b[n][k].astype(np.int16))
+             for n in b if n in a for k in b[n]]
+    return int(max(int(d.max()) for d in diffs)), float(np.mean([d.mean() for d in diffs]))
+
+
 def serve_compare(specs: List[str], args, tmp: str, env, failures) -> dict:
-    runs = {spec or "one": serve_once(spec, args, tmp, env) for spec in [None] + specs}
+    runs = {}
+    for i, spec in enumerate([None] + specs):
+        for how in _modes(i):
+            runs.setdefault(spec or "one", {})[how] = serve_once(spec, args, tmp, env, how)
     base = runs["one"]
     out = {}
-    for spec, run in runs.items():
-        row = {"up_s": run["up_s"], "rc": run["rc"], "requests": run["records"],
-               "host_phase": run["host_phase"], "host_phase_ranks": run["host_phase_ranks"]}
-        if run["rc"] != 0:
-            failures.append(f"serve {spec}: exit {run['rc']} after SIGTERM")
-        if spec != "one" and spec.split(",")[0] == "1" and \
-                run["host_phase_ranks"] != list(range(_nproc(spec))):
-            failures.append(f"serve {spec}: host_phase ranks {run['host_phase_ranks']}")
-        for n, rec in run["records"].items():
-            if rec["status"] != "done" or rec["src_err"] != 0.0:
-                failures.append(f"serve {spec} {n}: {rec}")
-        if spec != "one":
-            diffs = [np.abs(run["gifs"][n][k].astype(np.int16)
-                            - base["gifs"][n][k].astype(np.int16))
-                     for n in base["gifs"] if n in run["gifs"] for k in base["gifs"][n]]
-            row["max_levels"] = int(max(int(d.max()) for d in diffs))
-            row["mean_levels"] = float(np.mean([d.mean() for d in diffs]))
-            if row["mean_levels"] > SERVE_MAX_MEAN_LEVELS:
-                failures.append(f"serve {spec}: GIFs {row['mean_levels']:.3f} levels from one "
-                                "GPU's on average")
+    for spec, pair in runs.items():
+        row: Dict[str, Any] = {}
+        for how, run in pair.items():
+            rec = {"up_s": run["up_s"], "rc": run["rc"], "requests": run["records"],
+                   "runners": run["runners"], "host_phase": run["host_phase"],
+                   "host_phase_ranks": run["host_phase_ranks"]}
+            if run["rc"] != 0:
+                failures.append(f"serve {spec} {how}: exit {run['rc']} after SIGTERM")
+            if spec != "one" and spec.split(",")[0] == "1" and \
+                    run["host_phase_ranks"] != list(range(_nproc(spec))):
+                failures.append(f"serve {spec} {how}: host_phase ranks "
+                                f"{run['host_phase_ranks']}")
+            for n, r in run["records"].items():
+                if r["status"] != "done" or r["src_err"] != 0.0:
+                    failures.append(f"serve {spec} {how} {n}: {r}")
+            if how == "graphed" and args.device == "cuda" and not (run["runners"] or {}).get(
+                    "replays"):
+                failures.append(f"serve {spec}: the graphed set replayed nothing: "
+                                f"{run['runners']}")
+            if spec != "one" and how in base:
+                rec["max_levels"], rec["mean_levels"] = _gif_levels(run["gifs"],
+                                                                    base[how]["gifs"])
+                if rec["mean_levels"] > SERVE_MAX_MEAN_LEVELS:
+                    failures.append(f"serve {spec} {how}: GIFs {rec['mean_levels']:.3f} levels "
+                                    "from one GPU's on average")
+            row[how] = rec
+        if len(pair) == 2:
+            levels = _gif_levels(pair["graphed"]["gifs"], pair["eager"]["gifs"])[0]
+            row["graphed_equals_eager"] = levels == 0
+            if levels:
+                failures.append(f"serve {spec}: graphed GIFs {levels} levels from eager")
         out[spec] = row
         print(f"[mesh_compare] serve {spec}: " + json.dumps(row), flush=True)
     return out
@@ -382,8 +501,13 @@ def main(argv=None) -> int:
     ap.add_argument("--inner_steps", type=int, default=2, help="official mode's null-text")
     ap.add_argument("--mixed_precision", default="fp32", choices=("fp32", "bf16"))
     ap.add_argument("--official", action="store_true", help="also official mode")
+    ap.add_argument("--no_fast", action="store_true",
+                    help="not the fast edit (with --official or --tune: those alone)")
     ap.add_argument("--tune", action="store_true", help="also Stage 1")
-    ap.add_argument("--tune_steps", type=int, default=2)
+    ap.add_argument("--tune_steps", type=int, default=3,
+                    help="Stage-1 steps, one call (a graphed run captures at step 2)")
+    ap.add_argument("--trace", action="store_true",
+                    help="the edits also trace their main program: the card's busy share")
     ap.add_argument("--serve", action="store_true",
                     help="serve instead: cli.serve on one GPU and on each spec")
     ap.add_argument("--max_levels", type=int, default=2,
@@ -407,7 +531,7 @@ def main(argv=None) -> int:
     try:
         if args.serve:
             summary["serve"] = serve_compare(args.specs, args, tmp, env, failures)
-        else:
+        elif not args.no_fast:
             summary["fast"] = edit_compare("fast", args.specs, args, tmp, env, failures)
         if args.official:
             summary["official"] = edit_compare("official", args.specs, args, tmp, env, failures)

@@ -293,7 +293,7 @@ def distill_steps(unet_fn: UNetFn, tx: ClippedAdamW, state: DistillState,
     the step body (the teacher's and the EMA target's forwards, the
     student's forward and backward, the update, the EMA), keyed by the
     update's phase and replayed as a CUDA graph as ``cuda_graphs`` decides
-    (None: on a CUDA device outside a mesh; False: the eager loop, the same
+    (None: on a CUDA device, on one card or a mesh; False: the eager loop, the same
     bits; ``utils/cuda_graphs.py``)."""
     from videop2p_tpu_torch.utils import cuda_graphs as graphs_mod
 

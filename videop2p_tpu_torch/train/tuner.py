@@ -15,7 +15,7 @@ step (port of ``videop2p_tpu/train/tuner.py``).
     seeded from (run seed, s) (:func:`step_generator`, JAX's
     ``fold_in(key, step)``): how the steps are chunked, and where a run is
     resumed, cannot change the trajectory. Its step body replays as a CUDA
-    graph on a CUDA device outside a mesh (``utils/cuda_graphs.py``).
+    graph on a CUDA device, on one card or a mesh (``utils/cuda_graphs.py``).
 """
 
 from __future__ import annotations
@@ -329,7 +329,7 @@ def train_steps(unet_fn, tx: ClippedAdamW, state: TrainState, scheduler: DDPMSch
     optimizer's update on the host (:meth:`ClippedAdamW.plan_`), then runs
     the step body (forward, backward, gradient norm, the update), keyed by
     the update's phase and replayed as a CUDA graph as ``cuda_graphs``
-    decides (None: on a CUDA device outside a mesh; False: the eager loop,
+    decides (None: on a CUDA device, on one card or a mesh; False: the eager loop,
     the same bits; ``utils/cuda_graphs.py``)."""
     device = latents.device
     params: List[torch.Tensor] = list(state.trainable.values())

@@ -33,9 +33,24 @@ so would miss every replay) is its warm-up: it runs the eager loop, and
 the program's later calls replay graphs.
 
 Without a runner's graphs (``enabled`` False: the CPU, where graphs do not
-exist, a mesh, a program analysis, or a caller's ``cuda_graphs=False``)
-:meth:`StepGraphs.run` calls the body: the eager loop, the oracle the
-graphs are held against.
+exist, a program analysis, ``VIDEOP2P_CUDA_GRAPHS=0``, or a caller's
+``cuda_graphs=False``) :meth:`StepGraphs.run` calls the body: the eager
+loop, the oracle the graphs are held against.
+
+On a mesh (``parallel/mesh.py``) the step bodies are captured with the
+NCCL collectives they reach (the sharded seams' all-reduces, all-gathers,
+reduce-scatters and broadcasts, the frames ring's point-to-point exchange,
+the device probe's gathers, the losses' and gradients' reductions): a
+replay runs them in the order they were captured, which is the eager
+loop's. Every rank runs the same loops with the same variant keys, so
+every rank warms up, captures and replays the same variants at the same
+steps, and the collectives each rank's device runs match. What runs on
+the host stays out of the bodies: the gloo control channel
+(``parallel/distributed.py``), the collective counters and the reads of a
+value. A capture that reaches a collective of a group that is not NCCL's
+raises (:func:`capturing`, ``parallel/mesh.py:note_collective``). The
+collective counters count as the kernel wrappers' launch counters do,
+recorded at the capture and added at each replay.
 
 A :class:`StepGraphs` lives for one call (the run CLIs run each program
 once). A served program keeps its graphs warm across requests, as JAX's
@@ -61,6 +76,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import threading
 import time
 import weakref
@@ -68,9 +84,9 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
 
-__all__ = ["KeptRunner", "RunnerCache", "StepGraphs", "StepInputs", "count_launch",
-           "graphs_default", "collect_graph_stats", "release_cached_memory", "resolve_graphs",
-           "step_graphs", "index_step", "write_step"]
+__all__ = ["KeptRunner", "RunnerCache", "StepGraphs", "StepInputs", "capturing", "count_launch",
+           "graphs_default", "collect_graph_stats", "graph_stats_json", "parse_graph_stats",
+           "release_cached_memory", "resolve_graphs", "step_graphs", "index_step", "write_step"]
 
 _local = threading.local()
 # one capture at a time in the process, and the launch counts it records
@@ -84,11 +100,17 @@ _streams_held: set = set()
 _STREAM_TRIES = 64
 
 
+def capturing() -> bool:
+    """Whether this thread's current stream is being captured by a
+    :class:`StepGraphs` runner (the capturing thread, or the autograd
+    engine's thread running a backward on the capture stream)."""
+    return _recording is not None and torch.cuda.is_current_stream_capturing()
+
+
 def count_launch(add: Callable[[int], None], n: int = 1) -> None:
     """A kernel wrapper's launch count: ``add(n)`` now, or, when the launch
-    went into a graph being captured (from the capturing thread or from
-    the autograd engine's thread running its backward on the capture
-    stream), recorded so that each replay of the graph calls ``add(n)``."""
+    went into a graph being captured (:func:`capturing`), recorded so that
+    each replay of the graph calls ``add(n)``."""
     recording = _recording
     if recording is not None and torch.cuda.is_current_stream_capturing():
         recording.append((add, n))
@@ -118,24 +140,30 @@ def write_step(buffer: torch.Tensor, index: torch.Tensor, value: torch.Tensor) -
 
 def graphs_default(device) -> bool:
     """Whether a step loop on ``device`` runs as CUDA graphs by default: on
-    a CUDA device outside any mesh. On a mesh (an active
-    ``parallel/mesh.py`` mesh, or a process group of more than one rank)
-    the loops stay eager: its gloo control group cannot be captured."""
+    a CUDA device, on one card and on a mesh alike, unless
+    ``VIDEOP2P_CUDA_GRAPHS=0`` asks for the eager loops (a measurement's
+    oracle in another process). Under a process group every group the
+    bodies' collectives take (the active mesh's axes, else the world's)
+    must be NCCL's: a gloo collective cannot be captured."""
     device = torch.device(device)
-    if device.type != "cuda":
-        return False
-    from videop2p_tpu_torch.parallel.mesh import active_mesh
-
-    if active_mesh() is not None:
+    if device.type != "cuda" or os.environ.get("VIDEOP2P_CUDA_GRAPHS", "1") == "0":
         return False
     import torch.distributed as dist
 
-    return not (dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1)
+    if not (dist.is_available() and dist.is_initialized()):
+        return True
+    from videop2p_tpu_torch.parallel.mesh import active_mesh
+
+    mesh = active_mesh()
+    groups = [None] if mesh is None else [g for g in mesh.groups.values() if g is not None]
+    return all(dist.get_backend(g) == "nccl" for g in groups)
 
 
 def resolve_graphs(cuda_graphs: Optional[bool], device) -> bool:
-    """A pipeline's ``cuda_graphs`` keyword: None → :func:`graphs_default`;
-    True on a device without CUDA graphs raises."""
+    """A pipeline's ``cuda_graphs`` keyword: None → :func:`graphs_default`
+    (on a CUDA mesh: graphs, with the collectives captured in the step
+    bodies, every rank deciding alike); True on a device without CUDA
+    graphs raises."""
     if cuda_graphs is None:
         return graphs_default(device)
     if cuda_graphs and torch.device(device).type != "cuda":
@@ -219,6 +247,32 @@ def collect_graph_stats():
         _local.stats = previous
 
 
+# the marker of the line a run CLI prints its runners' stats on
+GRAPH_STATS_MARK = "cuda graphs: "
+
+
+def graph_stats_json(stats: List[Dict[str, Any]]) -> str:
+    """The runners' stats as the JSON a run CLI prints after
+    :data:`GRAPH_STATS_MARK` (each program's graphs, replays and eager
+    steps), which :func:`parse_graph_stats` reads back."""
+    import json
+
+    return json.dumps([{k: s.get(k) for k in ("program", "graphs", "replays", "eager_steps")}
+                       for s in stats])
+
+
+def parse_graph_stats(text: str) -> List[Dict[str, Any]]:
+    """The stats of the first line of ``text`` (a run CLI's output) that
+    carries them; [] when none does."""
+    import json
+
+    for line in text.splitlines():
+        at = line.find(GRAPH_STATS_MARK + "[")
+        if at >= 0:
+            return json.loads(line[at + len(GRAPH_STATS_MARK):])
+    return []
+
+
 class StepInputs:
     """A loop's per-step integer inputs (timesteps, step indices): one
     (steps, columns) int64 table copied to the device once, and one row
@@ -300,19 +354,15 @@ class StepGraphs:
             return body(*args)
         entry = self._graphs.get(key)
         if entry is None:
-            seen = self._seen_key(key)
-            if seen not in self._seen:
-                self._seen.add(seen)
+            if key not in self._seen:
+                self._seen.add(key)
                 self.eager_steps += 1
                 return self._warm(body, args)
             t0 = time.perf_counter()
-            entry = self._graphs[key] = self._capture(body, args)
+            entry = self._graphs[key] = self._new_graph(key, body, args)
             self.capture_s[key] = time.perf_counter() - t0
         self.replays += 1
         return self._replay(entry)
-
-    def _seen_key(self, key: Hashable) -> Hashable:
-        return key
 
     def inputs(self, name: str, tree):
         """The call's input ``tree`` (tensors, dataclasses, dicts, lists,
@@ -353,6 +403,10 @@ class StepGraphs:
         for add, n in entry.launches:
             add(n)
         return entry.out
+
+    def _new_graph(self, key: Hashable, body, args) -> "_Graph":
+        """Variant ``key``'s graph: :meth:`_capture`."""
+        return self._capture(body, args)
 
     def _capture(self, body, args) -> "_Graph":
         """A variant's capture on the side stream (the wrappers' launch
@@ -429,18 +483,27 @@ class KeptRunner(StepGraphs):
     """The step graphs of one program kept across its calls, with the
     buffers its step bodies read (the module docstring). Lent to one call
     at a time (:class:`RunnerCache`); warms up and captures on a stream of
-    its own. A variant is captured by the thread that warmed it up (its
-    cuBLAS handle's state on the runner's stream exists then), at its
-    second step in that thread, across calls. Inside a program analysis
-    every step runs eagerly (the analysis counts dispatched ops) and counts
-    as the variant's warm-up. :meth:`stats` reports the current call's
-    captures, eager steps and replays; :attr:`totals` every call's."""
+    its own. A variant is captured at its second step across calls,
+    whichever thread runs it (a served mesh's ranks, whose calls run in
+    threads of their own, then capture the same variants at the same
+    steps); before a capture, the capturing thread's cuBLAS and cuDNN state
+    on the runner's stream is made outside the graph
+    (:func:`_prime_stream`). Inside a program analysis every step runs
+    eagerly (the analysis counts dispatched ops) and counts as the
+    variant's warm-up. :meth:`stats` reports the current call's captures,
+    eager steps and replays; :attr:`totals` every call's. ``agree(label,
+    error)`` (a served mesh's ranks:
+    ``parallel/distributed.py:agree_on_capture``) takes each capture's
+    outcome, None or the exception it raised, before the graph first
+    replays, and raises when any rank's capture failed."""
 
     def __init__(self, device, *, name: str = "", key: Hashable = None,
-                 pool: Optional[Callable[[], Any]] = None):
+                 pool: Optional[Callable[[], Any]] = None,
+                 agree: Optional[Callable[[str, Optional[BaseException]], None]] = None):
         super().__init__(device, enabled=False, name=name)
         self.enabled = True
         self.key = key
+        self._agree = agree
         self._inputs: Dict[str, Any] = {}
         self._scratch: Dict[str, Any] = {}
         self.calls = 0
@@ -454,14 +517,11 @@ class KeptRunner(StepGraphs):
             # a runner dropped without close() gives its stream back
             self._release = weakref.finalize(self, _release_stream, self.device, self._stream)
 
-    def _seen_key(self, key: Hashable) -> Hashable:
-        return key, threading.get_ident()
-
     def run(self, key: Hashable, body: Callable[..., Any], *args) -> Any:
         from videop2p_tpu_torch.obs.introspect import analysis_active
 
         if analysis_active():
-            self._seen.add(self._seen_key(key))
+            self._seen.add(key)
             self.eager_steps += 1
             return self._warm(body, args)
         return super().run(key, body, *args)
@@ -509,6 +569,18 @@ class KeptRunner(StepGraphs):
                 "eager_steps": self.eager_steps, "replays": self.replays,
                 "copy_in_bytes": self.copy_in_bytes}
 
+    def _new_graph(self, key: Hashable, body, args) -> "_Graph":
+        if self._agree is None:
+            return super()._new_graph(key, body, args)
+        label = f"{self.name} variant {key!r}"
+        try:
+            graph = super()._new_graph(key, body, args)
+        except BaseException as e:
+            self._agree(label, e)
+            raise
+        self._agree(label, None)
+        return graph
+
     def _capture(self, body, args) -> "_Graph":
         """A capture into the pool this runner's graphs hold, or, when it
         holds none, the one ``pool`` gives (a pool id is reused only while
@@ -516,6 +588,7 @@ class KeptRunner(StepGraphs):
         with _capture_lock:
             if not self._graphs:
                 self._pool = self._pool_source()
+            _prime_stream(self.device, self._stream)
             return super()._capture(body, args)
 
     def _replay(self, entry: "_Graph"):
@@ -557,18 +630,47 @@ class KeptRunner(StepGraphs):
             self._stream = None
 
 
+def _prime_stream(device: torch.device, stream: "torch.cuda.Stream") -> None:
+    """Makes this thread's per-stream library state on ``stream`` (its
+    cuBLAS and cuBLASLt handles' workspaces, its cuDNN handle) with small
+    products in both float dtypes, once a thread and stream: a capture must
+    not be the first to make it (a thread that warmed the variant up has
+    made it already; another thread may capture it on a later call)."""
+    primed = getattr(_local, "primed", None)
+    if primed is None:
+        primed = _local.primed = set()
+    if (device.index, stream.cuda_stream) in primed:
+        return
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream), torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.ones((16, 16), dtype=dtype, device=device)
+            torch.mm(a, a)
+            torch.addmm(a[0], a, a)
+            torch.baddbmm(a[None], a[None], a[None])
+            torch.nn.functional.conv2d(torch.ones((1, 16, 4, 4), dtype=dtype, device=device),
+                                       torch.ones((16, 16, 3, 3), dtype=dtype, device=device),
+                                       padding=1)
+    torch.cuda.synchronize(device)
+    primed.add((device.index, stream.cuda_stream))
+
+
 class RunnerCache:
     """A program set's kept runners by key, each lent to one call at a
     time: a call whose key's runners are all out gets a new one (two
     threads never replay one graph at once). At most ``max_runners`` are
     kept: the least recently returned idle one is closed to make room, and
     one returned over the bound is closed. ``make(key, name)`` builds a
-    runner (:class:`KeptRunner` by default)."""
+    runner (:class:`KeptRunner` by default, given ``agree``). On a served
+    mesh every rank's cache lends, makes and evicts alike: its calls run
+    in the same order on every rank."""
 
     def __init__(self, device, max_runners: int = 8,
-                 make: Optional[Callable[[Hashable, str], KeptRunner]] = None):
+                 make: Optional[Callable[[Hashable, str], KeptRunner]] = None,
+                 agree: Optional[Callable[[str, Optional[BaseException]], None]] = None):
         self.device = torch.device(device)
         self.max_runners = int(max_runners)
+        self._agree = agree
         self._make = make or self._new_runner
         self._pool = None
         self._members: "weakref.WeakSet[KeptRunner]" = weakref.WeakSet()
@@ -613,7 +715,8 @@ class RunnerCache:
     def _new_runner(self, key: Hashable, name: str) -> KeptRunner:
         """A runner whose graphs go into the cache's one pool (its runners'
         replays run one after another on the device's default stream)."""
-        runner = KeptRunner(self.device, name=name, key=key, pool=self._capture_pool)
+        runner = KeptRunner(self.device, name=name, key=key, pool=self._capture_pool,
+                            agree=self._agree)
         self._members.add(runner)
         return runner
 
